@@ -1,0 +1,20 @@
+"""PyTorch/CUDA port of the ForwardTacotron inference path.
+
+Text -> phoneme ids -> ForwardTacotron mel -> WaveRNN waveform, with the
+two sequential recurrences of that path (the bidirectional GRU/LSTM and
+the WaveRNN autoregressive sampler) as hand-written CUDA kernels for
+Hopper (`csrc/`). Every entry point takes an explicit `device`, which
+defaults to ``'cuda'``; the plain PyTorch versions of the kernels run
+only for tensors that lie on the CPU.
+"""
+import torch
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on. Asking for CUDA on a machine
+    without it raises instead of silently running on the CPU."""
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError('CUDA device requested but torch.cuda is not '
+                           "available; pass device='cpu' explicitly")
+    return device

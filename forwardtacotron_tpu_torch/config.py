@@ -1,0 +1,98 @@
+"""Built-in copy of the config sections the inference path needs.
+
+The machine that runs the port has no `pyyaml`, so the `dsp`,
+`preprocessing`, `forward_tacotron.model` and `vocoder.model` defaults of
+the repository's `config.yaml` live here as plain dicts. A YAML file is
+read only by `read_config`, and only where `yaml` can be imported.
+"""
+from __future__ import annotations
+
+import copy
+from typing import Any, Dict
+
+DSP = {
+    'sample_rate': 22050,
+    'n_fft': 1024,
+    'num_mels': 80,
+    'hop_length': 256,
+    'win_length': 1024,
+    'fmin': 0,
+    'fmax': 8000,
+    'peak_norm': False,
+    'trim_start_end_silence': True,
+    'trim_silence_top_db': 60,
+    'pitch_max_freq': 600,
+    'trim_long_silences': False,
+    'vad_window_length': 30,
+    'vad_moving_average_width': 8,
+    'vad_max_silence_length': 12,
+    'vad_sample_rate': 16000,
+    'voc_mode': 'RAW',
+    'bits': 9,
+    'mu_law': True,
+}
+
+PREPROCESSING = {
+    'seed': 42,
+    'n_val': 200,
+    'language': 'en-us',
+    'cleaner_name': 'english_cleaners',
+    'use_phonemes': True,
+    'min_text_len': 2,
+    'extract_durations_with_dijkstra': True,
+}
+
+FORWARD_TACOTRON_MODEL = {
+    'embed_dims': 256,
+    'series_embed_dims': 64,
+    'durpred_conv_dims': 256,
+    'durpred_rnn_dims': 64,
+    'durpred_dropout': 0.5,
+    'pitch_conv_dims': 256,
+    'pitch_rnn_dims': 128,
+    'pitch_dropout': 0.5,
+    'pitch_strength': 1.0,
+    'energy_conv_dims': 256,
+    'energy_rnn_dims': 64,
+    'energy_dropout': 0.5,
+    'energy_strength': 1.0,
+    'prenet_dims': 256,
+    'prenet_k': 16,
+    'prenet_dropout': 0.5,
+    'prenet_num_highways': 4,
+    'rnn_dims': 512,
+    'postnet_dims': 256,
+    'postnet_k': 8,
+    'postnet_num_highways': 4,
+    'postnet_dropout': 0.0,
+}
+
+VOCODER_MODEL = {
+    'mode': 'RAW',
+    'upsample_factors': [4, 8, 8],
+    'rnn_dims': 512,
+    'fc_dims': 512,
+    'compute_dims': 128,
+    'res_out_dims': 128,
+    'res_blocks': 10,
+    'pad': 2,
+}
+
+
+def default_config() -> Dict[str, Any]:
+    """A fresh copy of the built-in config (callers may mutate it)."""
+    return copy.deepcopy({
+        'tts_model': 'forward_tacotron',
+        'dsp': DSP,
+        'preprocessing': PREPROCESSING,
+        'forward_tacotron': {'model': FORWARD_TACOTRON_MODEL},
+        'vocoder': {'model': VOCODER_MODEL},
+    })
+
+
+def read_config(path) -> Dict[str, Any]:
+    """Read a YAML config (needs `pyyaml`, which the CLI imports only
+    when `--config` is given)."""
+    import yaml
+    with open(path, encoding='utf-8') as f:
+        return yaml.safe_load(f)

@@ -1,0 +1,128 @@
+"""Shared modules: BatchNormConv, HighwayNetwork, CBHG, BiGRU/BiLSTM.
+
+Layout is time-major (B, T, C) at every public function, as in the JAX
+package; convolutions transpose to PyTorch's (B, C, T) internally.
+Parameter and buffer names are the reference's torch `state_dict` keys
+(e.g. `conv1d_bank.0.conv.weight`, `rnn.weight_hh_l0_reverse`), so a
+converted checkpoint loads with `strict=True`. Inference (eval mode)
+only.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from forwardtacotron_tpu_torch.ops import rnn as rnn_ops
+from forwardtacotron_tpu_torch.ops.masking import time_mask
+
+
+class BiRNN(nn.Module):
+    """Bidirectional single-layer GRU or LSTM with nn.GRU/nn.LSTM
+    parameter names; the recurrence runs through the BiRNN kernel
+    wrapper (`kernels/birnn.py`)."""
+
+    def __init__(self, cell: str, input_dim: int, hidden: int) -> None:
+        super().__init__()
+        self.cell = cell
+        self.hidden = hidden
+        g = rnn_ops.n_gates(cell)
+        bound = 1.0 / hidden ** 0.5
+        for sfx in ('', '_reverse'):
+            for name, shape in (('weight_ih_l0', (g * hidden, input_dim)),
+                                ('weight_hh_l0', (g * hidden, hidden)),
+                                ('bias_ih_l0', (g * hidden,)),
+                                ('bias_hh_l0', (g * hidden,))):
+                p = nn.Parameter(torch.empty(shape).uniform_(-bound, bound))
+                self.register_parameter(name + sfx, p)
+
+    def direction(self, reverse: bool):
+        sfx = '_reverse' if reverse else ''
+        return {'w_ih': getattr(self, 'weight_ih_l0' + sfx),
+                'w_hh': getattr(self, 'weight_hh_l0' + sfx),
+                'b_ih': getattr(self, 'bias_ih_l0' + sfx),
+                'b_hh': getattr(self, 'bias_hh_l0' + sfx)}
+
+    def forward(self, x: torch.Tensor,
+                lengths: Optional[torch.Tensor] = None,
+                pad_value: float = 0.0,
+                compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        return rnn_ops.birnn(self.cell, self.direction(False),
+                             self.direction(True), x, lengths=lengths,
+                             pad_value=pad_value,
+                             compute_dtype=compute_dtype)
+
+
+class BatchNormConv(nn.Module):
+    """conv (no bias, 'same' padding) -> optional relu -> BatchNorm.
+    Even kernels produce one extra frame, which is trimmed."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: int,
+                 relu: bool = True) -> None:
+        super().__init__()
+        self.conv = nn.Conv1d(in_channels, out_channels, kernel,
+                              padding=kernel // 2, bias=False)
+        self.bnorm = nn.BatchNorm1d(out_channels, eps=1e-5, momentum=0.1)
+        self.relu = relu
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        seq_len = x.shape[1]
+        h = self.conv(x.transpose(1, 2))[:, :, :seq_len]
+        if self.relu:
+            h = F.relu(h)
+        return self.bnorm(h).transpose(1, 2)
+
+
+class HighwayNetwork(nn.Module):
+
+    def __init__(self, size: int) -> None:
+        super().__init__()
+        self.W1 = nn.Linear(size, size)
+        self.W2 = nn.Linear(size, size)
+        nn.init.zeros_(self.W1.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        g = torch.sigmoid(self.W2(x))
+        return g * F.relu(self.W1(x)) + (1.0 - g) * x
+
+
+class CBHG(nn.Module):
+    """Conv bank -> maxpool -> projections -> residual -> highways ->
+    BiGRU. With `lengths`, every stage is cut at each item's true length
+    (convs see zero padding, the maxpool sees -inf, the BiGRU reverses
+    from the true end), so a padded bucket computes the values of an
+    exact-length run."""
+
+    def __init__(self, K: int, in_channels: int, channels: int,
+                 proj_channels: Sequence[int], num_highways: int) -> None:
+        super().__init__()
+        self.conv1d_bank = nn.ModuleList(
+            [BatchNormConv(in_channels, channels, k)
+             for k in range(1, K + 1)])
+        self.conv_project1 = BatchNormConv(K * channels, proj_channels[0], 3)
+        self.conv_project2 = BatchNormConv(proj_channels[0],
+                                           proj_channels[1], 3, relu=False)
+        self.pre_highway = nn.Linear(proj_channels[1], channels, bias=False)
+        self.highways = nn.ModuleList([HighwayNetwork(channels)
+                                       for _ in range(num_highways)])
+        self.rnn = BiRNN('gru', channels, channels)
+
+    def forward(self, x: torch.Tensor,
+                lengths: Optional[torch.Tensor] = None,
+                compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        seq_len = x.shape[1]
+        x = time_mask(x, lengths)
+        residual = x
+        x = torch.cat([conv(x) for conv in self.conv1d_bank], dim=-1)
+        x = time_mask(x, lengths, fill=float('-inf'))
+        x = F.max_pool1d(x.transpose(1, 2), 2, stride=1, padding=1)
+        x = time_mask(x.transpose(1, 2)[:, :seq_len], lengths)
+        x = time_mask(self.conv_project1(x), lengths)
+        x = self.conv_project2(x) + residual
+        x = time_mask(x, lengths)
+        x = self.pre_highway(x)
+        for highway in self.highways:
+            x = highway(x)
+        return self.rnn(x, lengths=lengths, compute_dtype=compute_dtype)

@@ -1,0 +1,326 @@
+"""WaveRNN vocoder (fatchord version), inference.
+
+Mirrors `forwardtacotron_tpu/models/wavernn.py`: the upsampling network
+(MelResNet + nearest-neighbour stretches with one shared time kernel per
+scale), the fold/crossfade batching of one utterance into fold lanes,
+and the autoregressive sampler, which runs through the sampling kernel
+wrapper (`kernels/wavernn_sample.py`). Parameter names are the
+reference's torch `state_dict` keys.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from forwardtacotron_tpu_torch.dsp.audio import decode_mu_law
+from forwardtacotron_tpu_torch.kernels.wavernn_sample import (
+    compact_cond, pack_weights, sample_conditioned, sample_plain)
+
+# fold length (samples) and crossfade overlap of batched generation
+TARGET = 2750
+OVERLAP = 550
+
+
+class ResBlock(nn.Module):
+
+    def __init__(self, dims: int) -> None:
+        super().__init__()
+        self.conv1 = nn.Conv1d(dims, dims, 1, bias=False)
+        self.conv2 = nn.Conv1d(dims, dims, 1, bias=False)
+        self.batch_norm1 = nn.BatchNorm1d(dims)
+        self.batch_norm2 = nn.BatchNorm1d(dims)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:   # (B, C, T)
+        h = F.relu(self.batch_norm1(self.conv1(x)))
+        return self.batch_norm2(self.conv2(h)) + x
+
+
+class MelResNet(nn.Module):
+
+    def __init__(self, res_blocks: int, in_dims: int, compute_dims: int,
+                 res_out_dims: int, pad: int) -> None:
+        super().__init__()
+        self.conv_in = nn.Conv1d(in_dims, compute_dims, 2 * pad + 1,
+                                 bias=False)
+        self.batch_norm = nn.BatchNorm1d(compute_dims)
+        self.layers = nn.ModuleList([ResBlock(compute_dims)
+                                     for _ in range(res_blocks)])
+        self.conv_out = nn.Conv1d(compute_dims, res_out_dims, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:   # (B, C, T)
+        h = F.relu(self.batch_norm(self.conv_in(x)))
+        for layer in self.layers:
+            h = layer(h)
+        return self.conv_out(h)
+
+
+class Stretch(nn.Module):
+    """Nearest-neighbour upsampling in time by `scale` ((B, T, C))."""
+
+    def __init__(self, scale: int) -> None:
+        super().__init__()
+        self.scale = scale
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.repeat_interleave(x, self.scale, dim=1)
+
+
+class SharedTimeConv(nn.Module):
+    """One 1-D kernel of width 2*scale+1 applied along time to every
+    channel (the reference's Conv2d(1, 1, (1, k)) over the (freq, time)
+    image); weight shape (1, 1, 1, k)."""
+
+    def __init__(self, scale: int) -> None:
+        super().__init__()
+        k = 2 * scale + 1
+        self.pad = scale
+        self.weight = nn.Parameter(torch.full((1, 1, 1, k), 1.0 / k))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:   # (B, T, C)
+        B, T, C = x.shape
+        y = F.conv1d(x.transpose(1, 2).reshape(B * C, 1, T),
+                     self.weight.reshape(1, 1, -1), padding=self.pad)
+        return y.reshape(B, C, -1).transpose(1, 2)
+
+
+class UpsampleNetwork(nn.Module):
+
+    def __init__(self, feat_dims: int, upsample_scales: Sequence[int],
+                 compute_dims: int, res_blocks: int, res_out_dims: int,
+                 pad: int) -> None:
+        super().__init__()
+        self.total_scale = int(np.prod(upsample_scales))
+        self.indent = pad * self.total_scale
+        self.resnet = MelResNet(res_blocks, feat_dims, compute_dims,
+                                res_out_dims, pad)
+        layers = []
+        for scale in upsample_scales:
+            layers += [Stretch(scale), SharedTimeConv(scale)]
+        self.up_layers = nn.ModuleList(layers)
+
+    def forward(self, m: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """m (B, T, n_mels) -> (mels_up, aux), both
+        (B, (T - 2*pad) * prod(scales), C)."""
+        aux = self.resnet(m.transpose(1, 2)).transpose(1, 2)
+        aux = torch.repeat_interleave(aux, self.total_scale, dim=1)
+        x = m
+        for layer in self.up_layers:
+            x = layer(x)
+        return x[:, self.indent:-self.indent], aux
+
+
+class GRUWeights(nn.Module):
+    """The parameters of one nn.GRU layer, under nn.GRU's names."""
+
+    def __init__(self, input_dim: int, hidden: int) -> None:
+        super().__init__()
+        bound = 1.0 / hidden ** 0.5
+        for name, shape in (('weight_ih_l0', (3 * hidden, input_dim)),
+                            ('weight_hh_l0', (3 * hidden, hidden)),
+                            ('bias_ih_l0', (3 * hidden,)),
+                            ('bias_hh_l0', (3 * hidden,))):
+            self.register_parameter(
+                name, nn.Parameter(torch.empty(shape).uniform_(-bound,
+                                                               bound)))
+
+
+class WaveRNN(nn.Module):
+
+    def __init__(self, rnn_dims: int = 512, fc_dims: int = 512,
+                 bits: int = 9, pad: int = 2,
+                 upsample_factors: Sequence[int] = (4, 8, 8),
+                 feat_dims: int = 80, compute_dims: int = 128,
+                 res_out_dims: int = 128, res_blocks: int = 10,
+                 hop_length: int = 256, sample_rate: int = 22050,
+                 mode: str = 'RAW') -> None:
+        super().__init__()
+        if mode not in ('RAW', 'MOL'):
+            raise ValueError(f'Unknown model mode: {mode}')
+        self.mode = mode
+        self.rnn_dims, self.fc_dims = rnn_dims, fc_dims
+        self.bits, self.pad = bits, pad
+        self.feat_dims = feat_dims
+        self.hop_length, self.sample_rate = hop_length, sample_rate
+        self.aux_dims = res_out_dims // 4
+        self.n_classes = 2 ** bits if mode == 'RAW' else 30
+        self.register_buffer('step', torch.zeros(1, dtype=torch.long))
+        self.upsample = UpsampleNetwork(feat_dims, upsample_factors,
+                                        compute_dims, res_blocks,
+                                        res_out_dims, pad)
+        self.I = nn.Linear(feat_dims + self.aux_dims + 1, rnn_dims)
+        self.rnn1 = GRUWeights(rnn_dims, rnn_dims)
+        self.rnn2 = GRUWeights(rnn_dims + self.aux_dims, rnn_dims)
+        self.fc1 = nn.Linear(rnn_dims + self.aux_dims, fc_dims)
+        self.fc2 = nn.Linear(fc_dims + self.aux_dims, fc_dims)
+        self.fc3 = nn.Linear(fc_dims, self.n_classes)
+        self.eval()
+
+    @classmethod
+    def from_config(cls, config: Dict[str, Any]) -> 'WaveRNN':
+        model_config = dict(config['vocoder']['model'])
+        return cls(bits=config['dsp']['bits'],
+                   feat_dims=config['dsp']['num_mels'],
+                   hop_length=config['dsp']['hop_length'],
+                   sample_rate=config['dsp']['sample_rate'],
+                   upsample_factors=tuple(
+                       model_config.pop('upsample_factors')),
+                   **model_config)
+
+    @torch.no_grad()
+    def upsample_cond(self, mels: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Conditioning (mels_up, aux) of padded mels (B, T, n_mels)."""
+        return self.upsample(mels)
+
+    @torch.no_grad()
+    def sample_scan(self, mels_up: torch.Tensor, aux: torch.Tensor,
+                    seed: int = 0, greedy: bool = False,
+                    compute_dtype: torch.dtype = torch.float32
+                    ) -> torch.Tensor:
+        """The plain autoregressive sampler: samples (B, T) in [-1, 1] for
+        conditioning (B, T, C), on whatever device the inputs lie."""
+        nr_mix = self.n_classes // 3 if self.mode == 'MOL' else 0
+        cond = compact_cond(mels_up, aux, compute_dtype)
+        return sample_plain(cond, pack_weights(self, compute_dtype), seed,
+                            nr_mix, greedy, compute_dtype).T
+
+
+# ------------------------------------------------------- fold / unfold
+
+def fold_indices(total_len: int, target: int, overlap: int
+                 ) -> Tuple[np.ndarray, int]:
+    """Gather indices (num_folds, target + 2*overlap) of
+    fold_with_overlap, and the zero-padded length they index."""
+    num_folds = (total_len - overlap) // (target + overlap)
+    extended_len = num_folds * (overlap + target) + overlap
+    remaining = total_len - extended_len
+    padded_len = total_len
+    if remaining != 0:
+        num_folds += 1
+        padded_len = total_len + (target + 2 * overlap - remaining)
+    starts = np.arange(num_folds) * (target + overlap)
+    idx = starts[:, None] + np.arange(target + 2 * overlap)[None, :]
+    return idx, padded_len
+
+
+def fold_with_overlap(x: torch.Tensor, target: int, overlap: int
+                      ) -> torch.Tensor:
+    """(1, T, C) -> (num_folds, target + 2*overlap, C): overlapping
+    windows, the last one zero-padded."""
+    idx, padded_len = fold_indices(x.shape[1], target, overlap)
+    x = F.pad(x[0], (0, 0, 0, padded_len - x.shape[1]))
+    return x[torch.as_tensor(idx, device=x.device)]
+
+
+def _fades(overlap: int):
+    silence_len = overlap // 2
+    fade_len = overlap - silence_len
+    t = np.linspace(-1, 1, fade_len, dtype=np.float64)
+    fade_in = np.concatenate([np.zeros(silence_len),
+                              np.sqrt(0.5 * (1 + t))])
+    fade_out = np.concatenate([np.ones(silence_len),
+                               np.sqrt(0.5 * (1 - t))])
+    return fade_in, fade_out
+
+
+def xfade_and_unfold(y: np.ndarray, overlap: int) -> np.ndarray:
+    """(num_folds, target + 2*overlap) -> (total,) float64 with an
+    equal-power crossfade over each overlap (host version)."""
+    num_folds, length = y.shape
+    target = length - 2 * overlap
+    fade_in, fade_out = _fades(overlap)
+    y = y.astype(np.float64).copy()
+    y[:, :overlap] *= fade_in
+    y[:, -overlap:] *= fade_out
+    out = np.zeros(num_folds * (target + overlap) + overlap)
+    for i in range(num_folds):
+        start = i * (target + overlap)
+        out[start:start + length] += y[i]
+    return out
+
+
+def xfade_unfold_device(y: torch.Tensor, overlap: int) -> torch.Tensor:
+    """Float32 crossfade overlap-add on the samples' device: lane i's
+    tail overlaps lane i+1's head, so the unfold is a flatten of each
+    lane's first target+overlap samples plus a shifted add of the tails."""
+    num_folds, length = y.shape
+    target = length - 2 * overlap
+    stride = target + overlap
+    fade_in, fade_out = (torch.as_tensor(f, dtype=y.dtype, device=y.device)
+                         for f in _fades(overlap))
+    y = torch.cat([y[:, :overlap] * fade_in, y[:, overlap:-overlap],
+                   y[:, -overlap:] * fade_out], dim=1)
+    main = F.pad(y[:, :stride].reshape(-1), (0, overlap))
+    tails = F.pad(y[:, stride:], (0, target)).reshape(-1)[:-target]
+    return main + F.pad(tails, (stride, 0))
+
+
+# ------------------------------------------------------------- vocoding
+
+def _samples(model: WaveRNN, mel, batched: bool, target: int, overlap: int,
+             seed: int, greedy: bool, compute_dtype: torch.dtype
+             ) -> Tuple[torch.Tensor, int]:
+    """Upsample, fold and sample: (lanes, L) samples and the wave length."""
+    device = next(model.parameters()).device
+    mel = torch.as_tensor(np.asarray(mel, dtype=np.float32), device=device)
+    if mel.shape[0] == model.feat_dims and mel.shape[-1] != model.feat_dims:
+        mel = mel.T                                       # -> (T, n_mels)
+    wave_len = (mel.shape[0] - 1) * model.hop_length
+    m = F.pad(mel[None], (0, 0, model.pad, model.pad))
+    mels_up, aux = model.upsample_cond(m)
+    if batched:
+        mels_up = fold_with_overlap(mels_up, target, overlap)
+        aux = fold_with_overlap(aux, target, overlap)
+    samples = sample_conditioned(model, mels_up, aux, seed=seed,
+                                 greedy=greedy, compute_dtype=compute_dtype)
+    return samples, wave_len
+
+
+def vocode(model: WaveRNN, mel, target: int = TARGET,
+           overlap: int = OVERLAP, mu_law: bool = True, seed: int = 0,
+           greedy: bool = False,
+           compute_dtype: torch.dtype = torch.bfloat16,
+           pcm16: bool = False) -> np.ndarray:
+    """mel (n_mels, T) or (T, n_mels) -> waveform, on the model's device
+    end to end (fold, sampling kernel, mu-law decode, crossfade, tail
+    fade, int16 conversion); one host copy of the finished audio."""
+    samples, wave_len = _samples(model, mel, True, target, overlap, seed,
+                                 greedy, compute_dtype)
+    wave = samples
+    if mu_law and model.mode == 'RAW':
+        wave = decode_mu_law(wave, model.n_classes, False)
+    wave = xfade_unfold_device(wave, overlap)[:wave_len]
+    n_fade = min(20 * model.hop_length, wave_len)
+    fade = torch.linspace(1.0, 0.0, n_fade, device=wave.device)
+    wave = torch.cat([wave[:wave_len - n_fade],
+                      wave[wave_len - n_fade:] * fade])
+    if pcm16:
+        wave = (torch.clamp(wave, -1.0, 1.0) * 32767.0).to(torch.int16)
+    return wave.cpu().numpy()
+
+
+def generate_wav(model: WaveRNN, mel, batched: bool = True,
+                 target: Optional[int] = None, overlap: int = OVERLAP,
+                 mu_law: bool = True, seed: int = 0, greedy: bool = False,
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 pcm16: bool = False) -> np.ndarray:
+    """Step-by-step generation: sampling on the model's device, then the
+    mu-law decode, crossfade (float64) and fade-out on the host.
+    `batched=False` samples the whole utterance as one lane."""
+    target = TARGET if target is None else target
+    samples, wave_len = _samples(model, mel, batched, target, overlap, seed,
+                                 greedy, compute_dtype)
+    output = samples.cpu().numpy().astype(np.float64)
+    if mu_law and model.mode == 'RAW':
+        output = decode_mu_law(output, model.n_classes, False)
+    output = xfade_and_unfold(output, overlap) if batched else output[0]
+    output = output[:wave_len]
+    n_fade = min(20 * model.hop_length, len(output))
+    output[len(output) - n_fade:] *= np.linspace(1, 0, n_fade)
+    if pcm16:
+        output = (np.clip(output, -1.0, 1.0) * 32767.0).astype(np.int16)
+    return output

@@ -1,0 +1,170 @@
+"""Weights from the JAX package's checkpoints.
+
+`load_fjax` reads a `.fjax` file (a pickle of numpy arrays plus the
+config). `forward_tacotron_state_dict` / `wavernn_state_dict` turn its
+flax variables into this package's `state_dict`, under the reference's
+torch key names, so `load_state_dict(strict=True)` takes them as they
+are. Layout transforms: conv kernels (W, Cin, Cout) -> (Cout, Cin, W),
+dense kernels transposed, RNN gates already in the torch layout.
+"""
+from __future__ import annotations
+
+import pickle
+from pathlib import Path
+from typing import Any, Dict, Union
+
+import numpy as np
+import torch
+
+
+def load_fjax(path: Union[str, Path], use_ema: bool = True
+              ) -> Dict[str, Any]:
+    """{'model': flax variables (numpy), 'config', 'step'} of a `.fjax`
+    checkpoint. EMA weights, when the file has them, replace the raw
+    parameters unless `use_ema=False`. Unpickling runs code from the
+    file: load only checkpoints you trust."""
+    with open(path, 'rb') as f:
+        payload = pickle.load(f)
+    variables = dict(payload['model'])
+    ema = variables.pop('ema_params', None)
+    if use_ema and ema:
+        variables['params'] = ema
+    return {'model': variables, 'config': payload['config'],
+            'step': int(payload.get('step', 0))}
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, copy=True, order="C"))
+
+
+def _put_conv1d(out: Dict, name: str, p: Dict) -> None:
+    out[f'{name}.weight'] = _t(np.transpose(np.asarray(p['kernel']),
+                                            (2, 1, 0)))
+    if 'bias' in p:
+        out[f'{name}.bias'] = _t(p['bias'])
+
+
+def _put_dense(out: Dict, name: str, p: Dict) -> None:
+    out[f'{name}.weight'] = _t(np.asarray(p['kernel']).T)
+    if 'bias' in p:
+        out[f'{name}.bias'] = _t(p['bias'])
+
+
+def _put_batchnorm(out: Dict, name: str, params: Dict, stats: Dict) -> None:
+    out[f'{name}.weight'] = _t(params['scale'])
+    out[f'{name}.bias'] = _t(params['bias'])
+    out[f'{name}.running_mean'] = _t(stats['mean'])
+    out[f'{name}.running_var'] = _t(stats['var'])
+    out[f'{name}.num_batches_tracked'] = torch.tensor(0, dtype=torch.long)
+
+
+def _put_rnn_dir(out: Dict, name: str, d: Dict, reverse: bool = False
+                 ) -> None:
+    sfx = '_reverse' if reverse else ''
+    out[f'{name}.weight_ih_l0{sfx}'] = _t(d['w_ih'])
+    out[f'{name}.weight_hh_l0{sfx}'] = _t(d['w_hh'])
+    out[f'{name}.bias_ih_l0{sfx}'] = _t(d['b_ih'])
+    out[f'{name}.bias_hh_l0{sfx}'] = _t(d['b_hh'])
+
+
+def _put_birnn(out: Dict, name: str, p: Dict) -> None:
+    _put_rnn_dir(out, name, p['fwd'])
+    _put_rnn_dir(out, name, p['bwd'], reverse=True)
+
+
+def _put_bn_conv(out: Dict, name: str, params: Dict, stats: Dict) -> None:
+    _put_conv1d(out, f'{name}.conv', params['conv'])
+    _put_batchnorm(out, f'{name}.bnorm', params['bnorm'], stats['bnorm'])
+
+
+def _put_cbhg(out: Dict, name: str, params: Dict, stats: Dict, K: int,
+              num_highways: int) -> None:
+    for i in range(K):
+        _put_bn_conv(out, f'{name}.conv1d_bank.{i}',
+                     params[f'bank_{i + 1}'], stats[f'bank_{i + 1}'])
+    _put_bn_conv(out, f'{name}.conv_project1', params['proj1'],
+                 stats['proj1'])
+    _put_bn_conv(out, f'{name}.conv_project2', params['proj2'],
+                 stats['proj2'])
+    _put_dense(out, f'{name}.pre_highway', params['pre_highway'])
+    for i in range(num_highways):
+        for w in ('W1', 'W2'):
+            _put_dense(out, f'{name}.highways.{i}.{w}',
+                       params[f'highway_{i}'][w])
+    _put_birnn(out, f'{name}.rnn', params['rnn'])
+
+
+def _put_series_predictor(out: Dict, name: str, params: Dict,
+                          stats: Dict) -> None:
+    out[f'{name}.embedding.weight'] = _t(params['embedding']['embedding'])
+    for i in range(3):
+        _put_bn_conv(out, f'{name}.convs.{i}', params[f'conv_{i}'],
+                     stats[f'conv_{i}'])
+    _put_birnn(out, f'{name}.rnn', params['rnn'])
+    _put_dense(out, f'{name}.lin', params['lin'])
+
+
+def forward_tacotron_state_dict(variables: Dict[str, Any],
+                                model_cfg: Dict[str, Any], step: int = 0
+                                ) -> Dict[str, torch.Tensor]:
+    """Flax ForwardTacotron variables ({'params', 'batch_stats'}, numpy)
+    -> the port's state_dict. Multi-speaker checkpoints are rejected."""
+    params = variables['params']
+    stats = variables.get('batch_stats', {})
+    if int(model_cfg.get('n_speakers', 1)) > 1 or any(
+            k in params for k in ('speaker_embedding', 'speaker_proj')):
+        raise ValueError('multi-speaker ForwardTacotron checkpoints '
+                         '(n_speakers > 1) are not ported yet')
+    out: Dict[str, torch.Tensor] = {
+        'step': torch.tensor([int(step)], dtype=torch.long),
+        'embedding.weight': _t(params['embedding']['embedding'])}
+    _put_cbhg(out, 'prenet', params['prenet'], stats['prenet'],
+              K=model_cfg['prenet_k'],
+              num_highways=model_cfg['prenet_num_highways'])
+    for pred in ('dur_pred', 'pitch_pred', 'energy_pred'):
+        _put_series_predictor(out, pred, params[pred], stats[pred])
+    _put_conv1d(out, 'pitch_proj', params['pitch_proj'])
+    _put_conv1d(out, 'energy_proj', params['energy_proj'])
+    _put_birnn(out, 'lstm', params['lstm'])
+    _put_dense(out, 'lin', params['lin'])
+    _put_cbhg(out, 'postnet', params['postnet'], stats['postnet'],
+              K=model_cfg['postnet_k'],
+              num_highways=model_cfg['postnet_num_highways'])
+    _put_dense(out, 'post_proj', params['post_proj'])
+    return out
+
+
+def wavernn_state_dict(variables: Dict[str, Any], model_cfg: Dict[str, Any],
+                       step: int = 0) -> Dict[str, torch.Tensor]:
+    """Flax WaveRNN variables (numpy) -> the port's state_dict."""
+    params = variables['params']
+    stats = variables.get('batch_stats', {})
+    out: Dict[str, torch.Tensor] = {
+        'step': torch.tensor([int(step)], dtype=torch.long)}
+    rp = params['upsample']['resnet']
+    rs = stats['upsample']['resnet']
+    _put_conv1d(out, 'upsample.resnet.conv_in', rp['conv_in'])
+    _put_conv1d(out, 'upsample.resnet.conv_out', rp['conv_out'])
+    _put_batchnorm(out, 'upsample.resnet.batch_norm', rp['batch_norm'],
+                   rs['batch_norm'])
+    for i in range(model_cfg['res_blocks']):
+        bp, bs = rp[f'res_{i}'], rs[f'res_{i}']
+        _put_conv1d(out, f'upsample.resnet.layers.{i}.conv1', bp['conv1'])
+        _put_conv1d(out, f'upsample.resnet.layers.{i}.conv2', bp['conv2'])
+        for bn in ('batch_norm1', 'batch_norm2'):
+            _put_batchnorm(out, f'upsample.resnet.layers.{i}.{bn}',
+                           bp[bn], bs[bn])
+    for i in range(len(model_cfg['upsample_factors'])):
+        w = np.asarray(params['upsample'][f'up_conv_{i}'])
+        out[f'upsample.up_layers.{2 * i + 1}.weight'] = \
+            _t(w.reshape(1, 1, 1, -1))
+    out['I.weight'] = _t(np.asarray(params['I_kernel']).T)
+    out['I.bias'] = _t(params['I_bias'])
+    for rnn_name in ('rnn1', 'rnn2'):
+        _put_rnn_dir(out, rnn_name, {k: params[f'{rnn_name}_{k}']
+                                     for k in ('w_ih', 'w_hh', 'b_ih',
+                                               'b_hh')})
+    for fc in ('fc1', 'fc2', 'fc3'):
+        out[f'{fc}.weight'] = _t(np.asarray(params[f'{fc}_kernel']).T)
+        out[f'{fc}.bias'] = _t(params[f'{fc}_bias'])
+    return out
