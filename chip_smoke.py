@@ -11,7 +11,10 @@ printed only when every phase passed):
    with nvcc, all sources at once;
 3. BiRNN kernel against its plain version on the card (LSTM H=512,
    grouped GRU G=3 H=128, GRU H=256; B=1 and B=8; float32 at atol 1e-4,
-   bfloat16 at atol 2e-2), with timings;
+   bfloat16 at atol 2e-2), with timings; and at the five shapes that
+   `evaluate()` gives it on the training path (B=32: decoder LSTM H=512
+   T=896 ragged, CBHG GRUs H=256 at T=896 and T=176, predictor GRUs
+   H=128/64 T=176; float32 at atol 1e-4);
 4. WaveRNN sampling kernel against its plain version (RAW greedy float32
    at 64 lanes x 3850 steps, MOL greedy, RAW sampled, lane groups);
 5. the main path at the full width of config.yaml with random weights:
@@ -20,15 +23,30 @@ printed only when every phase passed):
    reset just before and read just after; per-stage CUDA-event times;
    one utterance decoded at 8 frames per phoneme; a float32 check of the
    decoder against the CPU plain path;
-6. a {"kernels": [...]} JSON line, the nvidia-smi line, and last
+6. BiRNN training kernels (forward with stash, BPTT) against their plain
+   versions at the training path's shapes (B=32: decoder LSTM H=512
+   T=1024 ragged, postnet GRU H=256 T=1024, predictor GRUs H=128/64
+   T=192; float32 at atol 1e-4; bfloat16 at 2^-7 of the largest plain
+   value for the outputs stored in bfloat16 (stash, dgi, dgh), 2e-3 for
+   y, and a relative L2 error of at most 2^-8), with timings beside
+   cuDNN's nn.LSTM/nn.GRU;
+7. the training path at full width: `ForwardTrainer.train` for 6 steps at
+   batch 32 on a synthetic LJSpeech-like dataset, counts reset just
+   before and read just after (kernels #2/#3), then one `evaluate()`
+   (kernel #1); losses finite, every parameter moved, the checkpoint
+   served by `gen_forward`; ms per step split into forward, backward and
+   optimizer; float32 gradients on the card against the CPU plain path;
+8. a {"kernels": [...]} JSON line, the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 
 Details go to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
+import copy
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -41,6 +59,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 OUT_DIR = Path('chiprun_out')
+TRAIN_DIR = Path('smoke_train')     # synthetic dataset and checkpoints
 FAILURES = []
 DETAILS = {}
 
@@ -105,7 +124,7 @@ def nvidia_smi_line() -> str:
 def build_kernels():
     from forwardtacotron_tpu_torch.kernels import _build
     t0 = time.perf_counter()
-    reports = _build.build(['birnn', 'wavernn_sample'])
+    reports = _build.build(['birnn', 'birnn_train', 'wavernn_sample'])
     DETAILS['build_s'] = time.perf_counter() - t0
     DETAILS['ptxas'] = reports
     for name, rep in reports.items():
@@ -172,6 +191,25 @@ def birnn_cases():
                         f'{row["bound_ms"]:.4f} ms ({row["bound_by"]}), '
                         f'library {row["library_ms"]}')
                 rows.append(row)
+    # the shapes that evaluate() gives the kernel on the training path:
+    # batch 32, the 896-frame bucket and its text pad of 176, float32
+    eval_cases = [('decoder', 'lstm', 896, 512,
+                   [870 - 11 * i for i in range(32)]),
+                  ('postnet', 'gru', 896, 256, [896] * 32),
+                  ('prenet', 'gru', 176, 256, [176] * 32),
+                  ('pitch', 'gru', 176, 128, [176] * 32),
+                  ('dur/energy', 'gru', 176, 64, [176] * 32)]
+    for what, cell, T, H, lens in eval_cases:
+        gi, w, b, ln = _birnn_inputs(cell, T, 32, 2, H, torch.float32,
+                                     seed=T + H, lens=lens)
+        y = recurrence(cell, gi, w, b, ln, torch.float32)
+        torch.cuda.synchronize()
+        ref = birnn_recurrence(cell, gi, w, b, ln, torch.float32)
+        err = float((y - ref).abs().max())
+        name = f'evaluate() {what}: {cell} T={T} H={H} S=2 B=32 float32'
+        check(err <= 1e-4 and bool(torch.isfinite(y).all()),
+              f'BiRNN {name}: max|kernel-plain| {err:.3g} <= 0.0001')
+        rows.append({'case': name, 'max_abs_err': err, 'tol': 1e-4})
     DETAILS['birnn'] = rows
     return rows
 
@@ -184,6 +222,7 @@ def _cudnn_ms(cell, T, H, S, B, dtype):
         return None
     mod = (torch.nn.LSTM if cell == 'lstm' else torch.nn.GRU)(
         H, H, batch_first=True, bidirectional=True).cuda().to(dtype)
+    mod.flatten_parameters()
     x = torch.randn((B, T, H), device='cuda', dtype=dtype)
     with torch.no_grad():
         return cuda_ms(lambda: mod(x), reps=5)
@@ -419,6 +458,356 @@ def long_utterance(model, voc, cfg, text, hop):
     DETAILS['decode_f32_vs_cpu_max_abs_err'] = err
 
 
+# -------------------------------------------------------- BiRNN training
+
+def _train_inputs(cell, T, B, H, lens, seed):
+    g = torch.Generator().manual_seed(seed)
+    ng = 4 if cell == 'lstm' else 3
+    bound = 1.0 / math.sqrt(H)
+    gi = torch.randn((T, B, 2, ng * H), generator=g) * 0.5
+    w = (torch.rand((2, ng * H, H), generator=g) * 2 - 1) * bound
+    b = torch.zeros((2, ng * H)) if cell == 'lstm' else \
+        (torch.rand((2, ng * H), generator=g) * 2 - 1) * bound
+    dy = torch.randn((T, B, 2, H), generator=g)
+    lengths = torch.tensor(lens, dtype=torch.int32)
+    return [t.cuda().contiguous() for t in (gi, w, b, lengths, dy)]
+
+
+def _cudnn_train_ms(cell, T, H, B):
+    """cuDNN bidirectional nn.LSTM/nn.GRU over (B, T, H) inputs, forward
+    with grad and backward timed apart (input projection included): a
+    yardstick only, never called by the port."""
+    mod = (torch.nn.LSTM if cell == 'lstm' else torch.nn.GRU)(
+        H, H, batch_first=True, bidirectional=True).cuda()
+    mod.flatten_parameters()
+    x = torch.randn((B, T, H), device='cuda', requires_grad=True)
+    fwd = cuda_ms(lambda: mod(x), reps=5)
+    y = mod(x)[0]
+    dy = torch.randn_like(y)
+    bwd = cuda_ms(lambda: torch.autograd.grad(
+        y, [x] + list(mod.parameters()), dy, retain_graph=True), reps=5)
+    return fwd, bwd
+
+
+@phase('BiRNN training kernels vs plain')
+def train_kernel_cases():
+    from forwardtacotron_tpu_torch.kernels.birnn_train import (
+        train_backward, train_forward)
+    from forwardtacotron_tpu_torch.ops.rnn import (birnn_train_backward,
+                                                   birnn_train_forward)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [('decoder', 'lstm', 1024, 512, [1024 - 21 * i for i in range(32)]),
+             ('postnet', 'gru', 1024, 256, [1024] * 32),
+             ('pitch', 'gru', 192, 128, [192 - 5 * i for i in range(32)]),
+             ('dur/energy', 'gru', 192, 64, [192 - 5 * i for i in range(32)])]
+    # bfloat16 limits. The stash, dgi and dgh are stored in bfloat16, so
+    # kernel and plain may round an element one ulp apart: at most 2^-7
+    # of the largest plain value; y is stored in float32: 2e-3 of the
+    # largest. Both bf16 and y: relative L2 error at most 2^-8 (below a
+    # one-ulp flip of every element).
+    bf16_rel = {'y': 2e-3, 'stash': 2.0 ** -7, 'dgi': 2.0 ** -7,
+                'dgh': 2.0 ** -7}
+    rows = []
+    for name, cell, T, H, lens in cases:
+        gi, w, b, ln, dy = _train_inputs(cell, T, 32, H, lens, seed=H + T)
+        row = {'case': f'{name} {cell} H={H} T={T} B=32', 'errors': {}}
+        for dtype in (f32, bf16):
+            gi_d, w_d = gi.to(dtype), w.to(dtype)
+            y, st = train_forward(cell, gi_d, w_d, b, ln, dtype)
+            dgi, dgh = train_backward(cell, st, dy, w_d, ln, dtype)
+            torch.cuda.synchronize()
+            y_p, st_p = birnn_train_forward(cell, gi_d, w_d, b, ln, dtype)
+            dgi_p, dgh_p = birnn_train_backward(cell, st, dy, w_d, ln, dtype)
+            for what, got, ref in (('y', y, y_p), ('stash', st, st_p),
+                                   ('dgi', dgi, dgi_p), ('dgh', dgh, dgh_p)):
+                diff = got.float() - ref.float()
+                err = float(diff.abs().max())
+                rel_l2 = float(diff.norm() / ref.float().norm())
+                key = f'{str(dtype)[6:]} {what}'
+                if dtype == f32:
+                    limit, l2_limit = 1e-4, math.inf
+                else:
+                    limit = bf16_rel[what] * float(ref.float().abs().max())
+                    l2_limit = 2.0 ** -8
+                ok = err <= limit and rel_l2 <= l2_limit \
+                    and bool(torch.isfinite(got).all())
+                check(ok, f'{row["case"]} {key}: max|kernel-plain| '
+                          f'{err:.3g} <= {limit:.3g}, relative L2 '
+                          f'{rel_l2:.3g} <= {l2_limit:.3g}')
+                row['errors'][key] = err
+                row['errors'][f'{key} rel_l2'] = rel_l2
+        for sfx, parts in (('fwd', ('y', 'stash')), ('bwd', ('dgi', 'dgh'))):
+            row[f'max_abs_err_{sfx}'] = max(row['errors'][f'float32 {p}']
+                                            for p in parts)
+        st32 = train_forward(cell, gi, w, b, ln, f32)[1]
+        row['ms_fwd'] = cuda_ms(lambda: train_forward(cell, gi, w, b, ln, f32),
+                                reps=5)
+        row['ms_bwd'] = cuda_ms(lambda: train_backward(cell, st32, dy, w, ln,
+                                                       f32), reps=5)
+        row['plain_ms_fwd'] = cuda_ms(lambda: birnn_train_forward(
+            cell, gi, w, b, ln, f32), reps=1, warmup=0)
+        row['plain_ms_bwd'] = cuda_ms(lambda: birnn_train_backward(
+            cell, st32, dy, w, ln, f32), reps=1, warmup=0)
+        ng = 4 if cell == 'lstm' else 3
+        active = 2 * sum(min(n, T) for n in lens)
+        flops = 2.0 * active * ng * H * H
+        small = (w.numel() + b.numel() + ln.numel()) * 4
+        fwd_bytes = (gi.numel() + 32 * T * 2 * H * (1 + 5)) * 4 + small
+        bwd_bytes = (st32.numel() + dy.numel()
+                     + (1 if cell == 'lstm' else 2) * gi.numel()) * 4 + small
+        row['bound_ms_fwd'], row['bound_by_fwd'] = bound_ms(fwd_bytes, flops,
+                                                            f32)
+        row['bound_ms_bwd'], row['bound_by_bwd'] = bound_ms(bwd_bytes, flops,
+                                                            f32)
+        row['library_ms_fwd'], row['library_ms_bwd'] = _cudnn_train_ms(
+            cell, T, H, 32)
+        log(f'  {row["case"]} float32: fwd {row["ms_fwd"]:.2f} ms (plain '
+            f'{row["plain_ms_fwd"]:.0f}, bound {row["bound_ms_fwd"]:.4f} '
+            f'{row["bound_by_fwd"]}, cuDNN {row["library_ms_fwd"]:.2f}); '
+            f'bwd {row["ms_bwd"]:.2f} ms (plain {row["plain_ms_bwd"]:.0f}, '
+            f'bound {row["bound_ms_bwd"]:.4f} {row["bound_by_bwd"]}, cuDNN '
+            f'{row["library_ms_bwd"]:.2f})')
+        rows.append(row)
+    DETAILS['birnn_train'] = rows
+    return rows
+
+
+def _write_dataset(data, n_train=96, n_val=32, seed=0):
+    """LJSpeech-like synthetic items: 60-170 phonemes, 520-870 mel frames
+    (buckets 640/768/896), durations of at least one frame summing to the
+    mel length; written with the port's tokenizer alphabet and pickle."""
+    from forwardtacotron_tpu_torch.text.symbols import phonemes
+    from forwardtacotron_tpu_torch.utils.files import pickle_binary
+    rng = np.random.RandomState(seed)
+    for d in ('mel', 'alg', 'phon_pitch', 'phon_energy'):
+        (data / d).mkdir(parents=True, exist_ok=True)
+    index, text_dict = [], {}
+    for i in range(n_train + n_val):
+        n = int(rng.randint(60, 171))
+        frames = int(rng.randint(520, 871))
+        dur = rng.multinomial(frames - n, np.full(n, 1.0 / n)) + 1
+        item = f'smoke_{i:03d}'
+        np.save(data / 'mel' / f'{item}.npy',
+                (rng.randn(80, frames) * 2 - 5).astype(np.float32))
+        np.save(data / 'alg' / f'{item}.npy', dur.astype(np.int32))
+        np.save(data / 'phon_pitch' / f'{item}.npy',
+                rng.randn(n).astype(np.float32))
+        np.save(data / 'phon_energy' / f'{item}.npy',
+                rng.randn(n).astype(np.float32))
+        text_dict[item] = ''.join(rng.choice(phonemes[1:], n))
+        index.append((item, frames))
+    pickle_binary(text_dict, data / 'text_dict.pkl')
+    pickle_binary(index[:n_train], data / 'train_dataset.pkl')
+    pickle_binary(index[n_train:], data / 'val_dataset.pkl')
+    pickle_binary({k: (1.0, 1.0) for k, _ in index},
+                  data / 'att_score_dict.pkl')
+
+
+class _Scalars:
+    """The trainer's optional writer: keeps every scalar."""
+
+    def __init__(self):
+        self.values = []
+
+    def add_scalar(self, tag, value, step):
+        self.values.append((tag, float(value), int(step)))
+
+
+@phase('training path (full width)')
+def training_path():
+    from forwardtacotron_tpu_torch import gen_forward
+    from forwardtacotron_tpu_torch.config import default_config
+    from forwardtacotron_tpu_torch.data.dataset import get_tts_datasets
+    from forwardtacotron_tpu_torch.kernels.birnn import recurrence
+    from forwardtacotron_tpu_torch.kernels.birnn_train import (
+        train_backward, train_forward)
+    from forwardtacotron_tpu_torch.models.forward_tacotron import (
+        ForwardTacotron)
+    from forwardtacotron_tpu_torch.train import common as tc
+    from forwardtacotron_tpu_torch.train.forward_trainer import (
+        ForwardTrainer)
+    from forwardtacotron_tpu_torch.utils.paths import Paths
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    try:
+        cfg = default_config()
+        cfg['data_path'] = str(TRAIN_DIR / 'data')
+        _write_dataset(TRAIN_DIR / 'data')
+        paths = Paths(cfg['data_path'], 'smoke_tts', base=TRAIN_DIR)
+        writer = _Scalars()
+        trainer = ForwardTrainer(paths, cfg, 'cuda', writer=writer)
+        torch.manual_seed(0)
+        model = ForwardTacotron.from_config(cfg).cuda()
+        optimizer = tc.make_optimizer(model)
+        before = copy.deepcopy(model.state_dict())
+
+        recurrence.launches = 0
+        train_forward.launches = 0
+        train_backward.launches = 0
+        t0 = time.perf_counter()
+        step = trainer.train(model, optimizer, max_steps_override=6)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {'birnn': recurrence.launches,
+                    'birnn_train_fwd': train_forward.launches,
+                    'birnn_train_bwd': train_backward.launches}
+        log(f'  6 steps at batch 32 in {wall:.1f} s (host clock, first '
+            f'steps included), launches {launches}')
+        check(step == 6, f'trainer reached step {step} == 6')
+        check(launches['birnn_train_fwd'] > 0
+              and launches['birnn_train_bwd'] > 0,
+              f'training launched kernels #2 and #3: {launches}')
+        losses = [v for tag, v, _ in writer.values if 'Loss' in tag]
+        check(len(losses) > 0 and all(math.isfinite(v) for v in losses),
+              f'{len(losses)} loss scalars, all finite')
+        moved = [k for k, p in model.named_parameters()
+                 if not torch.equal(p.detach(), before[k])]
+        n_params = len(list(model.parameters()))
+        check(len(moved) == n_params,
+              f'{len(moved)} of {n_params} parameters moved')
+
+        _, val_set = get_tts_datasets(cfg['data_path'], 32, 1, None)
+        recurrence.launches = 0
+        n_train = (train_forward.launches, train_backward.launches)
+        val = trainer.evaluate(model, val_set)
+        check(recurrence.launches > 0 and n_train == (
+            train_forward.launches, train_backward.launches)
+            and all(math.isfinite(v) for v in val.values()),
+            f'evaluate(): {val}, kernel #1 launches {recurrence.launches}')
+        launches['evaluate_birnn'] = recurrence.launches
+
+        latest = paths.forward_checkpoints / 'latest_model.pt'
+        served, _, served_step = gen_forward.load_tts(str(latest), cfg,
+                                                      'cuda')
+        mel = gen_forward.synthesize(served, gen_forward.text_to_ids(
+            'Training on the card works.', cfg))
+        check(served_step == 6 and bool(np.isfinite(mel).all())
+              and mel.shape[0] == 80,
+              f'gen_forward served latest_model.pt (step {served_step}): '
+              f'mel {mel.shape}')
+
+        timing = _step_timing(model, optimizer, trainer, val_set)
+        grads = _grads_vs_cpu(model)
+        DETAILS['training'] = {'launches': launches, 'wall_s': wall,
+                               'val': val, 'step_ms': timing,
+                               'grads_vs_cpu': grads}
+        return launches
+    finally:
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+
+
+def _step_timing(model, optimizer, trainer, val_set):
+    """Steady-state ms per training step at batch 32 on one batch of the
+    768-frame bucket, split by CUDA events into forward (with the loss),
+    backward, and clip + Adam."""
+    from forwardtacotron_tpu_torch.train import common as tc
+    from forwardtacotron_tpu_torch.train.forward_trainer import (
+        batch_to_device)
+    cfg = trainer.train_cfg
+    batch = next(b for b in val_set if b['mel'].shape[1] == 768)
+    batch = batch_to_device(batch, 'cuda')
+    model.train()
+    rows = []
+    for rep in range(5):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        optimizer.zero_grad(set_to_none=True)
+        pred = model(batch)
+        loss, _ = tc.forward_loss(pred, batch, batch['pitch'],
+                                  batch['energy'], cfg)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        tc.clip_by_global_norm(model.parameters(), cfg['clip_grad_norm'])
+        optimizer.step()
+        ev[3].record()
+        ev[3].synchronize()
+        if rep >= 2:
+            rows.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+    fwd, bwd, opt = (float(np.median([r[i] for r in rows]))
+                     for i in range(3))
+    out = {'forward_ms': fwd, 'backward_ms': bwd, 'optimizer_ms': opt,
+           'step_ms': fwd + bwd + opt, 'batch': list(batch['mel'].shape)}
+    log(f'  step at batch 32, 768 frames: {out}')
+
+    # one more step under the profiler: device time by kernel
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        optimizer.zero_grad(set_to_none=True)
+        loss, _ = tc.forward_loss(model(batch), batch, batch['pitch'],
+                                  batch['energy'], cfg)
+        loss.backward()
+        tc.clip_by_global_norm(model.parameters(), cfg['clip_grad_norm'])
+        optimizer.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
+               for e in prof.key_averages()
+               if str(e.device_type).endswith('CUDA')
+               and e.self_device_time_total > 0]
+    kernels.sort(key=lambda k: -k[1])
+    busy = sum(k[1] for k in kernels)
+    out['profiled'] = {
+        'wall_ms': wall_ms, 'device_busy_ms': busy,
+        'idle_share': 1.0 - busy / wall_ms if kernels else 'not measured',
+        'top': [{'kernel': k[:90], 'ms': t, 'count': c}
+                for k, t, c in kernels[:15]]}
+    log(f'  profiled step: wall {wall_ms:.1f} ms, device busy {busy:.1f} '
+        f'ms; top kernels:')
+    for row in out['profiled']['top'][:8]:
+        log(f'    {row["ms"]:8.2f} ms  x{row["count"]:<4} {row["kernel"]}')
+    return out
+
+
+def _grads_vs_cpu(model):
+    """Float32 gradients of one teacher-forced loss at full width on two
+    short items (dropout 0, TF32 off): kernels #2/#3 on the card against
+    the plain path on the CPU. Tolerance, per parameter: ||g_card - g_cpu||
+    <= 1e-3 ||g_cpu|| and max |g_card - g_cpu| <= 5e-3 max |g_cpu|. Sums
+    run in other orders on the two devices, and batch statistics over 2
+    items amplify rounding where a channel's variance is small (runs on
+    the card have shown element-wise relative errors up to 4.8e-4)."""
+    from forwardtacotron_tpu_torch.config import default_config
+    from forwardtacotron_tpu_torch.train import common as tc
+    cfg = default_config()['forward_tacotron']['training']
+    rng = np.random.RandomState(3)
+    x_len, frames = np.array([24, 17]), np.array([100, 70])
+    x = np.zeros((2, 24), np.int64)
+    dur = np.zeros((2, 24), np.float32)
+    for i in range(2):
+        x[i, :x_len[i]] = rng.randint(1, 60, x_len[i])
+        dur[i, :x_len[i]] = rng.multinomial(frames[i] - x_len[i],
+                                            np.full(x_len[i], 1 / x_len[i])) + 1
+    mel = (rng.randn(2, 104, 80) * 2 - 5).astype(np.float32)
+    batch = {'x': x, 'x_len': x_len, 'mel': mel, 'mel_len': frames,
+             'dur': dur, 'pitch': rng.randn(2, 24).astype(np.float32),
+             'energy': rng.randn(2, 24).astype(np.float32)}
+    grads = {}
+    for device in ('cuda', 'cpu'):
+        m = copy.deepcopy(model).to(device).train()
+        for mod in m.modules():
+            if isinstance(mod, torch.nn.Dropout):
+                mod.p = 0.0
+        b = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        loss, _ = tc.forward_loss(m(b), b, b['pitch'], b['energy'], cfg)
+        loss.backward()
+        grads[device] = {k: p.grad.detach().cpu()
+                         for k, p in m.named_parameters()}
+    l2 = {k: float((grads['cuda'][k] - g).norm()) / max(float(g.norm()),
+                                                           1e-12)
+          for k, g in grads['cpu'].items()}
+    peak = {k: float((grads['cuda'][k] - g).abs().max()) / max(
+        float(g.abs().max()), 1e-12) for k, g in grads['cpu'].items()}
+    k2, kp = max(l2, key=l2.get), max(peak, key=peak.get)
+    check(l2[k2] <= 1e-3 and peak[kp] <= 5e-3,
+          f'float32 gradients, card vs CPU plain: worst relative L2 error '
+          f'{l2[k2]:.2e} ({k2}) <= 1e-3, worst max-element error '
+          f'{peak[kp]:.2e} of the largest ({kp}) <= 5e-3')
+    return {'worst_rel_l2': l2[k2], 'param_l2': k2,
+            'worst_rel_max': peak[kp], 'param_max': kp}
+
+
 # ------------------------------------------------------------------- main
 
 def main() -> int:
@@ -436,6 +825,8 @@ def main() -> int:
     birnn_rows = birnn_cases() or []
     wr = wavernn_cases() or {}
     launches = main_path() or {}
+    train_rows = train_kernel_cases() or []
+    train_launches = training_path() or {}
 
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / 'chip_smoke.json').write_text(json.dumps(
@@ -468,6 +859,19 @@ def main() -> int:
          'bound_ms': wr['bound_ms'], 'bound_by': wr['bound_by'],
          'library_ms': None},
     ]
+    dec = train_rows[0]       # decoder LSTM H=512, T=1024, B=32, float32
+    for name, sfx, line in (('birnn_train_fwd', 'fwd', 294),
+                            ('birnn_train_bwd', 'bwd', 388)):
+        kernels.append({
+            'name': name, 'route': 'cuda',
+            'source': 'forwardtacotron_tpu_torch/csrc/birnn_train.cu',
+            'replaces': f'forwardtacotron_tpu/kernels/birnn.py:{line}',
+            'launches': train_launches[name],
+            'max_abs_err': dec[f'max_abs_err_{sfx}'],
+            'ms': dec[f'ms_{sfx}'], 'plain_ms': dec[f'plain_ms_{sfx}'],
+            'bound_ms': dec[f'bound_ms_{sfx}'],
+            'bound_by': dec[f'bound_by_{sfx}'],
+            'library_ms': dec[f'library_ms_{sfx}']})
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

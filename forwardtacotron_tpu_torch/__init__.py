@@ -1,11 +1,13 @@
-"""PyTorch/CUDA port of the ForwardTacotron inference path.
+"""PyTorch/CUDA port of ForwardTacotron: inference and student training.
 
-Text -> phoneme ids -> ForwardTacotron mel -> WaveRNN waveform, with the
-two sequential recurrences of that path (the bidirectional GRU/LSTM and
-the WaveRNN autoregressive sampler) as hand-written CUDA kernels for
-Hopper (`csrc/`). Every entry point takes an explicit `device`, which
-defaults to ``'cuda'``; the plain PyTorch versions of the kernels run
-only for tensors that lie on the CPU.
+Inference: text -> phoneme ids -> ForwardTacotron mel -> WaveRNN
+waveform (`gen_forward`). Training: the ForwardTacotron student on a
+preprocessed dataset (`train_forward`). The sequential recurrences of
+both paths (the bidirectional GRU/LSTM, its training forward and
+backward through time, and the WaveRNN autoregressive sampler) are
+hand-written CUDA kernels for Hopper (`csrc/`). Every entry point takes
+an explicit `device`, which defaults to ``'cuda'``; the plain PyTorch
+versions of the kernels run only for tensors that lie on the CPU.
 """
 import torch
 

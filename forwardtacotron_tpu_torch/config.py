@@ -1,9 +1,10 @@
-"""Built-in copy of the config sections the inference path needs.
+"""Built-in copy of the config sections the port needs.
 
-The machine that runs the port has no `pyyaml`, so the `dsp`,
-`preprocessing`, `forward_tacotron.model` and `vocoder.model` defaults of
-the repository's `config.yaml` live here as plain dicts. A YAML file is
-read only by `read_config`, and only where `yaml` can be imported.
+The machine that runs the port has no `pyyaml`, so the `data_path`,
+model ids, `tts_model`, `dsp`, `preprocessing`, `forward_tacotron`
+(model and training) and `vocoder.model` defaults of the repository's
+`config.yaml` live here as plain dicts. A YAML file is read only by
+`read_config`, and only where `yaml` can be imported.
 """
 from __future__ import annotations
 
@@ -67,6 +68,26 @@ FORWARD_TACOTRON_MODEL = {
     'postnet_dropout': 0.0,
 }
 
+FORWARD_TACOTRON_TRAINING = {
+    'schedule': ['5e-5,  150_000,  32', '1e-5,  300_000,  32'],
+    'dur_loss_factor': 0.1,
+    'pitch_loss_factor': 0.1,
+    'energy_loss_factor': 0.1,
+    'pitch_zoneout': 0.0,
+    'energy_zoneout': 0.0,
+    'max_mel_len': 1250,
+    'clip_grad_norm': 1.0,
+    'precision': 'f32',
+    'ema_decay': 0.0,
+    'grad_accum': 1,
+    'remat': False,
+    'checkpoint_every': 10_000,
+    'plot_every': 1000,
+    'filter_attention': True,
+    'min_attention_sharpness': 0.5,
+    'min_attention_alignment': 0.95,
+}
+
 VOCODER_MODEL = {
     'mode': 'RAW',
     'upsample_factors': [4, 8, 8],
@@ -82,10 +103,14 @@ VOCODER_MODEL = {
 def default_config() -> Dict[str, Any]:
     """A fresh copy of the built-in config (callers may mutate it)."""
     return copy.deepcopy({
+        'voc_model_id': 'ljspeech_voc',
+        'tts_model_id': 'ljspeech_tts',
+        'data_path': 'data/',
         'tts_model': 'forward_tacotron',
         'dsp': DSP,
         'preprocessing': PREPROCESSING,
-        'forward_tacotron': {'model': FORWARD_TACOTRON_MODEL},
+        'forward_tacotron': {'model': FORWARD_TACOTRON_MODEL,
+                             'training': FORWARD_TACOTRON_TRAINING},
         'vocoder': {'model': VOCODER_MODEL},
     })
 

@@ -1,0 +1,274 @@
+"""Datasets, collation and length-bucketed batching of the forward model.
+
+A copy of the forward parts of the JAX package's `data/dataset.py` (the
+reference's utils/dataset.py field contracts and collate_tts padding):
+`ForwardDataset`, the max-length and attention filters, `collate_tts`,
+`BucketBatcher` on its numpy path, `get_tts_datasets(model_type=
+'forward')` and `Prefetcher`. Items are grouped by mel length into a
+ladder of padded (T_text, T_mel) shapes; the batch plan of an epoch is a
+pure function of (seed, epoch), so a resumed run replays the data order
+of an uninterrupted one. Batches are numpy; the trainer moves them to its
+device. Mels are stored on disk as (n_mels, T) and come out time-major.
+"""
+from __future__ import annotations
+
+import queue
+import random
+import threading
+from pathlib import Path
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from forwardtacotron_tpu_torch.text.tokenizer import Tokenizer
+from forwardtacotron_tpu_torch.utils.files import unpickle_binary
+
+MEL_PAD = -11.5129
+
+
+def filter_max_len(dataset: List[tuple], max_mel_len: Optional[int]
+                   ) -> List[tuple]:
+    if max_mel_len is None:
+        return dataset
+    return [(i, l) for i, l in dataset if l <= max_mel_len]
+
+
+def filter_bad_attentions(dataset: List[tuple],
+                          attention_score_dict: Dict[str, tuple],
+                          min_alignment: float,
+                          min_sharpness: float) -> List[tuple]:
+    out = []
+    for item_id, mel_len in dataset:
+        align_score, sharp_score = attention_score_dict[item_id]
+        if align_score > min_alignment and sharp_score > min_sharpness:
+            out.append((item_id, mel_len))
+    return out
+
+
+class ForwardDataset:
+
+    def __init__(self, path: Path, dataset_ids: Sequence[str],
+                 text_dict: Dict[str, str], tokenizer: Tokenizer) -> None:
+        self.path = Path(path)
+        self.metadata = list(dataset_ids)
+        self.text_dict = text_dict
+        self.tokenizer = tokenizer
+
+    def __getitem__(self, index: int) -> Dict:
+        item_id = self.metadata[index]
+        x = self.tokenizer(self.text_dict[item_id])
+        mel = np.load(str(self.path / 'mel' / f'{item_id}.npy'))
+        dur = np.load(str(self.path / 'alg' / f'{item_id}.npy'))
+        pitch = np.load(str(self.path / 'phon_pitch' / f'{item_id}.npy'))
+        energy = np.load(str(self.path / 'phon_energy' / f'{item_id}.npy'))
+        return {'x': np.asarray(x, dtype=np.int64), 'mel': mel,
+                'item_id': item_id, 'x_len': len(x),
+                'mel_len': mel.shape[-1], 'dur': dur, 'pitch': pitch,
+                'energy': energy}
+
+    def __len__(self) -> int:
+        return len(self.metadata)
+
+
+def pad1d(x, max_len: int) -> np.ndarray:
+    return np.pad(x, (0, max_len - len(x)), mode='constant')
+
+
+def pad2d(x, max_len: int) -> np.ndarray:
+    return np.pad(x, ((0, 0), (0, max_len - x.shape[-1])),
+                  constant_values=MEL_PAD, mode='constant')
+
+
+def collate_tts(batch: List[Dict], r: int,
+                pad_to: Optional[Tuple[int, int]] = None) -> Dict:
+    """Pad and stack a list of items: text zero-padded, mel padded with
+    -11.5129 to max_len+1 rounded up to a multiple of r (the reference's
+    collate_tts). `pad_to` forces static (T_text, T_mel) bucket shapes
+    (both still r-rounded). Mel is returned time-major (B, T, n_mels)."""
+    x_len = np.asarray([b['x_len'] for b in batch], dtype=np.int64)
+    mel_lens = np.asarray([b['mel_len'] for b in batch], dtype=np.int64)
+
+    max_x_len = int(x_len.max()) if pad_to is None else pad_to[0]
+    max_spec_len = (int(mel_lens.max()) + 1) if pad_to is None else pad_to[1]
+    if max_spec_len % r != 0:
+        max_spec_len += r - max_spec_len % r
+
+    text = np.stack([pad1d(b['x'], max_x_len) for b in batch]
+                    ).astype(np.int64)
+    mel = np.stack([pad2d(b['mel'], max_spec_len) for b in batch])
+    mel = mel.transpose(0, 2, 1).astype(np.float32)
+
+    out = {'x': text, 'mel': mel,
+           'item_id': [b['item_id'] for b in batch],
+           'x_len': x_len, 'mel_len': mel_lens}
+    for key in ('dur', 'pitch', 'energy'):
+        if key in batch[0]:
+            out[key] = np.stack(
+                [pad1d(b[key][:max_x_len], max_x_len) for b in batch]
+            ).astype(np.float32)
+    return out
+
+
+def _epoch_seed(seed: int, epoch: int, batch: int = -1) -> int:
+    """Deterministic per-(epoch[, batch]) RNG seed, stable across
+    processes (plain integer mixing, no hash())."""
+    v = (seed * 1_000_003 + epoch) * 1_000_003 + (batch + 1)
+    return v % (2 ** 31 - 1)
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+class BucketBatcher:
+    """Length-bucketed batch iterator with static padded shapes.
+
+    Items are assigned to buckets by mel length (a ladder of multiples of
+    `mel_multiple`); each bucket's text pad is the bucket's own max,
+    rounded to `x_multiple`. Batches within a bucket have one shape and
+    are shuffled across and within buckets. Incomplete tail batches are
+    padded by repeating items, with `n_real` counting the genuine rows.
+    """
+
+    def __init__(self, dataset, batch_size: int, r: int = 1,
+                 mel_multiple: int = 128, x_multiple: int = 16,
+                 seed: int = 42, shuffle: bool = True) -> None:
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.r = r
+        self.shuffle = shuffle
+        self.seed = seed
+        self._epoch = 0  # next epoch yielded by plain iter()
+
+        self.buckets: Dict[int, List[int]] = {}
+        self.x_pad: Dict[int, int] = {}
+        for idx in range(len(dataset)):
+            item_id = dataset.metadata[idx]
+            mel = np.load(str(dataset.path / 'mel' / f'{item_id}.npy'),
+                          mmap_mode='r')
+            x_len = len(dataset.tokenizer(dataset.text_dict[item_id]))
+            b = _round_up(mel.shape[-1] + 1, mel_multiple)
+            self.buckets.setdefault(b, []).append(idx)
+            self.x_pad[b] = max(self.x_pad.get(b, 1), x_len)
+        for b in self.x_pad:
+            self.x_pad[b] = _round_up(self.x_pad[b], x_multiple)
+
+    def __len__(self) -> int:
+        return sum((len(idxs) + self.batch_size - 1) // self.batch_size
+                   for idxs in self.buckets.values())
+
+    def _make_batch(self, bucket: int, idxs: List[int]) -> Dict:
+        n_real = len(idxs)
+        while len(idxs) < self.batch_size:
+            idxs = idxs + idxs[:self.batch_size - len(idxs)]
+        idxs = idxs[:self.batch_size]
+        batch = collate_tts([self.dataset[i] for i in idxs], self.r,
+                            pad_to=(self.x_pad[bucket], bucket))
+        batch['n_real'] = n_real
+        return batch
+
+    def epoch_plan(self, epoch: int) -> List[tuple]:
+        """The batch plan of one epoch as a pure function of (seed,
+        epoch): [(bucket, [item idx, ...]), ...]."""
+        rng = random.Random(_epoch_seed(self.seed, epoch))
+        plan = []
+        for bucket, idxs in self.buckets.items():
+            idxs = list(idxs)
+            if self.shuffle:
+                rng.shuffle(idxs)
+            for i in range(0, len(idxs), self.batch_size):
+                plan.append((bucket, idxs[i:i + self.batch_size]))
+        if self.shuffle:
+            rng.shuffle(plan)
+        return plan
+
+    def batches(self, epoch: int, start: int = 0):
+        """Yield epoch `epoch`'s batches from position `start` (the
+        mid-epoch resume entry point of the trainer)."""
+        for bucket, chunk in self.epoch_plan(epoch)[start:]:
+            yield self._make_batch(bucket, chunk)
+
+    def __iter__(self):
+        epoch, self._epoch = self._epoch, self._epoch + 1
+        return self.batches(epoch)
+
+
+def get_tts_datasets(path: Path, batch_size: int, r: int,
+                     max_mel_len: Optional[int],
+                     filter_attention: bool = True,
+                     filter_min_alignment: float = 0.5,
+                     filter_min_sharpness: float = 0.9,
+                     model_type: str = 'forward',
+                     mel_multiple: int = 128
+                     ) -> Tuple[BucketBatcher, BucketBatcher]:
+    """(train, val) BucketBatchers of the forward model (the reference's
+    get_tts_datasets). Multi-speaker datasets are not ported yet."""
+    if model_type != 'forward':
+        raise ValueError(f'model type {model_type!r} is not ported yet; '
+                         "only 'forward'")
+    path = Path(path)
+    if (path / 'speaker_dict.pkl').exists():
+        raise ValueError('multi-speaker datasets (speaker_dict.pkl) are not '
+                         'ported yet')
+    tokenizer = Tokenizer()
+    train_data = unpickle_binary(path / 'train_dataset.pkl')
+    val_data = unpickle_binary(path / 'val_dataset.pkl')
+    text_dict = unpickle_binary(path / 'text_dict.pkl')
+
+    train_data = filter_max_len(train_data, max_mel_len)
+    val_data = filter_max_len(val_data, max_mel_len)
+    train_len_original = len(train_data)
+    if filter_attention:
+        att_score_dict = unpickle_binary(path / 'att_score_dict.pkl')
+        train_data = filter_bad_attentions(train_data, att_score_dict,
+                                           filter_min_alignment,
+                                           filter_min_sharpness)
+        val_data = filter_bad_attentions(val_data, att_score_dict,
+                                         filter_min_alignment,
+                                         filter_min_sharpness)
+        print(f'Using {len(train_data)} train files. Filtered '
+              f'{train_len_original - len(train_data)} files due to bad '
+              f'attention!')
+
+    def batcher(data, shuffle):
+        ds = ForwardDataset(path, [i for i, _ in data], text_dict, tokenizer)
+        return BucketBatcher(ds, batch_size, r=r, mel_multiple=mel_multiple,
+                             shuffle=shuffle)
+    return batcher(train_data, True), batcher(val_data, False)
+
+
+class Prefetcher:
+    """Bounded background-thread prefetch over a batch iterable: `DEPTH`
+    batches in flight on one daemon thread, so disk reads and collation
+    overlap the device step. Exceptions propagate to the consumer;
+    iteration order is unchanged."""
+
+    DEPTH = 2
+    _DONE = object()
+
+    def __init__(self, iterable) -> None:
+        self.iterable = iterable
+
+    def __len__(self) -> int:
+        return len(self.iterable)
+
+    def __iter__(self):
+        q: 'queue.Queue' = queue.Queue(maxsize=self.DEPTH)
+
+        def worker():
+            try:
+                for item in self.iterable:
+                    q.put(item)
+            except BaseException as e:  # re-raised on the main thread
+                q.put(e)
+                return
+            q.put(self._DONE)
+
+        threading.Thread(target=worker, daemon=True).start()
+        while True:
+            item = q.get()
+            if item is self._DONE:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item

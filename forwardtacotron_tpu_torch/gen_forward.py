@@ -1,7 +1,7 @@
 """Text-to-speech CLI: text -> ForwardTacotron mel -> WaveRNN waveform.
 
     python -m forwardtacotron_tpu_torch.gen_forward -i "Hello world." \\
-        [--checkpoint tts.fjax] wavernn [--voc_checkpoint voc.fjax]
+        [--checkpoint tts.pt|tts.fjax] wavernn [--voc_checkpoint voc.fjax]
 
 The contract follows the JAX package's `gen_forward.py`: `-i`,
 `--checkpoint`, `--config`, `--alpha`, `--amp`, and the `wavernn`
@@ -29,6 +29,7 @@ from forwardtacotron_tpu_torch.models.wavernn import (OVERLAP, TARGET,
                                                       WaveRNN, vocode)
 from forwardtacotron_tpu_torch.text.cleaners import Cleaner
 from forwardtacotron_tpu_torch.text.tokenizer import Tokenizer
+from forwardtacotron_tpu_torch.utils.checkpoints import load_checkpoint
 from forwardtacotron_tpu_torch.weights import (forward_tacotron_state_dict,
                                                load_fjax, wavernn_state_dict)
 
@@ -50,14 +51,20 @@ def _seeded(build, seed: int):
 def load_tts(checkpoint: Optional[str], config: Dict[str, Any],
              device='cuda', seed: int = 0
              ) -> Tuple[ForwardTacotron, Dict[str, Any], int]:
-    """ForwardTacotron on `device` from a `.fjax` checkpoint, or with
-    seeded random weights from `config` when `checkpoint` is None."""
+    """ForwardTacotron on `device` from a checkpoint: a `.pt` written by
+    this package's trainer or a JAX `.fjax`. With `checkpoint` None the
+    weights are random, seeded, from `config`."""
     device = resolve_device(device)
     step = 0
-    if checkpoint is not None:
+    if checkpoint is not None and str(checkpoint).endswith('.pt'):
+        payload = load_checkpoint(checkpoint)
+        config, step = payload['config'], payload['step']
+        model = ForwardTacotron.from_config(config)
+        model.load_state_dict(payload['model'])
+    elif checkpoint is not None:
         if not str(checkpoint).endswith('.fjax'):
-            raise ValueError('only .fjax checkpoints are supported; '
-                             'torch .pt checkpoints are not ported yet')
+            raise ValueError('TTS checkpoints are .pt (this package) or '
+                             '.fjax (the JAX package)')
         payload = load_fjax(checkpoint)
         config, step = payload['config'], payload['step']
         model = ForwardTacotron.from_config(config)
@@ -121,8 +128,8 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Path]:
                         help='text to speak (default: every line of '
                              'sentences.txt)')
     parser.add_argument('--checkpoint', type=str, default=None,
-                        help='ForwardTacotron .fjax file (default: random '
-                             'weights from --seed)')
+                        help='ForwardTacotron .pt (this package) or .fjax '
+                             'file (default: random weights from --seed)')
     parser.add_argument('--config', metavar='FILE', default=None,
                         help='YAML config used without a checkpoint '
                              '(needs pyyaml; default: built-in config)')

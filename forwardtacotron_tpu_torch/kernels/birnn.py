@@ -47,12 +47,19 @@ def recurrence(cell: str, gi: torch.Tensor, w_hh: torch.Tensor,
                compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The BiRNN recurrence (see `ops/rnn.py:birnn_recurrence` for the
     contract). CUDA tensors launch the kernel; CPU tensors take the plain
-    version."""
+    version. The kernel's output carries no gradient, so CUDA inputs that
+    require grad under grad mode raise: the trainable path is
+    `ops/rnn.py:BiRNNTrain`, which `grouped_birnn` picks for them."""
     if gi.device.type == 'cpu':
         return birnn_recurrence(cell, gi, w_hh, b_hh, lengths,
                                 compute_dtype)
     if gi.device.type != 'cuda':
         raise ValueError(f'BiRNN kernel: unsupported device {gi.device}')
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (gi, w_hh, b_hh)):
+        raise RuntimeError('BiRNN kernel: inputs require grad, but the '
+                           'inference kernel would cut the graph; use '
+                           'ops/rnn.py:BiRNNTrain (kernels #2 and #3)')
     return _launch(cell, gi, w_hh, b_hh, lengths, compute_dtype)
 
 

@@ -1,5 +1,5 @@
-"""ForwardTacotron inference: series predictors, CBHG encoder, length
-regulator, BiLSTM decoder and CBHG postnet.
+"""ForwardTacotron: series predictors, CBHG encoder, length regulator,
+BiLSTM decoder and CBHG postnet.
 
 Mirrors `forwardtacotron_tpu/models/forward_tacotron.py` (the reference
 attribute names: embedding, prenet, dur_pred, pitch_pred, energy_pred,
@@ -10,6 +10,11 @@ recurrence (the fused 6-stream predictor GRU, both CBHG GRUs and the
 decoder LSTM) goes through the BiRNN kernel wrapper; `compute_dtype`
 selects its precision (bfloat16 weights and inputs with float32
 accumulation, or float32).
+
+`forward(batch)` is the teacher-forced forward of training (the JAX
+package's `__call__`), in train or eval mode by `self.training`. Under
+autograd its recurrences run the training kernels #2/#3; evaluation under
+`torch.no_grad()` runs the inference kernel #1.
 """
 from __future__ import annotations
 
@@ -30,11 +35,12 @@ PADDING_VALUE = -11.5129
 
 
 class SeriesPredictor(nn.Module):
-    """embed -> [conv5-relu-BN]x3 -> BiGRU -> Linear(1)."""
+    """embed -> [conv5-relu-BN-dropout]x3 -> BiGRU -> Linear(1)."""
 
     def __init__(self, num_chars: int, emb_dim: int, conv_dims: int,
-                 rnn_dims: int) -> None:
+                 rnn_dims: int, dropout: float) -> None:
         super().__init__()
+        self.dropout = nn.Dropout(dropout)
         self.embedding = nn.Embedding(num_chars, emb_dim)
         self.convs = nn.ModuleList([
             BatchNormConv(emb_dim if i == 0 else conv_dims, conv_dims, 5)
@@ -47,7 +53,7 @@ class SeriesPredictor(nn.Module):
                 compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
         h = time_mask(self.embedding(x), lengths)
         for conv in self.convs:
-            h = time_mask(conv(h), lengths)
+            h = time_mask(self.dropout(conv(h)), lengths)
         h = self.rnn(h, lengths=lengths, compute_dtype=compute_dtype)
         return self.lin(h)[..., 0] / alpha
 
@@ -72,9 +78,7 @@ class ForwardTacotron(nn.Module):
         if n_speakers > 1:
             raise ValueError('multi-speaker ForwardTacotron (n_speakers > 1) '
                              'is not ported yet')
-        # dropout rates are training-only; inference ignores them
-        del durpred_dropout, pitch_dropout, energy_dropout, prenet_dropout
-        del postnet_dropout, speaker_embed_dims
+        del speaker_embed_dims
         self.pitch_strength = pitch_strength
         self.energy_strength = energy_strength
         self.rnn_dims_series = (durpred_rnn_dims, pitch_rnn_dims,
@@ -84,13 +88,17 @@ class ForwardTacotron(nn.Module):
         self.prenet = CBHG(K=prenet_k, in_channels=embed_dims,
                            channels=prenet_dims,
                            proj_channels=[prenet_dims, embed_dims],
-                           num_highways=prenet_num_highways)
+                           num_highways=prenet_num_highways,
+                           dropout=prenet_dropout)
         self.dur_pred = SeriesPredictor(num_chars, series_embed_dims,
-                                        durpred_conv_dims, durpred_rnn_dims)
+                                        durpred_conv_dims, durpred_rnn_dims,
+                                        durpred_dropout)
         self.pitch_pred = SeriesPredictor(num_chars, series_embed_dims,
-                                          pitch_conv_dims, pitch_rnn_dims)
+                                          pitch_conv_dims, pitch_rnn_dims,
+                                          pitch_dropout)
         self.energy_pred = SeriesPredictor(num_chars, series_embed_dims,
-                                           energy_conv_dims, energy_rnn_dims)
+                                           energy_conv_dims, energy_rnn_dims,
+                                           energy_dropout)
         self.pitch_proj = nn.Conv1d(1, 2 * prenet_dims, 3, padding=1)
         self.energy_proj = nn.Conv1d(1, 2 * prenet_dims, 3, padding=1)
         self.lstm = BiRNN('lstm', 2 * prenet_dims, rnn_dims)
@@ -98,7 +106,8 @@ class ForwardTacotron(nn.Module):
         self.postnet = CBHG(K=postnet_k, in_channels=n_mels,
                             channels=postnet_dims,
                             proj_channels=[postnet_dims, n_mels],
-                            num_highways=postnet_num_highways)
+                            num_highways=postnet_num_highways,
+                            dropout=postnet_dropout)
         self.post_proj = nn.Linear(2 * postnet_dims, n_mels, bias=False)
         self.eval()
 
@@ -108,6 +117,30 @@ class ForwardTacotron(nn.Module):
         model_config['num_chars'] = len(phonemes)
         model_config['n_mels'] = config['dsp']['num_mels']
         return cls(**model_config)
+
+    # ------------------------------------------------ teacher-forced
+    def forward(self, batch: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+        """Teacher-forced forward of training (JAX `__call__`). batch: x
+        (B, Tx) int, mel (B, Tm, M), mel_len (B,), dur, pitch, energy
+        (B, Tx). The predictors and the encoder run unmasked over the
+        padded batch, the encoding is expanded by the ground-truth
+        durations to Tm frames, the decoder BiLSTM is cut at mel_len and
+        the postnet runs over the padded mel, as the reference does on
+        padded batches. Returns mel, mel_post, dur, pitch, energy."""
+        f32 = torch.float32
+        x, mel_len = batch['x'], batch['mel_len']
+        out = {name: pred(x, compute_dtype=f32) for name, pred in
+               (('dur', self.dur_pred), ('pitch', self.pitch_pred),
+                ('energy', self.energy_pred))}
+        h = self._encode(x, batch['pitch'], batch['energy'], None, f32)
+        h, _ = length_regulate(h, batch['dur'], batch['mel'].shape[1])
+        y = self.lstm(h, lengths=mel_len, pad_value=PADDING_VALUE,
+                      compute_dtype=f32)
+        out['mel'] = self.lin(y)
+        out['mel_post'] = self.post_proj(self.postnet(out['mel'],
+                                                      compute_dtype=f32))
+        return out
 
     # ---------------------------------------------------------- series
     def _series_fusable(self) -> bool:

@@ -4,8 +4,9 @@ Layout is time-major (B, T, C) at every public function, as in the JAX
 package; convolutions transpose to PyTorch's (B, C, T) internally.
 Parameter and buffer names are the reference's torch `state_dict` keys
 (e.g. `conv1d_bank.0.conv.weight`, `rnn.weight_hh_l0_reverse`), so a
-converted checkpoint loads with `strict=True`. Inference (eval mode)
-only.
+converted checkpoint loads with `strict=True`. In `train()` mode the
+batch norms normalize with batch statistics and the dropouts are live,
+as the JAX package's `train=True`.
 """
 from __future__ import annotations
 
@@ -57,7 +58,13 @@ class BiRNN(nn.Module):
 
 class BatchNormConv(nn.Module):
     """conv (no bias, 'same' padding) -> optional relu -> BatchNorm.
-    Even kernels produce one extra frame, which is trimmed."""
+    Even kernels produce one extra frame, which is trimmed.
+
+    In training mode the norm uses the batch's mean and biased variance
+    over (B, T) and moves the running statistics towards those same
+    values with momentum 0.1, as flax's BatchNorm (momentum 0.9) does.
+    `nn.BatchNorm1d` would store the unbiased variance instead, 3% larger
+    at 32 samples, so the update is written out here."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int,
                  relu: bool = True) -> None:
@@ -72,7 +79,16 @@ class BatchNormConv(nn.Module):
         h = self.conv(x.transpose(1, 2))[:, :, :seq_len]
         if self.relu:
             h = F.relu(h)
-        return self.bnorm(h).transpose(1, 2)
+        bn = self.bnorm
+        if not self.training:
+            return bn(h).transpose(1, 2)
+        var, mean = torch.var_mean(h, dim=(0, 2), unbiased=False)
+        with torch.no_grad():
+            bn.running_mean.mul_(1.0 - bn.momentum).add_(bn.momentum * mean)
+            bn.running_var.mul_(1.0 - bn.momentum).add_(bn.momentum * var)
+            bn.num_batches_tracked.add_(1)
+        h = (h - mean[:, None]) * torch.rsqrt(var[:, None] + bn.eps)
+        return (h * bn.weight[:, None] + bn.bias[:, None]).transpose(1, 2)
 
 
 class HighwayNetwork(nn.Module):
@@ -90,14 +106,18 @@ class HighwayNetwork(nn.Module):
 
 class CBHG(nn.Module):
     """Conv bank -> maxpool -> projections -> residual -> highways ->
-    BiGRU. With `lengths`, every stage is cut at each item's true length
-    (convs see zero padding, the maxpool sees -inf, the BiGRU reverses
-    from the true end), so a padded bucket computes the values of an
-    exact-length run."""
+    BiGRU, with dropout after the maxpool and after the first projection.
+    With `lengths`, every stage is cut at each item's true length (convs
+    see zero padding, the maxpool sees -inf, the BiGRU reverses from the
+    true end), so a padded bucket computes the values of an exact-length
+    run; without them padding flows through, as on the reference's padded
+    training batches."""
 
     def __init__(self, K: int, in_channels: int, channels: int,
-                 proj_channels: Sequence[int], num_highways: int) -> None:
+                 proj_channels: Sequence[int], num_highways: int,
+                 dropout: float) -> None:
         super().__init__()
+        self.dropout = nn.Dropout(dropout)
         self.conv1d_bank = nn.ModuleList(
             [BatchNormConv(in_channels, channels, k)
              for k in range(1, K + 1)])
@@ -118,8 +138,8 @@ class CBHG(nn.Module):
         x = torch.cat([conv(x) for conv in self.conv1d_bank], dim=-1)
         x = time_mask(x, lengths, fill=float('-inf'))
         x = F.max_pool1d(x.transpose(1, 2), 2, stride=1, padding=1)
-        x = time_mask(x.transpose(1, 2)[:, :seq_len], lengths)
-        x = time_mask(self.conv_project1(x), lengths)
+        x = self.dropout(time_mask(x.transpose(1, 2)[:, :seq_len], lengths))
+        x = self.dropout(time_mask(self.conv_project1(x), lengths))
         x = self.conv_project2(x) + residual
         x = time_mask(x, lengths)
         x = self.pre_highway(x)

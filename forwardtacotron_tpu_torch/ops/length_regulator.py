@@ -6,7 +6,10 @@
     out    = x[min(idx, T-1)], zero beyond the total length
 
 The output has a static `max_t` frames; the true mel lengths come back
-beside it. Forward only: the port has no training path yet.
+beside it. The output is differentiable in x: autograd's backward of the
+gather is a scatter-add over the frames of each phoneme (the JAX package
+computes the same sum as a one-hot matmul). Durations get no gradient:
+the frame map goes through rounding.
 """
 from __future__ import annotations
 

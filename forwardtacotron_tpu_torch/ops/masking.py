@@ -1,4 +1,5 @@
-"""Length masks over the time axis of (B, T, ...) tensors."""
+"""Length masks over the time axis of (B, T, ...) tensors, and the
+masked L1 loss of training."""
 from __future__ import annotations
 
 from typing import Optional
@@ -19,3 +20,15 @@ def time_mask(x: torch.Tensor, lengths: Optional[torch.Tensor],
     mask = pad_mask(lengths, x.shape[1])[:, :, None]
     return torch.where(mask, x, torch.full_like(x, fill))
 
+
+def masked_l1(x: torch.Tensor, target: torch.Tensor, lens: torch.Tensor
+              ) -> torch.Tensor:
+    """Mean absolute error over valid (t < len) positions, normalized by
+    the channel-expanded mask sum as the reference's MaskedL1 does.
+
+    x, target: (B, T, C) or (B, T); lens: (B,)."""
+    if x.dim() == 2:
+        x, target = x[..., None], target[..., None]
+    mask = pad_mask(lens, target.shape[1])[..., None].to(x.dtype)
+    loss = torch.sum(torch.abs(x * mask - target * mask))
+    return loss / torch.clamp(mask.sum() * x.shape[-1], min=1.0)

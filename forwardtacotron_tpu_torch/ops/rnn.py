@@ -11,6 +11,10 @@
   is `birnn_recurrence`: the plain version of the CUDA kernel in
   `kernels/birnn.py`, which `grouped_birnn` reaches through the kernel's
   wrapper (the kernel for CUDA tensors, this function for CPU ones).
+- Under autograd (grad mode on and an input that requires grad) the
+  recurrence is `BiRNNTrain` instead: the training forward and BPTT
+  kernels of `kernels/birnn_train.py`, whose plain versions are
+  `birnn_train_forward` and `birnn_train_backward`.
 
 Parameter dicts: {'w_ih': (NG*H, D), 'w_hh': (NG*H, H), 'b_ih': (NG*H,),
 'b_hh': (NG*H,)} with NG = 3 (GRU) or 4 (LSTM).
@@ -43,17 +47,6 @@ def gru_from_gates(gi: torch.Tensor, gh: torch.Tensor, h: torch.Tensor
     return (1.0 - z) * n + z * h
 
 
-def lstm_from_gates(gates: torch.Tensor, c: torch.Tensor):
-    """LSTM update from the summed gates (..., 4H); returns (h, c)."""
-    H = c.shape[-1]
-    i = torch.sigmoid(gates[..., :H])
-    f = torch.sigmoid(gates[..., H:2 * H])
-    g = torch.tanh(gates[..., 2 * H:3 * H])
-    o = torch.sigmoid(gates[..., 3 * H:])
-    c_new = f * c + i * g
-    return o * torch.tanh(c_new), c_new
-
-
 def stream_active(t: int, n_steps: int, n_streams: int,
                   lengths: torch.Tensor) -> torch.Tensor:
     """(S, B) bool: is stream s at step t inside its sequence? Even
@@ -63,6 +56,48 @@ def stream_active(t: int, n_steps: int, n_streams: int,
     bwd = t >= n_steps - lengths
     return torch.stack([fwd if s % 2 == 0 else bwd
                         for s in range(n_streams)])
+
+
+def _recurrence(cell, gi, w_hh, b_hh, lengths, compute_dtype, stash: bool):
+    T, B, S, _ = gi.shape
+    H = w_hh.shape[-1]
+    lstm = n_gates(cell) == 4
+    w = w_hh.float()
+    b = b_hh.float()[:, None, :]
+    h = gi.new_zeros((S, B, H), dtype=torch.float32)
+    c = torch.zeros_like(h)
+    ys, stashes = [], []
+    for t in range(T):
+        hq = h.to(compute_dtype).float()
+        gh = torch.einsum('sbh,sgh->sbg', hq, w) + b
+        g = gi[t].float().transpose(0, 1)                 # (S, B, NG*H)
+        if lstm:
+            gates = g + gh
+            i = torch.sigmoid(gates[..., :H])
+            f = torch.sigmoid(gates[..., H:2 * H])
+            gg = torch.tanh(gates[..., 2 * H:3 * H])
+            o = torch.sigmoid(gates[..., 3 * H:])
+            c_new = f * c + i * gg
+            h_new = o * torch.tanh(c_new)
+            saved = (i, f, gg, o, c)
+        else:
+            r = torch.sigmoid(g[..., :H] + gh[..., :H])
+            z = torch.sigmoid(g[..., H:2 * H] + gh[..., H:2 * H])
+            n = torch.tanh(g[..., 2 * H:] + r * gh[..., 2 * H:])
+            h_new = (1.0 - z) * n + z * h
+            saved = (r, z, n, gh[..., 2 * H:], h)
+        if stash:
+            stashes.append(torch.stack(saved, dim=2))     # (S, B, 5, H)
+        active = stream_active(t, T, S, lengths)[..., None]
+        h = torch.where(active, h_new, h)
+        if lstm:
+            c = torch.where(active, c_new, c)
+        ys.append(h)
+    y = torch.stack(ys).permute(0, 2, 1, 3).contiguous()
+    if not stash:
+        return y, None
+    st = torch.stack(stashes).transpose(1, 2).to(compute_dtype).contiguous()
+    return y, st
 
 
 def birnn_recurrence(cell: str, gi: torch.Tensor, w_hh: torch.Tensor,
@@ -79,28 +114,141 @@ def birnn_recurrence(cell: str, gi: torch.Tensor, w_hh: torch.Tensor,
     before each product, which accumulates in float32, exactly as the
     kernel does. Returns y (T, B, S, H) float32: the state after each
     step (held, not updated, at inactive steps)."""
-    T, B, S, _ = gi.shape
-    H = w_hh.shape[-1]
+    return _recurrence(cell, gi, w_hh, b_hh, lengths, compute_dtype,
+                       stash=False)[0]
+
+
+def birnn_train_forward(cell: str, gi: torch.Tensor, w_hh: torch.Tensor,
+                        b_hh: torch.Tensor, lengths: torch.Tensor,
+                        compute_dtype: torch.dtype = torch.float32):
+    """Plain version of the training forward kernel: `birnn_recurrence`
+    (same arguments, same y) that also returns the stash (T, B, S, 5, H)
+    in `compute_dtype`: per stream and step the values the backward needs,
+    GRU r, z, n, gh_n (the hidden n-gate with its bias), h_prev; LSTM i,
+    f, g, o, c_prev. Inactive steps stash what the step computed; the
+    backward ignores them."""
+    return _recurrence(cell, gi, w_hh, b_hh, lengths, compute_dtype,
+                       stash=True)
+
+
+def birnn_train_backward(cell: str, stash: torch.Tensor, dy: torch.Tensor,
+                         w_hh: torch.Tensor, lengths: torch.Tensor,
+                         compute_dtype: torch.dtype = torch.float32):
+    """Plain version of the BPTT kernel: one reversed walk over the steps
+    of every stream.
+
+    stash (T, B, S, 5, H) from the training forward; dy (T, B, S, H)
+    float32, the gradient of y; w_hh and lengths as in the forward.
+    Returns (dgi, dgh), each (T, B, S, NG*H) in `compute_dtype`: the
+    gradients of the input gates gi and of the hidden gates
+    gh = W_hh h + b_hh. They differ only in the GRU n gate, where the
+    reset gate scales the hidden path (dgh_n = dgi_n * r); for LSTM they
+    are one tensor. At inactive steps both are zero and dh (and dc) pass
+    through unchanged. dgh is rounded to `compute_dtype` before its
+    product with W_hh, which accumulates in float32."""
+    T, B, S, _, H = stash.shape
     lstm = n_gates(cell) == 4
     w = w_hh.float()
-    b = b_hh.float()[:, None, :]
-    h = gi.new_zeros((S, B, H), dtype=torch.float32)
-    c = torch.zeros_like(h)
-    ys = []
-    for t in range(T):
-        hq = h.to(compute_dtype).float()
-        gh = torch.einsum('sbh,sgh->sbg', hq, w) + b
-        g = gi[t].float().transpose(0, 1)                 # (S, B, NG*H)
-        if lstm:
-            h_new, c_new = lstm_from_gates(g + gh, c)
-        else:
-            h_new = gru_from_gates(g, gh, h)
+    dh = dy.new_zeros((S, B, H), dtype=torch.float32)
+    dc = torch.zeros_like(dh)
+    dgis, dghs = [None] * T, [None] * T
+    for t in reversed(range(T)):
+        parts = stash[t].float().transpose(0, 1).unbind(2)   # 5 x (S, B, H)
+        dh = dh + dy[t].float().transpose(0, 1)
         active = stream_active(t, T, S, lengths)[..., None]
-        h = torch.where(active, h_new, h)
         if lstm:
-            c = torch.where(active, c_new, c)
-        ys.append(h)
-    return torch.stack(ys).permute(0, 2, 1, 3).contiguous()
+            i, f, g, o, c_prev = parts
+            tc = torch.tanh(f * c_prev + i * g)
+            dct = dh * o * (1.0 - tc * tc) + dc
+            dpre = torch.cat([dct * g * i * (1.0 - i),
+                              dct * c_prev * f * (1.0 - f),
+                              dct * i * (1.0 - g * g),
+                              dh * tc * o * (1.0 - o)], dim=-1)
+            dgi_t = dgh_t = torch.where(active, dpre, torch.zeros_like(dpre))
+            dh_prev = torch.einsum('sbg,sgh->sbh',
+                                   dgh_t.to(compute_dtype).float(), w)
+            dc = torch.where(active, dct * f, dc)
+        else:
+            r, z, n, gh_n, h_prev = parts
+            dpre_n = dh * (1.0 - z) * (1.0 - n * n)
+            dpre_r = dpre_n * gh_n * r * (1.0 - r)
+            dpre_z = dh * (h_prev - n) * z * (1.0 - z)
+            zero = torch.zeros_like(dpre_n)
+            dgi_t = torch.cat([torch.where(active, v, zero)
+                               for v in (dpre_r, dpre_z, dpre_n)], dim=-1)
+            dgh_t = torch.cat([torch.where(active, v, zero)
+                               for v in (dpre_r, dpre_z, dpre_n * r)], dim=-1)
+            dh_prev = dh * z + torch.einsum(
+                'sbg,sgh->sbh', dgh_t.to(compute_dtype).float(), w)
+        dh = torch.where(active, dh_prev, dh)
+        dgis[t], dghs[t] = dgi_t, dgh_t
+    dgi = torch.stack(dgis).transpose(1, 2).to(compute_dtype).contiguous()
+    if lstm:
+        return dgi, dgi
+    dgh = torch.stack(dghs).transpose(1, 2).to(compute_dtype).contiguous()
+    return dgi, dgh
+
+
+def _valid_steps(n_steps: int, n_streams: int,
+                 lengths: torch.Tensor) -> torch.Tensor:
+    """(T, B, S) bool: `stream_active` for every step at once."""
+    ts = torch.arange(n_steps, device=lengths.device)[:, None]
+    fwd = ts < lengths[None, :]
+    bwd = ts >= n_steps - lengths[None, :]
+    return torch.stack([fwd if s % 2 == 0 else bwd
+                        for s in range(n_streams)], dim=2)
+
+
+class BiRNNTrain(torch.autograd.Function):
+    """The BiRNN recurrence under autograd: (gi, w_hh, b_hh) -> y, with the
+    arguments and result of `birnn_recurrence`.
+
+    The forward runs the training forward kernel (#2,
+    `kernels/birnn_train.py:train_forward`) and keeps its stash; the
+    backward runs the BPTT kernel (#3, `train_backward`), then forms
+    dW_hh = sum over steps and lanes of dghᵀ h_prev and db_hh = sum of dgh
+    as whole-sequence products, as the JAX package's `birnn_train` does
+    outside Pallas. h_prev is stash slot 4 for GRU; for LSTM it is rebuilt
+    as o*tanh(f*c_prev + i*g), zeroed at inactive steps and shifted one
+    step. The boundary is the recurrence alone: autograd differentiates
+    the input projection and the stream flips around it
+    (`grouped_birnn`). CPU tensors take the plain versions."""
+
+    @staticmethod
+    def forward(ctx, cell, gi, w_hh, b_hh, lengths, compute_dtype):
+        from forwardtacotron_tpu_torch.kernels.birnn_train import (
+            train_forward)
+        y, stash = train_forward(cell, gi, w_hh, b_hh, lengths,
+                                 compute_dtype)
+        ctx.save_for_backward(stash, w_hh, lengths)
+        ctx.cell, ctx.compute_dtype = cell, compute_dtype
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        from forwardtacotron_tpu_torch.kernels.birnn_train import (
+            train_backward)
+        stash, w_hh, lengths = ctx.saved_tensors
+        dgi, dgh = train_backward(ctx.cell, stash, dy.float().contiguous(),
+                                  w_hh, lengths, ctx.compute_dtype)
+        need_w, need_b = ctx.needs_input_grad[2:4]
+        dw = db = None
+        if need_w or need_b:
+            dgh = dgh.float()
+            db = dgh.sum(dim=(0, 1))
+        if need_w:
+            T, _, S = stash.shape[:3]
+            st = stash.float()
+            if ctx.cell == 'lstm':
+                i, f, g, o, c_prev = st.unbind(3)
+                h = o * torch.tanh(f * c_prev + i * g)
+                h = torch.where(_valid_steps(T, S, lengths)[..., None], h,
+                                torch.zeros_like(h))
+                h_prev = torch.cat([torch.zeros_like(h[:1]), h[:-1]])
+            else:
+                h_prev = st[:, :, :, 4]
+            dw = torch.einsum('tbsg,tbsh->sgh', dgh, h_prev).to(w_hh.dtype)
+        return None, dgi, dw, db, None, None
 
 
 def grouped_birnn(cell: str, w_ih: torch.Tensor, w_hh: torch.Tensor,
@@ -135,8 +283,13 @@ def grouped_birnn(cell: str, w_ih: torch.Tensor, w_hh: torch.Tensor,
     gi = gi.transpose(0, 1).reshape(T, B, 2 * G, GH)
     gi = gi.to(compute_dtype).contiguous()
     w = w_hh.transpose(0, 1).reshape(2 * G, GH, H).to(compute_dtype)
-    y = recurrence(cell, gi, w.contiguous(), b_rec.contiguous(), lengths,
-                   compute_dtype)                         # (T, B, 2G, H)
+    args = (cell, gi, w.contiguous(), b_rec.contiguous(), lengths,
+            compute_dtype)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args[1:4]):
+        y = BiRNNTrain.apply(*args)                       # kernels #2, #3
+    else:
+        y = recurrence(*args)                             # kernel #1
+    # y: (T, B, 2G, H)
     y = y.reshape(T, B, G, 2, H)
     y = torch.stack([y[:, :, :, 0], y[:, :, :, 1].flip(0)], dim=3)
     y = y.permute(1, 0, 2, 3, 4)                          # (B, T, G, 2, H)

@@ -1,0 +1,201 @@
+"""ForwardTacotron student trainer.
+
+Mirrors the JAX package's `train/forward_trainer.py` (the reference's
+trainer/forward_trainer.py): progressive (lr, max_step, batch size)
+schedule sessions, epoch-seeded bucket batches with mid-epoch resume, the
+masked-L1 losses, metrics read one step late, `evaluate()` in eval mode at
+the end of every epoch, and `latest_model.pt` / `forward_step{k}k.pt`
+checkpoints. Scalars go to stdout, and to an optional `writer` with an
+`add_scalar(tag, value, step)` method. Not ported yet: plots and audio
+(`plot_every` is ignored), top-k checkpoints, the background checkpoint
+writer (checkpoints are written in the step loop).
+"""
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from forwardtacotron_tpu_torch import resolve_device
+from forwardtacotron_tpu_torch.data.dataset import (Prefetcher,
+                                                    get_tts_datasets)
+from forwardtacotron_tpu_torch.train import common as tc
+from forwardtacotron_tpu_torch.utils.checkpoints import save_checkpoint
+from forwardtacotron_tpu_torch.utils.files import parse_schedule
+from forwardtacotron_tpu_torch.utils.paths import Paths
+
+BATCH_KEYS = ('x', 'x_len', 'mel', 'mel_len', 'dur', 'pitch', 'energy')
+
+
+def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, Any]:
+    return {k: torch.from_numpy(np.asarray(batch[k])).to(device,
+                                                         non_blocking=True)
+            for k in BATCH_KEYS}
+
+
+class ForwardTrainer:
+
+    def __init__(self, paths: Paths, config: Dict[str, Any],
+                 device='cuda', writer=None) -> None:
+        if config.get('tts_model', 'forward_tacotron') != 'forward_tacotron':
+            raise ValueError(f"tts_model {config['tts_model']!r} is not "
+                             'ported yet')
+        self.paths = paths
+        self.config = config
+        self.device = resolve_device(device)
+        self.train_cfg = config['forward_tacotron']['training']
+        tc.check_supported(self.train_cfg)
+        self.writer = writer
+        self.preemption = tc.Preemption()
+
+    def _scalar(self, tag: str, value: float, step: int) -> None:
+        if self.writer is not None:
+            self.writer.add_scalar(tag, value, step)
+
+    def _save(self, model, optimizer, name: str, step: int) -> None:
+        save_checkpoint(model, optimizer, self.config,
+                        self.paths.forward_checkpoints / name, step)
+
+    def train(self, model: torch.nn.Module,
+              optimizer: Optional[torch.optim.Optimizer] = None,
+              step: int = 0, seed: int = 42,
+              max_steps_override: Optional[int] = None) -> int:
+        """Run the schedule from `step` on the trainer's device; the model
+        and optimizer are updated in place. Returns the final step."""
+        model.to(self.device)
+        if optimizer is None:
+            optimizer = tc.make_optimizer(model)
+        schedule = parse_schedule(self.train_cfg['schedule'])
+        session_start = 0
+        with self.preemption:
+            for i, (lr, max_step, bs) in enumerate(schedule, 1):
+                prev_max, session_start = session_start, max_step
+                if self.preemption.requested:
+                    break
+                if max_steps_override is not None:
+                    max_step = min(max_step, max_steps_override)
+                if step >= max_step:
+                    continue
+                train_set, val_set = get_tts_datasets(
+                    path=self.paths.data, batch_size=bs, r=1,
+                    model_type='forward',
+                    max_mel_len=self.train_cfg['max_mel_len'],
+                    filter_attention=self.train_cfg['filter_attention'],
+                    filter_min_alignment=self.train_cfg[
+                        'min_attention_alignment'],
+                    filter_min_sharpness=self.train_cfg[
+                        'min_attention_sharpness'])
+                if len(train_set) == 0:
+                    raise RuntimeError(
+                        'No training items left after filtering: check '
+                        'attention scores (filter_attention) and '
+                        'max_mel_len.')
+                session = tc.TTSSession(index=i, r=1, lr=lr,
+                                        max_step=max_step, bs=bs,
+                                        train_set=train_set, val_set=val_set,
+                                        start_step=prev_max)
+                step = self.train_session(model, optimizer, step, session,
+                                          seed)
+        return step
+
+    def train_session(self, model, optimizer, step: int,
+                      session: tc.TTSSession, seed: int) -> int:
+        total_iters = len(session.train_set)
+        epoch0, offset0 = tc.resume_position(step, session.start_step,
+                                             total_iters)
+        epochs = max((session.max_step - step + offset0)
+                     // max(total_iters, 1) + 1, 1)
+        print(f'| Session {session.index}: {session.max_step - step} steps, '
+              f'batch size {session.bs}, learning rate {session.lr}, '
+              f'device {self.device}')
+        tc.set_learning_rate(optimizer, session.lr)
+        m_loss_avg, dur_loss_avg = tc.Averager(), tc.Averager()
+        duration_avg, pitch_loss_avg = tc.Averager(), tc.Averager()
+        last_t = time.time()
+
+        def flush_metrics(metrics, pstep, pe, pi, mel_shape) -> None:
+            nonlocal last_t
+            values = {k: float(v) for k, v in metrics.items()}  # waits
+            m_loss_avg.add(values['mel_loss'])
+            dur_loss_avg.add(values['dur_loss'])
+            pitch_loss_avg.add(values['pitch_loss'])
+            now = time.time()
+            duration_avg.add(now - last_t)
+            last_t = now
+            speed = 1.0 / max(duration_avg.get(), 1e-9)
+            print(f'| Epoch: {pe}/{epochs} ({pi}/{total_iters}) '
+                  f'| Mel Loss: {m_loss_avg.get():#.4} '
+                  f'| Dur Loss: {dur_loss_avg.get():#.4} '
+                  f'| Pitch Loss: {pitch_loss_avg.get():#.4} '
+                  f'| {speed:#.2} steps/s | Step: {pstep} | ', flush=True)
+            self._scalar('Perf/steps_per_sec', speed, pstep)
+            self._scalar('Perf/mel_frames_per_sec',
+                         speed * mel_shape[0] * mel_shape[1], pstep)
+            for name, key in (('Mel_Loss', 'mel_loss'),
+                              ('Pitch_Loss', 'pitch_loss'),
+                              ('Energy_Loss', 'energy_loss'),
+                              ('Duration_Loss', 'dur_loss')):
+                self._scalar(f'{name}/train', values[key], pstep)
+            self._scalar('Params/batch_size', session.bs, pstep)
+            self._scalar('Params/learning_rate', session.lr, pstep)
+
+        deferred = tc.DeferredFlush(flush_metrics)
+        for e in range(1, epochs + 1):
+            epoch = epoch0 + e - 1
+            start = offset0 if epoch == epoch0 else 0
+            batches = Prefetcher(session.train_set.batches(epoch, start))
+            for i, batch in enumerate(batches, start + 1):
+                # zoneout draws from (seed, step): a resumed run draws the
+                # same masks
+                gen = torch.Generator(device=self.device).manual_seed(
+                    seed * 1_000_003 + step)
+                metrics = tc.train_step(model, optimizer,
+                                        batch_to_device(batch, self.device),
+                                        gen, self.train_cfg)
+                step += 1
+                deferred.push(metrics, step, e, i, batch['mel'].shape[:2])
+                if step % self.train_cfg['checkpoint_every'] == 0:
+                    self._save(model, optimizer,
+                               f'forward_step{step // 1000}k.pt', step)
+                if self.preemption.requested:
+                    print('| Preemption requested: saving latest_model and '
+                          'stopping.')
+                    break
+                if step >= session.max_step:
+                    break
+            else:
+                deferred.flush()
+                val = self.evaluate(model, session.val_set)
+                print(f'| Validation at step {step}: ' + ', '.join(
+                    f'{k} {v:#.4}' for k, v in val.items()))
+                for name, key in (('Mel_Loss', 'mel_loss'),
+                                  ('Duration_Loss', 'dur_loss'),
+                                  ('Pitch_Loss', 'pitch_loss'),
+                                  ('Energy_Loss', 'energy_loss')):
+                    self._scalar(f'{name}/val', val[key], step)
+                self._save(model, optimizer, 'latest_model.pt', step)
+                m_loss_avg.reset()
+                duration_avg.reset()
+                pitch_loss_avg.reset()
+                last_t = time.time()
+                continue
+            break  # max_step reached or preempted
+        deferred.flush()
+        self._save(model, optimizer, 'latest_model.pt', step)
+        return step
+
+    def evaluate(self, model: torch.nn.Module, val_set) -> Dict[str, float]:
+        """Mean loss metrics over the validation batches, eval mode, no
+        gradient (so the recurrences run the inference kernel)."""
+        totals = {'mel_loss': 0.0, 'dur_loss': 0.0, 'pitch_loss': 0.0,
+                  'energy_loss': 0.0}
+        n = 0
+        for batch in val_set:
+            metrics = tc.eval_step(model, batch_to_device(batch, self.device),
+                                   self.train_cfg)
+            for k in totals:
+                totals[k] += float(metrics[k])
+            n += 1
+        return {k: v / max(n, 1) for k, v in totals.items()}

@@ -6,8 +6,10 @@ Run them on a CUDA machine with
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda -q
 
 Tolerances: float32 at atol 1e-4 (summation order differs); bfloat16
-at atol 2e-2 (a bf16 rounding flip of h moves a step by one bf16 ulp);
-greedy sampling trajectories agree on > 95% of samples.
+at atol 2e-2 for the inference kernel (a bf16 rounding flip of h moves a
+step by one bf16 ulp), relative to the largest plain value for the
+training kernels (see test_train_kernels_match_plain); greedy sampling
+trajectories agree on > 95% of samples.
 """
 import pytest
 import torch
@@ -25,7 +27,9 @@ def cuda():
 
 @pytest.mark.parametrize('cell,H,S,B', [('lstm', 256, 2, 3),
                                         ('gru', 128, 6, 1),
-                                        ('gru', 96, 2, 2)])
+                                        ('gru', 96, 2, 2),
+                                        ('lstm', 512, 2, 32),
+                                        ('gru', 64, 2, 32)])
 @pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
 def test_birnn_kernel_matches_plain(cuda, cell, H, S, B, dtype, tol):
@@ -38,7 +42,8 @@ def test_birnn_kernel_matches_plain(cuda, cell, H, S, B, dtype, tol):
          / H ** 0.5).to(dtype)
     b = torch.zeros((S, ng * H)) if cell == 'lstm' else \
         torch.rand((S, ng * H), generator=g) * 0.1
-    lengths = torch.tensor([T - 9 * i for i in range(B)], dtype=torch.int32)
+    lengths = torch.tensor([T - 9 * i % T for i in range(B)],
+                           dtype=torch.int32)
     args = [t.to(cuda).contiguous() for t in (gi, w, b, lengths)]
     before = recurrence.launches
     y = recurrence(cell, *args, dtype)
@@ -65,3 +70,124 @@ def test_sampler_kernel_matches_plain(cuda, mode):
     s1 = ws.sample(cond, w, 5, nr_mix, False, f32)
     s2 = ws.sample(cond, w, 5, nr_mix, False, f32)
     assert torch.equal(s1, s2) and bool((s1.abs() <= 1).all())
+
+
+def _train_inputs(cell, T, B, S, H, dtype, seed, device):
+    g = torch.Generator().manual_seed(seed)
+    ng = 4 if cell == 'lstm' else 3
+    gi = (torch.randn((T, B, S, ng * H), generator=g) * 0.5).to(dtype)
+    w = ((torch.rand((S, ng * H, H), generator=g) * 2 - 1)
+         / H ** 0.5).to(dtype)
+    b = torch.zeros((S, ng * H)) if cell == 'lstm' else \
+        torch.rand((S, ng * H), generator=g) * 0.1
+    lengths = torch.tensor([T - 9 * i % T for i in range(B)],
+                           dtype=torch.int32)
+    dy = torch.randn((T, B, S, H), generator=g)
+    return [t.to(device).contiguous() for t in (gi, w, b, lengths, dy)]
+
+
+@pytest.mark.parametrize('cell,H,S,B', [('lstm', 256, 2, 5),
+                                        ('gru', 128, 2, 6),
+                                        ('gru', 64, 2, 33),
+                                        ('gru', 96, 6, 2)])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_train_kernels_match_plain(cuda, cell, H, S, B, dtype):
+    """Kernel #2 (y, stash) and #3 (dgi, dgh) against their plain
+    versions on the same inputs: float32 at atol 1e-4; bf16 relative to
+    the largest plain value, at 2^-7 for the outputs stored in bf16
+    (stash, dgi, dgh: one rounding flip) and 2e-3 for y, with a relative
+    L2 error of at most 2^-8."""
+    from forwardtacotron_tpu_torch.kernels.birnn_train import (
+        train_backward, train_forward)
+    from forwardtacotron_tpu_torch.ops.rnn import (birnn_train_backward,
+                                                   birnn_train_forward)
+    bf16_rel = {'y': 2e-3, 'stash': 2.0 ** -7, 'dgi': 2.0 ** -7,
+                'dgh': 2.0 ** -7}
+    gi, w, b, lengths, dy = _train_inputs(cell, 70, B, S, H, dtype, H + B,
+                                          cuda)
+    n_fwd, n_bwd = train_forward.launches, train_backward.launches
+    y, st = train_forward(cell, gi, w, b, lengths, dtype)
+    dgi, dgh = train_backward(cell, st, dy, w, lengths, dtype)
+    assert (train_forward.launches, train_backward.launches) == \
+        (n_fwd + 1, n_bwd + 1)
+    y_p, st_p = birnn_train_forward(cell, gi, w, b, lengths, dtype)
+    dgi_p, dgh_p = birnn_train_backward(cell, st, dy, w, lengths, dtype)
+    for name, got, ref in (('y', y, y_p), ('stash', st, st_p),
+                           ('dgi', dgi, dgi_p), ('dgh', dgh, dgh_p)):
+        diff = got.float() - ref.float()
+        err = float(diff.abs().max())
+        if dtype == torch.float32:
+            assert err <= 1e-4, (name, err)
+        else:
+            assert err <= bf16_rel[name] * float(ref.float().abs().max()), \
+                (name, err)
+            assert float(diff.norm() / ref.float().norm()) <= 2.0 ** -8, name
+
+
+@pytest.mark.parametrize('cell', ['lstm', 'gru'])
+def test_train_function_grads_match_autograd(cuda, cell):
+    """BiRNNTrain (kernels #2/#3 plus the weight-gradient products) against
+    autograd through the plain recurrence, float32."""
+    from forwardtacotron_tpu_torch.ops.rnn import (BiRNNTrain,
+                                                   birnn_recurrence)
+    gi, w, b, lengths, dy = _train_inputs(cell, 50, 4, 2, 64, torch.float32,
+                                          3, cuda)
+    inputs = [gi.requires_grad_(), w.requires_grad_()]
+    if cell == 'gru':
+        inputs.append(b.requires_grad_())
+    y = BiRNNTrain.apply(cell, gi, w, b, lengths, torch.float32)
+    grads = torch.autograd.grad(y, inputs, dy)
+    y_ref = birnn_recurrence(cell, gi, w, b, lengths, torch.float32)
+    refs = torch.autograd.grad(y_ref, inputs, dy)
+    assert float((y - y_ref).detach().abs().max()) <= 1e-4
+    for got, ref in zip(grads, refs):
+        torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-5)
+
+
+def test_inference_kernel_refuses_grad(cuda):
+    """The inference kernel's output has no grad_fn: under autograd the
+    wrapper raises instead of silently cutting the graph."""
+    from forwardtacotron_tpu_torch.kernels.birnn import recurrence
+    gi, w, b, lengths, _ = _train_inputs('gru', 20, 2, 2, 32, torch.float32,
+                                         1, cuda)
+    w.requires_grad_()
+    with pytest.raises(RuntimeError, match='require grad'):
+        recurrence('gru', gi, w, b, lengths, torch.float32)
+    with torch.no_grad():
+        recurrence('gru', gi, w, b, lengths, torch.float32)
+
+
+def test_full_width_step_gives_every_parameter_a_gradient(cuda):
+    """One train step of the full-width ForwardTacotron on the card: its
+    six recurrences go through kernels #2/#3, and every parameter gets a
+    finite, nonzero gradient (none is cut off by a detached kernel)."""
+    import numpy as np
+    from forwardtacotron_tpu_torch.config import default_config
+    from forwardtacotron_tpu_torch.kernels.birnn_train import (
+        train_backward, train_forward)
+    from forwardtacotron_tpu_torch.models.forward_tacotron import (
+        ForwardTacotron)
+    from forwardtacotron_tpu_torch.train import common as tc
+    cfg = default_config()
+    torch.manual_seed(0)
+    model = ForwardTacotron.from_config(cfg).to(cuda)
+    rng = np.random.RandomState(0)
+    B, tx = 4, 40
+    x = torch.tensor(rng.randint(1, 60, (B, tx)))
+    dur = torch.tensor(rng.randint(1, 6, (B, tx)), dtype=torch.float32)
+    mel_len = dur.sum(1).long()
+    batch = {'x': x, 'x_len': torch.full((B,), tx), 'dur': dur,
+             'mel': torch.randn(B, int(mel_len.max()) + 1, 80),
+             'mel_len': mel_len, 'pitch': torch.randn(B, tx),
+             'energy': torch.randn(B, tx)}
+    batch = {k: v.to(cuda) for k, v in batch.items()}
+    before = (train_forward.launches, train_backward.launches)
+    tc.train_step(model, tc.make_optimizer(model), batch,
+                  torch.Generator(device=cuda).manual_seed(0),
+                  cfg['forward_tacotron']['training'])
+    assert (train_forward.launches - before[0],
+            train_backward.launches - before[1]) == (6, 6)
+    for name, p in model.named_parameters():
+        assert p.grad is not None, name
+        assert bool(torch.isfinite(p.grad).all()), name
+        assert float(p.grad.abs().max()) > 0, name

@@ -94,11 +94,14 @@ def test_builtin_config_equals_config_yaml():
     with open(ROOT / 'config.yaml', encoding='utf-8') as f:
         ref = yaml.safe_load(f)
     cfg = default_config()
-    assert cfg['tts_model'] == ref['tts_model']
+    for key in ('tts_model', 'data_path', 'tts_model_id', 'voc_model_id'):
+        assert cfg[key] == ref[key], key
     for section in ('dsp', 'preprocessing'):
         assert cfg[section] == ref[section], section
     for section in ('forward_tacotron', 'vocoder'):
         assert cfg[section]['model'] == ref[section]['model'], section
+    assert cfg['forward_tacotron']['training'] == \
+        ref['forward_tacotron']['training']
 
 
 def test_token_ids_equal_jax_front_end():
