@@ -16,7 +16,9 @@ printed only when every phase passed):
    T=896 ragged, CBHG GRUs H=256 at T=896 and T=176, predictor GRUs
    H=128/64 T=176; float32 at atol 1e-4);
 4. WaveRNN sampling kernel against its plain version (RAW greedy float32
-   at 64 lanes x 3850 steps, MOL greedy, RAW sampled, lane groups);
+   at 64 lanes x 3850 steps and at 128 lanes x 600 steps, MOL greedy, RAW
+   sampled, same seed same samples, lane groups), timed in bfloat16 at 1,
+   8, 64 and 128 lanes x 3850 steps;
 5. the main path at the full width of config.yaml with random weights:
    `gen_forward.main` on three lines of sentences.txt (text -> ids ->
    generate -> vocode -> int16 wav), with the kernels' launch counts
@@ -25,15 +27,18 @@ printed only when every phase passed):
    decoder against the CPU plain path;
 6. BiRNN training kernels (forward with stash, BPTT) against their plain
    versions at the training path's shapes (B=32: decoder LSTM H=512
-   T=1024 ragged, postnet GRU H=256 T=1024, predictor GRUs H=128/64
-   T=192; float32 at atol 1e-4; bfloat16 at 2^-7 of the largest plain
-   value for the outputs stored in bfloat16 (stash, dgi, dgh), 2e-3 for
-   y, and a relative L2 error of at most 2^-8), with timings beside
-   cuDNN's nn.LSTM/nn.GRU;
+   T=1024 ragged, postnet GRU H=256 T=1024, prenet GRU H=256 T=192,
+   predictor GRUs H=128/64 T=192; float32 at atol 1e-4; bfloat16 at 2^-7
+   of the largest plain value for the outputs stored in bfloat16 (stash,
+   dgi, dgh), 2e-3 for y, and a relative L2 error of at most 2^-8), with
+   the forward's path (`train_forward_plan`), timings beside cuDNN's
+   nn.LSTM/nn.GRU, and, where the batch-split path is planned, the
+   cooperative path timed on the same inputs;
 7. the training path at full width: `ForwardTrainer.train` for 6 steps at
    batch 32 on a synthetic LJSpeech-like dataset, counts reset just
    before and read just after (kernels #2/#3), then one `evaluate()`
-   (kernel #1); losses finite, every parameter moved, the checkpoint
+   (kernel #1); the three predictor BiGRUs of every step on the
+   batch-split path of #2; losses finite, every parameter moved, the checkpoint
    served by `gen_forward`; ms per step split into forward, backward and
    optimizer; float32 gradients on the card against the CPU plain path;
 8. a {"kernels": [...]} JSON line, the nvidia-smi line, and last
@@ -309,6 +314,34 @@ def wavernn_cases():
         f'({out["bound_by"]})')
     out['max_abs_err'] = out['raw_greedy_f32_max_abs_err']
 
+    # 128 lanes (MAX_LANES) x 600 steps: greedy float32 against the plain
+    # version, and same seed, same samples in bf16
+    model128, mels128, aux128 = _wavernn_inputs('RAW', 128, 600, seed=4)
+    w32 = ws.pack_weights(model128, f32)
+    cond128 = ws.compact_cond(mels128, aux128, f32)
+    k = ws.sample(cond128, w32, 0, 0, True, f32)
+    p = ws.sample_plain(cond128, w32, 0, 0, True, f32)
+    agree = float(((k - p).abs() < 1e-6).float().mean())
+    check(agree > 0.95, f'RAW greedy f32 128x600: class agreement '
+                        f'{agree:.4f} > 0.95')
+    out['raw_greedy_f32_128_agreement'] = agree
+    cbf = ws.compact_cond(mels128, aux128, bf16)
+    w128 = ws.pack_weights(model128, bf16)
+    check(torch.equal(ws.sample(cbf, w128, 9, 0, False, bf16),
+                      ws.sample(cbf, w128, 9, 0, False, bf16)),
+          'RAW sampled bf16 128x600: same seed, same output')
+
+    # bf16 RAW sampled at 1, 8, 64 and 128 lanes x 3850 steps (random
+    # conditioning of the model's width)
+    g = torch.Generator(device='cuda').manual_seed(5)
+    out['lanes_ms'] = {}
+    for lanes in (1, 8, 64, 128):
+        cond_l = (torch.randn((3850, lanes, C), device='cuda', generator=g)
+                  * 0.5).to(bf16)
+        out['lanes_ms'][lanes] = cuda_ms(
+            lambda: ws.sample(cond_l, wbf, 7, 0, False, bf16), reps=2)
+    log(f'  RAW sampled bf16 x 3850 steps, ms by lanes: {out["lanes_ms"]}')
+
     # lane groups: 64 lanes as groups of 16 == one launch (greedy)
     one = ws.sample_conditioned(model, mels, aux, 0, True, bf16)
     saved = ws.MAX_LANES
@@ -491,13 +524,16 @@ def _cudnn_train_ms(cell, T, H, B):
 
 @phase('BiRNN training kernels vs plain')
 def train_kernel_cases():
+    from forwardtacotron_tpu_torch.kernels import birnn_train as bt
     from forwardtacotron_tpu_torch.kernels.birnn_train import (
         train_backward, train_forward)
     from forwardtacotron_tpu_torch.ops.rnn import (birnn_train_backward,
                                                    birnn_train_forward)
     f32, bf16 = torch.float32, torch.bfloat16
+    props = torch.cuda.get_device_properties(0)
     cases = [('decoder', 'lstm', 1024, 512, [1024 - 21 * i for i in range(32)]),
              ('postnet', 'gru', 1024, 256, [1024] * 32),
+             ('prenet', 'gru', 192, 256, [192 - 5 * i for i in range(32)]),
              ('pitch', 'gru', 192, 128, [192 - 5 * i for i in range(32)]),
              ('dur/energy', 'gru', 192, 64, [192 - 5 * i for i in range(32)])]
     # bfloat16 limits. The stash, dgi and dgh are stored in bfloat16, so
@@ -510,7 +546,10 @@ def train_kernel_cases():
     rows = []
     for name, cell, T, H, lens in cases:
         gi, w, b, ln, dy = _train_inputs(cell, T, 32, H, lens, seed=H + T)
-        row = {'case': f'{name} {cell} H={H} T={T} B=32', 'errors': {}}
+        row = {'case': f'{name} {cell} H={H} T={T} B=32', 'errors': {},
+               'path': bt.train_forward_plan(
+                   cell, 2, 32, H, f32, props.shared_memory_per_block_optin,
+                   props.multi_processor_count)['path']}
         for dtype in (f32, bf16):
             gi_d, w_d = gi.to(dtype), w.to(dtype)
             y, st = train_forward(cell, gi_d, w_d, b, ln, dtype)
@@ -542,6 +581,9 @@ def train_kernel_cases():
         st32 = train_forward(cell, gi, w, b, ln, f32)[1]
         row['ms_fwd'] = cuda_ms(lambda: train_forward(cell, gi, w, b, ln, f32),
                                 reps=5)
+        if row['path'] != 'cooperative':
+            row['ms_fwd_cooperative'] = cuda_ms(lambda: train_forward(
+                cell, gi, w, b, ln, f32, path='cooperative'), reps=5)
         row['ms_bwd'] = cuda_ms(lambda: train_backward(cell, st32, dy, w, ln,
                                                        f32), reps=5)
         row['plain_ms_fwd'] = cuda_ms(lambda: birnn_train_forward(
@@ -561,9 +603,11 @@ def train_kernel_cases():
                                                             f32)
         row['library_ms_fwd'], row['library_ms_bwd'] = _cudnn_train_ms(
             cell, T, H, 32)
-        log(f'  {row["case"]} float32: fwd {row["ms_fwd"]:.2f} ms (plain '
+        log(f'  {row["case"]} float32: fwd {row["ms_fwd"]:.3f} ms on the '
+            f'{row["path"]} path (cooperative path '
+            f'{row.get("ms_fwd_cooperative", row["ms_fwd"]):.3f}; plain '
             f'{row["plain_ms_fwd"]:.0f}, bound {row["bound_ms_fwd"]:.4f} '
-            f'{row["bound_by_fwd"]}, cuDNN {row["library_ms_fwd"]:.2f}); '
+            f'{row["bound_by_fwd"]}, cuDNN {row["library_ms_fwd"]:.3f}); '
             f'bwd {row["ms_bwd"]:.2f} ms (plain {row["plain_ms_bwd"]:.0f}, '
             f'bound {row["bound_ms_bwd"]:.4f} {row["bound_by_bwd"]}, cuDNN '
             f'{row["library_ms_bwd"]:.2f})')
@@ -642,6 +686,8 @@ def training_path():
 
         recurrence.launches = 0
         train_forward.launches = 0
+        train_forward.path_launches = dict.fromkeys(
+            train_forward.path_launches, 0)
         train_backward.launches = 0
         t0 = time.perf_counter()
         step = trainer.train(model, optimizer, max_steps_override=6)
@@ -649,13 +695,23 @@ def training_path():
         wall = time.perf_counter() - t0
         launches = {'birnn': recurrence.launches,
                     'birnn_train_fwd': train_forward.launches,
-                    'birnn_train_bwd': train_backward.launches}
+                    'birnn_train_bwd': train_backward.launches,
+                    **{f'birnn_train_fwd_{k}': v for k, v in
+                       train_forward.path_launches.items()}}
         log(f'  6 steps at batch 32 in {wall:.1f} s (host clock, first '
             f'steps included), launches {launches}')
         check(step == 6, f'trainer reached step {step} == 6')
         check(launches['birnn_train_fwd'] > 0
               and launches['birnn_train_bwd'] > 0,
               f'training launched kernels #2 and #3: {launches}')
+        # per step: the three predictor BiGRUs on the batch-split path, the
+        # prenet/decoder/postnet recurrences on the cooperative one
+        check(launches['birnn_train_fwd_batch_split'] == 3 * step
+              and launches['birnn_train_fwd_cooperative'] == 3 * step,
+              f'kernel #2 paths in {step} steps: batch-split '
+              f'{launches["birnn_train_fwd_batch_split"]} == {3 * step}, '
+              f'cooperative {launches["birnn_train_fwd_cooperative"]} == '
+              f'{3 * step}')
         losses = [v for tag, v, _ in writer.values if 'Loss' in tag]
         check(len(losses) > 0 and all(math.isfinite(v) for v in losses),
               f'{len(losses)} loss scalars, all finite')
@@ -860,18 +916,23 @@ def main() -> int:
          'library_ms': None},
     ]
     dec = train_rows[0]       # decoder LSTM H=512, T=1024, B=32, float32
-    for name, sfx, line in (('birnn_train_fwd', 'fwd', 294),
-                            ('birnn_train_bwd', 'bwd', 388)):
+    pitch = next(r for r in train_rows if r['case'].startswith('pitch'))
+    for name, row, sfx, line, count in (
+            ('birnn_train_fwd (cooperative path)', dec, 'fwd', 294,
+             'birnn_train_fwd_cooperative'),
+            ('birnn_train_fwd (batch-split path)', pitch, 'fwd', 294,
+             'birnn_train_fwd_batch_split'),
+            ('birnn_train_bwd', dec, 'bwd', 388, 'birnn_train_bwd')):
         kernels.append({
             'name': name, 'route': 'cuda',
             'source': 'forwardtacotron_tpu_torch/csrc/birnn_train.cu',
             'replaces': f'forwardtacotron_tpu/kernels/birnn.py:{line}',
-            'launches': train_launches[name],
-            'max_abs_err': dec[f'max_abs_err_{sfx}'],
-            'ms': dec[f'ms_{sfx}'], 'plain_ms': dec[f'plain_ms_{sfx}'],
-            'bound_ms': dec[f'bound_ms_{sfx}'],
-            'bound_by': dec[f'bound_by_{sfx}'],
-            'library_ms': dec[f'library_ms_{sfx}']})
+            'launches': train_launches[count],
+            'max_abs_err': row[f'max_abs_err_{sfx}'],
+            'ms': row[f'ms_{sfx}'], 'plain_ms': row[f'plain_ms_{sfx}'],
+            'bound_ms': row[f'bound_ms_{sfx}'],
+            'bound_by': row[f'bound_by_{sfx}'],
+            'library_ms': row[f'library_ms_{sfx}']})
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

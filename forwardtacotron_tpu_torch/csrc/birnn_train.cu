@@ -20,6 +20,26 @@
 // thread that updates (b, u) also writes its five stash values. One grid
 // barrier per step; h is double-buffered in global memory.
 //
+// Batch-split forward (ftt_birnn_train_fwd_bs), for short, narrow
+// recurrences (the series predictors' BiGRUs: H=64/128, T~192, B=32). The
+// cooperative kernel spends 4-5 us a step there on fixed costs: staging h
+// from L2, the gate inputs loaded after the product, a grid barrier. But
+// batch lanes are independent, and a small stream's whole W_hh fits one
+// block (GRU H=128 float32: 192 KB). So block (s, lane) holds W_hh in
+// shared memory and walks all steps for its lane with __syncthreads only:
+// no cooperative launch, no grid barrier, no L2 round trip for h. Thread
+// (g, ks) multiplies kBsRows rows g + r*NR against k-slice ks of h; the
+// first chunks of those rows stay in registers for the whole walk (half
+// of W_hh at H=128 float32, all of it at H=64), the rest is read from
+// shared memory; the KS partial sums of a row go through shared memory
+// and one thread per row adds them in a fixed order. The step's gate
+// inputs arrive by
+// cp.async one step ahead. y and the stash are written in the layout
+// above, so the backward takes them unchanged. What bounds it: per step,
+// reading the shared-memory part of W_hh and the chain product -> gate
+// math -> next product within one SM; the operations (2*B*S*NG*H*H per
+// step, 75 ns at H=128) and bytes are far below.
+//
 // Backward (ftt_birnn_train_bwd): one reversed walk over the steps for
 // every stream. The per-step product is transposed relative to the forward
 // (dh_prev = dgates @ W_hh), so block j keeps the U COLUMNS of W_hh of its
@@ -56,6 +76,11 @@
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <algorithm>
+
+#include "probe.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -64,6 +89,10 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBT = 4;  // batch lanes per warp item of the forward product
+constexpr int kBsLanes = 1;         // batch lanes per block, batch-split path
+constexpr int kBsRows = 4;          // W_hh rows per thread of its product
+constexpr int kBsMaxThreads = 512;  // 128 registers a thread, no spills
+constexpr int kBsMaxSplits = 8;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -172,12 +201,15 @@ __global__ void __launch_bounds__(kThreads) train_fwd_kernel(FwdArgs a) {
   for (int i = tid; i < B * U; i += kThreads) c_s[i] = 0.0f;
   __syncthreads();
 
+  // probe phases: 0 stage h, 1 product, 2 reduce, 3 gate update, 4 barrier
+  Probe probe;
   const size_t buf_stride = (size_t)S * B * H;
   for (int t = 0; t < n_steps; ++t) {
     const float* h_prev = a.hbuf + (t & 1) * buf_stride + (size_t)s * B * H;
     float* h_next = a.hbuf + ((t + 1) & 1) * buf_stride + (size_t)s * B * H;
     for (int i = tid; i < B * H; i += kThreads) h_s[i] = __ldcg(h_prev + i);
     __syncthreads();
+    probe.mark(0);
 
     for (int item = warp; item < NBG * KS; item += kWarps) {
       const int bg = item / KS, ks = item % KS;
@@ -199,6 +231,7 @@ __global__ void __launch_bounds__(kThreads) train_fwd_kernel(FwdArgs a) {
           for (int j = 0; j < kBT; ++j) acc[j][r] = fmaf(hv[j], w, acc[j][r]);
         }
       }
+      probe.mark(1);
 #pragma unroll
       for (int j = 0; j < kBT; ++j)
 #pragma unroll
@@ -208,6 +241,7 @@ __global__ void __launch_bounds__(kThreads) train_fwd_kernel(FwdArgs a) {
         }
     }
     __syncthreads();
+    probe.mark(2);
 
     for (int i = tid; i < B * U; i += kThreads) {
       const int b = i / U, u = i % U, unit = u0 + u;
@@ -253,8 +287,237 @@ __global__ void __launch_bounds__(kThreads) train_fwd_kernel(FwdArgs a) {
       h_next[(size_t)b * H + unit] = hn;
       a.y[(((size_t)t * B + b) * S + s) * H + unit] = hn;
     }
+    probe.mark(3);
     grid.sync();
+    probe.mark(4);
   }
+  probe.finish();
+}
+
+// 16 bytes of T as floats: 4 floats or 8 bf16 (element 0 in the low half)
+__device__ __forceinline__ void unpack16(const uint4& v, float* f, float) {
+  f[0] = __uint_as_float(v.x);
+  f[1] = __uint_as_float(v.y);
+  f[2] = __uint_as_float(v.z);
+  f[3] = __uint_as_float(v.w);
+}
+__device__ __forceinline__ void unpack16(const uint4& v, float* f,
+                                         __nv_bfloat16) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most one committed group is still in flight
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Batch-split forward: block (s, lane group) holds its stream's whole W_hh
+// and walks every step alone; see the note at the top of the file.
+template <typename T, bool LSTM>
+__global__ void __launch_bounds__(kBsMaxThreads)
+    train_fwd_bs_kernel(FwdArgs a, int KS) {
+  constexpr int NG = LSTM ? 4 : 3;
+  constexpr int VEC = 16 / sizeof(T);
+  // chunks of a thread's rows kept in registers (64 registers' worth)
+  constexpr int REG = sizeof(T) == 4 ? 4 : 2;
+  const T* __restrict__ gi = static_cast<const T*>(a.gi);
+  const T* __restrict__ w_hh = static_cast<const T*>(a.w_hh);
+  T* __restrict__ stash = static_cast<T*>(a.stash);
+  const int n_steps = a.n_steps, B = a.B, S = a.S, H = a.H;
+  const int GH = NG * H, NC = H / VEC, NR = GH / kBsRows;
+  const int nc = NC / KS;         // chunks of a row per k-slice
+  const int n_groups = (B + kBsLanes - 1) / kBsLanes;
+  const int s = blockIdx.x / n_groups;
+  const int b0 = (blockIdx.x % n_groups) * kBsLanes;
+  const int n_lanes = min(kBsLanes, B - b0);
+  const int tid = threadIdx.x;
+
+  // the product item of this thread: k-slice ks of gate rows g + r*NR,
+  // r < kBsRows; a warp shares ks, so its h reads are broadcasts; each h
+  // read feeds kBsRows rows, each weight read kBsLanes lanes
+  const int g = tid % NR, ks = tid / NR;
+  const bool prod = tid < NR * KS;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint4* w_s = reinterpret_cast<uint4*>(smem);  // NC * GH chunks of W_hh
+  float* hq_s = reinterpret_cast<float*>(smem + sizeof(T) * GH * H);
+  float* part = hq_s + kBsLanes * H;            // (KS, kBsLanes, GH)
+  float* gh_s = part + (size_t)KS * kBsLanes * GH;  // (kBsLanes, GH)
+  T* g_s = reinterpret_cast<T*>(gh_s + kBsLanes * GH);
+  // g_s: (2, kBsLanes, GH) gate inputs, double-buffered by step
+
+  // chunk (c, row) = W_hh[s][row][c*VEC, (c+1)*VEC) at c*GH + row: a warp
+  // of the product reads 32 consecutive chunks (512 bytes) without bank
+  // conflicts
+  const T* w_src = w_hh + (size_t)s * GH * H;
+  for (int i = tid; i < GH * NC; i += blockDim.x) {
+    const int row = i / NC, c = i % NC;
+    w_s[(size_t)c * GH + row] =
+        *reinterpret_cast<const uint4*>(w_src + (size_t)row * H + c * VEC);
+  }
+  for (int i = tid; i < kBsLanes * H; i += blockDim.x) hq_s[i] = 0.0f;
+
+  // the step's gate inputs of the block's lanes, 16 bytes per copy, into
+  // buffer t&1 (an empty group past the last step keeps the count)
+  const int g_chunks = GH / VEC;
+  auto prefetch = [&](int t) {
+    if (t < n_steps) {
+      T* dst = g_s + (size_t)(t & 1) * kBsLanes * GH;
+      for (int i = tid; i < n_lanes * g_chunks; i += blockDim.x) {
+        const int j = i / g_chunks, c = i % g_chunks;
+        cp_async16(dst + (size_t)j * GH + c * VEC,
+                   gi + (((size_t)t * B + b0 + j) * S + s) * GH + c * VEC);
+      }
+    }
+    cp_async_commit();
+  };
+  prefetch(0);
+
+  // the unit this thread updates, and its state, kept in registers
+  const int bl = tid / H, u = tid % H, b = b0 + bl;
+  const bool owner = tid < kBsLanes * H && b < B;
+  const int len = owner ? a.lengths[b] : 0;
+  float bh[NG];
+#pragma unroll
+  for (int q = 0; q < NG; ++q)
+    bh[q] = owner ? a.b_hh[(size_t)s * GH + q * H + u] : 0.0f;
+  float h = 0.0f, c = 0.0f;
+  __syncthreads();
+  // the first REG chunks of the thread's rows stay in registers for the
+  // whole walk, so shared memory serves only the rest
+  const uint4* w_mine = w_s + (size_t)ks * nc * GH + g;  // chunk cc, row r
+  auto w_at = [&](int cc, int r) { return w_mine[cc * GH + r * NR]; };
+  const float* h_mine = hq_s + ks * nc * VEC;             // this k-slice of h
+  uint4 w_reg[REG][kBsRows];
+#pragma unroll
+  for (int cc = 0; cc < REG; ++cc)
+#pragma unroll
+    for (int r = 0; r < kBsRows; ++r)
+      w_reg[cc][r] = prod && cc < nc ? w_at(cc, r) : make_uint4(0, 0, 0, 0);
+
+  // probe phases: 0 product, 1 wait for the other warps, 2 gate sums,
+  // 3 gate math and stash stores, 4 stores of y and h, 5 wait
+  Probe probe;
+  for (int t = 0; t < n_steps; ++t) {
+    prefetch(t + 1);
+    if (prod) {
+      float acc[kBsRows][kBsLanes];
+#pragma unroll
+      for (int r = 0; r < kBsRows; ++r)
+#pragma unroll
+        for (int j = 0; j < kBsLanes; ++j) acc[r][j] = 0.0f;
+      // acc += chunk cc of the thread's rows (w) times h
+      auto fma_chunk = [&](const uint4* w, int cc) {
+        float wf[kBsRows][VEC];
+#pragma unroll
+        for (int r = 0; r < kBsRows; ++r) unpack16(w[r], wf[r], T());
+#pragma unroll
+        for (int j = 0; j < kBsLanes; ++j) {
+          const float4* hp =
+              reinterpret_cast<const float4*>(h_mine + j * H + cc * VEC);
+#pragma unroll
+          for (int v = 0; v < VEC / 4; ++v) {
+            const float4 hv = hp[v];
+#pragma unroll
+            for (int r = 0; r < kBsRows; ++r) {
+              acc[r][j] = fmaf(hv.x, wf[r][4 * v], acc[r][j]);
+              acc[r][j] = fmaf(hv.y, wf[r][4 * v + 1], acc[r][j]);
+              acc[r][j] = fmaf(hv.z, wf[r][4 * v + 2], acc[r][j]);
+              acc[r][j] = fmaf(hv.w, wf[r][4 * v + 3], acc[r][j]);
+            }
+          }
+        }
+      };
+#pragma unroll
+      for (int cc = 0; cc < REG; ++cc)
+        if (cc < nc) fma_chunk(w_reg[cc], cc);
+#pragma unroll 2
+      for (int cc = REG; cc < nc; ++cc) {
+        uint4 w[kBsRows];
+#pragma unroll
+        for (int r = 0; r < kBsRows; ++r) w[r] = w_at(cc, r);
+        fma_chunk(w, cc);
+      }
+#pragma unroll
+      for (int j = 0; j < kBsLanes; ++j)
+#pragma unroll
+        for (int r = 0; r < kBsRows; ++r)
+          part[((size_t)ks * kBsLanes + j) * GH + g + r * NR] = acc[r][j];
+    }
+    probe.mark(0);
+    cp_async_wait_one();  // this step's gate inputs have landed
+    __syncthreads();
+    probe.mark(1);
+    // the KS slices of every row summed in order, one row per thread
+    for (int i = tid; i < kBsLanes * GH; i += blockDim.x) {
+      float sum = 0.0f;
+#pragma unroll
+      for (int k = 0; k < kBsMaxSplits; ++k)
+        if (k < KS) sum += part[(size_t)k * kBsLanes * GH + i];
+      gh_s[i] = sum;
+    }
+    __syncthreads();
+
+    if (owner) {
+      const T* g_in = g_s + ((size_t)(t & 1) * kBsLanes + bl) * GH + u;
+      float gh[NG];
+#pragma unroll
+      for (int q = 0; q < NG; ++q) gh[q] = gh_s[bl * GH + q * H + u] + bh[q];
+      probe.mark(2);
+      const size_t row = ((size_t)t * B + b) * S + s;
+      T* st = stash + row * 5 * H + u;
+      const bool active = inside(s, t, n_steps, len);
+      float hn, cn = 0.0f;
+      if (LSTM) {
+        const float ig = sigmoid(to_f(g_in[0]) + gh[0]);
+        const float fg = sigmoid(to_f(g_in[H]) + gh[1]);
+        const float gg = tanhf(to_f(g_in[2 * H]) + gh[2]);
+        const float og = sigmoid(to_f(g_in[3 * H]) + gh[3]);
+        cn = fg * c + ig * gg;
+        hn = og * tanhf(cn);
+        st[0] = from_f<T>(ig);
+        st[H] = from_f<T>(fg);
+        st[2 * H] = from_f<T>(gg);
+        st[3 * H] = from_f<T>(og);
+        st[4 * H] = from_f<T>(c);
+      } else {
+        const float r = sigmoid(to_f(g_in[0]) + gh[0]);
+        const float z = sigmoid(to_f(g_in[H]) + gh[1]);
+        const float n = tanhf(to_f(g_in[2 * H]) + r * gh[2]);
+        hn = (1.0f - z) * n + z * h;
+        st[0] = from_f<T>(r);
+        st[H] = from_f<T>(z);
+        st[2 * H] = from_f<T>(n);
+        st[3 * H] = from_f<T>(gh[2]);
+        st[4 * H] = from_f<T>(h);
+      }
+      if (active) {
+        h = hn;
+        if (LSTM) c = cn;
+      }
+      probe.mark(3);
+      a.y[row * H + u] = h;
+      hq_s[bl * H + u] = round_to<T>(h);
+      probe.mark(4);
+    }
+    __syncthreads();
+    probe.mark(5);
+  }
+  probe.finish();
 }
 
 template <typename T, bool LSTM, int U>
@@ -409,6 +672,38 @@ cudaError_t launch_fwd(FwdArgs a, cudaStream_t stream) {
                             a.S * (a.H / U), smem, stream);
 }
 
+// threads and shared memory of the batch-split path; mirrored by
+// kernels/birnn_train.py:_bs_size
+__host__ __forceinline__ int bs_threads(int NG, int H, int KS) {
+  const int n = std::max(NG * H / kBsRows * KS, kBsLanes * H);
+  return (n + 31) / 32 * 32;
+}
+__host__ __forceinline__ size_t bs_smem(int NG, int H, int KS, size_t item) {
+  return item * NG * H * H +
+         sizeof(float) * ((size_t)kBsLanes * H +
+                          (size_t)(KS + 1) * kBsLanes * NG * H) +
+         item * 2 * kBsLanes * NG * H;
+}
+
+template <typename T, bool LSTM>
+cudaError_t launch_fwd_bs(FwdArgs a, int KS, cudaStream_t stream) {
+  constexpr int NG = LSTM ? 4 : 3;
+  constexpr int VEC = 16 / sizeof(T);
+  if (KS <= 0 || KS > kBsMaxSplits || a.H % VEC != 0 ||
+      (a.H / VEC) % KS != 0)
+    return cudaErrorInvalidValue;
+  const int threads = bs_threads(NG, a.H, KS);
+  if (threads > kBsMaxThreads) return cudaErrorInvalidValue;
+  const size_t smem = bs_smem(NG, a.H, KS, sizeof(T));
+  auto kernel = train_fwd_bs_kernel<T, LSTM>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int grid = a.S * ((a.B + kBsLanes - 1) / kBsLanes);
+  kernel<<<grid, threads, smem, stream>>>(a, KS);
+  return cudaGetLastError();
+}
+
 template <typename T, bool LSTM, int U>
 cudaError_t launch_bwd(BwdArgs a, cudaStream_t stream) {
   constexpr int NG = LSTM ? 4 : 3;
@@ -463,6 +758,26 @@ int ftt_birnn_train_fwd(int lstm, int bf16, const void* gi, const void* w_hh,
                : fwd_u<__nv_bfloat16, false>(U, a, st);
   else
     err = lstm ? fwd_u<float, true>(U, a, st) : fwd_u<float, false>(U, a, st);
+  return (int)err;
+}
+
+// Batch-split forward (no hbuf): KS k-splits of the product.
+int ftt_birnn_train_fwd_bs(int lstm, int bf16, const void* gi,
+                           const void* w_hh, const float* b_hh,
+                           const int* lengths, float* y, void* stash,
+                           int n_steps, int B, int S, int H, int KS,
+                           void* stream) {
+  if (bad_shape(lstm, n_steps, B, S, H, 1)) return (int)cudaErrorInvalidValue;
+  const FwdArgs a{gi, w_hh, b_hh, lengths, y, stash, nullptr,
+                  n_steps, B, S, H};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (bf16)
+    err = lstm ? launch_fwd_bs<__nv_bfloat16, true>(a, KS, st)
+               : launch_fwd_bs<__nv_bfloat16, false>(a, KS, st);
+  else
+    err = lstm ? launch_fwd_bs<float, true>(a, KS, st)
+               : launch_fwd_bs<float, false>(a, KS, st);
   return (int)err;
 }
 

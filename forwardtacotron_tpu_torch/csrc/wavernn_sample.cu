@@ -1,5 +1,6 @@
-// WaveRNN autoregressive sampling: one persistent cooperative kernel for
-// all steps of all fold lanes (replaces the Pallas TPU kernel
+// WaveRNN autoregressive sampling: one persistent cooperative kernel, in
+// thread-block clusters, for all steps of all fold lanes (replaces the
+// Pallas TPU kernel
 // forwardtacotron_tpu/kernels/wavernn_sample.py:_kernel).
 //
 // Per step and lane, with the compact conditioning [mel | a1 | a2 | a3 | a4]:
@@ -10,21 +11,67 @@
 //   f1 = relu(x2 Fc1ᵀ + pre_F1),  f2 = relu(f1 Fc2ᵀ + pre_F2)
 //   logits = f2 Fc3ᵀ + b3,  x = sample(logits)
 //
-// Block j owns U hidden units (and FC fc columns, NCC logit columns) and
-// keeps the rows of every loop weight for them in shared memory for the
-// kernel's lifetime (~9 MB of bf16 weights spread over the card's SMs).
-// The per-step vectors (xt, h1, x1, h2, x2, f1, f2, logits, x) go
-// through global memory (L2); each dependent stage ends in a grid barrier
-// (7 per step). Reads of them use ld.global.cg, since other SMs wrote
-// them. Before each product the block stages its input rows in shared
-// memory with independent loads, and the row counts of the full-width
-// model (1, 4, 12) get code with exact trip counts.
+// What bounds it: every sample depends on the previous one, so a fold is
+// a chain of T steps of dependent small products. The operations (2.03 ms
+// for 64 lanes x 3850 steps at the bf16 tensor-core peak) are not the
+// limit; the chain is: per step, the L2 traffic of the vectors that every
+// block needs, the grid barriers between dependent stages, and each
+// block's product latency.
 //
-// Sampling is on chip. Random numbers come from Philox4x32-10 keyed by
-// the seed, with counter (slot / 4, lane, step, stream): RAW draws
-// Gumbel noise per class (stream 0); MOL draws a Gumbel per mixture
-// component (stream 1) and one logistic uniform (stream 2). Greedy mode
-// uses no random numbers. Ties in an argmax go to the lowest index.
+// Design. Block j owns U hidden units, FC fc columns and NCC logit columns
+// and keeps their rows of every loop weight in shared memory for the
+// kernel's lifetime (in bf16 zero-padded to whole tensor-core tiles).
+// The launcher takes the widest staging tile that fits (each tile costs a
+// stage and a product per stage of the step), then the largest U for it
+// (fewest blocks: every block stages every lane's input vector for each
+// product, so the grid's L2 traffic per step grows with the number of
+// blocks). At the full width of config.yaml in bf16 that is 64 blocks of
+// U=8 with one tile up to 64 lanes, and 128 blocks of U=4 for the 80-lane
+// tile of 72 lanes; float32 takes 128 blocks of U=4 and 32-lane tiles. The
+// biases and w_x of a block's rows sit in shared memory too. U=8 at 64
+// lanes fits only because x1 = xt + h1 is recomputed rather than kept and
+// the lanes' samples share the keys' space.
+// - Staging is the largest cost of a step: the vectors come from L2, and
+//   the grid's L2 reads (every block reads every lane's vector) run at the
+//   L2's rate. So the blocks run in clusters of up to kMaxCluster, the
+//   largest that keeps the whole grid resident: each block of a cluster
+//   fetches every cs-th row of a tile with one bulk copy (TMA) that
+//   multicasts it into the tiles of all the cluster's blocks, and an
+//   mbarrier counts the bytes in. L2 then serves each row once per cluster.
+//   A cluster barrier before each copy keeps it from overwriting a tile
+//   that a block of the cluster still reads (its arrive is relaxed: it
+//   publishes nothing). PERF.md has what this saves on an H100.
+// - Products are tiles of lanes x the block's rows (padded to 8). In bf16
+//   they run on the tensor cores (mma.sync m16n8k16, bf16 in, float32
+//   accumulation): ldmatrix reads each resident weight once per step per
+//   16-lane tile, never once per lane. A warp takes one 16-lane x 8-row
+//   tile over the whole of K in four interleaved accumulators (four
+//   independent mma chains, the next four k-steps' fragments loading while
+//   the tensor cores take the current ones), sums them in one order in
+//   registers and writes its tile: no partial tiles in shared memory, and a
+//   lane's result does not depend on the lanes beside it (lane groups equal
+//   one launch). float32 keeps CUDA-core FMAs in register tiles of 4 lanes
+//   x 8 rows, so one weight read feeds 4 lanes.
+// - The vectors between stages (xt, h1, x1, h2, x2, f1, f2) are published
+//   to L2 only as the copy rounded to T, which is all any product reads
+//   (the plain version rounds them before every product). The owner of a
+//   unit keeps the float32 values of xt, h1 and h2 in shared memory for the
+//   state update and the residuals. In bf16 this halves the bytes
+//   staged.
+// - Sampling is fused into the logits stage: each block takes the
+//   (Gumbel-perturbed) maximum over its own classes per lane and folds it
+//   into one 64-bit key per lane and step with atomicMax: order-preserving
+//   float bits high, the complement of the class index low, so ties go to
+//   the lowest index and the result does not depend on the atomics' order.
+//   Keys live in a ring of three slots; slot t%3 is cleared at step t-1.
+//   After the next barrier every block turns the key into the sample (MOL:
+//   the picked component's mean and log-scale from the logits its owners
+//   wrote). Six grid barriers per step.
+//
+// Random numbers come from Philox4x32-10 keyed by the seed, with counter
+// (slot / 4, lane, step, stream): RAW draws Gumbel noise per class (stream
+// 0); MOL draws a Gumbel per mixture component (stream 1) and one logistic
+// uniform (stream 2). Greedy mode uses no random numbers.
 //
 // Precision: weights and conditioning in T (float or bf16), activations
 // rounded to T before each product, float32 accumulation, float32 state
@@ -35,7 +82,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <algorithm>
+#include "probe.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -43,25 +90,34 @@ namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxRows = 32;
+constexpr int kMaxRows = 32;     // rows of one matrix a block may own
+constexpr int kMaxTile = 128;    // lanes staged at once
+constexpr int kKSplit = 4;       // interleaved accumulators of a product
+constexpr int kSlots = 3;        // ring of per-step sample keys
+constexpr int kMaxCluster = 4;   // blocks sharing one staging multicast
 constexpr float kLogScaleMin = -32.23619130191664f;  // log(1e-14)
 
+using bf16 = __nv_bfloat16;
+
+template <typename X>
+__host__ __device__ __forceinline__ X mx(X a, X b) { return a > b ? a : b; }
+
 __device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ float ld(const float* p) { return __ldcg(p); }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 
 template <typename T>
-__device__ __forceinline__ float round_to(float v);
+__device__ __forceinline__ T from_f(float v);
 template <>
-__device__ __forceinline__ float round_to<float>(float v) { return v; }
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16(v));
+__device__ __forceinline__ bf16 from_f<bf16>(float v) {
+  return __float2bfloat16(v);
+}
+
+__device__ __forceinline__ float ld_cg(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ bf16 ld_cg(const bf16* p) {
+  return __ushort_as_bfloat16(
+      __ldcg(reinterpret_cast<const unsigned short*>(p)));
 }
 
 __device__ __forceinline__ float sigmoid(float x) {
@@ -95,110 +151,328 @@ __device__ __forceinline__ uint32_t word(const uint4& v, int e) {
   return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
 }
 
+// (value, class) -> a key whose unsigned order is the value's order, then
+// the lower class; 0 is below every key
+__device__ __forceinline__ unsigned long long make_key(float v, int cls) {
+  const uint32_t b = __float_as_uint(v);
+  const uint32_t ord = (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+  return ((unsigned long long)ord << 32) | (uint32_t)(~(uint32_t)cls);
+}
+__device__ __forceinline__ int key_class(unsigned long long key) {
+  return (int)(~(uint32_t)(key & 0xffffffffull));
+}
+
 __host__ __device__ __forceinline__ size_t align16(size_t n) {
   return (n + 15) / 16 * 16;
 }
-
-struct Scratch {
-  float* part;   // partial sums of a product
-  float* stage;  // input rows staged from global memory
-  int cap;       // floats in `stage`
-};
-
-// stage[b*K + k] = in[b*in_stride + k] for b < nl (rounded to W if ROUND):
-// every thread issues independent loads, so the L2 latency is paid
-// about once per tile instead of once per k-step of a dependent loop.
-template <typename W, typename In, bool ROUND>
-__device__ void stage_rows(const In* in, int in_stride, int nl, int K,
-                           float* stage) {
-  for (int i = threadIdx.x; i < nl * K; i += kThreads) {
-    const int b = i / K, k = i % K;
-    const float v = ld(in + (size_t)b * in_stride + k);
-    stage[i] = ROUND ? round_to<W>(v) : v;
-  }
+__host__ __device__ __forceinline__ int pad16(int k) {
+  return (k + 15) / 16 * 16;
+}
+__host__ __device__ __forceinline__ int pad8(int r) { return (r + 7) / 8 * 8; }
+// resident rows of a matrix with r live rows: whole 8-row tiles for the
+// tensor cores (bf16), none extra for the float32 FMAs
+template <typename T>
+__host__ __device__ __forceinline__ int rows_of(int r) {
+  return sizeof(T) == 2 ? pad8(r) : r;
+}
+// row stride of a resident matrix or a staged tile: 8 elements past the
+// padded K, so that the 8 rows of an ldmatrix fall in distinct banks
+__host__ __device__ __forceinline__ int stride_of(int k) {
+  return pad16(k) + 8;
 }
 
-// out[b*R + r] = sum_k x[b*x_stride + k] * w[r*K + k] for b < nl, r < R,
-// x in shared memory. Warp work item = (lane b, k-slice). RT is R at
-// compile time when EXACT, else an upper bound. All threads of the block
-// call it.
-template <typename W, int RT, bool EXACT>
-__device__ void dot_rows(const float* x, int x_stride, int nl, int K,
-                         const W* w, int R, float* out, float* part) {
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int KS = nl >= kWarps ? 1 : kWarps / nl;
-  const int kc = (K + KS - 1) / KS;
-  for (int item = warp; item < nl * KS; item += kWarps) {
-    const int b = item / KS, ks = item % KS;
-    const int k0 = ks * kc, k1 = min(K, k0 + kc);
-    float acc[RT];
+// ------------------------------------------------------------- products
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// out[l*R + r] = sum_k x[l*SX + k] * w[r*SW + k] for l < nl, r < R, on the
+// tensor cores. x: nl lanes (rows up to the next 16 readable), w: rows up
+// to the next 8 (zero past R), K a multiple of 16 (zero-padded). Warp item:
+// one 16-lane x 8-row tile over the whole of K, k-step kk into accumulator
+// kk % kKSplit (independent mma chains); the accumulators are summed in
+// order in registers and the tile written straight to out.
+__device__ void mma_rows(const bf16* x, int SX, int nl, int K, const bf16* w,
+                         int SW, int R, float* out, Probe& probe) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ksteps = K / 16;
+  const int n_rt = (R + 7) / 8;
+  const int n_items = ((nl + 15) / 16) * n_rt;
+  for (int item = warp; item < n_items; item += kWarps) {
+    const int mt = item / n_rt, rt = item % n_rt;
+    float acc[kKSplit][4];
 #pragma unroll
-    for (int r = 0; r < RT; ++r) acc[r] = 0.0f;
-    const float* xb = x + (size_t)b * x_stride;
-    for (int k = k0 + lane; k < k1; k += 32) {
-      const float v = xb[k];
+    for (int j = 0; j < kKSplit; ++j)
 #pragma unroll
-      for (int r = 0; r < RT; ++r)
-        if (EXACT || r < R) acc[r] = fmaf(v, to_f(w[r * K + k]), acc[r]);
-    }
+      for (int i = 0; i < 4; ++i) acc[j][i] = 0.0f;
+    const bf16* xa = x + (size_t)(mt * 16 + lane % 16) * SX + (lane / 16) * 8;
+    const bf16* wb =
+        w + (size_t)(rt * 8 + lane % 8) * SW + ((lane / 8) % 2) * 8;
+    // the fragments of the next kKSplit k-steps load while the tensor
+    // cores take the current ones
+    uint32_t a[2][kKSplit][4], b[2][kKSplit][2];
+    auto load = [&](int k0, int buf) {
 #pragma unroll
-    for (int r = 0; r < RT; ++r) {
-      if (EXACT || r < R) {
-        const float sum = warp_sum(acc[r]);
-        if (lane == 0) part[item * R + r] = sum;
+      for (int j = 0; j < kKSplit; ++j)
+        if (k0 + j < ksteps) {
+          ldsm_x4(a[buf][j], xa + (k0 + j) * 16);
+          ldsm_x2(b[buf][j], wb + (k0 + j) * 16);
+        }
+    };
+    auto mma = [&](int k0, int buf) {
+#pragma unroll
+      for (int j = 0; j < kKSplit; ++j)
+        if (k0 + j < ksteps) mma_bf16(acc[j], a[buf][j], b[buf][j]);
+    };
+    load(0, 0);
+    for (int k0 = 0; k0 < ksteps; k0 += 2 * kKSplit) {  // constant buffers
+      if (k0 + kKSplit < ksteps) load(k0 + kKSplit, 1);
+      mma(k0, 0);
+      if (k0 + kKSplit < ksteps) {
+        if (k0 + 2 * kKSplit < ksteps) load(k0 + 2 * kKSplit, 0);
+        mma(k0 + kKSplit, 1);
       }
     }
+    const int l = mt * 16 + lane / 4, r = rt * 8 + 2 * (lane % 4);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kKSplit; ++j) sum += acc[j][i];
+      const int li = l + (i / 2) * 8, ri = r + i % 2;
+      if (li < nl && ri < R) out[li * R + ri] = sum;
+    }
   }
+  probe.mark(1);
   __syncthreads();
-  for (int i = tid; i < nl * R; i += kThreads) {
-    const int b = i / R, r = i % R;
-    float sum = 0.0f;
-    for (int ks = 0; ks < KS; ++ks) sum += part[(b * KS + ks) * R + r];
-    out[i] = sum;
+  probe.mark(5);
+}
+
+// float32 version: warp item (4 lanes, 8 rows) over the whole of K, the
+// warp's threads striding k; one weight read feeds 4 lanes.
+__device__ void fma_rows(const float* x, int SX, int nl, int K,
+                         const float* w, int SW, int R, float* out,
+                         Probe& probe) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n_lg = (nl + 3) / 4, n_rg = (R + 7) / 8;
+  for (int item = warp; item < n_lg * n_rg; item += kWarps) {
+    const int l0 = (item / n_rg) * 4, r0 = (item % n_rg) * 8;
+    float acc[4][8];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 8; ++r) acc[j][r] = 0.0f;
+    for (int k = lane; k < K; k += 32) {
+      float xv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) xv[j] = x[(size_t)(l0 + j) * SX + k];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const float wv = r0 + r < R ? w[(size_t)(r0 + r) * SW + k] : 0.0f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[j][r] = fmaf(xv[j], wv, acc[j][r]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const float v = warp_sum(acc[j][r]);
+        if (lane == 0 && l0 + j < nl && r0 + r < R)
+          out[(size_t)(l0 + j) * R + r0 + r] = v;
+      }
   }
+  probe.mark(1);
+  __syncthreads();
+  probe.mark(5);
+}
+
+__device__ __forceinline__ void product(const bf16* x, int SX, int nl, int K,
+                                        const bf16* w, int SW, int R,
+                                        float* out, Probe& probe) {
+  mma_rows(x, SX, nl, K, w, SW, R, out, probe);
+}
+__device__ __forceinline__ void product(const float* x, int SX, int nl, int K,
+                                        const float* w, int SW, int R,
+                                        float* out, Probe& probe) {
+  fma_rows(x, SX, nl, K, w, SW, R, out, probe);
+}
+
+// ------------------------------------------------------------- staging
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// every copy a stage() of this block issued has landed, for every thread
+__device__ __forceinline__ void staged() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
 }
 
-template <typename W>
-__device__ void dot_staged(const float* x, int x_stride, int nl, int K,
-                           const W* w, int R, float* out, float* part) {
-  switch (R) {  // the row counts of the full-width model get exact code
-    case 0: return;
-    case 1: return dot_rows<W, 1, true>(x, x_stride, nl, K, w, R, out, part);
-    case 4: return dot_rows<W, 4, true>(x, x_stride, nl, K, w, R, out, part);
-    case 12: return dot_rows<W, 12, true>(x, x_stride, nl, K, w, R, out, part);
-    default:
-      return dot_rows<W, kMaxRows, false>(x, x_stride, nl, K, w, R, out, part);
-  }
-}
-
-// out[b*R + r] = sum_k in[b*in_stride + k] * w[r*K + k] for b < L: the
-// input rows pass through shared memory in tiles of lanes.
-template <typename W, typename In, bool ROUND>
-__device__ void rows_dot(const In* in, int in_stride, int L, int K,
-                         const W* w, int R, float* out, const Scratch& sc) {
-  if (R <= 0) return;
-  const int lt = max(1, min(L, sc.cap / K));
-  for (int l0 = 0; l0 < L; l0 += lt) {
-    const int nl = min(lt, L - l0);
-    stage_rows<W, In, ROUND>(in + (size_t)l0 * in_stride, in_stride, nl, K,
-                             sc.stage);
-    __syncthreads();
-    dot_staged(sc.stage, K, nl, K, w, R, out + l0 * R, sc.part);
-  }
-}
-
-// Copy n_rows rows of length K into shared memory: smem row
-// q*unit_rows + u <- global row q*stride + r0 + u (q: gate block).
+// dst[l*SD + d0 + k] = src[l*SS + s0 + k] for l < nl, k < K, and 0 for
+// K <= k < pad16(K); complete after staged(). Asynchronous 16-byte copies
+// through L2 (other SMs wrote src) where the shapes allow, all in flight
+// at once.
 template <typename T>
-__device__ void load_rows(T* dst, const T* src, int K, int n_rows,
-                          int unit_rows, int stride, int r0) {
-  for (int i = threadIdx.x; i < n_rows * K; i += kThreads) {
-    const int row = i / K, k = i % K;
-    const int q = row / unit_rows, u = row % unit_rows;
-    dst[i] = src[(size_t)(q * stride + r0 + u) * K + k];
+__device__ void stage(const T* src, int SS, int s0, int nl, int K, T* dst,
+                      int SD, int d0) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int KP = pad16(K);
+  if (K % VEC == 0 && SS % VEC == 0 && s0 % VEC == 0 && SD % VEC == 0 &&
+      d0 % VEC == 0) {
+    const int nc = KP / VEC;
+    for (int i = threadIdx.x; i < nl * nc; i += kThreads) {
+      const int l = i / nc, c = i % nc;
+      T* to = dst + (size_t)l * SD + d0 + c * VEC;
+      if (c * VEC < K)
+        cp_async16(to, src + (size_t)l * SS + s0 + c * VEC);
+      else
+        *reinterpret_cast<uint4*>(to) = make_uint4(0, 0, 0, 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < nl * KP; i += kThreads) {
+      const int l = i / KP, k = i % KP;
+      dst[(size_t)l * SD + d0 + k] =
+          k < K ? ld_cg(src + (size_t)l * SS + s0 + k) : from_f<T>(0.0f);
+    }
   }
 }
+
+// ------------------------------------------------ cluster multicast staging
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+// all threads of every block of the cluster; arrive publishes this
+// thread's earlier shared-memory accesses, wait sees the others'
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+// an arrive that publishes nothing: this block is done reading its tile
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar))
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+// wait for the barrier's phase `parity` to complete; a copy that never
+// lands ends the kernel with a trap after ~10 s rather than hanging it
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const long long t0 = clock64();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1ll << 34)) __trap();
+  }
+}
+// order this thread's earlier generic-proxy accesses (and those it has
+// acquired from other threads) before its later bulk copies
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async;\n" ::: "memory");
+}
+// one bulk copy from global memory into the same shared-memory offset of
+// every block of `mask`, each block's barrier counting its bytes
+__device__ __forceinline__ void bulk_multicast(void* dst, const void* src,
+                                               uint32_t bytes, uint64_t* bar,
+                                               uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar)), "h"(mask)
+      : "memory");
+}
+
+// The staging tile of a cluster of cs blocks: rows l < nl of src (K
+// elements each, whole 16-byte chunks, K a multiple of 16) into dst rows of
+// stride SD. Each block issues the rows l = rank (mod cs), one bulk copy a
+// row, delivered to every block of the cluster, so L2 serves each row once
+// per cluster instead of once per block. Called by every thread between
+// cluster_wait() (no block still reads its tile) and the products; done
+// when mbar_wait(bar, phase) returns.
+template <typename T>
+__device__ void stage_multicast(const T* src, int SS, int nl, int K, T* dst,
+                                int SD, uint64_t* bar, int cs) {
+  const uint32_t bytes = K * sizeof(T);
+  if (threadIdx.x == 0) mbar_expect_tx(bar, nl * bytes);
+  if (threadIdx.x < 32) {
+    fence_proxy_async();  // the vectors other blocks stored before the
+                          // grid barrier, seen by the copies
+    for (int l = cluster_rank() + cs * threadIdx.x; l < nl; l += cs * 32)
+      bulk_multicast(dst + (size_t)l * SD, src + (size_t)l * SS, bytes, bar,
+                     (uint16_t)((1u << cs) - 1));
+  }
+}
+
+// Resident rows: dst row q*unit_rows + u <- src row q*stride + r0 + u (q:
+// gate block) for rows < n_rows; zero up to n_pad rows and in the padding
+// of each row.
+template <typename T>
+__device__ void load_rows(T* dst, const T* src, int K, int n_rows, int n_pad,
+                          int unit_rows, int stride, int r0) {
+  const int SW = stride_of(K);
+  for (int i = threadIdx.x; i < n_pad * SW; i += kThreads) {
+    const int row = i / SW, k = i % SW;
+    T v = from_f<T>(0.0f);
+    if (row < n_rows && k < K) {
+      const int q = row / unit_rows, u = row % unit_rows;
+      v = src[(size_t)(q * stride + r0 + u) * K + k];
+    }
+    dst[i] = v;
+  }
+}
+
+// ----------------------------------------------------------- arguments
 
 enum Ptr {
   P_COND, P_W_IC, P_W_X, P_B_I, P_W1_IH, P_W1_HH, P_B1_IH, P_B1_HH,
@@ -207,20 +481,36 @@ enum Ptr {
 };
 enum Int {
   I_STEPS, I_L, I_FEAT, I_D, I_H, I_F, I_NC, I_NR_MIX, I_GREEDY, I_SEED,
-  I_U, I_COUNT
+  I_COUNT
 };
 
 struct Args {
   const void* p[P_COUNT];
-  int n_steps, L, feat, d, H, F, NC, nr_mix, greedy, U, FC, NCC;
-  int stage_cap;  // floats of the input staging buffer
+  int n_steps, L, feat, d, H, F, NC, nr_mix, greedy;
+  int U, FC, NCC;  // units, fc columns and classes per block
+  int tile;        // lanes staged at once
+  int cs;          // blocks of a cluster (their staging tiles multicast)
   uint2 key;
 };
 
+// the staged conditioning row: its four segments, each padded to 16
+struct CondLayout {
+  int o1, o2, o3, width;
+};
+__host__ __device__ __forceinline__ CondLayout cond_layout(int feat, int d) {
+  CondLayout c;
+  c.o1 = pad16(feat + d);
+  c.o2 = c.o1 + pad16(d);
+  c.o3 = c.o2 + pad16(d);
+  c.width = c.o3 + pad16(d);
+  return c;
+}
+
 struct Layout {  // shared-memory layout (bytes), same on host and device
   size_t w_ic, w2_a, fc1_a, fc2_a, w1_ih, w1_hh, w2_x, w2_hh, fc1_x, fc2_x,
-      fc3, f_gh1, f_gh2, f_pg2, f_pf1, f_pf2, f_tmp, f_part, f_red, f_stage,
-      total;
+      fc3, f_gh1, f_gh2, f_pg2, f_pf1, f_pf2, f_xt, f_h1, f_h2, f_tmp, k_lane,
+      f_bias, bar, stage, total;
+  int s_stage;  // row stride of the staging tile (elements)
 };
 
 struct Bump {
@@ -236,58 +526,59 @@ template <typename T>
 __host__ __device__ Layout make_layout(const Args& a) {
   Layout s;
   Bump m;
-  const size_t U = a.U, H = a.H, F = a.F, d = a.d, L = a.L;
-  const size_t FC = a.FC, NCC = a.NCC;
-  s.w_ic = m.take(sizeof(T) * U * (a.feat + d));
-  s.w2_a = m.take(sizeof(T) * 3 * U * d);
-  s.fc1_a = m.take(sizeof(T) * FC * d);
-  s.fc2_a = m.take(sizeof(T) * FC * d);
-  s.w1_ih = m.take(sizeof(T) * 3 * U * H);
-  s.w1_hh = m.take(sizeof(T) * 3 * U * H);
-  s.w2_x = m.take(sizeof(T) * 3 * U * H);
-  s.w2_hh = m.take(sizeof(T) * 3 * U * H);
-  s.fc1_x = m.take(sizeof(T) * FC * H);
-  s.fc2_x = m.take(sizeof(T) * FC * F);
-  s.fc3 = m.take(sizeof(T) * NCC * F);
-  s.f_gh1 = m.take(sizeof(float) * L * 3 * U);
-  s.f_gh2 = m.take(sizeof(float) * L * 3 * U);
-  s.f_pg2 = m.take(sizeof(float) * L * 3 * U);
+  const int U = a.U, FC = a.FC, NCC = a.NCC, R3 = 3 * a.U;
+  const size_t L = a.L;
+  const CondLayout cl = cond_layout(a.feat, a.d);
+  s.w_ic = m.take(sizeof(T) * rows_of<T>(U) * stride_of(a.feat + a.d));
+  s.w2_a = m.take(sizeof(T) * rows_of<T>(R3) * stride_of(a.d));
+  s.fc1_a = m.take(sizeof(T) * rows_of<T>(FC) * stride_of(a.d));
+  s.fc2_a = m.take(sizeof(T) * rows_of<T>(FC) * stride_of(a.d));
+  s.w1_ih = m.take(sizeof(T) * rows_of<T>(R3) * stride_of(a.H));
+  s.w1_hh = m.take(sizeof(T) * rows_of<T>(R3) * stride_of(a.H));
+  s.w2_x = m.take(sizeof(T) * rows_of<T>(R3) * stride_of(a.H));
+  s.w2_hh = m.take(sizeof(T) * rows_of<T>(R3) * stride_of(a.H));
+  s.fc1_x = m.take(sizeof(T) * rows_of<T>(FC) * stride_of(a.H));
+  s.fc2_x = m.take(sizeof(T) * rows_of<T>(FC) * stride_of(a.F));
+  s.fc3 = m.take(sizeof(T) * rows_of<T>(NCC) * stride_of(a.F));
+  s.f_gh1 = m.take(sizeof(float) * L * R3);
+  s.f_gh2 = m.take(sizeof(float) * L * R3);
+  s.f_pg2 = m.take(sizeof(float) * L * R3);
   s.f_pf1 = m.take(sizeof(float) * L * FC);
   s.f_pf2 = m.take(sizeof(float) * L * FC);
-  size_t rmax = 3 * U;
-  if (FC > rmax) rmax = FC;
-  if (NCC > rmax) rmax = NCC;
-  s.f_tmp = m.take(sizeof(float) * L * rmax);
-  s.f_part = m.take(sizeof(float) * (L > (size_t)kWarps ? L : kWarps) *
-                    kMaxRows);
-  s.f_red = m.take(sizeof(float) * 2 * kWarps);
-  s.f_stage = m.take(sizeof(float) * a.stage_cap);
+  s.f_xt = m.take(sizeof(float) * L * U);
+  s.f_h1 = m.take(sizeof(float) * L * U);
+  s.f_h2 = m.take(sizeof(float) * L * U);
+  s.f_tmp = m.take(sizeof(float) * L * mx(mx(R3, FC), NCC));
+  // the lanes' keys of stage F, and (in their first half) the lanes'
+  // samples from the start of a step to stage A: lifetimes apart
+  s.k_lane = m.take(sizeof(unsigned long long) * L);
+  s.f_bias = m.take(sizeof(float) * (4 * R3 + 2 * U + 2 * FC + NCC));
+  s.bar = m.take(sizeof(uint64_t));  // the staging tile's mbarrier
+  s.s_stage = mx(mx(stride_of(a.H), stride_of(a.F)), cl.width + 8);
+  s.stage = m.take(sizeof(T) * (size_t)a.tile * s.s_stage);
   s.total = m.o;
   return s;
 }
 
-__device__ __forceinline__ void better(float& v, int& i, float v2, int i2) {
-  if (v2 > v || (v2 == v && i2 < i)) { v = v2; i = i2; }
+// global scratch (bytes, zeroed by the caller): keys (kSlots, L) uint64 |
+// logits (L, NC) float32 | xt h1 x1 h2 x2 (L, H) and f1 f2 (L, F) in T;
+// mirrored by kernels/wavernn_sample.py:scratch_bytes
+struct Scratch {
+  unsigned long long* keys;
+  float* logits;
+  void* vecs;
+};
+__host__ __device__ __forceinline__ Scratch carve(void* base, int L, int NC) {
+  unsigned char* p = static_cast<unsigned char*>(base);
+  Scratch s;
+  s.keys = reinterpret_cast<unsigned long long*>(p);
+  const size_t o1 = align16(sizeof(unsigned long long) * kSlots * L);
+  s.logits = reinterpret_cast<float*>(p + o1);
+  s.vecs = p + o1 + align16(sizeof(float) * (size_t)L * NC);
+  return s;
 }
 
-// Block-wide argmax of (v, i); every thread gets the result.
-__device__ int block_argmax(float v, int i, float* red) {
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float v2 = __shfl_xor_sync(0xffffffffu, v, off);
-    const int i2 = __shfl_xor_sync(0xffffffffu, i, off);
-    better(v, i, v2, i2);
-  }
-  int* red_i = reinterpret_cast<int*>(red + kWarps);
-  if (lane == 0) { red[warp] = v; red_i[warp] = i; }
-  __syncthreads();
-  float bv = red[0];
-  int bi = red_i[0];
-  for (int w = 1; w < kWarps; ++w) better(bv, bi, red[w], red_i[w]);
-  __syncthreads();
-  return bi;
-}
+// -------------------------------------------------------------- kernel
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads) wavernn_kernel(Args a) {
@@ -310,186 +601,166 @@ __global__ void __launch_bounds__(kThreads) wavernn_kernel(Args a) {
   float* pg2 = reinterpret_cast<float*>(smem + lay.f_pg2);
   float* pf1 = reinterpret_cast<float*>(smem + lay.f_pf1);
   float* pf2 = reinterpret_cast<float*>(smem + lay.f_pf2);
+  // float32 values of the block's own units
+  // (x1 = xt + h1 is recomputed where needed, bit for bit)
+  float* xt_o = reinterpret_cast<float*>(smem + lay.f_xt);
+  float* h1_o = reinterpret_cast<float*>(smem + lay.f_h1);
+  float* h2_o = reinterpret_cast<float*>(smem + lay.f_h2);
   float* tmp = reinterpret_cast<float*>(smem + lay.f_tmp);
-  float* part = reinterpret_cast<float*>(smem + lay.f_part);
-  float* red = reinterpret_cast<float*>(smem + lay.f_red);
-  const Scratch sc{part, reinterpret_cast<float*>(smem + lay.f_stage),
-                   a.stage_cap};
+  unsigned long long* k_lane =
+      reinterpret_cast<unsigned long long*>(smem + lay.k_lane);
+  float* x_s = reinterpret_cast<float*>(smem + lay.k_lane);
+  T* stg = reinterpret_cast<T*>(smem + lay.stage);
+  const int SG = lay.s_stage;
+  // the block's biases and w_x, read every step: kept in shared memory
+  float* bias = reinterpret_cast<float*>(smem + lay.f_bias);
 
   const int L = a.L, H = a.H, F = a.F, d = a.d, U = a.U, NC = a.NC;
-  const int C = a.feat + 4 * d;
+  const int C = a.feat + 4 * d, R3 = 3 * U;
+  const CondLayout cl = cond_layout(a.feat, d);
   const int u0 = blockIdx.x * U;
   const int fc0 = blockIdx.x * a.FC, nc0 = blockIdx.x * a.NCC;
   const int fcn = max(0, min(a.FC, F - fc0));
   const int ncn = max(0, min(a.NCC, NC - nc0));
   const int tid = threadIdx.x;
+  const bool mol = a.nr_mix > 0;
 
   const T* cond = static_cast<const T*>(a.p[P_COND]);
-  const float* w_x = static_cast<const float*>(a.p[P_W_X]);
-  const float* b_i = static_cast<const float*>(a.p[P_B_I]);
-  const float* b1_ih = static_cast<const float*>(a.p[P_B1_IH]);
-  const float* b1_hh = static_cast<const float*>(a.p[P_B1_HH]);
-  const float* b2_ih = static_cast<const float*>(a.p[P_B2_IH]);
-  const float* b2_hh = static_cast<const float*>(a.p[P_B2_HH]);
-  const float* fc1_b = static_cast<const float*>(a.p[P_FC1_B]);
-  const float* fc2_b = static_cast<const float*>(a.p[P_FC2_B]);
-  const float* fc3_b = static_cast<const float*>(a.p[P_FC3_B]);
+  // bias layout: b1_ih b1_hh b2_ih b2_hh (3U each, row q*U+u), b_i w_x
+  // (U), fc1_b fc2_b (FC), fc3_b (NCC): local index -> global
+  float* b1_ih = bias;
+  float* b1_hh = b1_ih + R3;
+  float* b2_ih = b1_hh + R3;
+  float* b2_hh = b2_ih + R3;
+  float* b_i = b2_hh + R3;
+  float* w_x = b_i + U;
+  float* fc1_b = w_x + U;
+  float* fc2_b = fc1_b + a.FC;
+  float* fc3_b = fc2_b + a.FC;
   float* out = static_cast<float*>(const_cast<void*>(a.p[P_OUT]));
-  float* xs = static_cast<float*>(const_cast<void*>(a.p[P_SCRATCH]));
-  float* xt_g = xs + L;
-  float* h1_g = xt_g + (size_t)L * H;
-  float* x1_g = h1_g + (size_t)L * H;
-  float* h2_g = x1_g + (size_t)L * H;
-  float* x2_g = h2_g + (size_t)L * H;
-  float* f1_g = x2_g + (size_t)L * H;
-  float* f2_g = f1_g + (size_t)L * F;
-  float* lg_g = f2_g + (size_t)L * F;
+  const Scratch g = carve(const_cast<void*>(a.p[P_SCRATCH]), L, NC);
+  T* xt_g = static_cast<T*>(g.vecs);  // published copies, rounded to T
+  T* h1_g = xt_g + (size_t)L * H;
+  T* x1_g = h1_g + (size_t)L * H;
+  T* h2_g = x1_g + (size_t)L * H;
+  T* x2_g = h2_g + (size_t)L * H;
+  T* f1_g = x2_g + (size_t)L * H;
+  T* f2_g = f1_g + (size_t)L * F;
 
   // resident weights: rows of this block's units / columns
   const int fcr = max(fcn, 1), ncr = max(ncn, 1);
-  load_rows(w_ic, static_cast<const T*>(a.p[P_W_IC]), a.feat + d, U, U, H,
+  load_rows(w_ic, static_cast<const T*>(a.p[P_W_IC]), a.feat + d, U, rows_of<T>(U),
+            U, H, u0);
+  load_rows(w2_a, static_cast<const T*>(a.p[P_W2_A]), d, R3, rows_of<T>(R3), U, H,
             u0);
-  load_rows(w2_a, static_cast<const T*>(a.p[P_W2_A]), d, 3 * U, U, H, u0);
-  load_rows(w1_ih, static_cast<const T*>(a.p[P_W1_IH]), H, 3 * U, U, H, u0);
-  load_rows(w1_hh, static_cast<const T*>(a.p[P_W1_HH]), H, 3 * U, U, H, u0);
-  load_rows(w2_x, static_cast<const T*>(a.p[P_W2_X]), H, 3 * U, U, H, u0);
-  load_rows(w2_hh, static_cast<const T*>(a.p[P_W2_HH]), H, 3 * U, U, H, u0);
-  load_rows(fc1_a, static_cast<const T*>(a.p[P_FC1_A]), d, fcn, fcr, F, fc0);
-  load_rows(fc2_a, static_cast<const T*>(a.p[P_FC2_A]), d, fcn, fcr, F, fc0);
-  load_rows(fc1_x, static_cast<const T*>(a.p[P_FC1_X]), H, fcn, fcr, F, fc0);
-  load_rows(fc2_x, static_cast<const T*>(a.p[P_FC2_X]), F, fcn, fcr, F, fc0);
-  load_rows(fc3, static_cast<const T*>(a.p[P_FC3]), F, ncn, ncr, NC, nc0);
+  load_rows(w1_ih, static_cast<const T*>(a.p[P_W1_IH]), H, R3, rows_of<T>(R3), U,
+            H, u0);
+  load_rows(w1_hh, static_cast<const T*>(a.p[P_W1_HH]), H, R3, rows_of<T>(R3), U,
+            H, u0);
+  load_rows(w2_x, static_cast<const T*>(a.p[P_W2_X]), H, R3, rows_of<T>(R3), U, H,
+            u0);
+  load_rows(w2_hh, static_cast<const T*>(a.p[P_W2_HH]), H, R3, rows_of<T>(R3), U,
+            H, u0);
+  load_rows(fc1_a, static_cast<const T*>(a.p[P_FC1_A]), d, fcn, rows_of<T>(a.FC),
+            fcr, F, fc0);
+  load_rows(fc2_a, static_cast<const T*>(a.p[P_FC2_A]), d, fcn, rows_of<T>(a.FC),
+            fcr, F, fc0);
+  load_rows(fc1_x, static_cast<const T*>(a.p[P_FC1_X]), H, fcn, rows_of<T>(a.FC),
+            fcr, F, fc0);
+  load_rows(fc2_x, static_cast<const T*>(a.p[P_FC2_X]), F, fcn, rows_of<T>(a.FC),
+            fcr, F, fc0);
+  load_rows(fc3, static_cast<const T*>(a.p[P_FC3]), F, ncn, rows_of<T>(a.NCC), ncr,
+            NC, nc0);
+  for (int i = tid; i < R3; i += kThreads) {
+    const int row = (i / U) * H + u0 + i % U;
+    b1_ih[i] = static_cast<const float*>(a.p[P_B1_IH])[row];
+    b1_hh[i] = static_cast<const float*>(a.p[P_B1_HH])[row];
+    b2_ih[i] = static_cast<const float*>(a.p[P_B2_IH])[row];
+    b2_hh[i] = static_cast<const float*>(a.p[P_B2_HH])[row];
+  }
+  for (int i = tid; i < U; i += kThreads) {
+    b_i[i] = static_cast<const float*>(a.p[P_B_I])[u0 + i];
+    w_x[i] = static_cast<const float*>(a.p[P_W_X])[u0 + i];
+  }
+  for (int i = tid; i < fcn; i += kThreads) {
+    fc1_b[i] = static_cast<const float*>(a.p[P_FC1_B])[fc0 + i];
+    fc2_b[i] = static_cast<const float*>(a.p[P_FC2_B])[fc0 + i];
+  }
+  for (int i = tid; i < ncn; i += kThreads)
+    fc3_b[i] = static_cast<const float*>(a.p[P_FC3_B])[nc0 + i];
+  // staged rows past a tile's lanes are read by the products and their
+  // results dropped: keep them finite
+  for (int i = tid; i < a.tile * SG; i += kThreads) stg[i] = from_f<T>(0.0f);
+  for (int i = tid; i < L * U; i += kThreads) {
+    h1_o[i] = 0.0f;
+    h2_o[i] = 0.0f;
+  }
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + lay.bar);
+  if (tid == 0) mbar_init(bar);
+  fence_proxy_async();  // the zeroed tile before the copies into it
   __syncthreads();
+  // Every use of the staging tile, in every block of a cluster alike:
+  // cluster_wait() (no block of the cluster still reads its tile), stage,
+  // products, cluster_arrive_relaxed(). A block alone (cs = 1) needs none
+  // of it: its products end at a block barrier. This arrive pairs with the
+  // first wait: every block of the cluster has its barrier ready and its
+  // tile zeroed.
+  const bool clustered = a.cs > 1;
+  if (clustered) cluster_arrive();
+  uint32_t phase = 0;  // of the mbarrier
 
-  for (int t = 0; t < a.n_steps; ++t) {
-    const T* cond_t = cond + (size_t)t * L * C;
-    // A: conditioning projections, xt, and the hidden products of the
-    //    previous states
-    const int ct = max(1, min(L, a.stage_cap / C));
-    for (int l0 = 0; l0 < L; l0 += ct) {
-      const int nl = min(ct, L - l0);
-      stage_rows<T, T, false>(cond_t + (size_t)l0 * C, C, nl, C, sc.stage);
-      __syncthreads();
-      const float* st = sc.stage;
-      dot_staged(st, C, nl, a.feat + d, w_ic, U, tmp + l0 * U, part);
-      dot_staged(st + a.feat + d, C, nl, d, w2_a, 3 * U, pg2 + l0 * 3 * U,
-                 part);
-      dot_staged(st + a.feat + 2 * d, C, nl, d, fc1_a, fcn, pf1 + l0 * fcn,
-                 part);
-      dot_staged(st + a.feat + 3 * d, C, nl, d, fc2_a, fcn, pf2 + l0 * fcn,
-                 part);
+  // probe phases: 0 stage, 1 product, 2 gate update, 3 barrier, 4 sample,
+  // 5 product wait (for the other warps' tiles)
+  Probe probe;
+  // the staging tile <- rows of in (K elements, stride SI): multicast
+  // within the cluster where the rows are whole 16-element chunks, else
+  // each block stages them all
+  auto stage_rows = [&](const T* in, int SI, int nl, int K) {
+    if (clustered) cluster_wait();
+    if (K % 16 == 0 && SI % 16 == 0) {
+      stage_multicast<T>(in, SI, nl, K, stg, SG, bar, a.cs);
+      mbar_wait(bar, phase);
+      phase ^= 1;
+    } else {
+      stage<T>(in, SI, 0, nl, K, stg, SG, 0);
+      staged();
     }
-    for (int i = tid; i < L * U; i += kThreads) {
-      const int b = i / U, unit = u0 + i % U;
-      xt_g[(size_t)b * H + unit] =
-          tmp[i] + b_i[unit] + __ldcg(xs + b) * w_x[unit];
+    probe.mark(0);
+  };
+  // y[l*R + r] = in[l*SI + :K] . w[r] for every lane, in tiles of lanes
+  auto rows_dot = [&](const T* in, int SI, int K, const T* w, int R,
+                      float* y) {
+    for (int l0 = 0; l0 < L; l0 += a.tile) {
+      const int nl = min(a.tile, L - l0);
+      stage_rows(in + (size_t)l0 * SI, SI, nl, K);
+      if (R > 0)
+        product(stg, SG, nl, pad16(K), w, stride_of(K), R, y + l0 * R, probe);
+      else
+        __syncthreads();  // the tile's next copy waits for every thread
+      if (clustered) cluster_arrive_relaxed();
     }
-    rows_dot<T, float, true>(h1_g, H, L, H, w1_hh, 3 * U, gh1, sc);
-    rows_dot<T, float, true>(h2_g, H, L, H, w2_hh, 3 * U, gh2, sc);
-    grid.sync();
+  };
+  // the conditioning row is staged whole where its segments are whole
+  // 16-element chunks (the tile's layout is then the row's own)
+  const bool cond_whole = (a.feat + d) % 16 == 0 && d % 16 == 0;
 
-    // B: GRU1
-    rows_dot<T, float, true>(xt_g, H, L, H, w1_ih, 3 * U, tmp, sc);
-    for (int i = tid; i < L * U; i += kThreads) {
-      const int b = i / U, u = i % U, unit = u0 + u;
-      const float* gi = tmp + b * 3 * U;
-      const float* gh = gh1 + b * 3 * U;
-      const float r = sigmoid(gi[u] + b1_ih[unit] + gh[u] + b1_hh[unit]);
-      const float z = sigmoid(gi[U + u] + b1_ih[H + unit] + gh[U + u] +
-                              b1_hh[H + unit]);
-      const float n = tanhf(gi[2 * U + u] + b1_ih[2 * H + unit] +
-                            r * (gh[2 * U + u] + b1_hh[2 * H + unit]));
-      const size_t o = (size_t)b * H + unit;
-      const float h = (1.0f - z) * n + z * __ldcg(h1_g + o);
-      h1_g[o] = h;
-      x1_g[o] = __ldcg(xt_g + o) + h;
-    }
-    grid.sync();
-
-    // C: GRU2
-    rows_dot<T, float, true>(x1_g, H, L, H, w2_x, 3 * U, tmp, sc);
-    for (int i = tid; i < L * U; i += kThreads) {
-      const int b = i / U, u = i % U, unit = u0 + u;
-      const float* gi = tmp + b * 3 * U;
-      const float* pg = pg2 + b * 3 * U;
-      const float* gh = gh2 + b * 3 * U;
-      const float r = sigmoid(gi[u] + pg[u] + b2_ih[unit] + gh[u] +
-                              b2_hh[unit]);
-      const float z = sigmoid(gi[U + u] + pg[U + u] + b2_ih[H + unit] +
-                              gh[U + u] + b2_hh[H + unit]);
-      const float n = tanhf(gi[2 * U + u] + pg[2 * U + u] +
-                            b2_ih[2 * H + unit] +
-                            r * (gh[2 * U + u] + b2_hh[2 * H + unit]));
-      const size_t o = (size_t)b * H + unit;
-      const float h = (1.0f - z) * n + z * __ldcg(h2_g + o);
-      h2_g[o] = h;
-      x2_g[o] = __ldcg(x1_g + o) + h;
-    }
-    grid.sync();
-
-    // D: fc1
-    rows_dot<T, float, true>(x2_g, H, L, H, fc1_x, fcn, tmp, sc);
-    for (int i = tid; i < L * fcn; i += kThreads) {
-      const int b = i / fcn, j = i % fcn;
-      f1_g[(size_t)b * F + fc0 + j] =
-          fmaxf(tmp[i] + pf1[b * fcn + j] + fc1_b[fc0 + j], 0.0f);
-    }
-    grid.sync();
-
-    // E: fc2
-    rows_dot<T, float, true>(f1_g, F, L, F, fc2_x, fcn, tmp, sc);
-    for (int i = tid; i < L * fcn; i += kThreads) {
-      const int b = i / fcn, j = i % fcn;
-      f2_g[(size_t)b * F + fc0 + j] =
-          fmaxf(tmp[i] + pf2[b * fcn + j] + fc2_b[fc0 + j], 0.0f);
-    }
-    grid.sync();
-
-    // F: fc3 -> logits
-    rows_dot<T, float, true>(f2_g, F, L, F, fc3, ncn, tmp, sc);
-    for (int i = tid; i < L * ncn; i += kThreads) {
-      const int b = i / ncn, j = i % ncn;
-      lg_g[(size_t)b * NC + nc0 + j] = tmp[i] + fc3_b[nc0 + j];
-    }
-    grid.sync();
-
-    // G: sample one lane per block
-    for (int b = blockIdx.x; b < L; b += gridDim.x) {
-      const float* lg = lg_g + (size_t)b * NC;
-      const int n_pick = a.nr_mix > 0 ? a.nr_mix : NC;
-      const uint32_t stream = a.nr_mix > 0 ? 1u : 0u;
-      float best = __int_as_float(0xff800000);  // -inf
-      int best_i = 0x7fffffff;
-      for (int j4 = tid; j4 * 4 < n_pick; j4 += kThreads) {
-        uint4 bits = make_uint4(0, 0, 0, 0);
-        if (!a.greedy)
-          bits = philox(make_uint4(j4, b, t, stream), a.key);
-        for (int e = 0; e < 4; ++e) {
-          const int j = 4 * j4 + e;
-          if (j >= n_pick) break;
-          float v = __ldcg(lg + j);
-          if (!a.greedy) {
-            const float u = uniform24(word(bits, e));
-            if (a.nr_mix > 0) {
-              v -= logf(-logf(fminf(fmaxf(u, 1e-5f), 1.0f - 1e-5f)));
-            } else {
-              v += -logf(-logf(u + 1e-9f) + 1e-9f);
-            }
-          }
-          better(best, best_i, v, j);
-        }
-      }
-      const int k = block_argmax(best, best_i, red);
-      if (tid == 0) {
+  for (int t = 0; t <= a.n_steps; ++t) {
+    // the previous step's samples, from its keys
+    if (t > 0) {
+      const int tp = t - 1;
+      const unsigned long long* keys = g.keys + (size_t)(tp % kSlots) * L;
+      for (int l = tid; l < L; l += kThreads) {
+        const int k = key_class(__ldcg(keys + l));
         float sample;
-        if (a.nr_mix > 0) {
+        if (mol) {
+          const float* lg = g.logits + (size_t)l * NC;
           const float mean = __ldcg(lg + k + a.nr_mix);
           if (a.greedy) {
             sample = fminf(fmaxf(mean, -1.0f), 1.0f);
           } else {
             const float log_s =
                 fmaxf(__ldcg(lg + k + 2 * a.nr_mix), kLogScaleMin);
-            const uint4 bits = philox(make_uint4(0, b, t, 2u), a.key);
+            const uint4 bits = philox(make_uint4(0, l, tp, 2u), a.key);
             const float u =
                 fminf(fmaxf(uniform24(bits.x), 1e-5f), 1.0f - 1e-5f);
             const float x = mean + expf(log_s) * (logf(u) - logf(1.0f - u));
@@ -498,46 +769,222 @@ __global__ void __launch_bounds__(kThreads) wavernn_kernel(Args a) {
         } else {
           sample = 2.0f * (float)k / ((float)NC - 1.0f) - 1.0f;
         }
-        xs[b] = sample;
-        out[(size_t)t * L + b] = sample;
+        x_s[l] = sample;
+        if (blockIdx.x == 0) {
+          out[(size_t)tp * L + l] = sample;
+          // slot (t+1)%3 was last read at step t-1, before this step's
+          // barriers: clear it for step t+1
+          g.keys[(size_t)((t + 1) % kSlots) * L + l] = 0ull;
+        }
       }
+    } else {
+      for (int l = tid; l < L; l += kThreads) x_s[l] = 0.0f;
     }
+    if (t == a.n_steps) break;
+    __syncthreads();
+    probe.mark(4);
+
+    // A: conditioning projections, xt, and the hidden products of the
+    //    previous states
+    const T* cond_t = cond + (size_t)t * L * C;
+    for (int l0 = 0; l0 < L; l0 += a.tile) {
+      const int nl = min(a.tile, L - l0);
+      const T* src = cond_t + (size_t)l0 * C;
+      if (cond_whole) {
+        stage_rows(src, C, nl, C);
+      } else {
+        if (clustered) cluster_wait();
+        stage<T>(src, C, 0, nl, a.feat + d, stg, SG, 0);
+        stage<T>(src, C, a.feat + d, nl, d, stg, SG, cl.o1);
+        stage<T>(src, C, a.feat + 2 * d, nl, d, stg, SG, cl.o2);
+        stage<T>(src, C, a.feat + 3 * d, nl, d, stg, SG, cl.o3);
+        staged();
+        probe.mark(0);
+      }
+      product(stg, SG, nl, pad16(a.feat + d), w_ic, stride_of(a.feat + d), U,
+              tmp + l0 * U, probe);
+      product(stg + cl.o1, SG, nl, pad16(d), w2_a, stride_of(d), R3,
+              pg2 + l0 * R3, probe);
+      if (fcn > 0) {
+        product(stg + cl.o2, SG, nl, pad16(d), fc1_a, stride_of(d), fcn,
+                pf1 + l0 * fcn, probe);
+        product(stg + cl.o3, SG, nl, pad16(d), fc2_a, stride_of(d), fcn,
+                pf2 + l0 * fcn, probe);
+      }
+      if (clustered) cluster_arrive_relaxed();
+    }
+    for (int i = tid; i < L * U; i += kThreads) {
+      const int l = i / U, u = i % U;
+      const float xt = tmp[i] + b_i[u] + x_s[l] * w_x[u];
+      xt_o[i] = xt;
+      xt_g[(size_t)l * H + u0 + u] = from_f<T>(xt);
+    }
+    probe.mark(2);
+    rows_dot(h1_g, H, H, w1_hh, R3, gh1);
+    rows_dot(h2_g, H, H, w2_hh, R3, gh2);
     grid.sync();
+    probe.mark(3);
+
+    // B: GRU1
+    rows_dot(xt_g, H, H, w1_ih, R3, tmp);
+    for (int i = tid; i < L * U; i += kThreads) {
+      const int l = i / U, u = i % U, unit = u0 + u;
+      const float* gi = tmp + l * R3;
+      const float* gh = gh1 + l * R3;
+      const float r = sigmoid(gi[u] + b1_ih[u] + gh[u] + b1_hh[u]);
+      const float z = sigmoid(gi[U + u] + b1_ih[U + u] + gh[U + u] +
+                              b1_hh[U + u]);
+      const float n = tanhf(gi[2 * U + u] + b1_ih[2 * U + u] +
+                            r * (gh[2 * U + u] + b1_hh[2 * U + u]));
+      const float h = (1.0f - z) * n + z * h1_o[i];
+      h1_o[i] = h;
+      h1_g[(size_t)l * H + unit] = from_f<T>(h);
+      x1_g[(size_t)l * H + unit] = from_f<T>(xt_o[i] + h);
+    }
+    probe.mark(2);
+    grid.sync();
+    probe.mark(3);
+
+    // C: GRU2
+    rows_dot(x1_g, H, H, w2_x, R3, tmp);
+    for (int i = tid; i < L * U; i += kThreads) {
+      const int l = i / U, u = i % U, unit = u0 + u;
+      const float* gi = tmp + l * R3;
+      const float* pg = pg2 + l * R3;
+      const float* gh = gh2 + l * R3;
+      const float r = sigmoid(gi[u] + pg[u] + b2_ih[u] + gh[u] + b2_hh[u]);
+      const float z = sigmoid(gi[U + u] + pg[U + u] + b2_ih[U + u] +
+                              gh[U + u] + b2_hh[U + u]);
+      const float n = tanhf(gi[2 * U + u] + pg[2 * U + u] + b2_ih[2 * U + u] +
+                            r * (gh[2 * U + u] + b2_hh[2 * U + u]));
+      const float h = (1.0f - z) * n + z * h2_o[i];
+      h2_o[i] = h;
+      h2_g[(size_t)l * H + unit] = from_f<T>(h);
+      x2_g[(size_t)l * H + unit] = from_f<T>(xt_o[i] + h1_o[i] + h);
+    }
+    probe.mark(2);
+    grid.sync();
+    probe.mark(3);
+
+    // D: fc1
+    rows_dot(x2_g, H, H, fc1_x, fcn, tmp);
+    for (int i = tid; i < L * fcn; i += kThreads) {
+      const int l = i / fcn, j = i % fcn;
+      f1_g[(size_t)l * F + fc0 + j] = from_f<T>(
+          fmaxf(tmp[i] + pf1[l * fcn + j] + fc1_b[j], 0.0f));
+    }
+    probe.mark(2);
+    grid.sync();
+    probe.mark(3);
+
+    // E: fc2
+    rows_dot(f1_g, F, F, fc2_x, fcn, tmp);
+    for (int i = tid; i < L * fcn; i += kThreads) {
+      const int l = i / fcn, j = i % fcn;
+      f2_g[(size_t)l * F + fc0 + j] = from_f<T>(
+          fmaxf(tmp[i] + pf2[l * fcn + j] + fc2_b[j], 0.0f));
+    }
+    probe.mark(2);
+    grid.sync();
+    probe.mark(3);
+
+    // F: logits of the block's classes, folded into this step's keys
+    rows_dot(f2_g, F, F, fc3, ncn, tmp);
+    for (int l = tid; l < L; l += kThreads) k_lane[l] = 0ull;
+    __syncthreads();
+    const int n_pick = mol ? a.nr_mix : NC;
+    const uint32_t stream = mol ? 1u : 0u;
+    for (int i = tid; i < L * ncn; i += kThreads) {
+      const int l = i / ncn, j = nc0 + i % ncn;
+      const float lg = tmp[i] + fc3_b[j - nc0];
+      if (mol) g.logits[(size_t)l * NC + j] = lg;
+      if (j >= n_pick) continue;
+      float v = lg;
+      if (!a.greedy) {
+        const uint4 bits = philox(make_uint4(j / 4, l, t, stream), a.key);
+        const float u = uniform24(word(bits, j % 4));
+        if (mol)
+          v -= logf(-logf(fminf(fmaxf(u, 1e-5f), 1.0f - 1e-5f)));
+        else
+          v += -logf(-logf(u + 1e-9f) + 1e-9f);
+      }
+      atomicMax(k_lane + l, make_key(v, j));
+    }
+    __syncthreads();
+    unsigned long long* keys = g.keys + (size_t)(t % kSlots) * L;
+    for (int l = tid; l < L; l += kThreads)
+      if (k_lane[l] != 0ull) atomicMax(keys + l, k_lane[l]);
+    probe.mark(4);
+    grid.sync();
+    probe.mark(3);
   }
+  if (clustered) cluster_wait();  // pairs with the last arrive
+  probe.finish();
+}
+
+// The widest staging tile (at most kMaxTile lanes, whole 16-lane tiles)
+// that fits, and for it the largest U (fewest blocks). Each tile costs a
+// stage and a product per stage of the step, so the tile comes first (72
+// fold lanes in one 80-lane tile rather than 64 + 16).
+template <typename T>
+bool pick_layout(Args& a, int n_sms, int smem_max) {
+  const int widest = a.L >= kMaxTile ? kMaxTile : (a.L + 15) / 16 * 16;
+  for (a.tile = widest; a.tile >= 16; a.tile -= 16) {
+    for (int U = kMaxRows / 3; U >= 1; --U) {
+      if (a.H % U != 0 || a.H / U > n_sms) continue;
+      const int n_blocks = a.H / U;
+      a.U = U;
+      a.FC = (a.F + n_blocks - 1) / n_blocks;
+      a.NCC = (a.NC + n_blocks - 1) / n_blocks;
+      if (a.FC > kMaxRows || a.NCC > kMaxRows) continue;
+      if (make_layout<T>(a).total <= (size_t)smem_max) return true;
+    }
+  }
+  return false;
 }
 
 template <typename T>
 cudaError_t launch(Args a, cudaStream_t stream) {
   auto kernel = wavernn_kernel<T>;
   cudaError_t err;
-  int dev = 0, n_sms = 0, per_sm = 0, smem_max = 0;
+  int dev = 0, n_sms = 0, smem_max = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&smem_max,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
-  // the staging buffer takes what shared memory the weights leave free,
-  // up to every lane's widest input row
-  a.stage_cap = 0;
-  const size_t base = make_layout<T>(a).total;
-  const int C = a.feat + 4 * a.d;
-  const int row = std::max(std::max(a.H, a.F), C);
-  const long long room = ((long long)smem_max - (long long)base - 16) / 4;
-  if (room < row) return cudaErrorInvalidValue;
-  a.stage_cap = (int)std::min(room, (long long)a.L * row);
+  err = cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  if (!pick_layout<T>(a, n_sms, smem_max)) return cudaErrorInvalidValue;
   const size_t smem = make_layout<T>(a).total;
   err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, smem);
-  if (err != cudaSuccess) return err;
   const int grid = a.H / a.U;
-  if (per_sm * n_sms < grid) return cudaErrorCooperativeLaunchTooLarge;
-  void* args[] = {(void*)&a};
-  err = cudaLaunchCooperativeKernel((void*)kernel, grid, kThreads, args,
-                                    smem, stream);
+  cudaLaunchAttribute attrs[2];
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[1].id = cudaLaunchAttributeCooperative;
+  attrs[1].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attrs;
+  // the largest cluster of which the whole grid is resident at once
+  for (a.cs = kMaxCluster; a.cs >= 1; a.cs /= 2) {
+    if (grid % a.cs != 0) continue;
+    attrs[0].val.clusterDim.x = a.cs;
+    attrs[0].val.clusterDim.y = 1;
+    attrs[0].val.clusterDim.z = 1;
+    cfg.numAttrs = 1;
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (err != cudaSuccess) return err;
+    if (clusters * a.cs >= grid) break;
+  }
+  if (a.cs < 1) return cudaErrorCooperativeLaunchTooLarge;
+  cfg.numAttrs = 2;
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -546,9 +993,10 @@ cudaError_t launch(Args a, cudaStream_t stream) {
 
 extern "C" {
 
-// ptrs: P_COUNT device pointers in `enum Ptr` order; ints: I_COUNT values
-// in `enum Int` order. Returns a cudaError_t (0: launch accepted).
-int ftt_wavernn_launch(int bf16, void** ptrs, const long long* ints,
+// ptrs: P_COUNT device pointers in `enum Ptr` order (the scratch zeroed);
+// ints: I_COUNT values in `enum Int` order. Returns a cudaError_t (0:
+// launch accepted).
+int ftt_wavernn_launch(int use_bf16, void** ptrs, const long long* ints,
                        void* stream) {
   Args a;
   for (int i = 0; i < P_COUNT; ++i) a.p[i] = ptrs[i];
@@ -561,18 +1009,12 @@ int ftt_wavernn_launch(int bf16, void** ptrs, const long long* ints,
   a.NC = (int)ints[I_NC];
   a.nr_mix = (int)ints[I_NR_MIX];
   a.greedy = (int)ints[I_GREEDY];
-  a.U = (int)ints[I_U];
   const unsigned long long seed = (unsigned long long)ints[I_SEED];
   a.key = make_uint2((uint32_t)(seed & 0xffffffffull), (uint32_t)(seed >> 32));
-  if (a.U <= 0 || a.H % a.U != 0 || 3 * a.U > kMaxRows || a.L <= 0 ||
-      a.n_steps <= 0)
+  if (a.L <= 0 || a.n_steps <= 0 || a.H <= 0 || a.F <= 0 || a.NC <= 0)
     return (int)cudaErrorInvalidValue;
-  const int n_blocks = a.H / a.U;
-  a.FC = (a.F + n_blocks - 1) / n_blocks;
-  a.NCC = (a.NC + n_blocks - 1) / n_blocks;
-  if (a.FC > kMaxRows || a.NCC > kMaxRows) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(bf16 ? launch<__nv_bfloat16>(a, st) : launch<float>(a, st));
+  return (int)(use_bf16 ? launch<bf16>(a, st) : launch<float>(a, st));
 }
 
 const char* ftt_error_string(int code) {

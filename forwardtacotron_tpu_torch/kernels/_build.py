@@ -3,9 +3,14 @@
 Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc`
 for `sm_90a` into `build/lib<name>-<hash>.so` beside the package (the
 directory is git-ignored), then loaded with ctypes. The hash covers the
-source and the flags, so an edited source is rebuilt and an unchanged
-one is loaded as it is. Nothing here runs at import time, and nothing
-falls back: a missing `nvcc` or a failed build raises.
+source, every header under `csrc/` and the flags, so an edited source or
+header is rebuilt and an unchanged one is loaded as it is. Nothing here
+runs at import time, and nothing falls back: a missing `nvcc` or a
+failed build raises.
+
+Setting `PROBE = True` selects the probe build (`-DFTT_PROBE`, a library
+of its own): its kernels time their phases on the card
+(`csrc/probe.cuh`), and `probe_read` returns what they measured.
 """
 from __future__ import annotations
 
@@ -23,7 +28,10 @@ BUILD_DIR = PKG_DIR / 'build'
 NVCC_FLAGS = ['-gencode=arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v']
 
-_LOADED: Dict[str, ctypes.CDLL] = {}
+PROBE = False          # build and load the per-phase timing variant
+PROBE_PHASES = 8       # csrc/probe.cuh kProbePhases
+
+_LOADED: Dict[tuple, ctypes.CDLL] = {}
 
 
 def nvcc_path() -> str:
@@ -38,9 +46,16 @@ def nvcc_path() -> str:
                        'csrc/ at first use and need the CUDA toolkit')
 
 
+def _flags() -> list:
+    return NVCC_FLAGS + (['-DFTT_PROBE'] if PROBE else [])
+
+
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f'{name}.cu').read_bytes()
-    digest = hashlib.sha256(src + ' '.join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f'{name}.cu').read_bytes())
+    for header in sorted(p for p in CSRC.iterdir()
+                         if p.suffix in ('.cuh', '.h')):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(' '.join(_flags()).encode())
     return BUILD_DIR / f'lib{name}-{digest.hexdigest()[:16]}.so'
 
 
@@ -54,7 +69,7 @@ def build(names: Iterable[str]) -> Dict[str, str]:
         if out.exists():
             continue
         tmp = out.with_suffix(f'.{os.getpid()}.tmp')
-        cmd = [nvcc_path(), *NVCC_FLAGS, '-o', str(tmp),
+        cmd = [nvcc_path(), *_flags(), '-o', str(tmp),
                str(CSRC / f'{name}.cu')]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT,
@@ -75,14 +90,31 @@ def build(names: Iterable[str]) -> Dict[str, str]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of csrc/<name>.cu, built first if needed."""
-    lib = _LOADED.get(name)
+    lib = _LOADED.get((name, PROBE))
     if lib is None:
         build([name])
         lib = ctypes.CDLL(str(_lib_path(name)))
         lib.ftt_error_string.argtypes = [ctypes.c_int]
         lib.ftt_error_string.restype = ctypes.c_char_p
-        _LOADED[name] = lib
+        _LOADED[(name, PROBE)] = lib
     return lib
+
+
+def probe_read(name: str) -> Dict[str, float]:
+    """Phase times of the probe build of csrc/<name>.cu summed over its
+    launches since the last read, and reset: {'phase<i>': ns, ...,
+    'run_ns': ns} from thread 0 of block 0 (SM cycles scaled to ns by the
+    run's own %globaltimer span)."""
+    lib = load(name)
+    out = (ctypes.c_ulonglong * (PROBE_PHASES + 2))()
+    lib.ftt_probe_read.argtypes = [ctypes.c_void_p]
+    lib.ftt_probe_read.restype = ctypes.c_int
+    check(lib, lib.ftt_probe_read(out), 'probe read')
+    ns, cycles = out[PROBE_PHASES], out[PROBE_PHASES + 1]
+    scale = ns / cycles if cycles else 0.0
+    res = {f'phase{i}': out[i] * scale for i in range(PROBE_PHASES)}
+    res['run_ns'] = float(ns)
+    return res
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -11,10 +11,17 @@ their plain versions are `ops/rnn.py:birnn_train_forward` and
 `birnn_train_backward`, with the same signatures, used for tensors on the
 CPU. `ops/rnn.py:BiRNNTrain` wraps the pair in one autograd Function.
 
-What bounds them on the card: at the training batch the steps form a
-chain of T grid barriers, and the backward's per-step exchange of the
-whole B x NG*H gate-gradient vector through L2 is its hot spot (see the
-source for the design and what it does about each).
+The forward has two paths, chosen by `train_forward_plan`: the
+cooperative kernel (one block per U units of a stream, a grid barrier per
+step) and, where a stream's whole W_hh fits one block, the batch-split
+kernel (one block per stream and batch lane, no grid barrier), which the
+training step's series-predictor BiGRUs take.
+
+What bounds them on the card: the cooperative kernels form a chain of T
+grid barriers, and the backward's per-step exchange of the whole
+B x NG*H gate-gradient vector through L2 is its hot spot; the batch-split
+path is bound by each block's per-step chain of product and gate math
+(see the source for the design and what it does about each).
 """
 from __future__ import annotations
 
@@ -26,6 +33,11 @@ from forwardtacotron_tpu_torch.ops.rnn import (birnn_train_backward,
                                                birnn_train_forward, n_gates)
 
 UNITS = (1, 2, 4, 8)   # units per block compiled in csrc/birnn_train.cu
+PATHS = ('cooperative', 'batch_split')
+BS_LANES = 1           # batch lanes per block of the batch-split path
+BS_ROWS = 4            # W_hh rows per thread of its product
+BS_MAX_THREADS = 512
+BS_MAX_SPLITS = 8
 
 
 def units_per_block(n_streams: int, hidden: int, n_sms: int) -> int:
@@ -38,6 +50,60 @@ def units_per_block(n_streams: int, hidden: int, n_sms: int) -> int:
                      f'H={hidden} do not fit {n_sms} SMs with U in {UNITS}')
 
 
+def _bs_size(ng: int, hidden: int, ks: int, item: int) -> tuple:
+    """(threads, shared-memory bytes) of a batch-split block with `ks`
+    k-splits (csrc/birnn_train.cu bs_threads/bs_smem): the stream's whole
+    W_hh, BS_LANES lanes of rounded h, the product's partial sums and
+    their totals, and two steps of the lanes' gate inputs."""
+    threads = -(-max(ng * hidden // BS_ROWS * ks, BS_LANES * hidden)
+                 // 32) * 32
+    smem = item * ng * hidden * hidden \
+        + 4 * (BS_LANES * hidden + (ks + 1) * BS_LANES * ng * hidden) \
+        + item * 2 * BS_LANES * ng * hidden
+    return threads, smem
+
+
+def batch_split_shape(cell: str, hidden: int, dtype: torch.dtype,
+                      smem_limit: int) -> dict:
+    """k-splits, threads and shared-memory bytes of a batch-split block:
+    the most k-splits (a power of two) that divide the 16-byte chunks of a
+    W_hh row and keep the block within BS_MAX_THREADS threads and
+    `smem_limit` bytes. None where nothing fits or H is not a whole
+    number of chunks."""
+    item = torch.empty((), dtype=dtype).element_size()
+    vec = 16 // item
+    ng, chunks = n_gates(cell), hidden // vec
+    if hidden % vec:
+        return None
+    best = None
+    ks = 1
+    while chunks % ks == 0 and ks <= BS_MAX_SPLITS:
+        threads, smem = _bs_size(ng, hidden, ks, item)
+        if threads > BS_MAX_THREADS or smem > smem_limit:
+            break
+        best = {'splits': ks, 'threads': threads, 'smem': smem}
+        ks *= 2
+    return best
+
+
+def train_forward_plan(cell: str, n_streams: int, batch: int, hidden: int,
+                       dtype: torch.dtype, smem_limit: int, n_sms: int
+                       ) -> dict:
+    """The forward kernel's path for a shape, from the shared memory a
+    block may opt in to on the card and its SM count.
+
+    - 'batch_split' wherever a stream's whole W_hh and the lanes' state
+      fit in one block: grid S x ceil(B / BS_LANES), no grid barrier;
+    - 'cooperative' otherwise: one block per U units of a stream, all
+      resident, a grid barrier per step."""
+    shape = batch_split_shape(cell, hidden, dtype, smem_limit)
+    if shape is not None:
+        return {'path': 'batch_split',
+                'blocks': n_streams * -(-batch // BS_LANES), **shape}
+    return {'path': 'cooperative',
+            'units': units_per_block(n_streams, hidden, n_sms)}
+
+
 def _check(tensors, dev):
     for name, t, dt in tensors:
         if t.device != dev or t.dtype != dt or not t.is_contiguous():
@@ -46,13 +112,14 @@ def _check(tensors, dev):
                              f'{t.dtype} on {t.device}')
 
 
-def _launch(name, what, *args):
+def _launch(name, what, n_ptrs, *args):
     """Call launcher `name` of csrc/birnn_train.cu (built at first use) on
-    the current stream of the tensors' device; raise on its error code."""
+    the current stream of the tensors' device; raise on its error code.
+    Its arguments: two flags, `n_ptrs` pointers, five ints, the stream."""
     from forwardtacotron_tpu_torch.kernels import _build
     lib = _build.load('birnn_train')
     fn = getattr(lib, name)
-    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 7 \
+    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * n_ptrs \
         + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     _build.check(lib, fn(*args, torch.cuda.current_stream().cuda_stream),
@@ -61,10 +128,12 @@ def _launch(name, what, *args):
 
 def train_forward(cell: str, gi: torch.Tensor, w_hh: torch.Tensor,
                   b_hh: torch.Tensor, lengths: torch.Tensor,
-                  compute_dtype: torch.dtype = torch.float32):
+                  compute_dtype: torch.dtype = torch.float32,
+                  path: str = None):
     """(y, stash) of the training forward (see
     `ops/rnn.py:birnn_train_forward` for the contract). CUDA tensors
-    launch the kernel; CPU tensors take the plain version."""
+    launch the kernel on the path of `train_forward_plan`, or on `path`
+    when given; CPU tensors take the plain version."""
     if gi.device.type == 'cpu':
         return birnn_train_forward(cell, gi, w_hh, b_hh, lengths,
                                    compute_dtype)
@@ -86,22 +155,36 @@ def train_forward(cell: str, gi: torch.Tensor, w_hh: torch.Tensor,
     _check((('gi', gi, compute_dtype), ('w_hh', w_hh, compute_dtype),
             ('b_hh', b_hh, torch.float32), ('lengths', lengths, torch.int32)),
            dev)
-    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    u = units_per_block(S, H, n_sms)
+    props = torch.cuda.get_device_properties(dev)
+    plan = train_forward_plan(cell, S, B, H, compute_dtype,
+                              props.shared_memory_per_block_optin,
+                              props.multi_processor_count)
+    if path == 'cooperative' and plan['path'] != path:
+        plan = {'path': path,
+                'units': units_per_block(S, H, props.multi_processor_count)}
+    elif path not in (None, plan['path']):
+        raise ValueError(f'BiRNN training kernel: the {path} path does not '
+                         f'take {cell} H={H} in {compute_dtype}')
     y = torch.empty((T, B, S, H), dtype=torch.float32, device=dev)
     stash = torch.empty((T, B, S, 5, H), dtype=compute_dtype, device=dev)
-    hbuf = torch.zeros((2, S, B, H), dtype=torch.float32, device=dev)
+    args = (int(cell == 'lstm'), int(compute_dtype == torch.bfloat16),
+            gi.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
+            lengths.data_ptr(), y.data_ptr(), stash.data_ptr())
     with torch.cuda.device(dev):
-        _launch('ftt_birnn_train_fwd', 'BiRNN training forward kernel',
-                int(cell == 'lstm'), int(compute_dtype == torch.bfloat16),
-                gi.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
-                lengths.data_ptr(), y.data_ptr(), stash.data_ptr(),
-                hbuf.data_ptr(), T, B, S, H, u)
+        if plan['path'] == 'batch_split':
+            _launch('ftt_birnn_train_fwd_bs', 'BiRNN training forward kernel '
+                    '(batch-split)', 6, *args, T, B, S, H, plan['splits'])
+        else:
+            hbuf = torch.zeros((2, S, B, H), dtype=torch.float32, device=dev)
+            _launch('ftt_birnn_train_fwd', 'BiRNN training forward kernel',
+                    7, *args, hbuf.data_ptr(), T, B, S, H, plan['units'])
     train_forward.launches += 1
+    train_forward.path_launches[plan['path']] += 1
     return y, stash
 
 
 train_forward.launches = 0
+train_forward.path_launches = {p: 0 for p in PATHS}
 
 
 def train_backward(cell: str, stash: torch.Tensor, dy: torch.Tensor,
@@ -138,7 +221,7 @@ def train_backward(cell: str, stash: torch.Tensor, dy: torch.Tensor,
     dgh = dgi if cell == 'lstm' else torch.empty_like(dgi)
     xbuf = torch.empty((2, S, B, GH), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        _launch('ftt_birnn_train_bwd', 'BiRNN training backward kernel',
+        _launch('ftt_birnn_train_bwd', 'BiRNN training backward kernel', 7,
                 int(cell == 'lstm'), int(compute_dtype == torch.bfloat16),
                 stash.data_ptr(), dy.data_ptr(), w_hh.data_ptr(),
                 lengths.data_ptr(), dgi.data_ptr(),

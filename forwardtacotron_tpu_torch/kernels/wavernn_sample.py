@@ -8,16 +8,21 @@ with the same signature, used for tensors on the CPU.
 What bounds it: every sample depends on the previous one through two
 GRUs and three dense layers, so a fold of T samples is a chain of T
 steps of six dependent small products (M = the number of fold lanes).
-The least time is set by that chain, not by bytes: the ~9 MB of loop
-weights are read from shared memory every step, never from device
-memory. The design keeps them resident: one cooperative launch for all
-steps, block j owns U hidden units (and the matching fc/logit columns)
-and holds their rows of every loop weight in shared memory, the compact
-conditioning [mel | aux] (208 channels per step and lane) is projected
-in the kernel, and the step's small vectors pass through L2 between the
-seven grid barriers of a step. Sampling (Gumbel-max for RAW; mixture
-pick plus logistic inverse-CDF for MOL) runs on chip with a counter-based
-Philox generator keyed by (seed, step, lane, class).
+The least time is set by that chain, not by bytes or operations: per
+step, the L2 traffic of the vectors every block stages, the grid
+barriers, and the products' latency. The design keeps every loop weight
+resident in shared memory (one cooperative launch for all steps; block j
+owns U hidden units and the matching fc/logit columns), projects the
+compact conditioning [mel | aux] (208 channels per step and lane) in the
+kernel, runs the bf16 products on the tensor cores (`mma.sync`), publishes
+the step's vectors to L2 only rounded to the compute type, stages them
+into the blocks of a thread-block cluster with one multicast bulk copy
+per row (L2 serves each row once per cluster), and folds the
+sampling (Gumbel-max for RAW; mixture pick plus logistic inverse-CDF for
+MOL) into the logits stage through one 64-bit `atomicMax` key per lane,
+so a step has six grid barriers. Random numbers come from a counter-based
+Philox generator keyed by (seed, step, lane, class). The source note of
+`csrc/wavernn_sample.cu` gives the layout and why.
 """
 from __future__ import annotations
 
@@ -33,7 +38,7 @@ from forwardtacotron_tpu_torch.ops.rnn import gru_from_gates
 
 MAX_LANES = 128        # fold lanes per launch; more are split into groups
 MOL_CLASSES = 128      # MOL fc3 output padded to this width
-MAX_ROWS = 32          # rows per block (csrc/wavernn_sample.cu kMaxRows)
+KEY_SLOTS = 3          # ring of per-step sample keys (csrc kSlots)
 
 # pointer order of ftt_wavernn_launch (csrc/wavernn_sample.cu `enum Ptr`)
 WEIGHT_KEYS = ('w_ic', 'w_x', 'b_i', 'w1_ih', 'w1_hh', 'b1_ih', 'b1_hh',
@@ -188,14 +193,18 @@ def sample_plain(cond: torch.Tensor, w: Dict[str, torch.Tensor], seed: int,
 
 # ------------------------------------------------------------- the kernel
 
-def units_per_block(hidden: int, n_sms: int) -> int:
-    for u in range(1, hidden + 1):
-        if hidden % u == 0 and hidden // u <= n_sms:
-            if 3 * u > MAX_ROWS:
-                break
-            return u
-    raise ValueError(f'WaveRNN kernel: rnn_dims={hidden} does not fit '
-                     f'{n_sms} SMs')
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def scratch_bytes(lanes: int, hidden: int, fc: int, n_classes: int,
+                  item: int) -> int:
+    """Bytes of the kernel's zeroed global scratch (csrc `carve`): the
+    sample keys (KEY_SLOTS, L) uint64, the logits (L, classes) float32,
+    then xt, h1, x1, h2, x2 (L, H) and f1, f2 (L, F) in the compute type."""
+    return (_align16(8 * KEY_SLOTS * lanes)
+            + _align16(4 * lanes * n_classes)
+            + item * lanes * (5 * hidden + 2 * fc))
 
 
 def sample(cond: torch.Tensor, w: Dict[str, torch.Tensor], seed: int,
@@ -236,17 +245,14 @@ def _launch(cond, w, seed, nr_mix, greedy, compute_dtype):
             raise ValueError(f'WaveRNN kernel: {name} must be a contiguous '
                              f'{dt} tensor on {dev}, got {t.dtype} on '
                              f'{t.device}')
-    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    u = units_per_block(H, n_sms)
     out = torch.empty((T, L), dtype=torch.float32, device=dev)
-    # x (L) | xt h1 x1 h2 x2 (L, H) | f1 f2 (L, F) | logits (L, classes)
-    scratch = torch.zeros(L * (1 + 5 * H + 2 * F + n_classes),
-                          dtype=torch.float32, device=dev)
+    item = torch.empty((), dtype=compute_dtype).element_size()
+    scratch = torch.zeros(scratch_bytes(L, H, F, n_classes, item),
+                          dtype=torch.uint8, device=dev)
     ptrs = (ctypes.c_void_p * 23)(*[t.data_ptr() for t in tensors],
                                   out.data_ptr(), scratch.data_ptr())
-    ints = (ctypes.c_longlong * 11)(T, L, feat, d, H, F, n_classes, nr_mix,
-                                    int(greedy), seed & 0x7FFFFFFFFFFFFFFF,
-                                    u)
+    ints = (ctypes.c_longlong * 10)(T, L, feat, d, H, F, n_classes, nr_mix,
+                                    int(greedy), seed & 0x7FFFFFFFFFFFFFFF)
     lib = _build.load('wavernn_sample')
     fn = lib.ftt_wavernn_launch
     fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,

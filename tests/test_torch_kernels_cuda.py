@@ -191,3 +191,69 @@ def test_full_width_step_gives_every_parameter_a_gradient(cuda):
         assert p.grad is not None, name
         assert bool(torch.isfinite(p.grad).all()), name
         assert float(p.grad.abs().max()) > 0, name
+
+
+@pytest.mark.parametrize('cell,H', [('gru', 64), ('gru', 128), ('lstm', 64)])
+@pytest.mark.parametrize('B', [1, 7, 32])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_batch_split_forward_matches_plain(cuda, cell, H, B, dtype):
+    """Kernel #2's batch-split path (no grid barrier) against the plain
+    version at ragged lengths, with the tolerances of
+    test_train_kernels_match_plain; its stash fed to kernel #3 gives the
+    plain dgi/dgh. The cooperative path on the same inputs agrees too."""
+    from forwardtacotron_tpu_torch.kernels.birnn_train import (
+        train_backward, train_forward)
+    from forwardtacotron_tpu_torch.ops.rnn import (birnn_train_backward,
+                                                   birnn_train_forward)
+    bf16_rel = {'y': 2e-3, 'stash': 2.0 ** -7, 'dgi': 2.0 ** -7,
+                'dgh': 2.0 ** -7}
+    gi, w, b, lengths, dy = _train_inputs(cell, 70, B, 2, H, dtype, H + B,
+                                          cuda)
+    n_bs = train_forward.path_launches['batch_split']
+    y, st = train_forward(cell, gi, w, b, lengths, dtype)
+    assert train_forward.path_launches['batch_split'] == n_bs + 1
+    dgi, dgh = train_backward(cell, st, dy, w, lengths, dtype)
+    y_c, st_c = train_forward(cell, gi, w, b, lengths, dtype,
+                              path='cooperative')
+    y_p, st_p = birnn_train_forward(cell, gi, w, b, lengths, dtype)
+    dgi_p, dgh_p = birnn_train_backward(cell, st, dy, w, lengths, dtype)
+    for name, got, ref in (('y', y, y_p), ('stash', st, st_p),
+                           ('dgi', dgi, dgi_p), ('dgh', dgh, dgh_p),
+                           ('y', y_c, y_p), ('stash', st_c, st_p)):
+        diff = got.float() - ref.float()
+        err = float(diff.abs().max())
+        if dtype == torch.float32:
+            assert err <= 1e-4, (name, err)
+        else:
+            assert err <= bf16_rel[name] * float(ref.float().abs().max()), \
+                (name, err)
+            assert float(diff.norm() / ref.float().norm()) <= 2.0 ** -8, name
+
+
+@pytest.mark.parametrize('lanes', [1, 64, 128])
+@pytest.mark.parametrize('mode', ['RAW', 'MOL'])
+def test_sampler_lanes_match_plain(cuda, lanes, mode):
+    """The sampler at 1, 64 and 128 lanes: greedy float32 and bfloat16
+    trajectories agree with the plain version on > 95% of samples (RAW:
+    the same class; MOL: within 1e-3), a seed repeats its samples and
+    sampled values lie in [-1, 1]."""
+    from forwardtacotron_tpu_torch.kernels import wavernn_sample as ws
+    from forwardtacotron_tpu_torch.models.wavernn import WaveRNN
+    torch.manual_seed(1)
+    model = WaveRNN(rnn_dims=128, fc_dims=128, feat_dims=20, res_blocks=1,
+                    compute_dims=16, res_out_dims=16, mode=mode).to(cuda)
+    nr_mix = 10 if mode == 'MOL' else 0
+    tol = 1e-6 if mode == 'RAW' else 1e-3
+    cond = torch.randn((200, lanes, 20 + 16), device=cuda) * 0.5
+    for dtype in (torch.float32, torch.bfloat16):
+        w = ws.pack_weights(model, dtype)
+        c = cond.to(dtype)
+        before = ws.sample.launches
+        k = ws.sample(c, w, 0, nr_mix, True, dtype)
+        assert ws.sample.launches == before + 1
+        p = ws.sample_plain(c, w, 0, nr_mix, True, dtype)
+        assert float(((k - p).abs() < tol).float().mean()) > 0.95, dtype
+        s1 = ws.sample(c, w, 5, nr_mix, False, dtype)
+        s2 = ws.sample(c, w, 5, nr_mix, False, dtype)
+        assert torch.equal(s1, s2) and bool((s1.abs() <= 1).all())
+        assert float(s1.std()) > 0
