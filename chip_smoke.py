@@ -15,10 +15,12 @@ printed only when every phase passed):
    `evaluate()` gives it on the training path (B=32: decoder LSTM H=512
    T=896 ragged, CBHG GRUs H=256 at T=896 and T=176, predictor GRUs
    H=128/64 T=176; float32 at atol 1e-4);
-4. WaveRNN sampling kernel against its plain version (RAW greedy float32
-   at 64 lanes x 3850 steps and at 128 lanes x 600 steps, MOL greedy, RAW
-   sampled, same seed same samples, lane groups), timed in bfloat16 at 1,
-   8, 64 and 128 lanes x 3850 steps;
+4. WaveRNN sampling kernel against its plain version, greedy, in both
+   compute types (class agreement > 95%; MOL within 1e-3 on > 95%): RAW
+   at 64 lanes x 3850 steps, float32 at 128 lanes x 600 steps, bfloat16 at
+   72 lanes x 3850 steps (the 920-frame utterance's fold), MOL at 16 lanes
+   x 1650 steps; RAW and MOL sampled, same seed same samples, lane groups;
+   timed in bfloat16 at 1, 8, 64 and 128 lanes x 3850 steps;
 5. the main path at the full width of config.yaml with random weights:
    `gen_forward.main` on three lines of sentences.txt (text -> ids ->
    generate -> vocode -> int16 wav), with the kernels' launch counts
@@ -288,13 +290,18 @@ def wavernn_cases():
     out['raw_sampled_bf16_agreement'] = float(
         ((a - ps).abs() < 1e-6).float().mean())
     out['raw_sampled_bf16_max_abs_err'] = float((a - ps).abs().max())
+    log(f'  RAW sampled bf16 kernel/plain agreement '
+        f'{out["raw_sampled_bf16_agreement"]:.4f}')
+    # the main path's compute type, greedy: the same class on > 95% of the
+    # samples (products sum in another order than the plain version's, so
+    # a near tie may flip, and the trajectory then differs for a while)
     gk = ws.sample(condbf, wbf, 0, 0, True, bf16)
     gp = ws.sample_plain(condbf, wbf, 0, 0, True, bf16)
-    out['raw_greedy_bf16_agreement'] = float(
-        ((gk - gp).abs() < 1e-6).float().mean())
-    log(f'  RAW sampled bf16 kernel/plain agreement '
-        f'{out["raw_sampled_bf16_agreement"]:.4f}, greedy bf16 '
-        f'{out["raw_greedy_bf16_agreement"]:.4f}')
+    agree = float(((gk - gp).abs() < 1e-6).float().mean())
+    check(agree > 0.95, f'RAW greedy bf16 64x3850: class agreement '
+                        f'{agree:.4f} > 0.95')
+    out['raw_greedy_bf16_agreement'] = agree
+    out['raw_greedy_bf16_max_abs_err'] = float((gk - gp).abs().max())
     T, L, C = condbf.shape
     out['ms'] = cuda_ms(lambda: ws.sample(condbf, wbf, 7, 0, False, bf16),
                         reps=2)
@@ -312,7 +319,8 @@ def wavernn_cases():
     log(f'  {out["shape"]}: kernel {out["ms"]:.1f} ms, plain '
         f'{out["plain_ms"]:.1f} ms, bound {out["bound_ms"]:.3f} ms '
         f'({out["bound_by"]})')
-    out['max_abs_err'] = out['raw_greedy_f32_max_abs_err']
+    out['agreement'] = out['raw_greedy_bf16_agreement']
+    out['max_abs_err'] = out['raw_greedy_bf16_max_abs_err']
 
     # 128 lanes (MAX_LANES) x 600 steps: greedy float32 against the plain
     # version, and same seed, same samples in bf16
@@ -330,6 +338,18 @@ def wavernn_cases():
     check(torch.equal(ws.sample(cbf, w128, 9, 0, False, bf16),
                       ws.sample(cbf, w128, 9, 0, False, bf16)),
           'RAW sampled bf16 128x600: same seed, same output')
+
+    # 72 lanes x 3850 steps, the fold of the 920-frame utterance (a lane
+    # tile and grid that no other case here takes): greedy bf16
+    model72, mels72, aux72 = _wavernn_inputs('RAW', 72, 3850, seed=6)
+    w72 = ws.pack_weights(model72, bf16)
+    cond72 = ws.compact_cond(mels72, aux72, bf16)
+    k = ws.sample(cond72, w72, 0, 0, True, bf16)
+    p = ws.sample_plain(cond72, w72, 0, 0, True, bf16)
+    agree = float(((k - p).abs() < 1e-6).float().mean())
+    check(agree > 0.95, f'RAW greedy bf16 72x3850: class agreement '
+                        f'{agree:.4f} > 0.95')
+    out['raw_greedy_bf16_72_agreement'] = agree
 
     # bf16 RAW sampled at 1, 8, 64 and 128 lanes x 3850 steps (random
     # conditioning of the model's width)
@@ -362,8 +382,15 @@ def wavernn_cases():
     check(agree > 0.95, f'MOL greedy f32 16x1650: agreement {agree:.4f} '
                         '> 0.95 at |d| < 1e-3')
     out['mol_greedy_f32_agreement'] = agree
-    s = ws.sample(ws.compact_cond(mels, aux, bf16),
-                  ws.pack_weights(model, bf16), 3, 10, False, bf16)
+    condbf, wbf = ws.compact_cond(mels, aux, bf16), ws.pack_weights(model,
+                                                                    bf16)
+    k = ws.sample(condbf, wbf, 0, 10, True, bf16)
+    p = ws.sample_plain(condbf, wbf, 0, 10, True, bf16)
+    agree = float(((k - p).abs() < 1e-3).float().mean())
+    check(agree > 0.95, f'MOL greedy bf16 16x1650: agreement {agree:.4f} '
+                        '> 0.95 at |d| < 1e-3')
+    out['mol_greedy_bf16_agreement'] = agree
+    s = ws.sample(condbf, wbf, 3, 10, False, bf16)
     torch.cuda.synchronize()
     check(bool((s.abs() <= 1).all()) and float(s.std()) > 0,
           'MOL sampled bf16: in [-1, 1], std > 0')
@@ -910,7 +937,7 @@ def main() -> int:
          'source': 'forwardtacotron_tpu_torch/csrc/wavernn_sample.cu',
          'replaces': 'forwardtacotron_tpu/kernels/wavernn_sample.py:64',
          'launches': launches['wavernn_sample'],
-         'max_abs_err': wr['max_abs_err'],
+         'max_abs_err': wr['max_abs_err'], 'agreement': wr['agreement'],
          'ms': wr['ms'], 'plain_ms': wr['plain_ms'],
          'bound_ms': wr['bound_ms'], 'bound_by': wr['bound_by'],
          'library_ms': None},

@@ -89,7 +89,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBT = 4;  // batch lanes per warp item of the forward product
-constexpr int kBsLanes = 1;         // batch lanes per block, batch-split path
 constexpr int kBsRows = 4;          // W_hh rows per thread of its product
 constexpr int kBsMaxThreads = 512;  // 128 registers a thread, no spills
 constexpr int kBsMaxSplits = 8;
@@ -325,8 +324,8 @@ __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-// Batch-split forward: block (s, lane group) holds its stream's whole W_hh
-// and walks every step alone; see the note at the top of the file.
+// Batch-split forward: block (s, b) holds stream s's whole W_hh and walks
+// every step of batch lane b alone; see the note at the top of the file.
 template <typename T, bool LSTM>
 __global__ void __launch_bounds__(kBsMaxThreads)
     train_fwd_bs_kernel(FwdArgs a, int KS) {
@@ -340,25 +339,22 @@ __global__ void __launch_bounds__(kBsMaxThreads)
   const int n_steps = a.n_steps, B = a.B, S = a.S, H = a.H;
   const int GH = NG * H, NC = H / VEC, NR = GH / kBsRows;
   const int nc = NC / KS;         // chunks of a row per k-slice
-  const int n_groups = (B + kBsLanes - 1) / kBsLanes;
-  const int s = blockIdx.x / n_groups;
-  const int b0 = (blockIdx.x % n_groups) * kBsLanes;
-  const int n_lanes = min(kBsLanes, B - b0);
+  const int s = blockIdx.x / B, b = blockIdx.x % B;
   const int tid = threadIdx.x;
 
   // the product item of this thread: k-slice ks of gate rows g + r*NR,
   // r < kBsRows; a warp shares ks, so its h reads are broadcasts; each h
-  // read feeds kBsRows rows, each weight read kBsLanes lanes
+  // read feeds kBsRows rows
   const int g = tid % NR, ks = tid / NR;
   const bool prod = tid < NR * KS;
 
   extern __shared__ __align__(16) unsigned char smem[];
   uint4* w_s = reinterpret_cast<uint4*>(smem);  // NC * GH chunks of W_hh
   float* hq_s = reinterpret_cast<float*>(smem + sizeof(T) * GH * H);
-  float* part = hq_s + kBsLanes * H;            // (KS, kBsLanes, GH)
-  float* gh_s = part + (size_t)KS * kBsLanes * GH;  // (kBsLanes, GH)
-  T* g_s = reinterpret_cast<T*>(gh_s + kBsLanes * GH);
-  // g_s: (2, kBsLanes, GH) gate inputs, double-buffered by step
+  float* part = hq_s + H;                       // (KS, GH)
+  float* gh_s = part + (size_t)KS * GH;         // (GH)
+  T* g_s = reinterpret_cast<T*>(gh_s + GH);
+  // g_s: (2, GH) gate inputs, double-buffered by step
 
   // chunk (c, row) = W_hh[s][row][c*VEC, (c+1)*VEC) at c*GH + row: a warp
   // of the product reads 32 consecutive chunks (512 bytes) without bank
@@ -369,27 +365,24 @@ __global__ void __launch_bounds__(kBsMaxThreads)
     w_s[(size_t)c * GH + row] =
         *reinterpret_cast<const uint4*>(w_src + (size_t)row * H + c * VEC);
   }
-  for (int i = tid; i < kBsLanes * H; i += blockDim.x) hq_s[i] = 0.0f;
+  for (int i = tid; i < H; i += blockDim.x) hq_s[i] = 0.0f;
 
-  // the step's gate inputs of the block's lanes, 16 bytes per copy, into
+  // the step's gate inputs of the block's lane, 16 bytes per copy, into
   // buffer t&1 (an empty group past the last step keeps the count)
-  const int g_chunks = GH / VEC;
   auto prefetch = [&](int t) {
     if (t < n_steps) {
-      T* dst = g_s + (size_t)(t & 1) * kBsLanes * GH;
-      for (int i = tid; i < n_lanes * g_chunks; i += blockDim.x) {
-        const int j = i / g_chunks, c = i % g_chunks;
-        cp_async16(dst + (size_t)j * GH + c * VEC,
-                   gi + (((size_t)t * B + b0 + j) * S + s) * GH + c * VEC);
-      }
+      T* dst = g_s + (size_t)(t & 1) * GH;
+      const T* src = gi + ((size_t)t * B + b) * S * GH + (size_t)s * GH;
+      for (int i = tid; i < GH / VEC; i += blockDim.x)
+        cp_async16(dst + i * VEC, src + i * VEC);
     }
     cp_async_commit();
   };
   prefetch(0);
 
   // the unit this thread updates, and its state, kept in registers
-  const int bl = tid / H, u = tid % H, b = b0 + bl;
-  const bool owner = tid < kBsLanes * H && b < B;
+  const int u = tid;
+  const bool owner = tid < H;
   const int len = owner ? a.lengths[b] : 0;
   float bh[NG];
 #pragma unroll
@@ -415,30 +408,24 @@ __global__ void __launch_bounds__(kBsMaxThreads)
   for (int t = 0; t < n_steps; ++t) {
     prefetch(t + 1);
     if (prod) {
-      float acc[kBsRows][kBsLanes];
+      float acc[kBsRows];
 #pragma unroll
-      for (int r = 0; r < kBsRows; ++r)
-#pragma unroll
-        for (int j = 0; j < kBsLanes; ++j) acc[r][j] = 0.0f;
+      for (int r = 0; r < kBsRows; ++r) acc[r] = 0.0f;
       // acc += chunk cc of the thread's rows (w) times h
       auto fma_chunk = [&](const uint4* w, int cc) {
         float wf[kBsRows][VEC];
 #pragma unroll
         for (int r = 0; r < kBsRows; ++r) unpack16(w[r], wf[r], T());
+        const float4* hp = reinterpret_cast<const float4*>(h_mine + cc * VEC);
 #pragma unroll
-        for (int j = 0; j < kBsLanes; ++j) {
-          const float4* hp =
-              reinterpret_cast<const float4*>(h_mine + j * H + cc * VEC);
+        for (int v = 0; v < VEC / 4; ++v) {
+          const float4 hv = hp[v];
 #pragma unroll
-          for (int v = 0; v < VEC / 4; ++v) {
-            const float4 hv = hp[v];
-#pragma unroll
-            for (int r = 0; r < kBsRows; ++r) {
-              acc[r][j] = fmaf(hv.x, wf[r][4 * v], acc[r][j]);
-              acc[r][j] = fmaf(hv.y, wf[r][4 * v + 1], acc[r][j]);
-              acc[r][j] = fmaf(hv.z, wf[r][4 * v + 2], acc[r][j]);
-              acc[r][j] = fmaf(hv.w, wf[r][4 * v + 3], acc[r][j]);
-            }
+          for (int r = 0; r < kBsRows; ++r) {
+            acc[r] = fmaf(hv.x, wf[r][4 * v], acc[r]);
+            acc[r] = fmaf(hv.y, wf[r][4 * v + 1], acc[r]);
+            acc[r] = fmaf(hv.z, wf[r][4 * v + 2], acc[r]);
+            acc[r] = fmaf(hv.w, wf[r][4 * v + 3], acc[r]);
           }
         }
       };
@@ -453,30 +440,28 @@ __global__ void __launch_bounds__(kBsMaxThreads)
         fma_chunk(w, cc);
       }
 #pragma unroll
-      for (int j = 0; j < kBsLanes; ++j)
-#pragma unroll
-        for (int r = 0; r < kBsRows; ++r)
-          part[((size_t)ks * kBsLanes + j) * GH + g + r * NR] = acc[r][j];
+      for (int r = 0; r < kBsRows; ++r)
+        part[(size_t)ks * GH + g + r * NR] = acc[r];
     }
     probe.mark(0);
     cp_async_wait_one();  // this step's gate inputs have landed
     __syncthreads();
     probe.mark(1);
     // the KS slices of every row summed in order, one row per thread
-    for (int i = tid; i < kBsLanes * GH; i += blockDim.x) {
+    for (int i = tid; i < GH; i += blockDim.x) {
       float sum = 0.0f;
 #pragma unroll
       for (int k = 0; k < kBsMaxSplits; ++k)
-        if (k < KS) sum += part[(size_t)k * kBsLanes * GH + i];
+        if (k < KS) sum += part[(size_t)k * GH + i];
       gh_s[i] = sum;
     }
     __syncthreads();
 
     if (owner) {
-      const T* g_in = g_s + ((size_t)(t & 1) * kBsLanes + bl) * GH + u;
+      const T* g_in = g_s + (size_t)(t & 1) * GH + u;
       float gh[NG];
 #pragma unroll
-      for (int q = 0; q < NG; ++q) gh[q] = gh_s[bl * GH + q * H + u] + bh[q];
+      for (int q = 0; q < NG; ++q) gh[q] = gh_s[q * H + u] + bh[q];
       probe.mark(2);
       const size_t row = ((size_t)t * B + b) * S + s;
       T* st = stash + row * 5 * H + u;
@@ -511,7 +496,7 @@ __global__ void __launch_bounds__(kBsMaxThreads)
       }
       probe.mark(3);
       a.y[row * H + u] = h;
-      hq_s[bl * H + u] = round_to<T>(h);
+      hq_s[u] = round_to<T>(h);
       probe.mark(4);
     }
     __syncthreads();
@@ -675,14 +660,13 @@ cudaError_t launch_fwd(FwdArgs a, cudaStream_t stream) {
 // threads and shared memory of the batch-split path; mirrored by
 // kernels/birnn_train.py:_bs_size
 __host__ __forceinline__ int bs_threads(int NG, int H, int KS) {
-  const int n = std::max(NG * H / kBsRows * KS, kBsLanes * H);
+  const int n = std::max(NG * H / kBsRows * KS, H);
   return (n + 31) / 32 * 32;
 }
 __host__ __forceinline__ size_t bs_smem(int NG, int H, int KS, size_t item) {
   return item * NG * H * H +
-         sizeof(float) * ((size_t)kBsLanes * H +
-                          (size_t)(KS + 1) * kBsLanes * NG * H) +
-         item * 2 * kBsLanes * NG * H;
+         sizeof(float) * ((size_t)H + (size_t)(KS + 1) * NG * H) +
+         item * 2 * NG * H;
 }
 
 template <typename T, bool LSTM>
@@ -699,7 +683,7 @@ cudaError_t launch_fwd_bs(FwdArgs a, int KS, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int grid = a.S * ((a.B + kBsLanes - 1) / kBsLanes);
+  const int grid = a.S * a.B;
   kernel<<<grid, threads, smem, stream>>>(a, KS);
   return cudaGetLastError();
 }

@@ -26,6 +26,7 @@ path is bound by each block's per-step chain of product and gate math
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -34,7 +35,6 @@ from forwardtacotron_tpu_torch.ops.rnn import (birnn_train_backward,
 
 UNITS = (1, 2, 4, 8)   # units per block compiled in csrc/birnn_train.cu
 PATHS = ('cooperative', 'batch_split')
-BS_LANES = 1           # batch lanes per block of the batch-split path
 BS_ROWS = 4            # W_hh rows per thread of its product
 BS_MAX_THREADS = 512
 BS_MAX_SPLITS = 8
@@ -53,13 +53,11 @@ def units_per_block(n_streams: int, hidden: int, n_sms: int) -> int:
 def _bs_size(ng: int, hidden: int, ks: int, item: int) -> tuple:
     """(threads, shared-memory bytes) of a batch-split block with `ks`
     k-splits (csrc/birnn_train.cu bs_threads/bs_smem): the stream's whole
-    W_hh, BS_LANES lanes of rounded h, the product's partial sums and
-    their totals, and two steps of the lanes' gate inputs."""
-    threads = -(-max(ng * hidden // BS_ROWS * ks, BS_LANES * hidden)
-                 // 32) * 32
+    W_hh, the lane's rounded h, the product's partial sums and their
+    totals, and two steps of the lane's gate inputs."""
+    threads = -(-max(ng * hidden // BS_ROWS * ks, hidden) // 32) * 32
     smem = item * ng * hidden * hidden \
-        + 4 * (BS_LANES * hidden + (ks + 1) * BS_LANES * ng * hidden) \
-        + item * 2 * BS_LANES * ng * hidden
+        + 4 * (hidden + (ks + 1) * ng * hidden) + item * 2 * ng * hidden
     return threads, smem
 
 
@@ -70,7 +68,7 @@ def batch_split_shape(cell: str, hidden: int, dtype: torch.dtype,
     W_hh row and keep the block within BS_MAX_THREADS threads and
     `smem_limit` bytes. None where nothing fits or H is not a whole
     number of chunks."""
-    item = torch.empty((), dtype=dtype).element_size()
+    item = dtype.itemsize
     vec = 16 // item
     ng, chunks = n_gates(cell), hidden // vec
     if hidden % vec:
@@ -86,20 +84,21 @@ def batch_split_shape(cell: str, hidden: int, dtype: torch.dtype,
     return best
 
 
+@functools.lru_cache(maxsize=None)
 def train_forward_plan(cell: str, n_streams: int, batch: int, hidden: int,
                        dtype: torch.dtype, smem_limit: int, n_sms: int
                        ) -> dict:
     """The forward kernel's path for a shape, from the shared memory a
     block may opt in to on the card and its SM count.
 
-    - 'batch_split' wherever a stream's whole W_hh and the lanes' state
-      fit in one block: grid S x ceil(B / BS_LANES), no grid barrier;
+    - 'batch_split' wherever a stream's whole W_hh and a lane's state fit
+      in one block: one block per stream and batch lane, no grid barrier;
     - 'cooperative' otherwise: one block per U units of a stream, all
       resident, a grid barrier per step."""
     shape = batch_split_shape(cell, hidden, dtype, smem_limit)
     if shape is not None:
         return {'path': 'batch_split',
-                'blocks': n_streams * -(-batch // BS_LANES), **shape}
+                'blocks': n_streams * batch, **shape}
     return {'path': 'cooperative',
             'units': units_per_block(n_streams, hidden, n_sms)}
 

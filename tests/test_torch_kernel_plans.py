@@ -30,18 +30,18 @@ H100_SMS = 132
 ])
 def test_train_forward_plan_on_h100(cell, H, dtype, path):
     from forwardtacotron_tpu_torch.kernels.birnn_train import (
-        BS_LANES, BS_MAX_THREADS, train_forward_plan)
+        BS_MAX_THREADS, train_forward_plan)
     plan = train_forward_plan(cell, 2, 32, H, dtype, H100_SMEM, H100_SMS)
     assert plan['path'] == path
     if path == 'batch_split':
         ng = 4 if cell == 'lstm' else 3
         item = 4 if dtype == torch.float32 else 2
-        assert plan['blocks'] == 2 * 32 // BS_LANES
+        assert plan['blocks'] == 2 * 32     # one per stream and batch lane
         assert plan['smem'] <= H100_SMEM
         # the whole W_hh of a stream is resident, beside h and the partials
         assert plan['smem'] >= item * ng * H * H
         assert plan['threads'] % 32 == 0
-        assert BS_LANES * H <= plan['threads'] <= BS_MAX_THREADS
+        assert H <= plan['threads'] <= BS_MAX_THREADS
         assert (H * item // 16) % plan['splits'] == 0
     else:
         assert 2 * H // plan['units'] <= H100_SMS
@@ -63,6 +63,19 @@ def test_config_predictors_take_batch_split():
             plan = train_forward_plan('gru', 2, batch, H, dtype, H100_SMEM,
                                       H100_SMS)
             assert plan['path'] == 'batch_split', (H, dtype)
+
+
+def test_train_forward_plan_is_cached():
+    """The wrapper asks for the plan at every launch: the same arguments
+    give the same plan object, without recomputing it."""
+    from forwardtacotron_tpu_torch.kernels.birnn_train import (
+        train_forward_plan)
+    args = ('gru', 2, 32, 128, torch.float32, H100_SMEM, H100_SMS)
+    assert train_forward_plan(*args) is train_forward_plan(*args)
+    other = train_forward_plan('gru', 2, 32, 128, torch.bfloat16,
+                               H100_SMEM, H100_SMS)
+    assert other is not train_forward_plan(*args)
+    assert other['path'] == 'batch_split'
 
 
 def test_batch_split_refuses_what_does_not_fit():

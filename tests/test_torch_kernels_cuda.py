@@ -230,10 +230,10 @@ def test_batch_split_forward_matches_plain(cuda, cell, H, B, dtype):
             assert float(diff.norm() / ref.float().norm()) <= 2.0 ** -8, name
 
 
-@pytest.mark.parametrize('lanes', [1, 64, 128])
+@pytest.mark.parametrize('lanes', [1, 64, 72, 128])
 @pytest.mark.parametrize('mode', ['RAW', 'MOL'])
 def test_sampler_lanes_match_plain(cuda, lanes, mode):
-    """The sampler at 1, 64 and 128 lanes: greedy float32 and bfloat16
+    """The sampler at 1, 64, 72 and 128 lanes: greedy float32 and bfloat16
     trajectories agree with the plain version on > 95% of samples (RAW:
     the same class; MOL: within 1e-3), a seed repeats its samples and
     sampled values lie in [-1, 1]."""

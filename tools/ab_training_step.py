@@ -1,31 +1,30 @@
-"""Training step time of two trees of the repository on one card, in turns.
+"""Training step time of the port in the working directory, on one card.
 
-    python3 tools/ab_training_step.py PARENT_DIR CHANGE_DIR
-    python3 tools/ab_training_step.py --paths [--rounds 6]
+    python3 tools/ab_training_step.py [--rounds 6] [--paths]
 
-The first form runs `chip_smoke.py`'s build and training phases (6 steps
-at batch 32 on a synthetic dataset, then the step timing on a 768-frame
-batch) in each tree, in the order parent, change, change, parent, one
-process each, so that both trees see the same card and a drift shows as a
-difference between the two runs of one tree. Prints one JSON line per run
-(forward, backward, optimizer and step ms, and the profiled step's
-kernels by device time).
+Imports `forwardtacotron_tpu_torch` and `chip_smoke.py` from the working
+directory, builds the kernels, and times `--rounds` rounds of 5 steps at
+batch 32 on a 768-frame batch of `chip_smoke.py`'s synthetic dataset. Per
+round it prints one JSON line: the median forward (with the loss),
+backward, clip + Adam and step ms (CUDA events) and the host ms of the
+forward's Python call. Run from two checkouts in turns, one process each
+(parent, change, change, parent), it compares them on one card, and a
+drift shows as a difference between the two runs of one checkout:
 
-The second form stays in one process and this tree: the same step at
-batch 32 on a 768-frame batch with kernel #2 on the paths that
-`train_forward_plan` picks and with every launch forced onto the
-cooperative path, in turns for `--rounds` rounds of 5 steps each. It
-prints, per round and path, the median forward, backward, optimizer and
-step ms (CUDA events) and the host ms of the forward's Python call, and
-the host µs of one `train_forward` call at the pitch predictor's shape on
-each path.
+    for d in PARENT . . PARENT; do (cd $d && python3 $OLDPWD/tools/ab_training_step.py); done
 
-Both print the card's name and power limit. Need a CUDA device.
+With `--paths` each round also runs the step with every launch of kernel
+#2 forced onto its cooperative path (`train_forward(..., path=
+'cooperative')`), and the tool prints the host µs of one `train_forward`
+call at the pitch predictor's shape on each path.
+
+Prints the card's name and power limit first. Needs a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -33,40 +32,33 @@ import sys
 import time
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parent.parent
 
-CODE = """
-import json, torch
-import chip_smoke as c
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
-c.build_kernels()
-c.training_path()
-t = c.DETAILS['training']['step_ms']
-print('RESULT ' + json.dumps({
-    **{k: t[k] for k in ('forward_ms', 'backward_ms', 'optimizer_ms',
-                         'step_ms')},
-    'device_busy_ms': t['profiled']['device_busy_ms'],
-    'top': t['profiled']['top'][:12], 'failures': c.FAILURES}))
-"""
+def forced_cooperative(bt):
+    """`bt.train_forward` with `path='cooperative'`, sharing its counters
+    (the kernel's wrapper counts through the module's name)."""
+    planned = bt.train_forward
+
+    def train_forward(*args, **kw):
+        return planned(*args, path='cooperative', **kw)
+    train_forward.launches = planned.launches
+    train_forward.path_launches = planned.path_launches
+    return train_forward
 
 
-def trees(parent: str, change: str) -> None:
-    for name, tree in (('parent', parent), ('change', change),
-                       ('change', change), ('parent', parent)):
-        out = subprocess.run([sys.executable, '-c', CODE], cwd=tree,
-                             capture_output=True, text=True)
-        rows = [line[7:] for line in out.stdout.splitlines()
-                if line.startswith('RESULT ')]
-        if out.returncode or not rows:
-            sys.exit(f'{name} ({tree}) failed:\n{out.stdout[-3000:]}\n'
-                     f'{out.stderr[-3000:]}')
-        print(json.dumps({'tree': name, **json.loads(rows[0])}), flush=True)
+def main() -> None:
+    parser = argparse.ArgumentParser(
+        description=__doc__.split('\n\n')[0])
+    parser.add_argument('--rounds', type=int, default=6)
+    parser.add_argument('--paths', action='store_true',
+                        help="also time kernel #2 forced onto its "
+                             'cooperative path, in turns')
+    args = parser.parse_args()
+    print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
 
-
-def paths(rounds: int) -> None:
     import torch
-    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, os.getcwd())
     import chip_smoke as c
     from forwardtacotron_tpu_torch.config import default_config
     from forwardtacotron_tpu_torch.data.dataset import get_tts_datasets
@@ -79,7 +71,7 @@ def paths(rounds: int) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     c.build_kernels()
-    data = ROOT / c.OUT_DIR / 'ab_paths_data'
+    data = Path(c.OUT_DIR) / f'ab_step_data_{os.getpid()}'
     shutil.rmtree(data, ignore_errors=True)
     try:
         c._write_dataset(data)
@@ -93,12 +85,6 @@ def paths(rounds: int) -> None:
     torch.manual_seed(0)
     model = ForwardTacotron.from_config(cfg).cuda().train()
     optimizer = tc.make_optimizer(model)
-
-    planned = bt.train_forward_plan
-
-    def cooperative(cell, n_streams, batch, hidden, dtype, smem, n_sms):
-        return {'path': 'cooperative',
-                'units': bt.units_per_block(n_streams, hidden, n_sms)}
 
     def step():
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
@@ -119,19 +105,25 @@ def paths(rounds: int) -> None:
         return {'forward_ms': fwd, 'backward_ms': bwd, 'optimizer_ms': opt,
                 'step_ms': fwd + bwd + opt, 'host_forward_ms': host_fwd}
 
+    planned = bt.train_forward
+    variants = [('planned', planned)]
+    if args.paths:
+        variants.append(('cooperative', forced_cooperative(bt)))
     for _ in range(3):
         step()
-    for r in range(rounds):
-        for name, plan in (('planned', planned), ('cooperative', cooperative)):
-            bt.train_forward_plan = plan
+    for r in range(args.rounds):
+        for name, fn in variants:
+            bt.train_forward = fn
             try:
                 step()
                 rows = [step() for _ in range(5)]
             finally:
-                bt.train_forward_plan = planned
+                bt.train_forward = planned
             print(json.dumps({'round': r, 'paths': name, **{
                 k: statistics.median(row[k] for row in rows)
                 for k in rows[0]}}), flush=True)
+    if not args.paths:
+        return
 
     # host cost of one call at the pitch predictor's shape on each path
     T, B, H = 192, 32, 128
@@ -150,27 +142,6 @@ def paths(rounds: int) -> None:
         torch.cuda.synchronize()
         print(json.dumps({'train_forward_host_us': host_us, 'path': path,
                           'shape': 'gru H=128 T=192 B=32 float32'}))
-
-
-def main() -> None:
-    parser = argparse.ArgumentParser(
-        description=__doc__.split('\n\n')[0])
-    parser.add_argument('trees', nargs='*', metavar='DIR',
-                        help='PARENT_DIR CHANGE_DIR')
-    parser.add_argument('--paths', action='store_true',
-                        help="kernel #2's planned paths against the "
-                             'cooperative path, in this tree')
-    parser.add_argument('--rounds', type=int, default=6)
-    args = parser.parse_args()
-    if args.paths == bool(args.trees) or args.trees and len(args.trees) != 2:
-        parser.error('give PARENT_DIR CHANGE_DIR, or --paths')
-    print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                          '--format=csv,noheader'], capture_output=True,
-                         text=True).stdout.strip(), flush=True)
-    if args.paths:
-        paths(args.rounds)
-    else:
-        trees(*args.trees)
 
 
 if __name__ == '__main__':
