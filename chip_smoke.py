@@ -33,14 +33,16 @@ printed only when every phase passed):
    predictor GRUs H=128/64 T=192; float32 at atol 1e-4; bfloat16 at 2^-7
    of the largest plain value for the outputs stored in bfloat16 (stash,
    dgi, dgh), 2e-3 for y, and a relative L2 error of at most 2^-8), with
-   the forward's path (`train_forward_plan`), timings beside cuDNN's
-   nn.LSTM/nn.GRU, and, where the batch-split path is planned, the
-   cooperative path timed on the same inputs;
+   each kernel's path (`train_forward_plan`, `train_backward_plan`),
+   timings beside cuDNN's nn.LSTM/nn.GRU, and, where a batch-split path is
+   planned, the cooperative path checked (backward) and timed on the same
+   inputs;
 7. the training path at full width: `ForwardTrainer.train` for 6 steps at
    batch 32 on a synthetic LJSpeech-like dataset, counts reset just
    before and read just after (kernels #2/#3), then one `evaluate()`
    (kernel #1); the three predictor BiGRUs of every step on the
-   batch-split path of #2; losses finite, every parameter moved, the checkpoint
+   batch-split paths of #2 and #3, the other three recurrences on their
+   cooperative paths; losses finite, every parameter moved, the checkpoint
    served by `gen_forward`; ms per step split into forward, backward and
    optimizer; float32 gradients on the card against the CPU plain path;
 8. a {"kernels": [...]} JSON line, the nvidia-smi line, and last
@@ -520,6 +522,18 @@ def long_utterance(model, voc, cfg, text, hop):
 
 # -------------------------------------------------------- BiRNN training
 
+# The training step's six BiRNNs at batch 32, as (name, cell, T, H, lengths):
+# the decoder LSTM and postnet GRU at the 1024-frame bucket, the prenet and
+# predictor GRUs at 192 phonemes (ragged but for the postnet); also timed
+# by tools/torch_kernel_probe.py
+TRAIN_KERNEL_CASES = (
+    ('decoder', 'lstm', 1024, 512, [1024 - 21 * i for i in range(32)]),
+    ('postnet', 'gru', 1024, 256, [1024] * 32),
+    ('prenet', 'gru', 192, 256, [192 - 5 * i for i in range(32)]),
+    ('pitch', 'gru', 192, 128, [192 - 5 * i for i in range(32)]),
+    ('dur/energy', 'gru', 192, 64, [192 - 5 * i for i in range(32)]))
+
+
 def _train_inputs(cell, T, B, H, lens, seed):
     g = torch.Generator().manual_seed(seed)
     ng = 4 if cell == 'lstm' else 3
@@ -558,11 +572,6 @@ def train_kernel_cases():
                                                    birnn_train_forward)
     f32, bf16 = torch.float32, torch.bfloat16
     props = torch.cuda.get_device_properties(0)
-    cases = [('decoder', 'lstm', 1024, 512, [1024 - 21 * i for i in range(32)]),
-             ('postnet', 'gru', 1024, 256, [1024] * 32),
-             ('prenet', 'gru', 192, 256, [192 - 5 * i for i in range(32)]),
-             ('pitch', 'gru', 192, 128, [192 - 5 * i for i in range(32)]),
-             ('dur/energy', 'gru', 192, 64, [192 - 5 * i for i in range(32)])]
     # bfloat16 limits. The stash, dgi and dgh are stored in bfloat16, so
     # kernel and plain may round an element one ulp apart: at most 2^-7
     # of the largest plain value; y is stored in float32: 2e-3 of the
@@ -571,21 +580,34 @@ def train_kernel_cases():
     bf16_rel = {'y': 2e-3, 'stash': 2.0 ** -7, 'dgi': 2.0 ** -7,
                 'dgh': 2.0 ** -7}
     rows = []
-    for name, cell, T, H, lens in cases:
+    for name, cell, T, H, lens in TRAIN_KERNEL_CASES:
         gi, w, b, ln, dy = _train_inputs(cell, T, 32, H, lens, seed=H + T)
         row = {'case': f'{name} {cell} H={H} T={T} B=32', 'errors': {},
                'path': bt.train_forward_plan(
                    cell, 2, 32, H, f32, props.shared_memory_per_block_optin,
                    props.multi_processor_count)['path']}
+        row['bwd_path'] = bt.train_backward_plan(
+            cell, 2, 32, H, f32, props.shared_memory_per_block_optin,
+            props.multi_processor_count)['path']
         for dtype in (f32, bf16):
             gi_d, w_d = gi.to(dtype), w.to(dtype)
             y, st = train_forward(cell, gi_d, w_d, b, ln, dtype)
             dgi, dgh = train_backward(cell, st, dy, w_d, ln, dtype)
+            # (label, output, tensor); where the batch-split backward is
+            # planned, the cooperative one forced on the same stash too
+            outs = [(k, k, v) for k, v in (('y', y), ('stash', st),
+                                           ('dgi', dgi), ('dgh', dgh))]
+            if row['bwd_path'] != 'cooperative':
+                dgi_c, dgh_c = train_backward(cell, st, dy, w_d, ln, dtype,
+                                              path='cooperative')
+                outs += [('dgi cooperative', 'dgi', dgi_c),
+                         ('dgh cooperative', 'dgh', dgh_c)]
             torch.cuda.synchronize()
             y_p, st_p = birnn_train_forward(cell, gi_d, w_d, b, ln, dtype)
             dgi_p, dgh_p = birnn_train_backward(cell, st, dy, w_d, ln, dtype)
-            for what, got, ref in (('y', y, y_p), ('stash', st, st_p),
-                                   ('dgi', dgi, dgi_p), ('dgh', dgh, dgh_p)):
+            ref_of = {'y': y_p, 'stash': st_p, 'dgi': dgi_p, 'dgh': dgh_p}
+            for what, kind, got in outs:
+                ref = ref_of[kind]
                 diff = got.float() - ref.float()
                 err = float(diff.abs().max())
                 rel_l2 = float(diff.norm() / ref.float().norm())
@@ -593,7 +615,7 @@ def train_kernel_cases():
                 if dtype == f32:
                     limit, l2_limit = 1e-4, math.inf
                 else:
-                    limit = bf16_rel[what] * float(ref.float().abs().max())
+                    limit = bf16_rel[kind] * float(ref.float().abs().max())
                     l2_limit = 2.0 ** -8
                 ok = err <= limit and rel_l2 <= l2_limit \
                     and bool(torch.isfinite(got).all())
@@ -605,6 +627,10 @@ def train_kernel_cases():
         for sfx, parts in (('fwd', ('y', 'stash')), ('bwd', ('dgi', 'dgh'))):
             row[f'max_abs_err_{sfx}'] = max(row['errors'][f'float32 {p}']
                                             for p in parts)
+        if row['bwd_path'] != 'cooperative':
+            row['max_abs_err_bwd_cooperative'] = max(
+                row['errors'][f'float32 {p} cooperative']
+                for p in ('dgi', 'dgh'))
         st32 = train_forward(cell, gi, w, b, ln, f32)[1]
         row['ms_fwd'] = cuda_ms(lambda: train_forward(cell, gi, w, b, ln, f32),
                                 reps=5)
@@ -613,6 +639,9 @@ def train_kernel_cases():
                 cell, gi, w, b, ln, f32, path='cooperative'), reps=5)
         row['ms_bwd'] = cuda_ms(lambda: train_backward(cell, st32, dy, w, ln,
                                                        f32), reps=5)
+        if row['bwd_path'] != 'cooperative':
+            row['ms_bwd_cooperative'] = cuda_ms(lambda: train_backward(
+                cell, st32, dy, w, ln, f32, path='cooperative'), reps=5)
         row['plain_ms_fwd'] = cuda_ms(lambda: birnn_train_forward(
             cell, gi, w, b, ln, f32), reps=1, warmup=0)
         row['plain_ms_bwd'] = cuda_ms(lambda: birnn_train_backward(
@@ -635,9 +664,11 @@ def train_kernel_cases():
             f'{row.get("ms_fwd_cooperative", row["ms_fwd"]):.3f}; plain '
             f'{row["plain_ms_fwd"]:.0f}, bound {row["bound_ms_fwd"]:.4f} '
             f'{row["bound_by_fwd"]}, cuDNN {row["library_ms_fwd"]:.3f}); '
-            f'bwd {row["ms_bwd"]:.2f} ms (plain {row["plain_ms_bwd"]:.0f}, '
-            f'bound {row["bound_ms_bwd"]:.4f} {row["bound_by_bwd"]}, cuDNN '
-            f'{row["library_ms_bwd"]:.2f})')
+            f'bwd {row["ms_bwd"]:.3f} ms on the {row["bwd_path"]} path '
+            f'(cooperative path '
+            f'{row.get("ms_bwd_cooperative", row["ms_bwd"]):.3f}; plain '
+            f'{row["plain_ms_bwd"]:.0f}, bound {row["bound_ms_bwd"]:.4f} '
+            f'{row["bound_by_bwd"]}, cuDNN {row["library_ms_bwd"]:.3f})')
         rows.append(row)
     DETAILS['birnn_train'] = rows
     return rows
@@ -716,6 +747,8 @@ def training_path():
         train_forward.path_launches = dict.fromkeys(
             train_forward.path_launches, 0)
         train_backward.launches = 0
+        train_backward.path_launches = dict.fromkeys(
+            train_backward.path_launches, 0)
         t0 = time.perf_counter()
         step = trainer.train(model, optimizer, max_steps_override=6)
         torch.cuda.synchronize()
@@ -724,7 +757,9 @@ def training_path():
                     'birnn_train_fwd': train_forward.launches,
                     'birnn_train_bwd': train_backward.launches,
                     **{f'birnn_train_fwd_{k}': v for k, v in
-                       train_forward.path_launches.items()}}
+                       train_forward.path_launches.items()},
+                    **{f'birnn_train_bwd_{k}': v for k, v in
+                       train_backward.path_launches.items()}}
         log(f'  6 steps at batch 32 in {wall:.1f} s (host clock, first '
             f'steps included), launches {launches}')
         check(step == 6, f'trainer reached step {step} == 6')
@@ -738,6 +773,12 @@ def training_path():
               f'kernel #2 paths in {step} steps: batch-split '
               f'{launches["birnn_train_fwd_batch_split"]} == {3 * step}, '
               f'cooperative {launches["birnn_train_fwd_cooperative"]} == '
+              f'{3 * step}')
+        check(launches['birnn_train_bwd_batch_split'] == 3 * step
+              and launches['birnn_train_bwd_cooperative'] == 3 * step,
+              f'kernel #3 paths in {step} steps: batch-split '
+              f'{launches["birnn_train_bwd_batch_split"]} == {3 * step}, '
+              f'cooperative {launches["birnn_train_bwd_cooperative"]} == '
               f'{3 * step}')
         losses = [v for tag, v, _ in writer.values if 'Loss' in tag]
         check(len(losses) > 0 and all(math.isfinite(v) for v in losses),
@@ -843,18 +884,10 @@ def _step_timing(model, optimizer, trainer, val_set):
     return out
 
 
-def _grads_vs_cpu(model):
-    """Float32 gradients of one teacher-forced loss at full width on two
-    short items (dropout 0, TF32 off): kernels #2/#3 on the card against
-    the plain path on the CPU. Tolerance, per parameter: ||g_card - g_cpu||
-    <= 1e-3 ||g_cpu|| and max |g_card - g_cpu| <= 5e-3 max |g_cpu|. Sums
-    run in other orders on the two devices, and batch statistics over 2
-    items amplify rounding where a channel's variance is small (runs on
-    the card have shown element-wise relative errors up to 4.8e-4)."""
-    from forwardtacotron_tpu_torch.config import default_config
-    from forwardtacotron_tpu_torch.train import common as tc
-    cfg = default_config()['forward_tacotron']['training']
-    rng = np.random.RandomState(3)
+def _grads_batch(seed=3):
+    """Two short teacher-forced items (24 and 17 phonemes, 100 and 70
+    frames) made from `seed`."""
+    rng = np.random.RandomState(seed)
     x_len, frames = np.array([24, 17]), np.array([100, 70])
     x = np.zeros((2, 24), np.int64)
     dur = np.zeros((2, 24), np.float32)
@@ -863,25 +896,49 @@ def _grads_vs_cpu(model):
         dur[i, :x_len[i]] = rng.multinomial(frames[i] - x_len[i],
                                             np.full(x_len[i], 1 / x_len[i])) + 1
     mel = (rng.randn(2, 104, 80) * 2 - 5).astype(np.float32)
-    batch = {'x': x, 'x_len': x_len, 'mel': mel, 'mel_len': frames,
-             'dur': dur, 'pitch': rng.randn(2, 24).astype(np.float32),
-             'energy': rng.randn(2, 24).astype(np.float32)}
-    grads = {}
-    for device in ('cuda', 'cpu'):
-        m = copy.deepcopy(model).to(device).train()
-        for mod in m.modules():
-            if isinstance(mod, torch.nn.Dropout):
-                mod.p = 0.0
-        b = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
-        loss, _ = tc.forward_loss(m(b), b, b['pitch'], b['energy'], cfg)
-        loss.backward()
-        grads[device] = {k: p.grad.detach().cpu()
-                         for k, p in m.named_parameters()}
-    l2 = {k: float((grads['cuda'][k] - g).norm()) / max(float(g.norm()),
-                                                           1e-12)
-          for k, g in grads['cpu'].items()}
-    peak = {k: float((grads['cuda'][k] - g).abs().max()) / max(
-        float(g.abs().max()), 1e-12) for k, g in grads['cpu'].items()}
+    return {'x': x, 'x_len': x_len, 'mel': mel, 'mel_len': frames,
+            'dur': dur, 'pitch': rng.randn(2, 24).astype(np.float32),
+            'energy': rng.randn(2, 24).astype(np.float32)}
+
+
+def _model_grads(model, batch, device):
+    """{parameter: float32 gradient on the CPU} of the training loss of a
+    copy of `model` on `device` (train mode, dropout 0)."""
+    from forwardtacotron_tpu_torch.config import default_config
+    from forwardtacotron_tpu_torch.train import common as tc
+    cfg = default_config()['forward_tacotron']['training']
+    m = copy.deepcopy(model).to(device).train()
+    for mod in m.modules():
+        if isinstance(mod, torch.nn.Dropout):
+            mod.p = 0.0
+    b = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    loss, _ = tc.forward_loss(m(b), b, b['pitch'], b['energy'], cfg)
+    loss.backward()
+    return {k: p.grad.detach().cpu() for k, p in m.named_parameters()}
+
+
+def _grad_errors(got, ref):
+    """Per parameter: ||got - ref|| / ||ref|| and max |got - ref| /
+    max |ref|."""
+    l2 = {k: float((got[k] - g).norm()) / max(float(g.norm()), 1e-12)
+          for k, g in ref.items()}
+    peak = {k: float((got[k] - g).abs().max()) / max(
+        float(g.abs().max()), 1e-12) for k, g in ref.items()}
+    return l2, peak
+
+
+def _grads_vs_cpu(model):
+    """Float32 gradients of one teacher-forced loss at full width on two
+    short items (dropout 0, TF32 off): kernels #2/#3 on the card against
+    the plain path on the CPU. Tolerance, per parameter: ||g_card - g_cpu||
+    <= 1e-3 ||g_cpu|| and max |g_card - g_cpu| <= 5e-3 max |g_cpu|. Sums
+    run in other orders on the two devices, and batch statistics over 2
+    items amplify rounding where a channel's variance is small (runs on
+    the card have shown element-wise relative errors up to 4.8e-4)."""
+    batch = _grads_batch()
+    grads = {device: _model_grads(model, batch, device)
+             for device in ('cuda', 'cpu')}
+    l2, peak = _grad_errors(grads['cuda'], grads['cpu'])
     k2, kp = max(l2, key=l2.get), max(peak, key=peak.get)
     check(l2[k2] <= 1e-3 and peak[kp] <= 5e-3,
           f'float32 gradients, card vs CPU plain: worst relative L2 error '
@@ -949,7 +1006,10 @@ def main() -> int:
              'birnn_train_fwd_cooperative'),
             ('birnn_train_fwd (batch-split path)', pitch, 'fwd', 294,
              'birnn_train_fwd_batch_split'),
-            ('birnn_train_bwd', dec, 'bwd', 388, 'birnn_train_bwd')):
+            ('birnn_train_bwd (cooperative path)', dec, 'bwd', 388,
+             'birnn_train_bwd_cooperative'),
+            ('birnn_train_bwd (batch-split path)', pitch, 'bwd', 388,
+             'birnn_train_bwd_batch_split')):
         kernels.append({
             'name': name, 'route': 'cuda',
             'source': 'forwardtacotron_tpu_torch/csrc/birnn_train.cu',

@@ -18,7 +18,11 @@
 // memory; each warp then multiplies kBT batch lanes at once against the
 // resident rows, so one weight read from shared memory feeds kBT FMAs. The
 // thread that updates (b, u) also writes its five stash values. One grid
-// barrier per step; h is double-buffered in global memory.
+// barrier per step; h is double-buffered in global memory. What bounds it:
+// not the bytes (gi + y + stash) nor the operations (2*T*B*S*NG*H*H, 1.4
+// ms at the float32 peak for the decoder LSTM, H=512, T=1024, B=32) but
+// the chain of T grid barriers, each step a short sequence of dependent
+// phases per block (stage h, product, cell update).
 //
 // Batch-split forward (ftt_birnn_train_fwd_bs), for short, narrow
 // recurrences (the series predictors' BiGRUs: H=64/128, T~192, B=32). The
@@ -40,30 +44,62 @@
 // math -> next product within one SM; the operations (2*B*S*NG*H*H per
 // step, 75 ns at H=128) and bytes are far below.
 //
-// Backward (ftt_birnn_train_bwd): one reversed walk over the steps for
-// every stream. The per-step product is transposed relative to the forward
-// (dh_prev = dgates @ W_hh), so block j keeps the U COLUMNS of W_hh of its
-// units (NG*H x U) in shared memory. At each step it (A) forms the gate
-// gradients of its units from the stash, dy and its carried dh (and dc for
-// LSTM), writes them to dgi/dgh and, rounded to the compute type, to an
-// exchange buffer in global memory, waits at one grid barrier, then (B)
-// reduces its stream's whole B x NG*H exchange vector against its columns
-// to get its units' dh_prev. dh and dc never leave the block. The exchange
-// is double-buffered, so one barrier per step suffices: a block writes
-// buffer k&1 at step k only after every block passed the barrier of step
-// k-1, that is after every block finished reading buffer k&1 at step k-2.
+// Backward: one reversed walk over the steps for every stream. The
+// per-step product is transposed relative to the forward (dh_prev =
+// dgh . W_hh, dgh the stream's NG*H hidden-gate gradients), and the bytes
+// (stash + dy + dgi (+ dgh)) and operations (2*T*B*S*NG*H*H) are far below
+// what a step costs: the chain of dependent steps is the limit, so each
+// path cuts the fixed cost of a step. Two paths, chosen by
+// kernels/birnn_train.py:train_backward_plan.
 //
-// What bounds them: the bytes are gi + y + stash (forward) and stash + dy +
-// dgi (+ dgh) (backward); the operations are 2*T*B*S*NG*H*H each, 1.4 ms
-// at the float32 peak for the decoder LSTM (H=512, T=1024, B=32). Neither
-// is the limit on this card: the steps form a chain of T grid barriers,
-// and each step is a short sequence of dependent phases per block (stage
-// h, product, cell update; or gate gradients, barrier, product). Phase B
-// of the backward is the expected hot spot (not yet timed apart from the
-// rest of the step): every block reads its stream's whole
-// B x NG*H exchange vector from L2 at every step (256 KB per block, 32 MB
-// over the grid, for the decoder LSTM in float32). Thread block clusters
-// with distributed shared memory are the place to cut that exchange.
+// Batch-split backward (ftt_birnn_train_bwd_bs), wherever a stream's whole
+// W_hh fits one block (the series predictors' BiGRUs, H=64/128): lanes are
+// independent, so block (s, lane) holds W_hh (NG*H x H, row-major) in
+// shared memory and walks every step of its lane with __syncthreads only:
+// no grid barrier and no exchange. Per step the H owner threads form the
+// lane's gate gradients from the stash row and dy (both brought by
+// cp.async one step ahead) and the dh/dc they carry in registers, write
+// dgi/dgh and put dgh, rounded to T, in shared memory; then thread
+// (c, gs) multiplies row slice gs of dgh against column chunk c of W_hh
+// (16 bytes of neighbouring columns: a warp reads neighbouring chunks of a
+// row), the first kBsBwdReg rows of its slice held in registers for the
+// whole walk; each owner adds its column's GS slice sums in a fixed order.
+// Steps where the lane is masked skip the product (dh passes through).
+// What bounds it: per step, the gate math, the shared-memory reads of the
+// part of W_hh outside registers and three block barriers on one SM.
+//
+// Cooperative backward (ftt_birnn_train_bwd), for the rest (decoder LSTM,
+// CBHG GRUs): block j owns U units of a stream. The product is split by
+// gate rows rather than by units: the block keeps the NG*U rows of W_hh
+// of its units' gates (all H columns; thread i holds columns i, i + 256
+// and i + 512, as far as H <= 768 reaches) in registers, and per step it
+// (A) forms the gate gradients of its units from the stash and dy (loaded
+//     during the previous step) and the dh/dc it carries in shared memory,
+//     writes dgi/dgh, and keeps dgh, rounded to T, in shared memory;
+// (B1) multiplies them with its rows: P_j[b][k] = sum over its rows r of
+//     dgh[b][r] W_hh[r][k], the block's share of every unit's dh_prev,
+//     written to global memory (for every lane, without a branch per lane:
+//     a masked lane's dgh is zero);
+// then one grid barrier, and
+// (B2) sums, for its own units, the partials of the stream's H/U blocks in
+//     block order: 16-byte loads where U allows, the blocks split into runs
+//     so that every thread has loads in flight, the runs added in order.
+// So a step exchanges B x H partial sums per block instead of the B x NG*H
+// gate gradients that every block needed when each kept its units' W_hh
+// columns (4x fewer bytes for LSTM, 3x for GRU: 8 MB a step at the decoder
+// in float32, not 32 MB), and the product needs no reduction across
+// threads. The partials are double-buffered by step, so one grid barrier
+// per step suffices: a block writes buffer k&1 at step k only after every
+// block passed the barrier of step k-1, that is after every block finished
+// reading buffer k&1 at step k-2. The design measured before this one,
+// each block staging the stream's whole gate-gradient vector by bulk
+// copies (TMA) multicast within clusters and multiplying it with its
+// columns, is kept as csrc/birnn_train_staged.cu, which
+// tools/torch_kernel_probe.py times beside this kernel (PERF.md has both).
+// What bounds it: the chain, per step, of the product (B*NG*H*U FMAs a block on the
+// CUDA cores, the training path keeping TF32 off: at the decoder half of
+// the step, at about half the FMA rate), the grid barrier, and the L2
+// round trip of the partials after it.
 //
 // Precision, as csrc/birnn.cu and the TPU kernels: weights, gate inputs,
 // the stash and the gate gradients in T (float or bf16); h is rounded to T
@@ -92,6 +128,12 @@ constexpr int kBT = 4;  // batch lanes per warp item of the forward product
 constexpr int kBsRows = 4;          // W_hh rows per thread of its product
 constexpr int kBsMaxThreads = 512;  // 128 registers a thread, no spills
 constexpr int kBsMaxSplits = 8;
+constexpr int kBsBwdReg = 8;         // W_hh rows a thread keeps in registers
+constexpr int kBsBwdMaxSplits = 32;  // row slices of the backward's product
+constexpr int kLanes = 8;      // lanes of a partial product's register tile
+constexpr int kCoopMaxCols = 3;  // W_hh columns a thread owns (H <= 768)
+constexpr int kSumBatch = 16;  // partial-sum loads a thread has in flight
+constexpr int kAItems = 2;     // phase-A items a thread loads a step ahead
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -139,10 +181,6 @@ __host__ __device__ __forceinline__ int n_bgroups(int B) {
 __host__ __device__ __forceinline__ int fwd_splits(int B) {
   return n_bgroups(B) >= kWarps ? 1 : kWarps / n_bgroups(B);
 }
-// backward: g-splits of the phase-B reduction
-__host__ __device__ __forceinline__ int bwd_splits(int B) {
-  return B >= kWarps ? 1 : kWarps / B;
-}
 
 struct FwdArgs {
   const void* gi;        // (n_steps, B, S, NG*H) T
@@ -162,7 +200,7 @@ struct BwdArgs {
   const int* lengths;    // (B)
   void* dgi;             // (n_steps, B, S, NG*H) T
   void* dgh;             // same, GRU only (nullptr for LSTM)
-  float* xbuf;           // (2, S, B, NG*H) exchange
+  float* xbuf;           // (2, S, H/U, B, H) partials (cooperative)
   int n_steps, B, S, H;
 };
 
@@ -505,123 +543,416 @@ __global__ void __launch_bounds__(kBsMaxThreads)
   probe.finish();
 }
 
-template <typename T, bool LSTM, int U>
-__global__ void __launch_bounds__(kThreads) train_bwd_kernel(BwdArgs a) {
+// ---------------------------------------------------------------- backward
+
+// Gate gradients of one unit of one lane at one step. st: its five stash
+// values (LSTM i, f, g, o, c_prev; GRU r, z, n, gh_n, h_prev); dh: the
+// carried gradient plus dy; dc: the carried cell gradient (LSTM), updated.
+// Fills di (input gates) and dg (hidden gates), both zero at an inactive
+// step, and returns the part of dh_prev outside the product dg . W_hh.
+template <bool LSTM>
+__device__ __forceinline__ float gate_grads(const float* st, float dh,
+                                            float& dc, bool active,
+                                            float* di, float* dg) {
+  if constexpr (LSTM) {
+    const float ig = st[0], fg = st[1], gg = st[2], og = st[3], cp = st[4];
+    const float tc = tanhf(fg * cp + ig * gg);
+    const float dct = dh * og * (1.0f - tc * tc) + dc;
+    di[0] = dct * gg * ig * (1.0f - ig);
+    di[1] = dct * cp * fg * (1.0f - fg);
+    di[2] = dct * ig * (1.0f - gg * gg);
+    di[3] = dh * tc * og * (1.0f - og);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) dg[q] = di[q] = active ? di[q] : 0.0f;
+    if (active) dc = dct * fg;
+    return active ? 0.0f : dh;
+  } else {
+    const float r = st[0], z = st[1], n = st[2], ghn = st[3], hp = st[4];
+    const float dpre_n = dh * (1.0f - z) * (1.0f - n * n);
+    const float dpre_r = dpre_n * ghn * r * (1.0f - r);
+    const float dpre_z = dh * (hp - n) * z * (1.0f - z);
+    di[0] = dg[0] = active ? dpre_r : 0.0f;
+    di[1] = dg[1] = active ? dpre_z : 0.0f;
+    di[2] = active ? dpre_n : 0.0f;
+    dg[2] = active ? dpre_n * r : 0.0f;
+    return active ? dh * z : dh;
+  }
+}
+
+// Writes one unit's gate gradients of one (step, lane, stream) row.
+template <typename T, bool LSTM>
+__device__ __forceinline__ void store_grads(T* dgi, T* dgh, size_t at, int H,
+                                            const float* di,
+                                            const float* dg) {
+  constexpr int NG = LSTM ? 4 : 3;
+#pragma unroll
+  for (int q = 0; q < NG; ++q) dgi[at + q * H] = from_f<T>(di[q]);
+  if constexpr (!LSTM)
+#pragma unroll
+    for (int q = 0; q < NG; ++q) dgh[at + q * H] = from_f<T>(dg[q]);
+}
+
+// Batch-split backward: block (s, b) holds stream s's whole W_hh and walks
+// every reversed step of batch lane b alone; see the note at the top.
+template <typename T, bool LSTM>
+__global__ void __launch_bounds__(kBsMaxThreads)
+    train_bwd_bs_kernel(BwdArgs a, int GS) {
+  constexpr int NG = LSTM ? 4 : 3;
+  constexpr int VEC = 16 / sizeof(T);
+  const T* __restrict__ stash = static_cast<const T*>(a.stash);
+  const T* __restrict__ w_hh = static_cast<const T*>(a.w_hh);
+  T* __restrict__ dgi = static_cast<T*>(a.dgi);
+  T* __restrict__ dgh = static_cast<T*>(a.dgh);
+  const int n_steps = a.n_steps, B = a.B, S = a.S, H = a.H;
+  const int GH = NG * H, NC = H / VEC, rows = GH / GS;
+  const int s = blockIdx.x / B, b = blockIdx.x % B;
+  const int tid = threadIdx.x;
+
+  // the product item of this thread: chunk c (VEC columns) of dh_prev over
+  // the rows gs*rows.. of W_hh; a warp's threads read neighbouring chunks
+  // of a row, and its dgh reads are broadcasts
+  const int c = tid % NC, gs = tid / NC;
+  const bool prod = tid < NC * GS;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint4* w_s = reinterpret_cast<uint4*>(smem);  // chunk (g, c) at g*NC + c
+  float* x_s = reinterpret_cast<float*>(smem + sizeof(T) * GH * H);  // dgh
+  float* part = x_s + GH;                 // (GS, H)
+  float* dy_s = part + (size_t)GS * H;    // (2, H) dy, double-buffered
+  T* st_s = reinterpret_cast<T*>(dy_s + 2 * H);  // (2, 5H) stash rows
+
+  // W_hh of the stream, row-major as in global memory
+  const uint4* w_src =
+      reinterpret_cast<const uint4*>(w_hh + (size_t)s * GH * H);
+  for (int i = tid; i < GH * NC; i += blockDim.x) w_s[i] = w_src[i];
+
+  // the stash row and dy of reversed step k into buffer k&1, 16 bytes per
+  // copy (an empty group past the last step keeps the count)
+  auto prefetch = [&](int k) {
+    if (k < n_steps) {
+      const size_t row = ((size_t)(n_steps - 1 - k) * B + b) * S + s;
+      T* st_dst = st_s + (size_t)(k & 1) * 5 * H;
+      for (int i = tid; i < 5 * H / VEC; i += blockDim.x)
+        cp_async16(st_dst + i * VEC, stash + row * 5 * H + i * VEC);
+      float* dy_dst = dy_s + (k & 1) * H;
+      for (int i = tid; i < H / 4; i += blockDim.x)
+        cp_async16(dy_dst + 4 * i, a.dy + row * H + 4 * i);
+    }
+    cp_async_commit();
+  };
+  prefetch(0);
+
+  // the unit this thread owns, and its carried dh and dc, in registers
+  const int u = tid;
+  const bool owner = tid < H;
+  const int len = a.lengths[b];
+  float dh = 0.0f, dc = 0.0f;
+  __syncthreads();
+  // the first rows of the thread's slice stay in registers for the walk
+  const uint4* w_mine = w_s + (size_t)gs * rows * NC + c;  // row j at j*NC
+  uint4 w_reg[kBsBwdReg];
+#pragma unroll
+  for (int j = 0; j < kBsBwdReg; ++j)
+    w_reg[j] = prod && j < rows ? w_mine[j * NC] : make_uint4(0, 0, 0, 0);
+
+  // probe phases: 0 wait for the step's inputs, 1 gate gradients,
+  // 2 product, 3 sums of the slices
+  Probe probe;
+  for (int k = 0; k < n_steps; ++k) {
+    const int t = n_steps - 1 - k;
+    prefetch(k + 1);
+    cp_async_wait_one();  // this step's stash row and dy have landed
+    __syncthreads();
+    probe.mark(0);
+    const bool active = inside(s, t, n_steps, len);  // the whole block's
+    float base = 0.0f;
+    if (owner) {
+      const T* st = st_s + (size_t)(k & 1) * 5 * H + u;
+      float sv[5];
+#pragma unroll
+      for (int q = 0; q < 5; ++q) sv[q] = to_f(st[q * H]);
+      dh += dy_s[(k & 1) * H + u];
+      float di[NG], dg[NG];
+      base = gate_grads<LSTM>(sv, dh, dc, active, di, dg);
+      store_grads<T, LSTM>(dgi, dgh, (((size_t)t * B + b) * S + s) * GH + u,
+                           H, di, dg);
+#pragma unroll
+      for (int q = 0; q < NG; ++q) x_s[q * H + u] = round_to<T>(dg[q]);
+    }
+    __syncthreads();
+    probe.mark(1);
+    if (!active) {  // dgh is zero: dh passes through
+      if (owner) dh = base;
+      continue;
+    }
+    if (prod) {
+      float acc[VEC];
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) acc[v] = 0.0f;
+      const float* xg = x_s + gs * rows;
+      auto fma_row = [&](const uint4& w, float xv) {
+        float wf[VEC];
+        unpack16(w, wf, T());
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) acc[v] = fmaf(xv, wf[v], acc[v]);
+      };
+#pragma unroll
+      for (int j = 0; j < kBsBwdReg; ++j)
+        if (j < rows) fma_row(w_reg[j], xg[j]);
+#pragma unroll 4
+      for (int j = kBsBwdReg; j < rows; ++j) fma_row(w_mine[j * NC], xg[j]);
+      float4* out = reinterpret_cast<float4*>(part + (size_t)gs * H + c * VEC);
+#pragma unroll
+      for (int v = 0; v < VEC / 4; ++v)
+        out[v] = make_float4(acc[4 * v], acc[4 * v + 1], acc[4 * v + 2],
+                             acc[4 * v + 3]);
+    }
+    __syncthreads();
+    probe.mark(2);
+    if (owner) {  // the slices of the unit's column summed in order
+      float sum = 0.0f;
+      for (int j = 0; j < GS; ++j) sum += part[(size_t)j * H + u];
+      dh = base + sum;
+    }
+    probe.mark(3);
+  }
+  probe.finish();
+}
+
+// float4 or float arithmetic for the sums of B2
+template <int N> struct VecOf { using type = float; };
+template <> struct VecOf<4> { using type = float4; };
+template <int N>
+__device__ __forceinline__ typename VecOf<N>::type vzero();
+template <>
+__device__ __forceinline__ float vzero<1>() { return 0.0f; }
+template <>
+__device__ __forceinline__ float4 vzero<4>() {
+  return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+template <int N>
+__device__ __forceinline__ typename VecOf<N>::type vload(const float* p);
+template <>
+__device__ __forceinline__ float vload<1>(const float* p) { return __ldcg(p); }
+template <>
+__device__ __forceinline__ float4 vload<4>(const float* p) {
+  return __ldcg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float vadd(float a, float b) { return a + b; }
+__device__ __forceinline__ float4 vadd(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+__device__ __forceinline__ void vstore(float* p, float v) { *p = v; }
+__device__ __forceinline__ void vstore(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
+// B2 of the cooperative backward: the runs its n_vec items split the
+// stream's nb blocks into, so that every thread has one (a power of two
+// dividing nb), and the floats of the runs' sums
+__host__ __device__ __forceinline__ int coop_splits(int n_vec, int nb) {
+  int splits = 1;
+  while (n_vec * splits * 2 <= kThreads && nb % (splits * 2) == 0)
+    splits *= 2;
+  return splits;
+}
+__host__ __device__ __forceinline__ int coop_red(int B, int U) {
+  return B * U > 4 * kThreads ? B * U : 4 * kThreads;
+}
+
+// Cooperative backward: block j owns U units of a stream and the NG*U rows
+// of W_hh of their gates (in registers); each step its gate gradients,
+// their product with those rows (partial sums of the stream's whole
+// dh_prev), one grid barrier, then the sum of every block's partials for
+// its units; see the note at the top. KC: columns a thread owns, H/256
+// rounded up.
+template <typename T, bool LSTM, int U, int KC>
+__global__ void __launch_bounds__(kThreads, 1)
+    train_bwd_kernel(BwdArgs a) {
   cg::grid_group grid = cg::this_grid();
   constexpr int NG = LSTM ? 4 : 3;
+  constexpr int R = NG * U;              // gate rows of the block
+  constexpr int RP = (R + 3) / 4 * 4;    // padded to whole float4
   const T* __restrict__ stash = static_cast<const T*>(a.stash);
   const T* __restrict__ w_hh = static_cast<const T*>(a.w_hh);
   T* __restrict__ dgi = static_cast<T*>(a.dgi);
   T* __restrict__ dgh = static_cast<T*>(a.dgh);
   const int n_steps = a.n_steps, B = a.B, S = a.S, H = a.H;
   const int GH = NG * H;
-  const int blocks_per_stream = H / U;
-  const int s = blockIdx.x / blocks_per_stream;
-  const int u0 = (blockIdx.x % blocks_per_stream) * U;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int GS = bwd_splits(B);
-  const int gc = (GH + GS - 1) / GS;
+  const int nb = H / U;  // blocks of a stream
+  const int s = blockIdx.x / nb, j = blockIdx.x % nb, u0 = j * U;
+  const int tid = threadIdx.x;
+  const int n_items = B * U;
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* wc_s = reinterpret_cast<T*>(smem);  // (U, GH): column u0+u of W_hh
-  float* part = reinterpret_cast<float*>(smem + align16(sizeof(T) * U * GH));
-  float* dh_s = part + (size_t)B * GS * U;  // (B, U) carried dh
-  float* base_s = dh_s + B * U;             // (B, U) dh_prev minus product
-  float* dc_s = base_s + B * U;             // (B, U) carried dc (LSTM)
+  extern __shared__ __align__(16) float smem_f[];
+  float* dg_s = smem_f;                      // (B, RP) dgh rounded to T
+  float* dh_s = dg_s + (size_t)B * RP;       // (B, U) carried dh
+  float* base_s = dh_s + n_items;            // (B, U) dh_prev minus product
+  float* dc_s = base_s + n_items;            // (B, U) carried dc (LSTM)
+  float* red_s = dc_s + n_items;             // the runs' sums of B2
+  int* len_s = reinterpret_cast<int*>(red_s + coop_red(B, U));
 
-  for (int i = tid; i < U * GH; i += kThreads) {
-    const int u = i / GH, g = i % GH;
-    wc_s[i] = w_hh[((size_t)s * GH + g) * H + u0 + u];
-  }
-  for (int i = tid; i < B * U; i += kThreads) {
-    dh_s[i] = 0.0f;
-    dc_s[i] = 0.0f;
-  }
+  // B2's items: a lane's VU consecutive units; runs of the stream's blocks
+  constexpr int VU = U >= 4 ? 4 : 1;
+  using Vec = typename VecOf<VU>::type;
+  const int n_vec = B * U / VU;
+  const int splits = coop_splits(n_vec, nb);
+  const int per = nb / splits;
+
+  // row r = q*U + u of the block (gate q of unit u0+u), at columns
+  // k = tid + c*kThreads
+  float w_reg[RP][KC];
+#pragma unroll
+  for (int r = 0; r < RP; ++r)
+#pragma unroll
+    for (int c = 0; c < KC; ++c) {
+      const int k = tid + c * kThreads;
+      w_reg[r][c] =
+          r < R && k < H
+              ? to_f(w_hh[((size_t)s * GH + (r / U) * H + u0 + r % U) * H + k])
+              : 0.0f;
+    }
+  for (int i = tid; i < B * RP; i += kThreads) dg_s[i] = 0.0f;
+  for (int i = tid; i < n_items; i += kThreads) dh_s[i] = dc_s[i] = 0.0f;
+  for (int i = tid; i < B; i += kThreads) len_s[i] = a.lengths[i];
   __syncthreads();
 
-  const size_t xbuf_stride = (size_t)S * B * GH;
+  // phase A's inputs of the next step, loaded during the previous step's
+  // sums (after its grid barrier, which would otherwise wait for them)
+  T pst[kAItems][5];
+  float pdy[kAItems];
+  auto load_a = [&](int k) {
+    if (k >= n_steps) return;
+    const int t = n_steps - 1 - k;
+#pragma unroll
+    for (int jj = 0; jj < kAItems; ++jj) {
+      const int i = tid + jj * kThreads;
+      if (i >= n_items) continue;
+      const size_t row = ((size_t)t * B + i / U) * S + s;
+      const int unit = u0 + i % U;
+#pragma unroll
+      for (int q = 0; q < 5; ++q) pst[jj][q] = stash[row * 5 * H + q * H + unit];
+      pdy[jj] = a.dy[row * H + unit];
+    }
+  };
+  load_a(0);
+
+  // probe phases: 0 gate gradients (A), 1 partial products, 2 grid
+  // barrier, 3 sums of the partials
+  Probe probe;
+  const size_t pstride = (size_t)S * nb * B * H;
   for (int k = 0; k < n_steps; ++k) {
     const int t = n_steps - 1 - k;
-    float* x = a.xbuf + (k & 1) * xbuf_stride + (size_t)s * B * GH;
+    auto active = [&](int b) { return inside(s, t, n_steps, len_s[b]); };
 
     // (A) gate gradients of the block's units
-    for (int i = tid; i < B * U; i += kThreads) {
-      const int b = i / U, u = i % U, unit = u0 + u;
-      const size_t row = ((size_t)t * B + b) * S + s;
-      const bool active = inside(s, t, n_steps, a.lengths[b]);
-      const float dh = dh_s[i] + a.dy[row * H + unit];
-      const T* st = stash + row * 5 * H + unit;
-      T* d_in = dgi + row * GH + unit;
-      float* xo = x + (size_t)b * GH + unit;
-      if (LSTM) {
-        const float ig = to_f(st[0]), fg = to_f(st[H]), gg = to_f(st[2 * H]);
-        const float og = to_f(st[3 * H]), cp = to_f(st[4 * H]);
-        const float tc = tanhf(fg * cp + ig * gg);
-        const float dct = dh * og * (1.0f - tc * tc) + dc_s[i];
-        float d[4] = {dct * gg * ig * (1.0f - ig),
-                      dct * cp * fg * (1.0f - fg),
-                      dct * ig * (1.0f - gg * gg),
-                      dh * tc * og * (1.0f - og)};
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          if (!active) d[q] = 0.0f;
-          d_in[q * H] = from_f<T>(d[q]);
-          xo[q * H] = round_to<T>(d[q]);
-        }
-        if (active) dc_s[i] = dct * fg;
-        base_s[i] = active ? 0.0f : dh;
-      } else {
-        const float r = to_f(st[0]), z = to_f(st[H]), n = to_f(st[2 * H]);
-        const float ghn = to_f(st[3 * H]), hp = to_f(st[4 * H]);
-        const float dpre_n = dh * (1.0f - z) * (1.0f - n * n);
-        const float dpre_r = dpre_n * ghn * r * (1.0f - r);
-        const float dpre_z = dh * (hp - n) * z * (1.0f - z);
-        float di[3] = {dpre_r, dpre_z, dpre_n};
-        float dg[3] = {dpre_r, dpre_z, dpre_n * r};
-        T* d_h = dgh + row * GH + unit;
-#pragma unroll
-        for (int q = 0; q < 3; ++q) {
-          if (!active) di[q] = dg[q] = 0.0f;
-          d_in[q * H] = from_f<T>(di[q]);
-          d_h[q * H] = from_f<T>(dg[q]);
-          xo[q * H] = round_to<T>(dg[q]);
-        }
-        base_s[i] = active ? dh * z : dh;
-      }
-    }
-    grid.sync();
-
-    // (B) dh_prev of the block's units: its stream's whole exchange vector
-    // against the resident columns (the L2-bound hot spot, see above)
-    for (int item = warp; item < B * GS; item += kWarps) {
-      const int b = item / GS, gs = item % GS;
-      const int g0 = gs * gc, g1 = min(GH, g0 + gc);
-      const float* xb = x + (size_t)b * GH;
-      float acc[U];
-#pragma unroll
-      for (int u = 0; u < U; ++u) acc[u] = 0.0f;
-#pragma unroll 4
-      for (int g = g0 + lane; g < g1; g += 32) {
-        const float xv = __ldcg(xb + g);
-#pragma unroll
-        for (int u = 0; u < U; ++u)
-          acc[u] = fmaf(xv, to_f(wc_s[u * GH + g]), acc[u]);
-      }
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const float v = warp_sum(acc[u]);
-        if (lane == 0) part[(size_t)item * U + u] = v;
-      }
-    }
-    __syncthreads();
-    for (int i = tid; i < B * U; i += kThreads) {
+    auto item = [&](int i, const float* sv, float dyv) {
       const int b = i / U, u = i % U;
-      float prod = 0.0f;
-      for (int gs = 0; gs < GS; ++gs) prod += part[((size_t)b * GS + gs) * U + u];
-      dh_s[i] = base_s[i] + prod;
+      float di[NG], dg[NG];
+      base_s[i] =
+          gate_grads<LSTM>(sv, dh_s[i] + dyv, dc_s[i], active(b), di, dg);
+      store_grads<T, LSTM>(dgi, dgh, (((size_t)t * B + b) * S + s) * GH + u0 + u,
+                           H, di, dg);
+#pragma unroll
+      for (int q = 0; q < NG; ++q) dg_s[b * RP + q * U + u] = round_to<T>(dg[q]);
+    };
+#pragma unroll
+    for (int jj = 0; jj < kAItems; ++jj) {
+      const int i = tid + jj * kThreads;
+      if (i >= n_items) continue;
+      float sv[5];
+#pragma unroll
+      for (int q = 0; q < 5; ++q) sv[q] = to_f(pst[jj][q]);
+      item(i, sv, pdy[jj]);
+    }
+    for (int i = tid + kAItems * kThreads; i < n_items; i += kThreads) {
+      const size_t row = ((size_t)t * B + i / U) * S + s;
+      float sv[5];
+#pragma unroll
+      for (int q = 0; q < 5; ++q)
+        sv[q] = to_f(stash[row * 5 * H + q * H + u0 + i % U]);
+      item(i, sv, a.dy[row * H + u0 + i % U]);
     }
     __syncthreads();
+    probe.mark(0);
+
+    // (B1) this block's part of dh_prev for every live lane:
+    // P[b][k] = sum over its rows r of dgh[b][r] * W_hh[r][k]
+    float* P = a.xbuf + (k & 1) * pstride + ((size_t)s * nb + j) * B * H;
+    // (every lane: a masked lane's dgh is zero, and a branch per lane
+    // would keep its loads from overlapping the other lanes' products)
+    for (int b0 = 0; b0 < B; b0 += kLanes) {
+      float acc[kLanes][KC];
+#pragma unroll
+      for (int l = 0; l < kLanes; ++l)
+#pragma unroll
+        for (int c = 0; c < KC; ++c) acc[l][c] = 0.0f;
+#pragma unroll
+      for (int r4 = 0; r4 < RP / 4; ++r4) {
+        float4 d[kLanes];
+#pragma unroll
+        for (int l = 0; l < kLanes; ++l)
+          d[l] = b0 + l < B
+                     ? reinterpret_cast<const float4*>(dg_s + (b0 + l) * RP)[r4]
+                     : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+        for (int l = 0; l < kLanes; ++l)
+#pragma unroll
+          for (int c = 0; c < KC; ++c) {
+            acc[l][c] = fmaf(d[l].x, w_reg[4 * r4][c], acc[l][c]);
+            acc[l][c] = fmaf(d[l].y, w_reg[4 * r4 + 1][c], acc[l][c]);
+            acc[l][c] = fmaf(d[l].z, w_reg[4 * r4 + 2][c], acc[l][c]);
+            acc[l][c] = fmaf(d[l].w, w_reg[4 * r4 + 3][c], acc[l][c]);
+          }
+      }
+#pragma unroll
+      for (int l = 0; l < kLanes; ++l)
+#pragma unroll
+        for (int c = 0; c < KC; ++c) {
+          const int kk = tid + c * kThreads;
+          if (b0 + l < B && kk < H) P[(size_t)(b0 + l) * H + kk] = acc[l][c];
+        }
+    }
+    probe.mark(1);
+    grid.sync();
+    probe.mark(2);
+    load_a(k + 1);
+
+    // (B2) dh_prev of the block's units: every block's partials summed in
+    // block order, VU units a load, the blocks split into `splits` runs
+    // that threads sum apart and that are then added in order; a masked
+    // lane's dh passes through
+    const float* Pall = a.xbuf + (k & 1) * pstride + (size_t)s * nb * B * H;
+    for (int i = tid; i < n_vec * splits; i += kThreads) {
+      const int sp = i / n_vec, it = i % n_vec;
+      const int b = it / (U / VU), u = it % (U / VU) * VU;
+      Vec sum = vzero<VU>();
+      if (active(b)) {
+        const float* p = Pall + ((size_t)sp * per * B + b) * H + u0 + u;
+        for (int i0 = 0; i0 < per; i0 += kSumBatch) {
+          Vec v[kSumBatch];
+#pragma unroll
+          for (int q = 0; q < kSumBatch; ++q)
+            v[q] = i0 + q < per ? vload<VU>(p + (size_t)(i0 + q) * B * H)
+                                : vzero<VU>();
+#pragma unroll
+          for (int q = 0; q < kSumBatch; ++q) sum = vadd(sum, v[q]);
+        }
+      }
+      vstore(red_s + (size_t)i * VU, sum);
+    }
+    __syncthreads();
+    for (int i = tid; i < n_items; i += kThreads) {
+      const int it = i / VU;  // i = b*U + u: item b*(U/VU) + u/VU
+      float sum = 0.0f;
+      for (int sp = 0; sp < splits; ++sp)
+        sum += red_s[((size_t)sp * n_vec + it) * VU + i % VU];
+      dh_s[i] = base_s[i] + sum;
+    }
+    __syncthreads();
+    probe.mark(3);
   }
+  probe.finish();
 }
 
 template <typename Kernel>
@@ -688,13 +1019,46 @@ cudaError_t launch_fwd_bs(FwdArgs a, int KS, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T, bool LSTM, int U>
+// threads and shared memory of the batch-split backward; mirrored by
+// kernels/birnn_train.py:_bs_bwd_size
+__host__ __forceinline__ int bs_bwd_threads(int H, int GS, size_t item) {
+  const int n = std::max((int)(H * item / 16) * GS, H);
+  return (n + 31) / 32 * 32;
+}
+__host__ __forceinline__ size_t bs_bwd_smem(int NG, int H, int GS,
+                                            size_t item) {
+  return item * NG * H * H +
+         sizeof(float) * ((size_t)NG * H + (size_t)GS * H + 2 * (size_t)H) +
+         item * 2 * 5 * H;
+}
+
+template <typename T, bool LSTM>
+cudaError_t launch_bwd_bs(BwdArgs a, int GS, cudaStream_t stream) {
+  constexpr int NG = LSTM ? 4 : 3;
+  constexpr int VEC = 16 / sizeof(T);
+  if (GS <= 0 || GS > kBsBwdMaxSplits || (NG * a.H) % GS != 0 ||
+      a.H % VEC != 0)
+    return cudaErrorInvalidValue;
+  const int threads = bs_bwd_threads(a.H, GS, sizeof(T));
+  if (threads > kBsMaxThreads) return cudaErrorInvalidValue;
+  const size_t smem = bs_bwd_smem(NG, a.H, GS, sizeof(T));
+  auto kernel = train_bwd_bs_kernel<T, LSTM>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<a.S * a.B, threads, smem, stream>>>(a, GS);
+  return cudaGetLastError();
+}
+
+template <typename T, bool LSTM, int U, int KC>
 cudaError_t launch_bwd(BwdArgs a, cudaStream_t stream) {
   constexpr int NG = LSTM ? 4 : 3;
-  const size_t smem = align16(sizeof(T) * U * NG * a.H) +
-                      sizeof(float) * ((size_t)a.B * bwd_splits(a.B) * U +
-                                       3 * (size_t)a.B * U);
-  return cooperative_launch(train_bwd_kernel<T, LSTM, U>, &a,
+  constexpr int RP = (NG * U + 3) / 4 * 4;
+  const size_t smem =
+      sizeof(float) * ((size_t)a.B * RP + 3 * (size_t)a.B * U +
+                       coop_red(a.B, U)) +
+      sizeof(int) * (size_t)a.B;
+  return cooperative_launch(train_bwd_kernel<T, LSTM, U, KC>, &a,
                             a.S * (a.H / U), smem, stream);
 }
 
@@ -709,13 +1073,30 @@ cudaError_t fwd_u(int U, const FwdArgs& a, cudaStream_t st) {
   }
 }
 
+// U units a block; KC = ceil(H / 256) W_hh columns a thread, up to
+// kCoopMaxCols (where H > 256, S*H/U <= the SMs needs U >= 4)
 template <typename T, bool LSTM>
 cudaError_t bwd_u(int U, const BwdArgs& a, cudaStream_t st) {
+  if (a.H > kCoopMaxCols * kThreads) return cudaErrorInvalidValue;
+  if (a.H > 2 * kThreads) {
+    switch (U) {
+      case 4: return launch_bwd<T, LSTM, 4, 3>(a, st);
+      case 8: return launch_bwd<T, LSTM, 8, 3>(a, st);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  if (a.H > kThreads) {
+    switch (U) {
+      case 4: return launch_bwd<T, LSTM, 4, 2>(a, st);
+      case 8: return launch_bwd<T, LSTM, 8, 2>(a, st);
+      default: return cudaErrorInvalidValue;
+    }
+  }
   switch (U) {
-    case 1: return launch_bwd<T, LSTM, 1>(a, st);
-    case 2: return launch_bwd<T, LSTM, 2>(a, st);
-    case 4: return launch_bwd<T, LSTM, 4>(a, st);
-    case 8: return launch_bwd<T, LSTM, 8>(a, st);
+    case 1: return launch_bwd<T, LSTM, 1, 1>(a, st);
+    case 2: return launch_bwd<T, LSTM, 2, 1>(a, st);
+    case 4: return launch_bwd<T, LSTM, 4, 1>(a, st);
+    case 8: return launch_bwd<T, LSTM, 8, 1>(a, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -780,6 +1161,41 @@ int ftt_birnn_train_bwd(int lstm, int bf16, const void* stash,
   else
     err = lstm ? bwd_u<float, true>(U, a, st) : bwd_u<float, false>(U, a, st);
   return (int)err;
+}
+
+// Batch-split backward (no exchange buffer): GS row slices of the product.
+int ftt_birnn_train_bwd_bs(int lstm, int bf16, const void* stash,
+                           const float* dy, const void* w_hh,
+                           const int* lengths, void* dgi, void* dgh,
+                           int n_steps, int B, int S, int H, int GS,
+                           void* stream) {
+  if (bad_shape(lstm, n_steps, B, S, H, 1) || (!lstm && dgh == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const BwdArgs a{stash, dy, w_hh, lengths, dgi, dgh, nullptr,
+                  n_steps, B, S, H};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (bf16)
+    err = lstm ? launch_bwd_bs<__nv_bfloat16, true>(a, GS, st)
+               : launch_bwd_bs<__nv_bfloat16, false>(a, GS, st);
+  else
+    err = lstm ? launch_bwd_bs<float, true>(a, GS, st)
+               : launch_bwd_bs<float, false>(a, GS, st);
+  return (int)err;
+}
+
+// Threads and shared-memory bytes of a batch-split block, forward (bwd 0,
+// `splits` k-splits) or backward (bwd 1, `splits` row slices), as the
+// launchers compute them; kernels/birnn_train.py mirrors both formulas.
+int ftt_birnn_train_bs_size(int bwd, int lstm, int bf16, int H, int splits,
+                            int* threads, long long* smem) {
+  const int NG = lstm ? 4 : 3;
+  const size_t item = bf16 ? 2 : 4;
+  *threads = bwd ? bs_bwd_threads(H, splits, item)
+                 : bs_threads(NG, H, splits);
+  *smem = (long long)(bwd ? bs_bwd_smem(NG, H, splits, item)
+                          : bs_smem(NG, H, splits, item));
+  return 0;
 }
 
 const char* ftt_error_string(int code) {

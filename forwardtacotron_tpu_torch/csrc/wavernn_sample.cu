@@ -82,6 +82,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cluster.cuh"
 #include "probe.cuh"
 
 namespace cg = cooperative_groups;
@@ -182,10 +183,6 @@ __host__ __device__ __forceinline__ int stride_of(int k) {
 }
 
 // ------------------------------------------------------------- products
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
 
 __device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
   asm volatile(
@@ -364,93 +361,6 @@ __device__ void stage(const T* src, int SS, int s0, int nl, int K, T* dst,
       dst[(size_t)l * SD + d0 + k] =
           k < K ? ld_cg(src + (size_t)l * SS + s0 + k) : from_f<T>(0.0f);
     }
-  }
-}
-
-// ------------------------------------------------ cluster multicast staging
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return r;
-}
-// all threads of every block of the cluster; arrive publishes this
-// thread's earlier shared-memory accesses, wait sees the others'
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-// an arrive that publishes nothing: this block is done reading its tile
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar))
-               : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-// wait for the barrier's phase `parity` to complete; a copy that never
-// lands ends the kernel with a trap after ~10 s rather than hanging it
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const long long t0 = clock64();
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - t0 > (1ll << 34)) __trap();
-  }
-}
-// order this thread's earlier generic-proxy accesses (and those it has
-// acquired from other threads) before its later bulk copies
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async;\n" ::: "memory");
-}
-// one bulk copy from global memory into the same shared-memory offset of
-// every block of `mask`, each block's barrier counting its bytes
-__device__ __forceinline__ void bulk_multicast(void* dst, const void* src,
-                                               uint32_t bytes, uint64_t* bar,
-                                               uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar)), "h"(mask)
-      : "memory");
-}
-
-// The staging tile of a cluster of cs blocks: rows l < nl of src (K
-// elements each, whole 16-byte chunks, K a multiple of 16) into dst rows of
-// stride SD. Each block issues the rows l = rank (mod cs), one bulk copy a
-// row, delivered to every block of the cluster, so L2 serves each row once
-// per cluster instead of once per block. Called by every thread between
-// cluster_wait() (no block still reads its tile) and the products; done
-// when mbar_wait(bar, phase) returns.
-template <typename T>
-__device__ void stage_multicast(const T* src, int SS, int nl, int K, T* dst,
-                                int SD, uint64_t* bar, int cs) {
-  const uint32_t bytes = K * sizeof(T);
-  if (threadIdx.x == 0) mbar_expect_tx(bar, nl * bytes);
-  if (threadIdx.x < 32) {
-    fence_proxy_async();  // the vectors other blocks stored before the
-                          // grid barrier, seen by the copies
-    for (int l = cluster_rank() + cs * threadIdx.x; l < nl; l += cs * 32)
-      bulk_multicast(dst + (size_t)l * SD, src + (size_t)l * SS, bytes, bar,
-                     (uint16_t)((1u << cs) - 1));
   }
 }
 
@@ -961,28 +871,16 @@ cudaError_t launch(Args a, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   const int grid = a.H / a.U;
   cudaLaunchAttribute attrs[2];
-  attrs[0].id = cudaLaunchAttributeClusterDimension;
-  attrs[1].id = cudaLaunchAttributeCooperative;
-  attrs[1].val.cooperative = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(grid);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
-  cfg.attrs = attrs;
-  // the largest cluster of which the whole grid is resident at once
-  for (a.cs = kMaxCluster; a.cs >= 1; a.cs /= 2) {
-    if (grid % a.cs != 0) continue;
-    attrs[0].val.clusterDim.x = a.cs;
-    attrs[0].val.clusterDim.y = 1;
-    attrs[0].val.clusterDim.z = 1;
-    cfg.numAttrs = 1;
-    int clusters = 0;
-    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
-    if (err != cudaSuccess) return err;
-    if (clusters * a.cs >= grid) break;
-  }
+  err = max_resident_cluster(kernel, cfg, attrs, kMaxCluster, grid, &a.cs);
+  if (err != cudaSuccess) return err;
   if (a.cs < 1) return cudaErrorCooperativeLaunchTooLarge;
+  attrs[1].id = cudaLaunchAttributeCooperative;
+  attrs[1].val.cooperative = 1;
   cfg.numAttrs = 2;
   err = cudaLaunchKernelEx(&cfg, kernel, a);
   if (err != cudaSuccess) return err;

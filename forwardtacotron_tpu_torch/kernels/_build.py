@@ -3,10 +3,10 @@
 Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc`
 for `sm_90a` into `build/lib<name>-<hash>.so` beside the package (the
 directory is git-ignored), then loaded with ctypes. The hash covers the
-source, every header under `csrc/` and the flags, so an edited source or
-header is rebuilt and an unchanged one is loaded as it is. Nothing here
-runs at import time, and nothing falls back: a missing `nvcc` or a
-failed build raises.
+source, every other source and header under `csrc/` (a source may
+include another) and the flags, so an edited source or header is rebuilt
+and an unchanged one is loaded as it is. Nothing here runs at import
+time, and nothing falls back: a missing `nvcc` or a failed build raises.
 
 Setting `PROBE = True` selects the probe build (`-DFTT_PROBE`, a library
 of its own): its kernels time their phases on the card
@@ -52,9 +52,12 @@ def _flags() -> list:
 
 def _lib_path(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f'{name}.cu').read_bytes())
-    for header in sorted(p for p in CSRC.iterdir()
-                         if p.suffix in ('.cuh', '.h')):
-        digest.update(header.name.encode() + header.read_bytes())
+    # every other file a source may include: the headers, and the sources
+    # (csrc/birnn_train_staged.cu includes csrc/birnn_train.cu)
+    for other in sorted(p for p in CSRC.iterdir()
+                        if p.suffix in ('.cu', '.cuh', '.h')
+                        and p.name != f'{name}.cu'):
+        digest.update(other.name.encode() + other.read_bytes())
     digest.update(' '.join(_flags()).encode())
     return BUILD_DIR / f'lib{name}-{digest.hexdigest()[:16]}.so'
 

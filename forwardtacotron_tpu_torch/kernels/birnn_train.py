@@ -15,13 +15,20 @@ The forward has two paths, chosen by `train_forward_plan`: the
 cooperative kernel (one block per U units of a stream, a grid barrier per
 step) and, where a stream's whole W_hh fits one block, the batch-split
 kernel (one block per stream and batch lane, no grid barrier), which the
-training step's series-predictor BiGRUs take.
+training step's series-predictor BiGRUs take. The backward has the same
+two paths, chosen apart by `train_backward_plan` (the stash layout is the
+same on every path): batch-split where W_hh fits one block, cooperative
+otherwise. `path='cooperative'` forces the latter on either kernel, so
+that both paths can be timed on the same inputs.
 
-What bounds them on the card: the cooperative kernels form a chain of T
-grid barriers, and the backward's per-step exchange of the whole
-B x NG*H gate-gradient vector through L2 is its hot spot; the batch-split
-path is bound by each block's per-step chain of product and gate math
-(see the source for the design and what it does about each).
+What bounds them on the card: the chain of dependent steps, not bytes or
+operations. The cooperative kernels pay a grid barrier per step; the
+cooperative backward splits its product by gate rows, so that after the
+barrier each block sums only its own units' partials (B x H floats a
+block a step cross L2, not the stream's B x NG*H gate gradients). The
+batch-split paths are bound by each block's per-step chain of product
+and gate math (see the source for the design and what it does about
+each).
 """
 from __future__ import annotations
 
@@ -38,11 +45,18 @@ PATHS = ('cooperative', 'batch_split')
 BS_ROWS = 4            # W_hh rows per thread of its product
 BS_MAX_THREADS = 512
 BS_MAX_SPLITS = 8
+BS_BWD_MAX_SPLITS = 32  # row slices of the batch-split backward's product
+COOP_MAX_HIDDEN = 768  # W_hh columns the cooperative backward holds
 
 
 def units_per_block(n_streams: int, hidden: int, n_sms: int) -> int:
     """Smallest compiled U dividing H with one block per SM for all
-    S*H/U blocks (a cooperative launch needs every block resident)."""
+    S*H/U blocks (a cooperative launch needs every block resident). H
+    above COOP_MAX_HIDDEN is refused for both cooperative kernels alike,
+    though with S >= 2 streams (every BiRNN) the SMs run out first."""
+    if hidden > COOP_MAX_HIDDEN:
+        raise ValueError(f'BiRNN training kernels: H={hidden} has more '
+                         f'than {COOP_MAX_HIDDEN} units')
     for u in UNITS:
         if hidden % u == 0 and n_streams * hidden // u <= n_sms:
             return u
@@ -82,6 +96,69 @@ def batch_split_shape(cell: str, hidden: int, dtype: torch.dtype,
         best = {'splits': ks, 'threads': threads, 'smem': smem}
         ks *= 2
     return best
+
+
+def _bs_bwd_size(ng: int, hidden: int, gs: int, item: int) -> tuple:
+    """(threads, shared-memory bytes) of a batch-split backward block with
+    `gs` row slices (csrc/birnn_train.cu bs_bwd_threads/bs_bwd_smem): the
+    stream's whole W_hh, the lane's rounded dgh, the slices' partial sums,
+    and two steps of the lane's dy and stash row."""
+    threads = -(-max(hidden * item // 16 * gs, hidden) // 32) * 32
+    smem = item * ng * hidden * hidden \
+        + 4 * (ng * hidden + gs * hidden + 2 * hidden) \
+        + item * 2 * 5 * hidden
+    return threads, smem
+
+
+def batch_split_bwd_shape(cell: str, hidden: int, dtype: torch.dtype,
+                          smem_limit: int) -> dict:
+    """Row slices, threads and shared-memory bytes of a batch-split
+    backward block: the most slices (a power of two dividing NG*H) that
+    keep the block within BS_MAX_THREADS threads and `smem_limit` bytes.
+    None where nothing fits or H is not a whole number of 16-byte
+    chunks."""
+    item = dtype.itemsize
+    ng = n_gates(cell)
+    if hidden % (16 // item):
+        return None
+    gs = BS_BWD_MAX_SPLITS
+    while gs >= 1:
+        threads, smem = _bs_bwd_size(ng, hidden, gs, item)
+        if (ng * hidden) % gs == 0 and threads <= BS_MAX_THREADS \
+                and smem <= smem_limit:
+            return {'splits': gs, 'threads': threads, 'smem': smem}
+        gs //= 2
+    return None
+
+
+def _cooperative_bwd(n_streams: int, hidden: int, n_sms: int) -> dict:
+    """The cooperative backward takes U >= 4 units per block where H
+    allows (its partial sums then cross L2 in 16-byte pieces), else the
+    forward's U."""
+    units = units_per_block(n_streams, hidden, n_sms)
+    if units < 4 and hidden % 4 == 0:
+        units = 4
+    return {'path': 'cooperative', 'units': units}
+
+
+@functools.lru_cache(maxsize=None)
+def train_backward_plan(cell: str, n_streams: int, batch: int, hidden: int,
+                        dtype: torch.dtype, smem_limit: int, n_sms: int
+                        ) -> dict:
+    """The backward kernel's path for a shape, chosen as
+    `train_forward_plan` chooses the forward's (the stash layout is the
+    same on every path, so the two choices are independent):
+
+    - 'batch_split' wherever a stream's whole W_hh and a lane's state fit
+      in one block: one block per stream and batch lane, no grid barrier,
+      no exchange;
+    - 'cooperative' otherwise: one block per U units of a stream, all
+      resident, a grid barrier per step, partial sums exchanged through
+      L2."""
+    shape = batch_split_bwd_shape(cell, hidden, dtype, smem_limit)
+    if shape is not None:
+        return {'path': 'batch_split', 'blocks': n_streams * batch, **shape}
+    return _cooperative_bwd(n_streams, hidden, n_sms)
 
 
 @functools.lru_cache(maxsize=None)
@@ -188,11 +265,13 @@ train_forward.path_launches = {p: 0 for p in PATHS}
 
 def train_backward(cell: str, stash: torch.Tensor, dy: torch.Tensor,
                    w_hh: torch.Tensor, lengths: torch.Tensor,
-                   compute_dtype: torch.dtype = torch.float32):
+                   compute_dtype: torch.dtype = torch.float32,
+                   path: str = None):
     """(dgi, dgh) of backpropagation through time (see
     `ops/rnn.py:birnn_train_backward` for the contract; for LSTM the two
-    are the same tensor). CUDA tensors launch the kernel; CPU tensors take
-    the plain version."""
+    are the same tensor). CUDA tensors launch the kernel on the path of
+    `train_backward_plan`, or on `path` when given; CPU tensors take the
+    plain version."""
     if stash.device.type == 'cpu':
         return birnn_train_backward(cell, stash, dy, w_hh, lengths,
                                     compute_dtype)
@@ -214,20 +293,37 @@ def train_backward(cell: str, stash: torch.Tensor, dy: torch.Tensor,
     _check((('stash', stash, compute_dtype), ('dy', dy, torch.float32),
             ('w_hh', w_hh, compute_dtype), ('lengths', lengths, torch.int32)),
            dev)
-    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    u = units_per_block(S, H, n_sms)
+    props = torch.cuda.get_device_properties(dev)
+    plan = train_backward_plan(cell, S, B, H, compute_dtype,
+                               props.shared_memory_per_block_optin,
+                               props.multi_processor_count)
+    if path == 'cooperative' and plan['path'] != path:
+        plan = _cooperative_bwd(S, H, props.multi_processor_count)
+    elif path not in (None, plan['path']):
+        raise ValueError(f'BiRNN training kernel: the {path} backward does '
+                         f'not take {cell} H={H} in {compute_dtype}')
     dgi = torch.empty((T, B, S, GH), dtype=compute_dtype, device=dev)
     dgh = dgi if cell == 'lstm' else torch.empty_like(dgi)
-    xbuf = torch.empty((2, S, B, GH), dtype=torch.float32, device=dev)
+    args = (int(cell == 'lstm'), int(compute_dtype == torch.bfloat16),
+            stash.data_ptr(), dy.data_ptr(), w_hh.data_ptr(),
+            lengths.data_ptr(), dgi.data_ptr(),
+            None if cell == 'lstm' else dgh.data_ptr())
     with torch.cuda.device(dev):
-        _launch('ftt_birnn_train_bwd', 'BiRNN training backward kernel', 7,
-                int(cell == 'lstm'), int(compute_dtype == torch.bfloat16),
-                stash.data_ptr(), dy.data_ptr(), w_hh.data_ptr(),
-                lengths.data_ptr(), dgi.data_ptr(),
-                None if cell == 'lstm' else dgh.data_ptr(),
-                xbuf.data_ptr(), T, B, S, H, u)
+        if plan['path'] == 'batch_split':
+            _launch('ftt_birnn_train_bwd_bs', 'BiRNN training backward '
+                    'kernel (batch-split)', 6, *args, T, B, S, H,
+                    plan['splits'])
+        else:
+            u = plan['units']
+            xbuf = torch.empty((2, S, H // u, B, H), dtype=torch.float32,
+                               device=dev)
+            _launch('ftt_birnn_train_bwd', 'BiRNN training backward kernel',
+                    7, *args, xbuf.data_ptr(), T, B, S, H, u)
     train_backward.launches += 1
+    train_backward.path_launches[plan['path']] += 1
     return dgi, dgh
 
 
 train_backward.launches = 0
+train_backward.path_launches = {p: 0 for p in PATHS}
+

@@ -230,6 +230,106 @@ def test_batch_split_forward_matches_plain(cuda, cell, H, B, dtype):
             assert float(diff.norm() / ref.float().norm()) <= 2.0 ** -8, name
 
 
+def _masked_lane_inputs(cell, H, S, B, dtype, device):
+    """_train_inputs at T=70 with the last lane's length set to 0: a lane
+    that is masked at every step."""
+    gi, w, b, lengths, dy = _train_inputs(cell, 70, B, S, H, dtype, H + B,
+                                          device)
+    lengths[-1] = 0
+    return gi, w, b, lengths, dy
+
+
+@pytest.mark.parametrize('path,cell,H,S,B', [
+    ('batch_split', 'gru', 64, 2, 32),
+    ('batch_split', 'gru', 128, 2, 32),
+    ('batch_split', 'gru', 128, 6, 3),
+    ('batch_split', 'lstm', 64, 2, 7),
+    ('cooperative', 'lstm', 64, 2, 5),
+    ('cooperative', 'lstm', 256, 2, 9),
+    ('cooperative', 'gru', 96, 2, 33),
+    ('cooperative', 'gru', 256, 2, 32),
+    ('cooperative', 'gru', 30, 2, 5),
+    ('cooperative', 'gru', 520, 2, 3),
+])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_train_backward_paths_match_plain(cuda, path, cell, H, S, B, dtype):
+    """Kernel #3 on each path against its plain version, fed the same
+    stash, at ragged lengths with one lane masked at every step: float32 at
+    atol 1e-4; bf16 at 2^-7 of the largest plain value, relative L2 at
+    most 2^-8 (the tolerances of test_train_kernels_match_plain). The
+    batch-split cases are the ones its plan picks; H=30 takes the
+    cooperative path's sums one unit at a time (U=1, H not a multiple of
+    4), H=520 its three W_hh columns a thread."""
+    from forwardtacotron_tpu_torch.kernels import birnn_train as bt
+    from forwardtacotron_tpu_torch.ops.rnn import birnn_train_backward
+    props = torch.cuda.get_device_properties(cuda)
+    if path == 'batch_split':
+        assert bt.train_backward_plan(
+            cell, S, B, H, dtype, props.shared_memory_per_block_optin,
+            props.multi_processor_count)['path'] == path
+    gi, w, b, lengths, dy = _masked_lane_inputs(cell, H, S, B, dtype, cuda)
+    st = bt.train_forward(cell, gi, w, b, lengths, dtype)[1]
+    before = dict(bt.train_backward.path_launches)
+    dgi, dgh = bt.train_backward(cell, st, dy, w, lengths, dtype, path=path)
+    assert bt.train_backward.path_launches[path] == before[path] + 1
+    dgi_p, dgh_p = birnn_train_backward(cell, st, dy, w, lengths, dtype)
+    for name, got, ref in (('dgi', dgi, dgi_p), ('dgh', dgh, dgh_p)):
+        diff = got.float() - ref.float()
+        err = float(diff.abs().max())
+        assert bool(torch.isfinite(got).all()), name
+        if dtype == torch.float32:
+            assert err <= 1e-4, (name, err)
+        else:
+            assert err <= 2.0 ** -7 * float(ref.float().abs().max()), \
+                (name, err)
+            assert float(diff.norm() / ref.float().norm()) <= 2.0 ** -8, name
+        # the masked lane: zero gradients at every step
+        assert float(got[:, -1].float().abs().max()) == 0.0, name
+
+
+@pytest.mark.parametrize('cell,H', [('gru', 64), ('gru', 128),
+                                    ('lstm', 64)])
+def test_train_backward_paths_agree(cuda, cell, H):
+    """The cooperative and batch-split backward on the same inputs agree
+    within 1e-4 in float32 (their sums run in other orders)."""
+    from forwardtacotron_tpu_torch.kernels.birnn_train import (
+        train_backward, train_forward)
+    gi, w, b, lengths, dy = _masked_lane_inputs(cell, H, 2, 32,
+                                                torch.float32, cuda)
+    st = train_forward(cell, gi, w, b, lengths, torch.float32)[1]
+    split = train_backward(cell, st, dy, w, lengths, torch.float32,
+                           path='batch_split')
+    coop = train_backward(cell, st, dy, w, lengths, torch.float32,
+                          path='cooperative')
+    for got, ref in zip(split, coop):
+        assert float((got - ref).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize('bwd,cell,H,splits', [
+    (0, 'gru', 128, 2), (0, 'gru', 64, 4), (0, 'lstm', 64, 1),
+    (1, 'gru', 128, 16), (1, 'gru', 64, 32), (1, 'lstm', 64, 32),
+    (1, 'gru', 64, 1)])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_batch_split_sizes_match_the_c_side(cuda, bwd, cell, H, splits,
+                                            dtype):
+    """The plan's size formulas (`_bs_size`, `_bs_bwd_size`) against the
+    ones the launchers of csrc/birnn_train.cu use, as the library reports
+    them (ftt_birnn_train_bs_size)."""
+    import ctypes
+    from forwardtacotron_tpu_torch.kernels import _build
+    from forwardtacotron_tpu_torch.kernels import birnn_train as bt
+    from forwardtacotron_tpu_torch.ops.rnn import n_gates
+    fn = _build.load('birnn_train').ftt_birnn_train_bs_size
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int),
+                                        ctypes.POINTER(ctypes.c_longlong)]
+    threads, smem = ctypes.c_int(), ctypes.c_longlong()
+    assert fn(bwd, int(cell == 'lstm'), int(dtype == torch.bfloat16), H,
+              splits, ctypes.byref(threads), ctypes.byref(smem)) == 0
+    size = bt._bs_bwd_size if bwd else bt._bs_size
+    assert size(n_gates(cell), H, splits, dtype.itemsize) == \
+        (threads.value, smem.value)
+
+
 @pytest.mark.parametrize('lanes', [1, 64, 72, 128])
 @pytest.mark.parametrize('mode', ['RAW', 'MOL'])
 def test_sampler_lanes_match_plain(cuda, lanes, mode):
