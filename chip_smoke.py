@@ -9,12 +9,17 @@ printed only when every phase passed):
    limit from nvidia-smi;
 2. build: compiles the CUDA kernels of `forwardtacotron_tpu_torch/csrc`
    with nvcc, all sources at once;
-3. BiRNN kernel against its plain version on the card (LSTM H=512,
-   grouped GRU G=3 H=128, GRU H=256; B=1 and B=8; float32 at atol 1e-4,
-   bfloat16 at atol 2e-2), with timings; and at the five shapes that
-   `evaluate()` gives it on the training path (B=32: decoder LSTM H=512
-   T=896 ragged, CBHG GRUs H=256 at T=896 and T=176, predictor GRUs
-   H=128/64 T=176; float32 at atol 1e-4);
+3. BiRNN kernel (#1) against its plain version on the card at the
+   serving path's shapes (`SERVING_BIRNN_CASES`: decoder LSTM H=512 and
+   postnet GRU H=256 at T=1024, prenet GRU H=256 and the 6-stream
+   predictor GRU H=128 at T=160; B=1 and B=8; float32 at atol 1e-4,
+   bfloat16 at atol 2e-2) on the path `inference_plan` names and, at
+   B=1, on the cooperative path too, with both paths' timings beside the
+   plain version's, cuDNN's and the bound; and at the five shapes that
+   `evaluate()` gives it on the training path (`EVAL_BIRNN_CASES`, B=32:
+   decoder LSTM H=512 T=896 ragged, CBHG GRUs H=256 at T=896 and T=176,
+   predictor GRUs H=128/64 T=176; float32 at atol 1e-4; the decoder on
+   both paths, timed);
 4. WaveRNN sampling kernel against its plain version, greedy, in both
    compute types (class agreement > 95%; MOL within 1e-3 on > 95%): RAW
    at 64 lanes x 3850 steps, float32 at 128 lanes x 600 steps, bfloat16 at
@@ -24,7 +29,9 @@ printed only when every phase passed):
 5. the main path at the full width of config.yaml with random weights:
    `gen_forward.main` on three lines of sentences.txt (text -> ids ->
    generate -> vocode -> int16 wav), with the kernels' launch counts
-   reset just before and read just after; per-stage CUDA-event times;
+   reset just before and read just after, every launch of kernel #1 on
+   the stream-local path, which its plan names for every batch-1 bf16
+   shape of the serving path; per-stage CUDA-event times;
    one utterance decoded at 8 frames per phoneme; a float32 check of the
    decoder against the CPU plain path;
 6. BiRNN training kernels (forward with stash, BPTT) against their plain
@@ -40,11 +47,12 @@ printed only when every phase passed):
 7. the training path at full width: `ForwardTrainer.train` for 6 steps at
    batch 32 on a synthetic LJSpeech-like dataset, counts reset just
    before and read just after (kernels #2/#3), then one `evaluate()`
-   (kernel #1); the three predictor BiGRUs of every step on the
-   batch-split paths of #2 and #3, the other three recurrences on their
-   cooperative paths; losses finite, every parameter moved, the checkpoint
-   served by `gen_forward`; ms per step split into forward, backward and
-   optimizer; float32 gradients on the card against the CPU plain path;
+   (kernel #1, every launch stream-local); the three predictor BiGRUs of
+   every step on the batch-split paths of #2 and #3, the other three
+   recurrences on their cooperative paths; losses finite, every parameter
+   moved, the checkpoint served by `gen_forward`; ms per step split into forward, backward and
+   optimizer; float32 gradients on the card against the CPU plain path,
+   the CPU replaying the card's ReLU and max-pool decisions;
 8. a {"kernels": [...]} JSON line, the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 
@@ -52,6 +60,7 @@ Details go to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -159,66 +168,135 @@ def _birnn_inputs(cell, T, B, S, H, dtype, seed, lens):
     return [t.cuda().contiguous() for t in (gi, w, b, lengths)]
 
 
+# kernel #1 at the serving path's shapes, batch 1, as (name, cell, S, T, H):
+# the 920-frame utterance's mel bucket (1024) and text bucket (160); the
+# predictors are the six streams of the fused series predictors (H=64
+# padded to 128). Also timed by tools/torch_kernel_probe.py --only birnn.
+SERVING_BIRNN_CASES = (
+    ('decoder', 'lstm', 2, 1024, 512),
+    ('postnet', 'gru', 2, 1024, 256),
+    ('prenet', 'gru', 2, 160, 256),
+    ('predictors', 'gru', 6, 160, 128))
+
+# kernel #1 at the shapes that evaluate() gives it on the training path, as
+# (name, cell, T, H, lengths): batch 32, two streams, the 896-frame bucket
+# and its text pad of 176, float32. Also timed by
+# tools/torch_kernel_probe.py --only birnn_eval.
+EVAL_BIRNN_CASES = (
+    ('decoder', 'lstm', 896, 512, tuple(870 - 11 * i for i in range(32))),
+    ('postnet', 'gru', 896, 256, (896,) * 32),
+    ('prenet', 'gru', 176, 256, (176,) * 32),
+    ('pitch', 'gru', 176, 128, (176,) * 32),
+    ('dur/energy', 'gru', 176, 64, (176,) * 32))
+
+
+def _birnn_bound(cell, gi, w, b, ln, H):
+    """bound_ms of kernel #1 on these inputs: the gate inputs of the
+    active steps (those inside each lane's sequence, all the function
+    reads of gi), W_hh, b_hh and the lengths read once, all of y written
+    once; the products of the active steps."""
+    T, B, S, GH = gi.shape
+    active = sum(min(max(int(n), 0), T) for n in ln.tolist()) * S
+    n_bytes = (active * GH + w.numel()) * gi.element_size() \
+        + b.numel() * 4 + ln.numel() * 4 + T * B * S * H * 4
+    flops = 2.0 * active * (4 if cell == 'lstm' else 3) * H * H
+    return bound_ms(n_bytes, flops, gi.dtype)
+
+
 @phase('BiRNN kernel vs plain')
 def birnn_cases():
-    from forwardtacotron_tpu_torch.kernels.birnn import recurrence
+    from forwardtacotron_tpu_torch.kernels import birnn as kb
     from forwardtacotron_tpu_torch.ops.rnn import birnn_recurrence
-    cases = [('lstm', 1024, 512, 2), ('gru', 160, 128, 6),
-             ('gru', 1024, 256, 2)]
+    props = torch.cuda.get_device_properties(0)
+    smem, n_sms = props.shared_memory_per_block_optin, \
+        props.multi_processor_count
     rows = []
-    for cell, T, H, S in cases:
+    for what, cell, S, T, H in SERVING_BIRNN_CASES:
         for B in (1, 8):
             lens = [T - 100] if B == 1 else [T - 13 * i for i in range(B)]
             for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
                 gi, w, b, ln = _birnn_inputs(cell, T, B, S, H, dtype,
                                              seed=T + H + B, lens=lens)
-                y = recurrence(cell, gi, w, b, ln, dtype)
+                plan = kb.inference_plan(cell, S, B, H, dtype, smem, n_sms)
+                # at batch 1 the stream-local and cooperative paths both
+                # run on the same inputs
+                paths = [plan['path']]
+                if B == 1 and plan['path'] == 'stream_local':
+                    paths.append('cooperative')
+                outs = {p: kb.recurrence(cell, gi, w, b, ln, dtype, path=p)
+                        for p in paths}
                 torch.cuda.synchronize()
                 ref = birnn_recurrence(cell, gi, w, b, ln, dtype)
-                err = float((y - ref).abs().max())
-                name = (f'{cell} T={T} H={H} S={S} B={B} '
+                name = (f'{what} {cell} T={T} H={H} S={S} B={B} '
                         f'{str(dtype)[6:]}')
-                check(err <= tol and bool(torch.isfinite(y).all()),
-                      f'BiRNN {name}: max|kernel-plain| {err:.3g} <= {tol}')
-                row = {'case': name, 'max_abs_err': err, 'tol': tol}
+                row = {'case': name, 'path': plan['path'],
+                       'cluster': plan.get('cluster'), 'tol': tol,
+                       'max_abs_err': {}}
+                for p, y in outs.items():
+                    err = float((y - ref).abs().max())
+                    check(err <= tol and bool(torch.isfinite(y).all()),
+                          f'BiRNN {name} {p}: max|kernel-plain| {err:.3g} '
+                          f'<= {tol}')
+                    row['max_abs_err'][p] = err
                 if B == 1 and (dtype == torch.bfloat16 or cell == 'lstm'):
-                    row['ms'] = cuda_ms(lambda: recurrence(
-                        cell, gi, w, b, ln, dtype), reps=5)
+                    for p in paths:
+                        row[f'ms_{p}'] = cuda_ms(lambda: kb.recurrence(
+                            cell, gi, w, b, ln, dtype, path=p), reps=5)
                     row['plain_ms'] = cuda_ms(lambda: birnn_recurrence(
                         cell, gi, w, b, ln, dtype), reps=1, warmup=0)
-                    ng = 4 if cell == 'lstm' else 3
-                    active = sum(min(n, T) for n in lens) * S
-                    item = gi.element_size()
-                    n_bytes = (gi.numel() + w.numel()) * item \
-                        + b.numel() * 4 + ln.numel() * 4 + T * B * S * H * 4
-                    flops = 2.0 * active * ng * H * H
-                    row['bound_ms'], row['bound_by'] = bound_ms(
-                        n_bytes, flops, dtype)
+                    row['bound_ms'], row['bound_by'] = _birnn_bound(
+                        cell, gi, w, b, ln, H)
                     row['library_ms'] = _cudnn_ms(cell, T, H, S, B, dtype)
-                    log(f'  {name}: kernel {row["ms"]:.3f} ms, plain '
+                    if plan['path'] == 'stream_local':
+                        row['resident_clusters'] = kb.sl_size_on_card(
+                            cell, H, dtype, plan['cluster'],
+                            plan['splits'])[2]
+                    times = ', '.join(f'{p} {row[f"ms_{p}"]:.3f} ms'
+                                      for p in paths)
+                    log(f'  {name}: {times} (planned {plan["path"]}, '
+                        f'cluster {plan.get("cluster")}, resident '
+                        f'{row.get("resident_clusters")}), plain '
                         f'{row["plain_ms"]:.1f} ms, bound '
                         f'{row["bound_ms"]:.4f} ms ({row["bound_by"]}), '
                         f'library {row["library_ms"]}')
                 rows.append(row)
-    # the shapes that evaluate() gives the kernel on the training path:
-    # batch 32, the 896-frame bucket and its text pad of 176, float32
-    eval_cases = [('decoder', 'lstm', 896, 512,
-                   [870 - 11 * i for i in range(32)]),
-                  ('postnet', 'gru', 896, 256, [896] * 32),
-                  ('prenet', 'gru', 176, 256, [176] * 32),
-                  ('pitch', 'gru', 176, 128, [176] * 32),
-                  ('dur/energy', 'gru', 176, 64, [176] * 32)]
-    for what, cell, T, H, lens in eval_cases:
-        gi, w, b, ln = _birnn_inputs(cell, T, 32, 2, H, torch.float32,
-                                     seed=T + H, lens=lens)
-        y = recurrence(cell, gi, w, b, ln, torch.float32)
+    f32 = torch.float32
+    for what, cell, T, H, lens in EVAL_BIRNN_CASES:
+        gi, w, b, ln = _birnn_inputs(cell, T, 32, 2, H, f32, seed=T + H,
+                                     lens=lens)
+        plan = kb.inference_plan(cell, 2, 32, H, f32, smem, n_sms)
+        # the decoder on the cooperative path too, on the same inputs
+        paths = [plan['path']]
+        if what == 'decoder' and plan['path'] == 'stream_local':
+            paths.append('cooperative')
+        outs = {p: kb.recurrence(cell, gi, w, b, ln, f32, path=p)
+                for p in paths}
         torch.cuda.synchronize()
-        ref = birnn_recurrence(cell, gi, w, b, ln, torch.float32)
-        err = float((y - ref).abs().max())
+        ref = birnn_recurrence(cell, gi, w, b, ln, f32)
         name = f'evaluate() {what}: {cell} T={T} H={H} S=2 B=32 float32'
-        check(err <= 1e-4 and bool(torch.isfinite(y).all()),
-              f'BiRNN {name}: max|kernel-plain| {err:.3g} <= 0.0001')
-        rows.append({'case': name, 'max_abs_err': err, 'tol': 1e-4})
+        row = {'case': name, 'path': plan['path'],
+               'cluster': plan.get('cluster'), 'waves': plan.get('waves'),
+               'max_abs_err': {}, 'tol': 1e-4}
+        for p, y in outs.items():
+            err = float((y - ref).abs().max())
+            check(err <= 1e-4 and bool(torch.isfinite(y).all()),
+                  f'BiRNN {name} {p}: max|kernel-plain| {err:.3g} <= 0.0001')
+            row['max_abs_err'][p] = err
+        if what == 'decoder':
+            for p in paths:
+                row[f'ms_{p}'] = cuda_ms(lambda: kb.recurrence(
+                    cell, gi, w, b, ln, f32, path=p), reps=3)
+            row['plain_ms'] = cuda_ms(lambda: birnn_recurrence(
+                cell, gi, w, b, ln, f32), reps=1, warmup=0)
+            row['bound_ms'], row['bound_by'] = _birnn_bound(cell, gi, w, b,
+                                                            ln, H)
+            row['library_ms'] = _cudnn_ms(cell, T, H, 2, 32, f32)
+            times = ', '.join(f'{p} {row[f"ms_{p}"]:.3f} ms' for p in paths)
+            log(f'  {name}: {times} (planned {plan["path"]}, cluster '
+                f'{plan.get("cluster")}, {plan.get("waves")} waves), plain '
+                f'{row["plain_ms"]:.1f} ms, bound {row["bound_ms"]:.4f} ms '
+                f'({row["bound_by"]}), library {row["library_ms"]:.3f} ms')
+        rows.append(row)
     DETAILS['birnn'] = rows
     return rows
 
@@ -407,6 +485,7 @@ def main_path():
     from scipy.io import wavfile
     from forwardtacotron_tpu_torch import gen_forward
     from forwardtacotron_tpu_torch.config import default_config
+    from forwardtacotron_tpu_torch.kernels import birnn as kb
     from forwardtacotron_tpu_torch.kernels.birnn import recurrence
     from forwardtacotron_tpu_torch.kernels.wavernn_sample import sample
     from forwardtacotron_tpu_torch.models.wavernn import vocode
@@ -414,21 +493,36 @@ def main_path():
              if s.strip()][:3]
 
     recurrence.launches = 0
+    recurrence.path_launches = dict.fromkeys(recurrence.path_launches, 0)
     sample.launches = 0
     t0 = time.perf_counter()
     paths = []
     for k, text in enumerate(lines):
         for path in gen_forward.main(['-i', text, '--seed', '0', 'wavernn']):
-            paths.append(path.rename(
-                path.with_name(f'smoke{k}_{path.name}')))
+            paths.append(path.rename(path.with_name(f'smoke{k}_{path.name}')))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {'birnn': recurrence.launches,
-                'wavernn_sample': sample.launches}
+                'wavernn_sample': sample.launches,
+                **{f'birnn_{k}': v for k, v in
+                   recurrence.path_launches.items()}}
     log(f'  main path: 3 utterances in {wall:.2f} s (host clock, first call '
         f'included), launches {launches}')
     check(launches['birnn'] > 0 and launches['wavernn_sample'] > 0,
           f'main path launched every kernel: {launches}')
+    # the serving path runs kernel #1 at batch 1 in bf16, where the plan
+    # names the stream-local path for each of its shapes; every launch
+    # took it
+    props = torch.cuda.get_device_properties(0)
+    planned = {what: kb.inference_plan(
+        cell, S, 1, H, torch.bfloat16, props.shared_memory_per_block_optin,
+        props.multi_processor_count)['path']
+        for what, cell, S, _, H in SERVING_BIRNN_CASES}
+    check(set(planned.values()) == {'stream_local'}
+          and launches['birnn_stream_local'] == launches['birnn'],
+          f'kernel #1 on the serving path: {launches["birnn"]} launches, '
+          f'{launches["birnn_stream_local"]} stream-local; planned at B=1 '
+          f'bf16: {planned}')
     for path in paths:
         sr, wav = wavfile.read(path)
         rms = float(np.sqrt(np.mean(wav.astype(np.float64) ** 2)))
@@ -791,6 +885,8 @@ def training_path():
 
         _, val_set = get_tts_datasets(cfg['data_path'], 32, 1, None)
         recurrence.launches = 0
+        recurrence.path_launches = dict.fromkeys(recurrence.path_launches,
+                                                 0)
         n_train = (train_forward.launches, train_backward.launches)
         val = trainer.evaluate(model, val_set)
         check(recurrence.launches > 0 and n_train == (
@@ -798,6 +894,13 @@ def training_path():
             and all(math.isfinite(v) for v in val.values()),
             f'evaluate(): {val}, kernel #1 launches {recurrence.launches}')
         launches['evaluate_birnn'] = recurrence.launches
+        for k, v in recurrence.path_launches.items():
+            launches[f'evaluate_birnn_{k}'] = v
+        # batch 32, float32: every recurrence on the stream-local path,
+        # the decoder's and CBHG's 64 clusters in waves
+        check(recurrence.path_launches['stream_local']
+              == recurrence.launches > 0,
+              f'evaluate(): kernel #1 by path {recurrence.path_launches}')
 
         latest = paths.forward_checkpoints / 'latest_model.pt'
         served, _, served_step = gen_forward.load_tts(str(latest), cfg,
@@ -901,9 +1004,69 @@ def _grads_batch(seed=3):
             'energy': rng.randn(2, 24).astype(np.float32)}
 
 
-def _model_grads(model, batch, device):
+class _Decisions:
+    """A stand-in for `torch.nn.functional` inside models/layers.py that
+    records the discrete decisions of a pass, or replays recorded ones:
+    the sign mask of every `F.relu` (BatchNormConv, HighwayNetwork) and the
+    argmax indices of every `F.max_pool1d` (CBHG), in call order.
+    Recording returns what the functions return; replaying computes
+    relu(x) as where(mask, x, 0) and the max-pool as a gather by index, so
+    both passes take the same branches and their gradients flow through
+    the same elements, and counts the decisions the replaying pass would
+    have taken otherwise (`differ` of `total`). Every other name is
+    torch.nn.functional's."""
+
+    def __init__(self, recorded=None):
+        self.replay = recorded is not None
+        self.recorded = [] if recorded is None else recorded
+        self.calls = self.differ = self.total = 0
+
+    def __getattr__(self, name):
+        return getattr(torch.nn.functional, name)
+
+    def _take(self, own):
+        """The recorded decision in place of `own` (replay), or `own`."""
+        if not self.replay:
+            self.recorded.append(own.cpu())
+            return own
+        saved = self.recorded[self.calls].to(own.device)
+        self.calls += 1
+        self.differ += int((saved != own).sum())
+        self.total += own.numel()
+        return saved
+
+    def relu(self, x):
+        mask = self._take(x > 0)
+        if not self.replay:
+            return torch.nn.functional.relu(x)
+        return torch.where(mask, x, torch.zeros_like(x))
+
+    def max_pool1d(self, x, kernel_size, stride=None, padding=0):
+        y, idx = torch.nn.functional.max_pool1d(
+            x, kernel_size, stride=stride, padding=padding,
+            return_indices=True)
+        idx = self._take(idx)
+        return y if not self.replay else x.gather(-1, idx)
+
+
+@contextlib.contextmanager
+def _layer_decisions(decisions):
+    """models/layers.py's `F` is `decisions` inside the block (nothing
+    outside layers.py sees it)."""
+    from forwardtacotron_tpu_torch.models import layers
+    saved = layers.F
+    layers.F = decisions
+    try:
+        yield decisions
+    finally:
+        layers.F = saved
+
+
+def _model_grads(model, batch, device, decisions=None):
     """{parameter: float32 gradient on the CPU} of the training loss of a
-    copy of `model` on `device` (train mode, dropout 0)."""
+    copy of `model` on `device` (train mode, dropout 0); with
+    `decisions` (a _Decisions), models/layers.py records or replays its
+    ReLU and max-pool decisions through it."""
     from forwardtacotron_tpu_torch.config import default_config
     from forwardtacotron_tpu_torch.train import common as tc
     cfg = default_config()['forward_tacotron']['training']
@@ -912,7 +1075,9 @@ def _model_grads(model, batch, device):
         if isinstance(mod, torch.nn.Dropout):
             mod.p = 0.0
     b = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
-    loss, _ = tc.forward_loss(m(b), b, b['pitch'], b['energy'], cfg)
+    with (_layer_decisions(decisions) if decisions is not None
+          else contextlib.nullcontext()):
+        loss, _ = tc.forward_loss(m(b), b, b['pitch'], b['energy'], cfg)
     loss.backward()
     return {k: p.grad.detach().cpu() for k, p in m.named_parameters()}
 
@@ -927,25 +1092,63 @@ def _grad_errors(got, ref):
     return l2, peak
 
 
+GRAD_L2_LIMIT, GRAD_MAX_LIMIT = 1e-3, 5e-3
+
+
+def _worst_grad_errors(got, ref):
+    l2, peak = _grad_errors(got, ref)
+    k2, kp = max(l2, key=l2.get), max(peak, key=peak.get)
+    return {'worst_rel_l2': l2[k2], 'param_l2': k2,
+            'worst_rel_max': peak[kp], 'param_max': kp,
+            'ok': l2[k2] <= GRAD_L2_LIMIT and peak[kp] <= GRAD_MAX_LIMIT}
+
+
+def _card_cpu_grads(model, batch):
+    """The card's gradients (kernels #2/#3), recording models/layers.py's
+    decisions, against the CPU's (plain versions) with those decisions
+    replayed and with its own: {'replay': errors, 'own': errors,
+    'differ': decisions the CPU takes otherwise, 'decisions': their
+    count}."""
+    card = _Decisions()
+    grads = _model_grads(model, batch, 'cuda', card)
+    replayed = _Decisions(card.recorded)
+    cpu_replay = _model_grads(model, batch, 'cpu', replayed)
+    if replayed.calls != len(card.recorded):
+        raise RuntimeError(f'the CPU pass took {replayed.calls} decisions '
+                           f'of the {len(card.recorded)} recorded')
+    cpu_own = _model_grads(model, batch, 'cpu')
+    return {'replay': _worst_grad_errors(grads, cpu_replay),
+            'own': _worst_grad_errors(grads, cpu_own),
+            'differ': replayed.differ, 'decisions': replayed.total}
+
+
 def _grads_vs_cpu(model):
     """Float32 gradients of one teacher-forced loss at full width on two
     short items (dropout 0, TF32 off): kernels #2/#3 on the card against
-    the plain path on the CPU. Tolerance, per parameter: ||g_card - g_cpu||
-    <= 1e-3 ||g_cpu|| and max |g_card - g_cpu| <= 5e-3 max |g_cpu|. Sums
-    run in other orders on the two devices, and batch statistics over 2
-    items amplify rounding where a channel's variance is small (runs on
-    the card have shown element-wise relative errors up to 4.8e-4)."""
-    batch = _grads_batch()
-    grads = {device: _model_grads(model, batch, device)
-             for device in ('cuda', 'cpu')}
-    l2, peak = _grad_errors(grads['cuda'], grads['cpu'])
-    k2, kp = max(l2, key=l2.get), max(peak, key=peak.get)
-    check(l2[k2] <= 1e-3 and peak[kp] <= 5e-3,
-          f'float32 gradients, card vs CPU plain: worst relative L2 error '
-          f'{l2[k2]:.2e} ({k2}) <= 1e-3, worst max-element error '
-          f'{peak[kp]:.2e} of the largest ({kp}) <= 5e-3')
-    return {'worst_rel_l2': l2[k2], 'param_l2': k2,
-            'worst_rel_max': peak[kp], 'param_max': kp}
+    the plain path on the CPU, the CPU pass replaying the card's ReLU and
+    max-pool decisions (`_Decisions`). Tolerance, per parameter:
+    ||g_card - g_cpu|| <= 1e-3 ||g_cpu|| and max |g_card - g_cpu| <= 5e-3
+    max |g_cpu|. Sums run in other orders on the two devices, and batch
+    statistics over 2 items amplify rounding where a channel's variance is
+    small (runs on the card have shown element-wise relative errors up to
+    4.8e-4). Without the replay a pre-activation within rounding of zero
+    can fall on the other side of a ReLU or max-pool on the CPU and move a
+    gradient by a whole term, whichever implementation runs; the check
+    reports how many decisions the CPU would have taken otherwise, and the
+    errors without the replay, which it does not hold to the limits."""
+    out = _card_cpu_grads(model, _grads_batch())
+    rep, own = out['replay'], out['own']
+    check(rep['ok'],
+          f'float32 gradients, card vs CPU plain (CPU replaying the card\'s '
+          f'{out["decisions"]} ReLU/max-pool decisions; '
+          f'{out["differ"]} differ on its own): worst relative L2 error '
+          f'{rep["worst_rel_l2"]:.2e} ({rep["param_l2"]}) <= '
+          f'{GRAD_L2_LIMIT:g}, worst max-element error '
+          f'{rep["worst_rel_max"]:.2e} of the largest ({rep["param_max"]}) '
+          f'<= {GRAD_MAX_LIMIT:g}')
+    log(f'  without the replay: relative L2 {own["worst_rel_l2"]:.2e}, max '
+        f'element {own["worst_rel_max"]:.2e} (not checked)')
+    return out
 
 
 # ------------------------------------------------------------------- main
@@ -978,18 +1181,20 @@ def main() -> int:
             log(f'  - {f.splitlines()[0]}')
         return 1
 
-    main_case = next(r for r in birnn_rows
-                     if r['case'] == 'lstm T=1024 H=512 S=2 B=1 bfloat16')
+    # kernel #1's cooperative path is on neither main path (no shape of
+    # config.yaml takes it); phase 3 checks and times it (chip_smoke.json)
+    serving = next(r for r in birnn_rows if r['case'].startswith(
+        'decoder lstm T=1024 H=512 S=2 B=1 bfloat16'))
     kernels = [
-        {'name': 'birnn', 'route': 'cuda',
+        {'name': 'birnn (stream-local path)', 'route': 'cuda',
          'source': 'forwardtacotron_tpu_torch/csrc/birnn.cu',
          'replaces': 'forwardtacotron_tpu/kernels/birnn.py:45',
-         'launches': launches['birnn'],
-         'max_abs_err': main_case['max_abs_err'],
-         'ms': main_case['ms'], 'plain_ms': main_case['plain_ms'],
-         'bound_ms': main_case['bound_ms'],
-         'bound_by': main_case['bound_by'],
-         'library_ms': main_case['library_ms']},
+         'launches': launches['birnn_stream_local'], 'case': serving['case'],
+         'max_abs_err': serving['max_abs_err']['stream_local'],
+         'ms': serving['ms_stream_local'], 'plain_ms': serving['plain_ms'],
+         'bound_ms': serving['bound_ms'], 'bound_by': serving['bound_by'],
+         'library_ms': serving['library_ms']}]
+    kernels.append(
         {'name': 'wavernn_sample', 'route': 'cuda',
          'source': 'forwardtacotron_tpu_torch/csrc/wavernn_sample.cu',
          'replaces': 'forwardtacotron_tpu/kernels/wavernn_sample.py:64',
@@ -997,8 +1202,7 @@ def main() -> int:
          'max_abs_err': wr['max_abs_err'], 'agreement': wr['agreement'],
          'ms': wr['ms'], 'plain_ms': wr['plain_ms'],
          'bound_ms': wr['bound_ms'], 'bound_by': wr['bound_by'],
-         'library_ms': None},
-    ]
+         'library_ms': None})
     dec = train_rows[0]       # decoder LSTM H=512, T=1024, B=32, float32
     pitch = next(r for r in train_rows if r['case'].startswith('pitch'))
     for name, row, sfx, line, count in (

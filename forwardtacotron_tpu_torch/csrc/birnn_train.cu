@@ -42,7 +42,10 @@
 // above, so the backward takes them unchanged. What bounds it: per step,
 // reading the shared-memory part of W_hh and the chain product -> gate
 // math -> next product within one SM; the operations (2*B*S*NG*H*H per
-// step, 75 ns at H=128) and bytes are far below.
+// step, 75 ns at H=128) and bytes are far below. Its product and cell
+// update are csrc/birnn_step.cuh's, shared with kernel #1's stream-local
+// path (csrc/birnn.cu); the batch-split forward took the same time before
+// and after the move (PERF.md, PR 5).
 //
 // Backward: one reversed walk over the steps for every stream. The
 // per-step product is transposed relative to the forward (dh_prev =
@@ -116,6 +119,7 @@
 
 #include <algorithm>
 
+#include "birnn_step.cuh"
 #include "probe.cuh"
 
 namespace cg = cooperative_groups;
@@ -134,44 +138,6 @@ constexpr int kLanes = 8;      // lanes of a partial product's register tile
 constexpr int kCoopMaxCols = 3;  // W_hh columns a thread owns (H <= 768)
 constexpr int kSumBatch = 16;  // partial-sum loads a thread has in flight
 constexpr int kAItems = 2;     // phase-A items a thread loads a step ahead
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-template <typename T>
-__device__ __forceinline__ float round_to(float v) {
-  return to_f(from_f<T>(v));
-}
-
-__device__ __forceinline__ float sigmoid(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__device__ __forceinline__ bool inside(int s, int t, int n_steps, int len) {
-  return (s & 1) ? (t >= n_steps - len) : (t < len);
-}
-
-__host__ __device__ __forceinline__ size_t align16(size_t n) {
-  return (n + 15) / 16 * 16;
-}
 
 // forward: batch groups of kBT lanes, and k-splits so that every warp has
 // an item when the batch is small
@@ -331,37 +297,6 @@ __global__ void __launch_bounds__(kThreads) train_fwd_kernel(FwdArgs a) {
   probe.finish();
 }
 
-// 16 bytes of T as floats: 4 floats or 8 bf16 (element 0 in the low half)
-__device__ __forceinline__ void unpack16(const uint4& v, float* f, float) {
-  f[0] = __uint_as_float(v.x);
-  f[1] = __uint_as_float(v.y);
-  f[2] = __uint_as_float(v.z);
-  f[3] = __uint_as_float(v.w);
-}
-__device__ __forceinline__ void unpack16(const uint4& v, float* f,
-                                         __nv_bfloat16) {
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(w[i] << 16);
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   (uint32_t)__cvta_generic_to_shared(dst)),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// wait until at most one committed group is still in flight
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
 // Batch-split forward: block (s, b) holds stream s's whole W_hh and walks
 // every step of batch lane b alone; see the note at the top of the file.
 template <typename T, bool LSTM>
@@ -447,36 +382,7 @@ __global__ void __launch_bounds__(kBsMaxThreads)
     prefetch(t + 1);
     if (prod) {
       float acc[kBsRows];
-#pragma unroll
-      for (int r = 0; r < kBsRows; ++r) acc[r] = 0.0f;
-      // acc += chunk cc of the thread's rows (w) times h
-      auto fma_chunk = [&](const uint4* w, int cc) {
-        float wf[kBsRows][VEC];
-#pragma unroll
-        for (int r = 0; r < kBsRows; ++r) unpack16(w[r], wf[r], T());
-        const float4* hp = reinterpret_cast<const float4*>(h_mine + cc * VEC);
-#pragma unroll
-        for (int v = 0; v < VEC / 4; ++v) {
-          const float4 hv = hp[v];
-#pragma unroll
-          for (int r = 0; r < kBsRows; ++r) {
-            acc[r] = fmaf(hv.x, wf[r][4 * v], acc[r]);
-            acc[r] = fmaf(hv.y, wf[r][4 * v + 1], acc[r]);
-            acc[r] = fmaf(hv.z, wf[r][4 * v + 2], acc[r]);
-            acc[r] = fmaf(hv.w, wf[r][4 * v + 3], acc[r]);
-          }
-        }
-      };
-#pragma unroll
-      for (int cc = 0; cc < REG; ++cc)
-        if (cc < nc) fma_chunk(w_reg[cc], cc);
-#pragma unroll 2
-      for (int cc = REG; cc < nc; ++cc) {
-        uint4 w[kBsRows];
-#pragma unroll
-        for (int r = 0; r < kBsRows; ++r) w[r] = w_at(cc, r);
-        fma_chunk(w, cc);
-      }
+      rows_product<T>(acc, w_reg, w_at, h_mine, nc);
 #pragma unroll
       for (int r = 0; r < kBsRows; ++r)
         part[(size_t)ks * GH + g + r * NR] = acc[r];
@@ -504,30 +410,9 @@ __global__ void __launch_bounds__(kBsMaxThreads)
       const size_t row = ((size_t)t * B + b) * S + s;
       T* st = stash + row * 5 * H + u;
       const bool active = inside(s, t, n_steps, len);
-      float hn, cn = 0.0f;
-      if (LSTM) {
-        const float ig = sigmoid(to_f(g_in[0]) + gh[0]);
-        const float fg = sigmoid(to_f(g_in[H]) + gh[1]);
-        const float gg = tanhf(to_f(g_in[2 * H]) + gh[2]);
-        const float og = sigmoid(to_f(g_in[3 * H]) + gh[3]);
-        cn = fg * c + ig * gg;
-        hn = og * tanhf(cn);
-        st[0] = from_f<T>(ig);
-        st[H] = from_f<T>(fg);
-        st[2 * H] = from_f<T>(gg);
-        st[3 * H] = from_f<T>(og);
-        st[4 * H] = from_f<T>(c);
-      } else {
-        const float r = sigmoid(to_f(g_in[0]) + gh[0]);
-        const float z = sigmoid(to_f(g_in[H]) + gh[1]);
-        const float n = tanhf(to_f(g_in[2 * H]) + r * gh[2]);
-        hn = (1.0f - z) * n + z * h;
-        st[0] = from_f<T>(r);
-        st[H] = from_f<T>(z);
-        st[2 * H] = from_f<T>(n);
-        st[3 * H] = from_f<T>(gh[2]);
-        st[4 * H] = from_f<T>(h);
-      }
+      float cn;
+      const float hn =
+          cell_step<T, LSTM, true>(g_in, H, gh, h, c, cn, st, H);
       if (active) {
         h = hn;
         if (LSTM) c = cn;

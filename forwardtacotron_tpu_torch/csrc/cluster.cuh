@@ -2,7 +2,8 @@
 // copies (TMA) multicast into every block of a cluster, and the launch-side
 // choice of a cluster size of which a whole cooperative grid is resident.
 // Used by the WaveRNN sampler (csrc/wavernn_sample.cu), which stages each
-// tile by multicast within clusters.
+// tile by multicast within clusters, and by the BiRNN's stream-local path
+// (csrc/birnn.cu), which pushes h into its peers' shared memory.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -28,6 +29,24 @@ __device__ __forceinline__ void cluster_arrive_relaxed() {
 }
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the address of the same shared-memory location in block `rank` of the
+// cluster, for st_cluster
+__device__ __forceinline__ uint32_t map_rank(const void* p, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(smem_addr(p)), "r"(rank));
+  return r;
+}
+// a 16-byte store into a block of the cluster (its own or a peer's); the
+// next cluster_arrive() publishes it
+__device__ __forceinline__ void st_cluster(uint32_t addr, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   addr),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar) {

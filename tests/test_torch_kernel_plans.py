@@ -260,3 +260,176 @@ def test_sampler_scratch_bytes():
         3 * 8 * 64 + 4 * 64 * 512 + 2 * 64 * (5 * 512 + 2 * 512)
     # one lane: the 24 bytes of keys and the 4 * 10 of logits round up
     assert scratch_bytes(1, 8, 8, 10, 4) == 32 + 48 + 4 * (5 * 8 + 2 * 8)
+
+
+# ------------------------------------------------- kernel #1's inference plan
+
+@pytest.mark.parametrize('cell,S,H,cluster', [
+    ('gru', 6, 128, 1),      # the fused series predictors
+    ('gru', 2, 256, 8),      # the prenet and postnet CBHG
+    ('lstm', 2, 512, 16),    # the decoder
+])
+def test_serving_shapes_plan_stream_local_on_h100(cell, S, H, cluster):
+    """Every batch-1 bf16 shape of the serving path takes the stream-local
+    path with a cluster whose share of W_hh fits a block, and its S
+    clusters are counted resident."""
+    from forwardtacotron_tpu_torch.kernels.birnn import (
+        SL_MAX_THREADS, inference_plan, resident_clusters)
+    plan = inference_plan(cell, S, 1, H, torch.bfloat16, H100_SMEM,
+                          H100_SMS)
+    assert plan['path'] == 'stream_local'
+    assert plan['cluster'] == cluster and plan['clusters'] == S
+    assert S <= resident_clusters(cluster, H100_SMS)
+    ng = 4 if cell == 'lstm' else 3
+    # the block's rows of W_hh: in shared memory, or in the registers of
+    # its product threads (kSlRows rows, 2 bf16 chunks of 16 bytes each)
+    rows = ng * H // cluster
+    assert plan['w_smem'] + plan['threads'] * 4 * 2 * 16 >= rows * H * 2
+    assert plan['smem'] <= H100_SMEM
+    assert plan['threads'] % 32 == 0
+    assert H // cluster <= plan['threads'] <= SL_MAX_THREADS
+
+
+@pytest.mark.parametrize('cell,S,B,H,dtype,path', [
+    # 4 MB a stream: only clusters of 16 hold it
+    ('lstm', 2, 1, 512, torch.float32, 'stream_local'),
+    ('gru', 2, 1, 256, torch.float32, 'stream_local'),
+    ('gru', 6, 1, 128, torch.float32, 'stream_local'),
+    # evaluate() at batch 32 in float32: in waves where needed
+    ('lstm', 2, 32, 512, torch.float32, 'stream_local'),
+    ('gru', 2, 32, 256, torch.float32, 'stream_local'),
+    ('gru', 2, 32, 128, torch.float32, 'stream_local'),
+    ('gru', 2, 32, 64, torch.float32, 'stream_local'),
+    # batch 8: 16 clusters of the decoder, in two waves of 8 blocks
+    ('lstm', 2, 8, 512, torch.bfloat16, 'stream_local'),
+    ('gru', 6, 8, 128, torch.bfloat16, 'stream_local'),
+    ('gru', 2, 8, 256, torch.float32, 'stream_local'),
+    # H not a whole number of 16-byte chunks: no cluster size fits
+    ('gru', 2, 1, 30, torch.float32, 'cooperative'),
+    ('gru', 2, 32, 100, torch.bfloat16, 'cooperative'),
+])
+def test_inference_plan_on_h100(cell, S, B, H, dtype, path):
+    from forwardtacotron_tpu_torch.kernels.birnn import (
+        inference_plan, resident_clusters)
+    plan = inference_plan(cell, S, B, H, dtype, H100_SMEM, H100_SMS)
+    assert plan['path'] == path
+    if path == 'stream_local':
+        assert plan['waves'] == -(-S * B // resident_clusters(
+            plan['cluster'], H100_SMS))
+        assert plan['smem'] <= H100_SMEM
+    else:
+        assert S * H // plan['units'] <= H100_SMS
+
+
+@pytest.mark.parametrize('cell,S,B,H,dtype', [
+    ('gru', 6, 1, 128, torch.bfloat16), ('gru', 2, 1, 256, torch.bfloat16),
+    ('lstm', 2, 1, 512, torch.bfloat16), ('lstm', 2, 32, 512, torch.float32),
+    ('gru', 2, 32, 256, torch.float32), ('gru', 2, 32, 64, torch.float32),
+    ('lstm', 2, 8, 512, torch.bfloat16)])
+def test_inference_plan_takes_the_least_step_estimate(cell, S, B, H, dtype):
+    """Of the cluster sizes that fit, the plan takes the one of the least
+    estimated launch, waves x step estimate, the smaller on a tie."""
+    from forwardtacotron_tpu_torch.kernels.birnn import (
+        SL_CLUSTERS, inference_plan, resident_clusters, step_estimate_us,
+        stream_local_shape)
+    plan = inference_plan(cell, S, B, H, dtype, H100_SMEM, H100_SMS)
+    est = {c: -(-S * B // resident_clusters(c, H100_SMS))
+           * step_estimate_us(H, dtype, sh) for c in SL_CLUSTERS
+           if (sh := stream_local_shape(cell, H, dtype, H100_SMEM, c))}
+    least = min(est.values())
+    assert est[plan['cluster']] == pytest.approx(least)
+    assert plan['cluster'] == min(
+        c for c, e in est.items() if e == pytest.approx(least))
+
+
+def test_step_estimate():
+    """0.15 µs a chunk of a row per product thread, plus the fixed cost
+    of a block or a cluster; the decoder's W_hh fits no fewer than 8
+    blocks."""
+    from forwardtacotron_tpu_torch.kernels.birnn import (
+        step_estimate_us, stream_local_shape)
+    bf16 = torch.bfloat16
+    assert stream_local_shape('lstm', 512, bf16, H100_SMEM, 4) is None
+    shape = stream_local_shape('gru', 128, bf16, H100_SMEM, 1)
+    assert step_estimate_us(128, bf16, shape) == pytest.approx(
+        0.15 * 4 + 0.7)
+
+
+@pytest.mark.parametrize('what,cell,H,cluster,waves', [
+    ('decoder', 'lstm', 512, 16, 10),   # only 16 blocks hold it
+    ('postnet', 'gru', 256, 4, 3),
+    ('prenet', 'gru', 256, 4, 3),
+    ('pitch', 'gru', 128, 1, 1),
+    ('dur/energy', 'gru', 64, 1, 1),
+])
+def test_evaluate_shapes_plan_stream_local_in_waves(what, cell, H, cluster,
+                                                    waves):
+    """evaluate()'s five recurrences (B=32, float32, 64 clusters) take the
+    stream-local path at the cluster size that measured fastest on the
+    H100 (PERF.md, PR 5), in waves where fewer than 64 are resident."""
+    from forwardtacotron_tpu_torch.kernels.birnn import inference_plan
+    plan = inference_plan(cell, 2, 32, H, torch.float32, H100_SMEM,
+                          H100_SMS)
+    assert (plan['path'], plan['cluster'], plan['waves']) == (
+        'stream_local', cluster, waves), what
+
+
+def test_inference_plan_raises_where_nothing_fits():
+    """An LSTM of H=1024 fits neither a portable cluster nor, with S=2, a
+    cooperative grid of at most 8 units a block."""
+    from forwardtacotron_tpu_torch.kernels.birnn import inference_plan
+    with pytest.raises(ValueError, match='do not fit'):
+        inference_plan('lstm', 2, 1, 1024, torch.bfloat16, H100_SMEM,
+                       H100_SMS)
+
+
+def test_inference_plan_is_cached():
+    from forwardtacotron_tpu_torch.kernels.birnn import inference_plan
+    args = ('gru', 6, 1, 128, torch.bfloat16, H100_SMEM, H100_SMS)
+    assert inference_plan(*args) is inference_plan(*args)
+
+
+def test_forced_paths():
+    """`path=` and `cluster=` force a launch's plan; a forced cluster that
+    does not fit, or a stream-local path the plan does not give, raises."""
+    from types import SimpleNamespace
+    from forwardtacotron_tpu_torch.kernels.birnn import _plan
+    props = SimpleNamespace(shared_memory_per_block_optin=H100_SMEM,
+                            multi_processor_count=H100_SMS)
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert _plan('lstm', 2, 1, 512, bf16, props, None, None)['cluster'] == 16
+    assert _plan('lstm', 2, 1, 512, bf16, props, 'cooperative', None) == {
+        'path': 'cooperative', 'units': 8}
+    forced = _plan('lstm', 2, 1, 512, bf16, props, 'stream_local', 8)
+    assert forced['path'] == 'stream_local' and forced['cluster'] == 8
+    with pytest.raises(ValueError, match='clusters of 8'):
+        _plan('lstm', 2, 1, 512, f32, props, 'stream_local', 8)
+    with pytest.raises(ValueError, match='stream-local path does not'):
+        _plan('gru', 2, 32, 30, f32, props, 'stream_local', None)
+    with pytest.raises(ValueError, match='unknown path'):
+        _plan('gru', 2, 1, 64, f32, props, 'batch_split', None)
+
+
+@pytest.mark.parametrize('cell,H,cluster,splits,item,size', [
+    # W_hh chunks outside registers (16 bytes, R rows x KS slices x
+    # chunks past the registers' 2 (bf16) or 4 (float32)), KS x R partial
+    # sums, two buffers of H floats, two steps of R gate inputs
+    ('lstm', 512, 8, 8, 2,
+     (512, 16 * 256 * 8 * 6 + 4 * (8 * 256 + 2 * 512) + 2 * 2 * 256)),
+    ('gru', 128, 1, 4, 2,
+     (384, 16 * 384 * 4 * 2 + 4 * (4 * 384 + 2 * 128) + 2 * 2 * 384)),
+    ('gru', 256, 8, 16, 4, (384, 4 * (16 * 96 + 2 * 256) + 4 * 2 * 96)),
+    # fewer product threads than units: one owner thread per unit
+    ('gru', 100, 1, 1, 4,
+     (128, 16 * 300 * 21 + 4 * (300 + 2 * 100) + 4 * 2 * 300)),
+    # refused: U not a whole number of chunks; too many threads; C not a
+    # power of two
+    ('gru', 100, 1, 1, 2, None), ('gru', 128, 1, 8, 2, None),
+    ('gru', 96, 3, 1, 4, None),
+])
+def test_sl_size_matches_the_c_layout(cell, H, cluster, splits, item, size):
+    """`_sl_size` against a hand count of csrc/birnn.cu's sl_size."""
+    from forwardtacotron_tpu_torch.kernels.birnn import _sl_size
+    from forwardtacotron_tpu_torch.ops.rnn import n_gates
+    got = _sl_size(n_gates(cell), H, cluster, splits, item)
+    assert (got[:2] if got else None) == size

@@ -25,15 +25,45 @@ def cuda():
     return torch.device('cuda')
 
 
-@pytest.mark.parametrize('cell,H,S,B', [('lstm', 256, 2, 3),
-                                        ('gru', 128, 6, 1),
-                                        ('gru', 96, 2, 2),
-                                        ('lstm', 512, 2, 32),
-                                        ('gru', 64, 2, 32)])
+# (cell, H, S, B, path, cluster): None takes the plan's choice. The
+# stream-local path at every cluster size the plan picks and at 16
+# (non-portable), an H that is not a power of two, B > 1, and B=32 with
+# more clusters than the card holds at once (they run in waves); the
+# cooperative path forced on the same inputs. Where the forced cluster size
+# does not fit (LSTM H=512 float32 at 8 blocks), the wrapper raises.
+BIRNN_CASES = [
+    ('lstm', 256, 2, 3, None, None),
+    ('gru', 128, 6, 1, None, None),
+    ('gru', 96, 2, 2, None, None),
+    ('lstm', 512, 2, 32, None, None),
+    ('gru', 64, 2, 32, None, None),
+    ('gru', 128, 6, 1, 'cooperative', None),
+    ('gru', 128, 6, 4, 'stream_local', 1),
+    ('gru', 128, 6, 1, 'stream_local', 2),
+    ('gru', 256, 2, 1, 'stream_local', 2),
+    ('gru', 256, 2, 1, 'stream_local', 4),
+    ('gru', 256, 2, 3, 'stream_local', 8),
+    ('gru', 256, 2, 32, 'stream_local', 8),
+    ('gru', 256, 2, 1, 'cooperative', None),
+    ('lstm', 512, 2, 1, 'stream_local', 8),
+    ('lstm', 512, 2, 1, 'stream_local', 16),
+    ('lstm', 512, 2, 32, 'stream_local', 16),
+    ('lstm', 512, 2, 1, 'cooperative', None),
+    ('gru', 96, 2, 1, 'stream_local', 1),
+    ('gru', 160, 2, 2, 'stream_local', 2),
+    ('lstm', 64, 2, 5, 'stream_local', 2),
+    ('lstm', 64, 2, 5, 'stream_local', 1),
+]
+
+
+@pytest.mark.parametrize('cell,H,S,B,path,cluster', BIRNN_CASES)
 @pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-def test_birnn_kernel_matches_plain(cuda, cell, H, S, B, dtype, tol):
-    from forwardtacotron_tpu_torch.kernels.birnn import recurrence
+def test_birnn_kernel_matches_plain(cuda, cell, H, S, B, path, cluster,
+                                    dtype, tol):
+    """Ragged lengths (every lane shorter than T at B=1) on forward and
+    reversed streams; `path_launches` moves on the path that ran."""
+    from forwardtacotron_tpu_torch.kernels import birnn as kb
     from forwardtacotron_tpu_torch.ops.rnn import birnn_recurrence
     g = torch.Generator().manual_seed(H + S)
     T, ng = 70, (4 if cell == 'lstm' else 3)
@@ -42,14 +72,57 @@ def test_birnn_kernel_matches_plain(cuda, cell, H, S, B, dtype, tol):
          / H ** 0.5).to(dtype)
     b = torch.zeros((S, ng * H)) if cell == 'lstm' else \
         torch.rand((S, ng * H), generator=g) * 0.1
-    lengths = torch.tensor([T - 9 * i % T for i in range(B)],
+    lengths = torch.tensor([T - (9 * i + 5) % T for i in range(B)],
                            dtype=torch.int32)
     args = [t.to(cuda).contiguous() for t in (gi, w, b, lengths)]
-    before = recurrence.launches
-    y = recurrence(cell, *args, dtype)
-    assert recurrence.launches == before + 1
+    props = torch.cuda.get_device_properties(cuda)
+    smem = props.shared_memory_per_block_optin
+    if cluster is not None and kb.stream_local_shape(
+            cell, H, dtype, smem, cluster) is None:
+        with pytest.raises(ValueError, match=f'clusters of {cluster}'):
+            kb.recurrence(cell, *args, dtype, path=path, cluster=cluster)
+        return
+    ran = path or kb.inference_plan(cell, S, B, H, dtype, smem,
+                                    props.multi_processor_count)['path']
+    before = dict(kb.recurrence.path_launches)
+    launches = kb.recurrence.launches
+    y = kb.recurrence(cell, *args, dtype, path=path, cluster=cluster)
+    assert kb.recurrence.launches == launches + 1
+    assert kb.recurrence.path_launches == {
+        p: n + (p == ran) for p, n in before.items()}
     ref = birnn_recurrence(cell, *args, dtype)
     assert float((y - ref).abs().max()) <= tol
+
+
+def test_serving_shapes_take_the_stream_local_path(cuda):
+    """On this card, every batch-1 bf16 shape of the serving path plans
+    the stream-local path, and its clusters are resident at once."""
+    from forwardtacotron_tpu_torch.kernels import birnn as kb
+    props = torch.cuda.get_device_properties(cuda)
+    for cell, S, H in (('lstm', 2, 512), ('gru', 2, 256), ('gru', 6, 128)):
+        plan = kb.inference_plan(cell, S, 1, H, torch.bfloat16,
+                                 props.shared_memory_per_block_optin,
+                                 props.multi_processor_count)
+        assert plan['path'] == 'stream_local', (cell, S, H)
+        resident = kb.sl_size_on_card(cell, H, torch.bfloat16,
+                                      plan['cluster'], plan['splits'])[2]
+        assert resident >= S, (cell, S, H, plan['cluster'], resident)
+
+
+@pytest.mark.parametrize('cell,H,cluster,splits', [
+    ('gru', 128, 1, 4), ('gru', 256, 4, 8), ('gru', 256, 2, 4),
+    ('lstm', 512, 8, 8), ('lstm', 512, 16, 16), ('gru', 96, 1, 4),
+    ('gru', 100, 1, 1), ('lstm', 64, 2, 2), ('gru', 256, 8, 16)])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_stream_local_sizes_match_the_c_side(cuda, cell, H, cluster, splits,
+                                             dtype):
+    """The plan's size formula (`_sl_size`) against the launcher's
+    (ftt_birnn_sl_size), shapes it refuses included (threads 0)."""
+    from forwardtacotron_tpu_torch.kernels import birnn as kb
+    from forwardtacotron_tpu_torch.ops.rnn import n_gates
+    threads, smem, _ = kb.sl_size_on_card(cell, H, dtype, cluster, splits)
+    size = kb._sl_size(n_gates(cell), H, cluster, splits, dtype.itemsize)
+    assert (threads, smem) == ((0, 0) if size is None else size[:2])
 
 
 @pytest.mark.parametrize('mode', ['RAW', 'MOL'])

@@ -1,8 +1,9 @@
 """Per-step and per-phase cost of the port's CUDA kernels on the card.
 
     python tools/torch_kernel_probe.py [--steps 400] [--lanes 1,8,64,128]
-                                       [--phases] [--seeds 6]
-                                       [--only train,train_bwd,sampler,birnn,grads]
+                                       [--phases] [--seeds 6] [--rounds 2]
+                                       [--dtypes bfloat16,float32]
+                                       [--only train,train_bwd,sampler,birnn,birnn_eval,grads]
 
 Times, with CUDA events:
 - the WaveRNN sampling kernel (#4) at full width (rnn_dims = fc_dims =
@@ -21,19 +22,34 @@ Times, with CUDA events:
   designed (`csrc/birnn_train_staged.cu`: the exchange staged by bulk
   copies multicast within clusters) on the same inputs, with its staging
   buffers, cluster size and largest difference from the shipped path;
-- the BiRNN inference kernel (#1), decoder LSTM H=512, at batch 1 and 8;
+- the BiRNN inference kernel (#1) at the serving shapes
+  (`chip_smoke.SERVING_BIRNN_CASES`, B=1, in each of `--dtypes`,
+  bfloat16 by default): its stream-local path at every cluster size that
+  fits, with the product on the CUDA cores and, in bfloat16, on the
+  tensor cores (`csrc/birnn_sl_mma.cu`, a library of its own that the
+  package never loads), each with its k-slices, threads, shared memory
+  and the clusters resident at once, and its cooperative path, `--rounds`
+  turns each on the same inputs, beside cuDNN and the bound, with the
+  `-Xptxas -v` registers of both libraries and the host µs of a launch
+  of the planned and the cooperative path;
+- with `--only birnn_eval`: kernel #1 at the five shapes that evaluate()
+  gives it (`chip_smoke.EVAL_BIRNN_CASES`, B=32, float32), the
+  stream-local path at every cluster size that fits (its 64 clusters in
+  waves where the card holds fewer at once) and the cooperative path, in
+  turns on the same inputs;
 - with `--only grads` (not run by default): the float32 gradients of the
-  full-width model on chip_smoke's two-item batch, card against CPU, for
-  `--seeds` random models, once with kernels #2/#3 and once with their
-  plain versions run on the card. The plain versions are the same
-  algorithm with other rounding, so this tells an error the kernels
-  cause from one the model's ReLUs amplify (a pre-activation near zero
-  that rounds to the other side moves a gradient by a whole term).
+  full-width model on chip_smoke's two-item batch, card (kernels #2/#3)
+  against CPU (plain versions), for `--seeds` random models: with the CPU
+  replaying the card's ReLU and max-pool decisions, as chip_smoke checks
+  them, and with its own, and how many of its own decisions differ (a
+  pre-activation near zero that rounds to the other side moves a
+  gradient by a whole term); `ok` is chip_smoke's limits.
 
 With `--phases`, it also loads the probe build (`-DFTT_PROBE`) and
-prints where a step's time goes, from thread 0 of block 0: kernels #2 and
-#3 at the same shapes on each path, and the sampler in bfloat16 at 1, 64
-and 72 lanes (of those in `--lanes`).
+prints where a step's time goes, from thread 0 of block 0: kernels #1,
+#2 and #3 at the same shapes on each path (#1's stream-local path:
+product, row sums, gate math, exchange, barrier), and the sampler in
+bfloat16 at 1, 64 and 72 lanes (of those in `--lanes`).
 
 Prints one JSON object per line (also written to
 kernel_probe.jsonl in `chip_smoke.py`'s output directory) and the card's
@@ -53,8 +69,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from chip_smoke import (OUT_DIR, TRAIN_KERNEL_CASES,  # noqa: E402
-                        _grad_errors, _grads_batch, _model_grads,
-                        _train_inputs)
+                        _card_cpu_grads, _grads_batch, _train_inputs)
 
 OUT = OUT_DIR / 'kernel_probe.jsonl'
 TRAIN_SHAPES = (('dur/energy', 64), ('pitch', 128), ('prenet', 256))
@@ -70,6 +85,10 @@ TRAIN_BWD_PHASES = {'cooperative': ('gate gradients', 'partial products',
                     'staged': ('gate gradients', 'grid barrier', 'copy wait',
                                'product', 'combine',
                                'cluster barrier, next copy')}
+BIRNN_PHASES = {'stream_local': ('product', 'row sums', 'gate math',
+                                 'exchange', 'barrier'),
+                'cooperative': ('product', 'gate math, stores',
+                                'grid barrier')}
 SAMPLER_PHASES = ('stage', 'product', 'gate update', 'grid barrier',
                   'sample', 'product wait')
 
@@ -90,6 +109,21 @@ def cuda_ms(fn, reps=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_us(fn, reps=200):
+    """Host µs a call of fn, launched back to back (one synchronize at the
+    end, so a call whose device time is below its host time shows the
+    host's)."""
+    import time
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e6
 
 
 def phases(name, labels, fn, reps, steps):
@@ -246,56 +280,179 @@ def train_backward_paths(args):
 
 def grads_vs_cpu(args):
     from forwardtacotron_tpu_torch.config import default_config
-    from forwardtacotron_tpu_torch.kernels import birnn_train as bt
     from forwardtacotron_tpu_torch.models.forward_tacotron import (
         ForwardTacotron)
-    from forwardtacotron_tpu_torch.ops import rnn
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kernels = bt.train_forward, bt.train_backward
-    plain = (lambda cell, gi, w, b, ln, dt: rnn.birnn_train_forward(
-                 cell, gi, w, b, ln, dt),
-             lambda cell, st, dy, w, ln, dt: rnn.birnn_train_backward(
-                 cell, st, dy, w, ln, dt))
-
-    def worst(got, ref):
-        l2, peak = _grad_errors(got, ref)
-        k2, kp = max(l2, key=l2.get), max(peak, key=peak.get)
-        return {'rel_l2': l2[k2], 'param_l2': k2, 'rel_max': peak[kp],
-                'param_max': kp}
-
     for seed in range(args.seeds):
         torch.manual_seed(seed)
         model = ForwardTacotron.from_config(default_config()).cuda()
-        batch = _grads_batch(3 + seed)
-        grads = {'cpu': _model_grads(model, batch, 'cpu')}
-        for name, (fwd, bwd) in (('kernels', kernels), ('plain', plain)):
-            bt.train_forward, bt.train_backward = fwd, bwd
-            try:
-                grads[name] = _model_grads(model, batch, 'cuda')
-            finally:
-                bt.train_forward, bt.train_backward = kernels
         emit({'kernel': 'grads', 'seed': seed,
-              'kernels_vs_cpu': worst(grads['kernels'], grads['cpu']),
-              'plain_on_card_vs_cpu': worst(grads['plain'], grads['cpu']),
-              'kernels_vs_plain_on_card': worst(grads['kernels'],
-                                                grads['plain'])})
+              **_card_cpu_grads(model, _grads_batch(3 + seed))})
 
 
-def inference_birnn():
-    from forwardtacotron_tpu_torch.kernels.birnn import recurrence
-    H, T = 512, 1024
-    for dtype in (torch.bfloat16, torch.float32):
-        for B in (1, 8):
-            gi = torch.randn((T, B, 2, 4 * H), device='cuda').to(dtype)
-            wh = (torch.rand((2, 4 * H, H), device='cuda') * 0.08
-                  - 0.04).to(dtype)
-            b = torch.zeros((2, 4 * H), device='cuda')
-            ln = torch.full((B,), T, dtype=torch.int32, device='cuda')
-            ms = cuda_ms(lambda: recurrence('lstm', gi, wh, b, ln, dtype))
-            emit({'kernel': 'birnn', 'cell': 'lstm', 'H': H, 'T': T, 'B': B,
-                  'dtype': str(dtype)[6:], 'ms': ms,
-                  'us_per_step': 1e3 * ms / T})
+def ptxas_registers(report, name):
+    """{kernel: 'Used N registers, ...; N bytes stack frame, N bytes spill
+    stores, N bytes spill loads'} of the ptxas -v lines in `report` for
+    the entry functions whose names contain `name`."""
+    out, func = {}, None
+    for line in report.splitlines():
+        if 'Compiling entry function' in line:
+            func = line.split("'")[1]
+        elif func and name in func and 'registers' in line:
+            out[func] = line.split(':', 1)[1].strip() + out.get(func, '')
+        elif func and name in func and 'spill' in line:
+            out[func] = '; ' + line.strip()
+    return out
+
+
+def mma_recurrence(cell, gi, w, b, ln, cluster, layout_only=False):
+    """y of kernel #1's stream-local path with its product on the tensor
+    cores (csrc/birnn_sl_mma.cu, a library of its own; bf16) in clusters
+    of `cluster`; with layout_only, its (k-slices, threads, shared-memory
+    bytes, resident clusters) instead, launching nothing (k-slices 0: no
+    block fits)."""
+    import ctypes
+    from forwardtacotron_tpu_torch.kernels import _build
+    T, B, S, _ = gi.shape
+    H = w.shape[-1]
+    lib = _build.load('birnn_sl_mma')
+    fn = lib.ftt_birnn_sl_mma_launch
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 \
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    y = torch.empty((T, B, S, H), dtype=torch.float32, device=gi.device)
+    layout = (ctypes.c_longlong * 4)()
+    _build.check(lib, fn(
+        int(cell == 'lstm'), gi.data_ptr(), w.data_ptr(), b.data_ptr(),
+        ln.data_ptr(), y.data_ptr(), T, B, S, H, cluster,
+        layout if layout_only else None,
+        torch.cuda.current_stream().cuda_stream), 'mma stream-local')
+    return tuple(layout) if layout_only else y
+
+
+def birnn_ptxas(names):
+    """Rebuild the named libraries of kernel #1 and emit their `-Xptxas
+    -v` registers and spills."""
+    from forwardtacotron_tpu_torch.kernels import _build
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    for name in names:
+        lib_path = _build._lib_path(name)
+        if lib_path.exists():
+            lib_path.unlink()           # rebuild, for the ptxas report
+    for name, report in _build.build(names).items():
+        emit({'kernel': name, 'ptxas': ptxas_registers(report, 'birnn')})
+
+
+def birnn_variants(args, what, cell, S, T, H, B, dtype, lens, variants):
+    """Kernel #1 on the same inputs in each of `variants` ((path, cluster,
+    product), product 'fma' or 'mma'), `--rounds` turns; each row with the
+    clusters resident at once and its largest difference from the planned
+    path; with `--phases`, by phase."""
+    from forwardtacotron_tpu_torch.kernels import birnn as kb
+    from chip_smoke import _birnn_bound, _birnn_inputs, _cudnn_ms
+    props = torch.cuda.get_device_properties(0)
+    smem, n_sms = props.shared_memory_per_block_optin, \
+        props.multi_processor_count
+    gi, w, b, ln = _birnn_inputs(cell, T, B, S, H, dtype, seed=T + H,
+                                 lens=lens)
+    plan = kb.inference_plan(cell, S, B, H, dtype, smem, n_sms)
+    ref = kb.recurrence(cell, gi, w, b, ln, dtype)
+
+    def runner(path, c, product):
+        if product == 'mma':
+            return lambda: mma_recurrence(cell, gi, w, b, ln, c)
+        return lambda: kb.recurrence(cell, gi, w, b, ln, dtype, path=path,
+                                     cluster=c)
+    rows = {}
+    for rnd in range(args.rounds):
+        for path, c, product in variants:
+            run = runner(path, c, product)
+            row = rows.setdefault((path, c, product), {
+                'kernel': 'birnn', 'shape': what, 'cell': cell, 'S': S,
+                'T': T, 'H': H, 'B': B, 'dtype': str(dtype)[6:],
+                'path': path, 'cluster': c, 'product': product, 'ms': [],
+                'planned': plan['path'] == path and product != 'mma'
+                and plan.get('cluster') == c})
+            if rnd == 0 and path == 'stream_local':
+                if product == 'mma':
+                    row['splits'], row['threads'], row['smem'], \
+                        row['resident_clusters'] = mma_recurrence(
+                            cell, gi, w, b, ln, c, layout_only=True)
+                else:
+                    shape = kb.stream_local_shape(cell, H, dtype, smem, c)
+                    row.update({k: shape[k] for k in (
+                        'splits', 'threads', 'smem', 'w_smem')})
+                    row['resident_clusters'] = kb.sl_size_on_card(
+                        cell, H, dtype, c, shape['splits'])[2]
+                row['waves'] = -(-S * B // max(row['resident_clusters'], 1))
+                row['max_abs_err_vs_planned'] = float(
+                    (run() - ref).abs().max())
+            row['ms'].append(cuda_ms(run, reps=5))
+    bound = _birnn_bound(cell, gi, w, b, ln, H)
+    library = _cudnn_ms(cell, T, H, S, B, dtype)
+    for (path, c, product), row in rows.items():
+        row['us_per_step'] = 1e3 * min(row['ms']) / T
+        row['bound_ms'], row['bound_by'] = bound
+        row['library_ms'] = library
+        if args.phases:
+            row['probe_us_per_step'] = phases(
+                'birnn_sl_mma' if product == 'mma' else 'birnn',
+                BIRNN_PHASES[path], runner(path, c, product), 3, T)
+    return plan, rows
+
+
+def inference_birnn(args):
+    """Kernel #1 at the serving shapes, batch 1, in each of `--dtypes`:
+    the stream-local path at every cluster size that fits, with the
+    product on the CUDA cores and (bf16) on the tensor cores, and the
+    cooperative path, in turns on the same inputs, with the host µs of a
+    launch of the planned and the cooperative path."""
+    from forwardtacotron_tpu_torch.kernels import birnn as kb
+    from chip_smoke import SERVING_BIRNN_CASES, _birnn_inputs
+    birnn_ptxas(['birnn', 'birnn_sl_mma'])
+    smem = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    for dtype in (getattr(torch, d) for d in args.dtypes.split(',')):
+        for what, cell, S, T, H in SERVING_BIRNN_CASES:
+            variants = [('stream_local', c, 'fma') for c in kb.SL_CLUSTERS
+                        if kb.stream_local_shape(cell, H, dtype, smem, c)]
+            if dtype == torch.bfloat16:
+                variants += [('stream_local', c, 'mma')
+                             for c in kb.SL_CLUSTERS
+                             if mma_recurrence(cell, *_birnn_inputs(
+                                 cell, 1, 1, S, H, dtype, 0, [1]), c,
+                                 layout_only=True)[0]]
+            variants.append(('cooperative', None, 'fma'))
+            plan, rows = birnn_variants(args, what, cell, S, T, H, 1, dtype,
+                                        [T], variants)
+            # host µs a launch, over launches of 4 steps (device time small)
+            short = _birnn_inputs(cell, 4, 1, S, H, dtype, seed=H, lens=[4])
+            for path, c in ((plan['path'], plan.get('cluster')),
+                            ('cooperative', None)):
+                rows[(path, c, 'fma')]['host_us_per_launch'] = host_us(
+                    lambda: kb.recurrence(cell, *short, dtype, path=path,
+                                          cluster=c))
+            for row in rows.values():
+                emit(row)
+
+
+def evaluate_birnn(args):
+    """Kernel #1 at the five shapes that evaluate() gives it (B=32,
+    float32, `chip_smoke.EVAL_BIRNN_CASES`): the stream-local path at every
+    cluster size that fits, its S*B clusters in waves where the card holds
+    fewer at once, and the cooperative path, in turns on the same
+    inputs."""
+    from forwardtacotron_tpu_torch.kernels import birnn as kb
+    from chip_smoke import EVAL_BIRNN_CASES
+    smem = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    f32 = torch.float32
+    for what, cell, T, H, lens in EVAL_BIRNN_CASES:
+        variants = [('stream_local', c, 'fma') for c in kb.SL_CLUSTERS
+                    if kb.stream_local_shape(cell, H, f32, smem, c)]
+        variants.append(('cooperative', None, 'fma'))
+        for row in birnn_variants(args, what, cell, 2, T, H, 32, f32,
+                                  list(lens), variants)[1].values():
+            emit(row)
 
 
 def main() -> None:
@@ -304,7 +461,11 @@ def main() -> None:
     parser.add_argument('--lanes', default='1,8,64,128')
     parser.add_argument('--only', default='train,train_bwd,sampler,birnn',
                         help='kernels to probe, of train (#2), train_bwd '
-                             '(#3), sampler, birnn, grads')
+                             '(#3), sampler, birnn, birnn_eval, grads')
+    parser.add_argument('--rounds', type=int, default=2,
+                        help='turns of the birnn sections\' variants')
+    parser.add_argument('--dtypes', default='bfloat16',
+                        help='compute types of the birnn section')
     parser.add_argument('--seeds', type=int, default=6,
                         help='random models of the grads section')
     parser.add_argument('--phases', action='store_true',
@@ -326,7 +487,9 @@ def main() -> None:
     if 'sampler' in only:
         sampler(args)
     if 'birnn' in only:
-        inference_birnn()
+        inference_birnn(args)
+    if 'birnn_eval' in only:
+        evaluate_birnn(args)
     if 'grads' in only:
         grads_vs_cpu(args)
 
