@@ -12,8 +12,9 @@ printed only when every phase passed):
 3. BiRNN kernel (#1) against its plain version on the card at the
    serving path's shapes (`SERVING_BIRNN_CASES`: decoder LSTM H=512 and
    postnet GRU H=256 at T=1024, prenet GRU H=256 and the 6-stream
-   predictor GRU H=128 at T=160; B=1 and B=8; float32 at atol 1e-4,
-   bfloat16 at atol 2e-2) on the path `inference_plan` names and, at
+   predictor GRU H=128 at T=160; B=1 and B=8, and the server's buckets
+   B=2 and B=4 for the decoder and postnet in bfloat16; float32 at atol
+   1e-4, bfloat16 at atol 2e-2) on the path `inference_plan` names and, at
    B=1, on the cooperative path too, with both paths' timings beside the
    plain version's, cuDNN's and the bound; and at the five shapes that
    `evaluate()` gives it on the training path (`EVAL_BIRNN_CASES`, B=32:
@@ -34,7 +35,26 @@ printed only when every phase passed):
    shape of the serving path; per-stage CUDA-event times;
    one utterance decoded at 8 frames per phoneme; a float32 check of the
    decoder against the CPU plain path;
-6. BiRNN training kernels (forward with stash, BPTT) against their plain
+6. the serving path at the full width of config.yaml, random weights
+   (HiFi-GAN V1 written in the official layout, MelGAN in the hub's):
+   `gen_forward.main` with griffinlim, hifigan, melgan, `wavernn --stream
+   --stream_group 8` and `wavernn --batched_utterances` on three lines of
+   sentences.txt, each run's launches of kernels #1 / #4 counted from 0;
+   each vocoder's ms and RTF on the 920-frame utterance; `vocode_batch`
+   greedy against per-utterance `vocode` (float32 the same class at every
+   sample, bfloat16 on > 95%) and timed against three `vocode` calls and
+   at 8 x 920 frames; Griffin-Lim on the card against the CPU plain path
+   with the same draw, stage by stage (NNLS, one round, and the spectral
+   convergence after 32 rounds, each within 1e-3); `TTSServer` with
+   wavernn and with hifigan, warmed at buckets 1, 2, 4, 8 (kernel #1's
+   path recorded for each), answering 8 concurrent requests of mixed
+   alpha / pitch_scale twice (the first round meets the vocoders' shapes
+   for the first time; int16 of the decoded lengths; wall time, audio
+   seconds a second, latency percentiles, batch sizes), and
+   `make_http_server` on
+   127.0.0.1: /healthz, /tts, /tts_stream with the time to its first
+   chunk;
+7. BiRNN training kernels (forward with stash, BPTT) against their plain
    versions at the training path's shapes (B=32: decoder LSTM H=512
    T=1024 ragged, postnet GRU H=256 T=1024, prenet GRU H=256 T=192,
    predictor GRUs H=128/64 T=192; float32 at atol 1e-4; bfloat16 at 2^-7
@@ -44,7 +64,7 @@ printed only when every phase passed):
    timings beside cuDNN's nn.LSTM/nn.GRU, and, where a batch-split path is
    planned, the cooperative path checked (backward) and timed on the same
    inputs;
-7. the training path at full width: `ForwardTrainer.train` for 6 steps at
+8. the training path at full width: `ForwardTrainer.train` for 6 steps at
    batch 32 on a synthetic LJSpeech-like dataset, counts reset just
    before and read just after (kernels #2/#3), then one `evaluate()`
    (kernel #1, every launch stream-local); the three predictor BiGRUs of
@@ -53,7 +73,7 @@ printed only when every phase passed):
    moved, the checkpoint served by `gen_forward`; ms per step split into forward, backward and
    optimizer; float32 gradients on the card against the CPU plain path,
    the CPU replaying the card's ReLU and max-pool decisions;
-8. a {"kernels": [...]} JSON line, the nvidia-smi line, and last
+9. a {"kernels": [...]} JSON line, the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 
 Details go to chiprun_out/chip_smoke.json.
@@ -212,9 +232,13 @@ def birnn_cases():
         props.multi_processor_count
     rows = []
     for what, cell, S, T, H in SERVING_BIRNN_CASES:
-        for B in (1, 8):
+        # the server's pow-2 buckets 2 and 4 too, for the decode's
+        # recurrences in the serving path's compute type
+        batches = (1, 8) + ((2, 4) if what in ('decoder', 'postnet') else ())
+        for B in batches:
             lens = [T - 100] if B == 1 else [T - 13 * i for i in range(B)]
-            for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            dtypes = ((torch.float32, 1e-4), (torch.bfloat16, 2e-2))
+            for dtype, tol in dtypes[1:] if B in (2, 4) else dtypes:
                 gi, w, b, ln = _birnn_inputs(cell, T, B, S, H, dtype,
                                              seed=T + H + B, lens=lens)
                 plan = kb.inference_plan(cell, S, B, H, dtype, smem, n_sms)
@@ -612,6 +636,404 @@ def long_utterance(model, voc, cfg, text, hop):
     check(err < 1e-3, f'float32 decode, card vs CPU plain: max err '
                       f'{err:.2e} < 1e-3')
     DETAILS['decode_f32_vs_cpu_max_abs_err'] = err
+
+
+# ----------------------------------------------------------- serving path
+
+SERVING_DIR = Path('model_outputs/smoke_serving')   # random vocoder files
+DEVICE = 'cuda'              # the serving phase's device
+
+
+def _launch_counts():
+    from forwardtacotron_tpu_torch.kernels.birnn import recurrence
+    from forwardtacotron_tpu_torch.kernels.wavernn_sample import sample
+    return {'birnn': recurrence.launches, 'wavernn_sample': sample.launches}
+
+
+def _reset_counts():
+    from forwardtacotron_tpu_torch.kernels.birnn import recurrence
+    from forwardtacotron_tpu_torch.kernels.wavernn_sample import sample
+    recurrence.launches = 0
+    recurrence.path_launches = dict.fromkeys(recurrence.path_launches, 0)
+    sample.launches = 0
+
+
+def _gan_files(cfg):
+    """Seeded random generators at config.yaml's widths, written in the
+    layouts users bring: HiFi-GAN V1 as the official {'generator': sd}
+    with weight_g / weight_v and a config.json beside it, MelGAN as the
+    hub's {'model_g': sd} (base width 512, rates 8, 8, 2, 2)."""
+    from forwardtacotron_tpu_torch.models.hifigan import (
+        HiFiGANGenerator, weight_norm_state_dict)
+    from forwardtacotron_tpu_torch.models.melgan import MelGANGenerator
+    SERVING_DIR.mkdir(parents=True, exist_ok=True)
+    model_cfg = cfg['hifigan']['model']
+    n_mels = cfg['dsp']['num_mels']
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(11)
+        hifi = HiFiGANGenerator.from_config(model_cfg, n_mels=n_mels)
+        melgan = MelGANGenerator(n_mels=n_mels, base_channels=512)
+    hifi_path = SERVING_DIR / 'g_00000000'
+    torch.save({'generator': weight_norm_state_dict(hifi)}, hifi_path)
+    (SERVING_DIR / 'config.json').write_text(json.dumps(
+        {k: v for k, v in model_cfg.items() if k != 'generator_type'}))
+    melgan_path = SERVING_DIR / 'melgan.pt'
+    torch.save({'model_g': weight_norm_state_dict(melgan)}, melgan_path)
+    return hifi_path.resolve(), melgan_path.resolve()
+
+
+@contextlib.contextmanager
+def _cwd(path):
+    import os
+    old = Path.cwd()
+    os.chdir(path)
+    try:
+        yield
+    finally:
+        os.chdir(old)
+
+
+def _cli_runs(lines, hifi_path, melgan_path, hop):
+    """gen_forward.main with every vocoder on the three lines (a
+    sentences.txt of its own in SERVING_DIR), each run's kernel launches
+    counted from 0; the wavs' lengths checked."""
+    from scipy.io import wavfile
+    from forwardtacotron_tpu_torch import gen_forward
+    (SERVING_DIR / 'sentences.txt').write_text('\n'.join(lines) + '\n')
+    runs = {
+        'griffinlim': (['griffinlim'], {'birnn'}),
+        'hifigan': (['hifigan', '--voc_checkpoint', str(hifi_path)],
+                    {'birnn'}),
+        'melgan': (['melgan', '--voc_checkpoint', str(melgan_path)],
+                   {'birnn'}),
+        'wavernn --stream --stream_group 8': (
+            ['wavernn', '--stream', '--stream_group', '8'],
+            {'birnn', 'wavernn_sample'}),
+        'wavernn --batched_utterances': (
+            ['wavernn', '--batched_utterances'],
+            {'birnn', 'wavernn_sample'}),
+    }
+    out = {}
+    for name, (argv, kernels) in runs.items():
+        with _cwd(SERVING_DIR):
+            _reset_counts()
+            t0 = time.perf_counter()
+            paths = gen_forward.main(['--seed', '0', '--device', DEVICE]
+                                     + argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = _launch_counts()
+            wavs = [wavfile.read(p)[1] for p in paths]
+        ok = len(wavs) == len(lines) and all(
+            w.dtype == np.int16 and len(w) > 0 and len(w) % hop == 0
+            and np.abs(w).max() > 0 for w in wavs)
+        check(ok and all(counts[k] > 0 for k in kernels),
+              f'gen_forward {name}: {len(wavs)} int16 wavs '
+              f'{[len(w) for w in wavs]} in {wall:.2f} s, launches {counts}')
+        out[name] = {'wall_s': wall, 'launches': counts,
+                     'samples': [len(w) for w in wavs]}
+    return out
+
+
+def _utterance_mel(model, cfg, text):
+    """The 920-frame utterance of phase 5: 8 frames a phoneme."""
+    from forwardtacotron_tpu_torch import gen_forward
+    ids = gen_forward.text_to_ids(text, cfg)
+    x = torch.tensor([ids], device=DEVICE)
+    xl = torch.tensor([len(ids)], device=DEVICE)
+    series = model.predict_series(x, x_len=xl)
+    max_t = ((8 * len(ids) + 1 + 255) // 256) * 256
+    gen = model.generate_from_series(x, torch.full_like(series['dur'], 8.0),
+                                     series['pitch'], series['energy'],
+                                     max_t, x_len=xl)
+    n = int(gen['mel_len'][0])
+    return gen['mel_post'][0, :n].T.float().cpu().numpy()
+
+
+def _events_ms(fn, reps=2):
+    fn()                                   # builds, allocator, cuDNN
+    torch.cuda.synchronize()
+    return cuda_ms(fn, reps=reps, warmup=0)
+
+
+def _vocoder_latency(mel, dsp, voc, hifi, melgan, sr):
+    """Each vocoder on the 920-frame utterance: ms (CUDA events around the
+    call, host copy of the audio included) and RTF."""
+    from forwardtacotron_tpu_torch.models.hifigan import vocode_hifigan
+    from forwardtacotron_tpu_torch.models.melgan import vocode_melgan
+    from forwardtacotron_tpu_torch.models.wavernn import vocode
+    audio_s = (mel.shape[1] - 1) * dsp.hop_length / sr
+    calls = {'griffinlim': lambda: dsp.griffinlim(mel),
+             'hifigan_v1': lambda: vocode_hifigan(hifi, mel, pcm16=True),
+             'melgan': lambda: vocode_melgan(melgan, mel, pcm16=True),
+             'wavernn': lambda: vocode(voc, mel, pcm16=True)}
+    rows = {}
+    for name, fn in calls.items():
+        ms = _events_ms(fn)
+        rows[name] = {'ms': ms, 'rtf': ms / 1e3 / audio_s}
+    log(f'  920-frame utterance ({mel.shape[1]} frames, {audio_s:.2f} s of '
+        f'audio), vocode ms / RTF: ' + ', '.join(
+            f'{k} {v["ms"]:.1f} / {v["rtf"]:.4f}' for k, v in rows.items()))
+    return {'frames': mel.shape[1], 'audio_s': audio_s, **rows}
+
+
+def _vocode_batch_checks(voc, mels):
+    """vocode_batch greedy against per-utterance vocode on the three
+    lines: float32 the same class at every sample (|d| < 1e-6: the
+    crossfade and fade are the same arithmetic), bfloat16 the same class
+    on > 95% (the existing greedy gate); then bf16 sampled timing, one
+    batch against three calls, and 8 utterances of 920 frames."""
+    from forwardtacotron_tpu_torch.kernels.wavernn_sample import sample
+    from forwardtacotron_tpu_torch.models.wavernn import vocode, vocode_batch
+    out = {}
+    for dtype, name in ((torch.float32, 'f32'), (torch.bfloat16, 'bf16')):
+        kw = dict(greedy=True, compute_dtype=dtype)
+        before = sample.launches
+        batch = vocode_batch(voc, mels, **kw)
+        lanes_launches = sample.launches - before
+        alone = [vocode(voc, m, **kw) for m in mels]
+        agree = float(np.mean(np.concatenate(
+            [np.abs(a - b) < 1e-6 for a, b in zip(batch, alone)])))
+        ok = agree == 1.0 if dtype == torch.float32 else agree > 0.95
+        check(ok and all(len(a) == len(b) for a, b in zip(batch, alone)),
+              f'vocode_batch greedy {name} vs per-utterance vocode '
+              f'({len(mels)} utterances, {lanes_launches} launches): '
+              f'sample agreement {agree:.5f} '
+              f'{"== 1" if dtype == torch.float32 else "> 0.95"}')
+        out[f'greedy_{name}_agreement'] = agree
+    out['batch_ms'] = _events_ms(lambda: vocode_batch(voc, mels, pcm16=True))
+    out['per_utterance_ms'] = _events_ms(lambda: [
+        vocode(voc, m, pcm16=True) for m in mels])
+    log(f'  vocode_batch of the three lines: {out["batch_ms"]:.1f} ms, '
+        f'three vocode calls {out["per_utterance_ms"]:.1f} ms')
+    return out
+
+
+def _griffinlim_vs_cpu(cfg, mel):
+    """Griffin-Lim on the card against the CPU plain path, stage by stage,
+    the same initial-phase draw. 32 momentum rounds on an NNLS magnitude
+    (no consistent phase exists) amplify float32 rounding: on the CPU alone
+    float32 and float64 end 2% of the peak apart on such a mel, and a
+    1e-6 change of the input moves the float32 waveform as far. So the
+    checks are: NNLS within 1e-3 of its largest value; one Griffin-Lim
+    round from the same magnitude within 1e-3 of the peak; and after all
+    32 rounds the objective they minimise, the spectral convergence
+    || |STFT(y)| - S || / ||S||, within 1e-3 of the CPU's (relative;
+    float32 rounding moved it by <= 2e-4 on the CPU). The waveforms'
+    distance after 32 rounds is reported beside the CPU's own float32 /
+    float64 distance."""
+    from forwardtacotron_tpu_torch.dsp import griffinlim as gl
+    from forwardtacotron_tpu_torch.dsp.audio import DSP
+    from forwardtacotron_tpu_torch.dsp.stft import magnitude_stft
+    dsp = DSP.from_config(cfg, 'cpu')
+    n_fft, hop, win = dsp.n_fft, dsp.hop_length, dsp.win_length
+    basis = torch.as_tensor(dsp.mel_basis)
+    m = torch.as_tensor(mel.T.copy())
+    lin = gl.nnls_mel_inverse(basis, torch.exp(m))
+    lin_card = gl.nnls_mel_inverse(basis.to(DEVICE),
+                                   torch.exp(m.to(DEVICE))).cpu()
+    nnls_err = float((lin_card - lin).abs().max() / lin.abs().max())
+    u = gl.initial_phase(lin.shape, 0)
+    one = gl.griffinlim(lin, n_fft, hop, win, n_iter=1, uniform=u)
+    one_card = gl.griffinlim(lin.to(DEVICE), n_fft, hop, win, n_iter=1,
+                             uniform=u).cpu()
+    one_err = float((one_card - one).abs().max() / one.abs().max())
+    card = DSP.from_config(cfg, DEVICE).griffinlim(mel, seed=0)
+    cpu = dsp.griffinlim(mel, seed=0)
+    cpu64 = gl.mel_to_wav(m.double(), basis.double(), n_fft, hop, win,
+                          uniform=u.double()).numpy()
+
+    def spectral_convergence(y):
+        mag = magnitude_stft(torch.as_tensor(y, dtype=torch.float32),
+                             n_fft, hop, win)
+        return float(torch.linalg.norm(mag - lin) / torch.linalg.norm(lin))
+    sc_card, sc_cpu = spectral_convergence(card), spectral_convergence(cpu)
+    out = {'nnls_rel_err': nnls_err, 'one_round_rel_err': one_err,
+           'sc_card': sc_card, 'sc_cpu': sc_cpu,
+           'max_abs_err_32': float(np.abs(card - cpu).max()),
+           'cpu_f32_vs_f64_32': float(np.abs(cpu - cpu64).max()),
+           'peak': float(np.abs(cpu).max())}
+    check(card.shape == cpu.shape and bool(np.isfinite(card).all())
+          and nnls_err <= 1e-3 and one_err <= 1e-3
+          and abs(sc_card - sc_cpu) <= 1e-3 * sc_cpu,
+          f'Griffin-Lim card vs CPU, same draw: NNLS {nnls_err:.2e} <= 1e-3, '
+          f'one round {one_err:.2e} <= 1e-3 of the peak, spectral '
+          f'convergence after 32 {sc_card:.5f} vs {sc_cpu:.5f} (<= 1e-3 '
+          f'apart); waveforms {out["max_abs_err_32"]:.3g} apart at peak '
+          f'{out["peak"]:.3g} (CPU float32 vs float64: '
+          f'{out["cpu_f32_vs_f64_32"]:.3g})')
+    return out
+
+
+def _serve(srv, lines, hop, offset):
+    """8 concurrent requests from threads, mixed alpha / pitch_scale: every
+    future int16, finite, and as long as its decoded mel says (recorded
+    around the server's vocoder call)."""
+    import threading
+    frames, lock = {}, threading.Lock()
+    vocode_fn = srv._vocode
+
+    def recording(mels):
+        wavs = vocode_fn(mels)
+        with lock:
+            for m, w in zip(mels, wavs):
+                frames[id(w)] = m.shape[1]
+        return wavs
+    srv._vocode = recording
+    srv.batch_sizes.clear()
+    results = [None] * 8
+    alphas = (1.0, 1.2, 0.9, 1.1, 1.0, 0.8, 1.3, 1.0)
+    pitches = (1.0, 0.9, 1.1, 1.0, 1.2, 1.0, 0.8, 1.05)
+
+    def client(i):
+        results[i] = srv.synthesize(lines[i % len(lines)], alpha=alphas[i],
+                                    pitch_scale=pitches[i], timeout=300)
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(8)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    srv._vocode = vocode_fn
+    ok = all(r is not None and r.dtype == np.int16 and len(r) > 0
+             and len(r) == (frames[id(r)] - offset) * hop for r in results)
+    audio_s = sum(len(r) for r in results if r is not None) / srv.sample_rate
+    return ok, wall, audio_s
+
+
+def _http_round_trip(srv, text):
+    """/healthz, /tts and /tts_stream on 127.0.0.1 (a free port); the time
+    to the first streamed chunk (status line and header chunk, sent after
+    the first sentence is synthesized)."""
+    import http.client
+    import threading
+    from forwardtacotron_tpu_torch.serving import make_http_server
+    httpd = make_http_server(srv, '127.0.0.1', 0)
+    port = httpd.server_address[1]
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    out = {}
+    try:
+        conn = http.client.HTTPConnection('127.0.0.1', port, timeout=300)
+        conn.request('GET', '/healthz')
+        r = conn.getresponse()
+        healthz = (r.status, r.read())
+        conn.request('POST', '/tts', body=json.dumps({'text': text}))
+        r = conn.getresponse()
+        body = r.read()
+        tts_ok = r.status == 200 and body[:4] == b'RIFF' and len(body) > 44
+        conn.close()
+        conn = http.client.HTTPConnection('127.0.0.1', port, timeout=300)
+        t0 = time.perf_counter()
+        conn.request('POST', '/tts_stream', body=json.dumps(
+            {'text': text + ' ' + text}))
+        r = conn.getresponse()
+        first = r.read(44)
+        out['first_chunk_ms'] = (time.perf_counter() - t0) * 1e3
+        rest = r.read()
+        out['stream_ms'] = (time.perf_counter() - t0) * 1e3
+        stream_ok = (r.status == 200 and first[:4] == b'RIFF'
+                     and r.headers.get('Transfer-Encoding') == 'chunked'
+                     and len(rest) > 0)
+        conn.close()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    check(healthz == (200, b'ok') and tts_ok and stream_ok,
+          f'HTTP: /healthz {healthz}, /tts RIFF {tts_ok} ({len(body)} B), '
+          f'/tts_stream chunked {stream_ok}, first chunk '
+          f'{out["first_chunk_ms"]:.1f} ms, whole stream '
+          f'{out["stream_ms"]:.1f} ms')
+    return out
+
+
+def _server_runs(lines, hifi_path, hop):
+    """TTSServer on the card with WaveRNN and with HiFi-GAN: warm-up of
+    the batch buckets 1, 2, 4, 8 (kernel #1's path recorded for each),
+    two rounds of 8 concurrent requests (the first meets the vocoders'
+    frame buckets for the first time), the second round's stats; the
+    HTTP front on the HiFi-GAN one."""
+    from forwardtacotron_tpu_torch.serving import TTSServer
+    out = {}
+    for vocoder, voc_ckpt, offset in (('wavernn', None, 1),
+                                      ('hifigan', str(hifi_path), 0)):
+        with TTSServer(None, vocoder=vocoder, voc_checkpoint=voc_ckpt,
+                       max_batch=8, max_wait_ms=20.0,
+                       device=DEVICE) as srv:
+            warm = srv.warmup(batch_sizes=[1, 2, 4, 8])
+            row = {'warmup_s': warm['seconds']}
+            for rnd in ('first', 'second'):
+                _reset_counts()
+                before = srv.stats()['completed']
+                with srv._stats_lock:           # this round's latencies
+                    srv._latency_window.clear()
+                ok, wall, audio_s = _serve(srv, lines, hop, offset)
+                counts = _launch_counts()
+                stats = srv.stats()
+                need = {'birnn', 'wavernn_sample'} \
+                    if vocoder == 'wavernn' else {'birnn'}
+                check(ok and stats['completed'] - before == 8
+                      and all(counts[k] > 0 for k in need),
+                      f'TTSServer {vocoder}, {rnd} round: 8 concurrent '
+                      f'requests, int16 of the decoded lengths, in '
+                      f'{wall:.3f} s ({audio_s:.2f} s of audio), batches '
+                      f'{list(srv.batch_sizes)}, launches {counts}')
+                row[rnd] = {'wall_s': wall, 'audio_s': audio_s,
+                            'audio_s_per_s': audio_s / wall,
+                            'batch_sizes': list(srv.batch_sizes),
+                            'latency_s': stats['latency_s'],
+                            'launches': counts}
+                log(f'  TTSServer {vocoder} {rnd}: {row[rnd]}')
+            row['birnn_paths'] = srv.stats()['birnn_paths']
+            if vocoder == 'hifigan':
+                row['http'] = _http_round_trip(srv, lines[0])
+            out[vocoder] = row
+    paths = out['wavernn']['birnn_paths']
+    check(sorted(paths) == ['1', '2', '4', '8'],
+          f'kernel #1 at every batch bucket, by path: {paths}')
+    return out
+
+
+@phase('serving path (full width)')
+def serving_path():
+    from forwardtacotron_tpu_torch import gen_forward
+    from forwardtacotron_tpu_torch.config import default_config
+    from forwardtacotron_tpu_torch.dsp.audio import DSP
+    from forwardtacotron_tpu_torch.models.hifigan import load_hifigan
+    from forwardtacotron_tpu_torch.models.melgan import load_melgan
+    from forwardtacotron_tpu_torch.models.wavernn import vocode_batch
+    all_lines = [s for s in Path('sentences.txt').read_text().splitlines()
+                 if s.strip()]
+    lines = all_lines[:3]
+    cfg = default_config()
+    hop = cfg['dsp']['hop_length']
+    shutil.rmtree(SERVING_DIR, ignore_errors=True)
+    try:
+        hifi_path, melgan_path = _gan_files(cfg)
+        out = {'cli': _cli_runs(lines, hifi_path, melgan_path, hop)}
+        model, cfg, _ = gen_forward.load_tts(None, cfg, DEVICE, 0)
+        voc, _ = gen_forward.load_voc(None, cfg, DEVICE, 0)
+        dsp = DSP.from_config(cfg, DEVICE)
+        hifi = load_hifigan(hifi_path, device=DEVICE)
+        melgan = load_melgan(melgan_path, device=DEVICE)
+        long_mel = _utterance_mel(model, cfg, all_lines[-1])
+        out['utterance'] = _vocoder_latency(long_mel, dsp, voc, hifi, melgan,
+                                            cfg['dsp']['sample_rate'])
+        mels = [gen_forward.synthesize(model, gen_forward.text_to_ids(t, cfg))
+                for t in lines]
+        out['vocode_batch'] = _vocode_batch_checks(voc, mels)
+        out['vocode_batch']['8x920_ms'] = _events_ms(
+            lambda: vocode_batch(voc, [long_mel] * 8, pcm16=True), reps=1)
+        log(f'  vocode_batch of 8 x {long_mel.shape[1]} frames: '
+            f'{out["vocode_batch"]["8x920_ms"]:.1f} ms')
+        out['griffinlim_vs_cpu'] = _griffinlim_vs_cpu(cfg, mels[0])
+        out['server'] = _server_runs(all_lines, hifi_path, hop)
+    finally:
+        shutil.rmtree(SERVING_DIR, ignore_errors=True)
+    DETAILS['serving_path'] = out
+    return out
 
 
 # -------------------------------------------------------- BiRNN training
@@ -1168,6 +1590,7 @@ def main() -> int:
     birnn_rows = birnn_cases() or []
     wr = wavernn_cases() or {}
     launches = main_path() or {}
+    serving_path()
     train_rows = train_kernel_cases() or []
     train_launches = training_path() or {}
 

@@ -2,9 +2,9 @@
 
 The machine that runs the port has no `pyyaml`, so the `data_path`,
 model ids, `tts_model`, `dsp`, `preprocessing`, `forward_tacotron`
-(model and training) and `vocoder.model` defaults of the repository's
-`config.yaml` live here as plain dicts. A YAML file is read only by
-`read_config`, and only where `yaml` can be imported.
+(model and training), `vocoder.model` and `hifigan.model` defaults of
+the repository's `config.yaml` live here as plain dicts. A YAML file is
+read only by `read_config`, and only where `yaml` can be imported.
 """
 from __future__ import annotations
 
@@ -88,6 +88,16 @@ FORWARD_TACOTRON_TRAINING = {
     'min_attention_alignment': 0.95,
 }
 
+HIFIGAN_MODEL = {
+    'generator_type': 'hifigan',
+    'resblock': '1',
+    'upsample_rates': [8, 8, 2, 2],
+    'upsample_kernel_sizes': [16, 16, 4, 4],
+    'upsample_initial_channel': 512,
+    'resblock_kernel_sizes': [3, 7, 11],
+    'resblock_dilation_sizes': [[1, 3, 5], [1, 3, 5], [1, 3, 5]],
+}
+
 VOCODER_MODEL = {
     'mode': 'RAW',
     'upsample_factors': [4, 8, 8],
@@ -112,6 +122,7 @@ def default_config() -> Dict[str, Any]:
         'forward_tacotron': {'model': FORWARD_TACOTRON_MODEL,
                              'training': FORWARD_TACOTRON_TRAINING},
         'vocoder': {'model': VOCODER_MODEL},
+        'hifigan': {'model': HIFIGAN_MODEL},
     })
 
 

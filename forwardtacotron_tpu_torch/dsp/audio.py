@@ -1,17 +1,45 @@
-"""The audio helpers the inference path needs: label <-> float, mu-law
-decoding and writing a wav through `scipy.io.wavfile`."""
+"""Audio helpers and the config-driven `DSP` facade.
+
+Mirrors `forwardtacotron_tpu/dsp/audio.py`: the same constructor fields
+(config['dsp']) and method names (load_wav / save_wav / wav_to_mel /
+griffinlim / normalize / denormalize / trim_silence / the quantizers).
+The spectral work runs in PyTorch (`dsp/stft.py`, `dsp/griffinlim.py`)
+on the DSP's `device`, which defaults to ``'cuda'``; file input and
+output go through `scipy.io.wavfile`. Mels keep the reference layout
+(n_mels, T).
+"""
 from __future__ import annotations
 
 import math
 from pathlib import Path
-from typing import Union
+from typing import Any, Dict, Union
 
 import numpy as np
 import torch
 
+from forwardtacotron_tpu_torch import resolve_device
+from forwardtacotron_tpu_torch.dsp import griffinlim as _gl
+from forwardtacotron_tpu_torch.dsp import stft as _stft
+
 
 def label_2_float(x, bits: float):
     return 2 * x / (2 ** bits - 1.0) - 1.0
+
+
+def float_2_label(x, bits: float):
+    peak = float(abs(x).max())
+    if peak > 1.0:
+        raise ValueError(f'Expected waveform in [-1, 1], peak was {peak}')
+    x = (x + 1.0) * (2 ** bits - 1) / 2
+    return x.clip(0, 2 ** bits - 1)
+
+
+def encode_mu_law(x, mu: float):
+    """Mu-law labels of a numpy array or a torch tensor."""
+    mod = torch if isinstance(x, torch.Tensor) else np
+    mu = mu - 1
+    fx = mod.sign(x) * mod.log(1 + mu * mod.abs(x)) / math.log(1 + mu)
+    return mod.floor((fx + 1) / 2 * mu + 0.5)
 
 
 def decode_mu_law(y, mu: float, from_labels: bool = True):
@@ -34,3 +62,127 @@ def save_wav(wav: np.ndarray, path: Union[str, Path],
         wav = (np.clip(wav.astype(np.float32), -1.0, 1.0)
                * 32767).astype(np.int16)
     wavfile.write(str(path), sample_rate, wav)
+
+
+class DSP:
+    """Feature extraction and Griffin-Lim for one `dsp` config section."""
+
+    def __init__(self, num_mels: int, sample_rate: int, hop_length: int,
+                 win_length: int, n_fft: int, fmin: float, fmax: float,
+                 peak_norm: bool, trim_start_end_silence: bool,
+                 trim_silence_top_db: int, pitch_max_freq: int,
+                 trim_long_silences: bool, vad_sample_rate: int,
+                 vad_window_length: float, vad_moving_average_width: float,
+                 vad_max_silence_length: int, bits: int, mu_law: bool,
+                 voc_mode: str, device='cuda') -> None:
+        self.n_mels = num_mels
+        self.sample_rate = sample_rate
+        self.hop_length = hop_length
+        self.win_length = win_length
+        self.n_fft = n_fft
+        self.fmin = fmin
+        self.fmax = fmax
+        self.should_peak_norm = peak_norm
+        self.should_trim_start_end_silence = trim_start_end_silence
+        self.should_trim_long_silences = trim_long_silences
+        self.trim_silence_top_db = trim_silence_top_db
+        self.pitch_max_freq = pitch_max_freq
+        self.vad_sample_rate = vad_sample_rate
+        self.vad_window_length = vad_window_length
+        self.vad_moving_average_width = vad_moving_average_width
+        self.vad_max_silence_length = vad_max_silence_length
+        self.bits = bits
+        self.mu_law = mu_law
+        self.voc_mode = voc_mode
+        self.device = resolve_device(device)
+        self.mel_basis = _stft.mel_filterbank(sample_rate, n_fft, num_mels,
+                                              fmin, fmax)
+        self._mel_basis = torch.as_tensor(self.mel_basis, device=self.device)
+
+    @classmethod
+    def from_config(cls, config: Dict[str, Any], device='cuda') -> 'DSP':
+        return cls(**config['dsp'], device=device)
+
+    # ------------------------------------------------------------ file IO
+    def load_wav(self, path: Union[str, Path]) -> np.ndarray:
+        """Mono float32 at the DSP's sample rate (scipy reader; integer
+        PCM scaled to [-1, 1), other rates resampled polyphase)."""
+        from scipy.io import wavfile
+        sr, wav = wavfile.read(str(path))
+        if wav.dtype == np.int16:
+            wav = wav.astype(np.float32) / 32768.0
+        elif wav.dtype == np.int32:
+            wav = wav.astype(np.float32) / 2147483648.0
+        elif wav.dtype == np.uint8:
+            wav = (wav.astype(np.float32) - 128.0) / 128.0
+        else:
+            wav = wav.astype(np.float32)
+        if wav.ndim > 1:
+            wav = wav.mean(axis=1)
+        if sr != self.sample_rate:
+            from scipy.signal import resample_poly
+            g = math.gcd(int(self.sample_rate), int(sr))
+            wav = resample_poly(wav, self.sample_rate // g, sr // g
+                                ).astype(np.float32)
+        return wav
+
+    def save_wav(self, wav: np.ndarray, path: Union[str, Path]) -> None:
+        save_wav(wav, path, self.sample_rate)
+
+    # ------------------------------------------------------------ compute
+    def wav_to_mel(self, y: np.ndarray, normalize: bool = True,
+                   center: bool = True) -> np.ndarray:
+        """Log-mel of y (N,) as (n_mels, T), the reference layout; of a
+        batch (B, N) as (B, T, n_mels). `center=False` expects y already
+        reflect-padded by n_fft//2 on both sides."""
+        y = torch.as_tensor(np.asarray(y, dtype=np.float32),
+                            device=self.device)
+        mel = _stft.wav_to_mel(y, self._mel_basis, self.n_fft,
+                               self.hop_length, self.win_length,
+                               normalize=normalize, center=center)
+        mel = mel.cpu().numpy()
+        return mel.T if mel.ndim == 2 else mel
+
+    def griffinlim(self, mel: np.ndarray, n_iter: int = 32,
+                   seed: int = 0) -> np.ndarray:
+        """Waveform (float32) of a normalised log-mel in (n_mels, T) or
+        (T, n_mels) layout; the initial phase drawn from `seed`."""
+        mel = np.asarray(mel, dtype=np.float32)
+        if mel.shape[0] == self.n_mels and mel.shape[-1] != self.n_mels:
+            mel = mel.T
+        wav = _gl.mel_to_wav(torch.as_tensor(mel, device=self.device),
+                             self._mel_basis, self.n_fft, self.hop_length,
+                             self.win_length, n_iter=n_iter, seed=seed)
+        return wav.cpu().numpy()
+
+    def normalize(self, mel: np.ndarray) -> np.ndarray:
+        return np.log(np.clip(mel, a_min=1e-5, a_max=None))
+
+    def denormalize(self, mel: np.ndarray) -> np.ndarray:
+        return np.exp(mel)
+
+    # ----------------------------------------------------------- trimming
+    def trim_silence(self, wav: np.ndarray) -> np.ndarray:
+        """librosa.effects.trim (frame 2048, hop 512): drop the leading
+        and trailing frames more than top_db below the peak RMS."""
+        frame_length, hop = 2048, 512
+        if len(wav) < frame_length:
+            return wav
+        n_frames = 1 + (len(wav) - frame_length) // hop
+        idx = (np.arange(n_frames)[:, None] * hop
+               + np.arange(frame_length)[None, :])
+        rms = np.sqrt(np.mean(np.square(wav[idx]), axis=1))
+        ref = np.max(rms)
+        db = 20.0 * np.log10(np.maximum(rms, 1e-10) / max(ref, 1e-10))
+        keep = np.where(db > -self.trim_silence_top_db)[0]
+        if len(keep) == 0:
+            return wav[:0]
+        start = keep[0] * hop
+        end = min(len(wav), (keep[-1] + 1) * hop + frame_length)
+        return wav[start:end]
+
+    # --------------------------------------------------------- quantizers
+    label_2_float = staticmethod(label_2_float)
+    float_2_label = staticmethod(float_2_label)
+    encode_mu_law = staticmethod(encode_mu_law)
+    decode_mu_law = staticmethod(decode_mu_law)

@@ -1,19 +1,25 @@
-"""Text-to-speech CLI: text -> ForwardTacotron mel -> WaveRNN waveform.
+"""Text-to-speech CLI: text -> ForwardTacotron mel -> waveform.
 
     python -m forwardtacotron_tpu_torch.gen_forward -i "Hello world." \\
-        [--checkpoint tts.pt|tts.fjax] wavernn [--voc_checkpoint voc.fjax]
+        [--checkpoint tts.pt|tts.fjax] [--split_sentences] \\
+        {griffinlim | wavernn [--voc_checkpoint voc.fjax] [--stream]
+         [--batched_utterances] | hifigan [--voc_checkpoint g.pt]
+         [--voc_config config.json] | melgan [--voc_checkpoint g.pt]}
 
 The contract follows the JAX package's `gen_forward.py`: `-i`,
-`--checkpoint`, `--config`, `--alpha`, `--amp`, and the `wavernn`
-subcommand with `--voc_checkpoint`, `--target` and `--overlap`. Without
-checkpoints the models are built from the built-in config with random
-weights from `--seed`. Everything runs on `--device` (default `cuda`);
-`--device cpu` runs the plain PyTorch versions of the kernels. Wavs are
-written to `model_outputs/`.
+`--checkpoint`, `--config`, `--alpha`, `--amp`, `--speaker` (0 only:
+multi-speaker models are not ported), `--split_sentences` and the four
+vocoder subcommands. `hifigan` and `melgan` without `--voc_checkpoint`
+export the mels (`.npy`, `.mel`) as the reference does. Without
+checkpoints the TTS model and WaveRNN are built from the built-in config
+with random weights from `--seed`. Everything runs on `--device`
+(default `cuda`); `--device cpu` runs the plain PyTorch versions of the
+kernels. Outputs are written to `model_outputs/`.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import time
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -23,17 +29,25 @@ import torch
 
 from forwardtacotron_tpu_torch import resolve_device
 from forwardtacotron_tpu_torch.config import default_config, read_config
-from forwardtacotron_tpu_torch.dsp.audio import save_wav
+from forwardtacotron_tpu_torch.data.dataset import MEL_PAD
+from forwardtacotron_tpu_torch.dsp.audio import DSP
 from forwardtacotron_tpu_torch.models.forward_tacotron import ForwardTacotron
-from forwardtacotron_tpu_torch.models.wavernn import (OVERLAP, TARGET,
-                                                      WaveRNN, vocode)
+from forwardtacotron_tpu_torch.models.hifigan import (load_hifigan,
+                                                      vocode_generator)
+from forwardtacotron_tpu_torch.models.melgan import load_melgan
+from forwardtacotron_tpu_torch.models.streaming import (stream_wav,
+                                                        write_wav_streaming)
+from forwardtacotron_tpu_torch.models.wavernn import (OVERLAP, WaveRNN,
+                                                      vocode, vocode_batch)
 from forwardtacotron_tpu_torch.text.cleaners import Cleaner
+from forwardtacotron_tpu_torch.text.segmenter import split_sentences
 from forwardtacotron_tpu_torch.text.tokenizer import Tokenizer
 from forwardtacotron_tpu_torch.utils.checkpoints import load_checkpoint
 from forwardtacotron_tpu_torch.weights import (forward_tacotron_state_dict,
                                                load_fjax, wavernn_state_dict)
 
-NOT_PORTED = ('griffinlim', 'melgan', 'hifigan')
+VOCODERS = ('griffinlim', 'wavernn', 'melgan', 'hifigan')
+SENTENCE_GAP_FRAMES = 10      # MEL_PAD frames between split sentences
 
 
 def _bucket(n: int, multiple: int, minimum: int) -> int:
@@ -99,11 +113,12 @@ def text_to_ids(text: str, config: Dict[str, Any]) -> List[int]:
 
 def synthesize(model: ForwardTacotron, text_ids: Sequence[int],
                alpha: float = 1.0, amp: float = 1.0,
-               mel_multiple: int = 256,
+               mel_multiple: int = 256, energy_scale: float = 1.0,
                compute_dtype: torch.dtype = torch.bfloat16) -> np.ndarray:
     """Phoneme ids -> mel_post (n_mels, T): predict the series on a
-    16-token bucket, scale the pitch by `amp`, then expand and decode on
-    a `mel_multiple` frame bucket."""
+    16-token bucket, scale the pitch by `amp` and the energy by
+    `energy_scale`, then expand and decode on a `mel_multiple` frame
+    bucket."""
     device = next(model.parameters()).device
     x_len = len(text_ids)
     x = torch.zeros((1, _bucket(x_len, 16, 16)), dtype=torch.long,
@@ -116,13 +131,31 @@ def synthesize(model: ForwardTacotron, text_ids: Sequence[int],
     total = int(np.sum(np.floor(np.maximum(dur, 0) + 0.5)))
     max_t = _bucket(total + 1, mel_multiple, mel_multiple)
     gen = model.generate_from_series(x, series['dur'], series['pitch'] * amp,
-                                     series['energy'], max_t, x_len=xl,
-                                     compute_dtype=compute_dtype)
+                                     series['energy'] * energy_scale, max_t,
+                                     x_len=xl, compute_dtype=compute_dtype)
     mel_len = int(gen['mel_len'][0])
     return gen['mel_post'][0, :mel_len].T.float().cpu().numpy()
 
 
-def main(argv: Optional[Sequence[str]] = None) -> List[Path]:
+def synthesize_text(model: ForwardTacotron, text: str,
+                    config: Dict[str, Any], alpha: float = 1.0,
+                    amp: float = 1.0, split: bool = False) -> np.ndarray:
+    """Text -> mel (n_mels, T). With `split`, each sentence is synthesized
+    alone and the mels are joined with SENTENCE_GAP_FRAMES of MEL_PAD (a
+    silence for every vocoder)."""
+    pieces = (split_sentences(text) or [text]) if split else [text]
+    gap = np.full((config['dsp']['num_mels'], SENTENCE_GAP_FRAMES), MEL_PAD,
+                  np.float32)
+    mels = []
+    for sentence in pieces:
+        if mels:
+            mels.append(gap)
+        mels.append(synthesize(model, text_to_ids(sentence, config), alpha,
+                               amp))
+    return np.concatenate(mels, axis=1)
+
+
+def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description='TTS Generator (PyTorch)')
     parser.add_argument('--input_text', '-i', default=None, type=str,
                         help='text to speak (default: every line of '
@@ -137,36 +170,73 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Path]:
                         help='length regulator speed control')
     parser.add_argument('--amp', type=float, default=1.0,
                         help='pitch amplification')
+    parser.add_argument('--speaker', type=int, default=0,
+                        help='speaker id (0; multi-speaker models are not '
+                             'ported)')
+    parser.add_argument('--split_sentences', action='store_true',
+                        help='synthesize each sentence alone and join the '
+                             'mels with short silences')
     parser.add_argument('--device', default='cuda')
     parser.add_argument('--seed', type=int, default=0,
                         help='seed of random weights and of sampling')
     subparsers = parser.add_subparsers(dest='vocoder')
     wr = subparsers.add_parser('wavernn')
     wr.add_argument('--overlap', '-o', default=OVERLAP, type=int)
-    wr.add_argument('--target', '-t', default=TARGET, type=int)
+    wr.add_argument('--target', '-t', default=None, type=int,
+                    help='fold length in samples (default: 2750 for the '
+                         'sampling kernel on the card, 11000 for the '
+                         'plain sampler on the CPU)')
     wr.add_argument('--voc_checkpoint', type=str, default=None)
-    wr.add_argument('--stream', action='store_true')
-    wr.add_argument('--batched_utterances', action='store_true')
-    for name in NOT_PORTED:
-        subparsers.add_parser(name)
-    args = parser.parse_args(argv)
+    wr.add_argument('--stream', action='store_true',
+                    help='write audio as fold groups complete')
+    wr.add_argument('--stream_group', default=8, type=int,
+                    help='fold lanes sampled per streamed chunk')
+    wr.add_argument('--batched_utterances', action='store_true',
+                    help='vocode every utterance in one batch at the end')
+    subparsers.add_parser('griffinlim')
+    mg = subparsers.add_parser('melgan')
+    mg.add_argument('--voc_checkpoint', type=str, default=None,
+                    help='MelGAN generator (hub-lineage torch file); '
+                         'without it the mels are exported as .mel')
+    hg = subparsers.add_parser('hifigan')
+    hg.add_argument('--voc_checkpoint', type=str, default=None,
+                    help='HiFi-GAN generator (official torch file or '
+                         '.fjax); without it the mels are exported as .npy')
+    hg.add_argument('--voc_config', type=str, default=None,
+                    help='HiFi-GAN config.json (default: the one beside '
+                         'the checkpoint, else V1)')
+    return parser
 
-    if args.vocoder in NOT_PORTED:
-        parser.error(f'vocoder {args.vocoder!r} is not ported yet; use '
-                     'wavernn')
-    if args.vocoder != 'wavernn':
-        parser.error('please choose a vocoder: wavernn')
-    if args.stream or args.batched_utterances:
-        parser.error('--stream and --batched_utterances are not ported yet')
+
+def main(argv: Optional[Sequence[str]] = None) -> List[Path]:
+    parser = _parser()
+    args = parser.parse_args(argv)
+    if args.vocoder not in VOCODERS:
+        parser.error(f'please choose a vocoder: {", ".join(VOCODERS)}')
     if args.alpha <= 0:
         parser.error('--alpha must be > 0')
+    if args.speaker != 0:
+        parser.error('--speaker: multi-speaker models are not ported yet; '
+                     'only speaker 0')
 
     config = read_config(args.config) if args.config else default_config()
     model, config, step = load_tts(args.checkpoint, config, args.device,
                                    args.seed)
-    voc_model, voc_config = load_voc(args.voc_checkpoint, config,
-                                     args.device, args.seed)
-    mu_law = voc_config['dsp']['mu_law']
+    dsp = DSP.from_config(config, args.device)
+    voc_model = None
+    if args.vocoder == 'wavernn':
+        voc_model, voc_config = load_voc(args.voc_checkpoint, config,
+                                         args.device, args.seed)
+        mu_law = voc_config['dsp']['mu_law']
+    elif args.vocoder == 'hifigan' and args.voc_checkpoint:
+        voc_config = None
+        if args.voc_config:
+            with open(args.voc_config, encoding='utf-8') as f:
+                voc_config = json.load(f)
+        voc_model = load_hifigan(args.voc_checkpoint, voc_config,
+                                 args.device)
+    elif args.vocoder == 'melgan' and args.voc_checkpoint:
+        voc_model = load_melgan(args.voc_checkpoint, device=args.device)
 
     if args.input_text:
         texts = [args.input_text]
@@ -177,20 +247,51 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Path]:
     out_dir = Path('model_outputs')
     out_dir.mkdir(parents=True, exist_ok=True)
     tts_k = step // 1000
-    written = []
+    written, pending = [], []
     for i, text in enumerate(texts, 1):
         t0 = time.perf_counter()
-        mel = synthesize(model, text_to_ids(text, config), args.alpha,
-                         args.amp)
-        wav = vocode(voc_model, mel, target=args.target,
-                     overlap=args.overlap, mu_law=mu_law, seed=args.seed,
-                     pcm16=True)
-        path = out_dir / (f'{i}_forward_{tts_k}k_alpha{args.alpha}_'
-                          f'amp{args.amp}_wavernn.wav')
-        save_wav(wav, path, voc_config['dsp']['sample_rate'])
+        name = (f'{i}_forward_{tts_k}k_alpha{args.alpha}_amp{args.amp}_'
+                f'{args.vocoder}')
+        mel = synthesize_text(model, text, config, args.alpha, args.amp,
+                              args.split_sentences)
+        path = out_dir / f'{name}.wav'
+        if args.vocoder in ('melgan', 'hifigan') and voc_model is None:
+            if args.vocoder == 'melgan':
+                path = out_dir / f'{name}.mel'
+                torch.save(torch.tensor(mel[None]), path)
+            else:
+                path = out_dir / f'{name}.npy'
+                np.save(path, mel[None], allow_pickle=False)
+        elif args.vocoder in ('melgan', 'hifigan'):
+            dsp.save_wav(vocode_generator(voc_model, mel, pcm16=True), path)
+        elif args.vocoder == 'griffinlim':
+            dsp.save_wav(dsp.griffinlim(mel, seed=args.seed), path)
+        elif args.stream:
+            n = write_wav_streaming(stream_wav(
+                voc_model, mel, target=args.target, overlap=args.overlap,
+                group=args.stream_group, mu_law=mu_law, seed=args.seed),
+                path, dsp.sample_rate)
+            print(f'| streamed {n} samples')
+        elif args.batched_utterances:
+            pending.append((path, mel))
+            continue
+        else:
+            dsp.save_wav(vocode(voc_model, mel, target=args.target,
+                                overlap=args.overlap, mu_law=mu_law,
+                                seed=args.seed, pcm16=True), path)
         written.append(path)
         print(f'| {i}/{len(texts)} {path} ({mel.shape[1]} frames, '
-              f'{len(wav)} samples, {time.perf_counter() - t0:.2f} s)')
+              f'{time.perf_counter() - t0:.2f} s)')
+    if pending:
+        t0 = time.perf_counter()
+        wavs = vocode_batch(voc_model, [m for _, m in pending],
+                            target=args.target, overlap=args.overlap,
+                            mu_law=mu_law, seed=args.seed, pcm16=True)
+        for (path, _), wav in zip(pending, wavs):
+            dsp.save_wav(wav, path)
+            written.append(path)
+        print(f'| vocoded {len(pending)} utterances in one batch '
+              f'({time.perf_counter() - t0:.2f} s)')
     return written
 
 

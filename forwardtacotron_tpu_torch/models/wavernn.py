@@ -2,14 +2,14 @@
 
 Mirrors `forwardtacotron_tpu/models/wavernn.py`: the upsampling network
 (MelResNet + nearest-neighbour stretches with one shared time kernel per
-scale), the fold/crossfade batching of one utterance into fold lanes,
-and the autoregressive sampler, which runs through the sampling kernel
+scale), the fold/crossfade batching of one utterance (`vocode`) or of
+many (`vocode_batch`) into fold lanes, and the autoregressive sampler, which runs through the sampling kernel
 wrapper (`kernels/wavernn_sample.py`). Parameter names are the
 reference's torch `state_dict` keys.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -20,8 +20,11 @@ from forwardtacotron_tpu_torch.dsp.audio import decode_mu_law
 from forwardtacotron_tpu_torch.kernels.wavernn_sample import (
     compact_cond, pack_weights, sample_conditioned, sample_plain)
 
-# fold length (samples) and crossfade overlap of batched generation
-TARGET = 2750
+# fold length (samples) and crossfade overlap of batched generation: the
+# sampling kernel's fold on the card, the reference's for the plain
+# sampler (the JAX package's TARGET_TPU and TARGET_REFERENCE)
+TARGET_KERNEL = 2750
+TARGET_PLAIN = 11_000
 OVERLAP = 550
 
 
@@ -261,14 +264,30 @@ def xfade_unfold_device(y: torch.Tensor, overlap: int) -> torch.Tensor:
 
 # ------------------------------------------------------------- vocoding
 
+def fold_target(target: Optional[int], device) -> int:
+    """`target`, or where it is None the fold of the sampler that runs on
+    `device`: TARGET_KERNEL for the kernel (CUDA), TARGET_PLAIN for the
+    plain version (CPU)."""
+    if target is not None:
+        return int(target)
+    return TARGET_KERNEL if torch.device(device).type == 'cuda' \
+        else TARGET_PLAIN
+
+
+def _time_major(model: 'WaveRNN', mel) -> np.ndarray:
+    """A mel as float32 (T, n_mels), from (n_mels, T) or (T, n_mels)."""
+    mel = np.asarray(mel, dtype=np.float32)
+    if mel.shape[0] == model.feat_dims and mel.shape[-1] != model.feat_dims:
+        mel = mel.T
+    return mel
+
+
 def _samples(model: WaveRNN, mel, batched: bool, target: int, overlap: int,
              seed: int, greedy: bool, compute_dtype: torch.dtype
              ) -> Tuple[torch.Tensor, int]:
     """Upsample, fold and sample: (lanes, L) samples and the wave length."""
     device = next(model.parameters()).device
-    mel = torch.as_tensor(np.asarray(mel, dtype=np.float32), device=device)
-    if mel.shape[0] == model.feat_dims and mel.shape[-1] != model.feat_dims:
-        mel = mel.T                                       # -> (T, n_mels)
+    mel = torch.as_tensor(_time_major(model, mel), device=device)
     wave_len = (mel.shape[0] - 1) * model.hop_length
     m = F.pad(mel[None], (0, 0, model.pad, model.pad))
     mels_up, aux = model.upsample_cond(m)
@@ -280,14 +299,20 @@ def _samples(model: WaveRNN, mel, batched: bool, target: int, overlap: int,
     return samples, wave_len
 
 
-def vocode(model: WaveRNN, mel, target: int = TARGET,
+def _pcm16(wave: torch.Tensor) -> torch.Tensor:
+    return (torch.clamp(wave, -1.0, 1.0) * 32767.0).to(torch.int16)
+
+
+def vocode(model: WaveRNN, mel, target: Optional[int] = None,
            overlap: int = OVERLAP, mu_law: bool = True, seed: int = 0,
            greedy: bool = False,
            compute_dtype: torch.dtype = torch.bfloat16,
            pcm16: bool = False) -> np.ndarray:
     """mel (n_mels, T) or (T, n_mels) -> waveform, on the model's device
     end to end (fold, sampling kernel, mu-law decode, crossfade, tail
-    fade, int16 conversion); one host copy of the finished audio."""
+    fade, int16 conversion); one host copy of the finished audio.
+    `target=None` folds as `fold_target` says for the model's device."""
+    target = fold_target(target, next(model.parameters()).device)
     samples, wave_len = _samples(model, mel, True, target, overlap, seed,
                                  greedy, compute_dtype)
     wave = samples
@@ -299,8 +324,61 @@ def vocode(model: WaveRNN, mel, target: int = TARGET,
     wave = torch.cat([wave[:wave_len - n_fade],
                       wave[wave_len - n_fade:] * fade])
     if pcm16:
-        wave = (torch.clamp(wave, -1.0, 1.0) * 32767.0).to(torch.int16)
+        wave = _pcm16(wave)
     return wave.cpu().numpy()
+
+
+def vocode_batch(model: WaveRNN, mels: Sequence, target: Optional[int] = None,
+                 overlap: int = OVERLAP, mu_law: bool = True, seed: int = 0,
+                 greedy: bool = False,
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 pcm16: bool = False, frame_bucket: int = 64
+                 ) -> List[np.ndarray]:
+    """Many utterances in one pass: the mels ((n_mels, T_i) or (T_i,
+    n_mels)) are padded to a common `frame_bucket` multiple, upsampled as
+    one batch, every row folded with the same geometry, and all B x F
+    fold lanes sampled together (`sample_conditioned` splits them into
+    groups of MAX_LANES, the group at lane g seeded seed + g). Each row
+    is crossfaded on the device, trimmed to its own length with
+    `vocode`'s terminal fade, and copied to the host once. Greedy output
+    equals per-utterance `vocode` calls (each lane starts from zero
+    state); sampled output draws other noise streams."""
+    device = next(model.parameters()).device
+    target = fold_target(target, device)
+    prepped = [_time_major(model, m) for m in mels]
+    n_frames = [m.shape[0] for m in prepped]
+    t_pad = -(-max(n_frames) // frame_bucket) * frame_bucket
+    batch = np.zeros((len(prepped), t_pad, model.feat_dims), np.float32)
+    for i, m in enumerate(prepped):
+        batch[i, :m.shape[0]] = m
+    wave_lens = [(n - 1) * model.hop_length for n in n_frames]
+    m = F.pad(torch.as_tensor(batch, device=device),
+              (0, 0, model.pad, model.pad))
+    mels_up, aux = model.upsample_cond(m)
+    idx, padded_len = fold_indices(mels_up.shape[1], target, overlap)
+    pad_t = padded_len - mels_up.shape[1]
+    mels_up = F.pad(mels_up, (0, 0, 0, pad_t))
+    aux = F.pad(aux, (0, 0, 0, pad_t))
+    idx = torch.as_tensor(idx, device=device)
+    B, (n_folds, length) = len(prepped), idx.shape
+    samples = sample_conditioned(
+        model, mels_up[:, idx].reshape(B * n_folds, length, -1),
+        aux[:, idx].reshape(B * n_folds, length, -1), seed=seed,
+        greedy=greedy, compute_dtype=compute_dtype)
+    if mu_law and model.mode == 'RAW':
+        samples = decode_mu_law(samples, model.n_classes, False)
+    samples = samples.reshape(B, n_folds, length)
+    n_fade = 20 * model.hop_length
+    out = []
+    for i, wave_len in enumerate(wave_lens):
+        wave = xfade_unfold_device(samples[i], overlap)[:wave_len]
+        # vocode's tail: linspace(1, 0, n_fade) over the last samples
+        pos = torch.arange(wave_len, device=device, dtype=torch.float32)
+        wave = wave * torch.clamp((wave_len - 1.0 - pos) / (n_fade - 1.0),
+                                  0.0, 1.0)
+        out.append(_pcm16(wave) if pcm16 else wave)
+    flat = torch.cat(out).cpu().numpy()
+    return np.split(flat, np.cumsum(wave_lens)[:-1])
 
 
 def generate_wav(model: WaveRNN, mel, batched: bool = True,
@@ -310,8 +388,9 @@ def generate_wav(model: WaveRNN, mel, batched: bool = True,
                  pcm16: bool = False) -> np.ndarray:
     """Step-by-step generation: sampling on the model's device, then the
     mu-law decode, crossfade (float64) and fade-out on the host.
-    `batched=False` samples the whole utterance as one lane."""
-    target = TARGET if target is None else target
+    `batched=False` samples the whole utterance as one lane;
+    `target=None` folds as `fold_target` says for the model's device."""
+    target = fold_target(target, next(model.parameters()).device)
     samples, wave_len = _samples(model, mel, batched, target, overlap, seed,
                                  greedy, compute_dtype)
     output = samples.cpu().numpy().astype(np.float64)

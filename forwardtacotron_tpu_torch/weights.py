@@ -1,11 +1,14 @@
 """Weights from the JAX package's checkpoints.
 
 `load_fjax` reads a `.fjax` file (a pickle of numpy arrays plus the
-config). `forward_tacotron_state_dict` / `wavernn_state_dict` turn its
-flax variables into this package's `state_dict`, under the reference's
-torch key names, so `load_state_dict(strict=True)` takes them as they
-are. Layout transforms: conv kernels (W, Cin, Cout) -> (Cout, Cin, W),
-dense kernels transposed, RNN gates already in the torch layout.
+config). `forward_tacotron_state_dict` / `wavernn_state_dict` /
+`hifigan_state_dict` turn its flax variables into this package's
+`state_dict`, under the reference's torch key names (the official
+generator's for HiFi-GAN, the hub model's for MelGAN), so
+`load_state_dict(strict=True)` takes them as they are. Layout transforms:
+conv kernels (W, Cin, Cout) -> (Cout, Cin, W), transposed-conv kernels
+(stored flipped, (W, Cin, Cout)) -> (Cin, Cout, W) unflipped, dense
+kernels transposed, RNN gates already in the torch layout.
 """
 from __future__ import annotations
 
@@ -167,4 +170,51 @@ def wavernn_state_dict(variables: Dict[str, Any], model_cfg: Dict[str, Any],
     for fc in ('fc1', 'fc2', 'fc3'):
         out[f'{fc}.weight'] = _t(np.asarray(params[f'{fc}_kernel']).T)
         out[f'{fc}.bias'] = _t(params[f'{fc}_bias'])
+    return out
+
+
+def _put_conv_transpose(out: Dict, name: str, p: Dict) -> None:
+    k = np.asarray(p['kernel'])
+    out[f'{name}.weight'] = _t(np.transpose(k, (1, 2, 0))[:, :, ::-1])
+    out[f'{name}.bias'] = _t(p['bias'])
+
+
+def hifigan_state_dict(variables: Dict[str, Any], config: Dict[str, Any]
+                       ) -> Dict[str, torch.Tensor]:
+    """Flax GAN generator variables (numpy; a full GAN train state's
+    `generator` subtree is taken) -> the port's state_dict for
+    `config['hifigan']['model']`'s generator type: HiFi-GAN under the
+    official keys, MelGAN under the hub model's."""
+    params = variables['params']
+    params = params.get('generator', params)
+    model_cfg = config['hifigan']['model']
+    out: Dict[str, torch.Tensor] = {}
+    if str(model_cfg.get('generator_type', 'hifigan')).lower() == 'melgan':
+        n = len(model_cfg.get('upsample_rates', (8, 8, 2, 2)))
+        _put_conv1d(out, 'generator.1', params['conv_pre'])
+        for i in range(n):
+            _put_conv_transpose(out, f'generator.{3 + 3 * i}',
+                                params[f'ups_{i}'])
+            res, stack = params[f'res_{i}'], f'generator.{4 + 3 * i}'
+            for j in range(3):
+                _put_conv1d(out, f'{stack}.blocks.{j}.2',
+                            res[f'block_{j}_dilated'])
+                _put_conv1d(out, f'{stack}.blocks.{j}.4',
+                            res[f'block_{j}_out'])
+                _put_conv1d(out, f'{stack}.shortcuts.{j}',
+                            res[f'shortcut_{j}'])
+        _put_conv1d(out, f'generator.{4 + 3 * n}', params['conv_post'])
+        return out
+    _put_conv1d(out, 'conv_pre', params['conv_pre'])
+    _put_conv1d(out, 'conv_post', params['conv_post'])
+    i = 0
+    while f'ups_{i}' in params:
+        _put_conv_transpose(out, f'ups.{i}', params[f'ups_{i}'])
+        i += 1
+    n = 0
+    while f'resblocks_{n}' in params:
+        for name, p in params[f'resblocks_{n}'].items():
+            kind, j = name.rsplit('_', 1)          # convs1_0 -> convs1.0
+            _put_conv1d(out, f'resblocks.{n}.{kind}.{j}', p)
+        n += 1
     return out

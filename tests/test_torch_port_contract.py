@@ -102,6 +102,7 @@ def test_builtin_config_equals_config_yaml():
         assert cfg[section]['model'] == ref[section]['model'], section
     assert cfg['forward_tacotron']['training'] == \
         ref['forward_tacotron']['training']
+    assert cfg['hifigan']['model'] == ref['hifigan']['model']
 
 
 def test_token_ids_equal_jax_front_end():
@@ -137,6 +138,12 @@ def test_port_imports_no_jax():
     files = sorted((ROOT / 'forwardtacotron_tpu_torch').rglob('*.py'))
     files.append(ROOT / 'chip_smoke.py')
     assert len(files) > 10
+    # the serving path's modules are among the scanned
+    names = {p.relative_to(ROOT).as_posix() for p in files}
+    for module in ('dsp/stft', 'dsp/griffinlim', 'dsp/audio',
+                   'text/segmenter', 'models/hifigan', 'models/melgan',
+                   'models/streaming', 'serving', 'serve_forward'):
+        assert f'forwardtacotron_tpu_torch/{module}.py' in names, module
     for path in files:
         for name in _imports(path):
             top = name.split('.')[0]
