@@ -20,7 +20,10 @@ printed only when every phase passed):
    `evaluate()` gives it on the training path (`EVAL_BIRNN_CASES`, B=32:
    decoder LSTM H=512 T=896 ragged, CBHG GRUs H=256 at T=896 and T=176,
    predictor GRUs H=128/64 T=176; float32 at atol 1e-4; the decoder on
-   both paths, timed);
+   both paths, timed); and at the Tacotron teacher's alignment shapes
+   (`TEACHER_BIRNN_CASES`, B=8 float32 at atol 1e-4: postnet GRU H=128
+   T=1250 and encoder GRU H=128 T=200, ragged; timed beside cuDNN and the
+   bound);
 4. WaveRNN sampling kernel against its plain version, greedy, in both
    compute types (class agreement > 95%; MOL within 1e-3 on > 95%): RAW
    at 64 lanes x 3850 steps, float32 at 128 lanes x 600 steps, bfloat16 at
@@ -57,7 +60,10 @@ printed only when every phase passed):
 7. BiRNN training kernels (forward with stash, BPTT) against their plain
    versions at the training path's shapes (B=32: decoder LSTM H=512
    T=1024 ragged, postnet GRU H=256 T=1024, prenet GRU H=256 T=192,
-   predictor GRUs H=128/64 T=192; float32 at atol 1e-4; bfloat16 at 2^-7
+   predictor GRUs H=128/64 T=192; and the teacher's CBHG GRUs,
+   `TEACHER_TRAIN_KERNEL_CASES`: postnet H=128 T=1250 at B=32 (r=5) and
+   B=8 (r=1), encoder H=128 T=200 at B=32, ragged; float32 at atol 1e-4;
+   bfloat16 at 2^-7
    of the largest plain value for the outputs stored in bfloat16 (stash,
    dgi, dgh), 2e-3 for y, and a relative L2 error of at most 2^-8), with
    each kernel's path (`train_forward_plan`, `train_backward_plan`),
@@ -73,8 +79,21 @@ printed only when every phase passed):
    moved, the checkpoint served by `gen_forward`; ms per step split into forward, backward and
    optimizer; float32 gradients on the card against the CPU plain path,
    the CPU replaying the card's ReLU and max-pool decisions;
-9. a {"kernels": [...]} JSON line, the nvidia-smi line, and last
-   {"ok": true, "device": {...}}.
+9. the data path and the Tacotron teacher at the full width of
+   config.yaml's `dsp` and `tacotron.model`, random weights (`teacher_path`
+   lists its cuts): a seeded LJSpeech-layout corpus through
+   `preprocess.main` (mel and F0 on the card; F0 against the CPU plain
+   path and the known contour), `TacoTrainer.train` at r=5 batch 32 and
+   r=1 batch 8 (two launches each of #2 and #3 a step, on their planned
+   paths), `evaluate()` (#1), the step split into forward, backward and
+   optimizer with peak memory and idle share, float32 teacher outputs and
+   gradients against the CPU, `train_tacotron.main` with `--force_align`
+   (#1 counted; every duration sum its mel_len; attention card vs CPU at
+   atol 1e-4) and `--extract_pitch`, and `ForwardTrainer.train` for 2
+   steps on what the port wrote;
+10. a {"kernels": [...]} JSON line (launches of the main paths, and of
+   the teacher phase in `launches_teacher`), the nvidia-smi line, and
+   last {"ok": true, "device": {...}}.
 
 Details go to chiprun_out/chip_smoke.json.
 """
@@ -210,6 +229,17 @@ EVAL_BIRNN_CASES = (
     ('dur/energy', 'gru', 176, 64, (176,) * 32))
 
 
+# kernel #1 at the Tacotron teacher's alignment shapes (create_align_features
+# and evaluate(): batch 8, two streams, float32), as (name, cell, T, H,
+# lengths): the postnet CBHG BiGRU over up to max_mel_len = 1250 frames and
+# the encoder's over ~200 phonemes
+TEACHER_BIRNN_CASES = (
+    ('teacher postnet', 'gru', 1250, 128, tuple(1250 - 37 * i
+                                                for i in range(8))),
+    ('teacher encoder', 'gru', 200, 128, tuple(200 - 9 * i
+                                               for i in range(8))))
+
+
 def _birnn_bound(cell, gi, w, b, ln, H):
     """bound_ms of kernel #1 on these inputs: the gate inputs of the
     active steps (those inside each lane's sequence, all the function
@@ -285,10 +315,12 @@ def birnn_cases():
                         f'library {row["library_ms"]}')
                 rows.append(row)
     f32 = torch.float32
-    for what, cell, T, H, lens in EVAL_BIRNN_CASES:
-        gi, w, b, ln = _birnn_inputs(cell, T, 32, 2, H, f32, seed=T + H,
+    for what, cell, T, H, lens, B in (
+            [c + (32,) for c in EVAL_BIRNN_CASES]
+            + [c + (8,) for c in TEACHER_BIRNN_CASES]):
+        gi, w, b, ln = _birnn_inputs(cell, T, B, 2, H, f32, seed=T + H,
                                      lens=lens)
-        plan = kb.inference_plan(cell, 2, 32, H, f32, smem, n_sms)
+        plan = kb.inference_plan(cell, 2, B, H, f32, smem, n_sms)
         # the decoder on the cooperative path too, on the same inputs
         paths = [plan['path']]
         if what == 'decoder' and plan['path'] == 'stream_local':
@@ -297,7 +329,9 @@ def birnn_cases():
                 for p in paths}
         torch.cuda.synchronize()
         ref = birnn_recurrence(cell, gi, w, b, ln, f32)
-        name = f'evaluate() {what}: {cell} T={T} H={H} S=2 B=32 float32'
+        name = (f'{what}: {cell} T={T} H={H} S=2 B={B} float32'
+                if what.startswith('teacher') else
+                f'evaluate() {what}: {cell} T={T} H={H} S=2 B={B} float32')
         row = {'case': name, 'path': plan['path'],
                'cluster': plan.get('cluster'), 'waves': plan.get('waves'),
                'max_abs_err': {}, 'tol': 1e-4}
@@ -306,7 +340,7 @@ def birnn_cases():
             check(err <= 1e-4 and bool(torch.isfinite(y).all()),
                   f'BiRNN {name} {p}: max|kernel-plain| {err:.3g} <= 0.0001')
             row['max_abs_err'][p] = err
-        if what == 'decoder':
+        if what == 'decoder' or what.startswith('teacher'):
             for p in paths:
                 row[f'ms_{p}'] = cuda_ms(lambda: kb.recurrence(
                     cell, gi, w, b, ln, f32, path=p), reps=3)
@@ -314,7 +348,7 @@ def birnn_cases():
                 cell, gi, w, b, ln, f32), reps=1, warmup=0)
             row['bound_ms'], row['bound_by'] = _birnn_bound(cell, gi, w, b,
                                                             ln, H)
-            row['library_ms'] = _cudnn_ms(cell, T, H, 2, 32, f32)
+            row['library_ms'] = _cudnn_ms(cell, T, H, 2, B, f32)
             times = ', '.join(f'{p} {row[f"ms_{p}"]:.3f} ms' for p in paths)
             log(f'  {name}: {times} (planned {plan["path"]}, cluster '
                 f'{plan.get("cluster")}, {plan.get("waves")} waves), plain '
@@ -641,7 +675,7 @@ def long_utterance(model, voc, cfg, text, hop):
 # ----------------------------------------------------------- serving path
 
 SERVING_DIR = Path('model_outputs/smoke_serving')   # random vocoder files
-DEVICE = 'cuda'              # the serving phase's device
+DEVICE = 'cuda'        # the device of the serving and the teacher phases
 
 
 def _launch_counts():
@@ -1050,6 +1084,18 @@ TRAIN_KERNEL_CASES = (
     ('dur/energy', 'gru', 192, 64, [192 - 5 * i for i in range(32)]))
 
 
+# the Tacotron teacher's CBHG BiGRUs in training (H=128, two streams), as
+# (name, cell, T, H, B, lengths): the postnet over up to max_mel_len = 1250
+# frames at r=5 (batch 32) and at r=1 (batch 8), the encoder over ~200
+# phonemes at batch 32
+TEACHER_TRAIN_KERNEL_CASES = (
+    ('teacher postnet r=5', 'gru', 1250, 128, 32,
+     [1250 - 13 * i for i in range(32)]),
+    ('teacher postnet r=1', 'gru', 1250, 128, 8,
+     [1250 - 37 * i for i in range(8)]),
+    ('teacher encoder', 'gru', 200, 128, 32, [200 - 3 * i for i in range(32)]))
+
+
 def _train_inputs(cell, T, B, H, lens, seed):
     g = torch.Generator().manual_seed(seed)
     ng = 4 if cell == 'lstm' else 3
@@ -1096,14 +1142,16 @@ def train_kernel_cases():
     bf16_rel = {'y': 2e-3, 'stash': 2.0 ** -7, 'dgi': 2.0 ** -7,
                 'dgh': 2.0 ** -7}
     rows = []
-    for name, cell, T, H, lens in TRAIN_KERNEL_CASES:
-        gi, w, b, ln, dy = _train_inputs(cell, T, 32, H, lens, seed=H + T)
-        row = {'case': f'{name} {cell} H={H} T={T} B=32', 'errors': {},
+    for name, cell, T, H, B, lens in (
+            [(n, c, T, H, 32, ln) for n, c, T, H, ln in TRAIN_KERNEL_CASES]
+            + list(TEACHER_TRAIN_KERNEL_CASES)):
+        gi, w, b, ln, dy = _train_inputs(cell, T, B, H, lens, seed=H + T)
+        row = {'case': f'{name} {cell} H={H} T={T} B={B}', 'errors': {},
                'path': bt.train_forward_plan(
-                   cell, 2, 32, H, f32, props.shared_memory_per_block_optin,
+                   cell, 2, B, H, f32, props.shared_memory_per_block_optin,
                    props.multi_processor_count)['path']}
         row['bwd_path'] = bt.train_backward_plan(
-            cell, 2, 32, H, f32, props.shared_memory_per_block_optin,
+            cell, 2, B, H, f32, props.shared_memory_per_block_optin,
             props.multi_processor_count)['path']
         for dtype in (f32, bf16):
             gi_d, w_d = gi.to(dtype), w.to(dtype)
@@ -1166,7 +1214,7 @@ def train_kernel_cases():
         active = 2 * sum(min(n, T) for n in lens)
         flops = 2.0 * active * ng * H * H
         small = (w.numel() + b.numel() + ln.numel()) * 4
-        fwd_bytes = (gi.numel() + 32 * T * 2 * H * (1 + 5)) * 4 + small
+        fwd_bytes = (gi.numel() + B * T * 2 * H * (1 + 5)) * 4 + small
         bwd_bytes = (st32.numel() + dy.numel()
                      + (1 if cell == 'lstm' else 2) * gi.numel()) * 4 + small
         row['bound_ms_fwd'], row['bound_by_fwd'] = bound_ms(fwd_bytes, flops,
@@ -1174,7 +1222,7 @@ def train_kernel_cases():
         row['bound_ms_bwd'], row['bound_by_bwd'] = bound_ms(bwd_bytes, flops,
                                                             f32)
         row['library_ms_fwd'], row['library_ms_bwd'] = _cudnn_train_ms(
-            cell, T, H, 32)
+            cell, T, H, B)
         log(f'  {row["case"]} float32: fwd {row["ms_fwd"]:.3f} ms on the '
             f'{row["path"]} path (cooperative path '
             f'{row.get("ms_fwd_cooperative", row["ms_fwd"]):.3f}; plain '
@@ -1473,15 +1521,15 @@ class _Decisions:
 
 @contextlib.contextmanager
 def _layer_decisions(decisions):
-    """models/layers.py's `F` is `decisions` inside the block (nothing
-    outside layers.py sees it)."""
-    from forwardtacotron_tpu_torch.models import layers
-    saved = layers.F
-    layers.F = decisions
+    """models/layers.py's and models/tacotron.py's `F` is `decisions`
+    inside the block (nothing outside those modules sees it)."""
+    from forwardtacotron_tpu_torch.models import layers, tacotron
+    saved = layers.F, tacotron.F
+    layers.F = tacotron.F = decisions
     try:
         yield decisions
     finally:
-        layers.F = saved
+        layers.F, tacotron.F = saved
 
 
 def _model_grads(model, batch, device, decisions=None):
@@ -1573,6 +1621,524 @@ def _grads_vs_cpu(model):
     return out
 
 
+# ------------------------------------------------ data and teacher path
+
+TEACHER_DIR = Path('smoke_teacher')   # corpus, data and checkpoints
+# config.yaml's reduction factors, learning rates and batch sizes of the
+# first and the last session, cut to 3 + 2 steps
+TEACHER_SCHEDULE = ['5, 1e-3, 3, 32', '1, 1e-4, 5, 8']
+TEACHER_N_VAL = 8
+TEACHER_N_UTTERANCES = 40
+TEACHER_SECONDS = (2.0, 8.0)          # the utterances' lengths
+
+
+def _true_f0(t):
+    """The corpus's F0 contour (Hz) at t seconds from a wav's start."""
+    return 140.0 + 40.0 * np.sin(2 * np.pi * 0.8 * t) \
+        + 15.0 * np.sin(2 * np.pi * 3.1 * t)
+
+
+def _write_corpus(root, sr, n_items=TEACHER_N_UTTERANCES, seed=0):
+    """A seeded LJSpeech-layout corpus under `root`: metadata.csv
+    (id|text|text, the text a few lines of sentences.txt cut to ~15
+    characters a second) and 16-bit wavs of 2-8 s. Each wav: 0.3 s of
+    faint noise, then voiced segments of 0.4-1.2 s (five harmonics whose
+    F0 follows `_true_f0`) with pauses of 0.12 s, then 0.3 s of noise.
+    Returns {item: (samples, [(start, end) of each voiced segment])}."""
+    from scipy.io import wavfile
+    rng = np.random.RandomState(seed)
+    lines = [s.strip() for s in Path('sentences.txt').read_text().splitlines()
+             if s.strip()]
+    (root / 'wavs').mkdir(parents=True)
+    meta, items = [], {}
+    for i in range(n_items):
+        seconds = rng.uniform(*TEACHER_SECONDS)
+        n = int(seconds * sr)
+        lead = int(0.3 * sr)
+        voiced = np.zeros(n, bool)
+        segments, pos = [], lead
+        while pos < n - lead - int(0.4 * sr):
+            end = min(pos + int(rng.uniform(0.4, 1.2) * sr), n - lead)
+            segments.append((pos, end))
+            voiced[pos:end] = True
+            pos = end + int(0.12 * sr)
+        t = np.arange(n) / sr
+        phase = 2 * np.pi * np.cumsum(_true_f0(t)) / sr
+        y = sum(0.3 / k * np.sin(k * phase) for k in range(1, 6)) * voiced
+        y = y + 1e-4 * rng.randn(n)
+        item = f'LJ{i:03d}'
+        wavfile.write(str(root / 'wavs' / f'{item}.wav'), sr,
+                      np.clip(np.round(y * 32767), -32768,
+                              32767).astype(np.int16))
+        text = ' '.join(rng.choice(lines, 3))[:int(15 * seconds)]
+        meta.append(f'{item}|{text}|{text}')
+        items[item] = (n, segments)
+    (root / 'metadata.csv').write_text('\n'.join(meta) + '\n')
+    return items
+
+
+@contextlib.contextmanager
+def _teacher_env(base):
+    """Inside `base`, with $FTT_BASE = base (checkpoints) and the
+    built-in config's n_val cut to TEACHER_N_VAL in memory (the card has
+    no pyyaml for a config file)."""
+    import os
+    from forwardtacotron_tpu_torch import config
+    saved_env = os.environ.get('FTT_BASE')
+    saved_n_val = config.PREPROCESSING['n_val']
+    os.environ['FTT_BASE'] = str(base)
+    config.PREPROCESSING['n_val'] = TEACHER_N_VAL
+    try:
+        with _cwd(base):
+            yield
+    finally:
+        config.PREPROCESSING['n_val'] = saved_n_val
+        if saved_env is None:
+            os.environ.pop('FTT_BASE', None)
+        else:
+            os.environ['FTT_BASE'] = saved_env
+
+
+def _train_counts(reset=False):
+    """Launch counts of kernels #1, #2 and #3 by path (zeroed first with
+    `reset`)."""
+    from forwardtacotron_tpu_torch.kernels.birnn import recurrence
+    from forwardtacotron_tpu_torch.kernels.birnn_train import (
+        train_backward, train_forward)
+    out = {}
+    for name, fn in (('birnn', recurrence), ('birnn_train_fwd',
+                                             train_forward),
+                     ('birnn_train_bwd', train_backward)):
+        if reset:
+            fn.launches = 0
+            fn.path_launches = dict.fromkeys(fn.path_launches, 0)
+        out[name] = fn.launches
+        out.update({f'{name}_{k}': v for k, v in fn.path_launches.items()})
+    return out
+
+
+def _f0_checks(cfg, items, smi):
+    """The F0 that preprocess wrote on the card for one file against the
+    CPU plain path on the same trimmed wav, and the card's F0 of the raw
+    wav against the known contour at tests/test_dsp_golden.py's bounds."""
+    from forwardtacotron_tpu_torch.dsp.audio import DSP
+    from forwardtacotron_tpu_torch.dsp.pitch import (extract_pitch,
+                                                     extract_pitch_bucketed)
+    from forwardtacotron_tpu_torch.preprocess import load_trimmed
+    item, (n, segments) = next(iter(items.items()))
+    sr, hop = cfg['dsp']['sample_rate'], cfg['dsp']['hop_length']
+    dsp = DSP.from_config(cfg, device='cpu')
+    wav = Path('corpus') / 'wavs' / f'{item}.wav'
+    card = np.load(Path(cfg['data_path']) / 'raw_pitch' / f'{item}.npy')
+    cpu = extract_pitch_bucketed(load_trimmed(dsp, wav), sr, hop,
+                                 device='cpu')
+    same_voicing = float(np.mean((card > 0) == (cpu > 0)))
+    both = (card > 0) & (cpu > 0)
+    rel = float(np.max(np.abs(card[both] - cpu[both]) / cpu[both])) \
+        if both.any() else 0.0
+    check(card.shape == cpu.shape and same_voicing >= 0.99 and rel <= 1e-3,
+          f'F0 of {item} written by preprocess (card) vs CPU plain: same '
+          f'voicing on {same_voicing:.4f} >= 0.99 of {len(cpu)} frames, '
+          f'voiced F0 within {rel:.2e} <= 1e-3 relative')
+
+    f0 = extract_pitch(dsp.load_wav(wav), sr, hop, device=DEVICE)
+    frames = np.arange(len(f0)) * hop
+    voiced = np.zeros(len(f0), bool)
+    for a, b in segments:
+        voiced |= (frames >= a) & (frames < b)
+    true = np.where(voiced, _true_f0(frames / sr), 0.0)
+    interior = voiced.copy()
+    for k in (1, 2):
+        interior &= np.roll(voiced, k) & np.roll(voiced, -k)
+    est = f0[interior] > 0
+    err = np.abs(f0[interior][est] - true[interior][est]) / true[interior][est]
+    far = ~voiced
+    for k in (1, 2):
+        far &= ~np.roll(voiced, k) & ~np.roll(voiced, -k)
+    out = {'item': item, 'same_voicing_card_cpu': same_voicing,
+           'max_rel_err_card_cpu': rel, 'voiced_recall': float(est.mean()),
+           'median_rel_err': float(np.median(err)),
+           'share_within_5pct': float(np.mean(err < 0.05)),
+           'hallucinated': float((f0[far] > 0).mean())}
+    check(out['voiced_recall'] > 0.9 and out['median_rel_err'] < 0.01
+          and out['share_within_5pct'] > 0.95 and out['hallucinated'] < 0.1,
+          f'card F0 vs the known contour: {out} (golden bounds: recall > '
+          f'0.9, median < 0.01, share within 5% > 0.95, unvoiced pitched '
+          f'< 0.1) | {smi}')
+    return out
+
+
+def _teacher_step_timing(model, optimizer, paths, cfg, smi):
+    """ms per teacher step on the longest bucket at r=5 batch 32 and at r=1
+    batch 8 (config.yaml's first and last sessions), split by CUDA events
+    into forward (with the loss), backward, and clip + Adam (median of 3
+    after a warm-up); the peak memory of a step; one more step under the
+    profiler for the device's busy time and idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    from forwardtacotron_tpu_torch.data.dataset import get_tts_datasets
+    from forwardtacotron_tpu_torch.train import common as tc
+    from forwardtacotron_tpu_torch.train.taco_trainer import (
+        taco_batch_to_device, taco_loss)
+    train_cfg = cfg['tacotron']['training']
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    out = {}
+    for r, bs in ((5, 32), (1, 8)):
+        train_set, _ = get_tts_datasets(
+            paths.data, bs, r, max_mel_len=train_cfg['max_mel_len'],
+            filter_attention=False, model_type='tacotron')
+        batch = taco_batch_to_device(max(
+            train_set.batches(0), key=lambda b: b['mel'].shape[1]), DEVICE)
+        model.train()
+
+        def step():
+            optimizer.zero_grad(set_to_none=True)
+            m1, m2, _ = model(batch['x'], batch['mel'], r, gen)
+            loss = taco_loss(m1, m2, batch['mel'])[0]
+            ev[1].record()
+            loss.backward()
+            ev[2].record()
+            tc.clip_by_global_norm(model.parameters(),
+                                   train_cfg['clip_grad_norm'])
+            optimizer.step()
+
+        rows = []
+        torch.cuda.reset_peak_memory_stats()
+        for rep in range(4):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            step()
+            ev[3].record()
+            ev[3].synchronize()
+            if rep >= 1:
+                rows.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+        fwd, bwd, opt = (float(np.median([x[i] for x in rows]))
+                         for i in range(3))
+        row = {'batch': list(batch['mel'].shape), 'text': list(
+            batch['x'].shape), 'forward_ms': fwd, 'backward_ms': bwd,
+            'optimizer_ms': opt, 'step_ms': fwd + bwd + opt,
+            'peak_memory_gib': torch.cuda.max_memory_allocated() / 2 ** 30}
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        busy = sum(e.self_device_time_total / 1e3
+                   for e in prof.key_averages()
+                   if str(e.device_type).endswith('CUDA'))
+        row['profiled'] = {'wall_ms': wall_ms, 'device_busy_ms': busy,
+                           'idle_share': 1.0 - busy / wall_ms if busy > 0
+                           else 'not measured'}
+        log(f'  teacher step r={r} B={bs} {row["batch"]}: forward '
+            f'{fwd:.1f} + backward {bwd:.1f} + optimizer {opt:.1f} = '
+            f'{row["step_ms"]:.1f} ms, peak memory '
+            f'{row["peak_memory_gib"]:.2f} GiB; profiled wall {wall_ms:.1f} '
+            f'ms, device busy {busy:.1f} ms (idle share '
+            f'{row["profiled"]["idle_share"]}) | {smi}')
+        out[f'r{r}_b{bs}'] = row
+    return out
+
+
+def _grads_teacher_batch(seed=5):
+    """Two short teacher-forced items (40 and 29 phonemes, 160 and 121
+    frames, padded as collate_tts pads them) made from `seed`."""
+    rng = np.random.RandomState(seed)
+    x = np.zeros((2, 40), np.int64)
+    x[0] = rng.randint(1, 60, 40)
+    x[1, :29] = rng.randint(1, 60, 29)
+    mel = (rng.randn(2, 160, 80) * 2 - 5).astype(np.float32)
+    mel[1, 121:] = -11.5129
+    return x, mel
+
+
+def _taco_pass(model, x, mel, device, decisions=None):
+    """(outputs, {parameter: gradient}) of the teacher's loss on `device`,
+    float32 on the CPU, for a copy of `model` in train mode with every
+    dropout and zoneout rate 0 (so nothing is drawn); with `decisions`,
+    the ReLU and max-pool decisions recorded or replayed."""
+    from forwardtacotron_tpu_torch.train.taco_trainer import taco_loss
+    m = copy.deepcopy(model).to(device).train()
+    for mod in m.modules():
+        if isinstance(mod, torch.nn.Dropout):
+            mod.p = 0.0
+    m.encoder.pre_net.p = m.decoder.prenet.p = m.decoder.zoneout = 0.0
+    xt, mt = torch.from_numpy(x).to(device), torch.from_numpy(mel).to(device)
+    with (_layer_decisions(decisions) if decisions is not None
+          else contextlib.nullcontext()):
+        out = m(xt, mt, 1, torch.Generator(device=device))
+    taco_loss(out[0], out[1], mt)[0].backward()
+    return ([o.detach().cpu() for o in out],
+            {k: p.grad.detach().cpu() for k, p in m.named_parameters()})
+
+
+def _teacher_grads_vs_cpu(model):
+    """The teacher-forced forward (train mode, rates 0, TF32 off) and its
+    gradients on two short items: kernels #2/#3 on the card against the
+    plain path on the CPU. Outputs at atol 1e-4; gradients at
+    `_grads_vs_cpu`'s limits, the CPU replaying the card's ReLU and
+    max-pool decisions (CBHGs and prenets)."""
+    x, mel = _grads_teacher_batch()
+    card = _Decisions()
+    out, grads = _taco_pass(model, x, mel, DEVICE, card)
+    replayed = _Decisions(card.recorded)
+    _, cpu_replay = _taco_pass(model, x, mel, 'cpu', replayed)
+    if replayed.calls != len(card.recorded):
+        raise RuntimeError(f'the CPU pass took {replayed.calls} decisions '
+                           f'of the {len(card.recorded)} recorded')
+    cpu_out, cpu_own = _taco_pass(model, x, mel, 'cpu')
+    errs = {k: float((a - b).abs().max()) for k, a, b in
+            zip(('mel', 'linear', 'attention'), out, cpu_out)}
+    check(all(e <= 1e-4 for e in errs.values()),
+          f'teacher-forced forward (train mode, 160 frames), card vs CPU '
+          f'plain: max abs errors {errs} <= 1e-4')
+    rep = _worst_grad_errors(grads, cpu_replay)
+    own = _worst_grad_errors(grads, cpu_own)
+    check(rep['ok'], f'teacher float32 gradients, card vs CPU plain (CPU '
+          f'replaying the card\'s {replayed.total} decisions; '
+          f'{replayed.differ} differ on its own): worst relative L2 '
+          f'{rep["worst_rel_l2"]:.2e} ({rep["param_l2"]}) <= '
+          f'{GRAD_L2_LIMIT:g}, worst max-element {rep["worst_rel_max"]:.2e} '
+          f'({rep["param_max"]}) <= {GRAD_MAX_LIMIT:g}')
+    log(f'  without the replay: relative L2 {own["worst_rel_l2"]:.2e}, max '
+        f'element {own["worst_rel_max"]:.2e} (not checked)')
+    return {'outputs_max_abs_err': errs, 'replay': rep, 'own': own,
+            'differ': replayed.differ, 'decisions': replayed.total}
+
+
+def _teacher_align(cfg, paths, smi):
+    """`train_tacotron --force_align` and `--extract_pitch` through `main`
+    (the trained teacher restored from latest_model.pt), kernel #1's
+    launches counted; every duration sum against its mel_len; the card's
+    attention against the CPU's on one batch (atol 1e-4) and the
+    utterances whose durations then differ."""
+    from forwardtacotron_tpu_torch import train_tacotron
+    from forwardtacotron_tpu_torch.align.duration import (
+        extract_durations_with_dp)
+    from forwardtacotron_tpu_torch.data.dataset import get_tts_datasets
+    from forwardtacotron_tpu_torch.kernels import birnn as kb
+    from forwardtacotron_tpu_torch.models.tacotron import Tacotron
+    from forwardtacotron_tpu_torch.utils.checkpoints import (load_checkpoint,
+                                                             restore)
+    from forwardtacotron_tpu_torch.utils.files import unpickle_binary
+    train_set, val_set = get_tts_datasets(paths.data, 8, 1, None,
+                                          filter_attention=False,
+                                          model_type='tacotron')
+    n_batches = len(train_set) + len(val_set)
+    items = dict(unpickle_binary(paths.data / 'train_dataset.pkl')
+                 + unpickle_binary(paths.data / 'val_dataset.pkl'))
+    _train_counts(reset=True)
+    t0 = time.perf_counter()
+    train_tacotron.main(['--force_align', '--device', DEVICE])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _train_counts()
+    props = torch.cuda.get_device_properties(0)
+    plan = kb.inference_plan('gru', 2, 8, 128, torch.float32,
+                             props.shared_memory_per_block_optin,
+                             props.multi_processor_count)
+    check(launches['birnn'] == 2 * n_batches
+          and launches[f'birnn_{plan["path"]}'] == launches['birnn']
+          and launches['birnn_train_fwd'] == 0,
+          f'--force_align: kernel #1 launched {launches["birnn"]} times for '
+          f'{n_batches} batches (encoder + postnet BiGRU each), on the '
+          f'planned {plan["path"]} path: {launches}')
+    bad = [i for i, n in items.items()
+           if int(np.load(paths.alg / f'{i}.npy').sum()) != n]
+    check(not bad and len(unpickle_binary(paths.data / 'att_score_dict.pkl'))
+          == len(items), f'durations of all {len(items)} utterances sum to '
+                         f'their mel_len (off: {bad})')
+    out = {'launches': launches, 'plan': plan, 'wall_s': wall,
+           'utterances': len(items), 'batches': n_batches,
+           'utterances_per_s': len(items) / wall}
+    log(f'  alignment: {len(items)} utterances in {wall:.2f} s '
+        f'({out["utterances_per_s"]:.2f} a second, host clock) | {smi}')
+
+    # one batch on the card and on the CPU
+    model = Tacotron.from_config(cfg)
+    restore(model, None, load_checkpoint(paths.taco_checkpoints
+                                         / 'latest_model.pt'))
+    model.eval()
+    # the shortest of the batches with the most real utterances
+    batch = min(train_set.batches(0), key=lambda b: (-b['n_real'],
+                                                     b['mel'].shape[1]))
+    x, mel = torch.from_numpy(batch['x']), torch.from_numpy(batch['mel'])
+    with torch.no_grad():
+        att_cpu = model(x, mel, 1)[2]
+        att_card = model.to(DEVICE)(x.to(DEVICE), mel.to(DEVICE), 1)[2].cpu()
+    err = float((att_card - att_cpu).abs().max())
+    check(err <= 1e-4, f'attention on a batch of {tuple(mel.shape)}, card '
+                       f'vs CPU plain: max abs error {err:.2e} <= 1e-4')
+    differ = 0
+    for j in range(batch['n_real']):
+        item, x_len = batch['item_id'][j], int(batch['x_len'][j])
+        durs = extract_durations_with_dp(
+            x_len, att_cpu[j, :, :x_len].numpy(), int(batch['mel_len'][j]))
+        differ += int(not np.array_equal(durs, np.load(
+            paths.alg / f'{item}.npy')))
+    log(f'  durations from the CPU attention differ from the card\'s for '
+        f'{differ} of {batch["n_real"]} utterances')
+    out.update(attention_max_abs_err=err, durations_differ=differ,
+               durations_compared=int(batch['n_real']))
+
+    train_tacotron.main(['--extract_pitch', '--device', DEVICE])
+    check(all((paths.phon_pitch / f'{i}.npy').is_file()
+              and (paths.phon_energy / f'{i}.npy').is_file() for i in items),
+          f'--extract_pitch wrote pitch and energy for {len(items)} items')
+    return out
+
+
+@phase('data preparation and teacher path (full width)')
+def teacher_path():
+    """The data path of the port at config.yaml's `dsp` and
+    `tacotron.model` widths, random weights from a seed, in TEACHER_DIR.
+    Cuts: a corpus of TEACHER_N_UTTERANCES utterances of 2-8 s (LJSpeech:
+    13,100 of 1-10 s), n_val TEACHER_N_VAL (200), the teacher's schedule
+    TEACHER_SCHEDULE (3 steps at r=5 batch 32, 2 at r=1 batch 8, against
+    10k-40k steps), the student 2 steps without the attention filter (an
+    untrained teacher's attention passes no filter).
+
+    1. write the corpus (`_write_corpus`) and run `preprocess.main`, mel
+       and F0 on the card; its throughput in audio seconds a second;
+       F0 checks (`_f0_checks`);
+    2. `TacoTrainer.train` on the schedule, kernels #2/#3 counted (two
+       of each a step: the encoder's and the postnet's BiGRU), then
+       `evaluate()` at r=1 (kernel #1, two a batch);
+    3. the step timing (`_teacher_step_timing`) and the gradients
+       against the CPU (`_teacher_grads_vs_cpu`);
+    4. alignment through `train_tacotron.main` (`_teacher_align`);
+    5. `ForwardTrainer.train` for 2 steps on what the port wrote."""
+    from forwardtacotron_tpu_torch import preprocess
+    from forwardtacotron_tpu_torch.config import default_config
+    from forwardtacotron_tpu_torch.data.dataset import get_tts_datasets
+    from forwardtacotron_tpu_torch.kernels import birnn_train as bt
+    from forwardtacotron_tpu_torch.models.forward_tacotron import (
+        ForwardTacotron)
+    from forwardtacotron_tpu_torch.models.tacotron import Tacotron
+    from forwardtacotron_tpu_torch.train import common as tc
+    from forwardtacotron_tpu_torch.train.forward_trainer import (
+        ForwardTrainer)
+    from forwardtacotron_tpu_torch.train.taco_trainer import TacoTrainer
+    from forwardtacotron_tpu_torch.utils.paths import Paths
+    smi = nvidia_smi_line()
+    shutil.rmtree(TEACHER_DIR, ignore_errors=True)
+    TEACHER_DIR.mkdir(parents=True)
+    base = TEACHER_DIR.resolve()
+    (base / 'sentences.txt').write_text(Path('sentences.txt').read_text())
+    out = {}
+    try:
+        with _teacher_env(base):
+            cfg = default_config()
+            sr = cfg['dsp']['sample_rate']
+            items = _write_corpus(Path('corpus'), sr)
+            audio_s = sum(n for n, _ in items.values()) / sr
+            t0 = time.perf_counter()
+            train, val = preprocess.main(['--path', 'corpus',
+                                          '--num_workers', '4',
+                                          '--device', DEVICE])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            out['preprocess'] = {'files': len(items), 'audio_s': audio_s,
+                                 'wall_s': wall,
+                                 'audio_s_per_s': audio_s / wall}
+            log(f'  preprocess: {len(items)} files, {audio_s:.1f} s of audio '
+                f'in {wall:.2f} s ({audio_s / wall:.1f} audio seconds a '
+                f'second, host clock, first calls included) | {smi}')
+            check(len(train) == len(items) - TEACHER_N_VAL
+                  and len(val) == TEACHER_N_VAL,
+                  f'preprocess split {len(train)} train / {len(val)} val')
+            out['f0'] = _f0_checks(cfg, items, smi)
+
+            cfg['tacotron']['training']['schedule'] = TEACHER_SCHEDULE
+            paths = Paths(cfg['data_path'], cfg['tts_model_id'])
+            writer = _Scalars()
+            trainer = TacoTrainer(paths, cfg, DEVICE, writer=writer)
+            torch.manual_seed(0)
+            model = Tacotron.from_config(cfg).to(DEVICE)
+            optimizer = tc.make_optimizer(model)
+            before = copy.deepcopy(model.state_dict())
+            _train_counts(reset=True)
+            t0 = time.perf_counter()
+            step = trainer.train(model, optimizer)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _train_counts()
+            props = torch.cuda.get_device_properties(0)
+            plans = {f'B={b}': {k: fn('gru', 2, b, 128, torch.float32,
+                                      props.shared_memory_per_block_optin,
+                                      props.multi_processor_count)['path']
+                                for k, fn in (('fwd', bt.train_forward_plan),
+                                              ('bwd', bt.train_backward_plan))}
+                     for b in (32, 8)}
+            log(f'  teacher: {step} steps in {wall:.1f} s (host clock, first '
+                f'steps included), launches {launches}, planned paths '
+                f'{plans}')
+            check(step == 5, f'teacher trainer reached step {step} == 5')
+            check(launches['birnn_train_fwd'] == 2 * step
+                  and launches['birnn_train_bwd'] == 2 * step
+                  and launches['birnn'] == 0,
+                  f'teacher training: kernel #2 {launches["birnn_train_fwd"]}'
+                  f' and #3 {launches["birnn_train_bwd"]} launches == 2 a '
+                  f'step (encoder and postnet BiGRU) in {step} steps')
+            for kind in ('fwd', 'bwd'):
+                want = {}
+                for b, n in ((32, 3), (8, 2)):
+                    p = plans[f'B={b}'][kind]
+                    want[p] = want.get(p, 0) + 2 * n
+                got = {p: launches[f'birnn_train_{kind}_{p}']
+                       for p in bt.PATHS}
+                check(all(got[p] == want.get(p, 0) for p in bt.PATHS),
+                      f'teacher kernel #{2 if kind == "fwd" else 3} by path '
+                      f'{got} == planned {want}')
+            losses = [v for tag, v, _ in writer.values if tag == 'Loss/train']
+            check(len(losses) == step and all(map(math.isfinite, losses)),
+                  f'teacher losses {losses}, all finite')
+            moved = [k for k, p in model.named_parameters()
+                     if not torch.equal(p.detach(), before[k])]
+            n_params = len(list(model.parameters()))
+            check(len(moved) == n_params,
+                  f'{len(moved)} of {n_params} teacher parameters moved')
+            _, val_set = get_tts_datasets(paths.data, 8, 1, None,
+                                          filter_attention=False,
+                                          model_type='tacotron')
+            _train_counts(reset=True)
+            val_loss, val_att = trainer.evaluate(model, val_set, 1)
+            ev = _train_counts()
+            check(ev['birnn'] == 2 * len(val_set) and ev['birnn_train_fwd']
+                  == 0 and math.isfinite(val_loss) and math.isfinite(val_att),
+                  f'teacher evaluate(): loss {val_loss:.4f}, attention score '
+                  f'{val_att:.4f}, kernel #1 {ev["birnn"]} launches for '
+                  f'{len(val_set)} batches: {ev}')
+            out['training'] = {'steps': step, 'wall_s': wall,
+                               'launches': launches, 'plans': plans,
+                               'losses': losses, 'evaluate_launches': ev}
+            out['step_ms'] = _teacher_step_timing(model, optimizer, paths,
+                                                  cfg, smi)
+            out['grads_vs_cpu'] = _teacher_grads_vs_cpu(model)
+            out['align'] = _teacher_align(cfg, paths, smi)
+
+            cfg['forward_tacotron']['training']['filter_attention'] = False
+            fwd_writer = _Scalars()
+            student = ForwardTrainer(paths, cfg, DEVICE, writer=fwd_writer)
+            torch.manual_seed(0)
+            fmodel = ForwardTacotron.from_config(cfg).to(DEVICE)
+            fstep = student.train(fmodel, max_steps_override=2)
+            flosses = [v for tag, v, _ in fwd_writer.values
+                       if tag == 'Mel_Loss/train']
+            check(fstep == 2 and len(flosses) == 2
+                  and all(map(math.isfinite, flosses)),
+                  f'ForwardTrainer on the port\'s own durations, pitch and '
+                  f'energy: step {fstep}, mel losses {flosses}')
+            out['student'] = {'steps': fstep, 'mel_losses': flosses}
+    finally:
+        shutil.rmtree(TEACHER_DIR, ignore_errors=True)
+    out['launches'] = {'train': out['training']['launches'],
+                       'evaluate': out['training']['evaluate_launches'],
+                       'align': out['align']['launches']}
+    DETAILS['teacher_path'] = out
+    return out['launches']
+
+
 # ------------------------------------------------------------------- main
 
 def main() -> int:
@@ -1593,6 +2159,7 @@ def main() -> int:
     serving_path()
     train_rows = train_kernel_cases() or []
     train_launches = training_path() or {}
+    teacher = teacher_path() or {}
 
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / 'chip_smoke.json').write_text(json.dumps(
@@ -1612,7 +2179,10 @@ def main() -> int:
         {'name': 'birnn (stream-local path)', 'route': 'cuda',
          'source': 'forwardtacotron_tpu_torch/csrc/birnn.cu',
          'replaces': 'forwardtacotron_tpu/kernels/birnn.py:45',
-         'launches': launches['birnn_stream_local'], 'case': serving['case'],
+         'launches': launches['birnn_stream_local'],
+         'launches_teacher': sum(teacher[k]['birnn_stream_local']
+                                 for k in ('evaluate', 'align')),
+         'case': serving['case'],
          'max_abs_err': serving['max_abs_err']['stream_local'],
          'ms': serving['ms_stream_local'], 'plain_ms': serving['plain_ms'],
          'bound_ms': serving['bound_ms'], 'bound_by': serving['bound_by'],
@@ -1621,7 +2191,7 @@ def main() -> int:
         {'name': 'wavernn_sample', 'route': 'cuda',
          'source': 'forwardtacotron_tpu_torch/csrc/wavernn_sample.cu',
          'replaces': 'forwardtacotron_tpu/kernels/wavernn_sample.py:64',
-         'launches': launches['wavernn_sample'],
+         'launches': launches['wavernn_sample'], 'launches_teacher': 0,
          'max_abs_err': wr['max_abs_err'], 'agreement': wr['agreement'],
          'ms': wr['ms'], 'plain_ms': wr['plain_ms'],
          'bound_ms': wr['bound_ms'], 'bound_by': wr['bound_by'],
@@ -1642,6 +2212,7 @@ def main() -> int:
             'source': 'forwardtacotron_tpu_torch/csrc/birnn_train.cu',
             'replaces': f'forwardtacotron_tpu/kernels/birnn.py:{line}',
             'launches': train_launches[count],
+            'launches_teacher': teacher['train'][count],
             'max_abs_err': row[f'max_abs_err_{sfx}'],
             'ms': row[f'ms_{sfx}'], 'plain_ms': row[f'plain_ms_{sfx}'],
             'bound_ms': row[f'bound_ms_{sfx}'],

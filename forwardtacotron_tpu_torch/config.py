@@ -1,8 +1,9 @@
 """Built-in copy of the config sections the port needs.
 
 The machine that runs the port has no `pyyaml`, so the `data_path`,
-model ids, `tts_model`, `dsp`, `preprocessing`, `forward_tacotron`
-(model and training), `vocoder.model` and `hifigan.model` defaults of
+model ids, `tts_model`, `dsp`, `preprocessing`, `tacotron` and
+`forward_tacotron` (model and training), `vocoder.model` and
+`hifigan.model` defaults of
 the repository's `config.yaml` live here as plain dicts. A YAML file is
 read only by `read_config`, and only where `yaml` can be imported.
 """
@@ -41,6 +42,30 @@ PREPROCESSING = {
     'use_phonemes': True,
     'min_text_len': 2,
     'extract_durations_with_dijkstra': True,
+}
+
+TACOTRON_MODEL = {
+    'embed_dims': 256,
+    'encoder_dims': 128,
+    'decoder_dims': 256,
+    'postnet_dims': 128,
+    'encoder_k': 16,
+    'lstm_dims': 512,
+    'postnet_k': 8,
+    'num_highways': 4,
+    'dropout': 0.5,
+    'stop_threshold': -11,
+}
+
+TACOTRON_TRAINING = {
+    'schedule': ['5,  1e-3,  10_000,  32', '3,  1e-4,  20_000,  16',
+                 '2,  1e-4,  30_000,  8', '1,  1e-4,  40_000,  8'],
+    'max_mel_len': 1250,
+    'grad_accum': 1,
+    'remat': False,
+    'clip_grad_norm': 1.0,
+    'checkpoint_every': 10000,
+    'plot_every': 1000,
 }
 
 FORWARD_TACOTRON_MODEL = {
@@ -119,6 +144,7 @@ def default_config() -> Dict[str, Any]:
         'tts_model': 'forward_tacotron',
         'dsp': DSP,
         'preprocessing': PREPROCESSING,
+        'tacotron': {'model': TACOTRON_MODEL, 'training': TACOTRON_TRAINING},
         'forward_tacotron': {'model': FORWARD_TACOTRON_MODEL,
                              'training': FORWARD_TACOTRON_TRAINING},
         'vocoder': {'model': VOCODER_MODEL},

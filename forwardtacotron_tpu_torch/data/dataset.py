@@ -1,10 +1,12 @@
-"""Datasets, collation and length-bucketed batching of the forward model.
+"""Datasets, collation and length-bucketed batching of the TTS models.
 
-A copy of the forward parts of the JAX package's `data/dataset.py` (the
+A copy of the TTS parts of the JAX package's `data/dataset.py` (the
 reference's utils/dataset.py field contracts and collate_tts padding):
-`ForwardDataset`, the max-length and attention filters, `collate_tts`,
-`BucketBatcher` on its numpy path, `get_tts_datasets(model_type=
-'forward')` and `Prefetcher`. Items are grouped by mel length into a
+`TacoDataset` (the Tacotron teacher's items: text and mel),
+`ForwardDataset` (the student's: also durations, pitch and energy), the
+max-length and attention filters, `collate_tts` (mels padded to a
+multiple of r), `BucketBatcher` on its numpy path, `get_tts_datasets`
+and `Prefetcher`. Items are grouped by mel length into a
 ladder of padded (T_text, T_mel) shapes; the batch plan of an epoch is a
 pure function of (seed, epoch), so a resumed run replays the data order
 of an uninterrupted one. Batches are numpy; the trainer moves them to its
@@ -43,6 +45,27 @@ def filter_bad_attentions(dataset: List[tuple],
         if align_score > min_alignment and sharp_score > min_sharpness:
             out.append((item_id, mel_len))
     return out
+
+
+class TacoDataset:
+
+    def __init__(self, path: Path, dataset_ids: Sequence[str],
+                 text_dict: Dict[str, str], tokenizer: Tokenizer) -> None:
+        self.path = Path(path)
+        self.metadata = list(dataset_ids)
+        self.text_dict = text_dict
+        self.tokenizer = tokenizer
+
+    def __getitem__(self, index: int) -> Dict:
+        item_id = self.metadata[index]
+        x = self.tokenizer(self.text_dict[item_id])
+        mel = np.load(str(self.path / 'mel' / f'{item_id}.npy'))
+        return {'x': np.asarray(x, dtype=np.int64), 'mel': mel,
+                'item_id': item_id, 'mel_len': mel.shape[-1],
+                'x_len': len(x)}
+
+    def __len__(self) -> int:
+        return len(self.metadata)
 
 
 class ForwardDataset:
@@ -201,11 +224,13 @@ def get_tts_datasets(path: Path, batch_size: int, r: int,
                      model_type: str = 'forward',
                      mel_multiple: int = 128
                      ) -> Tuple[BucketBatcher, BucketBatcher]:
-    """(train, val) BucketBatchers of the forward model (the reference's
-    get_tts_datasets). Multi-speaker datasets are not ported yet."""
-    if model_type != 'forward':
-        raise ValueError(f'model type {model_type!r} is not ported yet; '
-                         "only 'forward'")
+    """(train, val) BucketBatchers of the Tacotron teacher
+    (`model_type='tacotron'`) or the forward model (the reference's
+    get_tts_datasets); the attention filter applies to the forward model
+    only. Multi-speaker datasets are not ported yet."""
+    if model_type not in ('tacotron', 'forward'):
+        raise ValueError(f'Unknown model: {model_type}, must be either '
+                         '[tacotron, forward]!')
     path = Path(path)
     if (path / 'speaker_dict.pkl').exists():
         raise ValueError('multi-speaker datasets (speaker_dict.pkl) are not '
@@ -218,7 +243,7 @@ def get_tts_datasets(path: Path, batch_size: int, r: int,
     train_data = filter_max_len(train_data, max_mel_len)
     val_data = filter_max_len(val_data, max_mel_len)
     train_len_original = len(train_data)
-    if filter_attention:
+    if model_type == 'forward' and filter_attention:
         att_score_dict = unpickle_binary(path / 'att_score_dict.pkl')
         train_data = filter_bad_attentions(train_data, att_score_dict,
                                            filter_min_alignment,
@@ -230,8 +255,10 @@ def get_tts_datasets(path: Path, batch_size: int, r: int,
               f'{train_len_original - len(train_data)} files due to bad '
               f'attention!')
 
+    ds_cls = TacoDataset if model_type == 'tacotron' else ForwardDataset
+
     def batcher(data, shuffle):
-        ds = ForwardDataset(path, [i for i, _ in data], text_dict, tokenizer)
+        ds = ds_cls(path, [i for i, _ in data], text_dict, tokenizer)
         return BucketBatcher(ds, batch_size, r=r, mel_multiple=mel_multiple,
                              shuffle=shuffle)
     return batcher(train_data, True), batcher(val_data, False)

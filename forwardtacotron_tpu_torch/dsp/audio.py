@@ -2,11 +2,11 @@
 
 Mirrors `forwardtacotron_tpu/dsp/audio.py`: the same constructor fields
 (config['dsp']) and method names (load_wav / save_wav / wav_to_mel /
-griffinlim / normalize / denormalize / trim_silence / the quantizers).
-The spectral work runs in PyTorch (`dsp/stft.py`, `dsp/griffinlim.py`)
-on the DSP's `device`, which defaults to ``'cuda'``; file input and
-output go through `scipy.io.wavfile`. Mels keep the reference layout
-(n_mels, T).
+wav_to_mel_bucketed / wav_to_mel_batch / griffinlim / normalize /
+denormalize / trim_silence / trim_long_silences / the quantizers). The
+spectral work runs in PyTorch (`dsp/stft.py`, `dsp/griffinlim.py`) on the
+DSP's `device`, which defaults to ``'cuda'``; file input and output go
+through `scipy.io.wavfile`. Mels keep the reference layout (n_mels, T).
 """
 from __future__ import annotations
 
@@ -35,11 +35,17 @@ def float_2_label(x, bits: float):
 
 
 def encode_mu_law(x, mu: float):
-    """Mu-law labels of a numpy array or a torch tensor."""
-    mod = torch if isinstance(x, torch.Tensor) else np
+    """Mu-law labels of a numpy array or a torch tensor. A numpy array is
+    divided by the float64 scalar np.log(1 + mu), so float32 input gives
+    float64 labels, as the JAX package's numpy path (a float32 quotient
+    floors differently on ~1 in 1e5 samples)."""
     mu = mu - 1
-    fx = mod.sign(x) * mod.log(1 + mu * mod.abs(x)) / math.log(1 + mu)
-    return mod.floor((fx + 1) / 2 * mu + 0.5)
+    if isinstance(x, torch.Tensor):
+        fx = torch.sign(x) * torch.log(1 + mu * torch.abs(x)) \
+            / math.log(1 + mu)
+        return torch.floor((fx + 1) / 2 * mu + 0.5)
+    fx = np.sign(x) * np.log(1 + mu * np.abs(x)) / np.log(1 + mu)
+    return np.floor((fx + 1) / 2 * mu + 0.5)
 
 
 def decode_mu_law(y, mu: float, from_labels: bool = True):
@@ -143,6 +149,27 @@ class DSP:
         mel = mel.cpu().numpy()
         return mel.T if mel.ndim == 2 else mel
 
+    def wav_to_mel_bucketed(self, y: np.ndarray,
+                            bucket_multiple: int = 16384) -> np.ndarray:
+        """Log-mel (n_mels, T) of one utterance with the JAX package's
+        shapes: centred reflect padding on the host, zeros up to a multiple
+        of `bucket_multiple`, then the exact 1 + len(y)//hop frames, whose
+        values equal `wav_to_mel`'s (the FFT sizes repeat across files)."""
+        y = np.asarray(y, dtype=np.float32)
+        true_frames = 1 + len(y) // self.hop_length
+        pad = self.n_fft // 2
+        y_p = np.pad(y, (pad, pad), mode='reflect')
+        bucket = int(np.ceil(len(y_p) / bucket_multiple)) * bucket_multiple
+        y_p = np.pad(y_p, (0, bucket - len(y_p)))
+        return self.wav_to_mel(y_p, center=False)[:, :true_frames]
+
+    def wav_to_mel_batch(self, y: torch.Tensor) -> torch.Tensor:
+        """Log-mel of a batch (B, N) on the DSP's device, time-major
+        (B, T, n_mels), as a tensor."""
+        return _stft.wav_to_mel(y.to(self.device, torch.float32),
+                                self._mel_basis, self.n_fft, self.hop_length,
+                                self.win_length)
+
     def griffinlim(self, mel: np.ndarray, n_iter: int = 32,
                    seed: int = 0) -> np.ndarray:
         """Waveform (float32) of a normalised log-mel in (n_mels, T) or
@@ -180,6 +207,17 @@ class DSP:
         start = keep[0] * hop
         end = min(len(wav), (keep[-1] + 1) * hop + frame_length)
         return wav[start:end]
+
+    def trim_long_silences(self, wav: np.ndarray) -> np.ndarray:
+        """Cut silences longer than `vad_max_silence_length` windows
+        (`dsp/vad.py`, numpy)."""
+        from forwardtacotron_tpu_torch.dsp.vad import trim_long_silences
+        return trim_long_silences(
+            wav, sample_rate=self.sample_rate,
+            vad_sample_rate=self.vad_sample_rate,
+            window_length_ms=self.vad_window_length,
+            moving_average_width=self.vad_moving_average_width,
+            max_silence_length=self.vad_max_silence_length)
 
     # --------------------------------------------------------- quantizers
     label_2_float = staticmethod(label_2_float)

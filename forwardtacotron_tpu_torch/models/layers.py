@@ -20,6 +20,16 @@ from forwardtacotron_tpu_torch.ops import rnn as rnn_ops
 from forwardtacotron_tpu_torch.ops.masking import time_mask
 
 
+def dropout(x: torch.Tensor, p: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout whose mask is drawn from `generator` (none drawn,
+    and x returned, when `generator` is None or p is 0)."""
+    if generator is None or p == 0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+
+
 class BiRNN(nn.Module):
     """Bidirectional single-layer GRU or LSTM with nn.GRU/nn.LSTM
     parameter names; the recurrence runs through the BiRNN kernel
@@ -129,17 +139,27 @@ class CBHG(nn.Module):
                                        for _ in range(num_highways)])
         self.rnn = BiRNN('gru', channels, channels)
 
+    def _dropout(self, x: torch.Tensor,
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
+        if generator is None:
+            return self.dropout(x)
+        return dropout(x, self.dropout.p if self.training else 0.0,
+                       generator)
+
     def forward(self, x: torch.Tensor,
                 lengths: Optional[torch.Tensor] = None,
-                compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                compute_dtype: torch.dtype = torch.float32,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         seq_len = x.shape[1]
         x = time_mask(x, lengths)
         residual = x
         x = torch.cat([conv(x) for conv in self.conv1d_bank], dim=-1)
         x = time_mask(x, lengths, fill=float('-inf'))
         x = F.max_pool1d(x.transpose(1, 2), 2, stride=1, padding=1)
-        x = self.dropout(time_mask(x.transpose(1, 2)[:, :seq_len], lengths))
-        x = self.dropout(time_mask(self.conv_project1(x), lengths))
+        x = self._dropout(time_mask(x.transpose(1, 2)[:, :seq_len], lengths),
+                          generator)
+        x = self._dropout(time_mask(self.conv_project1(x), lengths),
+                          generator)
         x = self.conv_project2(x) + residual
         x = time_mask(x, lengths)
         x = self.pre_highway(x)

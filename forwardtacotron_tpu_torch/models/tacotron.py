@@ -1,0 +1,237 @@
+"""Tacotron teacher: autoregressive seq2seq with location-sensitive
+attention, teacher-forced.
+
+Mirrors `forwardtacotron_tpu/models/tacotron.py` (the reference's
+models/tacotron.py). Its role in the pipeline is the attention matrix
+from which the student's durations are extracted (`align/`), and
+optionally ground-truth-aligned mels. Module and buffer names are the
+reference's `state_dict` keys (`encoder.embedding`, `encoder.pre_net`,
+`encoder.cbhg`, `encoder_proj`, `decoder.prenet`, `decoder.attn_net.conv`
+/ `L` / `W` / `v`, `decoder.attn_rnn`, `decoder.rnn_input`,
+`decoder.res_rnn1` / `res_rnn2`, `decoder.mel_proj`, `postnet`,
+`post_proj`, and the `step`, `decoder.r` and `stop_threshold` buffers).
+
+- The two CBHG BiGRUs (encoder over the padded text, postnet over the
+  whole mel, both without lengths, as the reference's padded batches) go
+  through the BiRNN kernels: #2/#3 under autograd, #1 otherwise.
+- The decoder is a Python loop of one step per r frames, in ordinary
+  PyTorch ops (the JAX package's `lax.scan` has no Pallas kernel): GRU
+  attention cell, LSA over every text position (padding included, no
+  mask, as the reference), two residual LSTM cells, the mel projection.
+  The prenet of every step runs over the whole teacher-forced sequence
+  at once (go frame, then mel[:, t·r - 1]).
+- Train mode is the module's mode (`train()`): batch statistics in the
+  batch norms, and prenet dropout (p = `PreNet.p`, 0.5), CBHG dropout
+  (0.5) and zoneout of both LSTM cells' h (keep the old h with
+  probability `Decoder.zoneout`, 0.1; c is updated) drawn from the
+  `generator` that `forward` is given. Train mode needs one; eval mode
+  draws nothing.
+- `generate` (free-running inference) is not ported.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from forwardtacotron_tpu_torch.models.layers import CBHG, dropout
+from forwardtacotron_tpu_torch.text.symbols import phonemes
+
+MAX_R = 20        # the largest reduction factor mel_proj is sized for
+
+
+class PreNet(nn.Module):
+
+    def __init__(self, in_dims: int, fc1_dims: int = 256,
+                 fc2_dims: int = 128, p: float = 0.5) -> None:
+        super().__init__()
+        self.fc1 = nn.Linear(in_dims, fc1_dims)
+        self.fc2 = nn.Linear(fc1_dims, fc2_dims)
+        self.p = p
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = dropout(F.relu(self.fc1(x)), self.p, generator)
+        return dropout(F.relu(self.fc2(x)), self.p, generator)
+
+
+class Encoder(nn.Module):
+    """embedding -> prenet -> CBHG(K, channels, proj [channels, channels])."""
+
+    def __init__(self, embed_dims: int, num_chars: int, cbhg_channels: int,
+                 K: int, num_highways: int) -> None:
+        super().__init__()
+        self.embedding = nn.Embedding(num_chars, embed_dims)
+        self.pre_net = PreNet(embed_dims)
+        self.cbhg = CBHG(K=K, in_channels=self.pre_net.fc2.out_features,
+                         channels=cbhg_channels,
+                         proj_channels=[cbhg_channels, cbhg_channels],
+                         num_highways=num_highways, dropout=0.5)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        h = self.pre_net(self.embedding(x), generator)
+        return self.cbhg(h, generator=generator)
+
+
+class LSA(nn.Module):
+    """Location-sensitive attention: a conv over the cumulative and the
+    previous attention, added to the projected query and encoder output;
+    the softmax runs over every text position."""
+
+    def __init__(self, attn_dims: int, kernel_size: int = 31,
+                 filters: int = 32) -> None:
+        super().__init__()
+        self.conv = nn.Conv1d(2, filters, kernel_size,
+                              padding=(kernel_size - 1) // 2, bias=False)
+        self.L = nn.Linear(filters, attn_dims)
+        self.W = nn.Linear(attn_dims, attn_dims)
+        self.v = nn.Linear(attn_dims, 1, bias=False)
+
+    def forward(self, encoder_seq_proj: torch.Tensor, query: torch.Tensor,
+                cumulative: torch.Tensor, prev_attn: torch.Tensor
+                ) -> torch.Tensor:
+        processed_query = self.W(query)[:, None, :]              # (B, 1, D)
+        location = torch.stack([cumulative, prev_attn], dim=1)   # (B, 2, T)
+        processed_loc = self.L(self.conv(location).transpose(1, 2))
+        u = self.v(torch.tanh(processed_query + encoder_seq_proj
+                              + processed_loc))[..., 0]          # (B, T)
+        return torch.softmax(u, dim=1)
+
+
+class Decoder(nn.Module):
+
+    zoneout = 0.1
+
+    def __init__(self, n_mels: int, encoder_dims: int, decoder_dims: int,
+                 lstm_dims: int) -> None:
+        super().__init__()
+        self.register_buffer('r', torch.tensor(1, dtype=torch.int))
+        self.prenet = PreNet(n_mels)
+        self.attn_net = LSA(decoder_dims)
+        self.attn_rnn = nn.GRUCell(decoder_dims + decoder_dims // 2,
+                                   decoder_dims)
+        self.rnn_input = nn.Linear(2 * encoder_dims + decoder_dims,
+                                   lstm_dims)
+        self.res_rnn1 = nn.LSTMCell(lstm_dims, lstm_dims)
+        self.res_rnn2 = nn.LSTMCell(lstm_dims, lstm_dims)
+        self.mel_proj = nn.Linear(lstm_dims, n_mels * MAX_R, bias=False)
+
+    def _zoneout(self, h: torch.Tensor, h_next: torch.Tensor,
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
+        if generator is None or self.zoneout == 0:
+            return h_next
+        keep_old = torch.rand(h.shape, generator=generator,
+                              device=h.device) < self.zoneout
+        return torch.where(keep_old, h, h_next)
+
+    def step(self, encoder_seq: torch.Tensor, encoder_seq_proj: torch.Tensor,
+             prenet_out: torch.Tensor, state: Tuple[torch.Tensor, ...],
+             generator: Optional[torch.Generator]):
+        """One decoder step from this step's prenet output: returns
+        (mels (B, n_mels·MAX_R), attention scores (B, Tx), state)."""
+        (attn_h, r1_h, r1_c, r2_h, r2_c, context, cumulative,
+         prev_attn) = state
+        attn_h = self.attn_rnn(torch.cat([context, prenet_out], dim=-1),
+                               attn_h)
+        scores = self.attn_net(encoder_seq_proj, attn_h, cumulative,
+                               prev_attn)
+        cumulative = cumulative + scores
+        context = torch.bmm(scores[:, None, :], encoder_seq)[:, 0]
+        x = self.rnn_input(torch.cat([context, attn_h], dim=-1))
+        r1_h_next, r1_c = self.res_rnn1(x, (r1_h, r1_c))
+        r1_h = self._zoneout(r1_h, r1_h_next, generator)
+        x = x + r1_h
+        r2_h_next, r2_c = self.res_rnn2(x, (r2_h, r2_c))
+        r2_h = self._zoneout(r2_h, r2_h_next, generator)
+        x = x + r2_h
+        state = (attn_h, r1_h, r1_c, r2_h, r2_c, context, cumulative, scores)
+        return self.mel_proj(x), scores, state
+
+
+class Tacotron(nn.Module):
+
+    def __init__(self, embed_dims: int = 256, num_chars: int = len(phonemes),
+                 encoder_dims: int = 128, decoder_dims: int = 256,
+                 n_mels: int = 80, postnet_dims: int = 128,
+                 encoder_k: int = 16, lstm_dims: int = 512,
+                 postnet_k: int = 8, num_highways: int = 4,
+                 dropout: float = 0.5, stop_threshold: float = -11.0,
+                 n_speakers: int = 1) -> None:
+        """`dropout` is kept for the config's sake: as in the JAX package,
+        the prenets and CBHGs use their own rate of 0.5."""
+        super().__init__()
+        if n_speakers > 1:
+            raise ValueError('multi-speaker Tacotron (n_speakers > 1) is not '
+                             'ported yet')
+        self.n_mels = n_mels
+        self.encoder_dims = encoder_dims
+        self.decoder_dims = decoder_dims
+        self.lstm_dims = lstm_dims
+        self.encoder = Encoder(embed_dims, num_chars, encoder_dims,
+                               encoder_k, num_highways)
+        self.encoder_proj = nn.Linear(2 * encoder_dims, decoder_dims,
+                                      bias=False)
+        self.decoder = Decoder(n_mels, encoder_dims, decoder_dims, lstm_dims)
+        self.postnet = CBHG(K=postnet_k, in_channels=n_mels,
+                            channels=postnet_dims,
+                            proj_channels=[256, n_mels],
+                            num_highways=num_highways, dropout=0.5)
+        self.post_proj = nn.Linear(2 * postnet_dims, n_mels, bias=False)
+        self.register_buffer('step', torch.zeros(1, dtype=torch.long))
+        self.register_buffer('stop_threshold', torch.tensor(
+            float(stop_threshold), dtype=torch.float32))
+
+    def _init_state(self, B: int, Tx: int, like: torch.Tensor):
+        def z(*shape):
+            return like.new_zeros(shape)
+        return (z(B, self.decoder_dims), z(B, self.lstm_dims),
+                z(B, self.lstm_dims), z(B, self.lstm_dims),
+                z(B, self.lstm_dims), z(B, 2 * self.encoder_dims),
+                z(B, Tx), z(B, Tx))
+
+    def forward(self, x: torch.Tensor, mel: torch.Tensor, r: int,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Teacher-forced forward. x (B, Tx) token ids; mel (B, T_mel,
+        n_mels) time-major with T_mel a multiple of r. Returns (mel_out
+        (B, T_mel, n_mels), linear (B, T_mel, n_mels), attention
+        (B, T_mel // r, Tx))."""
+        B, Tx = x.shape
+        T_mel = mel.shape[1]
+        if T_mel % r != 0:
+            raise ValueError(f'mel length {T_mel} is not a multiple of r={r}')
+        if self.training and generator is None:
+            raise ValueError('train mode draws dropout and zoneout from a '
+                             'torch.Generator: pass `generator`')
+        gen = generator if self.training else None
+        steps = T_mel // r
+        encoder_seq = self.encoder(x, gen)
+        encoder_seq_proj = self.encoder_proj(encoder_seq)
+
+        # teacher forcing: the go frame, then the last frame of each step
+        prenet_in = torch.cat([mel.new_zeros((B, 1, self.n_mels)),
+                               mel[:, r - 1:(steps - 1) * r:r]], dim=1)
+        prenet_out = self.decoder.prenet(prenet_in, gen)
+        state = self._init_state(B, Tx, encoder_seq)
+        mels, scores = [], []
+        for t in range(steps):
+            m, s, state = self.decoder.step(encoder_seq, encoder_seq_proj,
+                                            prenet_out[:, t], state, gen)
+            mels.append(m)
+            scores.append(s)
+        # (B, steps, n_mels·MAX_R) -> (B, steps·r, n_mels)
+        mels = torch.stack(mels, dim=1).reshape(B, steps, self.n_mels,
+                                                MAX_R)[..., :r]
+        mel_out = mels.transpose(2, 3).reshape(B, steps * r, self.n_mels)
+        linear = self.post_proj(self.postnet(mel_out, generator=gen))
+        return mel_out, linear, torch.stack(scores, dim=1)
+
+    @classmethod
+    def from_config(cls, config: Dict[str, Any]) -> 'Tacotron':
+        model_config = dict(config['tacotron']['model'])
+        model_config['num_chars'] = len(phonemes)
+        model_config['n_mels'] = config['dsp']['num_mels']
+        return cls(**model_config)

@@ -1,0 +1,237 @@
+"""Tacotron teacher trainer.
+
+Mirrors the JAX package's `train/taco_trainer.py` (the reference's
+trainer/taco_trainer.py): (r, lr, max_step, batch size) schedule sessions,
+each with its own reduction factor r and epoch-seeded bucket batches
+with mid-epoch resume; the plain (unmasked) L1 of the decoder and the
+postnet outputs against the mel; global-norm clipping with optax's
+formula, then Adam (`train/common.py`); metrics and the train attention
+score read one step late; `evaluate()` in eval mode at the end of every
+epoch (no gradient, so the BiGRUs take the inference kernel #1), with
+the attention score of the validation batches; `latest_model.pt` and
+`taco_step{k}k.pt` checkpoints; graceful preemption. Dropout and zoneout
+draw from a `torch.Generator` seeded with (seed, step), so a resumed run
+draws what an uninterrupted one does. Scalars go to stdout, and to an
+optional `writer` with an `add_scalar(tag, value, step)` method. Not
+ported: the `precision`, `grad_accum`, `remat` and top-k options
+(refused by name), plots and audio samples (`plot_every` is ignored),
+the background checkpoint writer.
+"""
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from forwardtacotron_tpu_torch import resolve_device
+from forwardtacotron_tpu_torch.align.metrics import attention_score
+from forwardtacotron_tpu_torch.data.dataset import (Prefetcher,
+                                                    get_tts_datasets)
+from forwardtacotron_tpu_torch.train import common as tc
+from forwardtacotron_tpu_torch.utils.checkpoints import save_checkpoint
+from forwardtacotron_tpu_torch.utils.files import parse_schedule
+from forwardtacotron_tpu_torch.utils.paths import Paths
+
+
+def taco_batch_to_device(batch: Dict[str, Any], device
+                         ) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.asarray(batch[k])).to(device,
+                                                         non_blocking=True)
+            for k in ('x', 'mel', 'mel_len')}
+
+
+def taco_loss(m1: torch.Tensor, m2: torch.Tensor, mel: torch.Tensor
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """L1 of the decoder and the postnet outputs over every frame, padding
+    included (the reference's taco_trainer.py:62-64)."""
+    m1_loss = (m1 - mel).abs().mean()
+    m2_loss = (m2 - mel).abs().mean()
+    loss = m1_loss + m2_loss
+    return loss, {'loss': loss.detach(), 'm1_loss': m1_loss.detach(),
+                  'm2_loss': m2_loss.detach()}
+
+
+def taco_train_step(model: torch.nn.Module,
+                    optimizer: torch.optim.Optimizer,
+                    batch: Dict[str, torch.Tensor], r: int,
+                    generator: torch.Generator, train_cfg: Dict[str, Any]
+                    ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """One optimization step in train mode: teacher-forced forward at r,
+    loss, backward (kernels #2/#3 for the BiGRUs), global-norm clip,
+    Adam. Returns (metrics, attention), device tensors."""
+    model.train()
+    optimizer.zero_grad(set_to_none=True)
+    m1, m2, att = model(batch['x'], batch['mel'], r, generator)
+    loss, metrics = taco_loss(m1, m2, batch['mel'])
+    loss.backward()
+    clip = train_cfg.get('clip_grad_norm')
+    if clip is not None:
+        metrics['grad_norm'] = tc.clip_by_global_norm(model.parameters(),
+                                                      float(clip))
+    optimizer.step()
+    return metrics, att.detach()
+
+
+@torch.no_grad()
+def taco_eval_step(model: torch.nn.Module, batch: Dict[str, torch.Tensor],
+                   r: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(loss, attention) of the teacher-forced forward in eval mode; the
+    model's mode is restored."""
+    was_training = model.training
+    model.eval()
+    try:
+        m1, m2, att = model(batch['x'], batch['mel'], r)
+    finally:
+        model.train(was_training)
+    return taco_loss(m1, m2, batch['mel'])[0], att
+
+
+class TacoTrainer:
+
+    def __init__(self, paths: Paths, config: Dict[str, Any],
+                 device='cuda', writer=None) -> None:
+        self.paths = paths
+        self.config = config
+        self.device = resolve_device(device)
+        self.train_cfg = config['tacotron']['training']
+        tc.check_supported(self.train_cfg)
+        self.writer = writer
+        self.preemption = tc.Preemption()
+
+    def _scalar(self, tag: str, value: float, step: int) -> None:
+        if self.writer is not None:
+            self.writer.add_scalar(tag, value, step)
+
+    def _save(self, model, optimizer, name: str, step: int) -> None:
+        save_checkpoint(model, optimizer, self.config,
+                        self.paths.taco_checkpoints / name, step)
+
+    def train(self, model: torch.nn.Module,
+              optimizer: Optional[torch.optim.Optimizer] = None,
+              step: int = 0, seed: int = 42,
+              max_steps_override: Optional[int] = None) -> int:
+        """Run the schedule from `step` on the trainer's device; the model
+        and optimizer are updated in place. Returns the final step."""
+        model.to(self.device)
+        if optimizer is None:
+            optimizer = tc.make_optimizer(model)
+        schedule = parse_schedule(self.train_cfg['schedule'])
+        session_start = 0
+        with self.preemption:
+            for i, (r, lr, max_step, bs) in enumerate(schedule, 1):
+                prev_max, session_start = session_start, max_step
+                if self.preemption.requested:
+                    break
+                if max_steps_override is not None:
+                    max_step = min(max_step, max_steps_override)
+                if step >= max_step:
+                    continue
+                train_set, val_set = get_tts_datasets(
+                    path=self.paths.data, batch_size=bs, r=r,
+                    model_type='tacotron',
+                    max_mel_len=self.train_cfg['max_mel_len'],
+                    filter_attention=False)
+                if len(train_set) == 0:
+                    raise RuntimeError('No training items: check the '
+                                       'dataset and max_mel_len.')
+                session = tc.TTSSession(index=i, r=r, lr=lr,
+                                        max_step=max_step, bs=bs,
+                                        train_set=train_set, val_set=val_set,
+                                        start_step=prev_max)
+                step = self.train_session(model, optimizer, step, session,
+                                          seed)
+        return step
+
+    def train_session(self, model, optimizer, step: int,
+                      session: tc.TTSSession, seed: int) -> int:
+        total_iters = len(session.train_set)
+        epoch0, offset0 = tc.resume_position(step, session.start_step,
+                                             total_iters)
+        epochs = max((session.max_step - step + offset0)
+                     // max(total_iters, 1) + 1, 1)
+        print(f'| Session {session.index}: {session.max_step - step} steps '
+              f'with r={session.r}, batch size {session.bs}, learning rate '
+              f'{session.lr}, device {self.device}')
+        tc.set_learning_rate(optimizer, session.lr)
+        model.decoder.r.fill_(session.r)
+        loss_avg, duration_avg = tc.Averager(), tc.Averager()
+        last_t = time.time()
+
+        def flush_metrics(metrics, att, mel_len, pstep, pe, pi) -> None:
+            nonlocal last_t
+            loss = float(metrics['loss'])                 # waits
+            loss_avg.add(loss)
+            now = time.time()
+            duration_avg.add(now - last_t)
+            last_t = now
+            speed = 1.0 / max(duration_avg.get(), 1e-9)
+            att_score = float(attention_score(att, mel_len,
+                                              r=session.r)[1].mean())
+            print(f'| Epoch: {pe}/{epochs} ({pi}/{total_iters}) '
+                  f'| Loss: {loss_avg.get():#.4} '
+                  f'| {speed:#.2} steps/s | Step: {pstep} | ', flush=True)
+            self._scalar('Attention_Score/train', att_score, pstep)
+            self._scalar('Loss/train', loss, pstep)
+            self._scalar('Params/reduction_factor', session.r, pstep)
+            self._scalar('Params/batch_size', session.bs, pstep)
+            self._scalar('Params/learning_rate', session.lr, pstep)
+
+        deferred = tc.DeferredFlush(flush_metrics)
+        for e in range(1, epochs + 1):
+            epoch = epoch0 + e - 1
+            start = offset0 if epoch == epoch0 else 0
+            batches = Prefetcher(session.train_set.batches(epoch, start))
+            for i, batch in enumerate(batches, start + 1):
+                # dropout and zoneout draw from (seed, step): a resumed run
+                # draws the same masks
+                gen = torch.Generator(device=self.device).manual_seed(
+                    seed * 1_000_003 + step)
+                tbatch = taco_batch_to_device(batch, self.device)
+                metrics, att = taco_train_step(model, optimizer, tbatch,
+                                               session.r, gen,
+                                               self.train_cfg)
+                step += 1
+                deferred.push(metrics, att, tbatch['mel_len'], step, e, i)
+                if step % self.train_cfg['checkpoint_every'] == 0:
+                    self._save(model, optimizer,
+                               f'taco_step{step // 1000}k.pt', step)
+                if self.preemption.requested:
+                    print('| Preemption requested: saving latest_model and '
+                          'stopping.')
+                    break
+                if step >= session.max_step:
+                    break
+            else:
+                deferred.flush()
+                val_loss, val_att = self.evaluate(model, session.val_set,
+                                                  session.r)
+                print(f'| Validation at step {step}: loss {val_loss:#.4}, '
+                      f'attention score {val_att:#.4}')
+                self._scalar('Loss/val', val_loss, step)
+                self._scalar('Attention_Score/val', val_att, step)
+                self._save(model, optimizer, 'latest_model.pt', step)
+                loss_avg.reset()
+                duration_avg.reset()
+                last_t = time.time()
+                continue
+            break  # max_step reached or preempted
+        deferred.flush()
+        self._save(model, optimizer, 'latest_model.pt', step)
+        return step
+
+    def evaluate(self, model: torch.nn.Module, val_set, r: int
+                 ) -> Tuple[float, float]:
+        """(mean loss, mean sharpness score) over the validation batches at
+        r, eval mode, no gradient; the score is taken at r=1 over the
+        step-level attention, as the JAX package does."""
+        val_loss, val_att, n = 0.0, 0.0, 0
+        for batch in val_set:
+            tbatch = taco_batch_to_device(batch, self.device)
+            loss, att = taco_eval_step(model, tbatch, r)
+            _, score = attention_score(att, tbatch['mel_len'], r=1)
+            val_loss += float(loss)
+            val_att += float(score.mean())
+            n += 1
+        return val_loss / max(n, 1), val_att / max(n, 1)

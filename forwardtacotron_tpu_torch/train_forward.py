@@ -55,8 +55,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     paths = Paths(config['data_path'], config['tts_model_id'])
     if not any(paths.alg.iterdir()):
         raise SystemExit(f'Could not find alignment files in {paths.alg}; '
-                         'extract durations first (train_tacotron.py '
-                         '--force_align or train_aligner.py).')
+                         'extract durations first (python -m '
+                         'forwardtacotron_tpu_torch.train_tacotron '
+                         '--force_align).')
     trainer = ForwardTrainer(paths, config, device)
 
     torch.manual_seed(SEED)

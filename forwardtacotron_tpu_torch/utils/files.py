@@ -1,4 +1,4 @@
-"""Pickle helpers and the training-schedule parser.
+"""File listing, pickle helpers and the training-schedule parser.
 
 A copy of the JAX package's `utils/files.py` (the reference's
 utils/files.py:7-43), without its YAML helpers: `config.read_config`
@@ -9,6 +9,13 @@ from __future__ import annotations
 import pickle
 from pathlib import Path
 from typing import Any, List, Tuple, Union
+
+
+def get_files(path: Union[str, Path], extension: str = '.wav') -> List[Path]:
+    """Every file under `path` (recursively) with `extension`, sorted."""
+    if isinstance(path, str):
+        path = Path(path).expanduser().resolve()
+    return sorted(path.rglob(f'*{extension}'))
 
 
 def pickle_binary(data: object, file: Union[str, Path]) -> None:

@@ -1,8 +1,9 @@
 """Weights from the JAX package's checkpoints.
 
 `load_fjax` reads a `.fjax` file (a pickle of numpy arrays plus the
-config). `forward_tacotron_state_dict` / `wavernn_state_dict` /
-`hifigan_state_dict` turn its flax variables into this package's
+config). `forward_tacotron_state_dict` / `tacotron_state_dict` /
+`wavernn_state_dict` / `hifigan_state_dict` turn its flax variables into
+this package's
 `state_dict`, under the reference's torch key names (the official
 generator's for HiFi-GAN, the hub model's for MelGAN), so
 `load_state_dict(strict=True)` takes them as they are. Layout transforms:
@@ -133,6 +134,58 @@ def forward_tacotron_state_dict(variables: Dict[str, Any],
     _put_cbhg(out, 'postnet', params['postnet'], stats['postnet'],
               K=model_cfg['postnet_k'],
               num_highways=model_cfg['postnet_num_highways'])
+    _put_dense(out, 'post_proj', params['post_proj'])
+    return out
+
+
+def _put_prenet(out: Dict, name: str, p: Dict) -> None:
+    _put_dense(out, f'{name}.fc1', p['fc1'])
+    _put_dense(out, f'{name}.fc2', p['fc2'])
+
+
+def _put_cell(out: Dict, name: str, params: Dict, prefix: str) -> None:
+    for key, jax_key in (('weight_ih', 'w_ih'), ('weight_hh', 'w_hh'),
+                         ('bias_ih', 'b_ih'), ('bias_hh', 'b_hh')):
+        out[f'{name}.{key}'] = _t(params[f'{prefix}_{jax_key}'])
+
+
+def tacotron_state_dict(variables: Dict[str, Any], model_cfg: Dict[str, Any],
+                        step: int = 0, r: int = 1
+                        ) -> Dict[str, torch.Tensor]:
+    """Flax Tacotron variables (numpy) -> the port's state_dict, with the
+    `decoder.r` and `stop_threshold` buffers. Multi-speaker checkpoints
+    are rejected."""
+    params = variables['params']
+    stats = variables.get('batch_stats', {})
+    if int(model_cfg.get('n_speakers', 1)) > 1 or any(
+            k in params for k in ('speaker_embedding', 'speaker_proj')):
+        raise ValueError('multi-speaker Tacotron checkpoints '
+                         '(n_speakers > 1) are not ported yet')
+    enc = params['encoder']
+    out: Dict[str, torch.Tensor] = {
+        'step': torch.tensor([int(step)], dtype=torch.long),
+        'decoder.r': torch.tensor(int(r), dtype=torch.int),
+        'stop_threshold': torch.tensor(
+            float(model_cfg.get('stop_threshold', -11.0)),
+            dtype=torch.float32),
+        'encoder.embedding.weight': _t(enc['embedding']['embedding'])}
+    _put_prenet(out, 'encoder.pre_net', enc['pre_net'])
+    _put_cbhg(out, 'encoder.cbhg', enc['cbhg'], stats['encoder']['cbhg'],
+              K=model_cfg['encoder_k'],
+              num_highways=model_cfg['num_highways'])
+    _put_dense(out, 'encoder_proj', params['encoder_proj'])
+    _put_prenet(out, 'decoder.prenet', params['dec_prenet'])
+    _put_conv1d(out, 'decoder.attn_net.conv', params['lsa_conv'])
+    for k in ('L', 'W', 'v'):
+        _put_dense(out, f'decoder.attn_net.{k}', params[f'lsa_{k}'])
+    _put_cell(out, 'decoder.attn_rnn', params, 'attn_rnn')
+    _put_dense(out, 'decoder.rnn_input', params['rnn_input'])
+    _put_cell(out, 'decoder.res_rnn1', params, 'res_rnn1')
+    _put_cell(out, 'decoder.res_rnn2', params, 'res_rnn2')
+    _put_dense(out, 'decoder.mel_proj', params['mel_proj'])
+    _put_cbhg(out, 'postnet', params['postnet'], stats['postnet'],
+              K=model_cfg['postnet_k'],
+              num_highways=model_cfg['num_highways'])
     _put_dense(out, 'post_proj', params['post_proj'])
     return out
 

@@ -98,10 +98,10 @@ def test_builtin_config_equals_config_yaml():
         assert cfg[key] == ref[key], key
     for section in ('dsp', 'preprocessing'):
         assert cfg[section] == ref[section], section
-    for section in ('forward_tacotron', 'vocoder'):
+    for section in ('forward_tacotron', 'vocoder', 'tacotron'):
         assert cfg[section]['model'] == ref[section]['model'], section
-    assert cfg['forward_tacotron']['training'] == \
-        ref['forward_tacotron']['training']
+    for section in ('forward_tacotron', 'tacotron'):
+        assert cfg[section]['training'] == ref[section]['training'], section
     assert cfg['hifigan']['model'] == ref['hifigan']['model']
 
 
@@ -138,11 +138,15 @@ def test_port_imports_no_jax():
     files = sorted((ROOT / 'forwardtacotron_tpu_torch').rglob('*.py'))
     files.append(ROOT / 'chip_smoke.py')
     assert len(files) > 10
-    # the serving path's modules are among the scanned
+    # the serving path's and the data path's modules are among the scanned
     names = {p.relative_to(ROOT).as_posix() for p in files}
     for module in ('dsp/stft', 'dsp/griffinlim', 'dsp/audio',
                    'text/segmenter', 'models/hifigan', 'models/melgan',
-                   'models/streaming', 'serving', 'serve_forward'):
+                   'models/streaming', 'serving', 'serve_forward',
+                   'dsp/pitch', 'dsp/vad', 'text/recipes', 'preprocess',
+                   'models/tacotron', 'align/metrics', 'align/duration',
+                   'align/features', 'train/taco_trainer', 'train_tacotron',
+                   'utils/display', 'utils/files', 'utils/paths'):
         assert f'forwardtacotron_tpu_torch/{module}.py' in names, module
     for path in files:
         for name in _imports(path):
