@@ -23,13 +23,18 @@ printed only when every phase passed):
    both paths, timed); and at the Tacotron teacher's alignment shapes
    (`TEACHER_BIRNN_CASES`, B=8 float32 at atol 1e-4: postnet GRU H=128
    T=1250 and encoder GRU H=128 T=200, ragged; timed beside cuDNN and the
-   bound);
+   bound); and at the vocoder trainer's evaluate() shape
+   (`VOCODER_BIRNN_CASES`: WaveRNN's GRU H=512, one stream, T=1280, B=32,
+   float32 at atol 1e-4; timed beside a one-way nn.GRU and the bound);
 4. WaveRNN sampling kernel against its plain version, greedy, in both
    compute types (class agreement > 95%; MOL within 1e-3 on > 95%): RAW
    at 64 lanes x 3850 steps, float32 at 128 lanes x 600 steps, bfloat16 at
    72 lanes x 3850 steps (the 920-frame utterance's fold), MOL at 16 lanes
-   x 1650 steps; RAW and MOL sampled, same seed same samples, lane groups;
-   timed in bfloat16 at 1, 8, 64 and 128 lanes x 3850 steps;
+   x 1650 steps, float32 at VOC_GEN_LANES lanes x 12100 steps (the
+   vocoder trainer's fold, target 11000 and overlap 550; bfloat16 there
+   on > 90%: flips of near ties grow with the steps); RAW and MOL
+   sampled, same seed same samples, lane groups; timed in bfloat16 at 1,
+   8, 64 and 128 lanes x 3850 steps and at the trainer's fold;
 5. the main path at the full width of config.yaml with random weights:
    `gen_forward.main` on three lines of sentences.txt (text -> ids ->
    generate -> vocode -> int16 wav), with the kernels' launch counts
@@ -62,7 +67,9 @@ printed only when every phase passed):
    T=1024 ragged, postnet GRU H=256 T=1024, prenet GRU H=256 T=192,
    predictor GRUs H=128/64 T=192; and the teacher's CBHG GRUs,
    `TEACHER_TRAIN_KERNEL_CASES`: postnet H=128 T=1250 at B=32 (r=5) and
-   B=8 (r=1), encoder H=128 T=200 at B=32, ragged; float32 at atol 1e-4;
+   B=8 (r=1), encoder H=128 T=200 at B=32, ragged; and WaveRNN's GRU,
+   `VOCODER_TRAIN_KERNEL_CASES`: H=512, one stream, T=1280, B=32, timed
+   beside a one-way nn.GRU; float32 at atol 1e-4;
    bfloat16 at 2^-7
    of the largest plain value for the outputs stored in bfloat16 (stash,
    dgi, dgh), 2e-3 for y, and a relative L2 error of at most 2^-8), with
@@ -91,9 +98,26 @@ printed only when every phase passed):
    (#1 counted; every duration sum its mel_len; attention card vs CPU at
    atol 1e-4) and `--extract_pitch`, and `ForwardTrainer.train` for 2
    steps on what the port wrote;
-10. a {"kernels": [...]} JSON line (launches of the main paths, and of
-   the teacher phase in `launches_teacher`), the nvidia-smi line, and
-   last {"ok": true, "device": {...}}.
+10. the vocoder-training path at the full width of config.yaml's
+   `vocoder` and `hifigan` sections, random weights (`vocoder_path` lists
+   its cuts): `train_forward.main(['--force_gta'])` on a seeded student
+   (utterances a second); `train_wavernn.main(['--gta'])` at batch 32,
+   RAW, with two launches each of #2 and #3 a step on their planned
+   paths, `evaluate()` through #1 and `generate_samples` through #4 (a
+   finite mel L1), its checkpoint served by `gen_forward wavernn`; MOL
+   steps; the step split into forward, backward and optimizer with peak
+   memory and idle share; float32 gradients against the CPU with the
+   ReLU decisions replayed; `train_hifigan.main(['--gta'])` for HiFi-GAN
+   V1 and MelGAN at batch 16, seg_len 8192 (finite losses, every
+   parameter moved, served by `gen_forward hifigan|melgan`), each step
+   split into the discriminators' and the generator's halves. Every
+   step timing (phases 8-10, `step_timing`) takes the device's busy time
+   as the union of its kernel intervals (`profiled`);
+11. a {"kernels": [...]} JSON line (launches of the main paths, of the
+   teacher phase in `launches_teacher` and of the vocoder phase in
+   `launches_vocoder`, and each kernel's time at the vocoder path's shape
+   in `vocoder_*`), the nvidia-smi line, and last
+   {"ok": true, "device": {...}}.
 
 Details go to chiprun_out/chip_smoke.json.
 """
@@ -168,6 +192,94 @@ def bound_ms(n_bytes: float, flops: float, dtype) -> tuple:
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
+def profiled(prof, wall_ms: float, top: int = 12) -> dict:
+    """What one profiled run shows of the device: its busy time as the
+    union of the kernel intervals (kernels that overlap, as on cuDNN's side
+    streams, count once; a sum of their self times would count them
+    twice), the idle share against the wall time, the self times summed,
+    and the `top` kernels by self time."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if str(e.device_type).endswith('CUDA'))
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    busy /= 1e3
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                      for e in prof.key_averages()
+                      if str(e.device_type).endswith('CUDA')
+                      and e.self_device_time_total > 0),
+                     key=lambda k: -k[1])
+    return {'wall_ms': wall_ms, 'device_busy_ms': busy,
+            'kernel_ms_summed': sum(k[1] for k in kernels),
+            'idle_share': 1.0 - busy / wall_ms if spans else 'not measured',
+            'top': [{'kernel': k[:90], 'ms': t, 'count': c}
+                    for k, t, c in kernels[:top]]}
+
+
+def train_parts(model, optimizer, loss_fn, clip: float) -> list:
+    """One training step as `step_timing`'s parts: forward with the loss
+    (`loss_fn()`), backward, and the global-norm clip + the optimizer."""
+    from forwardtacotron_tpu_torch.train.common import clip_by_global_norm
+    held = {}
+
+    def forward():
+        optimizer.zero_grad(set_to_none=True)
+        held['loss'] = loss_fn()
+
+    def optimize():
+        clip_by_global_norm(model.parameters(), clip)
+        optimizer.step()
+
+    return [('forward_ms', forward),
+            ('backward_ms', lambda: held.pop('loss').backward()),
+            ('optimizer_ms', optimize)]
+
+
+def step_timing(parts, what: str, smi: str, warmup: int = 2,
+                reps: int = 3) -> dict:
+    """ms per step of `parts`, (name, closure) pairs run in order and
+    split by CUDA events (median of `reps` after `warmup` steps); the peak
+    memory of a step; one more step under the profiler (`profiled`)."""
+    from torch.profiler import ProfilerActivity, profile
+    rows = []
+    torch.cuda.reset_peak_memory_stats()
+    for rep in range(warmup + reps):
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(len(parts) + 1)]
+        ev[0].record()
+        for e, (_, fn) in zip(ev[1:], parts):
+            fn()
+            e.record()
+        ev[-1].synchronize()
+        if rep >= warmup:
+            rows.append([ev[i].elapsed_time(ev[i + 1])
+                         for i in range(len(parts))])
+    out = {name: float(np.median([r[i] for r in rows]))
+           for i, (name, _) in enumerate(parts)}
+    out['step_ms'] = sum(out.values())
+    out['peak_memory_gib'] = torch.cuda.max_memory_allocated() / 2 ** 30
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _, fn in parts:
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    out['profiled'] = prof_out = profiled(prof, wall_ms)
+    split = ' + '.join(f'{name[:-3]} {out[name]:.2f}' for name, _ in parts)
+    log(f'  {what}: {split} = {out["step_ms"]:.2f} ms, peak memory '
+        f'{out["peak_memory_gib"]:.2f} GiB; profiled wall {wall_ms:.1f} ms, '
+        f'device busy {prof_out["device_busy_ms"]:.1f} ms (kernel times '
+        f'summed {prof_out["kernel_ms_summed"]:.1f}), idle share '
+        f'{prof_out["idle_share"]} | {smi}')
+    for row in prof_out['top'][:8]:
+        log(f'    {row["ms"]:8.2f} ms  x{row["count"]:<4} {row["kernel"]}')
+    return out
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
@@ -238,6 +350,13 @@ TEACHER_BIRNN_CASES = (
                                                 for i in range(8))),
     ('teacher encoder', 'gru', 200, 128, tuple(200 - 9 * i
                                                for i in range(8))))
+
+
+# kernel #1 at the shape evaluate() gives it on the vocoder-training path,
+# as (name, cell, T, H, lengths): WaveRNN's two unidirectional GRUs (one
+# stream each) over seq_len 1280 at batch 32, float32
+VOCODER_BIRNN_CASES = (
+    ('wavernn GRU', 'gru', 1280, 512, (1280,) * 32),)
 
 
 def _birnn_bound(cell, gi, w, b, ln, H):
@@ -315,12 +434,13 @@ def birnn_cases():
                         f'library {row["library_ms"]}')
                 rows.append(row)
     f32 = torch.float32
-    for what, cell, T, H, lens, B in (
-            [c + (32,) for c in EVAL_BIRNN_CASES]
-            + [c + (8,) for c in TEACHER_BIRNN_CASES]):
-        gi, w, b, ln = _birnn_inputs(cell, T, B, 2, H, f32, seed=T + H,
+    for what, cell, T, H, lens, B, S in (
+            [c + (32, 2) for c in EVAL_BIRNN_CASES]
+            + [c + (8, 2) for c in TEACHER_BIRNN_CASES]
+            + [c + (32, 1) for c in VOCODER_BIRNN_CASES]):
+        gi, w, b, ln = _birnn_inputs(cell, T, B, S, H, f32, seed=T + H,
                                      lens=lens)
-        plan = kb.inference_plan(cell, 2, B, H, f32, smem, n_sms)
+        plan = kb.inference_plan(cell, S, B, H, f32, smem, n_sms)
         # the decoder on the cooperative path too, on the same inputs
         paths = [plan['path']]
         if what == 'decoder' and plan['path'] == 'stream_local':
@@ -329,9 +449,10 @@ def birnn_cases():
                 for p in paths}
         torch.cuda.synchronize()
         ref = birnn_recurrence(cell, gi, w, b, ln, f32)
-        name = (f'{what}: {cell} T={T} H={H} S=2 B={B} float32'
+        name = (f'{what}: {cell} T={T} H={H} S={S} B={B} float32'
                 if what.startswith('teacher') else
-                f'evaluate() {what}: {cell} T={T} H={H} S=2 B={B} float32')
+                f'evaluate() {what}: {cell} T={T} H={H} S={S} B={B} '
+                'float32')
         row = {'case': name, 'path': plan['path'],
                'cluster': plan.get('cluster'), 'waves': plan.get('waves'),
                'max_abs_err': {}, 'tol': 1e-4}
@@ -340,7 +461,7 @@ def birnn_cases():
             check(err <= 1e-4 and bool(torch.isfinite(y).all()),
                   f'BiRNN {name} {p}: max|kernel-plain| {err:.3g} <= 0.0001')
             row['max_abs_err'][p] = err
-        if what == 'decoder' or what.startswith('teacher'):
+        if what in ('decoder', 'wavernn GRU') or what.startswith('teacher'):
             for p in paths:
                 row[f'ms_{p}'] = cuda_ms(lambda: kb.recurrence(
                     cell, gi, w, b, ln, f32, path=p), reps=3)
@@ -348,7 +469,7 @@ def birnn_cases():
                 cell, gi, w, b, ln, f32), reps=1, warmup=0)
             row['bound_ms'], row['bound_by'] = _birnn_bound(cell, gi, w, b,
                                                             ln, H)
-            row['library_ms'] = _cudnn_ms(cell, T, H, 2, B, f32)
+            row['library_ms'] = _cudnn_ms(cell, T, H, S, B, f32)
             times = ', '.join(f'{p} {row[f"ms_{p}"]:.3f} ms' for p in paths)
             log(f'  {name}: {times} (planned {plan["path"]}, cluster '
                 f'{plan.get("cluster")}, {plan.get("waves")} waves), plain '
@@ -360,13 +481,14 @@ def birnn_cases():
 
 
 def _cudnn_ms(cell, T, H, S, B, dtype):
-    """One cuDNN bidirectional nn.LSTM/nn.GRU call over (B, T, H) inputs
-    (input projection included) as a yardstick; None for grouped
-    streams, which no single library call computes."""
-    if S != 2:
+    """One cuDNN nn.LSTM/nn.GRU call over (B, T, H) inputs (input
+    projection included), bidirectional for two streams and one-way for
+    one, as a yardstick; None for grouped streams, which no single library
+    call computes."""
+    if S not in (1, 2):
         return None
     mod = (torch.nn.LSTM if cell == 'lstm' else torch.nn.GRU)(
-        H, H, batch_first=True, bidirectional=True).cuda().to(dtype)
+        H, H, batch_first=True, bidirectional=S == 2).cuda().to(dtype)
     mod.flatten_parameters()
     x = torch.randn((B, T, H), device='cuda', dtype=dtype)
     with torch.no_grad():
@@ -488,6 +610,48 @@ def wavernn_cases():
     check(agree > 0.95, f'RAW greedy bf16 72x3850: class agreement '
                         f'{agree:.4f} > 0.95')
     out['raw_greedy_bf16_72_agreement'] = agree
+
+    # the vocoder trainer's fold (config.yaml vocoder.training: target
+    # 11000, overlap 550, so 12100 steps a lane) at the lanes of one of
+    # phase 10's validation mels: greedy float32 against the plain
+    # version (the same class on > 95% of the samples, as at 64 x 3850);
+    # greedy bf16, the trainer's compute type, on > 90%: over 12100 steps
+    # a lane the near ties that bf16 products decide otherwise than the
+    # plain version's are three times as many as over 3850, and each
+    # flip sends a lane's trajectory its own way for a while (0.9437 of
+    # the classes agreed on an H100 at 700 W, where a wrong kernel agrees
+    # on a few per cent); timed sampled in bf16 beside its bound
+    lanes, steps = VOC_GEN_LANES, 11_000 + 2 * 550
+    model_g, mels_g, aux_g = _wavernn_inputs('RAW', lanes, steps, seed=8)
+    fold = {}
+    for dtype in (f32, bf16):
+        w_g = ws.pack_weights(model_g, dtype)
+        cond_g = ws.compact_cond(mels_g, aux_g, dtype)
+        k = ws.sample(cond_g, w_g, 0, 0, True, dtype)
+        t0 = time.perf_counter()
+        p = ws.sample_plain(cond_g, w_g, 0, 0, True, dtype)
+        torch.cuda.synchronize()
+        fold[dtype] = ((time.perf_counter() - t0) * 1e3,
+                       float(((k - p).abs() < 1e-6).float().mean()),
+                       float((k - p).abs().max()))
+    agree = fold[f32][1]
+    check(agree > 0.95, f'RAW greedy f32 {lanes}x{steps} (the trainer\'s '
+                        f'fold): class agreement {agree:.4f} > 0.95')
+    check(fold[bf16][1] > 0.90, f'RAW greedy bf16 {lanes}x{steps} (the '
+                                f'trainer\'s fold): class agreement '
+                                f'{fold[bf16][1]:.4f} > 0.90')
+    n_bytes = cond_g.numel() * 2 + sum(
+        t.numel() * t.element_size() for t in w_g.values()) + steps * lanes * 4
+    gen_bound = bound_ms(n_bytes, 2.0 * macs * steps * lanes, bf16)
+    out['trainer_fold'] = {
+        'shape': f'RAW sampled bf16 {lanes} lanes x {steps} steps',
+        'agreement': agree, 'max_abs_err': fold[f32][2],
+        'bf16_greedy_agreement': fold[bf16][1],
+        'ms': cuda_ms(lambda: ws.sample(cond_g, w_g, 7, 0, False, bf16),
+                      reps=2),
+        'plain_ms': fold[bf16][0], 'bound_ms': gen_bound[0],
+        'bound_by': gen_bound[1]}
+    log(f'  trainer fold {out["trainer_fold"]}')
 
     # bf16 RAW sampled at 1, 8, 64 and 128 lanes x 3850 steps (random
     # conditioning of the model's width)
@@ -1096,25 +1260,32 @@ TEACHER_TRAIN_KERNEL_CASES = (
     ('teacher encoder', 'gru', 200, 128, 32, [200 - 3 * i for i in range(32)]))
 
 
-def _train_inputs(cell, T, B, H, lens, seed):
+# WaveRNN's two GRUs in training, one stream each, as (name, cell, T, H,
+# B, lengths): seq_len 1280 at batch 32 (config.yaml vocoder.training)
+VOCODER_TRAIN_KERNEL_CASES = (
+    ('wavernn GRU', 'gru', 1280, 512, 32, [1280] * 32),)
+
+
+def _train_inputs(cell, T, B, H, lens, seed, S=2):
     g = torch.Generator().manual_seed(seed)
     ng = 4 if cell == 'lstm' else 3
     bound = 1.0 / math.sqrt(H)
-    gi = torch.randn((T, B, 2, ng * H), generator=g) * 0.5
-    w = (torch.rand((2, ng * H, H), generator=g) * 2 - 1) * bound
-    b = torch.zeros((2, ng * H)) if cell == 'lstm' else \
-        (torch.rand((2, ng * H), generator=g) * 2 - 1) * bound
-    dy = torch.randn((T, B, 2, H), generator=g)
+    gi = torch.randn((T, B, S, ng * H), generator=g) * 0.5
+    w = (torch.rand((S, ng * H, H), generator=g) * 2 - 1) * bound
+    b = torch.zeros((S, ng * H)) if cell == 'lstm' else \
+        (torch.rand((S, ng * H), generator=g) * 2 - 1) * bound
+    dy = torch.randn((T, B, S, H), generator=g)
     lengths = torch.tensor(lens, dtype=torch.int32)
     return [t.cuda().contiguous() for t in (gi, w, b, lengths, dy)]
 
 
-def _cudnn_train_ms(cell, T, H, B):
-    """cuDNN bidirectional nn.LSTM/nn.GRU over (B, T, H) inputs, forward
-    with grad and backward timed apart (input projection included): a
-    yardstick only, never called by the port."""
+def _cudnn_train_ms(cell, T, H, B, S=2):
+    """cuDNN nn.LSTM/nn.GRU over (B, T, H) inputs, bidirectional for two
+    streams and one-way for one, forward with grad and backward timed
+    apart (input projection included): a yardstick only, never called by
+    the port."""
     mod = (torch.nn.LSTM if cell == 'lstm' else torch.nn.GRU)(
-        H, H, batch_first=True, bidirectional=True).cuda()
+        H, H, batch_first=True, bidirectional=S == 2).cuda()
     mod.flatten_parameters()
     x = torch.randn((B, T, H), device='cuda', requires_grad=True)
     fwd = cuda_ms(lambda: mod(x), reps=5)
@@ -1142,16 +1313,20 @@ def train_kernel_cases():
     bf16_rel = {'y': 2e-3, 'stash': 2.0 ** -7, 'dgi': 2.0 ** -7,
                 'dgh': 2.0 ** -7}
     rows = []
-    for name, cell, T, H, B, lens in (
-            [(n, c, T, H, 32, ln) for n, c, T, H, ln in TRAIN_KERNEL_CASES]
-            + list(TEACHER_TRAIN_KERNEL_CASES)):
-        gi, w, b, ln, dy = _train_inputs(cell, T, B, H, lens, seed=H + T)
-        row = {'case': f'{name} {cell} H={H} T={T} B={B}', 'errors': {},
+    for name, cell, T, H, B, lens, S in (
+            [(n, c, T, H, 32, ln, 2) for n, c, T, H, ln in
+             TRAIN_KERNEL_CASES]
+            + [c + (2,) for c in TEACHER_TRAIN_KERNEL_CASES]
+            + [c + (1,) for c in VOCODER_TRAIN_KERNEL_CASES]):
+        gi, w, b, ln, dy = _train_inputs(cell, T, B, H, lens, seed=H + T,
+                                         S=S)
+        row = {'case': f'{name} {cell} H={H} T={T} B={B}'
+                       + (f' S={S}' if S != 2 else ''), 'errors': {},
                'path': bt.train_forward_plan(
-                   cell, 2, B, H, f32, props.shared_memory_per_block_optin,
+                   cell, S, B, H, f32, props.shared_memory_per_block_optin,
                    props.multi_processor_count)['path']}
         row['bwd_path'] = bt.train_backward_plan(
-            cell, 2, B, H, f32, props.shared_memory_per_block_optin,
+            cell, S, B, H, f32, props.shared_memory_per_block_optin,
             props.multi_processor_count)['path']
         for dtype in (f32, bf16):
             gi_d, w_d = gi.to(dtype), w.to(dtype)
@@ -1211,10 +1386,10 @@ def train_kernel_cases():
         row['plain_ms_bwd'] = cuda_ms(lambda: birnn_train_backward(
             cell, st32, dy, w, ln, f32), reps=1, warmup=0)
         ng = 4 if cell == 'lstm' else 3
-        active = 2 * sum(min(n, T) for n in lens)
+        active = S * sum(min(n, T) for n in lens)
         flops = 2.0 * active * ng * H * H
         small = (w.numel() + b.numel() + ln.numel()) * 4
-        fwd_bytes = (gi.numel() + B * T * 2 * H * (1 + 5)) * 4 + small
+        fwd_bytes = (gi.numel() + B * T * S * H * (1 + 5)) * 4 + small
         bwd_bytes = (st32.numel() + dy.numel()
                      + (1 if cell == 'lstm' else 2) * gi.numel()) * 4 + small
         row['bound_ms_fwd'], row['bound_by_fwd'] = bound_ms(fwd_bytes, flops,
@@ -1222,7 +1397,7 @@ def train_kernel_cases():
         row['bound_ms_bwd'], row['bound_by_bwd'] = bound_ms(bwd_bytes, flops,
                                                             f32)
         row['library_ms_fwd'], row['library_ms_bwd'] = _cudnn_train_ms(
-            cell, T, H, B)
+            cell, T, H, B, S)
         log(f'  {row["case"]} float32: fwd {row["ms_fwd"]:.3f} ms on the '
             f'{row["path"]} path (cooperative path '
             f'{row.get("ms_fwd_cooperative", row["ms_fwd"]):.3f}; plain '
@@ -1382,7 +1557,8 @@ def training_path():
               f'gen_forward served latest_model.pt (step {served_step}): '
               f'mel {mel.shape}')
 
-        timing = _step_timing(model, optimizer, trainer, val_set)
+        timing = _student_step_timing(model, optimizer, trainer,
+                                      val_set, nvidia_smi_line())
         grads = _grads_vs_cpu(model)
         DETAILS['training'] = {'launches': launches, 'wall_s': wall,
                                'val': val, 'step_ms': timing,
@@ -1392,10 +1568,9 @@ def training_path():
         shutil.rmtree(TRAIN_DIR, ignore_errors=True)
 
 
-def _step_timing(model, optimizer, trainer, val_set):
-    """Steady-state ms per training step at batch 32 on one batch of the
-    768-frame bucket, split by CUDA events into forward (with the loss),
-    backward, and clip + Adam."""
+def _student_step_timing(model, optimizer, trainer, val_set, smi):
+    """The student's step at batch 32 on one batch of the 768-frame
+    bucket (`step_timing`)."""
     from forwardtacotron_tpu_torch.train import common as tc
     from forwardtacotron_tpu_torch.train.forward_trainer import (
         batch_to_device)
@@ -1403,57 +1578,10 @@ def _step_timing(model, optimizer, trainer, val_set):
     batch = next(b for b in val_set if b['mel'].shape[1] == 768)
     batch = batch_to_device(batch, 'cuda')
     model.train()
-    rows = []
-    for rep in range(5):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        ev[0].record()
-        optimizer.zero_grad(set_to_none=True)
-        pred = model(batch)
-        loss, _ = tc.forward_loss(pred, batch, batch['pitch'],
-                                  batch['energy'], cfg)
-        ev[1].record()
-        loss.backward()
-        ev[2].record()
-        tc.clip_by_global_norm(model.parameters(), cfg['clip_grad_norm'])
-        optimizer.step()
-        ev[3].record()
-        ev[3].synchronize()
-        if rep >= 2:
-            rows.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
-    fwd, bwd, opt = (float(np.median([r[i] for r in rows]))
-                     for i in range(3))
-    out = {'forward_ms': fwd, 'backward_ms': bwd, 'optimizer_ms': opt,
-           'step_ms': fwd + bwd + opt, 'batch': list(batch['mel'].shape)}
-    log(f'  step at batch 32, 768 frames: {out}')
-
-    # one more step under the profiler: device time by kernel
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        optimizer.zero_grad(set_to_none=True)
-        loss, _ = tc.forward_loss(model(batch), batch, batch['pitch'],
-                                  batch['energy'], cfg)
-        loss.backward()
-        tc.clip_by_global_norm(model.parameters(), cfg['clip_grad_norm'])
-        optimizer.step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
-               for e in prof.key_averages()
-               if str(e.device_type).endswith('CUDA')
-               and e.self_device_time_total > 0]
-    kernels.sort(key=lambda k: -k[1])
-    busy = sum(k[1] for k in kernels)
-    out['profiled'] = {
-        'wall_ms': wall_ms, 'device_busy_ms': busy,
-        'idle_share': 1.0 - busy / wall_ms if kernels else 'not measured',
-        'top': [{'kernel': k[:90], 'ms': t, 'count': c}
-                for k, t, c in kernels[:15]]}
-    log(f'  profiled step: wall {wall_ms:.1f} ms, device busy {busy:.1f} '
-        f'ms; top kernels:')
-    for row in out['profiled']['top'][:8]:
-        log(f'    {row["ms"]:8.2f} ms  x{row["count"]:<4} {row["kernel"]}')
+    out = step_timing(train_parts(model, optimizer, lambda: tc.forward_loss(
+        model(batch), batch, batch['pitch'], batch['energy'], cfg)[0],
+        cfg['clip_grad_norm']), 'student step at batch 32, 768 frames', smi)
+    out['batch'] = list(batch['mel'].shape)
     return out
 
 
@@ -1573,20 +1701,22 @@ def _worst_grad_errors(got, ref):
             'ok': l2[k2] <= GRAD_L2_LIMIT and peak[kp] <= GRAD_MAX_LIMIT}
 
 
-def _card_cpu_grads(model, batch):
-    """The card's gradients (kernels #2/#3), recording models/layers.py's
+def _card_cpu_grads(model, batch, model_grads=None):
+    """The card's gradients (kernels #2/#3), recording the model's
     decisions, against the CPU's (plain versions) with those decisions
     replayed and with its own: {'replay': errors, 'own': errors,
     'differ': decisions the CPU takes otherwise, 'decisions': their
-    count}."""
+    count}. `model_grads` (default `_model_grads`, the student's) takes
+    (model, batch, device, decisions)."""
+    model_grads = model_grads or _model_grads
     card = _Decisions()
-    grads = _model_grads(model, batch, 'cuda', card)
+    grads = model_grads(model, batch, 'cuda', card)
     replayed = _Decisions(card.recorded)
-    cpu_replay = _model_grads(model, batch, 'cpu', replayed)
+    cpu_replay = model_grads(model, batch, 'cpu', replayed)
     if replayed.calls != len(card.recorded):
         raise RuntimeError(f'the CPU pass took {replayed.calls} decisions '
                            f'of the {len(card.recorded)} recorded')
-    cpu_own = _model_grads(model, batch, 'cpu')
+    cpu_own = model_grads(model, batch, 'cpu')
     return {'replay': _worst_grad_errors(grads, cpu_replay),
             'own': _worst_grad_errors(grads, cpu_own),
             'differ': replayed.differ, 'decisions': replayed.total}
@@ -1678,25 +1808,31 @@ def _write_corpus(root, sr, n_items=TEACHER_N_UTTERANCES, seed=0):
 
 
 @contextlib.contextmanager
+def _patched(d, **updates):
+    """`d` (a dict or os.environ) updated for the block, restored after
+    it (keys it did not have removed)."""
+    saved = {k: d[k] for k in updates if k in d}
+    d.update(updates)
+    try:
+        yield d
+    finally:
+        for k in updates:
+            if k in saved:
+                d[k] = saved[k]
+            else:
+                d.pop(k, None)
+
+
+@contextlib.contextmanager
 def _teacher_env(base):
     """Inside `base`, with $FTT_BASE = base (checkpoints) and the
     built-in config's n_val cut to TEACHER_N_VAL in memory (the card has
     no pyyaml for a config file)."""
     import os
     from forwardtacotron_tpu_torch import config
-    saved_env = os.environ.get('FTT_BASE')
-    saved_n_val = config.PREPROCESSING['n_val']
-    os.environ['FTT_BASE'] = str(base)
-    config.PREPROCESSING['n_val'] = TEACHER_N_VAL
-    try:
-        with _cwd(base):
-            yield
-    finally:
-        config.PREPROCESSING['n_val'] = saved_n_val
-        if saved_env is None:
-            os.environ.pop('FTT_BASE', None)
-        else:
-            os.environ['FTT_BASE'] = saved_env
+    with _patched(os.environ, FTT_BASE=str(base)), _cwd(base), _patched(
+            config.PREPROCESSING, n_val=TEACHER_N_VAL):
+        yield
 
 
 def _train_counts(reset=False):
@@ -1769,14 +1905,9 @@ def _f0_checks(cfg, items, smi):
 
 
 def _teacher_step_timing(model, optimizer, paths, cfg, smi):
-    """ms per teacher step on the longest bucket at r=5 batch 32 and at r=1
-    batch 8 (config.yaml's first and last sessions), split by CUDA events
-    into forward (with the loss), backward, and clip + Adam (median of 3
-    after a warm-up); the peak memory of a step; one more step under the
-    profiler for the device's busy time and idle share."""
-    from torch.profiler import ProfilerActivity, profile
+    """The teacher's step on the longest bucket at r=5 batch 32 and at r=1
+    batch 8 (config.yaml's first and last sessions; `step_timing`)."""
     from forwardtacotron_tpu_torch.data.dataset import get_tts_datasets
-    from forwardtacotron_tpu_torch.train import common as tc
     from forwardtacotron_tpu_torch.train.taco_trainer import (
         taco_batch_to_device, taco_loss)
     train_cfg = cfg['tacotron']['training']
@@ -1790,52 +1921,15 @@ def _teacher_step_timing(model, optimizer, paths, cfg, smi):
             train_set.batches(0), key=lambda b: b['mel'].shape[1]), DEVICE)
         model.train()
 
-        def step():
-            optimizer.zero_grad(set_to_none=True)
+        def loss(r=r, batch=batch):
             m1, m2, _ = model(batch['x'], batch['mel'], r, gen)
-            loss = taco_loss(m1, m2, batch['mel'])[0]
-            ev[1].record()
-            loss.backward()
-            ev[2].record()
-            tc.clip_by_global_norm(model.parameters(),
-                                   train_cfg['clip_grad_norm'])
-            optimizer.step()
+            return taco_loss(m1, m2, batch['mel'])[0]
 
-        rows = []
-        torch.cuda.reset_peak_memory_stats()
-        for rep in range(4):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-            ev[0].record()
-            step()
-            ev[3].record()
-            ev[3].synchronize()
-            if rep >= 1:
-                rows.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
-        fwd, bwd, opt = (float(np.median([x[i] for x in rows]))
-                         for i in range(3))
-        row = {'batch': list(batch['mel'].shape), 'text': list(
-            batch['x'].shape), 'forward_ms': fwd, 'backward_ms': bwd,
-            'optimizer_ms': opt, 'step_ms': fwd + bwd + opt,
-            'peak_memory_gib': torch.cuda.max_memory_allocated() / 2 ** 30}
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            step()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        busy = sum(e.self_device_time_total / 1e3
-                   for e in prof.key_averages()
-                   if str(e.device_type).endswith('CUDA'))
-        row['profiled'] = {'wall_ms': wall_ms, 'device_busy_ms': busy,
-                           'idle_share': 1.0 - busy / wall_ms if busy > 0
-                           else 'not measured'}
-        log(f'  teacher step r={r} B={bs} {row["batch"]}: forward '
-            f'{fwd:.1f} + backward {bwd:.1f} + optimizer {opt:.1f} = '
-            f'{row["step_ms"]:.1f} ms, peak memory '
-            f'{row["peak_memory_gib"]:.2f} GiB; profiled wall {wall_ms:.1f} '
-            f'ms, device busy {busy:.1f} ms (idle share '
-            f'{row["profiled"]["idle_share"]}) | {smi}')
+        row = step_timing(
+            train_parts(model, optimizer, loss, train_cfg['clip_grad_norm']),
+            f'teacher step r={r} B={bs} {list(batch["mel"].shape)}', smi)
+        row.update(batch=list(batch['mel'].shape),
+                   text=list(batch['x'].shape))
         out[f'r{r}_b{bs}'] = row
     return out
 
@@ -2139,6 +2233,470 @@ def teacher_path():
     return out['launches']
 
 
+# ----------------------------------------------- vocoder training path
+
+VOCODER_DIR = Path('smoke_vocoder')   # dataset, GTA mels and checkpoints
+# the cuts of phase 10: 64 + 32 synthetic items of 400-600 frames
+# (LJSpeech: 13,100 utterances); WaveRNN 4 RAW steps at batch 32 and 3 MOL
+# steps (config.yaml: 600k), HiFi-GAN / MelGAN 3 steps each at batch 16
+# (800k); one generate_samples call each
+VOC_N_TRAIN, VOC_N_VAL = 64, 32
+VOC_FRAMES = (400, 601)
+VOC_PHONEMES = (60, 121)
+VOC_STEPS, MOL_STEPS, GAN_STEPS = 4, 3, 3
+VOC_BATCH, GAN_BATCH = 32, 16      # config.yaml's batch sizes
+VOC_GEN_LANES = 12     # folds of a 500-frame mel at the trainer's target
+
+
+@contextlib.contextmanager
+def _voc_env(base):
+    """Inside `base`, with $FTT_BASE = base, and the built-in config's
+    vocoder schedules cut in memory (the card has no pyyaml)."""
+    import os
+    from forwardtacotron_tpu_torch import config
+    with _patched(os.environ, FTT_BASE=str(base)), _cwd(base), _patched(
+            config.VOCODER_TRAINING,
+            schedule=[f'1e-4, {VOC_STEPS}, {VOC_BATCH}'],
+            checkpoint_every=2, gen_samples_every=VOC_STEPS), _patched(
+            config.HIFIGAN_TRAINING,
+            schedule=[f'2e-4, {GAN_STEPS}, {GAN_BATCH}'],
+            checkpoint_every=GAN_STEPS, gen_samples_every=GAN_STEPS,
+            num_gen_samples=1):
+        yield
+
+
+def _write_voc_dataset(data, cfg, seed=1):
+    """Phase 8's synthetic items (60-120 phonemes, 400-600 frames) with
+    9-bit labels of frames x hop samples in quant/, so one dataset serves
+    the student, WaveRNN and the GAN vocoders."""
+    from forwardtacotron_tpu_torch.text.symbols import phonemes
+    from forwardtacotron_tpu_torch.utils.files import pickle_binary
+    rng = np.random.RandomState(seed)
+    hop, bits = cfg['dsp']['hop_length'], cfg['dsp']['bits']
+    for d in ('mel', 'quant', 'alg', 'phon_pitch', 'phon_energy'):
+        (data / d).mkdir(parents=True, exist_ok=True)
+    index, text_dict = [], {}
+    for i in range(VOC_N_TRAIN + VOC_N_VAL):
+        n = int(rng.randint(*VOC_PHONEMES))
+        frames = int(rng.randint(*VOC_FRAMES))
+        dur = rng.multinomial(frames - n, np.full(n, 1.0 / n)) + 1
+        item = f'voc_{i:03d}'
+        np.save(data / 'mel' / f'{item}.npy',
+                (rng.randn(80, frames) * 2 - 5).astype(np.float32))
+        np.save(data / 'quant' / f'{item}.npy',
+                rng.randint(0, 2 ** bits, frames * hop).astype(np.int16))
+        np.save(data / 'alg' / f'{item}.npy', dur.astype(np.int32))
+        np.save(data / 'phon_pitch' / f'{item}.npy',
+                rng.randn(n).astype(np.float32))
+        np.save(data / 'phon_energy' / f'{item}.npy',
+                rng.randn(n).astype(np.float32))
+        text_dict[item] = ''.join(rng.choice(phonemes[1:], n))
+        index.append((item, frames))
+    pickle_binary(text_dict, data / 'text_dict.pkl')
+    pickle_binary(index[:VOC_N_TRAIN], data / 'train_dataset.pkl')
+    pickle_binary(index[VOC_N_TRAIN:], data / 'val_dataset.pkl')
+    pickle_binary({k: (1.0, 1.0) for k, _ in index},
+                  data / 'att_score_dict.pkl')
+    return index
+
+
+def _voc_gta(cfg, paths, index, smi):
+    """`train_forward.main(['--force_gta'])` on a seeded student
+    checkpoint: a GTA mel of each item's shape, through kernel #1 (the
+    student in eval mode); utterances a second on the host clock."""
+    from forwardtacotron_tpu_torch import train_forward
+    from forwardtacotron_tpu_torch.models.forward_tacotron import (
+        ForwardTacotron)
+    from forwardtacotron_tpu_torch.utils.checkpoints import save_checkpoint
+    torch.manual_seed(0)
+    save_checkpoint(ForwardTacotron.from_config(cfg), None, cfg,
+                    paths.forward_checkpoints / 'latest_model.pt', step=1)
+    _train_counts(reset=True)
+    t0 = time.perf_counter()
+    step = train_forward.main(['--force_gta', '--device', DEVICE])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _train_counts()
+    shapes_ok = all(np.load(paths.gta / f'{k}.npy').shape == (80, n)
+                    and np.isfinite(np.load(paths.gta / f'{k}.npy')).all()
+                    for k, n in index)
+    check(step == 1 and shapes_ok and launches['birnn'] > 0
+          and launches['birnn_train_fwd'] == 0,
+          f'train_forward --force_gta: {len(index)} GTA mels of their '
+          f'items\' shapes, all finite; kernel #1 {launches["birnn"]} '
+          'launches')
+    out = {'utterances': len(index), 'wall_s': wall,
+           'utterances_per_s': len(index) / wall, 'launches': launches}
+    log(f'  --force_gta: {len(index)} utterances in {wall:.2f} s '
+        f'({len(index) / wall:.1f} a second, host clock, first calls '
+        f'included) | {smi}')
+    return out
+
+
+def _voc_step_timing(model, optimizer, batch, smi):
+    """The WaveRNN step at batch 32, seq_len 1280, RAW (`step_timing`)."""
+    from forwardtacotron_tpu_torch.train.voc_trainer import voc_loss
+    model.train()
+    out = step_timing(train_parts(
+        model, optimizer,
+        lambda: voc_loss(model(batch['x'], batch['mel']), batch['y'], 'RAW'),
+        4.0), f'WaveRNN step {list(batch["x"].shape)}', smi)
+    out['batch'] = list(batch['x'].shape)
+    return out
+
+
+@contextlib.contextmanager
+def _wavernn_decisions(decisions):
+    """models/wavernn.py's `F` is `decisions` inside the block."""
+    from forwardtacotron_tpu_torch.models import wavernn
+    saved = wavernn.F
+    wavernn.F = decisions
+    try:
+        yield decisions
+    finally:
+        wavernn.F = saved
+
+
+def _voc_model_grads(model, batch, device, decisions=None):
+    """{parameter: float32 gradient on the CPU} of WaveRNN's RAW loss on
+    `batch` for a copy of `model` on `device` in train mode; with
+    `decisions`, its ReLU decisions recorded or replayed."""
+    from forwardtacotron_tpu_torch.train.voc_trainer import voc_loss
+    m = copy.deepcopy(model).to(device).train()
+    b = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    with (_wavernn_decisions(decisions) if decisions is not None
+          else contextlib.nullcontext()):
+        loss = voc_loss(m(b['x'], b['mel']), b['y'], 'RAW')
+    loss.backward()
+    return {k: p.grad.detach().cpu() for k, p in m.named_parameters()}
+
+
+def _voc_grads_vs_cpu(model):
+    """Float32 gradients of WaveRNN's RAW loss at full width on four
+    windows of seq_len 1280 (seeded): kernels #2/#3 at S=1 on the card
+    against the plain path on the CPU, the CPU replaying the card's ReLU
+    decisions, held to phase 8's limits (`_grads_vs_cpu`)."""
+    rng = np.random.RandomState(9)
+    batch = {'x': rng.uniform(-1, 1, (4, 1280)).astype(np.float32),
+             'mel': (rng.randn(4, 1280 // 256 + 4, 80) * 2 - 5).astype(
+                 np.float32),
+             'y': rng.randint(0, 512, (4, 1280))}
+    out = _card_cpu_grads(model, batch, _voc_model_grads)
+    rep, own = out['replay'], out['own']
+    check(rep['ok'],
+          f'WaveRNN float32 gradients, card vs CPU plain (CPU replaying '
+          f'the card\'s {out["decisions"]} ReLU decisions; {out["differ"]} '
+          f'differ on its own): worst relative L2 error '
+          f'{rep["worst_rel_l2"]:.2e} ({rep["param_l2"]}) <= '
+          f'{GRAD_L2_LIMIT:g}, worst max-element error '
+          f'{rep["worst_rel_max"]:.2e} ({rep["param_max"]}) <= '
+          f'{GRAD_MAX_LIMIT:g}')
+    log(f'  without the replay: relative L2 {own["worst_rel_l2"]:.2e}, max '
+        f'element {own["worst_rel_max"]:.2e} (not checked)')
+    return out
+
+
+def _voc_mol_steps(cfg, index, smi):
+    """MOL_STEPS steps of `voc_train_step` at full width, batch 32,
+    seq_len 1280, on 16-bit labels made from a seed for the train items'
+    mels: finite losses, two launches each of #2 and #3 a step."""
+    from forwardtacotron_tpu_torch.data.dataset import VocCollator
+    from forwardtacotron_tpu_torch.models.wavernn import WaveRNN
+    from forwardtacotron_tpu_torch.train import common as tc
+    from forwardtacotron_tpu_torch.train.voc_trainer import (
+        batch_to_device, voc_train_step)
+    mcfg = copy.deepcopy(cfg)
+    mcfg['vocoder']['model']['mode'] = 'MOL'
+    torch.manual_seed(1)
+    model = WaveRNN.from_config(mcfg).to(DEVICE)
+    optimizer = tc.make_optimizer(model)
+    rng = np.random.RandomState(2)
+    hop = cfg['dsp']['hop_length']
+    items = [{'mel': np.load(Path(cfg['data_path']) / 'gta' / f'{k}.npy'),
+              'x': rng.randint(0, 2 ** 16, n * hop)}
+             for k, n in index[:VOC_BATCH]]
+    collator = VocCollator(hop, model.pad,
+                           cfg['vocoder']['training']['seq_len'], 'MOL',
+                           cfg['dsp']['bits'])
+    _train_counts(reset=True)
+    losses = []
+    for s in range(MOL_STEPS):
+        collator.rng = np.random.RandomState(s)
+        metrics = voc_train_step(model, optimizer, batch_to_device(
+            collator(items), DEVICE), 'MOL', 4.0)
+        losses.append(float(metrics['loss']))
+    launches = _train_counts()
+    check(all(map(math.isfinite, losses))
+          and launches['birnn_train_fwd'] == 2 * MOL_STEPS
+          and launches['birnn_train_bwd'] == 2 * MOL_STEPS,
+          f'WaveRNN MOL: {MOL_STEPS} steps at batch {VOC_BATCH}, losses '
+          f'{losses}, '
+          f'kernels #2/#3 {launches["birnn_train_fwd"]}/'
+          f'{launches["birnn_train_bwd"]} launches')
+    return {'losses': losses, 'launches': launches}
+
+
+def _voc_generate_timing(cfg, paths, model, samples, smi):
+    """One more `VocTrainer.generate_samples` call on the trained model
+    (its samples through kernel #4 at the trainer's fold, then the mel L1
+    of each resynthesis): host ms of the call and #4's launches."""
+    from forwardtacotron_tpu_torch.dsp.audio import DSP
+    from forwardtacotron_tpu_torch.kernels.wavernn_sample import sample
+    from forwardtacotron_tpu_torch.train import common as tc
+    from forwardtacotron_tpu_torch.train.voc_trainer import VocTrainer
+    trainer = VocTrainer(paths, DSP.from_config(cfg, DEVICE), cfg, DEVICE)
+    session = tc.VocSession(1, 1e-4, 1, VOC_BATCH, None, [], samples)
+    sample.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mel_l1 = trainer.generate_samples(model, session, 0)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    frames = [s['mel'].shape[-1] for s in samples]
+    out = {'ms': ms, 'launches': sample.launches, 'mel_l1': mel_l1,
+           'frames': frames}
+    log(f'  generate_samples: {len(samples)} samples of {frames} frames in '
+        f'{ms:.1f} ms (host clock), kernel #4 launches {sample.launches}, '
+        f'mel L1 {mel_l1} | {smi}')
+    check(sample.launches >= len(samples) and math.isfinite(mel_l1),
+          f'generate_samples again: #4 launches {sample.launches}, mel L1 '
+          f'{mel_l1}')
+    return out
+
+
+def _voc_wavernn(cfg, paths, index, student, smi):
+    """`train_wavernn.main(['--gta'])`: VOC_STEPS steps at batch 32, RAW,
+    seq_len 1280, full width; kernel launches counted from 0 (#2 and #3,
+    two a step on their planned paths; #1 in `evaluate()`; #4 in
+    `generate_samples`); losses finite, every parameter moved, the
+    checkpoints written and served by `gen_forward wavernn`; then the MOL
+    steps, the step timing and the gradients against the CPU."""
+    from forwardtacotron_tpu_torch import gen_forward, train_wavernn
+    from forwardtacotron_tpu_torch.data.dataset import get_vocoder_datasets
+    from forwardtacotron_tpu_torch.kernels import birnn_train as bt
+    from forwardtacotron_tpu_torch.kernels.wavernn_sample import sample
+    from forwardtacotron_tpu_torch.models.wavernn import WaveRNN
+    from forwardtacotron_tpu_torch.train import common as tc
+    from forwardtacotron_tpu_torch.train.voc_trainer import batch_to_device
+    from forwardtacotron_tpu_torch.utils.checkpoints import load_checkpoint
+    from forwardtacotron_tpu_torch.utils.files import unpickle_binary
+    torch.manual_seed(train_wavernn.SEED)
+    model = WaveRNN.from_config(cfg)
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    writer = _Scalars()
+    _train_counts(reset=True)
+    sample.launches = 0
+    t0 = time.perf_counter()
+    step = train_wavernn.main(['--gta', '--device', DEVICE],
+                              writer=writer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**_train_counts(), 'wavernn_sample': sample.launches}
+    props = torch.cuda.get_device_properties(0)
+    plans = {k: fn('gru', 1, VOC_BATCH, model.rnn_dims, torch.float32,
+                   props.shared_memory_per_block_optin,
+                   props.multi_processor_count)['path']
+             for k, fn in (('fwd', bt.train_forward_plan),
+                           ('bwd', bt.train_backward_plan))}
+    log(f'  train_wavernn --gta: {step} steps in {wall:.1f} s (host clock, '
+        f'first steps, evaluate() and generate_samples included), launches '
+        f'{launches}, planned paths {plans}')
+    check(step == VOC_STEPS, f'WaveRNN trainer reached step {step} == '
+                             f'{VOC_STEPS}')
+    for kind in ('fwd', 'bwd'):
+        got = {p: launches[f'birnn_train_{kind}_{p}'] for p in bt.PATHS}
+        check(got == {p: 2 * step * (p == plans[kind]) for p in bt.PATHS},
+              f'WaveRNN kernel #{2 if kind == "fwd" else 3} by path {got}: '
+              f'2 a step on the planned {plans[kind]} path')
+    val = [v for t, v, _ in writer.values if t == 'Loss/val']
+    check(launches['birnn'] == 2 == launches['birnn_stream_local']
+          and len(val) == 1 and math.isfinite(val[0]),
+          f'WaveRNN evaluate(): loss {val}, kernel #1 launches '
+          f'{launches["birnn"]} (two GRUs, one val batch, stream-local)')
+    gen_l1 = [v for t, v, _ in writer.values
+              if t == 'Loss/generated_mel_l1']
+    check(len(gen_l1) == 1 and math.isfinite(gen_l1[0])
+          and launches['wavernn_sample'] > 0,
+          f'WaveRNN generate_samples: mel L1 {gen_l1}, kernel #4 launches '
+          f'{launches["wavernn_sample"]}')
+    losses = [v for t, v, _ in writer.values if t == 'Loss/train']
+    check(len(losses) == step and all(map(math.isfinite, losses)),
+          f'WaveRNN losses {losses}, all finite')
+    latest = paths.voc_checkpoints / 'latest_model.pt'
+    payload = load_checkpoint(latest)
+    moved = [k for k, v in before.items()
+             if not torch.equal(payload['model'][k], v)]
+    top_k = unpickle_binary(paths.voc_top_k / 'top_k.pkl')
+    check(len(moved) == len(before) and payload['step'] == step
+          and len(top_k) == 1
+          and (paths.voc_top_k / top_k[0][2]).is_file(),
+          f'{len(moved)} of {len(before)} WaveRNN parameters moved; '
+          f'latest_model.pt at step {payload["step"]}; top-k {top_k}')
+
+    sample.launches = 0
+    for wav in Path('model_outputs').glob('*.wav'):
+        wav.unlink()
+    gen_forward.main(['--checkpoint', str(student), '--device', DEVICE,
+                      'wavernn', '--voc_checkpoint', str(latest)])
+    wavs = list(Path('model_outputs').glob('*wavernn*.wav'))
+    check(len(wavs) > 0 and sample.launches > 0,
+          f'gen_forward wavernn served latest_model.pt: {len(wavs)} wavs, '
+          f'kernel #4 launches {sample.launches}')
+
+    out = {'steps': step, 'wall_s': wall, 'launches': launches,
+           'plans': plans, 'losses': losses, 'val_loss': val,
+           'generated_mel_l1': gen_l1}
+    out['mol'] = _voc_mol_steps(cfg, index, smi)
+    voc_cfg = cfg['vocoder']['training']
+    train_set, _, samples = get_vocoder_datasets(
+        paths.data, VOC_BATCH, True, 20000, cfg['dsp']['hop_length'],
+        model.pad, voc_cfg['seq_len'], 'RAW', cfg['dsp']['bits'],
+        voc_cfg['num_gen_samples'])
+    batch = batch_to_device(next(iter(train_set)), DEVICE)
+    model.load_state_dict(payload['model'])
+    model.to(DEVICE)
+    out['generate_samples'] = _voc_generate_timing(
+        cfg, paths, model, samples, smi)
+    out['step_ms'] = _voc_step_timing(model, tc.make_optimizer(model), batch,
+                                      smi)
+    out['grads_vs_cpu'] = _voc_grads_vs_cpu(model)
+    return out
+
+
+def _gan_step_timing(gen, disc, batch, wav_to_mel, smi, what):
+    """The GAN step at batch 16, seg_len 8192, split into the
+    discriminators' half and the generator's (`step_timing`)."""
+    from forwardtacotron_tpu_torch.train.hifigan_trainer import (
+        disc_step, gen_step, make_gan_optimizer)
+    gopt, dopt = make_gan_optimizer(gen), make_gan_optimizer(disc)
+    mel, y = batch['mel'].transpose(1, 2), batch['audio']
+    out = step_timing(
+        [('disc_ms', lambda: disc_step(gen, disc, dopt, mel, y)),
+         ('gen_ms', lambda: gen_step(gen, disc, gopt, mel, y, wav_to_mel))],
+        f'{what} step {list(y.shape)}', smi)
+    out['batch'] = list(y.shape)
+    return out
+
+
+def _voc_gan(kind, paths, student, smi):
+    """`train_hifigan.main(['--gta'])` with `generator_type` `kind` at
+    config.yaml's
+    widths (HiFi-GAN V1; the hub MelGAN, base 512): GAN_STEPS steps at
+    batch 16, seg_len 8192; losses finite, every parameter of both nets
+    moved, one finite sample mel L1, the latest generator served by
+    `gen_forward <kind> --voc_checkpoint`; then the step timing."""
+    from forwardtacotron_tpu_torch import config, gen_forward, train_hifigan
+    from forwardtacotron_tpu_torch.config import default_config
+    from forwardtacotron_tpu_torch.data.dataset import (
+        get_gan_vocoder_datasets)
+    from forwardtacotron_tpu_torch.dsp.audio import DSP
+    from forwardtacotron_tpu_torch.models.gan_discriminators import (
+        HiFiGANDiscriminators)
+    from forwardtacotron_tpu_torch.models.hifigan import (fold_weight_norm,
+                                                          make_generator)
+    from forwardtacotron_tpu_torch.train.voc_trainer import batch_to_device
+    from forwardtacotron_tpu_torch.utils.checkpoints import load_checkpoint
+    shutil.rmtree(paths.hifigan_checkpoints, ignore_errors=True)
+    with _patched(config.HIFIGAN_MODEL, generator_type=kind):
+        cfg = default_config()
+        torch.manual_seed(train_hifigan.SEED)
+        gen, disc = make_generator(cfg), HiFiGANDiscriminators()
+        before = {'generator': copy.deepcopy(gen.state_dict()),
+                  'discriminator': copy.deepcopy(disc.state_dict())}
+        writer = _Scalars()
+        t0 = time.perf_counter()
+        step = train_hifigan.main(['--gta', '--device', DEVICE],
+                                  writer=writer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    latest = paths.hifigan_checkpoints / 'latest_model.pt'
+    payload = load_checkpoint(latest)
+    after = {'generator': fold_weight_norm(payload['generator']),
+             'discriminator': payload['discriminator']}
+    moved = {part: sum(not torch.equal(after[part][k], v)
+                       for k, v in before[part].items())
+             for part in before}
+    losses = {tag: [v for t, v, _ in writer.values if t == f'Loss/{tag}']
+              for tag in ('disc_loss', 'gen_loss', 'gen_adv', 'gen_fm',
+                          'gen_mel')}
+    gen_l1 = [v for t, v, _ in writer.values
+              if t == 'Loss/generated_mel_l1']
+    log(f'  train_hifigan ({kind}): {step} steps in {wall:.1f} s (host '
+        f'clock, first steps included), losses {losses}, sample mel L1 '
+        f'{gen_l1}')
+    check(step == GAN_STEPS and all(
+        len(v) == step and all(map(math.isfinite, v))
+        for v in losses.values()) and len(gen_l1) == 1
+        and math.isfinite(gen_l1[0]),
+        f'{kind}: {step} steps, every loss finite, one finite sample mel L1')
+    check(all(moved[p] == len(before[p]) for p in before),
+          f'{kind}: parameters moved {moved} of '
+          f'{ {p: len(v) for p, v in before.items()} }')
+    for wav in Path('model_outputs').glob('*.wav'):
+        wav.unlink()
+    gen_forward.main(['--checkpoint', str(student), '--device', DEVICE,
+                      kind, '--voc_checkpoint', str(latest)])
+    wavs = list(Path('model_outputs').glob(f'*{kind}*.wav'))
+    check(len(wavs) > 0, f'gen_forward {kind} served latest_model.pt: '
+                         f'{len(wavs)} wavs')
+    with _patched(config.HIFIGAN_MODEL, generator_type=kind):
+        cfg = default_config()
+        train_set, _, _ = get_gan_vocoder_datasets(
+            paths.data, GAN_BATCH, True, 20000, cfg['dsp']['hop_length'],
+            cfg['hifigan']['training']['seg_len'], 'RAW',
+            cfg['dsp']['bits'], True, 0)
+        batch = batch_to_device(next(iter(train_set)), DEVICE)
+        torch.manual_seed(3)
+        timing = _gan_step_timing(
+            make_generator(cfg).to(DEVICE), HiFiGANDiscriminators().to(DEVICE),
+            batch, DSP.from_config(cfg, DEVICE).wav_to_mel_batch, smi, kind)
+    return {'steps': step, 'wall_s': wall, 'losses': losses,
+            'generated_mel_l1': gen_l1, 'moved': moved, 'step_ms': timing}
+
+
+@phase('vocoder training path (full width)')
+def vocoder_path():
+    """The vocoder-training path of the port at config.yaml's widths,
+    random weights from seeds, in VOCODER_DIR. Cuts: a synthetic dataset
+    of VOC_N_TRAIN + VOC_N_VAL items of 400-600 frames with random 9-bit
+    labels (LJSpeech: 13,100 utterances); a seeded student checkpoint in
+    place of a trained one; WaveRNN VOC_STEPS RAW steps at batch 32 and
+    MOL_STEPS MOL steps, HiFi-GAN V1 and MelGAN GAN_STEPS steps each at
+    batch 16 (config.yaml: 600k and 800k steps).
+
+    1. `train_forward.main(['--force_gta'])` (`_voc_gta`);
+    2. `train_wavernn.main(['--gta'])` with its launches, evaluate(),
+       generate_samples and checkpoints; `gen_forward wavernn` on its
+       latest model; the MOL steps; the step timing; the gradients against
+       the CPU (`_voc_wavernn`);
+    3. `train_hifigan.main(['--gta'])` for HiFi-GAN and for MelGAN, each served
+       by `gen_forward` and timed (`_voc_gan`)."""
+    from forwardtacotron_tpu_torch.config import default_config
+    from forwardtacotron_tpu_torch.utils.paths import Paths
+    smi = nvidia_smi_line()
+    shutil.rmtree(VOCODER_DIR, ignore_errors=True)
+    VOCODER_DIR.mkdir(parents=True)
+    base = VOCODER_DIR.resolve()
+    (base / 'sentences.txt').write_text(
+        '\n'.join(Path('sentences.txt').read_text().splitlines()[:2]) + '\n')
+    out = {}
+    try:
+        with _voc_env(base):
+            cfg = default_config()
+            index = _write_voc_dataset(Path(cfg['data_path']), cfg)
+            paths = Paths(cfg['data_path'], cfg['tts_model_id'],
+                          voc_id=cfg['voc_model_id'])
+            student = paths.forward_checkpoints / 'latest_model.pt'
+            out['gta'] = _voc_gta(cfg, paths, index, smi)
+            out['wavernn'] = _voc_wavernn(cfg, paths, index, student, smi)
+            out['gan'] = {kind: _voc_gan(kind, paths, student, smi)
+                          for kind in ('hifigan', 'melgan')}
+    finally:
+        shutil.rmtree(VOCODER_DIR, ignore_errors=True)
+    DETAILS['vocoder_path'] = out
+    return out
+
+
 # ------------------------------------------------------------------- main
 
 def main() -> int:
@@ -2160,6 +2718,7 @@ def main() -> int:
     train_rows = train_kernel_cases() or []
     train_launches = training_path() or {}
     teacher = teacher_path() or {}
+    voc = vocoder_path() or {}
 
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / 'chip_smoke.json').write_text(json.dumps(
@@ -2175,6 +2734,13 @@ def main() -> int:
     # config.yaml takes it); phase 3 checks and times it (chip_smoke.json)
     serving = next(r for r in birnn_rows if r['case'].startswith(
         'decoder lstm T=1024 H=512 S=2 B=1 bfloat16'))
+    # the vocoder-training path's launches (phase 10): #1 in evaluate(),
+    # #2/#3 in the RAW and MOL steps, #4 in generate_samples
+    voc_launches = {k: voc['wavernn']['launches'][k]
+                    + voc['wavernn']['mol']['launches'].get(k, 0)
+                    for k in voc['wavernn']['launches']}
+    voc_birnn = next(r for r in birnn_rows if 'wavernn' in r['case'])
+    voc_train = next(r for r in train_rows if 'wavernn' in r['case'])
     kernels = [
         {'name': 'birnn (stream-local path)', 'route': 'cuda',
          'source': 'forwardtacotron_tpu_torch/csrc/birnn.cu',
@@ -2186,16 +2752,27 @@ def main() -> int:
          'max_abs_err': serving['max_abs_err']['stream_local'],
          'ms': serving['ms_stream_local'], 'plain_ms': serving['plain_ms'],
          'bound_ms': serving['bound_ms'], 'bound_by': serving['bound_by'],
-         'library_ms': serving['library_ms']}]
+         'library_ms': serving['library_ms'],
+         'launches_vocoder': voc_launches['birnn_stream_local'],
+         'vocoder_case': voc_birnn['case'],
+         'vocoder_ms': voc_birnn['ms_stream_local'],
+         'vocoder_plain_ms': voc_birnn['plain_ms'],
+         'vocoder_bound_ms': voc_birnn['bound_ms'],
+         'vocoder_library_ms': voc_birnn['library_ms']}]
     kernels.append(
         {'name': 'wavernn_sample', 'route': 'cuda',
          'source': 'forwardtacotron_tpu_torch/csrc/wavernn_sample.cu',
          'replaces': 'forwardtacotron_tpu/kernels/wavernn_sample.py:64',
          'launches': launches['wavernn_sample'], 'launches_teacher': 0,
+         'launches_vocoder': voc_launches['wavernn_sample'],
          'max_abs_err': wr['max_abs_err'], 'agreement': wr['agreement'],
          'ms': wr['ms'], 'plain_ms': wr['plain_ms'],
          'bound_ms': wr['bound_ms'], 'bound_by': wr['bound_by'],
-         'library_ms': None})
+         'library_ms': None,
+         'vocoder_case': wr['trainer_fold']['shape'],
+         'vocoder_ms': wr['trainer_fold']['ms'],
+         'vocoder_plain_ms': wr['trainer_fold']['plain_ms'],
+         'vocoder_bound_ms': wr['trainer_fold']['bound_ms']})
     dec = train_rows[0]       # decoder LSTM H=512, T=1024, B=32, float32
     pitch = next(r for r in train_rows if r['case'].startswith('pitch'))
     for name, row, sfx, line, count in (
@@ -2213,11 +2790,19 @@ def main() -> int:
             'replaces': f'forwardtacotron_tpu/kernels/birnn.py:{line}',
             'launches': train_launches[count],
             'launches_teacher': teacher['train'][count],
+            'launches_vocoder': voc_launches[count],
             'max_abs_err': row[f'max_abs_err_{sfx}'],
             'ms': row[f'ms_{sfx}'], 'plain_ms': row[f'plain_ms_{sfx}'],
             'bound_ms': row[f'bound_ms_{sfx}'],
             'bound_by': row[f'bound_by_{sfx}'],
             'library_ms': row[f'library_ms_{sfx}']})
+        if 'cooperative' in name:
+            kernels[-1].update({
+                'vocoder_case': voc_train['case'],
+                'vocoder_ms': voc_train[f'ms_{sfx}'],
+                'vocoder_plain_ms': voc_train[f'plain_ms_{sfx}'],
+                'vocoder_bound_ms': voc_train[f'bound_ms_{sfx}'],
+                'vocoder_library_ms': voc_train[f'library_ms_{sfx}']})
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

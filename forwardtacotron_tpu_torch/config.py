@@ -1,11 +1,11 @@
 """Built-in copy of the config sections the port needs.
 
 The machine that runs the port has no `pyyaml`, so the `data_path`,
-model ids, `tts_model`, `dsp`, `preprocessing`, `tacotron` and
-`forward_tacotron` (model and training), `vocoder.model` and
-`hifigan.model` defaults of
-the repository's `config.yaml` live here as plain dicts. A YAML file is
-read only by `read_config`, and only where `yaml` can be imported.
+model ids, `tts_model`, `dsp`, `preprocessing`, and the model and
+training sections of `tacotron`, `forward_tacotron`, `vocoder` and
+`hifigan` of the repository's `config.yaml` live here as plain dicts. A
+YAML file is read only by `read_config`, and only where `yaml` can be
+imported.
 """
 from __future__ import annotations
 
@@ -135,6 +135,34 @@ VOCODER_MODEL = {
 }
 
 
+VOCODER_TRAINING = {
+    'schedule': ['1e-4,  300_000,  32', '1e-5,  600_000,  32'],
+    'checkpoint_every': 25_000,
+    'gen_samples_every': 5000,
+    'num_gen_samples': 3,
+    'keep_top_k': 3,
+    'seq_len': 1280,
+    'clip_grad_norm': 4,
+    'precision': 'f32',
+    'remat': False,
+    'max_mel_len': 20000,
+    'gen_batched': True,
+    'target': 11_000,
+    'overlap': 550,
+}
+
+HIFIGAN_TRAINING = {
+    'schedule': ['2e-4,  400_000,  16', '1e-4,  800_000,  16'],
+    'checkpoint_every': 25_000,
+    'gen_samples_every': 5000,
+    'num_gen_samples': 3,
+    'keep_top_k': 3,
+    'seg_len': 8192,
+    'precision': 'f32',
+    'max_mel_len': 20000,
+}
+
+
 def default_config() -> Dict[str, Any]:
     """A fresh copy of the built-in config (callers may mutate it)."""
     return copy.deepcopy({
@@ -147,8 +175,8 @@ def default_config() -> Dict[str, Any]:
         'tacotron': {'model': TACOTRON_MODEL, 'training': TACOTRON_TRAINING},
         'forward_tacotron': {'model': FORWARD_TACOTRON_MODEL,
                              'training': FORWARD_TACOTRON_TRAINING},
-        'vocoder': {'model': VOCODER_MODEL},
-        'hifigan': {'model': HIFIGAN_MODEL},
+        'vocoder': {'model': VOCODER_MODEL, 'training': VOCODER_TRAINING},
+        'hifigan': {'model': HIFIGAN_MODEL, 'training': HIFIGAN_TRAINING},
     })
 
 

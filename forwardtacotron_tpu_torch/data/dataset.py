@@ -6,11 +6,14 @@ reference's utils/dataset.py field contracts and collate_tts padding):
 `ForwardDataset` (the student's: also durations, pitch and energy), the
 max-length and attention filters, `collate_tts` (mels padded to a
 multiple of r), `BucketBatcher` on its numpy path, `get_tts_datasets`
-and `Prefetcher`. Items are grouped by mel length into a
-ladder of padded (T_text, T_mel) shapes; the batch plan of an epoch is a
-pure function of (seed, epoch), so a resumed run replays the data order
-of an uninterrupted one. Batches are numpy; the trainer moves them to its
-device. Mels are stored on disk as (n_mels, T) and come out time-major.
+and `Prefetcher`; and the vocoders' parts, `VocoderDataset`, the
+`VocCollator` and `GANVocCollator` crops, `VocBatcher`,
+`get_vocoder_datasets` and `get_gan_vocoder_datasets`. Items are grouped
+by mel length into a ladder of padded (T_text, T_mel) shapes; the batch
+plan of an epoch is a pure function of (seed, epoch), so a resumed run
+replays the data order of an uninterrupted one. Batches are numpy; the
+trainer moves them to its device. Mels are stored on disk as (n_mels, T)
+and come out time-major.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from forwardtacotron_tpu_torch.dsp.audio import decode_mu_law, label_2_float
 from forwardtacotron_tpu_torch.text.tokenizer import Tokenizer
 from forwardtacotron_tpu_torch.utils.files import unpickle_binary
 
@@ -262,6 +266,208 @@ def get_tts_datasets(path: Path, batch_size: int, r: int,
         return BucketBatcher(ds, batch_size, r=r, mel_multiple=mel_multiple,
                              shuffle=shuffle)
     return batcher(train_data, True), batcher(val_data, False)
+
+
+# ---------------------------------------------------------------- vocoder
+
+class VocoderDataset:
+    """Items {'mel' (n_mels, T), 'x' quant labels, 'item_id'} of the
+    vocoders, with the mels of `mel/` or, for `train_gta`, of `gta/`."""
+
+    def __init__(self, path: Path, dataset_ids: Sequence[str],
+                 train_gta: bool = False) -> None:
+        self.metadata = list(dataset_ids)
+        self.mel_path = Path(path) / ('gta' if train_gta else 'mel')
+        self.quant_path = Path(path) / 'quant'
+
+    def __getitem__(self, index: int) -> Dict:
+        item_id = self.metadata[index]
+        mel = np.load(str(self.mel_path / f'{item_id}.npy'))
+        x = np.load(str(self.quant_path / f'{item_id}.npy'))
+        return {'mel': mel, 'x': x, 'item_id': item_id}
+
+    def __len__(self) -> int:
+        return len(self.metadata)
+
+
+class VocCollator:
+    """WaveRNN batches: a random mel window per item and the waveform
+    labels it conditions, shifted by one sample into input x and target y
+    (the reference's dataset.py:86-126; the JAX package's numpy path).
+    x is float in [-1, 1]; y is the class label (RAW) or float (MOL,
+    16-bit labels). Mels come out time-major (B, T_win, n_mels)."""
+
+    def __init__(self, hop_length: int, voc_pad: int, voc_seq_len: int,
+                 voc_mode: str, bits: int,
+                 rng: Optional[np.random.RandomState] = None) -> None:
+        self.hop_length = hop_length
+        self.voc_pad = voc_pad
+        self.voc_seq_len = voc_seq_len
+        self.voc_mode = voc_mode
+        self.bits = bits
+        self.rng = rng or np.random.RandomState()
+
+    def __call__(self, batch: List[Dict]) -> Dict[str, np.ndarray]:
+        mel_win = self.voc_seq_len // self.hop_length + 2 * self.voc_pad
+        max_offsets = [b['mel'].shape[-1] - 2 - (mel_win + 2 * self.voc_pad)
+                       for b in batch]
+        mel_offsets = [self.rng.randint(0, o) for o in max_offsets]
+        sig_offsets = [(o + self.voc_pad) * self.hop_length
+                       for o in mel_offsets]
+        mels = np.stack([b['mel'][:, mel_offsets[i]:mel_offsets[i] + mel_win]
+                         for i, b in enumerate(batch)]).astype(np.float32)
+        labels = np.stack(
+            [b['x'][sig_offsets[i]:sig_offsets[i] + self.voc_seq_len + 1]
+             for i, b in enumerate(batch)]).astype(np.int64)
+        x = labels[:, :self.voc_seq_len]
+        y = labels[:, 1:]
+        bits = 16 if self.voc_mode == 'MOL' else self.bits
+        x = label_2_float(x.astype(np.float32), bits)
+        if self.voc_mode == 'MOL':
+            y = label_2_float(y.astype(np.float32), bits)
+        return {'mel': mels.transpose(0, 2, 1), 'x': x, 'y': y}
+
+
+class VocBatcher:
+    """Fixed-size batches of a VocoderDataset (the tail dropped). The
+    epoch's item order is a pure function of (seed, epoch), and a
+    shuffling batcher reseeds its collator's window draws per (seed,
+    epoch, batch), so a run resumed mid-epoch draws the crops of an
+    uninterrupted one. A batcher that does not shuffle (the validation
+    sets) keeps its collator's own generator."""
+
+    def __init__(self, dataset: VocoderDataset, batch_size: int,
+                 collator, shuffle: bool = True, seed: int = 42) -> None:
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.collator = collator
+        self.shuffle = shuffle
+        self.seed = seed
+        self._epoch = 0  # next epoch yielded by plain iter()
+
+    def __len__(self) -> int:
+        return len(self.dataset) // self.batch_size
+
+    def epoch_plan(self, epoch: int) -> List[List[int]]:
+        idxs = list(range(len(self.dataset)))
+        if self.shuffle:
+            random.Random(_epoch_seed(self.seed, epoch)).shuffle(idxs)
+        return [idxs[i:i + self.batch_size]
+                for i in range(0, len(idxs) - self.batch_size + 1,
+                               self.batch_size)]
+
+    def batches(self, epoch: int, start: int = 0):
+        """Yield epoch `epoch`'s batches from position `start`."""
+        for b, chunk in enumerate(self.epoch_plan(epoch)[start:], start):
+            if self.shuffle:
+                self.collator.rng = np.random.RandomState(
+                    _epoch_seed(self.seed, epoch, b))
+            yield self.collator([self.dataset[j] for j in chunk])
+
+    def __iter__(self):
+        epoch, self._epoch = self._epoch, self._epoch + 1
+        return self.batches(epoch)
+
+
+def _vocoder_sets(path: Path, batch_size: int, train_gta: bool,
+                  max_mel_len: int, num_gen_samples: int, make_collator):
+    """(train batcher, val batches, the first `num_gen_samples` val items)
+    over `make_collator(rng)`; the val windows come from seed 42 (the
+    reference seeds numpy at dataset.py:70-72)."""
+    path = Path(path)
+    ids = [[i for i, _ in filter_max_len(unpickle_binary(path / name),
+                                         max_mel_len)]
+           for name in ('train_dataset.pkl', 'val_dataset.pkl')]
+    train_dataset = VocoderDataset(path, ids[0], train_gta)
+    val_dataset = VocoderDataset(path, ids[1], train_gta)
+    train_set = VocBatcher(train_dataset, batch_size, make_collator(None),
+                           shuffle=True)
+    val_set = list(VocBatcher(val_dataset, batch_size,
+                              make_collator(np.random.RandomState(42)),
+                              shuffle=False))
+    val_set_samples = [val_dataset[i] for i in
+                       range(min(num_gen_samples, len(val_dataset)))]
+    return train_set, val_set, val_set_samples
+
+
+def get_vocoder_datasets(path: Path, batch_size: int, train_gta: bool,
+                         max_mel_len: int, hop_length: int, voc_pad: int,
+                         voc_seq_len: int, voc_mode: str, bits: int,
+                         num_gen_samples: int):
+    """WaveRNN's (train, val, samples) (the reference's
+    get_vocoder_datasets, dataset.py:35-83)."""
+    return _vocoder_sets(
+        path, batch_size, train_gta, max_mel_len, num_gen_samples,
+        lambda rng: VocCollator(hop_length, voc_pad, voc_seq_len, voc_mode,
+                                bits, rng=rng))
+
+
+class GANVocCollator:
+    """Frame-aligned (mel window, float audio segment) pairs of the GAN
+    vocoders: `seg_len // hop` frames and the `seg_len` samples they
+    generate, with no shifted labels and no conditioning pad. The audio
+    is decoded from the quant labels (mu-law for RAW preprocessing with
+    mu_law, linear labels otherwise). A clip of at most one window is
+    repeated to more than one; a clip without a whole frame is dropped,
+    and the batch is refilled with the rows it has, in turn."""
+
+    def __init__(self, hop_length: int, seg_len: int, voc_mode: str,
+                 bits: int, mu_law: bool,
+                 rng: Optional[np.random.RandomState] = None) -> None:
+        if seg_len % hop_length:
+            raise ValueError(f'seg_len {seg_len} must be a multiple of hop '
+                             f'{hop_length}')
+        self.hop_length = hop_length
+        self.seg_len = seg_len
+        self.voc_mode = voc_mode
+        self.bits = bits
+        self.mu_law = mu_law
+        self.rng = rng or np.random.RandomState()
+
+    def __call__(self, batch: List[Dict]) -> Dict[str, np.ndarray]:
+        win = self.seg_len // self.hop_length
+        bits = 16 if self.voc_mode == 'MOL' else self.bits
+        mels, audios = [], []
+        for b in batch:
+            mel, x = b['mel'], b['x']
+            t = min(mel.shape[-1], len(x) // self.hop_length)
+            if t == 0:
+                continue
+            if t <= win:
+                reps = -(-(win + 1) // t)
+                mel = np.tile(mel[:, :t], (1, reps))
+                x = np.tile(x[:t * self.hop_length], reps)
+                t = win + 1
+            o = self.rng.randint(0, max(t - win - 1, 1))
+            mels.append(mel[:, o:o + win])
+            seg = x[o * self.hop_length:o * self.hop_length + self.seg_len]
+            if self.mu_law and self.voc_mode != 'MOL':
+                audios.append(decode_mu_law(seg, 2 ** bits,
+                                            from_labels=True))
+            else:
+                audios.append(label_2_float(seg.astype(np.float32), bits))
+        if not mels:
+            raise ValueError('GANVocCollator: every clip in the batch was '
+                             'empty (no full mel frame)')
+        n_real = len(mels)
+        while len(mels) < len(batch):
+            i = len(mels) % n_real
+            mels.append(mels[i])
+            audios.append(audios[i])
+        return {'mel': np.stack(mels).astype(np.float32).transpose(0, 2, 1),
+                'audio': np.stack(audios).astype(np.float32)}
+
+
+def get_gan_vocoder_datasets(path: Path, batch_size: int, train_gta: bool,
+                             max_mel_len: int, hop_length: int, seg_len: int,
+                             voc_mode: str, bits: int, mu_law: bool,
+                             num_gen_samples: int):
+    """The GAN vocoders' (train, val, samples), over the layout of
+    `get_vocoder_datasets`."""
+    return _vocoder_sets(
+        path, batch_size, train_gta, max_mel_len, num_gen_samples,
+        lambda rng: GANVocCollator(hop_length, seg_len, voc_mode, bits,
+                                   mu_law, rng=rng))
 
 
 class Prefetcher:

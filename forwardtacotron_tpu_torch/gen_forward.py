@@ -2,7 +2,7 @@
 
     python -m forwardtacotron_tpu_torch.gen_forward -i "Hello world." \\
         [--checkpoint tts.pt|tts.fjax] [--split_sentences] \\
-        {griffinlim | wavernn [--voc_checkpoint voc.fjax] [--stream]
+        {griffinlim | wavernn [--voc_checkpoint voc.pt|voc.fjax] [--stream]
          [--batched_utterances] | hifigan [--voc_checkpoint g.pt]
          [--voc_config config.json] | melgan [--voc_checkpoint g.pt]}
 
@@ -91,12 +91,19 @@ def load_tts(checkpoint: Optional[str], config: Dict[str, Any],
 
 def load_voc(checkpoint: Optional[str], config: Dict[str, Any],
              device='cuda', seed: int = 0) -> Tuple[WaveRNN, Dict[str, Any]]:
-    """WaveRNN on `device` from a `.fjax` checkpoint, or seeded random
+    """WaveRNN on `device` from a checkpoint: a `.pt` written by this
+    package's `train_wavernn` or a JAX `.fjax`; or seeded random
     weights."""
     device = resolve_device(device)
-    if checkpoint is not None:
+    if checkpoint is not None and str(checkpoint).endswith('.pt'):
+        payload = load_checkpoint(checkpoint)
+        config = payload['config']
+        model = WaveRNN.from_config(config)
+        model.load_state_dict(payload['model'])
+    elif checkpoint is not None:
         if not str(checkpoint).endswith('.fjax'):
-            raise ValueError('only .fjax vocoder checkpoints are supported')
+            raise ValueError('WaveRNN checkpoints are .pt (this package) or '
+                             '.fjax (the JAX package)')
         payload = load_fjax(checkpoint)
         config = payload['config']
         model = WaveRNN.from_config(config)

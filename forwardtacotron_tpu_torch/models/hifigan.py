@@ -134,7 +134,9 @@ class HiFiGANGenerator(nn.Module):
 
 def fold_weight_norm(state_dict: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """A state_dict with every weight_norm pair (`.weight_g`, `.weight_v`,
-    norm over all dims but 0) folded into `.weight` = g v / ||v||."""
+    norm over all dims but 0) folded into `.weight` = v (g / ||v||): a
+    pair written by `weight_norm_state_dict` gives its weight back
+    exactly."""
     out = {}
     for key, value in state_dict.items():
         value = torch.as_tensor(np.asarray(value)).float()
@@ -146,7 +148,7 @@ def fold_weight_norm(state_dict: Dict[str, Any]) -> Dict[str, torch.Tensor]:
                                 ).float()
             norm = torch.sqrt((value ** 2).sum(
                 dim=tuple(range(1, value.ndim)), keepdim=True))
-            out[f'{base}.weight'] = g * value / norm
+            out[f'{base}.weight'] = value * (g / norm)
         else:
             out[key] = value
     return out

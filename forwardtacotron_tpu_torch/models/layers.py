@@ -66,15 +66,28 @@ class BiRNN(nn.Module):
                              compute_dtype=compute_dtype)
 
 
-class BatchNormConv(nn.Module):
-    """conv (no bias, 'same' padding) -> optional relu -> BatchNorm.
-    Even kernels produce one extra frame, which is trimmed.
+def batch_norm(bn: nn.BatchNorm1d, h: torch.Tensor) -> torch.Tensor:
+    """`bn` over h (B, C, T) as flax's BatchNorm computes it. In training
+    mode the norm uses the batch's mean and biased variance over (B, T)
+    and moves the running statistics towards those same values with
+    momentum 0.1 (flax's momentum 0.9). `nn.BatchNorm1d` would store the
+    unbiased variance instead, 3% larger at 32 samples, so the update is
+    written out here. In eval mode it is `bn` itself."""
+    if not bn.training:
+        return bn(h)
+    var, mean = torch.var_mean(h, dim=(0, 2), unbiased=False)
+    with torch.no_grad():
+        bn.running_mean.mul_(1.0 - bn.momentum).add_(bn.momentum * mean)
+        bn.running_var.mul_(1.0 - bn.momentum).add_(bn.momentum * var)
+        bn.num_batches_tracked.add_(1)
+    h = (h - mean[:, None]) * torch.rsqrt(var[:, None] + bn.eps)
+    return h * bn.weight[:, None] + bn.bias[:, None]
 
-    In training mode the norm uses the batch's mean and biased variance
-    over (B, T) and moves the running statistics towards those same
-    values with momentum 0.1, as flax's BatchNorm (momentum 0.9) does.
-    `nn.BatchNorm1d` would store the unbiased variance instead, 3% larger
-    at 32 samples, so the update is written out here."""
+
+class BatchNormConv(nn.Module):
+    """conv (no bias, 'same' padding) -> optional relu -> BatchNorm
+    (`batch_norm`). Even kernels produce one extra frame, which is
+    trimmed."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int,
                  relu: bool = True) -> None:
@@ -89,16 +102,7 @@ class BatchNormConv(nn.Module):
         h = self.conv(x.transpose(1, 2))[:, :, :seq_len]
         if self.relu:
             h = F.relu(h)
-        bn = self.bnorm
-        if not self.training:
-            return bn(h).transpose(1, 2)
-        var, mean = torch.var_mean(h, dim=(0, 2), unbiased=False)
-        with torch.no_grad():
-            bn.running_mean.mul_(1.0 - bn.momentum).add_(bn.momentum * mean)
-            bn.running_var.mul_(1.0 - bn.momentum).add_(bn.momentum * var)
-            bn.num_batches_tracked.add_(1)
-        h = (h - mean[:, None]) * torch.rsqrt(var[:, None] + bn.eps)
-        return (h * bn.weight[:, None] + bn.bias[:, None]).transpose(1, 2)
+        return batch_norm(self.bnorm, h).transpose(1, 2)
 
 
 class HighwayNetwork(nn.Module):

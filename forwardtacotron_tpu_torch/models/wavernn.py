@@ -1,6 +1,7 @@
-"""WaveRNN vocoder (fatchord version), inference.
+"""WaveRNN vocoder (fatchord version): training forward and inference.
 
-Mirrors `forwardtacotron_tpu/models/wavernn.py`: the upsampling network
+Mirrors `forwardtacotron_tpu/models/wavernn.py`: the teacher-forced
+forward of training (`WaveRNN.forward`), the upsampling network
 (MelResNet + nearest-neighbour stretches with one shared time kernel per
 scale), the fold/crossfade batching of one utterance (`vocode`) or of
 many (`vocode_batch`) into fold lanes, and the autoregressive sampler, which runs through the sampling kernel
@@ -19,6 +20,8 @@ from torch.nn import functional as F
 from forwardtacotron_tpu_torch.dsp.audio import decode_mu_law
 from forwardtacotron_tpu_torch.kernels.wavernn_sample import (
     compact_cond, pack_weights, sample_conditioned, sample_plain)
+from forwardtacotron_tpu_torch.models.layers import batch_norm
+from forwardtacotron_tpu_torch.ops import rnn as rnn_ops
 
 # fold length (samples) and crossfade overlap of batched generation: the
 # sampling kernel's fold on the card, the reference's for the plain
@@ -38,8 +41,8 @@ class ResBlock(nn.Module):
         self.batch_norm2 = nn.BatchNorm1d(dims)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:   # (B, C, T)
-        h = F.relu(self.batch_norm1(self.conv1(x)))
-        return self.batch_norm2(self.conv2(h)) + x
+        h = F.relu(batch_norm(self.batch_norm1, self.conv1(x)))
+        return batch_norm(self.batch_norm2, self.conv2(h)) + x
 
 
 class MelResNet(nn.Module):
@@ -55,7 +58,7 @@ class MelResNet(nn.Module):
         self.conv_out = nn.Conv1d(compute_dims, res_out_dims, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:   # (B, C, T)
-        h = F.relu(self.batch_norm(self.conv_in(x)))
+        h = F.relu(batch_norm(self.batch_norm, self.conv_in(x)))
         for layer in self.layers:
             h = layer(h)
         return self.conv_out(h)
@@ -172,6 +175,29 @@ class WaveRNN(nn.Module):
                    upsample_factors=tuple(
                        model_config.pop('upsample_factors')),
                    **model_config)
+
+    def _gru(self, rnn: GRUWeights, x: torch.Tensor) -> torch.Tensor:
+        return rnn_ops.gru({'w_ih': rnn.weight_ih_l0,
+                            'w_hh': rnn.weight_hh_l0,
+                            'b_ih': rnn.bias_ih_l0,
+                            'b_hh': rnn.bias_hh_l0}, x)
+
+    def forward(self, x: torch.Tensor, mels: torch.Tensor) -> torch.Tensor:
+        """Teacher-forced forward (the JAX package's `WaveRNN.__call__`,
+        the reference's fatchord_version.py:132-169): x (B, T_seq) the
+        previous samples as floats, mels (B, T_win, n_mels) time-major ->
+        logits (B, T_seq, n_classes). The model's mode (train or eval)
+        decides the batch-norm statistics; both GRUs run as one stream
+        of the BiRNN kernels (`ops/rnn.py:gru`)."""
+        mels_up, aux = self.upsample(mels)
+        d = self.aux_dims
+        a1, a2, a3, a4 = (aux[..., i * d:(i + 1) * d] for i in range(4))
+        h = self.I(torch.cat([x[..., None], mels_up, a1], dim=-1))
+        h = self._gru(self.rnn1, h) + h
+        h = self._gru(self.rnn2, torch.cat([h, a2], dim=-1)) + h
+        h = F.relu(self.fc1(torch.cat([h, a3], dim=-1)))
+        h = F.relu(self.fc2(torch.cat([h, a4], dim=-1)))
+        return self.fc3(h)
 
     @torch.no_grad()
     def upsample_cond(self, mels: torch.Tensor

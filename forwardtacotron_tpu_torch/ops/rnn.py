@@ -11,6 +11,8 @@
   is `birnn_recurrence`: the plain version of the CUDA kernel in
   `kernels/birnn.py`, which `grouped_birnn` reaches through the kernel's
   wrapper (the kernel for CUDA tensors, this function for CPU ones).
+- `gru` runs one unidirectional recurrence as a single stream of the
+  same kernels (WaveRNN's teacher-forced GRUs).
 - Under autograd (grad mode on and an input that requires grad) the
   recurrence is `BiRNNTrain` instead: the training forward and BPTT
   kernels of `kernels/birnn_train.py`, whose plain versions are
@@ -338,6 +340,27 @@ def bilstm(params_fwd: Params, params_bwd: Params, x: torch.Tensor,
            compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     return birnn('lstm', params_fwd, params_bwd, x, lengths, pad_value,
                  compute_dtype)
+
+
+def gru(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Unidirectional float32 GRU over x (B, T, D) -> (B, T, H) from a
+    zero state (the JAX package's `ops/rnn.py:gru` without lengths): the
+    input projection of the whole sequence is one product, and the
+    recurrence runs as one stream (S=1) of the BiRNN kernels. Under
+    autograd that is `BiRNNTrain` (kernels #2 and #3), under no_grad the
+    inference kernel #1, and CPU tensors take their plain versions."""
+    from forwardtacotron_tpu_torch.kernels.birnn import recurrence
+    B, T, _ = x.shape
+    gi = torch.matmul(x, params['w_ih'].T) + params['b_ih']   # (B, T, 3H)
+    lengths = torch.full((B,), T, dtype=torch.int32, device=x.device)
+    args = ('gru', gi.transpose(0, 1)[:, :, None].contiguous(),
+            params['w_hh'][None].contiguous(),
+            params['b_hh'][None].contiguous(), lengths, torch.float32)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args[1:4]):
+        y = BiRNNTrain.apply(*args)                       # kernels #2, #3
+    else:
+        y = recurrence(*args)                             # kernel #1
+    return y[:, :, 0].transpose(0, 1)                     # (B, T, H)
 
 
 def pad_gru_gates(w: torch.Tensor, h_group: int, h_common: int,

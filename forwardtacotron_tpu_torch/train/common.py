@@ -3,18 +3,24 @@
 Mirrors the JAX package's `train/common.py`: the masked-L1 loss with
 0.1-weighted duration/pitch/energy terms, pitch/energy zoneout, global-
 norm clipping with optax's formula, then Adam with torch's (= optax's)
-defaults, the schedule sessions' helpers and graceful preemption. A step
-runs eagerly: forward, `loss.backward()`, clip, `optimizer.step()`.
+defaults, the schedule sessions' helpers (the vocoders' `VocSession`
+too), the top-k checkpoint tracker every trainer keeps, and graceful
+preemption. A step runs eagerly: forward, `loss.backward()`, clip,
+`optimizer.step()`.
 """
 from __future__ import annotations
 
+import os
 import signal
 import threading
-from typing import Any, Dict, Iterable, Tuple
+from pathlib import Path
+from typing import Any, Callable, Dict, Iterable, Tuple, Union
 
 import torch
 
 from forwardtacotron_tpu_torch.ops.masking import masked_l1
+from forwardtacotron_tpu_torch.utils.files import (pickle_binary,
+                                                   unpickle_binary)
 
 # options of the JAX trainer that the port does not run yet
 NOT_PORTED = {
@@ -22,7 +28,6 @@ NOT_PORTED = {
     'ema_decay': lambda v: float(v or 0) > 0,
     'grad_accum': lambda v: int(v or 1) > 1,
     'remat': bool,
-    'keep_top_k': lambda v: int(v or 0) > 0,
 }
 
 
@@ -97,6 +102,64 @@ class TTSSession:
         self.train_set = train_set
         self.val_set = val_set
         self.start_step = start_step
+
+
+class VocSession:
+    def __init__(self, index: int, lr: float, max_step: int, bs: int,
+                 train_set, val_set, val_set_samples,
+                 start_step: int = 0) -> None:
+        self.index = index
+        self.lr = lr
+        self.max_step = max_step
+        self.bs = bs
+        self.train_set = train_set
+        self.val_set = val_set
+        self.val_set_samples = val_set_samples
+        self.start_step = start_step
+
+
+class TopKTracker:
+    """The k best checkpoints by score (lower is better) in `directory`,
+    with their index in `<directory>/top_k.pkl`: a list of (score, step,
+    file name), best first, which a resumed run reads and continues (the
+    JAX package's `train/common.py:TopKTracker`, synchronous). A score
+    that makes the top k is saved, the files pushed out are deleted, and
+    the index is written after the file, listing only files on disk. A
+    replayed step (an exact resume re-offers it) replaces its entry."""
+
+    def __init__(self, directory: Union[str, Path], k: int,
+                 prefix: str) -> None:
+        self.directory = Path(directory)
+        self.k = int(k)
+        self.prefix = prefix
+        self.index_path = self.directory / 'top_k.pkl'
+        self.entries = []
+        if self.index_path.exists():
+            self.entries = unpickle_binary(self.index_path)
+
+    def update(self, score: float, step: int,
+               save: Callable[[Path], None]) -> bool:
+        """Offer the checkpoint of `step`; `save(path)` writes it where it
+        makes the top k. Returns whether it was kept."""
+        if self.k <= 0:
+            return False
+        if len(self.entries) >= self.k \
+                and score >= max(e[0] for e in self.entries):
+            return False
+        name = f'{self.prefix}_step{step}_score{score:.5f}.pt'
+        save(self.directory / name)
+        ranked = sorted([e for e in self.entries if e[2] != name]
+                        + [(float(score), int(step), name)],
+                        key=lambda e: e[0])
+        for _, _, old in ranked[self.k:]:
+            try:
+                os.remove(self.directory / old)
+            except FileNotFoundError:
+                pass
+        self.entries = [e for e in ranked[:self.k]
+                        if (self.directory / e[2]).exists()]
+        pickle_binary(self.entries, self.index_path)
+        return True
 
 
 class DeferredFlush:

@@ -4,11 +4,12 @@ Mirrors the JAX package's `train/forward_trainer.py` (the reference's
 trainer/forward_trainer.py): progressive (lr, max_step, batch size)
 schedule sessions, epoch-seeded bucket batches with mid-epoch resume, the
 masked-L1 losses, metrics read one step late, `evaluate()` in eval mode at
-the end of every epoch, and `latest_model.pt` / `forward_step{k}k.pt`
-checkpoints. Scalars go to stdout, and to an optional `writer` with an
-`add_scalar(tag, value, step)` method. Not ported yet: plots and audio
-(`plot_every` is ignored), top-k checkpoints, the background checkpoint
-writer (checkpoints are written in the step loop).
+the end of every epoch, `latest_model.pt` / `forward_step{k}k.pt`
+checkpoints, and the `keep_top_k` (default 3) best by validation mel loss
+in `top_k_models/`. Scalars go to stdout, and to an optional `writer`
+with an `add_scalar(tag, value, step)` method. Not ported yet: plots and
+audio (`plot_every` is ignored), the background checkpoint writer
+(checkpoints are written in the step loop).
 """
 from __future__ import annotations
 
@@ -49,6 +50,9 @@ class ForwardTrainer:
         tc.check_supported(self.train_cfg)
         self.writer = writer
         self.preemption = tc.Preemption()
+        self.top_k = tc.TopKTracker(
+            paths.forward_top_k, k=int(self.train_cfg.get('keep_top_k', 3)),
+            prefix='forward')
 
     def _scalar(self, tag: str, value: float, step: int) -> None:
         if self.writer is not None:
@@ -176,6 +180,11 @@ class ForwardTrainer:
                                   ('Energy_Loss', 'energy_loss')):
                     self._scalar(f'{name}/val', val[key], step)
                 self._save(model, optimizer, 'latest_model.pt', step)
+                # the k best students by validation mel loss
+                self.top_k.update(val['mel_loss'], step,
+                                  lambda path: save_checkpoint(
+                                      model, optimizer, self.config, path,
+                                      step))
                 m_loss_avg.reset()
                 duration_avg.reset()
                 pitch_loss_avg.reset()

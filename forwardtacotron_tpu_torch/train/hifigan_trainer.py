@@ -1,0 +1,319 @@
+"""Adversarial GAN vocoder trainer (HiFi-GAN or MelGAN generator).
+
+Mirrors the JAX package's `train/hifigan_trainer.py`: the generator
+(`models/hifigan.py:make_generator`, `hifigan.model.generator_type`
+hifigan or melgan) trains against the MPD and MSD discriminators
+(`models/gan_discriminators.py`) with the LSGAN, feature-matching and
+mel-L1 losses (`train/gan_losses.py`), over the vocoders' data layout
+(`--gta`: the student's ground-truth-aligned mels). A step updates the
+discriminator on a detached generation, then the generator against the
+updated discriminator, each with AdamW (betas 0.8 / 0.99, weight decay
+0.01; the session's learning rate), as `build_gan_train_step` orders it.
+Sessions follow the (lr, max_step, batch size) schedule with epoch-seeded
+crops and mid-epoch resume; `evaluate()` scores the generator's mel L1 on
+the validation batches at the end of every epoch; `generate_samples`
+vocodes whole validation mels every `gen_samples_every` steps, and the
+`keep_top_k` best generators by their mel L1 are kept. Unlike the JAX
+trainer, `generate_samples` lets a failure through.
+
+Files: the generator is stored in the official weight-norm layout
+(`weight_norm_state_dict`, under 'generator', with a config.json beside
+it), which `models/hifigan.py:load_gan_vocoder` (and so `gen_forward
+hifigan|melgan --voc_checkpoint`) and the JAX package's official-file
+loader read. `latest_model.pt` also holds the discriminators, both
+optimizers, the config and the step; `hifigan_step{k}k.pt` and the top-k
+files the generator alone. The generator's convolutions run on the card
+through cuDNN, in float32.
+"""
+from __future__ import annotations
+
+import json
+import time
+from typing import Any, Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from forwardtacotron_tpu_torch import resolve_device
+from forwardtacotron_tpu_torch.data.dataset import (Prefetcher,
+                                                    get_gan_vocoder_datasets)
+from forwardtacotron_tpu_torch.models.gan_discriminators import (
+    HiFiGANDiscriminators)
+from forwardtacotron_tpu_torch.models.hifigan import (
+    fold_weight_norm, vocode_generator, weight_norm_state_dict)
+from forwardtacotron_tpu_torch.train import common as tc
+from forwardtacotron_tpu_torch.train.gan_losses import (
+    discriminator_loss, feature_matching_loss, generator_adversarial_loss,
+    mel_l1_loss)
+from forwardtacotron_tpu_torch.train.voc_trainer import batch_to_device
+from forwardtacotron_tpu_torch.utils.checkpoints import save_payload
+from forwardtacotron_tpu_torch.utils.display import log_audio, simple_table
+from forwardtacotron_tpu_torch.utils.files import parse_schedule
+from forwardtacotron_tpu_torch.utils.paths import Paths
+
+
+def make_gan_optimizer(model: torch.nn.Module, lr: float = 2e-4
+                       ) -> torch.optim.AdamW:
+    """AdamW with the official betas (0.8, 0.99) and weight decay 0.01:
+    torch's decoupled decay p(1 - lr wd) - lr adam equals optax's
+    `adamw` update."""
+    return torch.optim.AdamW(model.parameters(), lr=lr, betas=(0.8, 0.99),
+                             weight_decay=0.01)
+
+
+def disc_step(gen: torch.nn.Module, disc: HiFiGANDiscriminators,
+              disc_opt: torch.optim.Optimizer, mel: torch.Tensor,
+              y: torch.Tensor) -> torch.Tensor:
+    """The discriminators' update on a detached generation of mel (B,
+    n_mels, T); returns the loss."""
+    with torch.no_grad():
+        y_hat = gen(mel)
+    disc_opt.zero_grad(set_to_none=True)
+    logits_r, logits_g, _, _ = disc(y, y_hat)
+    d_loss = discriminator_loss(logits_r, logits_g)
+    d_loss.backward()
+    disc_opt.step()
+    return d_loss.detach()
+
+
+def gen_step(gen: torch.nn.Module, disc: HiFiGANDiscriminators,
+             gen_opt: torch.optim.Optimizer, mel: torch.Tensor,
+             y: torch.Tensor,
+             wav_to_mel: Callable[[torch.Tensor], torch.Tensor]
+             ) -> Dict[str, torch.Tensor]:
+    """The generator's update against the discriminators as they are (no
+    gradient for them); returns its losses."""
+    gen_opt.zero_grad(set_to_none=True)
+    disc.requires_grad_(False)
+    try:
+        y_hat = gen(mel)
+        _, logits_g, fmaps_r, fmaps_g = disc(y, y_hat)
+        adv = generator_adversarial_loss(logits_g)
+        fm = feature_matching_loss(fmaps_r, fmaps_g)
+        mel_l = mel_l1_loss(wav_to_mel, y, y_hat)
+        g_loss = adv + fm + mel_l
+        g_loss.backward()
+    finally:
+        disc.requires_grad_(True)
+    gen_opt.step()
+    return {k: v.detach() for k, v in (
+        ('gen_loss', g_loss), ('gen_adv', adv), ('gen_fm', fm),
+        ('gen_mel', mel_l))}
+
+
+def gan_train_step(gen: torch.nn.Module, disc: HiFiGANDiscriminators,
+                   gen_opt: torch.optim.Optimizer,
+                   disc_opt: torch.optim.Optimizer,
+                   batch: Dict[str, torch.Tensor],
+                   wav_to_mel: Callable[[torch.Tensor], torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+    """One step: the discriminators on a detached generation, then the
+    generator against the updated discriminators. batch: 'mel' (B, T,
+    n_mels) time-major, 'audio' (B, T * hop). Returns device tensors."""
+    mel, y = batch['mel'].transpose(1, 2), batch['audio']
+    d_loss = disc_step(gen, disc, disc_opt, mel, y)
+    return {'disc_loss': d_loss,
+            **gen_step(gen, disc, gen_opt, mel, y, wav_to_mel)}
+
+
+def generator_file(gen: torch.nn.Module) -> Dict[str, Any]:
+    """The generator as an official checkpoint: {'generator': the
+    weight-norm state_dict}."""
+    return {'generator': weight_norm_state_dict(gen)}
+
+
+def load_generator(gen: torch.nn.Module, payload: Dict[str, Any]) -> None:
+    """Weights of a file written by `generator_file` (or a latest model)
+    into `gen`, exactly as they were saved."""
+    gen.load_state_dict(fold_weight_norm(payload['generator']))
+
+
+class HiFiGANTrainer:
+
+    def __init__(self, paths: Paths, dsp, config: Dict[str, Any],
+                 device='cuda', writer=None) -> None:
+        self.paths = paths
+        self.dsp = dsp
+        self.config = config
+        self.device = resolve_device(device)
+        self.train_cfg = config['hifigan']['training']
+        tc.check_supported(self.train_cfg)
+        self.writer = writer
+        self.preemption = tc.Preemption()
+        self.top_k = tc.TopKTracker(
+            paths.hifigan_top_k, k=int(self.train_cfg.get('keep_top_k', 3)),
+            prefix='hifigan')
+        model_cfg = {k: v for k, v in config['hifigan']['model'].items()
+                     if k != 'generator_type'}
+        for d in (paths.hifigan_checkpoints, paths.hifigan_top_k):
+            (d / 'config.json').write_text(json.dumps(model_cfg))
+
+    def _scalar(self, tag: str, value: float, step: int) -> None:
+        if self.writer is not None:
+            self.writer.add_scalar(tag, value, step)
+
+    def save_latest(self, gen, disc, gen_opt, disc_opt, step: int) -> None:
+        save_payload({**generator_file(gen),
+                           'discriminator': disc.state_dict(),
+                           'optim_g': gen_opt.state_dict(),
+                           'optim_d': disc_opt.state_dict(),
+                           'config': self.config, 'step': int(step)},
+                          self.paths.hifigan_checkpoints / 'latest_model.pt')
+
+    def train(self, gen: torch.nn.Module, disc: HiFiGANDiscriminators,
+              gen_opt: Optional[torch.optim.Optimizer] = None,
+              disc_opt: Optional[torch.optim.Optimizer] = None,
+              step: int = 0, train_gta: bool = False,
+              max_steps_override: Optional[int] = None) -> int:
+        """Run the schedule from `step` on the trainer's device; the nets
+        and optimizers are updated in place. Returns the final step."""
+        gen.to(self.device).train()
+        disc.to(self.device).train()
+        gen_opt = gen_opt or make_gan_optimizer(gen)
+        disc_opt = disc_opt or make_gan_optimizer(disc)
+        schedule = parse_schedule(self.train_cfg['schedule'])
+        session_start = 0
+        with self.preemption:
+            for i, (lr, max_step, bs) in enumerate(schedule, 1):
+                prev_max, session_start = session_start, max_step
+                if self.preemption.requested:
+                    break
+                if max_steps_override is not None:
+                    max_step = min(max_step, max_steps_override)
+                if step >= max_step:
+                    continue
+                train_set, val_set, val_set_samples = \
+                    get_gan_vocoder_datasets(
+                        path=self.paths.data, batch_size=bs,
+                        train_gta=train_gta,
+                        max_mel_len=self.train_cfg['max_mel_len'],
+                        hop_length=self.dsp.hop_length,
+                        seg_len=self.train_cfg['seg_len'],
+                        voc_mode=self.dsp.voc_mode, bits=self.dsp.bits,
+                        mu_law=self.dsp.mu_law,
+                        num_gen_samples=self.train_cfg['num_gen_samples'])
+                session = tc.VocSession(
+                    index=i, lr=lr, max_step=max_step, bs=bs,
+                    train_set=train_set, val_set=val_set,
+                    val_set_samples=val_set_samples, start_step=prev_max)
+                step = self.train_session(gen, disc, gen_opt, disc_opt,
+                                          step, session, train_gta)
+        return step
+
+    def train_session(self, gen, disc, gen_opt, disc_opt, step: int,
+                      session: tc.VocSession, train_gta: bool) -> int:
+        total_iters = len(session.train_set)
+        epoch0, offset0 = tc.resume_position(step, session.start_step,
+                                             total_iters)
+        epochs = max((session.max_step - step + offset0)
+                     // max(total_iters, 1) + 1, 1)
+        simple_table([('Remaining', f'{session.max_step - step} Steps'),
+                      ('Batch Size', session.bs), ('LR', session.lr),
+                      ('Segment Len', self.train_cfg['seg_len']),
+                      ('GTA Train', train_gta), ('Device', self.device)])
+        tc.set_learning_rate(gen_opt, session.lr)
+        tc.set_learning_rate(disc_opt, session.lr)
+        loss_avg, duration_avg = tc.Averager(), tc.Averager()
+        last_t = time.time()
+
+        def flush_metrics(metrics, pstep, pe, pi) -> None:
+            nonlocal last_t
+            values = {k: float(v) for k, v in metrics.items()}  # waits
+            loss_avg.add(values['gen_loss'])
+            now = time.time()
+            duration_avg.add(now - last_t)
+            last_t = now
+            speed = 1.0 / max(duration_avg.get(), 1e-9)
+            print(f'| Epoch: {pe}/{epochs} ({pi}/{total_iters}) '
+                  f'| Gen: {loss_avg.get():#.4} '
+                  f'| Disc: {values["disc_loss"]:#.4} | {speed:#.2} '
+                  f'steps/s | Step: {pstep} | ', flush=True)
+            for name, value in values.items():
+                self._scalar(f'Loss/{name}', value, pstep)
+            self._scalar('Params/learning_rate', session.lr, pstep)
+
+        deferred = tc.DeferredFlush(flush_metrics)
+        for e in range(1, epochs + 1):
+            epoch = epoch0 + e - 1
+            start = offset0 if epoch == epoch0 else 0
+            batches = Prefetcher(session.train_set.batches(epoch, start))
+            for i, batch in enumerate(batches, start + 1):
+                metrics = gan_train_step(
+                    gen, disc, gen_opt, disc_opt,
+                    batch_to_device(batch, self.device),
+                    self.dsp.wav_to_mel_batch)
+                step += 1
+                deferred.push(metrics, step, e, i)
+                if step % self.train_cfg['gen_samples_every'] == 0:
+                    mel_loss = self.generate_samples(gen, session, step)
+                    if mel_loss is not None:
+                        self.track_top_models(mel_loss, gen, step)
+                if step % self.train_cfg['checkpoint_every'] == 0:
+                    save_payload(
+                        generator_file(gen),
+                        self.paths.hifigan_checkpoints
+                        / f'hifigan_step{step // 1000}k.pt')
+                if self.preemption.requested:
+                    print('| Preemption requested: saving latest_model and '
+                          'stopping.')
+                    break
+                if step >= session.max_step:
+                    break
+            else:
+                deferred.flush()
+                val_loss = self.evaluate(gen, session.val_set)
+                print(f'| Validation at step {step}: mel loss '
+                      f'{val_loss:#.4}')
+                self._scalar('Loss/val_mel', val_loss, step)
+                self.save_latest(gen, disc, gen_opt, disc_opt, step)
+                loss_avg.reset()
+                duration_avg.reset()
+                last_t = time.time()
+                continue
+            break  # max_step reached or preempted
+        deferred.flush()
+        self.save_latest(gen, disc, gen_opt, disc_opt, step)
+        return step
+
+    @torch.no_grad()
+    def evaluate(self, gen: torch.nn.Module, val_set) -> float:
+        """Mean mel L1 loss (x 45) of the generator over the validation
+        batches."""
+        total, n = 0.0, 0
+        for batch in val_set:
+            b = batch_to_device(batch, self.device)
+            y_hat = gen(b['mel'].transpose(1, 2))
+            total += float(mel_l1_loss(self.dsp.wav_to_mel_batch,
+                                       b['audio'], y_hat))
+            n += 1
+        return total / max(n, 1)
+
+    @torch.no_grad()
+    def generate_samples(self, gen: torch.nn.Module,
+                         session: tc.VocSession, step: int
+                         ) -> Optional[float]:
+        """Vocode each validation sample's whole mel and score the mel L1
+        of the resynthesis against it; None without samples. A failure is
+        raised, not swallowed."""
+        mel_losses = []
+        for idx, sample in enumerate(session.val_set_samples, 1):
+            mel = sample['mel']                             # (n_mels, T)
+            wav = np.asarray(vocode_generator(gen, mel), dtype=np.float32)
+            gen_mel = self.dsp.wav_to_mel_bucketed(wav)
+            t = min(gen_mel.shape[-1], mel.shape[-1])
+            mel_losses.append(float(np.mean(
+                np.abs(gen_mel[:, :t] - mel[:, :t]))))
+            log_audio(self.writer, f'Samples/generated_{idx}', wav, step,
+                      self.dsp.sample_rate,
+                      fallback_dir=self.paths.hifigan_log / 'audio')
+        if not mel_losses:
+            return None
+        mel_loss = float(np.mean(mel_losses))
+        self._scalar('Loss/generated_mel_l1', mel_loss, step)
+        return mel_loss
+
+    def track_top_models(self, mel_loss: float, gen: torch.nn.Module,
+                         step: int) -> None:
+        """The top-k generators by generated mel L1."""
+        self.top_k.update(mel_loss, step, lambda path: save_payload(
+            generator_file(gen), path))

@@ -1,21 +1,23 @@
 """Tacotron teacher trainer.
 
 Mirrors the JAX package's `train/taco_trainer.py` (the reference's
-trainer/taco_trainer.py): (r, lr, max_step, batch size) schedule sessions,
-each with its own reduction factor r and epoch-seeded bucket batches
-with mid-epoch resume; the plain (unmasked) L1 of the decoder and the
-postnet outputs against the mel; global-norm clipping with optax's
-formula, then Adam (`train/common.py`); metrics and the train attention
-score read one step late; `evaluate()` in eval mode at the end of every
-epoch (no gradient, so the BiGRUs take the inference kernel #1), with
-the attention score of the validation batches; `latest_model.pt` and
-`taco_step{k}k.pt` checkpoints; graceful preemption. Dropout and zoneout
-draw from a `torch.Generator` seeded with (seed, step), so a resumed run
-draws what an uninterrupted one does. Scalars go to stdout, and to an
-optional `writer` with an `add_scalar(tag, value, step)` method. Not
-ported: the `precision`, `grad_accum`, `remat` and top-k options
-(refused by name), plots and audio samples (`plot_every` is ignored),
-the background checkpoint writer.
+trainer/taco_trainer.py): (r, lr, max_step, batch size) schedule
+sessions, each with its own reduction factor r and epoch-seeded bucket
+batches with mid-epoch resume; the plain (unmasked) L1 of the decoder
+and the postnet outputs against the mel; global-norm clipping with
+optax's formula, then Adam (`train/common.py`); metrics and the train
+attention score read one step late; `evaluate()` in eval mode at the end
+of every epoch (no gradient, so the BiGRUs take the inference kernel
+#1), with the attention score of the validation batches;
+`latest_model.pt` and `taco_step{k}k.pt` checkpoints, and the
+`keep_top_k` (default 3) best by validation attention score in
+`top_k_models/`; graceful preemption. Dropout and zoneout draw from a
+`torch.Generator` seeded with (seed, step), so a resumed run draws what
+an uninterrupted one does. Scalars go to stdout, and to an optional
+`writer` with an `add_scalar(tag, value, step)` method. Not ported: the
+`precision`, `grad_accum` and `remat` options (refused by name), plots
+and audio samples (`plot_every` is ignored), the background checkpoint
+writer.
 """
 from __future__ import annotations
 
@@ -99,6 +101,9 @@ class TacoTrainer:
         tc.check_supported(self.train_cfg)
         self.writer = writer
         self.preemption = tc.Preemption()
+        self.top_k = tc.TopKTracker(
+            paths.taco_top_k, k=int(self.train_cfg.get('keep_top_k', 3)),
+            prefix='taco')
 
     def _scalar(self, tag: str, value: float, step: int) -> None:
         if self.writer is not None:
@@ -212,6 +217,10 @@ class TacoTrainer:
                 self._scalar('Loss/val', val_loss, step)
                 self._scalar('Attention_Score/val', val_att, step)
                 self._save(model, optimizer, 'latest_model.pt', step)
+                # the k best teachers by validation attention score,
+                # negated: the tracker keeps the lowest
+                self.top_k.update(-val_att, step, lambda path: save_checkpoint(
+                    model, optimizer, self.config, path, step))
                 loss_avg.reset()
                 duration_avg.reset()
                 last_t = time.time()

@@ -13,23 +13,30 @@ trainer resumes (the port trains without EMA). The checkpoint directory
 lies under $FTT_BASE when that is set, else under the repository root.
 Without `--config` the built-in copy of config.yaml is
 used. Everything runs on `--device` (default `cuda`); `--device cpu` runs
-the plain PyTorch versions of the kernels. `--force_gta` (ground-truth-
-aligned features for the vocoder) is not ported yet.
+the plain PyTorch versions of the kernels. `--force_gta` trains nothing:
+it runs the trained student teacher-forced over the whole dataset and
+writes each item's postnet mel to `data/gta`, the mels that
+`train_wavernn --gta` and `train_hifigan --gta` learn from.
 """
 from __future__ import annotations
 
 import argparse
+from pathlib import Path
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from forwardtacotron_tpu_torch import resolve_device
 from forwardtacotron_tpu_torch.config import default_config, read_config
+from forwardtacotron_tpu_torch.data.dataset import get_tts_datasets
 from forwardtacotron_tpu_torch.models.forward_tacotron import ForwardTacotron
 from forwardtacotron_tpu_torch.train import common as tc
-from forwardtacotron_tpu_torch.train.forward_trainer import ForwardTrainer
+from forwardtacotron_tpu_torch.train.forward_trainer import (
+    ForwardTrainer, batch_to_device)
 from forwardtacotron_tpu_torch.utils.checkpoints import (load_checkpoint,
                                                          restore)
+from forwardtacotron_tpu_torch.utils.display import progbar, stream
 from forwardtacotron_tpu_torch.utils.paths import Paths
 from forwardtacotron_tpu_torch.weights import (forward_tacotron_state_dict,
                                                load_fjax)
@@ -37,18 +44,41 @@ from forwardtacotron_tpu_torch.weights import (forward_tacotron_state_dict,
 SEED = 42      # the JAX trainer's fixed seed
 
 
+def create_gta_features(model: torch.nn.Module, train_set, val_set,
+                        save_path: Path) -> int:
+    """Write the teacher-forced postnet mel (n_mels, mel_len) of every
+    real item of the two batchers to `save_path`, the model in eval mode
+    under no_grad on its device (the JAX package's
+    `train_forward.py:create_gta_features`). Returns the items written."""
+    device = next(model.parameters()).device
+    model.eval()
+    iters, n_items = len(train_set) + len(val_set), 0
+    for i, batch in enumerate((b for batcher in (train_set, val_set)
+                               for b in batcher), 1):
+        with torch.no_grad():
+            gta = model(batch_to_device(batch, device))['mel_post']
+        gta = gta.cpu().numpy()
+        for j in range(batch.get('n_real', gta.shape[0])):
+            mel_len = int(batch['mel_len'][j])
+            np.save(str(save_path / f'{batch["item_id"][j]}.npy'),
+                    gta[j, :mel_len].T.astype(np.float32),
+                    allow_pickle=False)
+            n_items += 1
+        stream(f'{progbar(i, iters)} {i}/{iters} Batches ')
+    return n_items
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     parser = argparse.ArgumentParser(description='Train ForwardTacotron TTS '
                                                  '(PyTorch)')
     parser.add_argument('--force_gta', '-g', action='store_true',
-                        help='create GTA features (not ported yet)')
+                        help='write the GTA mels of a trained model to '
+                             'data/gta')
     parser.add_argument('--config', metavar='FILE', default=None,
                         help='YAML config (needs pyyaml; default: built-in '
                              'copy of config.yaml)')
     parser.add_argument('--device', default='cuda')
     args = parser.parse_args(argv)
-    if args.force_gta:
-        parser.error('--force_gta is not ported yet')
 
     config = read_config(args.config) if args.config else default_config()
     device = resolve_device(args.device)
@@ -77,6 +107,19 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             payload['model'], config['forward_tacotron']['model'], step))
         print(f'Seeded the weights from {latest_fjax} (step {step}); the '
               'optimizer state is not converted and starts fresh')
+    if args.force_gta:
+        if not (latest.is_file() or latest_fjax.is_file()):
+            raise SystemExit(f'No student checkpoint in '
+                             f'{paths.forward_checkpoints}: train the model '
+                             'first (GTA features need a trained model)')
+        print('Creating Ground Truth Aligned Dataset...\n')
+        train_set, val_set = get_tts_datasets(
+            paths.data, 8, 1, max_mel_len=None, filter_attention=False,
+            model_type='forward')
+        create_gta_features(model, train_set, val_set, paths.gta)
+        print('\n\nYou can now train WaveRNN on GTA features - use python '
+              '-m forwardtacotron_tpu_torch.train_wavernn --gta\n')
+        return step
     return trainer.train(model, optimizer, step, seed=SEED)
 
 

@@ -16,20 +16,24 @@ from typing import Any, Dict, Optional, Union
 import torch
 
 
+def save_payload(payload: Dict[str, Any], path: Union[str, Path]) -> None:
+    """`torch.save` atomically: a temporary file, then rename."""
+    path = Path(path)
+    tmp = path.with_suffix(path.suffix + '.tmp')
+    torch.save(payload, tmp)
+    tmp.replace(path)
+
+
 def save_checkpoint(model: torch.nn.Module,
                     optimizer: Optional[torch.optim.Optimizer],
                     config: Dict[str, Any], path: Union[str, Path],
                     step: int) -> None:
-    """Write the checkpoint atomically (a temporary file, then rename)."""
-    path = Path(path)
+    """Write the checkpoint atomically (`save_payload`)."""
     model.step.fill_(int(step))
-    payload = {'model': model.state_dict(),
-               'optim': None if optimizer is None
-               else optimizer.state_dict(),
-               'config': config, 'step': int(step)}
-    tmp = path.with_suffix(path.suffix + '.tmp')
-    torch.save(payload, tmp)
-    tmp.replace(path)
+    save_payload({'model': model.state_dict(),
+                  'optim': None if optimizer is None
+                  else optimizer.state_dict(),
+                  'config': config, 'step': int(step)}, path)
 
 
 def load_checkpoint(path: Union[str, Path]) -> Dict[str, Any]:

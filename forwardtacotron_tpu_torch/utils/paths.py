@@ -3,8 +3,9 @@
 A copy of the JAX package's `utils/paths.py` (the reference's
 utils/paths.py:5-46), cut to what the port reads and writes: the data
 sub-directories of preprocessing, alignment and training, and the
-Tacotron and ForwardTacotron checkpoint directories, where the port
-writes torch `.pt` files.
+checkpoint directories of the Tacotron teacher, the ForwardTacotron
+student, and of WaveRNN and the GAN vocoders when a vocoder id is given
+(each with its top-k directory), where the port writes torch `.pt` files.
 """
 from __future__ import annotations
 
@@ -16,9 +17,11 @@ from typing import Optional, Union
 class Paths:
 
     def __init__(self, data_path: str, tts_id: str,
-                 base: Optional[Union[str, Path]] = None) -> None:
+                 base: Optional[Union[str, Path]] = None,
+                 voc_id: Optional[str] = None) -> None:
         """`base` holds checkpoints/ (default: $FTT_BASE when set, else
-        the repository root)."""
+        the repository root); `voc_id` (config['voc_model_id']) names the
+        vocoders' directories, which exist only when it is given."""
         if base is None:
             base = os.environ.get('FTT_BASE') or None
         self.base = Path(base).expanduser().resolve() if base is not None \
@@ -31,11 +34,24 @@ class Paths:
         self.raw_pitch = self.data / 'raw_pitch'
         self.phon_pitch = self.data / 'phon_pitch'
         self.phon_energy = self.data / 'phon_energy'
-        self.taco_checkpoints = (self.base / 'checkpoints'
-                                 / f'{tts_id}.tacotron')
-        self.forward_checkpoints = (self.base / 'checkpoints'
-                                    / f'{tts_id}.forward')
-        for p in (self.data, self.quant, self.mel, self.gta, self.alg,
-                  self.raw_pitch, self.phon_pitch, self.phon_energy,
-                  self.taco_checkpoints, self.forward_checkpoints):
+        checkpoints = self.base / 'checkpoints'
+        self.taco_checkpoints = checkpoints / f'{tts_id}.tacotron'
+        self.taco_top_k = self.taco_checkpoints / 'top_k_models'
+        self.forward_checkpoints = checkpoints / f'{tts_id}.forward'
+        self.forward_top_k = self.forward_checkpoints / 'top_k_models'
+        dirs = [self.data, self.quant, self.mel, self.gta, self.alg,
+                self.raw_pitch, self.phon_pitch, self.phon_energy,
+                self.taco_checkpoints, self.taco_top_k,
+                self.forward_checkpoints, self.forward_top_k]
+        if voc_id is not None:
+            self.voc_checkpoints = checkpoints / f'{voc_id}.wavernn'
+            self.voc_top_k = self.voc_checkpoints / 'top_k_models'
+            self.voc_log = self.voc_checkpoints / 'logs'
+            self.hifigan_checkpoints = checkpoints / f'{voc_id}.hifigan'
+            self.hifigan_top_k = self.hifigan_checkpoints / 'top_k_models'
+            self.hifigan_log = self.hifigan_checkpoints / 'logs'
+            dirs += [self.voc_checkpoints, self.voc_top_k, self.voc_log,
+                     self.hifigan_checkpoints, self.hifigan_top_k,
+                     self.hifigan_log]
+        for p in dirs:
             os.makedirs(p, exist_ok=True)

@@ -2,14 +2,14 @@
 
 `load_fjax` reads a `.fjax` file (a pickle of numpy arrays plus the
 config). `forward_tacotron_state_dict` / `tacotron_state_dict` /
-`wavernn_state_dict` / `hifigan_state_dict` turn its flax variables into
-this package's
-`state_dict`, under the reference's torch key names (the official
-generator's for HiFi-GAN, the hub model's for MelGAN), so
-`load_state_dict(strict=True)` takes them as they are. Layout transforms:
-conv kernels (W, Cin, Cout) -> (Cout, Cin, W), transposed-conv kernels
-(stored flipped, (W, Cin, Cout)) -> (Cin, Cout, W) unflipped, dense
-kernels transposed, RNN gates already in the torch layout.
+`wavernn_state_dict` / `hifigan_state_dict` / `discriminator_state_dict`
+turn its flax variables into this package's `state_dict`, under the
+reference's torch key names (the official generator's for HiFi-GAN, the
+hub model's for MelGAN), so `load_state_dict(strict=True)` takes them as
+they are. Layout transforms: conv kernels (W, Cin, Cout) -> (Cout, Cin,
+W), transposed-conv kernels (stored flipped, (W, Cin, Cout)) -> (Cin,
+Cout, W) unflipped, dense kernels transposed, RNN gates already in the
+torch layout.
 """
 from __future__ import annotations
 
@@ -270,4 +270,32 @@ def hifigan_state_dict(variables: Dict[str, Any], config: Dict[str, Any]
             kind, j = name.rsplit('_', 1)          # convs1_0 -> convs1.0
             _put_conv1d(out, f'resblocks.{n}.{kind}.{j}', p)
         n += 1
+    return out
+
+
+def _put_conv2d(out: Dict, name: str, p: Dict) -> None:
+    out[f'{name}.weight'] = _t(np.transpose(np.asarray(p['kernel']),
+                                            (3, 2, 0, 1)))
+    out[f'{name}.bias'] = _t(p['bias'])
+
+
+def discriminator_state_dict(variables: Dict[str, Any],
+                             periods=(2, 3, 5, 7, 11), n_scales: int = 3
+                             ) -> Dict[str, torch.Tensor]:
+    """Flax HiFi-GAN discriminator variables (numpy; a full GAN train
+    state's `discriminator` subtree is taken) -> the state_dict of
+    `models/gan_discriminators.py:HiFiGANDiscriminators`: `mpd_<p>.conv_i`
+    -> `mpd.<j>.convs.i`, `msd_<i>.conv_j` -> `msd.<i>.convs.j`, and each
+    `conv_post`; 2-D kernels (kh, kw, Cin, Cout) -> (Cout, Cin, kh, kw)."""
+    params = variables['params']
+    params = params.get('discriminator', params)
+    out: Dict[str, torch.Tensor] = {}
+    for name, subs, n_convs, put in (
+            ('mpd', [f'mpd_{p}' for p in periods], 5, _put_conv2d),
+            ('msd', [f'msd_{i}' for i in range(n_scales)], 7, _put_conv1d)):
+        for j, sub in enumerate(subs):
+            p = params[sub]
+            for i in range(n_convs):
+                put(out, f'{name}.{j}.convs.{i}', p[f'conv_{i}'])
+            put(out, f'{name}.{j}.conv_post', p['conv_post'])
     return out

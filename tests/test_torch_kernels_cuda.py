@@ -53,6 +53,11 @@ BIRNN_CASES = [
     ('gru', 160, 2, 2, 'stream_local', 2),
     ('lstm', 64, 2, 5, 'stream_local', 2),
     ('lstm', 64, 2, 5, 'stream_local', 1),
+    # one stream (WaveRNN's GRUs): evaluate()'s B=32 H=512, a lane, and
+    # the cooperative path forced
+    ('gru', 512, 1, 32, None, None),
+    ('gru', 512, 1, 1, None, None),
+    ('gru', 96, 1, 3, 'cooperative', None),
 ]
 
 
@@ -162,7 +167,9 @@ def _train_inputs(cell, T, B, S, H, dtype, seed, device):
 @pytest.mark.parametrize('cell,H,S,B', [('lstm', 256, 2, 5),
                                         ('gru', 128, 2, 6),
                                         ('gru', 64, 2, 33),
-                                        ('gru', 96, 6, 2)])
+                                        ('gru', 96, 6, 2),
+                                        ('gru', 512, 1, 32),
+                                        ('gru', 64, 1, 3)])
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 def test_train_kernels_match_plain(cuda, cell, H, S, B, dtype):
     """Kernel #2 (y, stash) and #3 (dgi, dgh) against their plain
@@ -215,6 +222,41 @@ def test_train_function_grads_match_autograd(cuda, cell):
     assert float((y - y_ref).detach().abs().max()) <= 1e-4
     for got, ref in zip(grads, refs):
         torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-5)
+
+
+def test_one_stream_gru_on_the_card(cuda):
+    """`ops/rnn.py:gru` at WaveRNN's width (H=512, one stream): under
+    autograd one launch each of #2 and #3 with outputs and gradients as
+    the CPU plain path's; under no_grad one launch of #1."""
+    from forwardtacotron_tpu_torch.kernels.birnn import recurrence
+    from forwardtacotron_tpu_torch.kernels.birnn_train import (
+        train_backward, train_forward)
+    from forwardtacotron_tpu_torch.ops.rnn import gru
+    g = torch.Generator().manual_seed(8)
+    B, T, D, H = 4, 60, 544, 512
+    params = {k: (torch.rand(shape, generator=g) * 2 - 1) / H ** 0.5
+              for k, shape in (('w_ih', (3 * H, D)), ('w_hh', (3 * H, H)),
+                               ('b_ih', (3 * H,)), ('b_hh', (3 * H,)))}
+    x = torch.randn((B, T, D), generator=g)
+    dy = torch.randn((B, T, H), generator=g)
+    outs = {}
+    for dev in ('cpu', cuda):
+        p = {k: v.to(dev).requires_grad_() for k, v in params.items()}
+        xd = x.to(dev).requires_grad_()
+        n = (train_forward.launches, train_backward.launches)
+        y = gru(p, xd)
+        grads = torch.autograd.grad(y, [xd] + list(p.values()), dy.to(dev))
+        if dev == cuda:
+            assert (train_forward.launches, train_backward.launches) == \
+                (n[0] + 1, n[1] + 1)
+        outs[str(dev)] = [t.detach().cpu() for t in (y,) + grads]
+    for got, ref in zip(outs[str(cuda)], outs['cpu']):
+        torch.testing.assert_close(got, ref, rtol=2e-4, atol=1e-4)
+    n = recurrence.launches
+    with torch.no_grad():
+        y = gru({k: v.to(cuda) for k, v in params.items()}, x.to(cuda))
+    assert recurrence.launches == n + 1
+    torch.testing.assert_close(y.cpu(), outs['cpu'][0], rtol=0, atol=1e-4)
 
 
 def test_inference_kernel_refuses_grad(cuda):

@@ -100,7 +100,7 @@ def test_builtin_config_equals_config_yaml():
         assert cfg[section] == ref[section], section
     for section in ('forward_tacotron', 'vocoder', 'tacotron'):
         assert cfg[section]['model'] == ref[section]['model'], section
-    for section in ('forward_tacotron', 'tacotron'):
+    for section in ('forward_tacotron', 'tacotron', 'vocoder', 'hifigan'):
         assert cfg[section]['training'] == ref[section]['training'], section
     assert cfg['hifigan']['model'] == ref['hifigan']['model']
 
@@ -138,7 +138,7 @@ def test_port_imports_no_jax():
     files = sorted((ROOT / 'forwardtacotron_tpu_torch').rglob('*.py'))
     files.append(ROOT / 'chip_smoke.py')
     assert len(files) > 10
-    # the serving path's and the data path's modules are among the scanned
+    # the serving, data and vocoder-training paths' modules are scanned
     names = {p.relative_to(ROOT).as_posix() for p in files}
     for module in ('dsp/stft', 'dsp/griffinlim', 'dsp/audio',
                    'text/segmenter', 'models/hifigan', 'models/melgan',
@@ -146,7 +146,11 @@ def test_port_imports_no_jax():
                    'dsp/pitch', 'dsp/vad', 'text/recipes', 'preprocess',
                    'models/tacotron', 'align/metrics', 'align/duration',
                    'align/features', 'train/taco_trainer', 'train_tacotron',
-                   'utils/display', 'utils/files', 'utils/paths'):
+                   'utils/display', 'utils/files', 'utils/paths',
+                   'ops/mol', 'models/gan_discriminators',
+                   'train/gan_losses', 'train/voc_trainer',
+                   'train/hifigan_trainer', 'train_wavernn',
+                   'train_hifigan'):
         assert f'forwardtacotron_tpu_torch/{module}.py' in names, module
     for path in files:
         for name in _imports(path):

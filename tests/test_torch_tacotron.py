@@ -255,7 +255,7 @@ def test_taco_trainer_learns_and_resumes_exactly(tmp_path):
 
 def test_taco_trainer_refuses_unported_options(tmp_path):
     for key, value in (('precision', 'bf16'), ('grad_accum', 2),
-                       ('remat', True), ('keep_top_k', 3)):
+                       ('remat', True)):
         from forwardtacotron_tpu_torch.config import default_config
         from forwardtacotron_tpu_torch.train.taco_trainer import TacoTrainer
         from forwardtacotron_tpu_torch.utils.paths import Paths

@@ -182,18 +182,22 @@ def trainer_val_set(cfg):
 
 def test_trainer_rejects_unported_options(dataset, tmp_path):
     for key, value in (('precision', 'bf16'), ('ema_decay', 0.999),
-                       ('grad_accum', 2), ('remat', True),
-                       ('keep_top_k', 3)):
+                       ('grad_accum', 2), ('remat', True)):
         cfg = _config(dataset)
         cfg['forward_tacotron']['training'][key] = value
         with pytest.raises(ValueError, match='not ported yet'):
             _trainer(cfg, tmp_path)
 
 
-def test_train_forward_cli_rejects_gta():
+def test_train_forward_cli_rejects_gta(dataset, tmp_path, monkeypatch):
+    """`--force_gta` writes the mels of a trained student: without a
+    student checkpoint it exits and writes none."""
     from forwardtacotron_tpu_torch import train_forward
-    with pytest.raises(SystemExit):
-        train_forward.main(['--force_gta', '--device', 'cpu'])
+    monkeypatch.setenv('FTT_BASE', str(tmp_path))
+    with pytest.raises(SystemExit, match='train the model first'):
+        train_forward.main(['--force_gta'] + _cli_config(dataset, tmp_path,
+                                                          6)[1])
+    assert not any((dataset / 'gta').glob('*.npy'))
 
 
 def _cli_config(data, base, total_steps):

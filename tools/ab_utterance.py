@@ -11,8 +11,9 @@ as `chip_smoke.py` phase 5 does. After two warm-up passes, each round
 prints one JSON line: the median over 5 passes of the series and decode
 ms (CUDA events) and of the host ms of a whole pass (ending in a
 synchronize). A last line gives one pass under the profiler: the device's
-busy ms (the sum of its kernels' times), the pass's host ms and the
-device's idle share of it, and the kernels of most device time.
+busy ms (the union of its kernels' intervals, as `chip_smoke.profiled`
+takes it), the pass's host ms and the device's idle share of it, and the
+kernels of most device time.
 
 Run from two checkouts in turns, one process each (parent, change,
 change, parent), it compares them on one card:
@@ -29,6 +30,7 @@ Prints the card's name and power limit first. Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import statistics
@@ -118,18 +120,14 @@ def main() -> None:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             host = utterance()[2]
-    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                      for e in prof.key_averages()
-                      if str(e.device_type).endswith('CUDA')
-                      and e.self_device_time_total > 0),
-                     key=lambda k: -k[1])
-    busy = sum(k[1] for k in kernels)
+    # chip_smoke.py beside this tool, whatever checkout is being timed
+    spec = importlib.util.spec_from_file_location(
+        'chip_smoke_helpers', Path(__file__).resolve().parents[1]
+        / 'chip_smoke.py')
+    helpers = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(helpers)
     print(json.dumps({'profiled': True, 'host_ms': host,
-                      'device_busy_ms': busy,
-                      'idle_share': 1.0 - busy / host if kernels
-                      else 'not measured',
-                      'top': [{'kernel': k[:80], 'ms': t, 'count': c}
-                              for k, t, c in kernels[:8]]}), flush=True)
+                      **helpers.profiled(prof, host, top=8)}), flush=True)
 
 
 if __name__ == '__main__':
