@@ -1,8 +1,10 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only PHASE ...]
 
-Phases (any failure makes the exit code nonzero, and the final line is
+`--only` runs the build and the named phases (functions of this file,
+e.g. `options_path`) and prints no result line: a quicker check of one
+phase while it is developed. Phases (any failure makes the exit code nonzero, and the final line is
 printed only when every phase passed):
 
 1. device: CUDA must be available; prints the card's name and power
@@ -113,10 +115,27 @@ printed only when every phase passed):
    split into the discriminators' and the generator's halves. Every
    step timing (phases 8-10, `step_timing`) takes the device's busy time
    as the union of its kernel intervals (`profiled`);
-11. a {"kernels": [...]} JSON line (launches of the main paths, of the
-   teacher phase in `launches_teacher` and of the vocoder phase in
-   `launches_vocoder`, and each kernel's time at the vocoder path's shape
-   in `vocoder_*`), the nvidia-smi line, and last
+11. the trainers' options at the full width of config.yaml, random
+   weights (`options_path` lists its cuts): `ForwardTrainer.train` with
+   bf16, grad_accum 2, remat and EMA together (counts zeroed just before
+   and read just after; `evaluate()` with the EMA weights through #1; the
+   background writer's latest_model.pt against a synchronous payload);
+   the student's step at batch 32 on the 768-frame bucket in float32,
+   bf16, grad_accum 2 and 4, remat and ema_decay 0.9995, the teacher's at
+   r=5 B=32 and WaveRNN's in float32, bf16 and remat, HiFi-GAN V1 and
+   MelGAN in float32 and bf16, each timed by `step_timing` with #2/#3
+   counted by compute dtype (bf16 steps launch them in bf16 only, remat
+   twice a recurrence forward, grad_accum k times k); `VocTrainer.train`
+   in bf16 with remat (#4 in generate_samples); on the card, the
+   student's remat gradients against no remat (running statistics equal,
+   phase 8's limits) and its bf16 gradients against float32 (relative L2
+   <= BF16_GRAD_L2_LIMIT); #2/#3 in bf16 at phase 7's shapes beside their
+   bf16 bounds and cuDNN in bf16;
+12. a {"kernels": [...]} JSON line (launches of the main paths, of the
+   teacher phase in `launches_teacher`, of the vocoder phase in
+   `launches_vocoder` and of the options phase in `launches_options`,
+   each kernel's time at the vocoder path's shape in `vocoder_*` and #2/#3
+   in bf16 in `bf16_*`), the nvidia-smi line, and last
    {"ok": true, "device": {...}}.
 
 Details go to chiprun_out/chip_smoke.json.
@@ -219,20 +238,34 @@ def profiled(prof, wall_ms: float, top: int = 12) -> dict:
                     for k, t, c in kernels[:top]]}
 
 
-def train_parts(model, optimizer, loss_fn, clip: float) -> list:
-    """One training step as `step_timing`'s parts: forward with the loss
-    (`loss_fn()`), backward, and the global-norm clip + the optimizer."""
-    from forwardtacotron_tpu_torch.train.common import clip_by_global_norm
+def train_parts(model, optimizer, micro_loss, batch, train_cfg, ema=None,
+                prepare=None) -> list:
+    """One training step as the trainers run it (`train/common.py`:
+    `accumulate` of the trainer's own `micro_loss` builder on `batch`,
+    made ready by `prepare` where given, then `apply_update`), as
+    `step_timing`'s parts: forward with the loss, backward and the clip +
+    optimizer (+ EMA); with grad_accum k > 1 forward and backward
+    alternate by micro-batch and are timed together."""
+    from forwardtacotron_tpu_torch.train import common as tc
+    k = tc.grad_accum(train_cfg)
     held = {}
 
-    def forward():
-        optimizer.zero_grad(set_to_none=True)
-        held['loss'] = loss_fn()
-
     def optimize():
-        clip_by_global_norm(model.parameters(), clip)
-        optimizer.step()
+        tc.apply_update(model, optimizer, {}, train_cfg['clip_grad_norm'],
+                        ema)
 
+    def ready():
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        return batch if prepare is None else prepare(batch)
+
+    if k > 1:
+        return [('forward_backward_ms',
+                 lambda: tc.accumulate(micro_loss, ready(), k, model)),
+                ('optimizer_ms', optimize)]
+
+    def forward():
+        held['loss'] = micro_loss(ready())[0]
     return [('forward_ms', forward),
             ('backward_ms', lambda: held.pop('loss').backward()),
             ('optimizer_ms', optimize)]
@@ -1279,15 +1312,16 @@ def _train_inputs(cell, T, B, H, lens, seed, S=2):
     return [t.cuda().contiguous() for t in (gi, w, b, lengths, dy)]
 
 
-def _cudnn_train_ms(cell, T, H, B, S=2):
-    """cuDNN nn.LSTM/nn.GRU over (B, T, H) inputs, bidirectional for two
-    streams and one-way for one, forward with grad and backward timed
-    apart (input projection included): a yardstick only, never called by
-    the port."""
+def _cudnn_train_ms(cell, T, H, B, S=2, dtype=torch.float32):
+    """cuDNN nn.LSTM/nn.GRU over (B, T, H) inputs in `dtype`,
+    bidirectional for two streams and one-way for one, forward with grad
+    and backward timed apart (input projection included): a yardstick
+    only, never called by the port."""
     mod = (torch.nn.LSTM if cell == 'lstm' else torch.nn.GRU)(
-        H, H, batch_first=True, bidirectional=S == 2).cuda()
+        H, H, batch_first=True, bidirectional=S == 2).cuda().to(dtype)
     mod.flatten_parameters()
-    x = torch.randn((B, T, H), device='cuda', requires_grad=True)
+    x = torch.randn((B, T, H), device='cuda', dtype=dtype,
+                    requires_grad=True)
     fwd = cuda_ms(lambda: mod(x), reps=5)
     y = mod(x)[0]
     dy = torch.randn_like(y)
@@ -1296,8 +1330,11 @@ def _cudnn_train_ms(cell, T, H, B, S=2):
     return fwd, bwd
 
 
-@phase('BiRNN training kernels vs plain')
-def train_kernel_cases():
+def _train_kernel_row(cell, T, H, B, lens, S, name):
+    """Kernels #2 and #3 against their plain versions on the inputs of
+    `_train_inputs`, in float32 and bfloat16, on the planned paths (and
+    #3's cooperative path on the same stash where batch-split is
+    planned): the row with its paths, errors and inputs."""
     from forwardtacotron_tpu_torch.kernels import birnn_train as bt
     from forwardtacotron_tpu_torch.kernels.birnn_train import (
         train_backward, train_forward)
@@ -1312,57 +1349,84 @@ def train_kernel_cases():
     # one-ulp flip of every element).
     bf16_rel = {'y': 2e-3, 'stash': 2.0 ** -7, 'dgi': 2.0 ** -7,
                 'dgh': 2.0 ** -7}
+    gi, w, b, ln, dy = _train_inputs(cell, T, B, H, lens, seed=H + T, S=S)
+    row = {'case': f'{name} {cell} H={H} T={T} B={B}'
+                   + (f' S={S}' if S != 2 else ''), 'errors': {}}
+    for dtype in (f32, bf16):
+        key = str(dtype)[6:]
+        for sfx, plan in (('', bt.train_forward_plan),
+                          ('bwd_', bt.train_backward_plan)):
+            row[f'{sfx}path' + ('' if dtype == f32 else f'_{key}')] = plan(
+                cell, S, B, H, dtype, props.shared_memory_per_block_optin,
+                props.multi_processor_count)['path']
+        gi_d, w_d = gi.to(dtype), w.to(dtype)
+        y, st = train_forward(cell, gi_d, w_d, b, ln, dtype)
+        dgi, dgh = train_backward(cell, st, dy, w_d, ln, dtype)
+        # (label, output, tensor); where the batch-split backward is
+        # planned, the cooperative one forced on the same stash too
+        outs = [(k, k, v) for k, v in (('y', y), ('stash', st),
+                                       ('dgi', dgi), ('dgh', dgh))]
+        if row['bwd_path' + ('' if dtype == f32 else f'_{key}')] \
+                != 'cooperative':
+            dgi_c, dgh_c = train_backward(cell, st, dy, w_d, ln, dtype,
+                                          path='cooperative')
+            outs += [('dgi cooperative', 'dgi', dgi_c),
+                     ('dgh cooperative', 'dgh', dgh_c)]
+        torch.cuda.synchronize()
+        y_p, st_p = birnn_train_forward(cell, gi_d, w_d, b, ln, dtype)
+        dgi_p, dgh_p = birnn_train_backward(cell, st, dy, w_d, ln, dtype)
+        ref_of = {'y': y_p, 'stash': st_p, 'dgi': dgi_p, 'dgh': dgh_p}
+        for what, kind, got in outs:
+            ref = ref_of[kind]
+            diff = got.float() - ref.float()
+            err = float(diff.abs().max())
+            rel_l2 = float(diff.norm() / ref.float().norm())
+            if dtype == f32:
+                limit, l2_limit = 1e-4, math.inf
+            else:
+                limit = bf16_rel[kind] * float(ref.float().abs().max())
+                l2_limit = 2.0 ** -8
+            ok = err <= limit and rel_l2 <= l2_limit \
+                and bool(torch.isfinite(got).all())
+            check(ok, f'{row["case"]} {key} {what}: max|kernel-plain| '
+                      f'{err:.3g} <= {limit:.3g}, relative L2 '
+                      f'{rel_l2:.3g} <= {l2_limit:.3g}')
+            row['errors'][f'{key} {what}'] = err
+            row['errors'][f'{key} {what} rel_l2'] = rel_l2
+    return row, (gi, w, b, ln, dy)
+
+
+# the micro-batches that grad_accum k gives kernels #2/#3, checked against
+# the plain versions in float32 and bfloat16 as (name, cell, T, H, B,
+# lengths): the student's five at k = 2 and 4 (B = 16, 8) and the teacher's
+# r=1 postnet at k = 2 (B = 4), each the batch's last micro-batch (its
+# shortest lanes; no lane reaches T)
+MICRO_TRAIN_KERNEL_CASES = tuple(
+    (f'{n} grad_accum {k}', c, T, H, 32 // k, ln[-(32 // k):])
+    for n, c, T, H, ln in TRAIN_KERNEL_CASES for k in (2, 4)) + tuple(
+    (f'{n} grad_accum 2', c, T, H, B // 2, ln[-(B // 2):])
+    for n, c, T, H, B, ln in TEACHER_TRAIN_KERNEL_CASES if B == 8)
+
+
+@phase('BiRNN training kernels vs plain')
+def train_kernel_cases():
+    """Kernels #2 and #3 against their plain versions (`_train_kernel_row`)
+    at the training paths' shapes, timed beside their plain versions, their
+    float32 bound and cuDNN; and at grad_accum's micro-batches
+    (MICRO_TRAIN_KERNEL_CASES), checked only."""
+    from forwardtacotron_tpu_torch.kernels.birnn_train import (
+        train_backward, train_forward)
+    from forwardtacotron_tpu_torch.ops.rnn import (birnn_train_backward,
+                                                   birnn_train_forward)
+    f32 = torch.float32
     rows = []
     for name, cell, T, H, B, lens, S in (
             [(n, c, T, H, 32, ln, 2) for n, c, T, H, ln in
              TRAIN_KERNEL_CASES]
             + [c + (2,) for c in TEACHER_TRAIN_KERNEL_CASES]
             + [c + (1,) for c in VOCODER_TRAIN_KERNEL_CASES]):
-        gi, w, b, ln, dy = _train_inputs(cell, T, B, H, lens, seed=H + T,
-                                         S=S)
-        row = {'case': f'{name} {cell} H={H} T={T} B={B}'
-                       + (f' S={S}' if S != 2 else ''), 'errors': {},
-               'path': bt.train_forward_plan(
-                   cell, S, B, H, f32, props.shared_memory_per_block_optin,
-                   props.multi_processor_count)['path']}
-        row['bwd_path'] = bt.train_backward_plan(
-            cell, S, B, H, f32, props.shared_memory_per_block_optin,
-            props.multi_processor_count)['path']
-        for dtype in (f32, bf16):
-            gi_d, w_d = gi.to(dtype), w.to(dtype)
-            y, st = train_forward(cell, gi_d, w_d, b, ln, dtype)
-            dgi, dgh = train_backward(cell, st, dy, w_d, ln, dtype)
-            # (label, output, tensor); where the batch-split backward is
-            # planned, the cooperative one forced on the same stash too
-            outs = [(k, k, v) for k, v in (('y', y), ('stash', st),
-                                           ('dgi', dgi), ('dgh', dgh))]
-            if row['bwd_path'] != 'cooperative':
-                dgi_c, dgh_c = train_backward(cell, st, dy, w_d, ln, dtype,
-                                              path='cooperative')
-                outs += [('dgi cooperative', 'dgi', dgi_c),
-                         ('dgh cooperative', 'dgh', dgh_c)]
-            torch.cuda.synchronize()
-            y_p, st_p = birnn_train_forward(cell, gi_d, w_d, b, ln, dtype)
-            dgi_p, dgh_p = birnn_train_backward(cell, st, dy, w_d, ln, dtype)
-            ref_of = {'y': y_p, 'stash': st_p, 'dgi': dgi_p, 'dgh': dgh_p}
-            for what, kind, got in outs:
-                ref = ref_of[kind]
-                diff = got.float() - ref.float()
-                err = float(diff.abs().max())
-                rel_l2 = float(diff.norm() / ref.float().norm())
-                key = f'{str(dtype)[6:]} {what}'
-                if dtype == f32:
-                    limit, l2_limit = 1e-4, math.inf
-                else:
-                    limit = bf16_rel[kind] * float(ref.float().abs().max())
-                    l2_limit = 2.0 ** -8
-                ok = err <= limit and rel_l2 <= l2_limit \
-                    and bool(torch.isfinite(got).all())
-                check(ok, f'{row["case"]} {key}: max|kernel-plain| '
-                          f'{err:.3g} <= {limit:.3g}, relative L2 '
-                          f'{rel_l2:.3g} <= {l2_limit:.3g}')
-                row['errors'][key] = err
-                row['errors'][f'{key} rel_l2'] = rel_l2
+        row, (gi, w, b, ln, dy) = _train_kernel_row(cell, T, H, B, lens, S,
+                                                    name)
         for sfx, parts in (('fwd', ('y', 'stash')), ('bwd', ('dgi', 'dgh'))):
             row[f'max_abs_err_{sfx}'] = max(row['errors'][f'float32 {p}']
                                             for p in parts)
@@ -1410,6 +1474,14 @@ def train_kernel_cases():
             f'{row["bound_by_bwd"]}, cuDNN {row["library_ms_bwd"]:.3f})')
         rows.append(row)
     DETAILS['birnn_train'] = rows
+    micro = []
+    for name, cell, T, H, B, lens in MICRO_TRAIN_KERNEL_CASES:
+        row = _train_kernel_row(cell, T, H, B, lens, 2, name)[0]
+        log(f'  {row["case"]}: checked in float32 and bfloat16, fwd on the '
+            f'{row["path"]} / {row["path_bfloat16"]} path, bwd on the '
+            f'{row["bwd_path"]} / {row["bwd_path_bfloat16"]} path')
+        micro.append(row)
+    DETAILS['birnn_train_micro'] = micro
     return rows
 
 
@@ -1568,19 +1640,27 @@ def training_path():
         shutil.rmtree(TRAIN_DIR, ignore_errors=True)
 
 
+def _student_parts(model, optimizer, batch, train_cfg, ema=None):
+    """`train_parts` of `train/common.py:train_step`: the zoned-out batch
+    (from a generator seeded 0) and the student's micro-batch loss."""
+    from forwardtacotron_tpu_torch.train import common as tc
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    return train_parts(
+        model, optimizer, tc.forward_micro_loss(model, train_cfg), batch,
+        train_cfg, ema,
+        prepare=lambda b: tc.forward_step_batch(b, gen, train_cfg))
+
+
 def _student_step_timing(model, optimizer, trainer, val_set, smi):
     """The student's step at batch 32 on one batch of the 768-frame
     bucket (`step_timing`)."""
-    from forwardtacotron_tpu_torch.train import common as tc
     from forwardtacotron_tpu_torch.train.forward_trainer import (
         batch_to_device)
     cfg = trainer.train_cfg
     batch = next(b for b in val_set if b['mel'].shape[1] == 768)
     batch = batch_to_device(batch, 'cuda')
-    model.train()
-    out = step_timing(train_parts(model, optimizer, lambda: tc.forward_loss(
-        model(batch), batch, batch['pitch'], batch['energy'], cfg)[0],
-        cfg['clip_grad_norm']), 'student step at batch 32, 768 frames', smi)
+    out = step_timing(_student_parts(model, optimizer, batch, cfg),
+                      'student step at batch 32, 768 frames', smi)
     out['batch'] = list(batch['mel'].shape)
     return out
 
@@ -1909,7 +1989,7 @@ def _teacher_step_timing(model, optimizer, paths, cfg, smi):
     batch 8 (config.yaml's first and last sessions; `step_timing`)."""
     from forwardtacotron_tpu_torch.data.dataset import get_tts_datasets
     from forwardtacotron_tpu_torch.train.taco_trainer import (
-        taco_batch_to_device, taco_loss)
+        taco_batch_to_device, taco_micro_loss)
     train_cfg = cfg['tacotron']['training']
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     out = {}
@@ -1919,14 +1999,10 @@ def _teacher_step_timing(model, optimizer, paths, cfg, smi):
             filter_attention=False, model_type='tacotron')
         batch = taco_batch_to_device(max(
             train_set.batches(0), key=lambda b: b['mel'].shape[1]), DEVICE)
-        model.train()
-
-        def loss(r=r, batch=batch):
-            m1, m2, _ = model(batch['x'], batch['mel'], r, gen)
-            return taco_loss(m1, m2, batch['mel'])[0]
-
         row = step_timing(
-            train_parts(model, optimizer, loss, train_cfg['clip_grad_norm']),
+            train_parts(model, optimizer,
+                        taco_micro_loss(model, r, gen, train_cfg), batch,
+                        train_cfg),
             f'teacher step r={r} B={bs} {list(batch["mel"].shape)}', smi)
         row.update(batch=list(batch['mel'].shape),
                    text=list(batch['x'].shape))
@@ -2333,14 +2409,12 @@ def _voc_gta(cfg, paths, index, smi):
     return out
 
 
-def _voc_step_timing(model, optimizer, batch, smi):
+def _voc_step_timing(model, optimizer, batch, train_cfg, smi):
     """The WaveRNN step at batch 32, seq_len 1280, RAW (`step_timing`)."""
-    from forwardtacotron_tpu_torch.train.voc_trainer import voc_loss
-    model.train()
+    from forwardtacotron_tpu_torch.train.voc_trainer import voc_micro_loss
     out = step_timing(train_parts(
-        model, optimizer,
-        lambda: voc_loss(model(batch['x'], batch['mel']), batch['y'], 'RAW'),
-        4.0), f'WaveRNN step {list(batch["x"].shape)}', smi)
+        model, optimizer, voc_micro_loss(model, 'RAW'), batch, train_cfg),
+        f'WaveRNN step {list(batch["x"].shape)}', smi)
     out['batch'] = list(batch['x'].shape)
     return out
 
@@ -2558,7 +2632,7 @@ def _voc_wavernn(cfg, paths, index, student, smi):
     out['generate_samples'] = _voc_generate_timing(
         cfg, paths, model, samples, smi)
     out['step_ms'] = _voc_step_timing(model, tc.make_optimizer(model), batch,
-                                      smi)
+                                      voc_cfg, smi)
     out['grads_vs_cpu'] = _voc_grads_vs_cpu(model)
     return out
 
@@ -2697,9 +2771,501 @@ def vocoder_path():
     return out
 
 
+# ------------------------------------------------- the trainers' options
+
+OPTIONS_DIR = Path('smoke_options')   # datasets and checkpoints of phase 11
+# phase 11's cuts: each trainer run 2 steps (config.yaml: 40k-800k), the
+# student on phase 8's synthetic dataset, WaveRNN on phase 10's; every
+# step timing on one batch of config.yaml's batch size
+OPTIONS_STEPS = 2
+# the student's options as phase 11 times them (config.yaml's
+# forward_tacotron.training with these changed)
+STUDENT_OPTIONS = (('f32', {}), ('bf16', {'precision': 'bf16'}),
+                   ('grad_accum 2', {'grad_accum': 2}),
+                   ('grad_accum 4', {'grad_accum': 4}),
+                   ('remat', {'remat': True}),
+                   ('ema 0.9995', {'ema_decay': 0.9995}))
+# the teacher's options step: batch, phonemes and frames (r=5; phase 9's
+# longest r=5 bucket is ~690 frames)
+TEACHER_OPTIONS_BATCH = (32, 120, 700)
+# the relative L2 distance of the card's bf16 student gradients from its
+# float32 ones (all parameters together): the CPU tests measured 0.124
+# between JAX's own float32 and bf16 steps at a tiny width
+# (tests/test_torch_train_options_remat_bf16.py) and hold the port to 2x
+# that
+BF16_GRAD_L2_LIMIT = 0.25
+
+
+def _option_counts(reset=False):
+    """`_train_counts` with the launches of #2/#3 by compute dtype, over
+    both paths and on each."""
+    from forwardtacotron_tpu_torch.kernels.birnn_train import (
+        train_backward, train_forward)
+    out = _train_counts(reset)
+    for name, fn in (('birnn_train_fwd', train_forward),
+                     ('birnn_train_bwd', train_backward)):
+        if reset:
+            fn.path_dtype_launches = dict.fromkeys(fn.path_dtype_launches, 0)
+        for (path, dtype), n in fn.path_dtype_launches.items():
+            out[f'{name}_{path}_{dtype}'] = n
+            out[f'{name}_{dtype}'] = out.get(f'{name}_{dtype}', 0) + n
+    return out
+
+
+def _check_launches(got, what, recurrences, train_cfg):
+    """#2 `recurrences` x k launches a step (twice that under remat), #3
+    `recurrences` x k, all in the step's compute dtype."""
+    from forwardtacotron_tpu_torch.train.common import half_dtype
+    k = int(train_cfg.get('grad_accum', 1) or 1)
+    remat = bool(train_cfg.get('remat', False))
+    dtype = 'float32' if half_dtype(train_cfg) is None else 'bfloat16'
+    fwd, bwd = recurrences * k * (2 if remat else 1), recurrences * k
+    ok = (got['birnn_train_fwd'] == got[f'birnn_train_fwd_{dtype}'] == fwd
+          and got['birnn_train_bwd'] == got[f'birnn_train_bwd_{dtype}']
+          == bwd)
+    check(ok, f'{what}: kernel #2 {got["birnn_train_fwd"]} launches '
+              f'({got[f"birnn_train_fwd_{dtype}"]} in {dtype}) == {fwd}, #3 '
+              f'{got["birnn_train_bwd"]} ({got[f"birnn_train_bwd_{dtype}"]} '
+              f'in {dtype}) == {bwd}')
+
+
+def _student_options(cfg, paths, smi):
+    """Each of STUDENT_OPTIONS on one batch of the 768-frame bucket at
+    batch 32: one `train_step` with its launches counted, then its step
+    timing."""
+    from forwardtacotron_tpu_torch.data.dataset import get_tts_datasets
+    from forwardtacotron_tpu_torch.models.forward_tacotron import (
+        ForwardTacotron)
+    from forwardtacotron_tpu_torch.train import common as tc
+    from forwardtacotron_tpu_torch.train.forward_trainer import (
+        batch_to_device)
+    _, val_set = get_tts_datasets(cfg['data_path'], 32, 1, None)
+    batch = batch_to_device(next(b for b in val_set
+                                 if b['mel'].shape[1] == 768), DEVICE)
+    torch.manual_seed(0)
+    model = ForwardTacotron.from_config(cfg).to(DEVICE).train()
+    optimizer = tc.make_optimizer(model)
+    out = {}
+    for label, options in STUDENT_OPTIONS:
+        train_cfg = dict(cfg['forward_tacotron']['training'], **options)
+        ema = tc.make_ema(model, train_cfg)
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        _option_counts(reset=True)
+        metrics = tc.train_step(model, optimizer, batch, gen, train_cfg, ema)
+        launches = _option_counts()
+        _check_launches(launches, f'student {label} step', 6, train_cfg)
+        check(math.isfinite(float(metrics['loss'])),
+              f'student {label}: loss {float(metrics["loss"]):.4f} finite')
+        row = step_timing(_student_parts(model, optimizer, batch, train_cfg,
+                                         ema),
+                          f'student {label} step at batch 32, 768 frames',
+                          smi)
+        row['launches'] = launches
+        out[label] = row
+    out['batch'] = list(batch['mel'].shape)
+    out['grads'] = _student_option_grads(model, batch)
+    return out
+
+
+def _student_grads(model, batch, train_cfg, seed=0):
+    """{parameter: gradient} and the running statistics after one
+    forward and backward of a copy of `model` under `train_cfg`'s
+    precision and remat, dropout live from the global RNG seeded with
+    `seed`."""
+    from forwardtacotron_tpu_torch.train import common as tc
+    m = copy.deepcopy(model).train()
+    torch.manual_seed(seed)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    loss = tc.forward_micro_loss(m, train_cfg)(
+        tc.forward_step_batch(batch, gen, train_cfg))[0]
+    loss.backward()
+    stats = {k: v.clone() for k, v in m.state_dict().items()
+             if 'running' in k or k.endswith('num_batches_tracked')}
+    return ({k: p.grad.detach().float().cpu()
+             for k, p in m.named_parameters()}, stats)
+
+
+def _student_option_grads(model, batch):
+    """On the card at full width: remat against no remat (the running
+    statistics exactly equal, the gradients within phase 8's limits), and
+    the bf16 step's gradients against the float32 step's (relative L2 of
+    all parameters together <= BF16_GRAD_L2_LIMIT)."""
+    from forwardtacotron_tpu_torch.config import default_config
+    train_cfg = default_config()['forward_tacotron']['training']
+    g32, s32 = _student_grads(model, batch, train_cfg)
+    g_remat, s_remat = _student_grads(model, batch, dict(train_cfg,
+                                                          remat=True))
+    same_stats = all(torch.equal(s32[k], s_remat[k]) for k in s32)
+    errors = _worst_grad_errors(g_remat, g32)
+    check(same_stats and errors['ok'],
+          f'student remat vs no remat on the card, dropout live: running '
+          f'statistics {"equal" if same_stats else "DIFFER"} ({len(s32)} '
+          f'tensors), gradients worst relative L2 '
+          f'{errors["worst_rel_l2"]:.2e} ({errors["param_l2"]}) <= '
+          f'{GRAD_L2_LIMIT:g}, worst max-element {errors["worst_rel_max"]:.2e} '
+          f'({errors["param_max"]}) <= {GRAD_MAX_LIMIT:g}')
+    g16, _ = _student_grads(model, batch, dict(train_cfg, precision='bf16'))
+    num = sum(float((g16[k] - g).norm()) ** 2 for k, g in g32.items())
+    den = sum(float(g.norm()) ** 2 for g in g32.values())
+    rel = (num / den) ** 0.5
+    per = _grad_errors(g16, g32)[0]
+    worst = max(per, key=per.get)
+    check(rel <= BF16_GRAD_L2_LIMIT and all(
+        bool(torch.isfinite(g).all()) for g in g16.values()),
+        f'student bf16 vs float32 gradients on the card: relative L2 '
+        f'{rel:.4f} <= {BF16_GRAD_L2_LIMIT} (worst parameter {worst} '
+        f'{per[worst]:.3f})')
+    return {'remat': errors, 'remat_stats_equal': same_stats,
+            'bf16_rel_l2': rel, 'bf16_worst_param': [worst, per[worst]]}
+
+
+def _student_trainer_run(cfg, paths, smi):
+    """`ForwardTrainer.train` with every option on (bf16, grad_accum 2,
+    remat, ema_decay 0.9995) for OPTIONS_STEPS steps at batch 32, counts
+    zeroed just before and read just after; `evaluate()` with the EMA
+    weights (#1); the async writer's latest_model.pt against the payload
+    a synchronous save writes."""
+    from forwardtacotron_tpu_torch.data.dataset import get_tts_datasets
+    from forwardtacotron_tpu_torch.models.forward_tacotron import (
+        ForwardTacotron)
+    from forwardtacotron_tpu_torch.train import common as tc
+    from forwardtacotron_tpu_torch.train.forward_trainer import (
+        ForwardTrainer)
+    from forwardtacotron_tpu_torch.utils.checkpoints import (
+        checkpoint_payload, load_checkpoint)
+    options = {'precision': 'bf16', 'grad_accum': 2, 'remat': True,
+               'ema_decay': 0.9995}
+    run_cfg = copy.deepcopy(cfg)
+    run_cfg['forward_tacotron']['training'].update(options)
+    trainer = ForwardTrainer(paths, run_cfg, DEVICE)
+    torch.manual_seed(0)
+    model = ForwardTacotron.from_config(run_cfg).to(DEVICE)
+    optimizer = tc.make_optimizer(model)
+    _option_counts(reset=True)
+    t0 = time.perf_counter()
+    step = trainer.train(model, optimizer, max_steps_override=OPTIONS_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _, val_set = get_tts_datasets(cfg['data_path'], 32, 1, None)
+    trainer.evaluate(model, val_set)
+    launches = _option_counts()
+    log(f'  ForwardTrainer with {options}: {step} steps in {wall:.1f} s '
+        f'(host clock, first steps included), launches {launches}')
+    check(step == OPTIONS_STEPS, f'student trainer with every option '
+                                 f'reached step {step}')
+    _check_launches(launches, f'student trainer, {step} steps, all options',
+                    6 * step,
+                    run_cfg['forward_tacotron']['training'])
+    check(launches['birnn'] == launches['birnn_stream_local'] > 0,
+          f'evaluate() with the EMA weights: kernel #1 '
+          f'{launches["birnn"]} launches, stream-local')
+    payload = load_checkpoint(paths.forward_checkpoints / 'latest_model.pt')
+    want = checkpoint_payload(model, optimizer, run_cfg, step, trainer.ema)
+
+    def same(a, b):
+        if torch.is_tensor(a):
+            return torch.equal(a.cpu(), b.cpu())
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+        if isinstance(a, (list, tuple)):
+            return len(a) == len(b) and all(map(same, a, b))
+        return a == b
+    ema_moved = any(not torch.equal(trainer.ema.params[k], p.detach())
+                    for k, p in model.named_parameters())
+    check(all(same(payload[k], want[k]) for k in ('model', 'raw_model',
+                                                  'optim', 'step'))
+          and ema_moved,
+          'the async writer\'s latest_model.pt equals a synchronous save '
+          '(EMA weights under model, raw under raw_model, Adam, step)')
+    return {'steps': step, 'wall_s': wall, 'launches': launches,
+            'options': options}
+
+
+def _teacher_options(smi):
+    """The teacher's step at r=5 on a synthetic batch of
+    TEACHER_OPTIONS_BATCH, float32, bf16 and remat, each with its launches
+    counted over one `taco_train_step` and then timed."""
+    from forwardtacotron_tpu_torch.config import default_config
+    from forwardtacotron_tpu_torch.models.tacotron import Tacotron
+    from forwardtacotron_tpu_torch.train import common as tc
+    from forwardtacotron_tpu_torch.train.taco_trainer import (
+        taco_micro_loss, taco_train_step)
+    cfg = default_config()
+    rng = np.random.RandomState(4)
+    B, n, frames = TEACHER_OPTIONS_BATCH
+    batch = {'x': torch.from_numpy(rng.randint(1, 60, (B, n))).to(DEVICE),
+             'mel': torch.from_numpy((rng.randn(B, frames, 80) * 2
+                                      - 5).astype(np.float32)).to(DEVICE)}
+    torch.manual_seed(0)
+    model = Tacotron.from_config(cfg).to(DEVICE).train()
+    optimizer = tc.make_optimizer(model)
+    out = {}
+    for label, options in (('f32', {}), ('bf16', {'precision': 'bf16'}),
+                           ('remat', {'remat': True})):
+        train_cfg = dict(cfg['tacotron']['training'], **options)
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        _option_counts(reset=True)
+        metrics, _ = taco_train_step(model, optimizer, batch, 5, gen,
+                                     train_cfg)
+        launches = _option_counts()
+        _check_launches(launches, f'teacher {label} step', 2, train_cfg)
+        check(math.isfinite(float(metrics['loss'])),
+              f'teacher {label}: loss {float(metrics["loss"]):.4f} finite')
+        row = step_timing(train_parts(model, optimizer,
+                                      taco_micro_loss(model, 5, gen,
+                                                      train_cfg),
+                                      batch, train_cfg),
+                          f'teacher {label} step r=5 '
+                          f'{list(batch["mel"].shape)}', smi, reps=2)
+        row['launches'] = launches
+        out[label] = row
+    return out
+
+
+def _wavernn_option_batch(cfg, seed=6):
+    rng = np.random.RandomState(seed)
+    seq, hop = cfg['vocoder']['training']['seq_len'], cfg['dsp']['hop_length']
+    pad = cfg['vocoder']['model']['pad']
+    return {'x': torch.from_numpy(rng.uniform(-1, 1, (32, seq)).astype(
+                np.float32)).to(DEVICE),
+            'mel': torch.from_numpy((rng.randn(
+                32, seq // hop + 2 * pad, 80) * 2 - 5).astype(
+                    np.float32)).to(DEVICE),
+            'y': torch.from_numpy(rng.randint(0, 512, (32, seq))).to(DEVICE)}
+
+
+def _wavernn_options(smi):
+    """WaveRNN's step at batch 32, seq_len 1280, RAW: float32, bf16 and
+    remat, launches counted over one `voc_train_step`, then timed."""
+    from forwardtacotron_tpu_torch.config import default_config
+    from forwardtacotron_tpu_torch.models.wavernn import WaveRNN
+    from forwardtacotron_tpu_torch.train import common as tc
+    from forwardtacotron_tpu_torch.train.voc_trainer import (
+        voc_micro_loss, voc_train_step)
+    cfg = default_config()
+    batch = _wavernn_option_batch(cfg)
+    torch.manual_seed(0)
+    model = WaveRNN.from_config(cfg).to(DEVICE).train()
+    optimizer = tc.make_optimizer(model)
+    out = {}
+    for label, options in (('f32', {}), ('bf16', {'precision': 'bf16'}),
+                           ('remat', {'remat': True})):
+        train_cfg = dict(cfg['vocoder']['training'], **options)
+        half = tc.half_dtype(train_cfg)
+        remat = bool(train_cfg.get('remat'))
+        _option_counts(reset=True)
+        metrics = voc_train_step(model, optimizer, batch, 'RAW',
+                                 train_cfg['clip_grad_norm'], half, remat)
+        launches = _option_counts()
+        _check_launches(launches, f'WaveRNN {label} step', 2, train_cfg)
+        check(math.isfinite(float(metrics['loss'])),
+              f'WaveRNN {label}: loss {float(metrics["loss"]):.4f} finite')
+        row = step_timing(train_parts(model, optimizer,
+                                      voc_micro_loss(model, 'RAW', half,
+                                                     remat),
+                                      batch, train_cfg),
+                          f'WaveRNN {label} step [32, 1280]', smi)
+        row['launches'] = launches
+        out[label] = row
+    return out
+
+
+def _wavernn_trainer_run(smi):
+    """`VocTrainer.train` in bf16 with remat for OPTIONS_STEPS steps at
+    batch 32 on phase 10's synthetic dataset (mel/ and quant/, no GTA), one
+    generate_samples call at the trainer's fold: counts zeroed just before
+    and read just after (#2/#3 in bf16, twice a GRU under remat; #1 in
+    evaluate(); #4 in generate_samples)."""
+    from forwardtacotron_tpu_torch import config
+    from forwardtacotron_tpu_torch.config import default_config
+    from forwardtacotron_tpu_torch.dsp.audio import DSP
+    from forwardtacotron_tpu_torch.kernels.wavernn_sample import sample
+    from forwardtacotron_tpu_torch.models.wavernn import WaveRNN
+    from forwardtacotron_tpu_torch.train.voc_trainer import VocTrainer
+    from forwardtacotron_tpu_torch.utils.paths import Paths
+    base = (OPTIONS_DIR / 'vocoder').resolve()
+    base.mkdir(parents=True)
+    with _voc_env(base), _patched(
+            config.VOCODER_TRAINING, precision='bf16', remat=True,
+            schedule=[f'1e-4, {OPTIONS_STEPS}, {VOC_BATCH}'],
+            gen_samples_every=OPTIONS_STEPS, num_gen_samples=1):
+        cfg = default_config()
+        _write_voc_dataset(Path(cfg['data_path']), cfg)
+        paths = Paths(cfg['data_path'], cfg['tts_model_id'],
+                      voc_id=cfg['voc_model_id'])
+        trainer = VocTrainer(paths, DSP.from_config(cfg, DEVICE), cfg,
+                             DEVICE)
+        torch.manual_seed(0)
+        model = WaveRNN.from_config(cfg)
+        _option_counts(reset=True)
+        sample.launches = 0
+        t0 = time.perf_counter()
+        step = trainer.train(model, max_steps_override=OPTIONS_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {**_option_counts(), 'wavernn_sample': sample.launches}
+        train_cfg = cfg['vocoder']['training']
+    log(f'  VocTrainer bf16 + remat: {step} steps in {wall:.1f} s (host '
+        f'clock, first steps, generate_samples included), launches '
+        f'{launches}')
+    check(step == OPTIONS_STEPS, f'WaveRNN trainer reached step {step}')
+    _check_launches(launches, f'WaveRNN trainer bf16 + remat, {step} steps',
+                    2 * step, train_cfg)
+    check(launches['wavernn_sample'] > 0,
+          f'generate_samples in the bf16 + remat run: kernel #4 '
+          f'{launches["wavernn_sample"]} launches')
+    return {'steps': step, 'wall_s': wall, 'launches': launches}
+
+
+def _gan_options(smi):
+    """The HiFi-GAN V1 and MelGAN steps at batch 16, seg_len 8192, float32
+    and bf16, on a synthetic batch (`step_timing`)."""
+    from forwardtacotron_tpu_torch import config
+    from forwardtacotron_tpu_torch.config import default_config
+    from forwardtacotron_tpu_torch.dsp.audio import DSP
+    from forwardtacotron_tpu_torch.models.gan_discriminators import (
+        HiFiGANDiscriminators)
+    from forwardtacotron_tpu_torch.models.hifigan import make_generator
+    from forwardtacotron_tpu_torch.train.hifigan_trainer import (
+        disc_step, gen_step, make_gan_optimizer)
+    out = {}
+    for kind in ('hifigan', 'melgan'):
+        with _patched(config.HIFIGAN_MODEL, generator_type=kind):
+            cfg = default_config()
+        hop, seg = cfg['dsp']['hop_length'], cfg['hifigan']['training'][
+            'seg_len']
+        rng = np.random.RandomState(7)
+        mel = torch.from_numpy((rng.randn(GAN_BATCH, 80, seg // hop) * 2
+                                - 5).astype(np.float32)).to(DEVICE)
+        y = torch.from_numpy(rng.uniform(-0.5, 0.5, (GAN_BATCH, seg)).astype(
+            np.float32)).to(DEVICE)
+        wav_to_mel = DSP.from_config(cfg, DEVICE).wav_to_mel_batch
+        torch.manual_seed(3)
+        gen = make_generator(cfg).to(DEVICE)
+        disc = HiFiGANDiscriminators().to(DEVICE)
+        gopt, dopt = make_gan_optimizer(gen), make_gan_optimizer(disc)
+        for label, half in (('f32', None), ('bf16', torch.bfloat16)):
+            d_loss = disc_step(gen, disc, dopt, mel, y, half)
+            g = gen_step(gen, disc, gopt, mel, y, wav_to_mel, half)
+            check(math.isfinite(float(d_loss))
+                  and math.isfinite(float(g['gen_loss'])),
+                  f'{kind} {label} step: losses {float(d_loss):.4f} / '
+                  f'{float(g["gen_loss"]):.4f} finite')
+            out[f'{kind} {label}'] = step_timing(
+                [('disc_ms', lambda half=half: disc_step(
+                    gen, disc, dopt, mel, y, half)),
+                 ('gen_ms', lambda half=half: gen_step(
+                     gen, disc, gopt, mel, y, wav_to_mel, half))],
+                f'{kind} {label} step [16, 8192]', smi)
+    return out
+
+
+def _train_kernel_bf16_times(smi):
+    """#2 and #3 in bf16 at phase 7's training shapes (the student's five,
+    the teacher's three, WaveRNN's): ms on the planned path, the bound at
+    bf16 sizes (gi, the stash and dgi/dgh 2 bytes an element, y and dy 4;
+    operations against the bf16 peak) and cuDNN in bf16."""
+    from forwardtacotron_tpu_torch.kernels import birnn_train as bt
+    from forwardtacotron_tpu_torch.kernels.birnn_train import (
+        train_backward, train_forward)
+    bf16 = torch.bfloat16
+    props = torch.cuda.get_device_properties(0)
+    rows = []
+    for name, cell, T, H, B, lens, S in (
+            [(n, c, T, H, 32, ln, 2) for n, c, T, H, ln in
+             TRAIN_KERNEL_CASES]
+            + [c + (2,) for c in TEACHER_TRAIN_KERNEL_CASES]
+            + [c + (1,) for c in VOCODER_TRAIN_KERNEL_CASES]):
+        gi, w, b, ln, dy = _train_inputs(cell, T, B, H, lens, seed=H + T,
+                                         S=S)
+        gi, w = gi.to(bf16), w.to(bf16)
+        plans = {k: fn(cell, S, B, H, bf16,
+                       props.shared_memory_per_block_optin,
+                       props.multi_processor_count)['path']
+                 for k, fn in (('fwd', bt.train_forward_plan),
+                               ('bwd', bt.train_backward_plan))}
+        st = train_forward(cell, gi, w, b, ln, bf16)[1]
+        row = {'case': f'{name} {cell} H={H} T={T} B={B}'
+                       + (f' S={S}' if S != 2 else '') + ' bfloat16',
+               'path': plans['fwd'], 'bwd_path': plans['bwd'],
+               'ms_fwd': cuda_ms(lambda: train_forward(cell, gi, w, b, ln,
+                                                       bf16), reps=5),
+               'ms_bwd': cuda_ms(lambda: train_backward(cell, st, dy, w, ln,
+                                                        bf16), reps=5)}
+        ng = 4 if cell == 'lstm' else 3
+        active = S * sum(min(n, T) for n in lens)
+        flops = 2.0 * active * ng * H * H
+        small = w.numel() * 2 + (b.numel() + ln.numel()) * 4
+        y_elems = B * T * S * H
+        fwd_bytes = gi.numel() * 2 + st.numel() * 2 + y_elems * 4 + small
+        bwd_bytes = (st.numel() * 2 + dy.numel() * 4
+                     + (1 if cell == 'lstm' else 2) * gi.numel() * 2 + small)
+        row['bound_ms_fwd'], row['bound_by_fwd'] = bound_ms(fwd_bytes, flops,
+                                                            bf16)
+        row['bound_ms_bwd'], row['bound_by_bwd'] = bound_ms(bwd_bytes, flops,
+                                                            bf16)
+        row['library_ms_fwd'], row['library_ms_bwd'] = _cudnn_train_ms(
+            cell, T, H, B, S, bf16)
+        log(f'  {row["case"]}: fwd {row["ms_fwd"]:.3f} ms ({plans["fwd"]}; '
+            f'bound {row["bound_ms_fwd"]:.4f} {row["bound_by_fwd"]}, cuDNN '
+            f'{row["library_ms_fwd"]:.3f}); bwd {row["ms_bwd"]:.3f} ms '
+            f'({plans["bwd"]}; bound {row["bound_ms_bwd"]:.4f} '
+            f'{row["bound_by_bwd"]}, cuDNN {row["library_ms_bwd"]:.3f}) | '
+            f'{smi}')
+        rows.append(row)
+    return rows
+
+
+@phase('training options (full width)')
+def options_path():
+    """The trainers' options at config.yaml's widths, random weights from
+    seeds, in OPTIONS_DIR (cuts: OPTIONS_STEPS steps a trainer run; the
+    synthetic datasets of phases 8 and 10):
+
+    1. `ForwardTrainer.train` with bf16, grad_accum 2, remat and EMA
+       together, counts zeroed just before and read just after, and the
+       async writer's file against a synchronous payload
+       (`_student_trainer_run`);
+    2. the student's step under each of STUDENT_OPTIONS: launches of
+       #2/#3 by dtype, step timing; remat against no remat and bf16
+       against float32 gradients on the card (`_student_options`);
+    3. the teacher's r=5 B=32 step in float32, bf16 and remat;
+    4. WaveRNN's step in float32, bf16 and remat, and `VocTrainer.train`
+       in bf16 with remat (#2/#3 in bf16, #1 in evaluate(), #4 in
+       generate_samples);
+    5. the HiFi-GAN V1 and MelGAN steps in float32 and bf16;
+    6. #2/#3 in bf16 at phase 7's shapes beside their bf16 bounds and
+       cuDNN in bf16."""
+    from forwardtacotron_tpu_torch.config import default_config
+    from forwardtacotron_tpu_torch.utils.paths import Paths
+    smi = nvidia_smi_line()
+    shutil.rmtree(OPTIONS_DIR, ignore_errors=True)
+    out = {'nvidia_smi': smi}
+    try:
+        cfg = default_config()
+        cfg['data_path'] = str(OPTIONS_DIR / 'data')
+        _write_dataset(OPTIONS_DIR / 'data')
+        paths = Paths(cfg['data_path'], 'smoke_options', base=OPTIONS_DIR)
+        out['student_trainer'] = _student_trainer_run(cfg, paths, smi)
+        out['student'] = _student_options(cfg, paths, smi)
+        out['teacher'] = _teacher_options(smi)
+        out['wavernn'] = _wavernn_options(smi)
+        out['wavernn_trainer'] = _wavernn_trainer_run(smi)
+        out['gan'] = _gan_options(smi)
+        out['kernels_bf16'] = _train_kernel_bf16_times(smi)
+    finally:
+        shutil.rmtree(OPTIONS_DIR, ignore_errors=True)
+    DETAILS['options'] = out
+    return out
+
+
 # ------------------------------------------------------------------- main
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    parser = argparse.ArgumentParser()
+    parser.add_argument('--only', nargs='+', default=None)
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         log('chip_smoke: torch.cuda is not available; this script needs '
             'an NVIDIA GPU')
@@ -2711,6 +3277,16 @@ def main() -> int:
     log(f'device: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | '
         f'torch {torch.__version__} cuda {torch.version.cuda}')
     build_kernels()
+    if args.only:
+        for name in args.only:
+            globals()[name]()
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / 'chip_smoke_only.json').write_text(json.dumps(
+            {'nvidia_smi': smi, 'failures': FAILURES, **DETAILS}, indent=1,
+            default=str))
+        log(f'\n{len(FAILURES)} failures: '
+            + '; '.join(f.splitlines()[0] for f in FAILURES))
+        return 1 if FAILURES else 0
     birnn_rows = birnn_cases() or []
     wr = wavernn_cases() or {}
     launches = main_path() or {}
@@ -2719,6 +3295,7 @@ def main() -> int:
     train_launches = training_path() or {}
     teacher = teacher_path() or {}
     voc = vocoder_path() or {}
+    opts = options_path() or {}
 
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / 'chip_smoke.json').write_text(json.dumps(
@@ -2741,6 +3318,12 @@ def main() -> int:
                     for k in voc['wavernn']['launches']}
     voc_birnn = next(r for r in birnn_rows if 'wavernn' in r['case'])
     voc_train = next(r for r in train_rows if 'wavernn' in r['case'])
+    # the training options' path (phase 11): the student's and WaveRNN's
+    # trainer runs with their options on
+    opt_launches = {k: opts['student_trainer']['launches'].get(k, 0)
+                    + opts['wavernn_trainer']['launches'].get(k, 0)
+                    for k in opts['wavernn_trainer']['launches']}
+    bf16_rows = opts['kernels_bf16']
     kernels = [
         {'name': 'birnn (stream-local path)', 'route': 'cuda',
          'source': 'forwardtacotron_tpu_torch/csrc/birnn.cu',
@@ -2754,6 +3337,7 @@ def main() -> int:
          'bound_ms': serving['bound_ms'], 'bound_by': serving['bound_by'],
          'library_ms': serving['library_ms'],
          'launches_vocoder': voc_launches['birnn_stream_local'],
+         'launches_options': opt_launches['birnn_stream_local'],
          'vocoder_case': voc_birnn['case'],
          'vocoder_ms': voc_birnn['ms_stream_local'],
          'vocoder_plain_ms': voc_birnn['plain_ms'],
@@ -2765,6 +3349,7 @@ def main() -> int:
          'replaces': 'forwardtacotron_tpu/kernels/wavernn_sample.py:64',
          'launches': launches['wavernn_sample'], 'launches_teacher': 0,
          'launches_vocoder': voc_launches['wavernn_sample'],
+         'launches_options': opt_launches['wavernn_sample'],
          'max_abs_err': wr['max_abs_err'], 'agreement': wr['agreement'],
          'ms': wr['ms'], 'plain_ms': wr['plain_ms'],
          'bound_ms': wr['bound_ms'], 'bound_by': wr['bound_by'],
@@ -2791,11 +3376,19 @@ def main() -> int:
             'launches': train_launches[count],
             'launches_teacher': teacher['train'][count],
             'launches_vocoder': voc_launches[count],
+            'launches_options': opt_launches[count],
+            'launches_options_bfloat16': opt_launches[f'{count}_bfloat16'],
             'max_abs_err': row[f'max_abs_err_{sfx}'],
             'ms': row[f'ms_{sfx}'], 'plain_ms': row[f'plain_ms_{sfx}'],
             'bound_ms': row[f'bound_ms_{sfx}'],
             'bound_by': row[f'bound_by_{sfx}'],
             'library_ms': row[f'library_ms_{sfx}']})
+        b16 = next(r for r in bf16_rows
+                   if r['case'].startswith(row['case'].split(' ')[0]))
+        kernels[-1].update({
+            'bf16_case': b16['case'], 'bf16_ms': b16[f'ms_{sfx}'],
+            'bf16_bound_ms': b16[f'bound_ms_{sfx}'],
+            'bf16_library_ms': b16[f'library_ms_{sfx}']})
         if 'cooperative' in name:
             kernels[-1].update({
                 'vocoder_case': voc_train['case'],

@@ -256,11 +256,16 @@ def train_forward(cell: str, gi: torch.Tensor, w_hh: torch.Tensor,
                     7, *args, hbuf.data_ptr(), T, B, S, H, plan['units'])
     train_forward.launches += 1
     train_forward.path_launches[plan['path']] += 1
+    train_forward.path_dtype_launches[
+        (plan['path'], _DTYPE_NAMES[compute_dtype])] += 1
     return y, stash
 
 
+_DTYPE_NAMES = {torch.float32: 'float32', torch.bfloat16: 'bfloat16'}
 train_forward.launches = 0
 train_forward.path_launches = {p: 0 for p in PATHS}
+train_forward.path_dtype_launches = {(p, d): 0 for p in PATHS
+                                  for d in _DTYPE_NAMES.values()}
 
 
 def train_backward(cell: str, stash: torch.Tensor, dy: torch.Tensor,
@@ -321,9 +326,13 @@ def train_backward(cell: str, stash: torch.Tensor, dy: torch.Tensor,
                     7, *args, xbuf.data_ptr(), T, B, S, H, u)
     train_backward.launches += 1
     train_backward.path_launches[plan['path']] += 1
+    train_backward.path_dtype_launches[
+        (plan['path'], _DTYPE_NAMES[compute_dtype])] += 1
     return dgi, dgh
 
 
 train_backward.launches = 0
 train_backward.path_launches = {p: 0 for p in PATHS}
+train_backward.path_dtype_launches = {(p, d): 0 for p in PATHS
+                                  for d in _DTYPE_NAMES.values()}
 

@@ -50,7 +50,8 @@ class SeriesPredictor(nn.Module):
 
     def forward(self, x: torch.Tensor, alpha: float = 1.0,
                 lengths: Optional[torch.Tensor] = None,
-                compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                compute_dtype: Optional[torch.dtype] = torch.float32
+                ) -> torch.Tensor:
         h = time_mask(self.embedding(x), lengths)
         for conv in self.convs:
             h = time_mask(self.dropout(conv(h)), lengths)
@@ -127,19 +128,22 @@ class ForwardTacotron(nn.Module):
         padded batch, the encoding is expanded by the ground-truth
         durations to Tm frames, the decoder BiLSTM is cut at mel_len and
         the postnet runs over the padded mel, as the reference does on
-        padded batches. Returns mel, mel_post, dur, pitch, energy."""
-        f32 = torch.float32
+        padded batches. Every recurrence computes in the dtype of its
+        input (`ops/rnn.py:follow_dtype`): float32, or bfloat16 when the
+        parameters and the batch are cast to it (`train/common.py`'s
+        mixed precision), and the predictions come back in that dtype.
+        Returns mel, mel_post, dur, pitch, energy."""
         x, mel_len = batch['x'], batch['mel_len']
-        out = {name: pred(x, compute_dtype=f32) for name, pred in
+        out = {name: pred(x, compute_dtype=None) for name, pred in
                (('dur', self.dur_pred), ('pitch', self.pitch_pred),
                 ('energy', self.energy_pred))}
-        h = self._encode(x, batch['pitch'], batch['energy'], None, f32)
+        h = self._encode(x, batch['pitch'], batch['energy'], None, None)
         h, _ = length_regulate(h, batch['dur'], batch['mel'].shape[1])
         y = self.lstm(h, lengths=mel_len, pad_value=PADDING_VALUE,
-                      compute_dtype=f32)
+                      compute_dtype=None)
         out['mel'] = self.lin(y)
         out['mel_post'] = self.post_proj(self.postnet(out['mel'],
-                                                      compute_dtype=f32))
+                                                      compute_dtype=None))
         return out
 
     # ---------------------------------------------------------- series

@@ -10,6 +10,8 @@ as the JAX package's `train=True`.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional, Sequence
 
 import torch
@@ -59,11 +61,30 @@ class BiRNN(nn.Module):
     def forward(self, x: torch.Tensor,
                 lengths: Optional[torch.Tensor] = None,
                 pad_value: float = 0.0,
-                compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                compute_dtype: Optional[torch.dtype] = None
+                ) -> torch.Tensor:
+        """`compute_dtype` None follows x (`ops/rnn.py:follow_dtype`)."""
         return rnn_ops.birnn(self.cell, self.direction(False),
                              self.direction(True), x, lengths=lengths,
                              pad_value=pad_value,
                              compute_dtype=compute_dtype)
+
+
+_RUNNING_STATS = threading.local()
+
+
+@contextlib.contextmanager
+def frozen_running_stats():
+    """Within it (on this thread), train-mode `batch_norm` normalises with
+    the batch's statistics as always but leaves the running statistics
+    alone: the recompute of a rematerialised forward runs in it, so a
+    step moves them once, as the JAX step's single mutation does."""
+    before = getattr(_RUNNING_STATS, 'frozen', False)
+    _RUNNING_STATS.frozen = True
+    try:
+        yield
+    finally:
+        _RUNNING_STATS.frozen = before
 
 
 def batch_norm(bn: nn.BatchNorm1d, h: torch.Tensor) -> torch.Tensor:
@@ -72,16 +93,22 @@ def batch_norm(bn: nn.BatchNorm1d, h: torch.Tensor) -> torch.Tensor:
     and moves the running statistics towards those same values with
     momentum 0.1 (flax's momentum 0.9). `nn.BatchNorm1d` would store the
     unbiased variance instead, 3% larger at 32 samples, so the update is
-    written out here. In eval mode it is `bn` itself."""
+    written out here. The statistics and the normalisation are computed
+    in float32 at least and the result comes back in h's dtype, and the
+    running statistics stay float32, as flax does for bfloat16 input. In
+    eval mode it is `bn` itself."""
     if not bn.training:
         return bn(h)
-    var, mean = torch.var_mean(h, dim=(0, 2), unbiased=False)
-    with torch.no_grad():
-        bn.running_mean.mul_(1.0 - bn.momentum).add_(bn.momentum * mean)
-        bn.running_var.mul_(1.0 - bn.momentum).add_(bn.momentum * var)
-        bn.num_batches_tracked.add_(1)
-    h = (h - mean[:, None]) * torch.rsqrt(var[:, None] + bn.eps)
-    return h * bn.weight[:, None] + bn.bias[:, None]
+    hf = h.float()
+    var, mean = torch.var_mean(hf, dim=(0, 2), unbiased=False)
+    if not getattr(_RUNNING_STATS, 'frozen', False):
+        with torch.no_grad():
+            bn.running_mean.mul_(1.0 - bn.momentum).add_(bn.momentum * mean)
+            bn.running_var.mul_(1.0 - bn.momentum).add_(bn.momentum * var)
+            bn.num_batches_tracked.add_(1)
+    y = (hf - mean[:, None]) * (torch.rsqrt(var[:, None] + bn.eps)
+                                * bn.weight.float()[:, None])
+    return (y + bn.bias.float()[:, None]).to(h.dtype)
 
 
 class BatchNormConv(nn.Module):
@@ -152,7 +179,7 @@ class CBHG(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 lengths: Optional[torch.Tensor] = None,
-                compute_dtype: torch.dtype = torch.float32,
+                compute_dtype: Optional[torch.dtype] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         seq_len = x.shape[1]
         x = time_mask(x, lengths)

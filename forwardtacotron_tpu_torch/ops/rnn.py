@@ -13,6 +13,10 @@
   wrapper (the kernel for CUDA tensors, this function for CPU ones).
 - `gru` runs one unidirectional recurrence as a single stream of the
   same kernels (WaveRNN's teacher-forced GRUs).
+- `compute_dtype=None` (the training forwards) follows the input: a
+  bfloat16 x runs the recurrence in bfloat16 (gi, W_hh and the stash;
+  the state stays float32), anything else in float32, and y comes back
+  in x's dtype (`kernels/birnn.py:641,679` of the JAX package).
 - Under autograd (grad mode on and an input that requires grad) the
   recurrence is `BiRNNTrain` instead: the training forward and BPTT
   kernels of `kernels/birnn_train.py`, whose plain versions are
@@ -36,6 +40,15 @@ def n_gates(cell: str) -> int:
     if cell not in ('gru', 'lstm'):
         raise ValueError(f'unknown cell {cell!r}')
     return 4 if cell == 'lstm' else 3
+
+
+def follow_dtype(x: torch.Tensor,
+                 compute_dtype: Optional[torch.dtype]) -> torch.dtype:
+    """`compute_dtype`, or where it is None the recurrence's dtype for
+    input x: bfloat16 for bfloat16 x, float32 otherwise."""
+    if compute_dtype is not None:
+        return compute_dtype
+    return torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
 
 
 def gru_from_gates(gi: torch.Tensor, gh: torch.Tensor, h: torch.Tensor
@@ -257,14 +270,16 @@ def grouped_birnn(cell: str, w_ih: torch.Tensor, w_hh: torch.Tensor,
                   b_ih: torch.Tensor, b_hh: torch.Tensor,
                   x_groups: torch.Tensor,
                   lengths: Optional[torch.Tensor] = None,
-                  compute_dtype: torch.dtype = torch.float32
+                  compute_dtype: Optional[torch.dtype] = torch.float32
                   ) -> torch.Tensor:
     """G independent bidirectional RNNs in one recurrence.
 
     w_ih (2, G, NG*H, D) with direction 0 = forward; w_hh (2, G, NG*H, H);
     b_ih/b_hh (2, G, NG*H); x_groups (B, T, G, D). Returns (B, T, G, 2, H)
-    per-group [forward, backward] features, zero at t >= lengths."""
+    per-group [forward, backward] features in x's dtype, zero at
+    t >= lengths. `compute_dtype` None follows x (`follow_dtype`)."""
     from forwardtacotron_tpu_torch.kernels.birnn import recurrence
+    compute_dtype = follow_dtype(x_groups, compute_dtype)
     B, T, G, _ = x_groups.shape
     H = w_hh.shape[-1]
     GH = w_ih.shape[-2]
@@ -291,8 +306,9 @@ def grouped_birnn(cell: str, w_ih: torch.Tensor, w_hh: torch.Tensor,
         y = BiRNNTrain.apply(*args)                       # kernels #2, #3
     else:
         y = recurrence(*args)                             # kernel #1
-    # y: (T, B, 2G, H)
-    y = y.reshape(T, B, G, 2, H)
+    # y: (T, B, 2G, H), float32 from the kernels; autograd turns a
+    # bfloat16 dy back into float32 exactly
+    y = y.to(x_groups.dtype).reshape(T, B, G, 2, H)
     y = torch.stack([y[:, :, :, 0], y[:, :, :, 1].flip(0)], dim=3)
     y = y.permute(1, 0, 2, 3, 4)                          # (B, T, G, 2, H)
     valid = pad_mask(lengths, T)[:, :, None, None, None]
@@ -300,7 +316,7 @@ def grouped_birnn(cell: str, w_ih: torch.Tensor, w_hh: torch.Tensor,
 
 
 def grouped_bigru(w_ih, w_hh, b_ih, b_hh, x_groups, lengths=None,
-                  compute_dtype: torch.dtype = torch.float32
+                  compute_dtype: Optional[torch.dtype] = torch.float32
                   ) -> torch.Tensor:
     return grouped_birnn('gru', w_ih, w_hh, b_ih, b_hh, x_groups, lengths,
                          compute_dtype)
@@ -317,7 +333,8 @@ def mask_outputs(y: torch.Tensor, lengths: Optional[torch.Tensor],
 def birnn(cell: str, params_fwd: Params, params_bwd: Params,
           x: torch.Tensor, lengths: Optional[torch.Tensor] = None,
           pad_value: float = 0.0,
-          compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+          compute_dtype: Optional[torch.dtype] = torch.float32
+          ) -> torch.Tensor:
     """Bidirectional RNN over x (B, T, D) -> (B, T, 2H) = [fwd, bwd]."""
     def stack(k):
         return torch.stack([params_fwd[k], params_bwd[k]])[:, None]
@@ -330,37 +347,44 @@ def birnn(cell: str, params_fwd: Params, params_bwd: Params,
 
 def bigru(params_fwd: Params, params_bwd: Params, x: torch.Tensor,
           lengths: Optional[torch.Tensor] = None, pad_value: float = 0.0,
-          compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+          compute_dtype: Optional[torch.dtype] = torch.float32
+          ) -> torch.Tensor:
     return birnn('gru', params_fwd, params_bwd, x, lengths, pad_value,
                  compute_dtype)
 
 
 def bilstm(params_fwd: Params, params_bwd: Params, x: torch.Tensor,
            lengths: Optional[torch.Tensor] = None, pad_value: float = 0.0,
-           compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+           compute_dtype: Optional[torch.dtype] = torch.float32
+           ) -> torch.Tensor:
     return birnn('lstm', params_fwd, params_bwd, x, lengths, pad_value,
                  compute_dtype)
 
 
 def gru(params: Params, x: torch.Tensor) -> torch.Tensor:
-    """Unidirectional float32 GRU over x (B, T, D) -> (B, T, H) from a
-    zero state (the JAX package's `ops/rnn.py:gru` without lengths): the
-    input projection of the whole sequence is one product, and the
-    recurrence runs as one stream (S=1) of the BiRNN kernels. Under
-    autograd that is `BiRNNTrain` (kernels #2 and #3), under no_grad the
-    inference kernel #1, and CPU tensors take their plain versions."""
+    """Unidirectional GRU over x (B, T, D) -> (B, T, H) from a zero state
+    (the JAX package's `ops/rnn.py:gru` without lengths), in x's dtype:
+    bfloat16 x runs the recurrence in bfloat16 (`follow_dtype`), anything
+    else in float32. The input projection of the whole sequence is one
+    product, and the recurrence runs as one stream (S=1) of the BiRNN
+    kernels. Under autograd that is `BiRNNTrain` (kernels #2 and #3),
+    under no_grad the inference kernel #1, and CPU tensors take their
+    plain versions."""
     from forwardtacotron_tpu_torch.kernels.birnn import recurrence
+    compute_dtype = follow_dtype(x, None)
     B, T, _ = x.shape
     gi = torch.matmul(x, params['w_ih'].T) + params['b_ih']   # (B, T, 3H)
     lengths = torch.full((B,), T, dtype=torch.int32, device=x.device)
-    args = ('gru', gi.transpose(0, 1)[:, :, None].contiguous(),
-            params['w_hh'][None].contiguous(),
-            params['b_hh'][None].contiguous(), lengths, torch.float32)
+    args = ('gru', gi.transpose(0, 1)[:, :, None].to(compute_dtype)
+            .contiguous(),
+            params['w_hh'][None].to(compute_dtype).contiguous(),
+            params['b_hh'][None].float().contiguous(), lengths,
+            compute_dtype)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args[1:4]):
         y = BiRNNTrain.apply(*args)                       # kernels #2, #3
     else:
         y = recurrence(*args)                             # kernel #1
-    return y[:, :, 0].transpose(0, 1)                     # (B, T, H)
+    return y[:, :, 0].transpose(0, 1).to(x.dtype)         # (B, T, H)
 
 
 def pad_gru_gates(w: torch.Tensor, h_group: int, h_common: int,

@@ -1,4 +1,5 @@
-"""Training machinery of the forward model: loss, optimizer, one step.
+"""Training machinery: the forward model's loss and step, the options
+every trainer shares, the session helpers, top-k and preemption.
 
 Mirrors the JAX package's `train/common.py`: the masked-L1 loss with
 0.1-weighted duration/pitch/energy terms, pitch/energy zoneout, global-
@@ -7,23 +8,59 @@ defaults, the schedule sessions' helpers (the vocoders' `VocSession`
 too), the top-k checkpoint tracker every trainer keeps, and graceful
 preemption. A step runs eagerly: forward, `loss.backward()`, clip,
 `optimizer.step()`.
+
+The trainers' options, as the JAX package runs them (`:213-400`):
+
+- `precision: bf16` casts at the boundary: the float32 parameters and the
+  float32 inputs go into the model as bfloat16 (`forward_model`, through
+  `torch.func.functional_call`), the whole forward runs in bfloat16 (the
+  BiRNN kernels too: `ops/rnn.py:follow_dtype`), the predictions come back
+  as float32 (`full`) for a loss against the float32 targets, and the
+  gradients flow back to the float32 masters through the casts. BatchNorm
+  statistics and Adam stay float32. Not `torch.autocast`, which casts per
+  op and keeps reductions in float32.
+- `ema_decay` > 0 keeps `EMA` weights, `decay * e + (1 - decay) * p`
+  after every update; evaluation and served files use them.
+- `grad_accum` k splits the batch on its leading axis into k micro-batches
+  of the padded length (`accumulate`): the mean-loss gradients are summed
+  and divided by k, BatchNorm statistics move in micro-batch order, the
+  metrics are averaged, and clipping sees the averaged gradient.
+- `remat` recomputes the model's forward in the backward
+  (`torch.utils.checkpoint`, non-reentrant), with the same dropout masks
+  (the global RNG by `preserve_rng_state`, an explicit generator restored
+  here) and without a second move of the running statistics.
+
+Each trainer honours what its JAX counterpart honours (`HONOURED`) and
+refuses the rest by name (`check_supported`).
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import signal
 import threading
 from pathlib import Path
-from typing import Any, Callable, Dict, Iterable, Tuple, Union
+from typing import (Any, Callable, Dict, Iterable, List, Optional, Sequence,
+                    Tuple, Union)
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from forwardtacotron_tpu_torch.models.layers import frozen_running_stats
 from forwardtacotron_tpu_torch.ops.masking import masked_l1
+from forwardtacotron_tpu_torch.utils.async_ckpt import map_tensors
 from forwardtacotron_tpu_torch.utils.files import (pickle_binary,
                                                    unpickle_binary)
 
-# options of the JAX trainer that the port does not run yet
-NOT_PORTED = {
+# the options each JAX trainer runs (its step builder reads them); the
+# port's trainer of the same name honours these and refuses the others
+HONOURED = {
+    'forward': ('precision', 'ema_decay', 'grad_accum', 'remat'),
+    'tacotron': ('precision', 'grad_accum', 'remat'),
+    'wavernn': ('precision', 'remat'),
+    'gan': ('precision',),
+}
+OPTION_ON = {
     'precision': lambda v: str(v).lower() not in ('f32', 'float32', 'fp32'),
     'ema_decay': lambda v: float(v or 0) > 0,
     'grad_accum': lambda v: int(v or 1) > 1,
@@ -31,12 +68,171 @@ NOT_PORTED = {
 }
 
 
-def check_supported(train_cfg: Dict[str, Any]) -> None:
-    """Reject the training options the port has not ported yet."""
-    for key, is_on in NOT_PORTED.items():
-        if key in train_cfg and is_on(train_cfg[key]):
-            raise ValueError(f'training.{key}={train_cfg[key]!r} is not '
-                             'ported yet')
+def check_supported(train_cfg: Dict[str, Any], trainer: str) -> None:
+    """Refuse, by name, an option that the JAX `trainer` does not run, and
+    an unknown precision (`half_dtype`)."""
+    for key, is_on in OPTION_ON.items():
+        if key in train_cfg and key not in HONOURED[trainer] \
+                and is_on(train_cfg[key]):
+            raise ValueError(f'training.{key}={train_cfg[key]!r}: the JAX '
+                             f'{trainer} trainer has no such option')
+    half_dtype(train_cfg)
+
+
+def half_dtype(train_cfg: Dict[str, Any]) -> Optional[torch.dtype]:
+    """training.precision: 'bf16' (or 'bfloat16', 'mixed') computes the
+    forward and backward in bfloat16; 'f32' (the default, or 'float32',
+    'fp32') is None. Other names raise."""
+    name = str(train_cfg.get('precision', 'f32')).lower()
+    if name in ('bf16', 'bfloat16', 'mixed'):
+        return torch.bfloat16
+    if name in ('f32', 'float32', 'fp32'):
+        return None
+    raise ValueError(f'Unknown training precision: {name}')
+
+
+def cast_half(tree, half: Optional[torch.dtype]):
+    """The float32 tensors of a tree (dicts, lists, tuples) cast to
+    `half`; other tensors and values as they are."""
+    if half is None:
+        return tree
+    return map_tensors(tree, lambda t: t.to(half)
+                        if t.dtype == torch.float32 else t)
+
+
+def full(tree):
+    """The bfloat16 tensors of a tree cast back to float32."""
+    return map_tensors(tree, lambda t: t.float()
+                        if t.dtype == torch.bfloat16 else t)
+
+
+def _flat_tensors(args) -> List[torch.Tensor]:
+    out = []
+    map_tensors(args, out.append)
+    return out
+
+
+@contextlib.contextmanager
+def _replay(generators: Sequence[torch.Generator], states) -> Iterable:
+    """The recompute of a rematerialised forward: the explicit generators
+    draw again from where the forward began, and the running statistics
+    stay where the forward left them."""
+    saved = [g.get_state() for g in generators]
+    for g, state in zip(generators, states):
+        g.set_state(state)
+    try:
+        with frozen_running_stats():
+            yield
+    finally:
+        for g, state in zip(generators, saved):
+            g.set_state(state)
+
+
+def forward_model(model: torch.nn.Module, *args,
+                  half: Optional[torch.dtype] = None, remat: bool = False,
+                  generators: Sequence[torch.Generator] = ()):
+    """model(*args) as the JAX step applies it. With `half`, the
+    parameters and the float32 tensors of args go in cast to it (the
+    buffers stay as they are) and the outputs come back in it. With
+    `remat`, the forward is recomputed in the backward; `generators` are
+    the explicit generators the forward draws from, replayed for the
+    recompute."""
+    if half is None and not remat:
+        return model(*args)
+    params = None
+    if half is not None:
+        params = {n: p.to(half) for n, p in model.named_parameters()}
+        args = cast_half(args, half)
+
+    def run(*_):
+        if params is None:
+            return model(*args)
+        return torch.func.functional_call(model, params, args)
+    if not remat:
+        return run()
+    states = [g.get_state() for g in generators]
+    # the input tensors go in positionally so that checkpoint saves and
+    # restores the global RNG of their device for the recompute
+    return checkpoint(run, *_flat_tensors(args), use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          _replay(generators, states)))
+
+
+class EMA:
+    """Exponential moving average of a model's parameters (the JAX
+    package's `ema_params`): a float32 copy of the parameters at the
+    start, then `decay * e + (1 - decay) * p` after every optimizer
+    update, rounded as JAX's `ema_update` rounds it."""
+
+    def __init__(self, model: torch.nn.Module, decay: float) -> None:
+        self.decay = float(decay)
+        self.params = {n: p.detach().clone()
+                       for n, p in model.named_parameters()}
+
+    @torch.no_grad()
+    def update(self, model: torch.nn.Module) -> None:
+        live = dict(model.named_parameters())
+        ema = list(self.params.values())
+        torch._foreach_mul_(ema, self.decay)
+        torch._foreach_add_(ema, torch._foreach_mul(
+            [live[n].detach() for n in self.params], 1.0 - self.decay))
+
+    @torch.no_grad()
+    def load(self, stored: Optional[Dict[str, torch.Tensor]],
+             model: torch.nn.Module) -> None:
+        """The EMA weights of a checkpoint's state_dict, or a copy of the
+        model's parameters where `stored` is None."""
+        for n, p in model.named_parameters():
+            src = p if stored is None else stored[n]
+            self.params[n] = src.detach().to(p.device, p.dtype).clone()
+
+
+def make_ema(model: torch.nn.Module, train_cfg: Dict[str, Any]
+             ) -> Optional[EMA]:
+    decay = float(train_cfg.get('ema_decay', 0) or 0)
+    return EMA(model, decay) if decay > 0 else None
+
+
+def accumulate(micro_loss: Callable, batch: Dict[str, Any], k: int,
+               model: torch.nn.Module):
+    """Backward of `micro_loss(b) -> (loss, metrics, aux)` over the batch
+    or, for k > 1, over its k micro-batches (its leading axis split in k,
+    every tensor at its padded length) in order, with the summed gradients
+    divided by k. Returns (metrics, aux): for k > 1 the metrics averaged
+    and the tensor aux joined on the leading axis."""
+    if k <= 1:
+        loss, metrics, aux = micro_loss(batch)
+        loss.backward()
+        return metrics, aux
+    (B,) = {v.shape[0] for v in batch.values() if torch.is_tensor(v)}
+    assert B % k == 0, f'batch size {B} not divisible by grad_accum={k}'
+    m = B // k
+    ms, auxs = [], []
+    for part in ({key: v[i * m:(i + 1) * m] if torch.is_tensor(v) else v
+                  for key, v in batch.items()} for i in range(k)):
+        loss, metrics, aux = micro_loss(part)
+        loss.backward()
+        ms.append(metrics)
+        auxs.append(aux)
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    torch._foreach_div_(grads, float(k))
+    metrics = {key: torch.stack([m[key] for m in ms]).mean(0)
+               for key in ms[0]}
+    aux = None if auxs[0] is None else torch.cat(auxs)
+    return metrics, aux
+
+
+def apply_update(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                 metrics: Dict[str, torch.Tensor],
+                 clip: Optional[float], ema: Optional[EMA] = None) -> None:
+    """Global-norm clip (where `clip` is set, with the norm before
+    clipping in metrics['grad_norm']), the optimizer's step, the EMA."""
+    if clip is not None:
+        metrics['grad_norm'] = clip_by_global_norm(model.parameters(),
+                                                   float(clip))
+    optimizer.step()
+    if ema is not None:
+        ema.update(model)
 
 
 class Preemption:
@@ -122,9 +318,9 @@ class TopKTracker:
     """The k best checkpoints by score (lower is better) in `directory`,
     with their index in `<directory>/top_k.pkl`: a list of (score, step,
     file name), best first, which a resumed run reads and continues (the
-    JAX package's `train/common.py:TopKTracker`, synchronous). A score
-    that makes the top k is saved, the files pushed out are deleted, and
-    the index is written after the file, listing only files on disk. A
+    JAX package's `train/common.py:TopKTracker`). A score that makes the
+    top k is saved; once its file is on disk, the files pushed out are
+    deleted and the index is written, listing only files on disk. A
     replayed step (an exact resume re-offers it) replaces its entry."""
 
     def __init__(self, directory: Union[str, Path], k: int,
@@ -138,27 +334,35 @@ class TopKTracker:
             self.entries = unpickle_binary(self.index_path)
 
     def update(self, score: float, step: int,
-               save: Callable[[Path], None]) -> bool:
-        """Offer the checkpoint of `step`; `save(path)` writes it where it
-        makes the top k. Returns whether it was kept."""
+               save: Callable[[Path, Callable[[], None]], None]) -> bool:
+        """Offer the checkpoint of `step`; where it makes the top k,
+        `save(path, on_disk)` writes it and calls `on_disk()` once the
+        file is there (at once, or on a writer thread:
+        `AsyncCheckpointWriter.save(..., on_complete=on_disk)`). Returns
+        whether it was kept."""
         if self.k <= 0:
             return False
         if len(self.entries) >= self.k \
                 and score >= max(e[0] for e in self.entries):
             return False
         name = f'{self.prefix}_step{step}_score{score:.5f}.pt'
-        save(self.directory / name)
         ranked = sorted([e for e in self.entries if e[2] != name]
                         + [(float(score), int(step), name)],
                         key=lambda e: e[0])
-        for _, _, old in ranked[self.k:]:
-            try:
-                os.remove(self.directory / old)
-            except FileNotFoundError:
-                pass
-        self.entries = [e for e in ranked[:self.k]
-                        if (self.directory / e[2]).exists()]
-        pickle_binary(self.entries, self.index_path)
+        pruned = [old for _, _, old in ranked[self.k:]]
+        self.entries = kept = ranked[:self.k]
+        directory, index_path = self.directory, self.index_path
+
+        def on_disk() -> None:
+            for old in pruned:
+                try:
+                    os.remove(directory / old)
+                except FileNotFoundError:
+                    pass
+            pickle_binary([e for e in kept if (directory / e[2]).exists()],
+                          index_path)
+
+        save(self.directory / name, on_disk)
         return True
 
 
@@ -255,36 +459,69 @@ def _zoneout(batch, generator, train_cfg):
     return out
 
 
+def grad_accum(train_cfg: Dict[str, Any]) -> int:
+    return int(train_cfg.get('grad_accum', 1) or 1)
+
+
+def forward_step_batch(batch: Dict[str, torch.Tensor],
+                       generator: torch.Generator, train_cfg: Dict[str, Any]
+                       ) -> Dict[str, torch.Tensor]:
+    """The batch a student step trains on: pitch and energy zoned out
+    (`_zoneout`), their true values beside them as the loss's targets."""
+    return dict(_zoneout(batch, generator, train_cfg),
+                pitch_target=batch['pitch'], energy_target=batch['energy'])
+
+
+def forward_micro_loss(model: torch.nn.Module, train_cfg: Dict[str, Any]
+                       ) -> Callable:
+    """The student step's `micro_loss(b) -> (loss, metrics, None)` for
+    `accumulate`, `b` a (micro-)batch of `forward_step_batch`: the
+    teacher-forced forward under `train_cfg`'s precision and remat, its
+    predictions in float32, the loss against the true targets."""
+    half = half_dtype(train_cfg)
+    remat = bool(train_cfg.get('remat', False))
+
+    def micro_loss(b):
+        pred = full(forward_model(model, b, half=half, remat=remat))
+        loss, metrics = forward_loss(pred, b, b['pitch_target'],
+                                     b['energy_target'], train_cfg)
+        return loss, metrics, None
+    return micro_loss
+
+
 def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                batch: Dict[str, torch.Tensor], generator: torch.Generator,
-               train_cfg: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """One optimization step in train mode: teacher-forced forward on the
-    zoned-out batch, loss against the true targets, backward, global-norm
-    clip, Adam. The clipped gradients stay in `.grad`. Returns the step's
+               train_cfg: Dict[str, Any], ema: Optional[EMA] = None
+               ) -> Dict[str, torch.Tensor]:
+    """One optimization step in train mode (the JAX package's
+    `build_forward_train_step`): teacher-forced forward on the zoned-out
+    batch, loss against the true targets, backward, global-norm clip,
+    Adam, the EMA, with the options of `train_cfg` (precision, grad_accum,
+    remat). The clipped gradients stay in `.grad`. Returns the step's
     metrics (device tensors, including the norm before clipping)."""
     model.train()
     optimizer.zero_grad(set_to_none=True)
-    pred = model(_zoneout(batch, generator, train_cfg))
-    loss, metrics = forward_loss(pred, batch, batch['pitch'],
-                                 batch['energy'], train_cfg)
-    loss.backward()
-    clip = train_cfg.get('clip_grad_norm')
-    if clip is not None:
-        metrics['grad_norm'] = clip_by_global_norm(model.parameters(),
-                                                   float(clip))
-    optimizer.step()
+    metrics, _ = accumulate(forward_micro_loss(model, train_cfg),
+                            forward_step_batch(batch, generator, train_cfg),
+                            grad_accum(train_cfg), model)
+    apply_update(model, optimizer, metrics, train_cfg.get('clip_grad_norm'),
+                 ema)
     return metrics
 
 
 @torch.no_grad()
 def eval_step(model: torch.nn.Module, batch: Dict[str, torch.Tensor],
-              train_cfg: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+              train_cfg: Dict[str, Any],
+              params: Optional[Dict[str, torch.Tensor]] = None
+              ) -> Dict[str, torch.Tensor]:
     """Loss metrics of the teacher-forced forward in eval mode (running
-    BN statistics, no dropout); the model's mode is restored."""
+    BN statistics, no dropout), with `params` (the EMA weights) in place
+    of the model's own where given; the model's mode is restored."""
     was_training = model.training
     model.eval()
     try:
-        pred = model(batch)
+        pred = model(batch) if params is None else \
+            torch.func.functional_call(model, params, (batch,))
     finally:
         model.train(was_training)
     return forward_loss(pred, batch, batch['pitch'], batch['energy'],

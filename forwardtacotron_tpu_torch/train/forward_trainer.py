@@ -6,10 +6,12 @@ schedule sessions, epoch-seeded bucket batches with mid-epoch resume, the
 masked-L1 losses, metrics read one step late, `evaluate()` in eval mode at
 the end of every epoch, `latest_model.pt` / `forward_step{k}k.pt`
 checkpoints, and the `keep_top_k` (default 3) best by validation mel loss
-in `top_k_models/`. Scalars go to stdout, and to an optional `writer`
-with an `add_scalar(tag, value, step)` method. Not ported yet: plots and
-audio (`plot_every` is ignored), the background checkpoint writer
-(checkpoints are written in the step loop).
+in `top_k_models/`, written off the step loop (`AsyncCheckpointWriter`).
+It runs every option of the JAX step (`train/common.py`): `precision`,
+`grad_accum`, `remat` and `ema_decay`, whose EMA weights `evaluate()`
+and the top-k score use and the checkpoints serve. Scalars go to stdout,
+and to an optional `writer` with an `add_scalar(tag, value, step)`
+method. Not ported yet: plots and audio (`plot_every` is ignored).
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ from forwardtacotron_tpu_torch import resolve_device
 from forwardtacotron_tpu_torch.data.dataset import (Prefetcher,
                                                     get_tts_datasets)
 from forwardtacotron_tpu_torch.train import common as tc
-from forwardtacotron_tpu_torch.utils.checkpoints import save_checkpoint
+from forwardtacotron_tpu_torch.utils.async_ckpt import AsyncCheckpointWriter
+from forwardtacotron_tpu_torch.utils.checkpoints import checkpoint_payload
 from forwardtacotron_tpu_torch.utils.files import parse_schedule
 from forwardtacotron_tpu_torch.utils.paths import Paths
 
@@ -47,30 +50,38 @@ class ForwardTrainer:
         self.config = config
         self.device = resolve_device(device)
         self.train_cfg = config['forward_tacotron']['training']
-        tc.check_supported(self.train_cfg)
+        tc.check_supported(self.train_cfg, 'forward')
         self.writer = writer
         self.preemption = tc.Preemption()
         self.top_k = tc.TopKTracker(
             paths.forward_top_k, k=int(self.train_cfg.get('keep_top_k', 3)),
             prefix='forward')
+        self.ckpt = AsyncCheckpointWriter()
+        # the EMA weights (`ema_decay` > 0); a resume sets them first
+        self.ema: Optional[tc.EMA] = None
 
     def _scalar(self, tag: str, value: float, step: int) -> None:
         if self.writer is not None:
             self.writer.add_scalar(tag, value, step)
 
-    def _save(self, model, optimizer, name: str, step: int) -> None:
-        save_checkpoint(model, optimizer, self.config,
-                        self.paths.forward_checkpoints / name, step)
+    def _save(self, model, optimizer, path, step: int,
+              on_complete=None) -> None:
+        self.ckpt.save(checkpoint_payload(model, optimizer, self.config,
+                                          step, self.ema),
+                       path, on_complete=on_complete)
 
     def train(self, model: torch.nn.Module,
               optimizer: Optional[torch.optim.Optimizer] = None,
               step: int = 0, seed: int = 42,
               max_steps_override: Optional[int] = None) -> int:
         """Run the schedule from `step` on the trainer's device; the model
-        and optimizer are updated in place. Returns the final step."""
+        and optimizer (and `self.ema`) are updated in place. Returns the
+        final step."""
         model.to(self.device)
         if optimizer is None:
             optimizer = tc.make_optimizer(model)
+        if self.ema is None:
+            self.ema = tc.make_ema(model, self.train_cfg)
         schedule = parse_schedule(self.train_cfg['schedule'])
         session_start = 0
         with self.preemption:
@@ -157,11 +168,12 @@ class ForwardTrainer:
                     seed * 1_000_003 + step)
                 metrics = tc.train_step(model, optimizer,
                                         batch_to_device(batch, self.device),
-                                        gen, self.train_cfg)
+                                        gen, self.train_cfg, self.ema)
                 step += 1
                 deferred.push(metrics, step, e, i, batch['mel'].shape[:2])
                 if step % self.train_cfg['checkpoint_every'] == 0:
                     self._save(model, optimizer,
+                               self.paths.forward_checkpoints /
                                f'forward_step{step // 1000}k.pt', step)
                 if self.preemption.requested:
                     print('| Preemption requested: saving latest_model and '
@@ -179,12 +191,12 @@ class ForwardTrainer:
                                   ('Pitch_Loss', 'pitch_loss'),
                                   ('Energy_Loss', 'energy_loss')):
                     self._scalar(f'{name}/val', val[key], step)
-                self._save(model, optimizer, 'latest_model.pt', step)
+                self._save(model, optimizer, self.paths.forward_checkpoints
+                           / 'latest_model.pt', step)
                 # the k best students by validation mel loss
                 self.top_k.update(val['mel_loss'], step,
-                                  lambda path: save_checkpoint(
-                                      model, optimizer, self.config, path,
-                                      step))
+                                  lambda path, on_disk: self._save(
+                                      model, optimizer, path, step, on_disk))
                 m_loss_avg.reset()
                 duration_avg.reset()
                 pitch_loss_avg.reset()
@@ -192,18 +204,22 @@ class ForwardTrainer:
                 continue
             break  # max_step reached or preempted
         deferred.flush()
-        self._save(model, optimizer, 'latest_model.pt', step)
+        self._save(model, optimizer,
+                   self.paths.forward_checkpoints / 'latest_model.pt', step)
+        self.ckpt.wait()    # on disk before the session returns
         return step
 
     def evaluate(self, model: torch.nn.Module, val_set) -> Dict[str, float]:
         """Mean loss metrics over the validation batches, eval mode, no
-        gradient (so the recurrences run the inference kernel)."""
+        gradient (so the recurrences run the inference kernel), with the
+        EMA weights where they are kept (and the live buffers)."""
+        params = None if self.ema is None else self.ema.params
         totals = {'mel_loss': 0.0, 'dur_loss': 0.0, 'pitch_loss': 0.0,
                   'energy_loss': 0.0}
         n = 0
         for batch in val_set:
             metrics = tc.eval_step(model, batch_to_device(batch, self.device),
-                                   self.train_cfg)
+                                   self.train_cfg, params)
             for k in totals:
                 totals[k] += float(metrics[k])
             n += 1

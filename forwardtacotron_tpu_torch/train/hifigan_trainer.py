@@ -13,8 +13,13 @@ Sessions follow the (lr, max_step, batch size) schedule with epoch-seeded
 crops and mid-epoch resume; `evaluate()` scores the generator's mel L1 on
 the validation batches at the end of every epoch; `generate_samples`
 vocodes whole validation mels every `gen_samples_every` steps, and the
-`keep_top_k` best generators by their mel L1 are kept. Unlike the JAX
-trainer, `generate_samples` lets a failure through.
+`keep_top_k` best generators by their mel L1 are kept. `precision: bf16`
+runs both halves in bfloat16 as the JAX step does (the generator's
+parameters and the mel cast, ŷ back to float32 for the mel L1; the
+discriminators' parameters and both waveforms cast, their logits and
+feature maps back to float32); the other options are refused, the JAX
+trainer has none. Unlike the JAX trainer, `generate_samples` lets a
+failure through.
 
 Files: the generator is stored in the official weight-norm layout
 (`weight_norm_state_dict`, under 'generator', with a config.json beside
@@ -22,8 +27,9 @@ it), which `models/hifigan.py:load_gan_vocoder` (and so `gen_forward
 hifigan|melgan --voc_checkpoint`) and the JAX package's official-file
 loader read. `latest_model.pt` also holds the discriminators, both
 optimizers, the config and the step; `hifigan_step{k}k.pt` and the top-k
-files the generator alone. The generator's convolutions run on the card
-through cuDNN, in float32.
+files the generator alone, all written off the step loop
+(`AsyncCheckpointWriter`). The convolutions run on the card through
+cuDNN.
 """
 from __future__ import annotations
 
@@ -46,7 +52,7 @@ from forwardtacotron_tpu_torch.train.gan_losses import (
     discriminator_loss, feature_matching_loss, generator_adversarial_loss,
     mel_l1_loss)
 from forwardtacotron_tpu_torch.train.voc_trainer import batch_to_device
-from forwardtacotron_tpu_torch.utils.checkpoints import save_payload
+from forwardtacotron_tpu_torch.utils.async_ckpt import AsyncCheckpointWriter
 from forwardtacotron_tpu_torch.utils.display import log_audio, simple_table
 from forwardtacotron_tpu_torch.utils.files import parse_schedule
 from forwardtacotron_tpu_torch.utils.paths import Paths
@@ -61,15 +67,22 @@ def make_gan_optimizer(model: torch.nn.Module, lr: float = 2e-4
                              weight_decay=0.01)
 
 
+def _generate(gen: torch.nn.Module, mel: torch.Tensor,
+              half: Optional[torch.dtype]) -> torch.Tensor:
+    return tc.full(tc.forward_model(gen, mel, half=half))
+
+
 def disc_step(gen: torch.nn.Module, disc: HiFiGANDiscriminators,
               disc_opt: torch.optim.Optimizer, mel: torch.Tensor,
-              y: torch.Tensor) -> torch.Tensor:
+              y: torch.Tensor, half: Optional[torch.dtype] = None
+              ) -> torch.Tensor:
     """The discriminators' update on a detached generation of mel (B,
-    n_mels, T); returns the loss."""
+    n_mels, T), in `half` where given; returns the loss."""
     with torch.no_grad():
-        y_hat = gen(mel)
+        y_hat = _generate(gen, mel, half)
     disc_opt.zero_grad(set_to_none=True)
-    logits_r, logits_g, _, _ = disc(y, y_hat)
+    logits_r, logits_g, _, _ = tc.full(tc.forward_model(disc, y, y_hat,
+                                                        half=half))
     d_loss = discriminator_loss(logits_r, logits_g)
     d_loss.backward()
     disc_opt.step()
@@ -79,15 +92,16 @@ def disc_step(gen: torch.nn.Module, disc: HiFiGANDiscriminators,
 def gen_step(gen: torch.nn.Module, disc: HiFiGANDiscriminators,
              gen_opt: torch.optim.Optimizer, mel: torch.Tensor,
              y: torch.Tensor,
-             wav_to_mel: Callable[[torch.Tensor], torch.Tensor]
-             ) -> Dict[str, torch.Tensor]:
+             wav_to_mel: Callable[[torch.Tensor], torch.Tensor],
+             half: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
     """The generator's update against the discriminators as they are (no
-    gradient for them); returns its losses."""
+    gradient for them), in `half` where given; returns its losses."""
     gen_opt.zero_grad(set_to_none=True)
     disc.requires_grad_(False)
     try:
-        y_hat = gen(mel)
-        _, logits_g, fmaps_r, fmaps_g = disc(y, y_hat)
+        y_hat = _generate(gen, mel, half)
+        _, logits_g, fmaps_r, fmaps_g = tc.full(tc.forward_model(
+            disc, y, y_hat, half=half))
         adv = generator_adversarial_loss(logits_g)
         fm = feature_matching_loss(fmaps_r, fmaps_g)
         mel_l = mel_l1_loss(wav_to_mel, y, y_hat)
@@ -105,15 +119,17 @@ def gan_train_step(gen: torch.nn.Module, disc: HiFiGANDiscriminators,
                    gen_opt: torch.optim.Optimizer,
                    disc_opt: torch.optim.Optimizer,
                    batch: Dict[str, torch.Tensor],
-                   wav_to_mel: Callable[[torch.Tensor], torch.Tensor]
+                   wav_to_mel: Callable[[torch.Tensor], torch.Tensor],
+                   half: Optional[torch.dtype] = None
                    ) -> Dict[str, torch.Tensor]:
     """One step: the discriminators on a detached generation, then the
-    generator against the updated discriminators. batch: 'mel' (B, T,
-    n_mels) time-major, 'audio' (B, T * hop). Returns device tensors."""
+    generator against the updated discriminators, each in `half` where
+    given. batch: 'mel' (B, T, n_mels) time-major, 'audio' (B, T * hop).
+    Returns device tensors."""
     mel, y = batch['mel'].transpose(1, 2), batch['audio']
-    d_loss = disc_step(gen, disc, disc_opt, mel, y)
+    d_loss = disc_step(gen, disc, disc_opt, mel, y, half)
     return {'disc_loss': d_loss,
-            **gen_step(gen, disc, gen_opt, mel, y, wav_to_mel)}
+            **gen_step(gen, disc, gen_opt, mel, y, wav_to_mel, half)}
 
 
 def generator_file(gen: torch.nn.Module) -> Dict[str, Any]:
@@ -137,7 +153,8 @@ class HiFiGANTrainer:
         self.config = config
         self.device = resolve_device(device)
         self.train_cfg = config['hifigan']['training']
-        tc.check_supported(self.train_cfg)
+        tc.check_supported(self.train_cfg, 'gan')
+        self.ckpt = AsyncCheckpointWriter()
         self.writer = writer
         self.preemption = tc.Preemption()
         self.top_k = tc.TopKTracker(
@@ -153,12 +170,12 @@ class HiFiGANTrainer:
             self.writer.add_scalar(tag, value, step)
 
     def save_latest(self, gen, disc, gen_opt, disc_opt, step: int) -> None:
-        save_payload({**generator_file(gen),
-                           'discriminator': disc.state_dict(),
-                           'optim_g': gen_opt.state_dict(),
-                           'optim_d': disc_opt.state_dict(),
-                           'config': self.config, 'step': int(step)},
-                          self.paths.hifigan_checkpoints / 'latest_model.pt')
+        self.ckpt.save({**generator_file(gen),
+                        'discriminator': disc.state_dict(),
+                        'optim_g': gen_opt.state_dict(),
+                        'optim_d': disc_opt.state_dict(),
+                        'config': self.config, 'step': int(step)},
+                       self.paths.hifigan_checkpoints / 'latest_model.pt')
 
     def train(self, gen: torch.nn.Module, disc: HiFiGANDiscriminators,
               gen_opt: Optional[torch.optim.Optimizer] = None,
@@ -213,6 +230,7 @@ class HiFiGANTrainer:
                       ('GTA Train', train_gta), ('Device', self.device)])
         tc.set_learning_rate(gen_opt, session.lr)
         tc.set_learning_rate(disc_opt, session.lr)
+        half = tc.half_dtype(self.train_cfg)
         loss_avg, duration_avg = tc.Averager(), tc.Averager()
         last_t = time.time()
 
@@ -241,7 +259,7 @@ class HiFiGANTrainer:
                 metrics = gan_train_step(
                     gen, disc, gen_opt, disc_opt,
                     batch_to_device(batch, self.device),
-                    self.dsp.wav_to_mel_batch)
+                    self.dsp.wav_to_mel_batch, half)
                 step += 1
                 deferred.push(metrics, step, e, i)
                 if step % self.train_cfg['gen_samples_every'] == 0:
@@ -249,7 +267,7 @@ class HiFiGANTrainer:
                     if mel_loss is not None:
                         self.track_top_models(mel_loss, gen, step)
                 if step % self.train_cfg['checkpoint_every'] == 0:
-                    save_payload(
+                    self.ckpt.save(
                         generator_file(gen),
                         self.paths.hifigan_checkpoints
                         / f'hifigan_step{step // 1000}k.pt')
@@ -273,6 +291,7 @@ class HiFiGANTrainer:
             break  # max_step reached or preempted
         deferred.flush()
         self.save_latest(gen, disc, gen_opt, disc_opt, step)
+        self.ckpt.wait()    # on disk before the session returns
         return step
 
     @torch.no_grad()
@@ -315,5 +334,6 @@ class HiFiGANTrainer:
     def track_top_models(self, mel_loss: float, gen: torch.nn.Module,
                          step: int) -> None:
         """The top-k generators by generated mel L1."""
-        self.top_k.update(mel_loss, step, lambda path: save_payload(
-            generator_file(gen), path))
+        self.top_k.update(mel_loss, step, lambda path, on_disk:
+                          self.ckpt.save(generator_file(gen), path,
+                                         on_complete=on_disk))

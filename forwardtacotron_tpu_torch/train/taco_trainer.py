@@ -11,13 +11,17 @@ of every epoch (no gradient, so the BiGRUs take the inference kernel
 #1), with the attention score of the validation batches;
 `latest_model.pt` and `taco_step{k}k.pt` checkpoints, and the
 `keep_top_k` (default 3) best by validation attention score in
-`top_k_models/`; graceful preemption. Dropout and zoneout draw from a
-`torch.Generator` seeded with (seed, step), so a resumed run draws what
-an uninterrupted one does. Scalars go to stdout, and to an optional
-`writer` with an `add_scalar(tag, value, step)` method. Not ported: the
-`precision`, `grad_accum` and `remat` options (refused by name), plots
-and audio samples (`plot_every` is ignored), the background checkpoint
-writer.
+`top_k_models/`, written off the step loop (`AsyncCheckpointWriter`);
+graceful preemption. Dropout and zoneout draw from a `torch.Generator`
+seeded with (seed, step), so a resumed run draws what an uninterrupted
+one does. The step runs the options of the JAX step
+(`build_taco_train_step`): `precision` (the parameters and the
+teacher-forced mel cast to bfloat16; m1, m2 and the attention back to
+float32), `grad_accum` (the attention re-assembled to the full batch)
+and `remat` (the generator replayed for the recompute); `ema_decay` is
+refused, the JAX teacher has none. Scalars go to stdout, and to an
+optional `writer` with an `add_scalar(tag, value, step)` method. Not
+ported: plots and audio samples (`plot_every` is ignored).
 """
 from __future__ import annotations
 
@@ -32,7 +36,8 @@ from forwardtacotron_tpu_torch.align.metrics import attention_score
 from forwardtacotron_tpu_torch.data.dataset import (Prefetcher,
                                                     get_tts_datasets)
 from forwardtacotron_tpu_torch.train import common as tc
-from forwardtacotron_tpu_torch.utils.checkpoints import save_checkpoint
+from forwardtacotron_tpu_torch.utils.async_ckpt import AsyncCheckpointWriter
+from forwardtacotron_tpu_torch.utils.checkpoints import checkpoint_payload
 from forwardtacotron_tpu_torch.utils.files import parse_schedule
 from forwardtacotron_tpu_torch.utils.paths import Paths
 
@@ -55,6 +60,24 @@ def taco_loss(m1: torch.Tensor, m2: torch.Tensor, mel: torch.Tensor
                   'm2_loss': m2_loss.detach()}
 
 
+def taco_micro_loss(model: torch.nn.Module, r: int,
+                    generator: torch.Generator, train_cfg: Dict[str, Any]):
+    """The teacher step's `micro_loss(b) -> (loss, metrics, attention)`
+    for `tc.accumulate`: the teacher-forced forward at r under
+    `train_cfg`'s precision and remat (`generator` replayed for the
+    recompute), m1, m2 and the attention in float32, the loss."""
+    half = tc.half_dtype(train_cfg)
+    remat = bool(train_cfg.get('remat', False))
+
+    def micro_loss(b):
+        m1, m2, att = tc.full(tc.forward_model(
+            model, b['x'], b['mel'], r, generator, half=half, remat=remat,
+            generators=(generator,)))
+        loss, metrics = taco_loss(m1, m2, b['mel'])
+        return loss, metrics, att.detach()
+    return micro_loss
+
+
 def taco_train_step(model: torch.nn.Module,
                     optimizer: torch.optim.Optimizer,
                     batch: Dict[str, torch.Tensor], r: int,
@@ -62,18 +85,16 @@ def taco_train_step(model: torch.nn.Module,
                     ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """One optimization step in train mode: teacher-forced forward at r,
     loss, backward (kernels #2/#3 for the BiGRUs), global-norm clip,
-    Adam. Returns (metrics, attention), device tensors."""
+    Adam, with the options of `train_cfg` (precision, grad_accum, remat;
+    `train/common.py`). Returns (metrics, attention), device tensors."""
     model.train()
     optimizer.zero_grad(set_to_none=True)
-    m1, m2, att = model(batch['x'], batch['mel'], r, generator)
-    loss, metrics = taco_loss(m1, m2, batch['mel'])
-    loss.backward()
-    clip = train_cfg.get('clip_grad_norm')
-    if clip is not None:
-        metrics['grad_norm'] = tc.clip_by_global_norm(model.parameters(),
-                                                      float(clip))
-    optimizer.step()
-    return metrics, att.detach()
+    metrics, att = tc.accumulate(
+        taco_micro_loss(model, r, generator, train_cfg), batch,
+        tc.grad_accum(train_cfg), model)
+    tc.apply_update(model, optimizer, metrics,
+                    train_cfg.get('clip_grad_norm'))
+    return metrics, att
 
 
 @torch.no_grad()
@@ -98,20 +119,23 @@ class TacoTrainer:
         self.config = config
         self.device = resolve_device(device)
         self.train_cfg = config['tacotron']['training']
-        tc.check_supported(self.train_cfg)
+        tc.check_supported(self.train_cfg, 'tacotron')
         self.writer = writer
         self.preemption = tc.Preemption()
         self.top_k = tc.TopKTracker(
             paths.taco_top_k, k=int(self.train_cfg.get('keep_top_k', 3)),
             prefix='taco')
+        self.ckpt = AsyncCheckpointWriter()
 
     def _scalar(self, tag: str, value: float, step: int) -> None:
         if self.writer is not None:
             self.writer.add_scalar(tag, value, step)
 
-    def _save(self, model, optimizer, name: str, step: int) -> None:
-        save_checkpoint(model, optimizer, self.config,
-                        self.paths.taco_checkpoints / name, step)
+    def _save(self, model, optimizer, path, step: int,
+              on_complete=None) -> None:
+        self.ckpt.save(checkpoint_payload(model, optimizer, self.config,
+                                          step),
+                       path, on_complete=on_complete)
 
     def train(self, model: torch.nn.Module,
               optimizer: Optional[torch.optim.Optimizer] = None,
@@ -201,6 +225,7 @@ class TacoTrainer:
                 deferred.push(metrics, att, tbatch['mel_len'], step, e, i)
                 if step % self.train_cfg['checkpoint_every'] == 0:
                     self._save(model, optimizer,
+                               self.paths.taco_checkpoints /
                                f'taco_step{step // 1000}k.pt', step)
                 if self.preemption.requested:
                     print('| Preemption requested: saving latest_model and '
@@ -216,18 +241,22 @@ class TacoTrainer:
                       f'attention score {val_att:#.4}')
                 self._scalar('Loss/val', val_loss, step)
                 self._scalar('Attention_Score/val', val_att, step)
-                self._save(model, optimizer, 'latest_model.pt', step)
+                self._save(model, optimizer, self.paths.taco_checkpoints
+                           / 'latest_model.pt', step)
                 # the k best teachers by validation attention score,
                 # negated: the tracker keeps the lowest
-                self.top_k.update(-val_att, step, lambda path: save_checkpoint(
-                    model, optimizer, self.config, path, step))
+                self.top_k.update(-val_att, step,
+                                  lambda path, on_disk: self._save(
+                                      model, optimizer, path, step, on_disk))
                 loss_avg.reset()
                 duration_avg.reset()
                 last_t = time.time()
                 continue
             break  # max_step reached or preempted
         deferred.flush()
-        self._save(model, optimizer, 'latest_model.pt', step)
+        self._save(model, optimizer,
+                   self.paths.taco_checkpoints / 'latest_model.pt', step)
+        self.ckpt.wait()    # on disk before the session returns
         return step
 
     def evaluate(self, model: torch.nn.Module, val_set, r: int

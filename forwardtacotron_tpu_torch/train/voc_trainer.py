@@ -8,7 +8,12 @@ and Adam, `evaluate()` in eval mode at the end of every epoch, sample
 generation every `gen_samples_every` steps scored by the mel L1 of the
 resynthesis, the `keep_top_k` best checkpoints by that score, and
 `latest_model.pt` / `wave_step{k}k.pt` checkpoints in the reference's
-WaveRNN layout. Both GRUs of a training step run as one stream of the
+WaveRNN layout, written off the step loop (`AsyncCheckpointWriter`). The
+step runs the options of the JAX step (`build_voc_train_step`):
+`precision` (the parameters, x and the mel cast to bfloat16, the logits
+back to float32 for the loss) and `remat`; `ema_decay` and `grad_accum`
+are refused, the JAX trainer has neither. Both GRUs of a training step
+run as one stream of the
 BiRNN training kernels (#2 forward, #3 backward); `evaluate()` runs them
 through the inference kernel (#1) and `generate_samples` through the
 sampler (#4). Unlike the JAX trainer, `generate_samples` lets a failure
@@ -31,7 +36,8 @@ from forwardtacotron_tpu_torch.data.dataset import (Prefetcher,
 from forwardtacotron_tpu_torch.models.wavernn import WaveRNN, generate_wav
 from forwardtacotron_tpu_torch.ops.mol import discretized_mix_logistic_loss
 from forwardtacotron_tpu_torch.train import common as tc
-from forwardtacotron_tpu_torch.utils.checkpoints import save_checkpoint
+from forwardtacotron_tpu_torch.utils.async_ckpt import AsyncCheckpointWriter
+from forwardtacotron_tpu_torch.utils.checkpoints import checkpoint_payload
 from forwardtacotron_tpu_torch.utils.display import log_audio, simple_table
 from forwardtacotron_tpu_torch.utils.files import parse_schedule
 from forwardtacotron_tpu_torch.utils.paths import Paths
@@ -47,22 +53,35 @@ def voc_loss(logits: torch.Tensor, y: torch.Tensor, mode: str
     return discretized_mix_logistic_loss(logits, y)
 
 
+def voc_micro_loss(model: WaveRNN, mode: str,
+                   half: Optional[torch.dtype] = None, remat: bool = False):
+    """The WaveRNN step's `micro_loss(b) -> (loss, metrics, None)` for
+    `tc.accumulate`: the teacher-forced forward (in `half` where given,
+    recomputed in the backward under `remat`), the loss of the float32
+    logits."""
+    def micro_loss(b):
+        logits = tc.full(tc.forward_model(model, b['x'], b['mel'],
+                                          half=half, remat=remat))
+        loss = voc_loss(logits, b['y'], mode)
+        return loss, {'loss': loss.detach()}, None
+    return micro_loss
+
+
 def voc_train_step(model: WaveRNN, optimizer: torch.optim.Optimizer,
                    batch: Dict[str, torch.Tensor], mode: str,
-                   clip: Optional[float]) -> Dict[str, torch.Tensor]:
-    """One optimization step in train mode: teacher-forced forward, loss,
+                   clip: Optional[float], half: Optional[torch.dtype] = None,
+                   remat: bool = False) -> Dict[str, torch.Tensor]:
+    """One optimization step in train mode: teacher-forced forward (in
+    `half` where given, recomputed in the backward under `remat`;
+    `train/common.py:forward_model`), the loss of the float32 logits,
     backward, global-norm clip (where `clip` is set), Adam. The clipped
     gradients stay in `.grad`. Returns device tensors: the loss and the
     norm before clipping."""
     model.train()
     optimizer.zero_grad(set_to_none=True)
-    loss = voc_loss(model(batch['x'], batch['mel']), batch['y'], mode)
-    loss.backward()
-    metrics = {'loss': loss.detach()}
-    if clip is not None:
-        metrics['grad_norm'] = tc.clip_by_global_norm(model.parameters(),
-                                                      float(clip))
-    optimizer.step()
+    metrics, _ = tc.accumulate(voc_micro_loss(model, mode, half, remat),
+                               batch, 1, model)
+    tc.apply_update(model, optimizer, metrics, clip)
     return metrics
 
 
@@ -81,20 +100,23 @@ class VocTrainer:
         self.config = config
         self.device = resolve_device(device)
         self.train_cfg = config['vocoder']['training']
-        tc.check_supported(self.train_cfg)
+        tc.check_supported(self.train_cfg, 'wavernn')
         self.writer = writer
         self.preemption = tc.Preemption()
         self.top_k = tc.TopKTracker(
             paths.voc_top_k, k=int(self.train_cfg.get('keep_top_k', 3)),
             prefix='wave')
+        self.ckpt = AsyncCheckpointWriter()
 
     def _scalar(self, tag: str, value: float, step: int) -> None:
         if self.writer is not None:
             self.writer.add_scalar(tag, value, step)
 
-    def _save(self, model, optimizer, name: str, step: int) -> None:
-        save_checkpoint(model, optimizer, self.config,
-                        self.paths.voc_checkpoints / name, step)
+    def _save(self, model, optimizer, path, step: int,
+              on_complete=None) -> None:
+        self.ckpt.save(checkpoint_payload(model, optimizer, self.config,
+                                          step),
+                       path, on_complete=on_complete)
 
     def train(self, model: WaveRNN,
               optimizer: Optional[torch.optim.Optimizer] = None,
@@ -146,6 +168,8 @@ class VocTrainer:
                       ('Device', self.device)])
         tc.set_learning_rate(optimizer, session.lr)
         mode, clip = self.dsp.voc_mode, self.train_cfg.get('clip_grad_norm')
+        half = tc.half_dtype(self.train_cfg)
+        remat = bool(self.train_cfg.get('remat', False))
         loss_avg, duration_avg = tc.Averager(), tc.Averager()
         last_t = time.time()
 
@@ -172,7 +196,7 @@ class VocTrainer:
             for i, batch in enumerate(batches, start + 1):
                 metrics = voc_train_step(model, optimizer,
                                          batch_to_device(batch, self.device),
-                                         mode, clip)
+                                         mode, clip, half, remat)
                 step += 1
                 deferred.push(metrics, step, e, i)
                 if step % self.train_cfg['gen_samples_every'] == 0:
@@ -180,8 +204,8 @@ class VocTrainer:
                     if mel_loss is not None:
                         self.track_top_models(mel_loss, model, step)
                 if step % self.train_cfg['checkpoint_every'] == 0:
-                    self._save(model, optimizer,
-                               f'wave_step{step // 1000}k.pt', step)
+                    self._save(model, optimizer, self.paths.voc_checkpoints
+                               / f'wave_step{step // 1000}k.pt', step)
                 if self.preemption.requested:
                     print('| Preemption requested: saving latest_model and '
                           'stopping.')
@@ -193,14 +217,17 @@ class VocTrainer:
                 val_loss = self.evaluate(model, session.val_set)
                 print(f'| Validation at step {step}: loss {val_loss:#.4}')
                 self._scalar('Loss/val', val_loss, step)
-                self._save(model, optimizer, 'latest_model.pt', step)
+                self._save(model, optimizer, self.paths.voc_checkpoints
+                           / 'latest_model.pt', step)
                 loss_avg.reset()
                 duration_avg.reset()
                 last_t = time.time()
                 continue
             break  # max_step reached or preempted
         deferred.flush()
-        self._save(model, optimizer, 'latest_model.pt', step)
+        self._save(model, optimizer,
+                   self.paths.voc_checkpoints / 'latest_model.pt', step)
+        self.ckpt.wait()    # on disk before the session returns
         return step
 
     @torch.no_grad()
@@ -260,5 +287,5 @@ class VocTrainer:
                          step: int) -> None:
         """Keep the top-k checkpoints by generated mel L1 (the reference's
         voc_trainer.py:204-226), weights only."""
-        self.top_k.update(mel_loss, step, lambda path: save_checkpoint(
-            model, None, self.config, path, step))
+        self.top_k.update(mel_loss, step, lambda path, on_disk: self._save(
+            model, None, path, step, on_disk))

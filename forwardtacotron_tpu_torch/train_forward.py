@@ -6,17 +6,23 @@
 The contract follows the JAX package's `train_forward.py`: it needs the
 durations (`data/alg`) and the per-phoneme pitch/energy of a preprocessed
 dataset under `data_path`, trains per the config's schedule and resumes
-from `latest_model.pt` when the checkpoint directory has one. A JAX
+from `latest_model.pt` when the checkpoint directory has one: its raw
+weights ('raw_model' where the file keeps EMA weights under 'model'), the
+optimizer and, with `ema_decay` > 0, the EMA weights. A JAX
 `latest_model.fjax` there instead seeds the weights and the step, with a
-fresh optimizer: its raw parameters, not its EMA weights, as the JAX
-trainer resumes (the port trains without EMA). The checkpoint directory
+fresh optimizer: its raw parameters, as the JAX trainer resumes, and with
+`ema_decay` > 0 the EMA from its `ema_params`, or from the raw parameters
+where it has none (the JAX package's `train_forward.py:100-119`); with
+`ema_decay` 0 a stored EMA is dropped. The checkpoint directory
 lies under $FTT_BASE when that is set, else under the repository root.
 Without `--config` the built-in copy of config.yaml is
 used. Everything runs on `--device` (default `cuda`); `--device cpu` runs
 the plain PyTorch versions of the kernels. `--force_gta` trains nothing:
 it runs the trained student teacher-forced over the whole dataset and
 writes each item's postnet mel to `data/gta`, the mels that
-`train_wavernn --gta` and `train_hifigan --gta` learn from.
+`train_wavernn --gta` and `train_hifigan --gta` learn from; it uses the
+raw weights, as the JAX package's `create_gta_features` applies
+`state.variables`.
 """
 from __future__ import annotations
 
@@ -94,17 +100,24 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     model = ForwardTacotron.from_config(config).to(device)
     print(f'Initialized tts model: {type(model).__name__}')
     optimizer = tc.make_optimizer(model)
+    trainer.ema = tc.make_ema(model, config['forward_tacotron']['training'])
     step = 0
     latest = paths.forward_checkpoints / 'latest_model.pt'
     latest_fjax = latest.with_suffix('.fjax')
     if latest.is_file():
-        step = restore(model, optimizer, load_checkpoint(latest))
+        step = restore(model, optimizer, load_checkpoint(latest),
+                       trainer.ema)
         print(f'Restored model and optimizer with step {step}')
     elif latest_fjax.is_file():
+        model_cfg = config['forward_tacotron']['model']
         payload = load_fjax(latest_fjax, use_ema=False)
         step = payload['step']
         model.load_state_dict(forward_tacotron_state_dict(
-            payload['model'], config['forward_tacotron']['model'], step))
+            payload['model'], model_cfg, step))
+        if trainer.ema is not None:
+            ema = load_fjax(latest_fjax, use_ema=True)['model']
+            trainer.ema.load(forward_tacotron_state_dict(ema, model_cfg,
+                                                         step), model)
         print(f'Seeded the weights from {latest_fjax} (step {step}); the '
               'optimizer state is not converted and starts fresh')
     if args.force_gta:

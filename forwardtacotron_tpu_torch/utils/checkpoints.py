@@ -5,6 +5,10 @@ A `.pt` file holds {'model': state_dict, 'optim': optimizer state_dict,
 also in the model's `step` buffer. That is the format the JAX package's
 `utils/checkpoints.py:load_tts_checkpoint` converts
 (`models/torch_compat.py`), so a model trained here loads there too.
+With EMA weights (`training.ema_decay` > 0), 'model' holds the EMA
+parameters with the live buffers, the weights meant to be served (what
+the JAX package's `export_forward_tacotron(..., use_ema=True)` writes),
+and 'raw_model' the raw training parameters, from which a run resumes.
 Loading uses torch's weights-only unpickler: tensors, numbers, strings
 and containers, no code.
 """
@@ -24,16 +28,31 @@ def save_payload(payload: Dict[str, Any], path: Union[str, Path]) -> None:
     tmp.replace(path)
 
 
+def checkpoint_payload(model: torch.nn.Module,
+                       optimizer: Optional[torch.optim.Optimizer],
+                       config: Dict[str, Any], step: int,
+                       ema=None) -> Dict[str, Any]:
+    """The payload of a checkpoint, tensors as they are (not copied);
+    `ema` (`train/common.py:EMA`) puts its weights under 'model' and the
+    raw ones under 'raw_model'."""
+    model.step.fill_(int(step))
+    state = model.state_dict()
+    payload = {'model': state,
+               'optim': None if optimizer is None else optimizer.state_dict(),
+               'config': config, 'step': int(step)}
+    if ema is not None:
+        payload['model'] = {**state, **ema.params}
+        payload['raw_model'] = state
+    return payload
+
+
 def save_checkpoint(model: torch.nn.Module,
                     optimizer: Optional[torch.optim.Optimizer],
                     config: Dict[str, Any], path: Union[str, Path],
-                    step: int) -> None:
+                    step: int, ema=None) -> None:
     """Write the checkpoint atomically (`save_payload`)."""
-    model.step.fill_(int(step))
-    save_payload({'model': model.state_dict(),
-                  'optim': None if optimizer is None
-                  else optimizer.state_dict(),
-                  'config': config, 'step': int(step)}, path)
+    save_payload(checkpoint_payload(model, optimizer, config, step, ema),
+                 path)
 
 
 def load_checkpoint(path: Union[str, Path]) -> Dict[str, Any]:
@@ -43,11 +62,15 @@ def load_checkpoint(path: Union[str, Path]) -> Dict[str, Any]:
 
 def restore(model: torch.nn.Module,
             optimizer: Optional[torch.optim.Optimizer],
-            payload: Dict[str, Any]) -> int:
-    """Load weights (and the optimizer state when both are present) from
-    a payload; returns its step. Optimizer state follows the parameters'
-    device."""
-    model.load_state_dict(payload['model'])
+            payload: Dict[str, Any], ema=None) -> int:
+    """Load the raw weights (and the optimizer state when both are
+    present) from a payload; returns its step. Optimizer state follows the
+    parameters' device. `ema` takes the file's EMA weights, or a copy of
+    the raw ones where the file has none."""
+    raw = payload.get('raw_model')
+    model.load_state_dict(payload['model'] if raw is None else raw)
     if optimizer is not None and payload.get('optim') is not None:
         optimizer.load_state_dict(payload['optim'])
+    if ema is not None:
+        ema.load(None if raw is None else payload['model'], model)
     return int(payload['step'])

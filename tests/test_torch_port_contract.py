@@ -138,7 +138,8 @@ def test_port_imports_no_jax():
     files = sorted((ROOT / 'forwardtacotron_tpu_torch').rglob('*.py'))
     files.append(ROOT / 'chip_smoke.py')
     assert len(files) > 10
-    # the serving, data and vocoder-training paths' modules are scanned
+    # the serving, data, vocoder-training and trainer-option paths'
+    # modules are scanned
     names = {p.relative_to(ROOT).as_posix() for p in files}
     for module in ('dsp/stft', 'dsp/griffinlim', 'dsp/audio',
                    'text/segmenter', 'models/hifigan', 'models/melgan',
@@ -150,7 +151,8 @@ def test_port_imports_no_jax():
                    'ops/mol', 'models/gan_discriminators',
                    'train/gan_losses', 'train/voc_trainer',
                    'train/hifigan_trainer', 'train_wavernn',
-                   'train_hifigan'):
+                   'train_hifigan', 'utils/async_ckpt', 'train/common',
+                   'utils/checkpoints'):
         assert f'forwardtacotron_tpu_torch/{module}.py' in names, module
     for path in files:
         for name in _imports(path):

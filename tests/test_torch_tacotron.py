@@ -254,13 +254,26 @@ def test_taco_trainer_learns_and_resumes_exactly(tmp_path):
 
 
 def test_taco_trainer_refuses_unported_options(tmp_path):
-    for key, value in (('precision', 'bf16'), ('grad_accum', 2),
-                       ('remat', True)):
-        from forwardtacotron_tpu_torch.config import default_config
-        from forwardtacotron_tpu_torch.train.taco_trainer import TacoTrainer
-        from forwardtacotron_tpu_torch.utils.paths import Paths
+    """The teacher runs the options of the JAX teacher's step (precision,
+    grad_accum, remat) and refuses by name the one that step ignores
+    (ema_decay), and an unknown precision as the JAX package does."""
+    from forwardtacotron_tpu_torch.config import default_config
+    from forwardtacotron_tpu_torch.train.taco_trainer import TacoTrainer
+    from forwardtacotron_tpu_torch.utils.paths import Paths
+    for key, value, error in (
+            ('precision', 'bf16', None), ('grad_accum', 2, None),
+            ('remat', True, None),
+            ('ema_decay', 0.999,
+             'ema_decay.*JAX tacotron trainer has no such option'),
+            ('precision', 'fp16', 'Unknown training precision')):
         cfg = default_config()
         cfg['tacotron']['training'][key] = value
-        with pytest.raises(ValueError, match=f'{key}.*not ported yet'):
-            TacoTrainer(Paths(str(tmp_path / 'data'), 't', base=tmp_path),
-                        cfg, device='cpu')
+
+        def make():
+            return TacoTrainer(Paths(str(tmp_path / 'data'), 't',
+                                     base=tmp_path), cfg, device='cpu')
+        if error is None:
+            make()
+        else:
+            with pytest.raises(ValueError, match=error):
+                make()

@@ -57,6 +57,17 @@ def _make_dataset(data_dir, n_items=10, n_val=2):
     pickle_binary(att, data_dir / 'att_score_dict.pkl')
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread: the trainer's small ops gain nothing from
+    more, and several pytest workers with a thread per core each slowed
+    these tests 15x."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 @pytest.fixture(scope='module')
 def dataset(tmp_path_factory):
     data = tmp_path_factory.mktemp('pipeline') / 'data'
@@ -181,12 +192,17 @@ def trainer_val_set(cfg):
 
 
 def test_trainer_rejects_unported_options(dataset, tmp_path):
+    """The student runs every option of the JAX student's step and
+    refuses an unknown precision, as the JAX package does."""
     for key, value in (('precision', 'bf16'), ('ema_decay', 0.999),
                        ('grad_accum', 2), ('remat', True)):
         cfg = _config(dataset)
         cfg['forward_tacotron']['training'][key] = value
-        with pytest.raises(ValueError, match='not ported yet'):
-            _trainer(cfg, tmp_path)
+        _trainer(cfg, tmp_path)
+    cfg = _config(dataset)
+    cfg['forward_tacotron']['training']['precision'] = 'fp16'
+    with pytest.raises(ValueError, match='Unknown training precision'):
+        _trainer(cfg, tmp_path)
 
 
 def test_train_forward_cli_rejects_gta(dataset, tmp_path, monkeypatch):

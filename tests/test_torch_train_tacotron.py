@@ -143,13 +143,15 @@ def test_train_tacotron_refusals(tmp_path, monkeypatch):
     for flag in ('--force_align', '--force_gta'):
         with pytest.raises(SystemExit, match='train the teacher first'):
             train_tacotron.main(cli + [flag])
-    for key, value in (('precision', 'bf16'), ('grad_accum', 4),
-                       ('remat', True)):
+    # the options the JAX teacher ignores, and an unknown precision
+    for key, value, error in (
+            ('ema_decay', 0.999, 'training.ema_decay.*no such option'),
+            ('precision', 'fp16', 'Unknown training precision')):
         bad = dict(cfg, tacotron=dict(cfg['tacotron'], training=dict(
             cfg['tacotron']['training'], **{key: value})))
         path = tmp_path / f'{key}.yaml'
         path.write_text(yaml.safe_dump(bad))
-        with pytest.raises(ValueError, match=f'training.{key}.*not ported'):
+        with pytest.raises(ValueError, match=error):
             train_tacotron.main(['--config', str(path), '--device', 'cpu'])
 
 

@@ -319,8 +319,8 @@ def test_top_k_tracker_matches_jax(tmp_path):
     def run(offers, ours_k, jax_k):
         kept = []
         for score, step in offers:
-            kept.append((ours_k.update(score, step,
-                                       lambda p: p.write_bytes(b'x')),
+            kept.append((ours_k.update(score, step, lambda p, on_disk: (
+                p.write_bytes(b'x'), on_disk())),
                          jax_k.update(score, {'params': {}}, {}, None,
                                       step)))
         return kept
@@ -343,7 +343,7 @@ def test_top_k_tracker_matches_jax(tmp_path):
     assert sorted(p.stem for p in jax_dir.glob('*.fjax')) == \
         sorted(p.stem for p in ours_dir.glob('*.pt'))
     assert not TopKTracker(ours_dir, 0, 'forward').update(
-        0.0, 70, lambda p: pytest.fail('k = 0 saves nothing'))
+        0.0, 70, lambda p, on_disk: pytest.fail('k = 0 saves nothing'))
 
 
 # ----------------------------------------------------- the student's files
