@@ -75,16 +75,21 @@ printed only when every phase passed):
    bfloat16 at 2^-7
    of the largest plain value for the outputs stored in bfloat16 (stash,
    dgi, dgh), 2e-3 for y, and a relative L2 error of at most 2^-8), with
-   each kernel's path (`train_forward_plan`, `train_backward_plan`),
-   timings beside cuDNN's nn.LSTM/nn.GRU, and, where a batch-split path is
-   planned, the cooperative path checked (backward) and timed on the same
-   inputs;
+   each kernel's path (`train_forward_plan`, `train_backward_plan`;
+   kernel #2's cluster path wherever planned, #3 over its stash), the
+   cooperative paths forced, checked and timed on the same inputs where
+   another is planned, timings beside cuDNN's nn.LSTM/nn.GRU in float32 and
+   bfloat16 with each dtype's bound (`_train_kernel_bf16_times`); wherever
+   the cluster forward is planned (grad_accum's micro-batches included) it
+   must measure faster than the cooperative forward;
 8. the training path at full width: `ForwardTrainer.train` for 6 steps at
    batch 32 on a synthetic LJSpeech-like dataset, counts reset just
    before and read just after (kernels #2/#3), then one `evaluate()`
-   (kernel #1, every launch stream-local); the three predictor BiGRUs of
-   every step on the batch-split paths of #2 and #3, the other three
-   recurrences on their cooperative paths; losses finite, every parameter
+   (kernel #1, every launch stream-local); each recurrence of every step
+   on the paths its plans give (`_planned_launches`: the predictor BiGRUs
+   batch-split, the prenet and postnet forwards on the cluster path, the
+   decoder's cooperative; backward batch-split or cooperative); losses
+   finite, every parameter
    moved, the checkpoint served by `gen_forward`; ms per step split into forward, backward and
    optimizer; float32 gradients on the card against the CPU plain path,
    the CPU replaying the card's ReLU and max-pool decisions;
@@ -125,17 +130,19 @@ printed only when every phase passed):
    r=5 B=32 and WaveRNN's in float32, bf16 and remat, HiFi-GAN V1 and
    MelGAN in float32 and bf16, each timed by `step_timing` with #2/#3
    counted by compute dtype (bf16 steps launch them in bf16 only, remat
-   twice a recurrence forward, grad_accum k times k); `VocTrainer.train`
+   twice a recurrence forward, grad_accum k times k, each on the paths its
+   plans give at the micro-batch); `VocTrainer.train`
    in bf16 with remat (#4 in generate_samples); on the card, the
    student's remat gradients against no remat (running statistics equal,
    phase 8's limits) and its bf16 gradients against float32 (relative L2
-   <= BF16_GRAD_L2_LIMIT); #2/#3 in bf16 at phase 7's shapes beside their
-   bf16 bounds and cuDNN in bf16;
+   <= BF16_GRAD_L2_LIMIT);
 12. a {"kernels": [...]} JSON line (launches of the main paths, of the
    teacher phase in `launches_teacher`, of the vocoder phase in
    `launches_vocoder` and of the options phase in `launches_options`,
    each kernel's time at the vocoder path's shape in `vocoder_*` and #2/#3
-   in bf16 in `bf16_*`), the nvidia-smi line, and last
+   in bf16 in `bf16_*`; #2's cluster path with the cooperative path's
+   times on the same inputs in `*cooperative_ms`), the nvidia-smi line,
+   and last
    {"ok": true, "device": {...}}.
 
 Details go to chiprun_out/chip_smoke.json.
@@ -1332,9 +1339,10 @@ def _cudnn_train_ms(cell, T, H, B, S=2, dtype=torch.float32):
 
 def _train_kernel_row(cell, T, H, B, lens, S, name):
     """Kernels #2 and #3 against their plain versions on the inputs of
-    `_train_inputs`, in float32 and bfloat16, on the planned paths (and
-    #3's cooperative path on the same stash where batch-split is
-    planned): the row with its paths, errors and inputs."""
+    `_train_inputs`, in float32 and bfloat16, on the planned paths (#3
+    over the planned forward's stash), and on the cooperative paths forced
+    on the same inputs where another is planned: the row with its paths,
+    errors and inputs."""
     from forwardtacotron_tpu_torch.kernels import birnn_train as bt
     from forwardtacotron_tpu_torch.kernels.birnn_train import (
         train_backward, train_forward)
@@ -1366,6 +1374,12 @@ def _train_kernel_row(cell, T, H, B, lens, S, name):
         # planned, the cooperative one forced on the same stash too
         outs = [(k, k, v) for k, v in (('y', y), ('stash', st),
                                        ('dgi', dgi), ('dgh', dgh))]
+        if row['path' + ('' if dtype == f32 else f'_{key}')] \
+                != 'cooperative':
+            y_c, st_c = train_forward(cell, gi_d, w_d, b, ln, dtype,
+                                      path='cooperative')
+            outs += [('y cooperative', 'y', y_c),
+                     ('stash cooperative', 'stash', st_c)]
         if row['bwd_path' + ('' if dtype == f32 else f'_{key}')] \
                 != 'cooperative':
             dgi_c, dgh_c = train_backward(cell, st, dy, w_d, ln, dtype,
@@ -1408,12 +1422,25 @@ MICRO_TRAIN_KERNEL_CASES = tuple(
     for n, c, T, H, B, ln in TEACHER_TRAIN_KERNEL_CASES if B == 8)
 
 
+def _faster_than_cooperative(row, sfx=''):
+    """Where the cluster forward is planned, it measured faster than the
+    cooperative forward forced on the same inputs (the plan takes it only
+    there)."""
+    if row['path' + sfx] == 'cluster':
+        ms, coop = row['ms_fwd' + sfx], row['ms_fwd_cooperative' + sfx]
+        check(ms < coop, f'{row["case"]}{sfx.replace("_", " ")}: the '
+                         f'planned cluster forward {ms:.3f} ms < the '
+                         f'cooperative forward {coop:.3f} ms')
+
+
 @phase('BiRNN training kernels vs plain')
 def train_kernel_cases():
     """Kernels #2 and #3 against their plain versions (`_train_kernel_row`)
     at the training paths' shapes, timed beside their plain versions, their
-    float32 bound and cuDNN; and at grad_accum's micro-batches
-    (MICRO_TRAIN_KERNEL_CASES), checked only."""
+    float32 bound and cuDNN, and in bfloat16 (`_train_kernel_bf16_times`);
+    and at grad_accum's micro-batches (MICRO_TRAIN_KERNEL_CASES), checked,
+    and timed where the cluster forward is planned. Wherever it is planned,
+    it must have measured faster than the cooperative forward."""
     from forwardtacotron_tpu_torch.kernels.birnn_train import (
         train_backward, train_forward)
     from forwardtacotron_tpu_torch.ops.rnn import (birnn_train_backward,
@@ -1430,6 +1457,10 @@ def train_kernel_cases():
         for sfx, parts in (('fwd', ('y', 'stash')), ('bwd', ('dgi', 'dgh'))):
             row[f'max_abs_err_{sfx}'] = max(row['errors'][f'float32 {p}']
                                             for p in parts)
+        if row['path'] != 'cooperative':
+            row['max_abs_err_fwd_cooperative'] = max(
+                row['errors'][f'float32 {p} cooperative']
+                for p in ('y', 'stash'))
         if row['bwd_path'] != 'cooperative':
             row['max_abs_err_bwd_cooperative'] = max(
                 row['errors'][f'float32 {p} cooperative']
@@ -1440,6 +1471,7 @@ def train_kernel_cases():
         if row['path'] != 'cooperative':
             row['ms_fwd_cooperative'] = cuda_ms(lambda: train_forward(
                 cell, gi, w, b, ln, f32, path='cooperative'), reps=5)
+        _faster_than_cooperative(row)
         row['ms_bwd'] = cuda_ms(lambda: train_backward(cell, st32, dy, w, ln,
                                                        f32), reps=5)
         if row['bwd_path'] != 'cooperative':
@@ -1474,15 +1506,30 @@ def train_kernel_cases():
             f'{row["bound_by_bwd"]}, cuDNN {row["library_ms_bwd"]:.3f})')
         rows.append(row)
     DETAILS['birnn_train'] = rows
+    bf16_rows = _train_kernel_bf16_times(nvidia_smi_line())
+    DETAILS['birnn_train_bf16'] = bf16_rows
     micro = []
     for name, cell, T, H, B, lens in MICRO_TRAIN_KERNEL_CASES:
         row = _train_kernel_row(cell, T, H, B, lens, 2, name)[0]
+        for dtype in (f32, torch.bfloat16):
+            sfx = '' if dtype == f32 else '_bfloat16'
+            if row['path' + sfx] != 'cluster':
+                continue
+            gi, w, b, ln, _ = _train_inputs(cell, T, B, H, lens, H + T)
+            gi, w = gi.to(dtype), w.to(dtype)
+            for key, path in (('ms_fwd', None),
+                              ('ms_fwd_cooperative', 'cooperative')):
+                row[key + sfx] = cuda_ms(lambda: train_forward(
+                    cell, gi, w, b, ln, dtype, path=path), reps=3)
+            _faster_than_cooperative(row, sfx)
         log(f'  {row["case"]}: checked in float32 and bfloat16, fwd on the '
             f'{row["path"]} / {row["path_bfloat16"]} path, bwd on the '
-            f'{row["bwd_path"]} / {row["bwd_path_bfloat16"]} path')
+            f'{row["bwd_path"]} / {row["bwd_path_bfloat16"]} path'
+            + ''.join(f'; {k} {v:.3f}' for k, v in row.items()
+                      if k.startswith('ms_fwd')))
         micro.append(row)
     DETAILS['birnn_train_micro'] = micro
-    return rows
+    return rows, bf16_rows
 
 
 def _write_dataset(data, n_train=96, n_val=32, seed=0):
@@ -1577,20 +1624,15 @@ def training_path():
         check(launches['birnn_train_fwd'] > 0
               and launches['birnn_train_bwd'] > 0,
               f'training launched kernels #2 and #3: {launches}')
-        # per step: the three predictor BiGRUs on the batch-split path, the
-        # prenet/decoder/postnet recurrences on the cooperative one
-        check(launches['birnn_train_fwd_batch_split'] == 3 * step
-              and launches['birnn_train_fwd_cooperative'] == 3 * step,
-              f'kernel #2 paths in {step} steps: batch-split '
-              f'{launches["birnn_train_fwd_batch_split"]} == {3 * step}, '
-              f'cooperative {launches["birnn_train_fwd_cooperative"]} == '
-              f'{3 * step}')
-        check(launches['birnn_train_bwd_batch_split'] == 3 * step
-              and launches['birnn_train_bwd_cooperative'] == 3 * step,
-              f'kernel #3 paths in {step} steps: batch-split '
-              f'{launches["birnn_train_bwd_batch_split"]} == {3 * step}, '
-              f'cooperative {launches["birnn_train_bwd_cooperative"]} == '
-              f'{3 * step}')
+        # per step each of the six recurrences on its planned paths (float32,
+        # batch 32): the predictor BiGRUs batch-split, the prenet and
+        # postnet GRUs on the cluster forward, the decoder LSTM cooperative
+        want = _planned_launches(_student_shapes(cfg), 32, torch.float32,
+                                 step, step)
+        got = {k: launches[k] for k in want}
+        check(got == want and want['birnn_train_fwd_cluster'] > 0,
+              f'kernels #2/#3 by path in {step} steps: {got} == planned '
+              f'{want}')
         losses = [v for tag, v, _ in writer.values if 'Loss' in tag]
         check(len(losses) > 0 and all(math.isfinite(v) for v in losses),
               f'{len(losses)} loss scalars, all finite')
@@ -1933,6 +1975,49 @@ def _train_counts(reset=False):
     return out
 
 
+def _student_shapes(cfg):
+    """(cell, streams, H) of the student's six recurrences in training:
+    the three predictor BiGRUs, the prenet CBHG's BiGRU, the decoder
+    BiLSTM and the postnet CBHG's BiGRU."""
+    m = cfg['forward_tacotron']['model']
+    return [('gru', 2, m['durpred_rnn_dims']), ('gru', 2, m['pitch_rnn_dims']),
+            ('gru', 2, m['energy_rnn_dims']), ('gru', 2, m['prenet_dims']),
+            ('lstm', 2, m['rnn_dims']), ('gru', 2, m['postnet_dims'])]
+
+
+def _teacher_shapes(cfg):
+    """(cell, streams, H) of the teacher's two recurrences in training:
+    the encoder CBHG's and the postnet CBHG's BiGRUs."""
+    m = cfg['tacotron']['model']
+    return [('gru', 2, m['encoder_dims']), ('gru', 2, m['postnet_dims'])]
+
+
+def _wavernn_shapes(cfg):
+    """(cell, streams, H) of WaveRNN's two GRUs (one stream each)."""
+    return [('gru', 1, cfg['vocoder']['model']['rnn_dims'])] * 2
+
+
+def _planned_launches(shapes, batch, dtype, fwd_passes, bwd_passes):
+    """{'birnn_train_fwd_<path>': n, 'birnn_train_bwd_<path>': n}: the
+    launches by path of `fwd_passes` forwards and `bwd_passes` backwards
+    of each recurrence in `shapes` ((cell, streams, H)) at `batch` lanes
+    in `dtype`, on the paths `train_forward_plan` and
+    `train_backward_plan` give on this card."""
+    from forwardtacotron_tpu_torch.kernels import birnn_train as bt
+    props = torch.cuda.get_device_properties(0)
+    want = {}
+    for kind, plan, paths, passes in (
+            ('fwd', bt.train_forward_plan, bt.PATHS, fwd_passes),
+            ('bwd', bt.train_backward_plan, bt.BWD_PATHS, bwd_passes)):
+        want.update({f'birnn_train_{kind}_{p}': 0 for p in paths})
+        for cell, S, H in shapes:
+            path = plan(cell, S, batch, H, dtype,
+                        props.shared_memory_per_block_optin,
+                        props.multi_processor_count)['path']
+            want[f'birnn_train_{kind}_{path}'] += passes
+    return want
+
+
 def _f0_checks(cfg, items, smi):
     """The F0 that preprocess wrote on the card for one file against the
     CPU plain path on the same trimmed wav, and the card's F0 of the raw
@@ -2255,9 +2340,9 @@ def teacher_path():
                 for b, n in ((32, 3), (8, 2)):
                     p = plans[f'B={b}'][kind]
                     want[p] = want.get(p, 0) + 2 * n
-                got = {p: launches[f'birnn_train_{kind}_{p}']
-                       for p in bt.PATHS}
-                check(all(got[p] == want.get(p, 0) for p in bt.PATHS),
+                names = bt.PATHS if kind == 'fwd' else bt.BWD_PATHS
+                got = {p: launches[f'birnn_train_{kind}_{p}'] for p in names}
+                check(all(got[p] == want.get(p, 0) for p in names),
                       f'teacher kernel #{2 if kind == "fwd" else 3} by path '
                       f'{got} == planned {want}')
             losses = [v for tag, v, _ in writer.values if tag == 'Loss/train']
@@ -2577,9 +2662,9 @@ def _voc_wavernn(cfg, paths, index, student, smi):
         f'{launches}, planned paths {plans}')
     check(step == VOC_STEPS, f'WaveRNN trainer reached step {step} == '
                              f'{VOC_STEPS}')
-    for kind in ('fwd', 'bwd'):
-        got = {p: launches[f'birnn_train_{kind}_{p}'] for p in bt.PATHS}
-        check(got == {p: 2 * step * (p == plans[kind]) for p in bt.PATHS},
+    for kind, names in (('fwd', bt.PATHS), ('bwd', bt.BWD_PATHS)):
+        got = {p: launches[f'birnn_train_{kind}_{p}'] for p in names}
+        check(got == {p: 2 * step * (p == plans[kind]) for p in names},
               f'WaveRNN kernel #{2 if kind == "fwd" else 3} by path {got}: '
               f'2 a step on the planned {plans[kind]} path')
     val = [v for t, v, _ in writer.values if t == 'Loss/val']
@@ -2812,14 +2897,22 @@ def _option_counts(reset=False):
     return out
 
 
-def _check_launches(got, what, recurrences, train_cfg):
-    """#2 `recurrences` x k launches a step (twice that under remat), #3
-    `recurrences` x k, all in the step's compute dtype."""
+def _check_launches(got, what, shapes, batch, train_cfg, steps=1):
+    """`steps` steps of the recurrences `shapes` ((cell, streams, H)) at
+    `batch` lanes: #2 k launches each a step (twice that under remat), #3
+    k, all in the step's compute dtype, each on the paths the plans give
+    at the micro-batch of batch / k lanes."""
     from forwardtacotron_tpu_torch.train.common import half_dtype
     k = int(train_cfg.get('grad_accum', 1) or 1)
     remat = bool(train_cfg.get('remat', False))
     dtype = 'float32' if half_dtype(train_cfg) is None else 'bfloat16'
-    fwd, bwd = recurrences * k * (2 if remat else 1), recurrences * k
+    fwd = len(shapes) * steps * k * (2 if remat else 1)
+    bwd = len(shapes) * steps * k
+    want = _planned_launches(shapes, batch // k, getattr(torch, dtype),
+                             fwd // len(shapes), bwd // len(shapes))
+    by_path = {key: got[key] for key in want}
+    check(by_path == want, f'{what}: kernels #2/#3 by path {by_path} == '
+                           f'planned {want}')
     ok = (got['birnn_train_fwd'] == got[f'birnn_train_fwd_{dtype}'] == fwd
           and got['birnn_train_bwd'] == got[f'birnn_train_bwd_{dtype}']
           == bwd)
@@ -2853,7 +2946,8 @@ def _student_options(cfg, paths, smi):
         _option_counts(reset=True)
         metrics = tc.train_step(model, optimizer, batch, gen, train_cfg, ema)
         launches = _option_counts()
-        _check_launches(launches, f'student {label} step', 6, train_cfg)
+        _check_launches(launches, f'student {label} step',
+                        _student_shapes(cfg), 32, train_cfg)
         check(math.isfinite(float(metrics['loss'])),
               f'student {label}: loss {float(metrics["loss"]):.4f} finite')
         row = step_timing(_student_parts(model, optimizer, batch, train_cfg,
@@ -2954,8 +3048,8 @@ def _student_trainer_run(cfg, paths, smi):
     check(step == OPTIONS_STEPS, f'student trainer with every option '
                                  f'reached step {step}')
     _check_launches(launches, f'student trainer, {step} steps, all options',
-                    6 * step,
-                    run_cfg['forward_tacotron']['training'])
+                    _student_shapes(run_cfg), 32,
+                    run_cfg['forward_tacotron']['training'], step)
     check(launches['birnn'] == launches['birnn_stream_local'] > 0,
           f'evaluate() with the EMA weights: kernel #1 '
           f'{launches["birnn"]} launches, stream-local')
@@ -3008,7 +3102,8 @@ def _teacher_options(smi):
         metrics, _ = taco_train_step(model, optimizer, batch, 5, gen,
                                      train_cfg)
         launches = _option_counts()
-        _check_launches(launches, f'teacher {label} step', 2, train_cfg)
+        _check_launches(launches, f'teacher {label} step',
+                        _teacher_shapes(cfg), B, train_cfg)
         check(math.isfinite(float(metrics['loss'])),
               f'teacher {label}: loss {float(metrics["loss"]):.4f} finite')
         row = step_timing(train_parts(model, optimizer,
@@ -3057,7 +3152,8 @@ def _wavernn_options(smi):
         metrics = voc_train_step(model, optimizer, batch, 'RAW',
                                  train_cfg['clip_grad_norm'], half, remat)
         launches = _option_counts()
-        _check_launches(launches, f'WaveRNN {label} step', 2, train_cfg)
+        _check_launches(launches, f'WaveRNN {label} step',
+                        _wavernn_shapes(cfg), batch['x'].shape[0], train_cfg)
         check(math.isfinite(float(metrics['loss'])),
               f'WaveRNN {label}: loss {float(metrics["loss"]):.4f} finite')
         row = step_timing(train_parts(model, optimizer,
@@ -3110,7 +3206,7 @@ def _wavernn_trainer_run(smi):
         f'{launches}')
     check(step == OPTIONS_STEPS, f'WaveRNN trainer reached step {step}')
     _check_launches(launches, f'WaveRNN trainer bf16 + remat, {step} steps',
-                    2 * step, train_cfg)
+                    _wavernn_shapes(cfg), VOC_BATCH, train_cfg, step)
     check(launches['wavernn_sample'] > 0,
           f'generate_samples in the bf16 + remat run: kernel #4 '
           f'{launches["wavernn_sample"]} launches')
@@ -3162,9 +3258,11 @@ def _gan_options(smi):
 
 def _train_kernel_bf16_times(smi):
     """#2 and #3 in bf16 at phase 7's training shapes (the student's five,
-    the teacher's three, WaveRNN's): ms on the planned path, the bound at
-    bf16 sizes (gi, the stash and dgi/dgh 2 bytes an element, y and dy 4;
-    operations against the bf16 peak) and cuDNN in bf16."""
+    the teacher's three, WaveRNN's): ms on the planned path (and #2's
+    cooperative path forced on the same inputs where the cluster path is
+    planned, which must be slower), the bound at bf16 sizes (gi, the stash
+    and dgi/dgh 2 bytes an element, y and dy 4; operations against the
+    bf16 peak) and cuDNN in bf16."""
     from forwardtacotron_tpu_torch.kernels import birnn_train as bt
     from forwardtacotron_tpu_torch.kernels.birnn_train import (
         train_backward, train_forward)
@@ -3192,6 +3290,10 @@ def _train_kernel_bf16_times(smi):
                                                        bf16), reps=5),
                'ms_bwd': cuda_ms(lambda: train_backward(cell, st, dy, w, ln,
                                                         bf16), reps=5)}
+        if plans['fwd'] == 'cluster':
+            row['ms_fwd_cooperative'] = cuda_ms(lambda: train_forward(
+                cell, gi, w, b, ln, bf16, path='cooperative'), reps=5)
+            _faster_than_cooperative(row)
         ng = 4 if cell == 'lstm' else 3
         active = S * sum(min(n, T) for n in lens)
         flops = 2.0 * active * ng * H * H
@@ -3207,6 +3309,8 @@ def _train_kernel_bf16_times(smi):
         row['library_ms_fwd'], row['library_ms_bwd'] = _cudnn_train_ms(
             cell, T, H, B, S, bf16)
         log(f'  {row["case"]}: fwd {row["ms_fwd"]:.3f} ms ({plans["fwd"]}; '
+            + (f'cooperative {row["ms_fwd_cooperative"]:.3f}; '
+               if 'ms_fwd_cooperative' in row else '') +
             f'bound {row["bound_ms_fwd"]:.4f} {row["bound_by_fwd"]}, cuDNN '
             f'{row["library_ms_fwd"]:.3f}); bwd {row["ms_bwd"]:.3f} ms '
             f'({plans["bwd"]}; bound {row["bound_ms_bwd"]:.4f} '
@@ -3233,9 +3337,7 @@ def options_path():
     4. WaveRNN's step in float32, bf16 and remat, and `VocTrainer.train`
        in bf16 with remat (#2/#3 in bf16, #1 in evaluate(), #4 in
        generate_samples);
-    5. the HiFi-GAN V1 and MelGAN steps in float32 and bf16;
-    6. #2/#3 in bf16 at phase 7's shapes beside their bf16 bounds and
-       cuDNN in bf16."""
+    5. the HiFi-GAN V1 and MelGAN steps in float32 and bf16."""
     from forwardtacotron_tpu_torch.config import default_config
     from forwardtacotron_tpu_torch.utils.paths import Paths
     smi = nvidia_smi_line()
@@ -3252,7 +3354,6 @@ def options_path():
         out['wavernn'] = _wavernn_options(smi)
         out['wavernn_trainer'] = _wavernn_trainer_run(smi)
         out['gan'] = _gan_options(smi)
-        out['kernels_bf16'] = _train_kernel_bf16_times(smi)
     finally:
         shutil.rmtree(OPTIONS_DIR, ignore_errors=True)
     DETAILS['options'] = out
@@ -3291,7 +3392,7 @@ def main(argv=None) -> int:
     wr = wavernn_cases() or {}
     launches = main_path() or {}
     serving_path()
-    train_rows = train_kernel_cases() or []
+    train_rows, bf16_rows = train_kernel_cases() or ([], [])
     train_launches = training_path() or {}
     teacher = teacher_path() or {}
     voc = vocoder_path() or {}
@@ -3323,7 +3424,6 @@ def main(argv=None) -> int:
     opt_launches = {k: opts['student_trainer']['launches'].get(k, 0)
                     + opts['wavernn_trainer']['launches'].get(k, 0)
                     for k in opts['wavernn_trainer']['launches']}
-    bf16_rows = opts['kernels_bf16']
     kernels = [
         {'name': 'birnn (stream-local path)', 'route': 'cuda',
          'source': 'forwardtacotron_tpu_torch/csrc/birnn.cu',
@@ -3358,17 +3458,26 @@ def main(argv=None) -> int:
          'vocoder_ms': wr['trainer_fold']['ms'],
          'vocoder_plain_ms': wr['trainer_fold']['plain_ms'],
          'vocoder_bound_ms': wr['trainer_fold']['bound_ms']})
+    # #2 and #3 by path: the decoder's float32 forward is cooperative, its
+    # bf16 forward and the postnet's float32 one take the cluster path
     dec = train_rows[0]       # decoder LSTM H=512, T=1024, B=32, float32
+    post = next(r for r in train_rows if r['case'].startswith('postnet'))
     pitch = next(r for r in train_rows if r['case'].startswith('pitch'))
-    for name, row, sfx, line, count in (
+
+    def bf16_of(row):
+        return next(r for r in bf16_rows
+                    if r['case'].startswith(row['case'].split(' ')[0]))
+    for name, row, sfx, line, path in (
             ('birnn_train_fwd (cooperative path)', dec, 'fwd', 294,
-             'birnn_train_fwd_cooperative'),
+             'cooperative'),
             ('birnn_train_fwd (batch-split path)', pitch, 'fwd', 294,
-             'birnn_train_fwd_batch_split'),
+             'batch_split'),
+            ('birnn_train_fwd (cluster path)', post, 'fwd', 294, 'cluster'),
             ('birnn_train_bwd (cooperative path)', dec, 'bwd', 388,
-             'birnn_train_bwd_cooperative'),
+             'cooperative'),
             ('birnn_train_bwd (batch-split path)', pitch, 'bwd', 388,
-             'birnn_train_bwd_batch_split')):
+             'batch_split')):
+        count = f'birnn_train_{sfx}_{path}'
         kernels.append({
             'name': name, 'route': 'cuda',
             'source': 'forwardtacotron_tpu_torch/csrc/birnn_train.cu',
@@ -3378,24 +3487,40 @@ def main(argv=None) -> int:
             'launches_vocoder': voc_launches[count],
             'launches_options': opt_launches[count],
             'launches_options_bfloat16': opt_launches[f'{count}_bfloat16'],
+            'case': row['case'],
             'max_abs_err': row[f'max_abs_err_{sfx}'],
             'ms': row[f'ms_{sfx}'], 'plain_ms': row[f'plain_ms_{sfx}'],
             'bound_ms': row[f'bound_ms_{sfx}'],
             'bound_by': row[f'bound_by_{sfx}'],
             'library_ms': row[f'library_ms_{sfx}']})
-        b16 = next(r for r in bf16_rows
-                   if r['case'].startswith(row['case'].split(' ')[0]))
-        kernels[-1].update({
-            'bf16_case': b16['case'], 'bf16_ms': b16[f'ms_{sfx}'],
-            'bf16_bound_ms': b16[f'bound_ms_{sfx}'],
-            'bf16_library_ms': b16[f'library_ms_{sfx}']})
-        if 'cooperative' in name:
+        if path == 'batch_split':
+            b16 = bf16_of(row)
             kernels[-1].update({
-                'vocoder_case': voc_train['case'],
-                'vocoder_ms': voc_train[f'ms_{sfx}'],
-                'vocoder_plain_ms': voc_train[f'plain_ms_{sfx}'],
-                'vocoder_bound_ms': voc_train[f'bound_ms_{sfx}'],
-                'vocoder_library_ms': voc_train[f'library_ms_{sfx}']})
+                'bf16_case': b16['case'], 'bf16_ms': b16[f'ms_{sfx}'],
+                'bf16_bound_ms': b16[f'bound_ms_{sfx}'],
+                'bf16_library_ms': b16[f'library_ms_{sfx}']})
+            continue
+        # the decoder in bf16 and WaveRNN's GRU in float32: the planned
+        # path's times, or the cooperative forward forced where the
+        # cluster path is planned
+        b16, key = bf16_of(dec), f'ms_{sfx}'
+        coop = sfx == 'fwd' and path == 'cooperative'
+        kernels[-1].update({
+            'bf16_case': b16['case'],
+            'bf16_ms': b16[f'{key}_cooperative' if coop else key],
+            'bf16_bound_ms': b16[f'bound_ms_{sfx}'],
+            'bf16_library_ms': b16[f'library_ms_{sfx}'],
+            'vocoder_case': voc_train['case'],
+            'vocoder_ms': voc_train[f'{key}_cooperative' if coop else key],
+            'vocoder_plain_ms': voc_train[f'plain_ms_{sfx}'],
+            'vocoder_bound_ms': voc_train[f'bound_ms_{sfx}'],
+            'vocoder_library_ms': voc_train[f'library_ms_{sfx}']})
+        if path == 'cluster':
+            kernels[-1].update({
+                'cooperative_ms': row['ms_fwd_cooperative'],
+                'bf16_cooperative_ms': b16['ms_fwd_cooperative'],
+                'vocoder_cooperative_ms': voc_train['ms_fwd_cooperative'],
+                'max_abs_err_cooperative': row['max_abs_err_fwd_cooperative']})
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

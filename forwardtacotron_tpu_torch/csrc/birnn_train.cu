@@ -9,10 +9,57 @@
 // kernels index time by the kernel step t. A stream is inside its sequence
 // at step t iff t < len (even) or t >= n_steps - len (odd).
 //
-// Forward (ftt_birnn_train_fwd): the recurrence of csrc/birnn.cu plus a
-// stash of 5H values per stream and step (GRU r, z, n, gh_n, h_prev; LSTM
-// i, f, g, o, c_prev), in the compute type. Block j owns U hidden units of
-// one stream and keeps their NG*U rows of W_hh in shared memory. At each
+// Forward: the recurrence of csrc/birnn.cu plus a stash of 5H values per
+// stream and step (GRU r, z, n, gh_n, h_prev; LSTM i, f, g, o, c_prev), in
+// the compute type. Three paths, chosen by
+// kernels/birnn_train.py:train_forward_plan; all write the same y and
+// stash, so the backward takes any of them.
+//
+// Cluster forward (ftt_birnn_train_fwd_cl), for the wide recurrences (the
+// decoder LSTM in bf16, and in float32 at grad_accum's micro-batches; the
+// CBHG GRUs; WaveRNN's GRU): one thread-block cluster of C blocks per
+// (stream, group of BG = 8 or 16 batch lanes),
+// launched with cluster dimensions and no cooperative grid; clusters are
+// independent, so where the card holds fewer at once they run in waves.
+// Block `rank` owns units [rank*U, (rank+1)*U), U = H/C, and keeps their
+// R = NG*U rows of W_hh resident for the whole walk (registers, then
+// shared memory). Per step:
+//   product: the block's rows against the group's h, rounded to T and held
+//     in its own shared memory (rows = lanes). bf16 runs on the tensor
+//     cores: mma.sync.m16n8k16 with W_hh's rows as A (16 rows a tile, the
+//     first kClTcReg tiles of a warp in registers, the rest in shared
+//     memory in the mma's lane order), the lanes as N (one or two n-tiles,
+//     B fragments by ldmatrix), float32 sums. float32 runs on the CUDA
+//     cores (TF32 stays off): thread (g, ks) multiplies 2 rows against
+//     k-slice ks of every lane, each 16-byte read of h feeding 8 FMAs, the
+//     first 4 (8 where the rest would not fit) 16-byte chunks of its rows
+//     in registers. A float32 product on the tensor cores as three TF32
+//     products (3xTF32) holds float32's accuracy but spills and measured
+//     slower at every shape; it is built only for the probe
+//     (csrc/birnn_train_tf32.cu). Warps of different k-slices write
+//     partial sums; no shuffles;
+//   gate math: one owner thread a (lane, unit) adds its NG rows' KS
+//     partials in order, takes the gate inputs that cp.async brought one
+//     step ahead, writes y and the five stash values without waiting, and
+//     keeps h (float32) and the LSTM c in registers;
+//   exchange: the block's BG x U new values, rounded to T, go 16 bytes a
+//     store into every peer's h buffer (st.shared::cluster), double-
+//     buffered by step parity; one cluster barrier (arrive.release /
+//     wait.acquire), which also orders the buffers as in csrc/birnn.cu.
+// Lanes past B in the last group are masked at every step and write
+// nothing. What it removes from the cooperative path (the probe's trace in
+// PERF.md): staging h from L2, the gate inputs' loads after the
+// product, the shuffle reduction and the grid barrier, ~80% of a step.
+// What bounds it: per step, the product (bf16: shared-memory reads of A
+// and h; float32: the FMAs of a block, 0.1-0.5M) and ~2 us of gate math,
+// pushes and the cluster barrier; the bytes and operations of the whole
+// launch are 10-100x below.
+//
+// Cooperative forward (ftt_birnn_train_fwd), where neither of the others
+// fits or the clusters would run in more than one wave (the decoder LSTM
+// in float32 at batch 32: its W_hh share needs clusters of 16 and 8 lanes,
+// two waves of the 7 clusters of 16 an H100 holds, a tie). Block j owns U
+// hidden units of one stream and keeps their NG*U rows of W_hh in shared memory. At each
 // step the block stages its stream's whole h (B x H float32, written by
 // every block of the stream at the previous step) from L2 into shared
 // memory; each warp then multiplies kBT batch lanes at once against the
@@ -118,8 +165,13 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <map>
+#include <mutex>
+#include <tuple>
+#include <type_traits>
 
 #include "birnn_step.cuh"
+#include "cluster.cuh"
 #include "probe.cuh"
 
 namespace cg = cooperative_groups;
@@ -138,6 +190,15 @@ constexpr int kLanes = 8;      // lanes of a partial product's register tile
 constexpr int kCoopMaxCols = 3;  // W_hh columns a thread owns (H <= 768)
 constexpr int kSumBatch = 16;  // partial-sum loads a thread has in flight
 constexpr int kAItems = 2;     // phase-A items a thread loads a step ahead
+constexpr int kClMaxThreads = 512;  // cluster forward: 128 registers a thread
+constexpr int kClMaxCluster = 16;   // above 8: a non-portable cluster size
+constexpr int kClMaxSplits = 16;    // k-slices of its product
+constexpr int kClTcReg = 8;    // A tiles a warp keeps in registers (bf16)
+constexpr int kClFmaRows = 2;  // W_hh rows a thread multiplies (float32)
+// 16-byte chunks of a row in a thread's registers (float32): 4 where the
+// rest fits shared memory (no spills), else 8 (spills 12-28 bytes)
+constexpr int kClFmaRegLo = 4;
+constexpr int kClFmaRegHi = 8;
 
 // forward: batch groups of kBT lanes, and k-splits so that every warp has
 // an item when the batch is small
@@ -424,6 +485,420 @@ __global__ void __launch_bounds__(kBsMaxThreads)
     }
     __syncthreads();
     probe.mark(5);
+  }
+  probe.finish();
+}
+
+// ---------------------------------------------------- cluster forward
+
+// Cluster forward: one cluster of C blocks per (stream, group of BG batch
+// lanes); block `rank` owns units [rank*U, (rank+1)*U) and keeps their R =
+// NG*U rows of W_hh resident; see the note at the top of the file.
+struct ClArgs {
+  const void* gi;        // (n_steps, B, S, NG*H) T
+  const void* w_hh;      // (S, NG*H, H) T
+  const float* b_hh;     // (S, NG*H)
+  const int* lengths;    // (B)
+  float* y;              // (n_steps, B, S, H)
+  void* stash;           // (n_steps, B, S, 5, H) T
+  int n_steps, B, S, H;
+  int C;                 // blocks of a cluster
+  int KS;                // k-slices of the product
+};
+
+// What the product of a cluster block takes: its threads and the bytes of
+// W_hh it keeps in shared memory (threads 0: a shape it does not take).
+struct ClProductSize {
+  int threads;
+  size_t w_bytes;
+};
+
+// Where the parts of a cluster block's shared memory lie, and its threads
+// (0: a shape the kernel does not take), for product P (ClMmaProduct or
+// ClFmaProduct, whose size() gives its part); mirrored by
+// kernels/birnn_train.py:_cl_size. W_hh's share of P first, then h rounded
+// to T for the group's lanes (two buffers, rows of H + 16 bytes), the KS
+// partial sums of every (lane, row) (rows padded by 4), and two steps of
+// the block's gate inputs. Every owner thread holds one (lane, unit).
+struct ClLayout {
+  int threads;
+  size_t w_bytes, h_off, part_off, g_off, smem;
+};
+
+template <typename P>
+__host__ __device__ __forceinline__ ClLayout cl_layout(int NG, int H, int C,
+                                                       int KS) {
+  constexpr size_t item = P::ITEM;
+  constexpr int BG = P::BG;
+  ClLayout l{0, 0, 0, 0, 0, 0};
+  const int vec = (int)(16 / item);
+  if (C < 2 || C > kClMaxCluster || (C & (C - 1)) || H % C != 0 || KS < 1 ||
+      KS > kClMaxSplits || (KS & (KS - 1)))
+    return l;
+  const int U = H / C, R = NG * U;
+  if (U % vec != 0) return l;
+  const ClProductSize p = P::size(R, H, KS);
+  if (p.threads == 0) return l;
+  const int n = p.threads > U * BG ? p.threads : U * BG;
+  if (n > kClMaxThreads) return l;
+  l.threads = (n + 31) / 32 * 32;
+  l.w_bytes = p.w_bytes;
+  l.h_off = l.w_bytes;
+  l.part_off = l.h_off + align16(item * 2 * BG * (H + vec));
+  l.g_off = l.part_off + sizeof(float) * (size_t)KS * BG * (R + 4);
+  l.smem = l.g_off + item * 2 * NG * BG * U;
+  return l;
+}
+
+__device__ __forceinline__ void cl_ldsm_x4(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"((uint32_t)__cvta_generic_to_shared(p))
+      : "memory");
+}
+__device__ __forceinline__ void cl_ldsm_x2(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"((uint32_t)__cvta_generic_to_shared(p))
+               : "memory");
+}
+__device__ __forceinline__ void cl_mma(float (&d)[4], const uint4& a,
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+// The product on the tensor cores (bf16): W_hh's rows are the A operand,
+// the group's lanes the N side (BG = 8 or 16: one or two n-tiles),
+// mma.m16n8k16 with products exact in float32 and the sum float32, in two
+// chains (even and odd k-tiles) added at the end. Warp (mt, ks) multiplies
+// m-tile mt (16 rows) against k-tiles [ks*nt, (ks+1)*nt) for every lane of
+// the group. A fragments in the mma's lane order, as csrc/birnn_sl_mma.cu
+// holds them (512 bytes a tile, the first REG = kClTcReg tiles of a warp
+// in registers, the rest in shared memory); B fragments by ldmatrix from
+// the rounded h, whose rows are the lanes. (A float32 specialisation on
+// the tensor cores as 3xTF32 lives in csrc/birnn_train_tf32.cu.)
+template <typename T, int BG_, int REG>
+struct ClMmaProduct {
+  static_assert(sizeof(T) == 2, "the shipped tensor-core product is bf16");
+  static_assert(BG_ == 8 || BG_ == 16, "one or two n-tiles of 8 lanes");
+  static constexpr size_t ITEM = sizeof(T);
+  static constexpr int BG = BG_;
+  static constexpr int NB = BG / 8;
+  static constexpr int KT = 16;               // k of a tile
+  static constexpr int VEC = 16 / sizeof(T);  // elements of an ldmatrix row
+  int nt, ns, mt, ks, lane;
+  bool on;
+  const uint4* w_mine;
+  uint4 a_reg[REG];
+
+  // warps of 16 rows x KS k-slices; each warp's k-tiles past REG in shared
+  // memory
+  __host__ __device__ static ClProductSize size(int R, int H, int KS) {
+    if (R % 16 != 0 || H % KT != 0 || (H / KT) % KS != 0) return {0, 0};
+    const int nt = H / KT / KS;
+    return {32 * (R / 16) * KS,
+            (size_t)512 * (R / 16) * KS * (nt - (nt < REG ? nt : REG))};
+  }
+
+  // w_row(row): the block's row `row` of W_hh in global memory
+  template <typename WRow>
+  __device__ __forceinline__ void load(uint4* w_s, WRow w_row, int R, int H,
+                                       int KS) {
+    // the 32-bit word at (row, k): the bf16 pair (k, k+1)
+    auto w = [&](int row, int k) {
+      return *reinterpret_cast<const uint32_t*>(w_row(row) + k);
+    };
+    nt = H / KT / KS;
+    ns = nt - min(REG, nt);
+    const int warp = threadIdx.x / 32, RT = R / 16;
+    lane = threadIdx.x % 32;
+    mt = warp / KS;
+    ks = warp % KS;
+    on = warp < RT * KS;
+    auto frag = [&](int tile_r, int kt, int l) {
+      const int r0 = tile_r * 16 + l / 4;
+      const int k = kt * KT + (l % 4) * 2;
+      return make_uint4(w(r0, k), w(r0 + 8, k), w(r0, k + KT / 2),
+                        w(r0 + 8, k + KT / 2));
+    };
+    for (int i = threadIdx.x; i < RT * KS * ns * 32; i += blockDim.x) {
+      const int wp = i / 32 / ns, j = (i / 32) % ns;
+      w_s[i] = frag(wp / KS, (wp % KS) * nt + REG + j, i % 32);
+    }
+#pragma unroll
+    for (int j = 0; j < REG; ++j)
+      a_reg[j] = on && j < nt ? frag(mt, ks * nt + j, lane)
+                              : make_uint4(0, 0, 0, 0);
+    w_mine = w_s + (size_t)threadIdx.x / 32 * ns * 32 + lane;
+  }
+
+  // part[(ks*BG + b)*RP + row]: k-slice ks's share of row . h[b]; h: the
+  // group's rounded h, rows HS elements apart
+  __device__ __forceinline__ void run(const T* h, int HS, float* part,
+                                      int RP) {
+    if (!on) return;
+    float d[2][NB][4];
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) d[c][n][e] = 0.0f;
+    // ldmatrix rows (16 bytes): lanes 8m..8m+7 give the rows of matrix m,
+    // (n-tile, half of the k-tile) = (m / 2, m % 2) for x4, (0, m % 2) for
+    // x2
+    const int m = lane / 8;
+    const T* hl = h + (size_t)((NB == 2 ? m / 2 : 0) * 8 + lane % 8) * HS +
+                  ks * nt * KT + (m % 2) * VEC;
+    auto tile = [&](int c, const uint4& a, int j) {
+      uint32_t bf[4];
+      if (NB == 2)
+        cl_ldsm_x4(bf, hl + j * KT);
+      else
+        cl_ldsm_x2(bf, hl + j * KT);
+#pragma unroll
+      for (int n = 0; n < NB; ++n) cl_mma(d[c][n], a, bf[2 * n], bf[2 * n + 1]);
+    };
+#pragma unroll
+    for (int j = 0; j < REG; ++j)
+      if (j < nt) tile(j & 1, a_reg[j], j);
+    int j = REG;
+    for (; j + 1 < nt; j += 2) {
+      const uint4 a0 = w_mine[(j - REG) * 32];
+      const uint4 a1 = w_mine[(j + 1 - REG) * 32];
+      tile(0, a0, j);
+      tile(1, a1, j + 1);
+    }
+    if (j < nt) tile(0, w_mine[(j - REG) * 32], j);
+    const int row = mt * 16 + lane / 4;
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float* p = part + (size_t)(ks * BG + n * 8 + (lane % 4) * 2 + e) * RP;
+        p[row] = d[0][n][e] + d[1][n][e];
+        p[row + 8] = d[0][n][2 + e] + d[1][n][2 + e];
+      }
+  }
+};
+
+// The float32 product on the CUDA cores (TF32 stays off on the training
+// path): thread (g, ks) multiplies rows g + r*NR against k-slice ks of every
+// lane's h, four columns at a time; a warp shares ks where NR allows, so
+// its h reads are broadcasts, and each 16-byte read of h feeds kClFmaRows
+// rows.
+template <int BG_, int REG>
+struct ClFmaProduct {
+  static_assert(BG_ == 8, "groups of 8 lanes");
+  static constexpr size_t ITEM = 4;
+  static constexpr int BG = BG_;
+  static constexpr int ROWS = kClFmaRows;
+  int R, NR, nc, ns, g, ks;
+  bool on;
+  const uint4* w_mine;
+  uint4 w_reg[REG][ROWS];
+
+  // threads of ROWS rows x KS k-slices; each row's chunks past REG in
+  // shared memory
+  __host__ __device__ static ClProductSize size(int R, int H, int KS) {
+    if (R % ROWS != 0 || (H / 4) % KS != 0) return {0, 0};
+    const int nc = H / 4 / KS;
+    return {R / ROWS * KS, (size_t)16 * R * KS * (nc - (nc < REG ? nc : REG))};
+  }
+
+  template <typename WRow>
+  __device__ __forceinline__ void load(uint4* w_s, WRow w_row, int R_, int H,
+                                       int KS) {
+    auto w = [&](int row, int chunk) {
+      return *reinterpret_cast<const uint4*>(w_row(row) + chunk * 4);
+    };
+    R = R_;
+    NR = R / ROWS;
+    nc = H / 4 / KS;
+    ns = nc - min(REG, nc);
+    g = threadIdx.x % NR;
+    ks = threadIdx.x / NR;
+    on = threadIdx.x < NR * KS;
+    // chunk cc >= REG of row `row` in slice ks at w_s[(ks*ns + cc - REG)*R
+    // + row]: a warp reads consecutive chunks
+    for (int i = threadIdx.x; i < R * KS * ns; i += blockDim.x) {
+      const int row = i % R, jj = i / R;
+      w_s[i] = w(row, (jj / ns) * nc + REG + jj % ns);
+    }
+#pragma unroll
+    for (int cc = 0; cc < REG; ++cc)
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r)
+        w_reg[cc][r] = on && cc < nc ? w(g + r * NR, ks * nc + cc)
+                                     : make_uint4(0, 0, 0, 0);
+    w_mine = w_s + (size_t)ks * ns * R + g;
+  }
+
+  __device__ __forceinline__ void run(const float* h, int HS, float* part,
+                                      int RP) {
+    if (!on) return;
+    float acc[ROWS][BG];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+      for (int b = 0; b < BG; ++b) acc[r][b] = 0.0f;
+    const float* hk = h + ks * nc * 4;
+    auto fma_chunk = [&](const uint4(&w)[ROWS], int cc) {
+#pragma unroll
+      for (int b = 0; b < BG; ++b) {
+        const float4 hv = *reinterpret_cast<const float4*>(hk + b * HS + cc * 4);
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) {
+          acc[r][b] = fmaf(hv.x, __uint_as_float(w[r].x), acc[r][b]);
+          acc[r][b] = fmaf(hv.y, __uint_as_float(w[r].y), acc[r][b]);
+          acc[r][b] = fmaf(hv.z, __uint_as_float(w[r].z), acc[r][b]);
+          acc[r][b] = fmaf(hv.w, __uint_as_float(w[r].w), acc[r][b]);
+        }
+      }
+    };
+#pragma unroll
+    for (int cc = 0; cc < REG; ++cc)
+      if (cc < nc) fma_chunk(w_reg[cc], cc);
+    for (int cc = REG; cc < nc; ++cc) {
+      uint4 w[ROWS];
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) w[r] = w_mine[(size_t)(cc - REG) * R + r * NR];
+      fma_chunk(w, cc);
+    }
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+      for (int b = 0; b < BG; ++b)
+        part[(size_t)(ks * BG + b) * RP + g + r * NR] = acc[r][b];
+  }
+};
+
+template <typename T, int BG, int REG, bool TC>
+using ClProduct = typename std::conditional<TC, ClMmaProduct<T, BG, REG>,
+                                            ClFmaProduct<BG, REG>>::type;
+
+// TC: the product on the tensor cores (bf16; float32 as 3xTF32 in
+// csrc/birnn_train_tf32.cu), else on the CUDA cores (float32); REG: A
+// tiles, or 16-byte chunks of a row, a thread keeps in registers
+template <typename T, bool LSTM, int BG, int REG, bool TC>
+__global__ void __launch_bounds__(kClMaxThreads) train_fwd_cl_kernel(ClArgs a) {
+  constexpr int NG = LSTM ? 4 : 3;
+  constexpr int VEC = 16 / sizeof(T);
+  const T* __restrict__ gi = static_cast<const T*>(a.gi);
+  T* __restrict__ stash = static_cast<T*>(a.stash);
+  const int n_steps = a.n_steps, B = a.B, S = a.S, H = a.H, C = a.C,
+            KS = a.KS;
+  const int GH = NG * H, U = H / C, R = NG * U, RP = R + 4, HS = H + VEC;
+  const int G = (B + BG - 1) / BG;   // lane groups of a stream
+  const int cl = blockIdx.x / C;     // the cluster's (stream, group)
+  const int s = cl / G, b0 = (cl % G) * BG;
+  const int rank = (int)cluster_rank();
+  const int u0 = rank * U;
+  const int tid = threadIdx.x;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  using Product = ClProduct<T, BG, REG, TC>;
+  const ClLayout L = cl_layout<Product>(NG, H, C, KS);
+  // local row q*U + u of W_hh is gate q of unit u0 + u
+  const T* w_src = static_cast<const T*>(a.w_hh) + (size_t)s * GH * H;
+  Product product;
+  product.load(reinterpret_cast<uint4*>(smem), [&](int row) {
+    return w_src + (size_t)((row / U) * H + u0 + row % U) * H;
+  }, R, H, KS);
+  T* hq = reinterpret_cast<T*>(smem + L.h_off);               // (2, BG, HS)
+  float* part = reinterpret_cast<float*>(smem + L.part_off);  // (KS, BG, RP)
+  T* g_s = reinterpret_cast<T*>(smem + L.g_off);              // (2, NG, BG, U)
+  for (int i = tid; i < 2 * BG * HS; i += blockDim.x) hq[i] = from_f<T>(0.0f);
+  for (int i = tid; i < 2 * NG * BG * U; i += blockDim.x)
+    g_s[i] = from_f<T>(0.0f);
+  __syncthreads();  // the zero gate inputs of padded lanes before the copies
+
+  // the gate inputs of the group's live lanes at step t, 16 bytes a copy,
+  // into buffer t&1 (an empty group past the last step keeps the count)
+  const int cpg = U / VEC;  // copies per (gate, lane)
+  auto prefetch = [&](int t) {
+    if (t < n_steps) {
+      T* dst = g_s + (size_t)(t & 1) * NG * BG * U;
+      for (int i = tid; i < NG * BG * cpg; i += blockDim.x) {
+        const int q = i / (BG * cpg), bl = i / cpg % BG, j = i % cpg;
+        if (b0 + bl < B)
+          cp_async16(dst + (q * BG + bl) * U + j * VEC,
+                     gi + (((size_t)t * B + b0 + bl) * S + s) * GH + q * H +
+                         u0 + j * VEC);
+      }
+    }
+    cp_async_commit();
+  };
+  prefetch(0);
+
+  // the (lane, unit) this thread updates, and its state, in registers
+  const int u = tid % U, bl = tid / U, b = b0 + bl;
+  const bool owner = tid < U * BG;
+  const bool live = owner && b < B;
+  const int len = live ? a.lengths[b] : 0;
+  float bh[NG];
+#pragma unroll
+  for (int q = 0; q < NG; ++q)
+    bh[q] = owner ? a.b_hh[(size_t)s * GH + q * H + u0 + u] : 0.0f;
+  float h = 0.0f, c = 0.0f;
+  // every block's h is zero before a peer may push into it
+  cluster_arrive();
+  cluster_wait();
+
+  // probe phases: 0 product, 1 wait for the gate inputs and the product,
+  // 2 gate math and stores, 3 pushes of h, 4 cluster barrier
+  Probe probe;
+  const int n16 = cpg;  // 16-byte pieces of a lane's U values
+  for (int t = 0; t < n_steps; ++t) {
+    const int p = t & 1;
+    prefetch(t + 1);
+    product.run(hq + (size_t)p * BG * HS, HS, part, RP);
+    probe.mark(0);
+    cp_async_wait_one();  // this step's gate inputs have landed
+    __syncthreads();
+    probe.mark(1);
+    T* h_next = hq + (size_t)(p ^ 1) * BG * HS;
+    if (owner) {
+      float gh[NG];
+#pragma unroll
+      for (int q = 0; q < NG; ++q) {
+        float sum = 0.0f;
+        for (int k = 0; k < KS; ++k)
+          sum += part[(size_t)(k * BG + bl) * RP + q * U + u];
+        gh[q] = sum + bh[q];
+      }
+      if (live) {
+        const size_t row = ((size_t)t * B + b) * S + s;
+        float cn;
+        const float hn = cell_step<T, LSTM, true>(
+            g_s + ((size_t)p * NG * BG + bl) * U + u, BG * U, gh, h, c, cn,
+            stash + row * 5 * H + u0 + u, H);
+        if (inside(s, t, n_steps, len)) {
+          h = hn;
+          if (LSTM) c = cn;
+        }
+        a.y[row * H + u0 + u] = h;
+      }
+      h_next[(size_t)bl * HS + u0 + u] = from_f<T>(h);
+    }
+    probe.mark(2);
+    if (t + 1 == n_steps) break;  // no peer reads the last h
+    __syncthreads();
+    // the block's BG x U new values, 16 bytes a store, into every peer
+    for (int i = tid; i < (C - 1) * BG * n16; i += blockDim.x) {
+      const int peer = (rank + 1 + i / (BG * n16)) % C, j = i % (BG * n16);
+      T* src = h_next + (size_t)(j / n16) * HS + u0 + (j % n16) * VEC;
+      st_cluster(map_rank(src, peer), *reinterpret_cast<const float4*>(src));
+    }
+    probe.mark(3);
+    cluster_arrive();
+    cluster_wait();
+    probe.mark(4);
   }
   probe.finish();
 }
@@ -904,6 +1379,120 @@ cudaError_t launch_fwd_bs(FwdArgs a, int KS, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// A cluster-forward variant: compute type, cell, lanes of a group, A tiles
+// or chunks of a row in registers, the product on the tensor cores or not
+template <typename T_, bool LSTM_, int BG_, int REG_, bool TC_>
+struct ClVariant {
+  using T = T_;
+  static constexpr bool LSTM = LSTM_;
+  static constexpr int BG = BG_;
+  static constexpr int REG = REG_;
+  static constexpr bool TC = TC_;
+  using Product = ClProduct<T, BG, REG, TC>;
+};
+
+// f(ClVariant<...>{}) for the flags, lanes of a group, register share and
+// product: bf16 on the tensor cores in groups of 8 or 16 lanes, float32 on
+// the CUDA cores in groups of 8 (float32 on the tensor cores, 3xTF32, is
+// built only by csrc/birnn_train_tf32.cu, for the probe)
+template <typename F>
+cudaError_t with_cl_variant(int lstm, int bf16, int BG, int REG, int TC,
+                            F f) {
+  using bf = __nv_bfloat16;
+  constexpr int tc = kClTcReg, r0 = kClFmaRegLo, r1 = kClFmaRegHi;
+  auto cell = [&](auto v_lstm, auto v_gru) {
+    return lstm ? f(v_lstm) : f(v_gru);
+  };
+  if (bf16 && TC && REG == tc) {
+    if (BG == 8)
+      return cell(ClVariant<bf, true, 8, tc, true>{},
+                  ClVariant<bf, false, 8, tc, true>{});
+    if (BG == 16)
+      return cell(ClVariant<bf, true, 16, tc, true>{},
+                  ClVariant<bf, false, 16, tc, true>{});
+  }
+  if (!bf16 && !TC && BG == 8) {
+    if (REG == r0)
+      return cell(ClVariant<float, true, 8, r0, false>{},
+                  ClVariant<float, false, 8, r0, false>{});
+    if (REG == r1)
+      return cell(ClVariant<float, true, 8, r1, false>{},
+                  ClVariant<float, false, 8, r1, false>{});
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The cluster forward's launch configuration: grid S * ceil(B/BG) * C,
+// clusters of C, the block of `l`; *resident, unless null, gets the number
+// of such clusters the card holds at once.
+template <typename V>
+cudaError_t cl_config(const ClArgs& a, const ClLayout& l,
+                      cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr,
+                      int* resident) {
+  auto kernel =
+      train_fwd_cl_kernel<typename V::T, V::LSTM, V::BG, V::REG, V::TC>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)l.smem);
+  if (err != cudaSuccess) return err;
+  if (a.C > 8) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  cfg = {};
+  cfg.gridDim = dim3(a.S * ((a.B + V::BG - 1) / V::BG) * a.C);
+  cfg.blockDim = dim3(l.threads);
+  cfg.dynamicSmemBytes = l.smem;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (resident == nullptr) return cudaSuccess;
+  return cudaOccupancyMaxActiveClusters(resident, kernel, &cfg);
+}
+
+// Launches every (stream, group) cluster; where the card holds fewer at
+// once they run in waves (they are independent). Refuses a shape of which
+// the card holds no cluster. The card's count of resident clusters is
+// asked once per device and block shape (the query costs host time).
+template <typename V>
+cudaError_t launch_fwd_cl(const ClArgs& a, cudaStream_t stream) {
+  constexpr int NG = V::LSTM ? 4 : 3;
+  const ClLayout l = cl_layout<typename V::Product>(NG, a.H, a.C, a.KS);
+  if (l.threads == 0) return cudaErrorInvalidValue;
+  static std::mutex mutex;
+  static std::map<std::tuple<int, int, int, int>, int> resident_of;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  int resident = 0;
+  {
+    std::lock_guard<std::mutex> lock(mutex);
+    const auto key = std::make_tuple(dev, a.H, a.C, a.KS);
+    const auto hit = resident_of.find(key);
+    if (hit == resident_of.end()) {
+      if ((err = cl_config<V>(a, l, cfg, attr, &resident)) != cudaSuccess)
+        return err;
+      resident_of[key] = resident;
+    } else {
+      resident = hit->second;
+      if ((err = cl_config<V>(a, l, cfg, attr, nullptr)) != cudaSuccess)
+        return err;
+    }
+  }
+  if (resident < 1) return cudaErrorCooperativeLaunchTooLarge;
+  cfg.stream = stream;
+  err = cudaLaunchKernelEx(
+      &cfg, train_fwd_cl_kernel<typename V::T, V::LSTM, V::BG, V::REG, V::TC>,
+      a);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 // threads and shared memory of the batch-split backward; mirrored by
 // kernels/birnn_train.py:_bs_bwd_size
 __host__ __forceinline__ int bs_bwd_threads(int H, int GS, size_t item) {
@@ -1029,6 +1618,62 @@ int ftt_birnn_train_fwd_bs(int lstm, int bf16, const void* gi,
     err = lstm ? launch_fwd_bs<float, true>(a, KS, st)
                : launch_fwd_bs<float, false>(a, KS, st);
   return (int)err;
+}
+
+// Cluster forward (no hbuf): one cluster of C blocks per (stream, group of
+// BG lanes), KS k-slices of the product, on the tensor cores (TC 1, bf16,
+// REG = kClTcReg A tiles in registers) or the CUDA cores (TC 0, float32,
+// REG = 4 or 8 16-byte chunks of a row in registers).
+int ftt_birnn_train_fwd_cl(int lstm, int bf16, const void* gi,
+                           const void* w_hh, const float* b_hh,
+                           const int* lengths, float* y, void* stash,
+                           int n_steps, int B, int S, int H, int C, int BG,
+                           int KS, int REG, int TC, void* stream) {
+  if (bad_shape(lstm, n_steps, B, S, H, C)) return (int)cudaErrorInvalidValue;
+  const ClArgs a{gi, w_hh, b_hh, lengths, y, stash, n_steps, B, S, H, C, KS};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)with_cl_variant(lstm, bf16, BG, REG, TC, [&](auto v) {
+    return launch_fwd_cl<decltype(v)>(a, st);
+  });
+}
+
+// Threads and shared-memory bytes of a cluster-forward block as the
+// launcher computes them (threads 0: a shape the kernel does not take), and
+// how many clusters of C such blocks the card holds at once (resident; -1
+// where the shape is not taken, 0 where a block needs more shared memory
+// than the card gives one). kernels/birnn_train.py mirrors the size formula.
+int ftt_birnn_train_cl_size(int lstm, int bf16, int H, int C, int BG, int KS,
+                            int REG, int TC, int* threads, long long* smem,
+                            int* resident) {
+  *threads = 0;
+  *smem = 0;
+  *resident = -1;
+  ClLayout l{0, 0, 0, 0, 0, 0};
+  // a (type, lanes, register share, product) the kernel is not built for
+  // takes no shape
+  if (with_cl_variant(lstm, bf16, BG, REG, TC, [&](auto v) {
+        l = cl_layout<typename decltype(v)::Product>(lstm ? 4 : 3, H, C, KS);
+        return cudaSuccess;
+      }) != cudaSuccess ||
+      l.threads == 0)
+    return 0;
+  *threads = l.threads;
+  *smem = (long long)l.smem;
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (err != cudaSuccess) return (int)err;
+  *resident = 0;
+  if (l.smem > (size_t)optin) return 0;  // no block of it fits an SM
+  const ClArgs a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                 1, BG, 1, H, C, KS};
+  return (int)with_cl_variant(lstm, bf16, BG, REG, TC, [&](auto v) {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr[1];
+    return cl_config<decltype(v)>(a, l, cfg, attr, resident);
+  });
 }
 
 int ftt_birnn_train_bwd(int lstm, int bf16, const void* stash,

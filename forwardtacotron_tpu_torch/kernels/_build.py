@@ -53,7 +53,8 @@ def _flags() -> list:
 def _lib_path(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f'{name}.cu').read_bytes())
     # every other file a source may include: the headers, and the sources
-    # (csrc/birnn_train_staged.cu includes csrc/birnn_train.cu)
+    # (csrc/birnn_train_staged.cu and birnn_train_tf32.cu include
+    # csrc/birnn_train.cu)
     for other in sorted(p for p in CSRC.iterdir()
                         if p.suffix in ('.cu', '.cuh', '.h')
                         and p.name != f'{name}.cu'):

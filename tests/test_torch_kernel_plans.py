@@ -4,7 +4,12 @@
   (232,448 bytes of shared memory per block, 132 SMs): the training
   step's series-predictor BiGRUs (config.yaml: H=64 duration/energy,
   H=128 pitch) take the batch-split path in float32 and bfloat16; the CBHG
-  GRUs (H=256) and the decoder LSTM (H=512) take the cooperative one.
+  GRUs (H=256), WaveRNN's GRU (H=512, one stream) and the decoder LSTM
+  (H=512) take the cluster path, at the (C, lanes) of the least estimate,
+  where its clusters run in one wave; the cooperative one where they need
+  two (the float32 decoder at batch 32) or no cluster fits; `_cl_size`
+  against a hand count of the C layout (and the probe's 3xTF32 size);
+  forced paths.
 - `kernels/birnn_train.py:train_backward_plan` likewise: the predictor
   BiGRUs take the batch-split backward in float32 and bfloat16, the CBHG
   GRUs and the decoder LSTM the cooperative one; `_bs_bwd_size` against a
@@ -25,18 +30,26 @@ H100_SMS = 132
     ('gru', 128, torch.float32, 'batch_split'),
     ('gru', 64, torch.bfloat16, 'batch_split'),
     ('gru', 128, torch.bfloat16, 'batch_split'),
-    ('gru', 256, torch.float32, 'cooperative'),
-    ('gru', 256, torch.bfloat16, 'cooperative'),
+    ('gru', 256, torch.float32, 'cluster'),
+    ('gru', 256, torch.bfloat16, 'cluster'),
     ('lstm', 512, torch.float32, 'cooperative'),
-    ('lstm', 512, torch.bfloat16, 'cooperative'),
+    ('lstm', 512, torch.bfloat16, 'cluster'),
     ('lstm', 64, torch.float32, 'batch_split'),
-    ('lstm', 128, torch.float32, 'cooperative'),
+    ('lstm', 128, torch.float32, 'cluster'),
 ])
 def test_train_forward_plan_on_h100(cell, H, dtype, path):
     from forwardtacotron_tpu_torch.kernels.birnn_train import (
-        BS_MAX_THREADS, train_forward_plan)
+        BS_MAX_THREADS, CL_MAX_THREADS, train_forward_plan)
     plan = train_forward_plan(cell, 2, 32, H, dtype, H100_SMEM, H100_SMS)
     assert plan['path'] == path
+    if path == 'cluster':
+        # one cluster per stream and group of lanes, W_hh split by units
+        assert plan['clusters'] == 2 * -(-32 // plan['lanes'])
+        assert H % plan['cluster'] == 0
+        assert plan['smem'] <= H100_SMEM
+        assert plan['threads'] % 32 == 0
+        assert plan['threads'] <= CL_MAX_THREADS
+        return
     if path == 'batch_split':
         ng = 4 if cell == 'lstm' else 3
         item = 4 if dtype == torch.float32 else 2
@@ -433,3 +446,251 @@ def test_sl_size_matches_the_c_layout(cell, H, cluster, splits, item, size):
     from forwardtacotron_tpu_torch.ops.rnn import n_gates
     got = _sl_size(n_gates(cell), H, cluster, splits, item)
     assert (got[:2] if got else None) == size
+
+
+# ------------------------------------------ kernel #2's cluster forward plan
+
+@pytest.mark.parametrize('what,cell,S,B,H,dtype,plan', [
+    # the training step's shapes at batch 32 (PERF.md: the probe
+    # measured every (C, lanes) that fits; the plan's choice was the
+    # fastest of them, and faster than the cooperative path)
+    ('decoder', 'lstm', 2, 32, 512, torch.bfloat16, ('cluster', 8, 8, 1)),
+    # in float32 only clusters of 16 in groups of 8 fit: two waves, a tie
+    # with the cooperative path on the card
+    ('decoder', 'lstm', 2, 32, 512, torch.float32, ('cooperative',)),
+    ('postnet', 'gru', 2, 32, 256, torch.float32, ('cluster', 8, 8, 1)),
+    ('postnet', 'gru', 2, 32, 256, torch.bfloat16, ('cluster', 8, 8, 1)),
+    ('wavernn', 'gru', 1, 32, 512, torch.float32, ('cluster', 16, 8, 1)),
+    ('wavernn', 'gru', 1, 32, 512, torch.bfloat16, ('cluster', 16, 8, 1)),
+    # grad_accum's micro-batches: 16 lanes are one wave of the decoder's
+    # clusters of 16 in float32, 8 lanes a wave of two, 1 lane a group
+    # with 7 masked lanes (each measured faster than the cooperative path)
+    ('decoder grad_accum 2', 'lstm', 2, 16, 512, torch.float32,
+     ('cluster', 16, 8, 1)),
+    ('decoder grad_accum 4', 'lstm', 2, 8, 512, torch.float32,
+     ('cluster', 16, 8, 1)),
+    ('decoder B=1', 'lstm', 2, 1, 512, torch.float32, ('cluster', 16, 8, 1)),
+    ('decoder B=1', 'lstm', 2, 1, 512, torch.bfloat16,
+     ('cluster', 16, 8, 1)),
+    ('decoder grad_accum 4', 'lstm', 2, 8, 512, torch.bfloat16,
+     ('cluster', 16, 8, 1)),
+    ('postnet grad_accum 4', 'gru', 2, 8, 256, torch.float32,
+     ('cluster', 16, 8, 1)),
+    # one lane: a group of 8 with 7 masked lanes
+    ('wavernn B=1', 'gru', 1, 1, 512, torch.bfloat16, ('cluster', 16, 8, 1)),
+])
+def test_cluster_plan_on_h100(what, cell, S, B, H, dtype, plan):
+    """The forward's plan at the shapes the training paths give it: path,
+    cluster size, lanes a group and waves."""
+    from forwardtacotron_tpu_torch.kernels.birnn_train import (
+        train_forward_plan)
+    got = train_forward_plan(cell, S, B, H, dtype, H100_SMEM, H100_SMS)
+    assert (got['path'],) + tuple(got[k] for k in ('cluster', 'lanes',
+                                                   'waves')
+                                  if k in got) == plan, what
+
+
+@pytest.mark.parametrize('cell,S,B,H,dtype', [
+    ('lstm', 2, 32, 512, torch.bfloat16), ('gru', 2, 32, 256, torch.float32),
+    ('gru', 2, 32, 256, torch.bfloat16), ('gru', 1, 32, 512, torch.float32),
+    ('gru', 1, 32, 512, torch.bfloat16), ('lstm', 2, 16, 512, torch.float32),
+    ('gru', 2, 13, 256, torch.bfloat16)])
+def test_cluster_plan_takes_the_least_estimate(cell, S, B, H, dtype):
+    """Of the (C, lanes) that fit, the plan takes the one of the least
+    estimated launch, waves x step estimate, where the S x ceil(B / lanes)
+    clusters run in waves of `resident_clusters(C)`."""
+    from forwardtacotron_tpu_torch.kernels.birnn import resident_clusters
+    from forwardtacotron_tpu_torch.kernels.birnn_train import (
+        cl_step_estimate_us, cluster_shapes, train_forward_plan)
+    plan = train_forward_plan(cell, S, B, H, dtype, H100_SMEM, H100_SMS)
+    est = {}
+    for sh in cluster_shapes(cell, H, dtype, H100_SMEM):
+        clusters = S * -(-B // sh['lanes'])
+        waves = -(-clusters // resident_clusters(sh['cluster'], H100_SMS))
+        est[(sh['cluster'], sh['lanes'])] = waves * cl_step_estimate_us(
+            cell, H, dtype, sh)
+    assert est[(plan['cluster'], plan['lanes'])] == pytest.approx(
+        min(est.values()))
+    assert plan['clusters'] == S * -(-B // plan['lanes'])
+
+
+def test_cluster_path_in_one_wave():
+    """The cluster path is planned where its clusters run in one wave; in
+    two (the float32 decoder at batch 32) the cooperative path is, unless
+    it cannot launch (six streams of H=512 need 384 blocks of 8 units)."""
+    from forwardtacotron_tpu_torch.kernels.birnn_train import (
+        _cluster_plan, train_forward_plan)
+    f32 = torch.float32
+    for B, waves, path in ((32, 2, 'cooperative'), (16, 1, 'cluster')):
+        cl = _cluster_plan('lstm', 2, B, 512, f32, H100_SMEM, H100_SMS)
+        assert cl['waves'] == waves
+        assert train_forward_plan('lstm', 2, B, 512, f32, H100_SMEM,
+                                  H100_SMS)['path'] == path
+    plan = train_forward_plan('lstm', 6, 32, 512, f32, H100_SMEM, H100_SMS)
+    assert plan['path'] == 'cluster' and plan['waves'] == 4
+
+
+@pytest.mark.parametrize('cell,S,H,dtype', [
+    # no cluster of up to 16 blocks holds a stream's float32 W_hh
+    ('lstm', 1, 768, torch.float32), ('gru', 1, 768, torch.float32),
+    # H / C is never a whole number of 16-byte pieces
+    ('gru', 2, 200, torch.bfloat16)])
+def test_cooperative_forward_where_no_cluster_fits(cell, S, H, dtype):
+    """The cooperative forward is planned where neither the batch-split
+    nor any cluster shape fits."""
+    from forwardtacotron_tpu_torch.kernels.birnn_train import (
+        _cluster_plan, batch_split_shape, cluster_shapes,
+        train_forward_plan)
+    assert batch_split_shape(cell, H, dtype, H100_SMEM) is None
+    assert cluster_shapes(cell, H, dtype, H100_SMEM) == []
+    assert _cluster_plan(cell, S, 32, H, dtype, H100_SMEM, H100_SMS) is None
+    plan = train_forward_plan(cell, S, 32, H, dtype, H100_SMEM, H100_SMS)
+    assert plan['path'] == 'cooperative' and H % plan['units'] == 0
+
+
+def test_step_estimates():
+    """The plan's step estimate: the cluster path's fixed cost grows by
+    CL_FIXED_US_PER_LANE a lane, its product is counted in mma tiles
+    (bf16) or FMAs (float32) of a block."""
+    from forwardtacotron_tpu_torch.kernels import birnn_train as bt
+    shape = {'cluster': 16, 'lanes': 16, 'product': 'mma', 'reg': 8}
+    # decoder bf16 in clusters of 16: 8 m-tiles x 32 k-tiles x 2 n-tiles
+    assert bt.cl_step_estimate_us('lstm', 512, torch.bfloat16, shape) == \
+        pytest.approx(bt.CL_FIXED_US + 16 * bt.CL_FIXED_US_PER_LANE
+                      + 512 * bt.CL_US_PER_MMA)
+    # float32 by the register share: 8 chunks a row spill
+    for reg in (4, 8):
+        shape = {'cluster': 8, 'lanes': 8, 'product': 'fma', 'reg': reg}
+        assert bt.cl_step_estimate_us('gru', 256, torch.float32, shape) == \
+            pytest.approx(bt.CL_FIXED_US + 8 * bt.CL_FIXED_US_PER_LANE
+                          + 96 * 256 * 8 * bt.CL_US_PER_FMA[reg])
+    assert bt.CL_US_PER_FMA[8] > bt.CL_US_PER_FMA[4]
+
+
+@pytest.mark.parametrize('cell,H,C,lanes,splits,reg,item,size', [
+    # bf16: warps of 16 rows x KS slices, (tiles - 8) A tiles a warp in
+    # shared memory (512 bytes each); h: 2 x lanes x (H + 8) x 2 bytes;
+    # partials KS x lanes x (R + 4) floats; gate inputs 2 x NG x lanes x U
+    ('lstm', 512, 8, 8, 1, 8, 2,
+     (512, 512 * 16 * 24 + 2 * 2 * 8 * 520 + 4 * 8 * 260 + 2 * 2 * 4 * 8 * 64)),
+    ('lstm', 512, 16, 16, 2, 8, 2,
+     (512, 512 * 8 * 2 * 8 + 2 * 2 * 16 * 520 + 4 * 2 * 16 * 132
+      + 2 * 2 * 4 * 16 * 32)),
+    # one warp's k-tiles all in registers; fewer product threads than
+    # (lane, unit) owners
+    ('gru', 256, 8, 8, 2, 8, 2,
+     (384, 0 + 2 * 2 * 8 * 264 + 4 * 2 * 8 * 100 + 2 * 2 * 3 * 8 * 32)),
+    # float32: rows / 2 x KS threads, (chunks - reg) 16-byte chunks a row
+    # and slice in shared memory; h rows of H + 4 floats
+    ('lstm', 512, 16, 8, 8, 8, 4,
+     (512, 16 * 128 * 8 * 8 + 4 * 2 * 8 * 516 + 4 * 8 * 8 * 132
+      + 4 * 2 * 4 * 8 * 32)),
+    ('gru', 512, 16, 8, 8, 4, 4,
+     (384, 16 * 96 * 8 * 12 + 4 * 2 * 8 * 516 + 4 * 8 * 8 * 100
+      + 4 * 2 * 3 * 8 * 32)),
+    # refused: 16 lanes in float32; U not a whole number of 16 bytes; rows
+    # not whole m-tiles; a register count the kernel is not built for; C
+    # not a power of two; too many threads
+    ('gru', 256, 8, 16, 8, 4, 4, None), ('gru', 100, 4, 8, 1, 4, 4, None),
+    ('gru', 96, 8, 8, 1, 8, 2, None), ('gru', 256, 8, 8, 8, 6, 4, None),
+    ('gru', 96, 3, 8, 1, 4, 4, None), ('lstm', 512, 16, 8, 16, 8, 4, None),
+])
+def test_cl_size_matches_the_c_layout(cell, H, C, lanes, splits, reg, item,
+                                      size):
+    """`_cl_size` against a hand count of csrc/birnn_train.cu's cl_layout."""
+    from forwardtacotron_tpu_torch.kernels.birnn_train import _cl_size
+    from forwardtacotron_tpu_torch.ops.rnn import n_gates
+    got = _cl_size(n_gates(cell), H, C, lanes, splits, reg, item)
+    assert (got[:2] if got else None) == size
+
+
+@pytest.mark.parametrize('cell,H,C,lanes,splits,reg,size', [
+    # float32 on the tensor cores (3xTF32): 16 x 8 A tiles of 512 bytes,
+    # h rows of H + 4 floats; the decoder's 16-lane group fits only with 16
+    # A tiles of a warp in registers
+    ('lstm', 512, 16, 16, 2, 16,
+     (512, 512 * 8 * 2 * 16 + 4 * 2 * 16 * 516 + 4 * 2 * 16 * 132
+      + 4 * 2 * 4 * 16 * 32)),
+    ('gru', 512, 16, 8, 2, 8,
+     (384, 512 * 6 * 2 * 24 + 4 * 2 * 8 * 516 + 4 * 2 * 8 * 100
+      + 4 * 2 * 3 * 8 * 32)),
+    ('gru', 256, 8, 8, 2, 12, None),
+])
+def test_tf32x3_size_matches_the_c_layout(cell, H, C, lanes, splits, reg,
+                                          size):
+    """The probe-only 3xTF32 product's block (csrc/birnn_train_tf32.cu,
+    cl_layout of its float32 ClMmaProduct), as tools/torch_kernel_probe.py
+    sizes it, against a hand count; the plan never takes that product."""
+    import importlib.util
+    from pathlib import Path
+    from forwardtacotron_tpu_torch.kernels.birnn_train import cluster_shapes
+    from forwardtacotron_tpu_torch.ops.rnn import n_gates
+    spec = importlib.util.spec_from_file_location(
+        'torch_kernel_probe', Path(__file__).resolve().parent.parent
+        / 'tools' / 'torch_kernel_probe.py')
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    got = probe.tf32_size(n_gates(cell), H, C, lanes, splits, reg)
+    assert (got[:2] if got else None) == size
+    if size is not None:
+        shape = probe.tf32_shape(cell, H, H100_SMEM, C, lanes)
+        assert shape['product'] == 'tf32x3' and shape['smem'] <= H100_SMEM
+    assert all(sh['product'] == 'fma' for sh in cluster_shapes(
+        cell, H, torch.float32, H100_SMEM))
+
+
+def test_cluster_shape_prefers_registers_that_fit():
+    """float32 keeps 4 chunks of a row in registers where the rest fits
+    shared memory, else 8 (the decoder's W_hh share needs both); the most
+    k-slices within 512 threads."""
+    from forwardtacotron_tpu_torch.kernels.birnn_train import cluster_shape
+    f32 = torch.float32
+    assert cluster_shape('gru', 512, f32, H100_SMEM, 16, 8)['reg'] == 4
+    dec = cluster_shape('lstm', 512, f32, H100_SMEM, 16, 8)
+    assert (dec['reg'], dec['splits'], dec['threads']) == (8, 8, 512)
+    assert cluster_shape('lstm', 512, f32, dec['smem'] - 1, 16, 8) is None
+    assert cluster_shape('lstm', 512, f32, H100_SMEM, 8, 8) is None
+    assert cluster_shape('lstm', 512, torch.bfloat16, H100_SMEM, 8,
+                         8)['reg'] == 8
+
+
+def test_forced_forward_paths():
+    """`path=` forces a forward's plan, a shape the forced path does not
+    take raises; `_cluster_plan(..., cluster)` gives any cluster shape
+    that fits (for `launch_forward`), None where it does not."""
+    from types import SimpleNamespace
+    from forwardtacotron_tpu_torch.kernels.birnn_train import (
+        _cluster_plan, _forward_plan)
+    props = SimpleNamespace(shared_memory_per_block_optin=H100_SMEM,
+                            multi_processor_count=H100_SMS)
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert _forward_plan('lstm', 2, 32, 512, bf16, props)['path'] == 'cluster'
+    assert _forward_plan('lstm', 2, 32, 512, bf16, props, 'cooperative') == {
+        'path': 'cooperative', 'units': 8}
+    forced = _forward_plan('lstm', 2, 32, 512, f32, props, 'cluster')
+    assert (forced['path'], forced['cluster'], forced['waves']) == (
+        'cluster', 16, 2)
+    # the cluster path forced where the batch-split one is planned
+    forced = _forward_plan('gru', 2, 32, 128, f32, props, 'cluster')
+    assert forced['path'] == 'cluster' and _forward_plan(
+        'gru', 2, 32, 128, f32, props)['path'] == 'batch_split'
+    forced = _cluster_plan('lstm', 2, 32, 512, bf16, H100_SMEM, H100_SMS,
+                           (16, 16))
+    assert (forced['cluster'], forced['lanes'], forced['clusters']) == (
+        16, 16, 4)
+    assert _cluster_plan('lstm', 2, 32, 512, f32, H100_SMEM, H100_SMS,
+                         (8, 8)) is None
+    with pytest.raises(ValueError, match='cluster path does not'):
+        _forward_plan('gru', 2, 32, 30, f32, props, 'cluster')
+    with pytest.raises(ValueError, match='batch_split path does not'):
+        _forward_plan('lstm', 2, 32, 512, f32, props, 'batch_split')
+    with pytest.raises(ValueError, match='unknown path'):
+        _forward_plan('lstm', 2, 32, 512, f32, props, 'stream_local')
+
+
+def test_cluster_plan_is_cached():
+    from forwardtacotron_tpu_torch.kernels.birnn_train import (
+        train_forward_plan)
+    args = ('lstm', 2, 32, 512, torch.bfloat16, H100_SMEM, H100_SMS)
+    assert train_forward_plan(*args) is train_forward_plan(*args)
+    assert train_forward_plan(*args)['path'] == 'cluster'

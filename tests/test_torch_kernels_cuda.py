@@ -445,6 +445,142 @@ def test_batch_split_sizes_match_the_c_side(cuda, bwd, cell, H, splits,
         (threads.value, smem.value)
 
 
+# (cell, H, S, B, dtype, cluster): the cluster forward at the decoder's,
+# WaveRNN's and the CBHG's widths and at every (C, lanes) that fits there,
+# None taking the plan's; B=13 leaves the last group of 8 or 16 lanes
+# part empty, B=5 one group of 8 with three empty lanes
+CLUSTER_CASES = [
+    ('lstm', 512, 2, 13, torch.float32, None),
+    ('lstm', 512, 2, 13, torch.bfloat16, None),
+    ('lstm', 512, 2, 13, torch.bfloat16, (16, 16)),
+    ('lstm', 512, 2, 13, torch.bfloat16, (16, 8)),
+    ('lstm', 512, 2, 13, torch.bfloat16, (8, 8)),
+    ('gru', 512, 1, 13, torch.float32, (16, 8)),
+    ('gru', 512, 1, 13, torch.bfloat16, (16, 8)),
+    ('gru', 512, 1, 32, torch.bfloat16, (16, 16)),
+    ('gru', 512, 1, 13, torch.bfloat16, (8, 8)),
+    ('gru', 256, 2, 32, torch.float32, (4, 8)),
+    ('gru', 256, 2, 32, torch.float32, (8, 8)),
+    ('gru', 256, 2, 13, torch.float32, (16, 8)),
+    ('gru', 256, 2, 13, torch.bfloat16, (4, 8)),
+    ('gru', 256, 2, 13, torch.bfloat16, (8, 16)),
+    ('gru', 256, 2, 13, torch.bfloat16, (16, 16)),
+    ('lstm', 128, 2, 5, torch.float32, (8, 8)),
+]
+
+
+@pytest.mark.parametrize('cell,H,S,B,dtype,cluster', CLUSTER_CASES)
+def test_cluster_forward_matches_plain(cuda, cell, H, S, B, dtype, cluster):
+    """Kernel #2's cluster path against the plain version at ragged
+    lengths with one lane masked at every step (y and the stash, the
+    stash's values at masked steps included), with the tolerances of
+    test_train_kernels_match_plain; kernel #3 over its stash against #3
+    over the cooperative path's stash, at the same tolerances."""
+    from forwardtacotron_tpu_torch.kernels.birnn_train import (
+        _cluster_plan, launch_forward, train_backward, train_forward)
+    from forwardtacotron_tpu_torch.ops.rnn import birnn_train_forward
+    bf16_rel = {'y': 2e-3, 'stash': 2.0 ** -7, 'dgi': 2.0 ** -7,
+                'dgh': 2.0 ** -7}
+    gi, w, b, lengths, dy = _masked_lane_inputs(cell, H, S, B, dtype, cuda)
+    n = train_forward.path_launches['cluster']
+    if cluster is None:
+        y, st = train_forward(cell, gi, w, b, lengths, dtype, path='cluster')
+    else:
+        props = torch.cuda.get_device_properties(cuda)
+        plan = _cluster_plan(cell, S, B, H, dtype,
+                             props.shared_memory_per_block_optin,
+                             props.multi_processor_count, cluster)
+        assert (plan['cluster'], plan['lanes']) == cluster
+        y, st = launch_forward(plan, cell, gi, w, b, lengths, dtype)
+    assert train_forward.path_launches['cluster'] == n + 1
+    st_c = train_forward(cell, gi, w, b, lengths, dtype,
+                         path='cooperative')[1]
+    y_p, st_p = birnn_train_forward(cell, gi, w, b, lengths, dtype)
+    dgi, dgh = train_backward(cell, st, dy, w, lengths, dtype)
+    dgi_c, dgh_c = train_backward(cell, st_c, dy, w, lengths, dtype)
+    for name, got, ref in (('y', y, y_p), ('stash', st, st_p),
+                           ('dgi', dgi, dgi_c), ('dgh', dgh, dgh_c)):
+        diff = got.float() - ref.float()
+        err = float(diff.abs().max())
+        assert bool(torch.isfinite(got).all()), name
+        if dtype == torch.float32:
+            assert err <= 1e-4, (name, err)
+        else:
+            assert err <= bf16_rel[name] * float(ref.float().abs().max()), \
+                (name, err)
+            assert float(diff.norm() / ref.float().norm()) <= 2.0 ** -8, name
+
+
+# (cell, H, S, B, cluster, lanes, reg): the float32 cluster forward at
+# each register share of W_hh at the widths the plans give it, B=13
+# leaving the last group part empty
+CLUSTER_REG_CASES = [
+    ('lstm', 512, 2, 13, 16, 8, 8),
+    ('gru', 512, 1, 13, 16, 8, 4),
+    ('gru', 512, 1, 13, 16, 8, 8),
+    ('gru', 256, 2, 13, 8, 8, 4),
+    ('gru', 256, 2, 32, 8, 8, 8),
+    ('gru', 256, 2, 13, 4, 8, 4),
+    ('lstm', 128, 2, 5, 8, 8, 4),
+]
+
+
+@pytest.mark.parametrize('cell,H,S,B,cluster,lanes,reg', CLUSTER_REG_CASES)
+def test_cluster_register_shares_match_plain(cuda, cell, H, S, B, cluster,
+                                             lanes, reg):
+    """The float32 cluster forward (its product on the CUDA cores) with
+    4 or 8 16-byte chunks of each W_hh row in registers against the plain
+    version at atol 1e-4 (y and the stash; ragged lengths, one lane masked
+    at every step)."""
+    from forwardtacotron_tpu_torch.kernels import birnn_train as bt
+    from forwardtacotron_tpu_torch.ops.rnn import (birnn_train_forward,
+                                                   n_gates)
+    smem = torch.cuda.get_device_properties(
+        cuda).shared_memory_per_block_optin
+    f32 = torch.float32
+    shape = bt.cluster_shape(cell, H, f32, smem, cluster, lanes)
+    size = bt._cl_size(n_gates(cell), H, cluster, lanes, shape['splits'],
+                       reg, 4)
+    assert size is not None and size[1] <= smem
+    plan = dict(shape, path='cluster', reg=reg)
+    gi, w, b, lengths, _ = _masked_lane_inputs(cell, H, S, B, f32, cuda)
+    n = bt.train_forward.path_dtype_launches[('cluster', 'float32')]
+    y, st = bt.launch_forward(plan, cell, gi, w, b, lengths, f32)
+    assert bt.train_forward.path_dtype_launches[('cluster', 'float32')] \
+        == n + 1
+    y_p, st_p = birnn_train_forward(cell, gi, w, b, lengths, f32)
+    for name, got, ref in (('y', y, y_p), ('stash', st, st_p)):
+        assert bool(torch.isfinite(got).all()), name
+        assert float((got - ref).abs().max()) <= 1e-4, name
+
+
+@pytest.mark.parametrize('cell,H,cluster,lanes,splits,reg', [
+    ('lstm', 512, 16, 8, 8, 8), ('lstm', 512, 16, 16, 2, 8),
+    ('lstm', 512, 8, 8, 1, 8), ('gru', 512, 16, 8, 8, 4),
+    ('gru', 512, 16, 8, 8, 8), ('gru', 256, 8, 8, 8, 4),
+    ('gru', 256, 4, 8, 4, 4), ('gru', 256, 16, 16, 4, 8),
+    ('lstm', 128, 8, 8, 16, 4), ('gru', 96, 2, 8, 2, 8),
+    ('lstm', 512, 16, 16, 8, 8), ('gru', 100, 4, 8, 1, 4),
+    ('gru', 256, 8, 8, 2, 6)])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_cluster_sizes_match_the_c_side(cuda, cell, H, cluster, lanes,
+                                        splits, reg, dtype):
+    """The plan's size formula (`_cl_size`) against the launcher's
+    (ftt_birnn_train_cl_size), shapes it refuses included (threads 0);
+    the card holds at least one cluster of every shape that fits a
+    block."""
+    from forwardtacotron_tpu_torch.kernels import birnn_train as bt
+    from forwardtacotron_tpu_torch.ops.rnn import n_gates
+    threads, smem, resident = bt.cl_size_on_card(cell, H, dtype, cluster,
+                                                 lanes, splits, reg)
+    size = bt._cl_size(n_gates(cell), H, cluster, lanes, splits, reg,
+                       dtype.itemsize)
+    assert (threads, smem) == ((0, 0) if size is None else size[:2])
+    if size is not None and size[1] <= torch.cuda.get_device_properties(
+            cuda).shared_memory_per_block_optin:
+        assert resident >= 1
+
+
 @pytest.mark.parametrize('lanes', [1, 64, 72, 128])
 @pytest.mark.parametrize('mode', ['RAW', 'MOL'])
 def test_sampler_lanes_match_plain(cuda, lanes, mode):

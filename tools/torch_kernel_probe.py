@@ -3,16 +3,26 @@
     python tools/torch_kernel_probe.py [--steps 400] [--lanes 1,8,64,128]
                                        [--phases] [--seeds 6] [--rounds 2]
                                        [--dtypes bfloat16,float32]
+                                       [--batches 32] [--shapes decoder,...]
                                        [--only train,train_bwd,sampler,birnn,birnn_eval,grads]
+    python tools/torch_kernel_probe.py --fit KERNEL_PROBE.jsonl
 
 Times, with CUDA events:
 - the WaveRNN sampling kernel (#4) at full width (rnn_dims = fc_dims =
   512, RAW 9 bits) for each fold-lane count of `--lanes`, greedy and
   sampled, in bfloat16 and float32;
-- the BiRNN training forward (#2) at the shapes of the training step's
-  series predictors and prenet (GRU H=64/128/256, T=192, B=32, float32
-  and bfloat16) on each of its paths, beside the path that
-  `train_forward_plan` picks;
+- the BiRNN training forward (#2) at the training step's five shapes and
+  WaveRNN's (`chip_smoke.TRAIN_KERNEL_CASES`, `VOCODER_TRAIN_KERNEL_CASES`;
+  of `--shapes` where given) at each batch of `--batches` (32 by
+  default), float32 and bfloat16, on each of its paths that takes the
+  shape, the cluster path at every (C, lanes) and register share that
+  fits (with its k-slices, threads, shared memory, waves, the plan's
+  estimate and the clusters resident at once; float32 also with the
+  3xTF32 product of `csrc/birnn_train_tf32.cu`, a library of its own),
+  `--rounds` turns on the same inputs, beside the path that
+  `train_forward_plan` picks, with the cluster kernels' `-Xptxas -v`
+  registers and spills; `--fit` fits the plan's cluster step estimate
+  (`kernels/birnn_train.py` CL_*) to such rows by least squares;
 - the BiRNN training backward (#3) at the five shapes of the training
   step (`chip_smoke.TRAIN_KERNEL_CASES`, B=32: decoder LSTM H=512
   T=1024, postnet GRU H=256 T=1024, prenet GRU H=256 T=192, predictor
@@ -48,7 +58,9 @@ Times, with CUDA events:
 With `--phases`, it also loads the probe build (`-DFTT_PROBE`) and
 prints where a step's time goes, from thread 0 of block 0: kernels #1,
 #2 and #3 at the same shapes on each path (#1's stream-local path:
-product, row sums, gate math, exchange, barrier), and the sampler in
+product, row sums, gate math, exchange, barrier; #2's cluster path:
+product, input wait, gate math and stores, pushes of h, cluster
+barrier), and the sampler in
 bfloat16 at 1, 64 and 72 lanes (of those in `--lanes`).
 
 Prints one JSON object per line (also written to
@@ -68,16 +80,21 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
+from forwardtacotron_tpu_torch.kernels.birnn import (  # noqa: E402
+    resident_clusters)
+from forwardtacotron_tpu_torch.ops.rnn import n_gates  # noqa: E402
 from chip_smoke import (OUT_DIR, TRAIN_KERNEL_CASES,  # noqa: E402
-                        _card_cpu_grads, _grads_batch, _train_inputs)
+                        VOCODER_TRAIN_KERNEL_CASES, _card_cpu_grads,
+                        _grads_batch, _train_inputs)
 
 OUT = OUT_DIR / 'kernel_probe.jsonl'
-TRAIN_SHAPES = (('dur/energy', 64), ('pitch', 128), ('prenet', 256))
 TRAIN_PHASES = {'cooperative': ('stage h', 'product', 'reduce',
                                 'gate update', 'grid barrier'),
                 'batch_split': ('product', 'product wait', 'gate sums',
                                 'gate math, stash stores', 'stores',
-                                'update wait')}
+                                'update wait'),
+                'cluster': ('product', 'input wait', 'gate math, stores',
+                            'push h', 'cluster barrier')}
 TRAIN_BWD_PHASES = {'cooperative': ('gate gradients', 'partial products',
                                     'grid barrier', 'partial sums'),
                     'batch_split': ('input wait', 'gate gradients',
@@ -169,39 +186,245 @@ def sampler(args):
                     args.steps), 'dtype': 'bfloat16', 'lanes': lanes})
 
 
-def train_forward_paths(args):
+TF32_REGS = (8, 16)  # A tiles a warp keeps in registers (kClTf32RegLo/Hi)
+
+
+def tf32_size(ng, H, C, lanes, splits, reg):
+    """(threads, shared-memory bytes, W_hh bytes of them) of a block of
+    the 3xTF32 cluster forward (csrc/birnn_train_tf32.cu, the float32
+    ClMmaProduct): warps of 16 W_hh rows x `splits` k-slices, each warp's
+    first `reg` (TF32_REGS) A tiles of 16 x 8 floats in registers and the
+    rest in shared memory (512 bytes a tile), groups of 8 or 16 lanes;
+    None where it does not take the shape."""
     from forwardtacotron_tpu_torch.kernels import birnn_train as bt
-    T, B = 192, 32
+
+    def product(rows, splits):
+        if reg not in TF32_REGS or lanes not in bt.CL_LANES or rows % 16 \
+                or H % 8 or (H // 8) % splits:
+            return None
+        tiles = H // 8 // splits
+        return (32 * rows // 16 * splits,
+                512 * rows // 16 * splits * (tiles - min(reg, tiles)))
+
+    return bt._cl_block(ng, H, C, lanes, splits, 4, product)
+
+
+def tf32_shape(cell, H, smem, C, lanes):
+    """The 3xTF32 block at C blocks and `lanes` lanes as
+    `birnn_train.cluster_shape` chooses the shipped ones: the most
+    k-slices within the threads and `smem` bytes, the fewer A tiles in
+    registers that fit; None where nothing fits."""
+    from forwardtacotron_tpu_torch.kernels import birnn_train as bt
+    best, splits = None, 1
+    while splits <= bt.CL_MAX_SPLITS:
+        for reg in TF32_REGS:
+            size = tf32_size(n_gates(cell), H, C, lanes, splits, reg)
+            if size is not None and size[1] <= smem:
+                best = {'cluster': C, 'lanes': lanes, 'product': 'tf32x3',
+                        'splits': splits, 'reg': reg, 'threads': size[0],
+                        'smem': size[1], 'w_smem': size[2]}
+                break
+        splits *= 2
+    return best
+
+
+def train_forward_paths(args):
+    """Kernel #2 at the training step's five shapes and WaveRNN's
+    (`chip_smoke.TRAIN_KERNEL_CASES`, `VOCODER_TRAIN_KERNEL_CASES`) at each
+    batch of `--batches` (the shortest lanes of chip_smoke's lengths, as
+    grad_accum's micro-batches take them), float32 and bfloat16, on each
+    path that takes the shape, the cluster path at every (C, lanes) and
+    register share that fits (float32 also with the 3xTF32 product),
+    `--rounds` turns on the same inputs, with `--phases` by phase; and the
+    `-Xptxas -v` registers and spills of the cluster kernels."""
+    from forwardtacotron_tpu_torch.kernels import birnn_train as bt
+    birnn_ptxas(['birnn_train', 'birnn_train_tf32'], 'train_fwd_cl')
     props = torch.cuda.get_device_properties(0)
-    for what, H in TRAIN_SHAPES:
+    smem = props.shared_memory_per_block_optin
+    n_sms = props.multi_processor_count
+    cases = [(n, c, T, H, ln, 2) for n, c, T, H, ln in TRAIN_KERNEL_CASES]
+    cases += [(n, c, T, H, ln, 1)
+              for n, c, T, H, _, ln in VOCODER_TRAIN_KERNEL_CASES]
+    batches = [int(v) for v in args.batches.split(',')]
+    sizes = ('threads', 'smem', 'w_smem')
+    for (what, cell, T, H, all_lens, S), B in (
+            (case, B) for case in cases for B in batches):
+        if args.shapes and what not in args.shapes.split(','):
+            continue
+        lens = all_lens[len(all_lens) - B:]
+        gi32, w32, b, ln, _ = _train_inputs(cell, T, B, H, lens, H + T, S=S)
         for dtype in (torch.float32, torch.bfloat16):
-            g = torch.Generator(device='cuda').manual_seed(H)
-            gi = torch.randn((T, B, 2, 3 * H), device='cuda',
-                             generator=g).to(dtype)
-            w = ((torch.rand((2, 3 * H, H), device='cuda', generator=g)
-                  * 2 - 1) / H ** 0.5).to(dtype)
-            b = torch.zeros((2, 3 * H), device='cuda')
-            ln = torch.tensor([T - 5 * i for i in range(B)], device='cuda',
-                              dtype=torch.int32)
-            smem = props.shared_memory_per_block_optin
-            plan = bt.train_forward_plan('gru', 2, B, H, dtype, smem,
-                                         props.multi_processor_count)
-            for path in bt.PATHS:
-                if path == 'batch_split' and bt.batch_split_shape(
-                        'gru', H, dtype, smem) is None:
-                    continue
-                def run():
-                    bt.train_forward('gru', gi, w, b, ln, dtype, path=path)
-                row = {'kernel': 'birnn_train_fwd', 'shape': what,
-                       'cell': 'gru', 'H': H, 'T': T, 'B': B,
-                       'dtype': str(dtype)[6:], 'path': path,
-                       'planned': plan['path'] == path,
-                       'ms': cuda_ms(run, reps=5)}
-                row['us_per_step'] = 1e3 * row['ms'] / T
+            gi, w = gi32.to(dtype), w32.to(dtype)
+            plan = bt.train_forward_plan(cell, S, B, H, dtype, smem, n_sms)
+            # (path, (C, lanes, product, register share) or None)
+            variants = [('cooperative', None)]
+            shapes = []
+            if bt.batch_split_shape(cell, H, dtype, smem) is not None:
+                variants.append(('batch_split', None))
+            else:
+                regs = bt.CL_FMA_REGS if dtype == torch.float32 \
+                    else (bt.CL_TC_REG,)
+                for c in bt.CL_CLUSTERS:
+                    for lanes in bt.CL_LANES:
+                        # each register share that fits at the shape's
+                        # k-slices, with its own threads and bytes
+                        sh = bt.cluster_shape(cell, H, dtype, smem, c, lanes)
+                        shapes += [] if sh is None else [
+                            dict(sh, reg=r, **dict(zip(sizes, size)))
+                            for r in regs
+                            if (size := bt._cl_size(
+                                n_gates(cell), H, c, lanes, sh['splits'], r,
+                                dtype.itemsize)) and size[1] <= smem]
+                        if dtype == torch.float32:
+                            shapes += [] if (sh := tf32_shape(
+                                cell, H, smem, c, lanes)) is None else [
+                                dict(sh, reg=r, **dict(zip(sizes, size)))
+                                for r in TF32_REGS
+                                if (size := tf32_size(
+                                    n_gates(cell), H, c, lanes,
+                                    sh['splits'], r)) and size[1] <= smem]
+                variants += [('cluster', tuple(sh[k] for k in (
+                    'cluster', 'lanes', 'product', 'reg'))) for sh in shapes]
+            shape_of = {('cluster', tuple(sh[k] for k in (
+                'cluster', 'lanes', 'product', 'reg'))): sh for sh in shapes}
+            ref = bt.train_forward(cell, gi, w, b, ln, dtype,
+                                   path='cooperative')
+            rows, runs = {}, {}
+            for _ in range(args.rounds):
+                for key in variants:
+                    if key not in rows:
+                        runs[key], rows[key] = _forward_variant(
+                            key, shape_of.get(key), plan, what, cell, T, B,
+                            S, H, dtype, gi, w, b, ln, n_sms, ref)
+                    rows[key]['ms'].append(cuda_ms(runs[key], reps=5))
+            for key, row in rows.items():
+                row['us_per_step'] = 1e3 * min(row['ms']) / T
                 if args.phases:
+                    lib = 'birnn_train_tf32' if row.get('product') == \
+                        'tf32x3' else 'birnn_train'
                     row['probe_us_per_step'] = phases(
-                        'birnn_train', TRAIN_PHASES[path], run, 3, T)
+                        lib, TRAIN_PHASES[key[0]], runs[key], 3, T)
                 emit(row)
+
+
+def _forward_variant(key, shape, plan, what, cell, T, B, S, H, dtype, gi, w,
+                     b, ln, n_sms, ref):
+    """(launch, row) of one variant of `train_forward_paths`: the path
+    forced, or the cluster block `shape` launched through
+    `launch_forward` (the 3xTF32 one through its own library), with the
+    plan's estimate of its step and the card's resident clusters."""
+    from forwardtacotron_tpu_torch.kernels import birnn_train as bt
+    path, cl = key
+    row = {'kernel': 'birnn_train_fwd', 'shape': what, 'cell': cell, 'H': H,
+           'T': T, 'B': B, 'S': S, 'dtype': str(dtype)[6:], 'path': path,
+           'planned': plan['path'] == path and (cl is None or cl == tuple(
+               plan[k] for k in ('cluster', 'lanes', 'product', 'reg'))),
+           'ms': []}
+    if cl is None:
+        def run():
+            return bt.train_forward(cell, gi, w, b, ln, dtype, path=path)
+    else:
+        clusters = S * -(-B // shape['lanes'])
+        shape = dict(shape, path='cluster', clusters=clusters,
+                     waves=-(-clusters // resident_clusters(shape['cluster'],
+                                                            n_sms)))
+        shape['step_us'] = None if shape['product'] == 'tf32x3' else \
+            bt.cl_step_estimate_us(cell, H, dtype, shape)
+        row.update({k: shape[k] for k in (
+            'cluster', 'lanes', 'product', 'splits', 'reg', 'threads',
+            'smem', 'w_smem', 'waves', 'step_us')})
+        if shape['product'] == 'tf32x3':
+            row['resident_clusters'] = tf32_forward(shape, cell, gi, w, b,
+                                                    ln, True)
+
+            def run():
+                return tf32_forward(shape, cell, gi, w, b, ln)
+        else:
+            row['resident_clusters'] = bt.cl_size_on_card(
+                cell, H, dtype, shape['cluster'], shape['lanes'],
+                shape['splits'], shape['reg'])[2]
+
+            def run():
+                return bt.launch_forward(shape, cell, gi, w, b, ln, dtype)
+    row['max_abs_err_vs_cooperative'] = max(
+        float((got.float() - r.float()).abs().max())
+        for got, r in zip(run(), ref))
+    return run, row
+
+
+def fit_step_estimates(path):
+    """Least-squares fit of `birnn_train.py`'s cluster step estimate to the
+    cluster rows of a probe output (`path`, jsonl): a wave's µs a step
+    (us_per_step / waves) = CL_FIXED_US + CL_FIXED_US_PER_LANE x lanes +
+    CL_US_PER_MMA x tiles (bf16) or CL_US_PER_FMA[reg] x FMAs (float32) of
+    a block. The fixed terms come from the bf16 rows (their lanes vary);
+    each float32 register share's rate is then fitted alone. Prints the
+    constants and every reading beside its estimate."""
+    import numpy as np
+    rows = [r for line in Path(path).read_text().splitlines()
+            if (r := json.loads(line)).get('kernel') == 'birnn_train_fwd'
+            and r.get('path') == 'cluster' and r.get('product') in
+            ('mma', 'fma')]
+
+    def work(r):
+        block_rows = n_gates(r['cell']) * r['H'] // r['cluster']
+        if r['product'] == 'mma':
+            return block_rows // 16 * r['lanes'] // 8 * (r['H'] // 16)
+        return block_rows * r['H'] * r['lanes']
+
+    def step(r):
+        return r['us_per_step'] / r['waves']
+
+    mma = [r for r in rows if r['product'] == 'mma']
+    a = np.array([[1.0, r['lanes'], work(r)] for r in mma])
+    fixed, per_lane, per_mma = np.linalg.lstsq(
+        a, np.array([step(r) for r in mma]), rcond=None)[0]
+    per_fma = {}
+    for reg in sorted({r['reg'] for r in rows if r['product'] == 'fma'}):
+        sel = [r for r in rows if r['product'] == 'fma' and r['reg'] == reg]
+        x = np.array([work(r) for r in sel])
+        y = np.array([step(r) - fixed - per_lane * r['lanes'] for r in sel])
+        per_fma[reg] = float(x @ y / (x @ x))
+    fit = {'CL_FIXED_US': float(fixed), 'CL_FIXED_US_PER_LANE':
+           float(per_lane), 'CL_US_PER_MMA': float(per_mma),
+           'CL_US_PER_FMA': per_fma}
+    print(json.dumps({'fit': fit, 'readings': len(rows)}))
+    for r in rows:
+        est = fit['CL_FIXED_US'] + fit['CL_FIXED_US_PER_LANE'] * r['lanes'] \
+            + work(r) * (fit['CL_US_PER_MMA'] if r['product'] == 'mma'
+                         else fit['CL_US_PER_FMA'][r['reg']])
+        print(json.dumps({k: r[k] for k in (
+            'shape', 'B', 'dtype', 'cluster', 'lanes', 'reg', 'waves')}
+            | {'us_per_wave_step': step(r), 'fit_us': est}))
+    return fit
+
+
+def tf32_forward(shape, cell, gi, w, b, ln, resident_only=False):
+    """(y, stash) of kernel #2's cluster forward in float32 with its
+    product on the tensor cores as three TF32 products
+    (csrc/birnn_train_tf32.cu, a library of its own) at `shape` (C, lanes,
+    k-slices, A tiles in registers); with resident_only, the clusters of
+    it the card holds at once instead, launching nothing."""
+    import ctypes
+    from forwardtacotron_tpu_torch.kernels import _build
+    T, B, S, _ = gi.shape
+    H = w.shape[-1]
+    lib = _build.load('birnn_train_tf32')
+    fn = lib.ftt_birnn_train_fwd_cl_tf32
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 \
+        + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    y = torch.empty((T, B, S, H), dtype=torch.float32, device=gi.device)
+    stash = torch.empty((T, B, S, 5, H), dtype=torch.float32,
+                        device=gi.device)
+    resident = ctypes.c_int(0)
+    _build.check(lib, fn(
+        int(cell == 'lstm'), gi.data_ptr(), w.data_ptr(), b.data_ptr(),
+        ln.data_ptr(), y.data_ptr(), stash.data_ptr(), T, B, S, H,
+        shape['cluster'], shape['lanes'], shape['splits'], shape['reg'],
+        ctypes.byref(resident) if resident_only else None,
+        torch.cuda.current_stream().cuda_stream), '3xTF32 cluster forward')
+    return resident.value if resident_only else (y, stash)
 
 
 def staged_backward(cell, st, dy, w, ln, dtype, layout_only=False):
@@ -331,9 +554,9 @@ def mma_recurrence(cell, gi, w, b, ln, cluster, layout_only=False):
     return tuple(layout) if layout_only else y
 
 
-def birnn_ptxas(names):
-    """Rebuild the named libraries of kernel #1 and emit their `-Xptxas
-    -v` registers and spills."""
+def birnn_ptxas(names, kernel='birnn'):
+    """Rebuild the named libraries and emit the `-Xptxas -v` registers and
+    spills of their entry functions whose names contain `kernel`."""
     from forwardtacotron_tpu_torch.kernels import _build
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     for name in names:
@@ -341,7 +564,7 @@ def birnn_ptxas(names):
         if lib_path.exists():
             lib_path.unlink()           # rebuild, for the ptxas report
     for name, report in _build.build(names).items():
-        emit({'kernel': name, 'ptxas': ptxas_registers(report, 'birnn')})
+        emit({'kernel': name, 'ptxas': ptxas_registers(report, kernel)})
 
 
 def birnn_variants(args, what, cell, S, T, H, B, dtype, lens, variants):
@@ -471,7 +694,20 @@ def main() -> None:
     parser.add_argument('--phases', action='store_true',
                         help='also run the probe build and print per-phase '
                              'times')
+    parser.add_argument('--batches', default='32',
+                        help='batches of the train section')
+    parser.add_argument('--shapes', default='',
+                        help='shapes of the train section (all if empty), '
+                             'of decoder, postnet, prenet, pitch, '
+                             'dur/energy, wavernn GRU')
+    parser.add_argument('--fit', metavar='JSONL',
+                        help='fit the cluster path\'s step estimate to the '
+                             'rows of a probe output and exit (no card '
+                             'needed)')
     args = parser.parse_args()
+    if args.fit:
+        fit_step_estimates(args.fit)
+        return
     if not torch.cuda.is_available():
         sys.exit('needs a CUDA device')
     OUT.parent.mkdir(exist_ok=True)
