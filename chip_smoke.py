@@ -25,7 +25,9 @@ printed only when every phase passed):
    both paths, timed); and at the Tacotron teacher's alignment shapes
    (`TEACHER_BIRNN_CASES`, B=8 float32 at atol 1e-4: postnet GRU H=128
    T=1250 and encoder GRU H=128 T=200, ragged; timed beside cuDNN and the
-   bound); and at the vocoder trainer's evaluate() shape
+   bound; and at the free-running synthesis's B=1 shapes,
+   `TEACHER_GEN_BIRNN_CASES`: postnet T=1000 and encoder T=41); and at the
+   vocoder trainer's evaluate() shape
    (`VOCODER_BIRNN_CASES`: WaveRNN's GRU H=512, one stream, T=1280, B=32,
    float32 at atol 1e-4; timed beside a one-way nn.GRU and the bound);
 4. WaveRNN sampling kernel against its plain version, greedy, in both
@@ -136,16 +138,38 @@ printed only when every phase passed):
    student's remat gradients against no remat (running statistics equal,
    phase 8's limits) and its bf16 gradients against float32 (relative L2
    <= BF16_GRAD_L2_LIMIT);
-12. a {"kernels": [...]} JSON line (launches of the main paths, of the
+12. FastPitch, the teacher's free-running synthesis and the objective
+   evaluation at the full width of config.yaml's `fast_pitch`,
+   `tacotron` and `vocoder` sections, random weights
+   (`fast_pitch_and_teacher_path` lists its cuts): `ForwardTrainer.train`
+   with tts_model fast_pitch for 5 steps at batch 32 on phase 8's dataset
+   (no kernel launched, counted from 0; losses finite, every parameter
+   moved), its step split by `step_timing` in float32 and bf16, float32
+   gradients against the CPU with conv1's ReLU decisions replayed; its
+   checkpoint served by `gen_forward` griffinlim and wavernn (#4 > 0, #1
+   0) and by `TTSServer` with wavernn at 8 concurrent requests; the
+   920-frame utterance into series, decode and vocode by CUDA events, the
+   float32 mel card vs CPU at atol 1e-4; `gen_tacotron.main` with
+   griffinlim and wavernn on one line (#1 counted on its planned path, #4
+   in the wavernn run), ms a decoder step, `Tacotron.generate` card vs CPU
+   over 16 steps at atol 1e-4 with an equal n_valid; `eval_tts.main` with
+   the DSP and F0 on the card, a corpus against itself (MCD 0) and against
+   a copy 100 cents higher (F0 RMSE near 100 cents), both against the
+   CPU's numbers; kernel #1 at the teacher's free-running shapes (B=1,
+   H=128, float32: `TEACHER_GEN_BIRNN_CASES`) runs in phase 3;
+13. a {"kernels": [...]} JSON line (launches of the main paths, of the
    teacher phase in `launches_teacher`, of the vocoder phase in
-   `launches_vocoder` and of the options phase in `launches_options`,
+   `launches_vocoder`, of the options phase in `launches_options`, of
+   phase 12's FastPitch paths in `launches_fast_pitch` and of its
+   gen_tacotron runs in `launches_gen_tacotron`,
    each kernel's time at the vocoder path's shape in `vocoder_*` and #2/#3
    in bf16 in `bf16_*`; #2's cluster path with the cooperative path's
    times on the same inputs in `*cooperative_ms`), the nvidia-smi line,
    and last
    {"ok": true, "device": {...}}.
 
-Details go to chiprun_out/chip_smoke.json.
+Each phase's wall seconds go to `phase_seconds`, and the details to
+chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
@@ -193,7 +217,9 @@ def phase(name):
                 log(traceback.format_exc())
                 return None
             finally:
-                log(f'   ({name}: {time.perf_counter() - t0:.1f} s)')
+                seconds = time.perf_counter() - t0
+                DETAILS.setdefault('phase_seconds', {})[name] = seconds
+                log(f'   ({name}: {seconds:.1f} s)')
         return run
     return wrap
 
@@ -392,6 +418,15 @@ TEACHER_BIRNN_CASES = (
                                                for i in range(8))))
 
 
+# kernel #1 at the teacher's free-running shapes (gen_tacotron, batch 1,
+# float32), as (name, cell, T, H, lengths): the postnet CBHG BiGRU over the
+# whole 1000-step buffer and the encoder's over the 41 ids of the first
+# line of sentences.txt
+TEACHER_GEN_BIRNN_CASES = (
+    ('teacher synthesis postnet', 'gru', 1000, 128, (1000,)),
+    ('teacher synthesis encoder', 'gru', 41, 128, (41,)))
+
+
 # kernel #1 at the shape evaluate() gives it on the vocoder-training path,
 # as (name, cell, T, H, lengths): WaveRNN's two unidirectional GRUs (one
 # stream each) over seq_len 1280 at batch 32, float32
@@ -477,6 +512,7 @@ def birnn_cases():
     for what, cell, T, H, lens, B, S in (
             [c + (32, 2) for c in EVAL_BIRNN_CASES]
             + [c + (8, 2) for c in TEACHER_BIRNN_CASES]
+            + [c + (1, 2) for c in TEACHER_GEN_BIRNN_CASES]
             + [c + (32, 1) for c in VOCODER_BIRNN_CASES]):
         gi, w, b, ln = _birnn_inputs(cell, T, B, S, H, f32, seed=T + H,
                                      lens=lens)
@@ -1688,7 +1724,8 @@ def _student_parts(model, optimizer, batch, train_cfg, ema=None):
     from forwardtacotron_tpu_torch.train import common as tc
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     return train_parts(
-        model, optimizer, tc.forward_micro_loss(model, train_cfg), batch,
+        model, optimizer, tc.forward_micro_loss(model, train_cfg, gen),
+        batch,
         train_cfg, ema,
         prepare=lambda b: tc.forward_step_batch(b, gen, train_cfg))
 
@@ -1771,15 +1808,16 @@ class _Decisions:
 
 @contextlib.contextmanager
 def _layer_decisions(decisions):
-    """models/layers.py's and models/tacotron.py's `F` is `decisions`
-    inside the block (nothing outside those modules sees it)."""
-    from forwardtacotron_tpu_torch.models import layers, tacotron
-    saved = layers.F, tacotron.F
-    layers.F = tacotron.F = decisions
+    """models/layers.py's, models/tacotron.py's and models/fast_pitch.py's
+    `F` is `decisions` inside the block (nothing outside those modules sees
+    it)."""
+    from forwardtacotron_tpu_torch.models import fast_pitch, layers, tacotron
+    saved = layers.F, tacotron.F, fast_pitch.F
+    layers.F = tacotron.F = fast_pitch.F = decisions
     try:
         yield decisions
     finally:
-        layers.F, tacotron.F = saved
+        layers.F, tacotron.F, fast_pitch.F = saved
 
 
 def _model_grads(model, batch, device, decisions=None):
@@ -1844,7 +1882,7 @@ def _card_cpu_grads(model, batch, model_grads=None):
             'differ': replayed.differ, 'decisions': replayed.total}
 
 
-def _grads_vs_cpu(model):
+def _grads_vs_cpu(model, model_grads=None, what='student'):
     """Float32 gradients of one teacher-forced loss at full width on two
     short items (dropout 0, TF32 off): kernels #2/#3 on the card against
     the plain path on the CPU, the CPU pass replaying the card's ReLU and
@@ -1857,12 +1895,14 @@ def _grads_vs_cpu(model):
     can fall on the other side of a ReLU or max-pool on the CPU and move a
     gradient by a whole term, whichever implementation runs; the check
     reports how many decisions the CPU would have taken otherwise, and the
-    errors without the replay, which it does not hold to the limits."""
-    out = _card_cpu_grads(model, _grads_batch())
+    errors without the replay, which it does not hold to the limits.
+    `model_grads` as `_card_cpu_grads` takes it (FastPitch's:
+    `_fp_model_grads`)."""
+    out = _card_cpu_grads(model, _grads_batch(), model_grads)
     rep, own = out['replay'], out['own']
     check(rep['ok'],
-          f'float32 gradients, card vs CPU plain (CPU replaying the card\'s '
-          f'{out["decisions"]} ReLU/max-pool decisions; '
+          f'{what} float32 gradients, card vs CPU plain (CPU replaying the '
+          f'card\'s {out["decisions"]} ReLU/max-pool decisions; '
           f'{out["differ"]} differ on its own): worst relative L2 error '
           f'{rep["worst_rel_l2"]:.2e} ({rep["param_l2"]}) <= '
           f'{GRAD_L2_LIMIT:g}, worst max-element error '
@@ -1890,12 +1930,14 @@ def _true_f0(t):
         + 15.0 * np.sin(2 * np.pi * 3.1 * t)
 
 
-def _write_corpus(root, sr, n_items=TEACHER_N_UTTERANCES, seed=0):
+def _write_corpus(root, sr, n_items=TEACHER_N_UTTERANCES, seed=0,
+                  contour=_true_f0):
     """A seeded LJSpeech-layout corpus under `root`: metadata.csv
     (id|text|text, the text a few lines of sentences.txt cut to ~15
     characters a second) and 16-bit wavs of 2-8 s. Each wav: 0.3 s of
     faint noise, then voiced segments of 0.4-1.2 s (five harmonics whose
-    F0 follows `_true_f0`) with pauses of 0.12 s, then 0.3 s of noise.
+    F0 follows `contour`, by default `_true_f0`) with pauses of 0.12 s,
+    then 0.3 s of noise.
     Returns {item: (samples, [(start, end) of each voiced segment])}."""
     from scipy.io import wavfile
     rng = np.random.RandomState(seed)
@@ -1915,7 +1957,7 @@ def _write_corpus(root, sr, n_items=TEACHER_N_UTTERANCES, seed=0):
             voiced[pos:end] = True
             pos = end + int(0.12 * sr)
         t = np.arange(n) / sr
-        phase = 2 * np.pi * np.cumsum(_true_f0(t)) / sr
+        phase = 2 * np.pi * np.cumsum(contour(t)) / sr
         y = sum(0.3 / k * np.sin(k * phase) for k in range(1, 6)) * voiced
         y = y + 1e-4 * rng.randn(n)
         item = f'LJ{i:03d}'
@@ -3362,6 +3404,390 @@ def options_path():
 
 # ------------------------------------------------------------------- main
 
+# ------------------------------------- FastPitch and teacher synthesis
+
+FP_DIR = Path('smoke_fast_pitch')     # dataset, checkpoints and outputs
+FP_STEPS = 5         # an epoch of phase 8's dataset (4 batches of 32), and one
+EVAL_N_ITEMS = 6     # utterances of the evaluation corpus
+EVAL_SHIFT_CENTS = 100.0
+EVAL_F0 = 150.0      # Hz: a flat contour, so that the DTW path cannot pair
+                     # frames of equal F0 at other times and hide the shift
+
+
+def _all_counts(reset=False):
+    """Launches of kernels #1, #2 and #3 by path and of #4, zeroed first
+    with `reset`."""
+    from forwardtacotron_tpu_torch.kernels.wavernn_sample import sample
+    if reset:
+        sample.launches = 0
+    return dict(_train_counts(reset), wavernn_sample=sample.launches)
+
+
+def _no_dropout(model):
+    """Every dropout rate of a FastPitch (its modules' `p`) set to 0."""
+    for mod in model.modules():
+        if hasattr(mod, 'p'):
+            mod.p = 0.0
+    return model
+
+
+def _fp_model_grads(model, batch, device, decisions=None):
+    """`_model_grads` for FastPitch: a copy on `device` in train mode with
+    every dropout at 0 (a generator is still given), the ReLU decisions of
+    its FFT blocks recorded or replayed through `decisions`."""
+    from forwardtacotron_tpu_torch.config import default_config
+    from forwardtacotron_tpu_torch.train import common as tc
+    cfg = default_config()['fast_pitch']['training']
+    m = _no_dropout(copy.deepcopy(model)).to(device).train()
+    b = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    gen = torch.Generator(device=device).manual_seed(0)
+    with (_layer_decisions(decisions) if decisions is not None
+          else contextlib.nullcontext()):
+        loss, _ = tc.forward_loss(m(b, gen), b, b['pitch'], b['energy'], cfg)
+    loss.backward()
+    return {k: p.grad.detach().cpu() for k, p in m.named_parameters()}
+
+
+def _fp_training(smi):
+    """`ForwardTrainer.train` with tts_model fast_pitch for FP_STEPS steps
+    at batch 32 on phase 8's synthetic dataset: no recurrence kernel
+    launched, losses finite, every parameter moved; the step split by
+    `step_timing` in float32 and bf16; float32 gradients against the CPU
+    with conv1's ReLU decisions replayed. Returns (out, checkpoint)."""
+    from forwardtacotron_tpu_torch.config import default_config
+    from forwardtacotron_tpu_torch.data.dataset import get_tts_datasets
+    from forwardtacotron_tpu_torch.train import common as tc
+    from forwardtacotron_tpu_torch.train.forward_trainer import (
+        ForwardTrainer, batch_to_device)
+    from forwardtacotron_tpu_torch.utils.checkpoints import init_tts_model
+    from forwardtacotron_tpu_torch.utils.paths import Paths
+    cfg = default_config()
+    cfg['tts_model'] = 'fast_pitch'
+    cfg['data_path'] = str(FP_DIR / 'data')
+    _write_dataset(FP_DIR / 'data')
+    paths = Paths(cfg['data_path'], 'smoke_fp', base=FP_DIR)
+    writer = _Scalars()
+    trainer = ForwardTrainer(paths, cfg, DEVICE, writer=writer)
+    torch.manual_seed(0)
+    model = init_tts_model(cfg).to(DEVICE)
+    optimizer = tc.make_optimizer(model)
+    before = copy.deepcopy(model.state_dict())
+    _all_counts(reset=True)
+    t0 = time.perf_counter()
+    step = trainer.train(model, optimizer, max_steps_override=FP_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _all_counts()
+    log(f'  FastPitch: {step} steps at batch 32 in {wall:.1f} s (host '
+        f'clock, first steps and an evaluate() included), launches '
+        f'{launches}')
+    check(step == FP_STEPS, f'FastPitch trainer reached step {step} == '
+                            f'{FP_STEPS}')
+    check(sum(launches.values()) == 0,
+          f'FastPitch training launched no kernel #1-#4 (no recurrence): '
+          f'{launches}')
+    losses = [v for tag, v, _ in writer.values if 'Loss' in tag]
+    check(any(tag.endswith('/val') for tag, _, _ in writer.values)
+          and losses and all(map(math.isfinite, losses)),
+          f'FastPitch: {len(losses)} loss scalars (validation included), '
+          f'all finite')
+    moved = [k for k, p in model.named_parameters()
+             if not torch.equal(p.detach(), before[k])]
+    n_params = len(list(model.parameters()))
+    check(len(moved) == n_params,
+          f'{len(moved)} of {n_params} FastPitch parameters moved')
+    _, val_set = get_tts_datasets(cfg['data_path'], 32, 1, None)
+    batch = batch_to_device(next(b for b in val_set
+                                 if b['mel'].shape[1] == 768), DEVICE)
+    train_cfg = trainer.train_cfg
+    timing = {}
+    for name, tcfg in (('f32', train_cfg),
+                       ('bf16', dict(train_cfg, precision='bf16'))):
+        timing[name] = step_timing(
+            _student_parts(model, optimizer, batch, tcfg),
+            f'FastPitch step {name} at batch 32, 768 frames', smi)
+    grads = _grads_vs_cpu(model, _fp_model_grads, 'FastPitch')
+    out = {'steps': step, 'wall_s': wall, 'launches': launches,
+           'step_ms': timing, 'grads_vs_cpu': grads}
+    return out, paths.forward_checkpoints / 'latest_model.pt'
+
+
+def _fp_utterance(model, voc, cfg, text, hop):
+    """The 920-frame utterance through FastPitch (115 phonemes at 8 frames
+    each, `generate_from_series`) into series, decode and vocode by CUDA
+    events (the second of two passes); the card's float32 mel against the
+    CPU at atol 1e-4 on a short input."""
+    from forwardtacotron_tpu_torch import gen_forward
+    from forwardtacotron_tpu_torch.models.wavernn import vocode
+    ids = gen_forward.text_to_ids(text, cfg)
+    x = torch.tensor([ids], device=DEVICE)
+    xl = torch.tensor([len(ids)], device=DEVICE)
+    max_t = ((8 * len(ids) + 1 + 255) // 256) * 256
+    for _ in range(2):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        series = model.predict_series(x, x_len=xl)
+        ev[1].record()
+        gen = model.generate_from_series(
+            x, torch.full_like(series['dur'], 8.0), series['pitch'],
+            series['energy'], max_t, x_len=xl)
+        ev[2].record()
+        n = int(gen['mel_len'][0])
+        mel = gen['mel_post'][0, :n].T.float().cpu().numpy()
+        wav = vocode(voc, mel, pcm16=True)
+        ev[3].record()
+        ev[3].synchronize()
+    rms = float(np.sqrt(np.mean(wav.astype(np.float64) ** 2)))
+    check(bool(np.isfinite(mel).all()) and len(wav) == (n - 1) * hop
+          and rms > 0, f'FastPitch, 8 frames/phoneme: {len(ids)} ids, {n} '
+                       f'frames (bucket {max_t}), {len(wav)} samples')
+    row = {'ids': len(ids), 'frames': n, 'bucket': max_t,
+           'series_ms': ev[0].elapsed_time(ev[1]),
+           'decode_ms': ev[1].elapsed_time(ev[2]),
+           'vocode_ms': ev[2].elapsed_time(ev[3]),
+           'audio_s': len(wav) / cfg['dsp']['sample_rate']}
+    log(f'  FastPitch 8 frames/phoneme stages: {row}')
+    short = torch.tensor([ids[:24]])
+    d4 = torch.full((1, 24), 4.0)
+    zeros = torch.zeros((1, 24))
+    ref = copy.deepcopy(model).cpu().generate_from_series(short, d4, zeros,
+                                                          zeros, 128)
+    got = model.generate_from_series(short.to(DEVICE), d4.to(DEVICE),
+                                     zeros.to(DEVICE), zeros.to(DEVICE), 128)
+    err = float((got['mel'].cpu() - ref['mel'])[0, :96].abs().max())
+    check(err <= 1e-4, f'FastPitch float32 mel, card vs CPU: max err '
+                       f'{err:.2e} <= 1e-4')
+    row['mel_f32_vs_cpu_max_abs_err'] = err
+    return row
+
+
+def _fp_serving(checkpoint, lines, long_text, smi):
+    """The trained FastPitch served: `gen_forward.main` with griffinlim and
+    wavernn on the three lines of FP_DIR's sentences.txt (#4 counted, #1
+    never), the 920-frame
+    utterance (`_fp_utterance`), `TTSServer` with wavernn answering 8
+    concurrent requests (`_serve`)."""
+    from scipy.io import wavfile
+    from forwardtacotron_tpu_torch import gen_forward
+    from forwardtacotron_tpu_torch.serving import TTSServer
+    model, cfg, _ = gen_forward.load_tts(str(checkpoint), None, DEVICE)
+    hop = cfg['dsp']['hop_length']
+    out, launches = {}, {}
+    for vocoder in ('griffinlim', 'wavernn'):
+        with _cwd(FP_DIR):
+            _all_counts(reset=True)
+            t0 = time.perf_counter()
+            paths = gen_forward.main(['--checkpoint', str(checkpoint),
+                                      '--seed', '0', '--device', DEVICE,
+                                      vocoder])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = _all_counts()
+            wavs = [wavfile.read(p)[1] for p in paths]
+        ok = len(wavs) == len(lines) and all(
+            w.dtype == np.int16 and len(w) > 0 and len(w) % hop == 0
+            and np.abs(w).max() > 0 for w in wavs)
+        want_sampler = vocoder == 'wavernn'
+        check(ok and counts['birnn'] == 0
+              and (counts['wavernn_sample'] > 0) == want_sampler,
+              f'gen_forward FastPitch {vocoder}: {len(wavs)} int16 wavs '
+              f'{[len(w) for w in wavs]} in {wall:.2f} s, launches {counts}')
+        out[f'gen_forward {vocoder}'] = {'wall_s': wall, 'launches': counts}
+        launches = {k: launches.get(k, 0) + v for k, v in counts.items()}
+    voc, _ = gen_forward.load_voc(None, cfg, DEVICE, 0)
+    out['utterance'] = _fp_utterance(model, voc, cfg, long_text, hop)
+    with TTSServer(str(checkpoint), vocoder='wavernn', max_batch=8,
+                   max_wait_ms=20.0, device=DEVICE) as srv:
+        warm = srv.warmup(batch_sizes=[8])
+        _all_counts(reset=True)
+        ok, wall, audio_s = _serve(srv, lines, hop, 1)
+        counts = _all_counts()
+        stats = srv.stats()
+    check(ok and stats['completed'] == 8 and counts['birnn'] == 0
+          and counts['wavernn_sample'] > 0,
+          f'TTSServer FastPitch + wavernn: 8 concurrent requests, int16 of '
+          f'the decoded lengths, in {wall:.3f} s ({audio_s:.2f} s of audio), '
+          f'batches {list(srv.batch_sizes)}, launches {counts} | {smi}')
+    out['server'] = {'warmup_s': warm['seconds'], 'wall_s': wall,
+                     'audio_s': audio_s, 'audio_s_per_s': audio_s / wall,
+                     'latency_s': stats['latency_s'], 'launches': counts}
+    launches = {k: launches.get(k, 0) + v for k, v in counts.items()}
+    return out, launches
+
+
+def _teacher_synthesis(line, smi):
+    """The teacher's free-running synthesis at config.yaml's width, random
+    seeded weights in a `.pt`: `gen_tacotron.main` with griffinlim and
+    wavernn on one line (#1 counted, every launch on the path its plan
+    names, #4 in the wavernn run); ms a decoder step and utterances a
+    second over 1000 steps; `Tacotron.generate` on the card against the
+    CPU (first 16 steps at atol 1e-4, equal n_valid), with the default
+    threshold and with one that stops the run."""
+    from scipy.io import wavfile
+    from forwardtacotron_tpu_torch import gen_tacotron
+    from forwardtacotron_tpu_torch.config import default_config
+    from forwardtacotron_tpu_torch.kernels import birnn as kb
+    from forwardtacotron_tpu_torch.utils.checkpoints import save_checkpoint
+    cfg = default_config()
+    torch.manual_seed(0)
+    model = gen_tacotron.Tacotron.from_config(cfg)
+    checkpoint = (FP_DIR / 'tacotron.pt').resolve()
+    save_checkpoint(model, None, cfg, checkpoint, step=0)
+    props = torch.cuda.get_device_properties(0)
+    plan = kb.inference_plan('gru', 2, 1, 128, torch.float32,
+                             props.shared_memory_per_block_optin,
+                             props.multi_processor_count)['path']
+    out, launches = {}, {}
+    for vocoder in ('griffinlim', 'wavernn'):
+        with _cwd(FP_DIR):
+            _all_counts(reset=True)
+            t0 = time.perf_counter()
+            paths = gen_tacotron.main(['--checkpoint', str(checkpoint),
+                                       '--device', DEVICE, '-i', line,
+                                       vocoder])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = _all_counts()
+            wav = wavfile.read(paths[0])[1]
+        want_sampler = vocoder == 'wavernn'
+        check(wav.dtype == np.int16 and len(wav) > 0
+              and np.abs(wav).max() > 0 and counts['birnn'] == 2
+              and counts[f'birnn_{plan}'] == 2
+              and counts['birnn_train_fwd'] == 0
+              and (counts['wavernn_sample'] > 0) == want_sampler,
+              f'gen_tacotron {vocoder}: {len(wav)} samples in {wall:.2f} s, '
+              f'launches {counts} (#1 planned {plan})')
+        out[f'gen_tacotron {vocoder}'] = {'wall_s': wall, 'launches': counts,
+                                          'samples': len(wav)}
+        launches = {k: launches.get(k, 0) + v for k, v in counts.items()}
+
+    model = model.to(DEVICE).eval()
+    x = torch.tensor([gen_tacotron.text_to_ids(line, cfg)], device=DEVICE)
+    model.generate(x, 1000, 1)                 # warm
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    t0 = time.perf_counter()
+    ev[0].record()
+    _, _, _, n_valid = model.generate(x, 1000, 1)
+    ev[1].record()
+    ev[1].synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    ms = ev[0].elapsed_time(ev[1])
+    steps = min(-(-n_valid // 8) * 8, 1000)    # the steps the loop ran
+    out['generate'] = {'ids': x.shape[1], 'n_valid': n_valid, 'steps': steps,
+                       'ms': ms, 'host_ms': wall_ms, 'ms_per_step': ms / steps,
+                       'utterances_per_s': 1e3 / ms}
+    log(f'  Tacotron.generate: {x.shape[1]} ids, {n_valid} valid frames of '
+        f'{steps} steps in {ms:.1f} ms ({ms / steps:.3f} ms a decoder step, '
+        f'{1e3 / ms:.2f} utterances a second) | {smi}')
+
+    cpu = copy.deepcopy(model).cpu()
+    xs = x[:, :24]
+    rows = {}
+    for name, threshold in (('default threshold', None), ('stopping', 1e9)):
+        for m in (model, cpu):
+            if threshold is not None:
+                m.stop_threshold.fill_(threshold)
+        got = model.generate(xs, 32, 1)
+        ref = cpu.generate(xs.cpu(), 32, 1)
+        errs = [float((a[:, :16].cpu() - b[:, :16]).abs().max())
+                for a, b in zip(got[:3], ref[:3])]
+        check(max(errs) <= 1e-4 and got[3] == ref[3],
+              f'Tacotron.generate {name}, card vs CPU, first 16 steps: mel, '
+              f'linear, attention max err {errs} <= 1e-4, n_valid '
+              f'{got[3]} == {ref[3]}')
+        rows[name] = {'max_abs_err': errs, 'n_valid': got[3]}
+    out['generate_vs_cpu'] = rows
+    return out, launches
+
+
+def _eval_checks(smi):
+    """`eval_tts.main` in wav mode with the DSP and F0 on the card: a
+    seeded corpus at a flat EVAL_F0 against itself (MCD 0) and against a
+    copy made EVAL_SHIFT_CENTS higher (F0 RMSE within 10 cents of the
+    shift), each against the CPU's numbers."""
+    from forwardtacotron_tpu_torch import eval_tts
+    from forwardtacotron_tpu_torch.config import default_config
+    sr = default_config()['dsp']['sample_rate']
+    with _cwd(FP_DIR):
+        for name, cents in (('eval_ref', 0.0),
+                            ('eval_shift', EVAL_SHIFT_CENTS)):
+            f0 = EVAL_F0 * 2 ** (cents / 1200)
+            _write_corpus(Path(name), sr, EVAL_N_ITEMS, seed=3,
+                          contour=lambda t, f0=f0: np.full_like(t, f0))
+        out = {}
+        for name, gen in (('self', 'eval_ref'), ('shifted', 'eval_shift')):
+            for device in (DEVICE, 'cpu'):
+                report = Path(f'eval_{name}_{device}.json')
+                t0 = time.perf_counter()
+                rc = eval_tts.main(['--gen_dir', f'{gen}/wavs',
+                                    '--ref_dir', 'eval_ref/wavs',
+                                    '--device', device,
+                                    '--json', str(report)])
+                wall = time.perf_counter() - t0
+                summary = json.loads(report.read_text())['summary']
+                out[f'{name}_{device}'] = dict(summary, wall_s=wall, rc=rc)
+    card, cpu = out[f'self_{DEVICE}'], out['self_cpu']
+    check(card['rc'] == 0 and card['n_files'] == EVAL_N_ITEMS
+          and card['mcd_db'] == 0.0 and card['f0_rmse_cents'] == 0.0
+          and cpu['mcd_db'] == 0.0,
+          f'eval_tts on the card, corpus against itself: MCD '
+          f'{card["mcd_db"]} dB, F0 RMSE {card["f0_rmse_cents"]} cents, '
+          f'{card["n_files"]} files in {card["wall_s"]:.2f} s')
+    card, cpu = out[f'shifted_{DEVICE}'], out['shifted_cpu']
+    check(abs(card['f0_rmse_cents'] - EVAL_SHIFT_CENTS) <= 10
+          and abs(card['f0_rmse_cents'] - cpu['f0_rmse_cents']) <= 0.5
+          and abs(card['mcd_db'] - cpu['mcd_db']) <= 1e-2
+          and abs(card['vde'] - cpu['vde']) <= 0.01,
+          f'eval_tts on the card against a copy {EVAL_SHIFT_CENTS:g} cents '
+          f'higher: F0 RMSE {card["f0_rmse_cents"]:.2f} cents (CPU '
+          f'{cpu["f0_rmse_cents"]:.2f}), MCD {card["mcd_db"]:.4f} dB (CPU '
+          f'{cpu["mcd_db"]:.4f}), VDE {card["vde"]:.4f} (CPU '
+          f'{cpu["vde"]:.4f}), {card["wall_s"]:.2f} s (CPU '
+          f'{cpu["wall_s"]:.2f} s) | {smi}')
+    return out
+
+
+@phase('FastPitch and teacher synthesis path (full width)')
+def fast_pitch_and_teacher_path():
+    """FastPitch, the teacher's free-running synthesis and the objective
+    evaluation at config.yaml's `fast_pitch`, `tacotron` and `vocoder`
+    widths, random weights from seeds, TF32 off, in FP_DIR. Cuts: FastPitch
+    trains FP_STEPS steps (config.yaml: 300k) on phase 8's 96 + 32 items;
+    the teacher is untrained (its run never stops, so every utterance
+    takes the 1000 steps of --steps); the evaluation corpus has
+    EVAL_N_ITEMS utterances of 2-8 s.
+
+    1. `_fp_training`: ForwardTrainer with tts_model fast_pitch, counts
+       from 0 (no kernel launched), step timing in float32 and bf16,
+       gradients against the CPU;
+    2. `_fp_serving`: gen_forward griffinlim and wavernn on its
+       checkpoint (#4 counted), the 920-frame utterance, TTSServer;
+    3. `_teacher_synthesis`: gen_tacotron griffinlim and wavernn (#1 and
+       #4 counted), decoder step times, card against CPU;
+    4. `_eval_checks`: eval_tts on the card against the CPU."""
+    smi = nvidia_smi_line()
+    lines = [s for s in Path('sentences.txt').read_text().splitlines()
+             if s.strip()]
+    shutil.rmtree(FP_DIR, ignore_errors=True)
+    FP_DIR.mkdir(parents=True)
+    (FP_DIR / 'sentences.txt').write_text('\n'.join(lines[:3]) + '\n')
+    out = {}
+    try:
+        out['training'], checkpoint = _fp_training(smi)
+        out['serving'], fp_launches = _fp_serving(checkpoint.resolve(),
+                                                  lines[:3], lines[-1], smi)
+        out['teacher'], taco_launches = _teacher_synthesis(lines[0], smi)
+        out['evaluation'] = _eval_checks(smi)
+    finally:
+        shutil.rmtree(FP_DIR, ignore_errors=True)
+    train = out['training']['launches']
+    out['launches'] = {
+        'fast_pitch': {k: train[k] + fp_launches.get(k, 0) for k in train},
+        'gen_tacotron': taco_launches}
+    DETAILS['fast_pitch_and_teacher_path'] = out
+    return out['launches']
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser()
@@ -3397,6 +3823,7 @@ def main(argv=None) -> int:
     teacher = teacher_path() or {}
     voc = vocoder_path() or {}
     opts = options_path() or {}
+    fp = fast_pitch_and_teacher_path() or {}
 
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / 'chip_smoke.json').write_text(json.dumps(
@@ -3424,6 +3851,9 @@ def main(argv=None) -> int:
     opt_launches = {k: opts['student_trainer']['launches'].get(k, 0)
                     + opts['wavernn_trainer']['launches'].get(k, 0)
                     for k in opts['wavernn_trainer']['launches']}
+    # the FastPitch paths (phase 12: training, gen_forward, TTSServer) and
+    # the teacher's free-running synthesis (gen_tacotron)
+    fpl, gtl = fp['fast_pitch'], fp['gen_tacotron']
     kernels = [
         {'name': 'birnn (stream-local path)', 'route': 'cuda',
          'source': 'forwardtacotron_tpu_torch/csrc/birnn.cu',
@@ -3438,6 +3868,8 @@ def main(argv=None) -> int:
          'library_ms': serving['library_ms'],
          'launches_vocoder': voc_launches['birnn_stream_local'],
          'launches_options': opt_launches['birnn_stream_local'],
+         'launches_fast_pitch': fpl['birnn_stream_local'],
+         'launches_gen_tacotron': gtl['birnn_stream_local'],
          'vocoder_case': voc_birnn['case'],
          'vocoder_ms': voc_birnn['ms_stream_local'],
          'vocoder_plain_ms': voc_birnn['plain_ms'],
@@ -3450,6 +3882,8 @@ def main(argv=None) -> int:
          'launches': launches['wavernn_sample'], 'launches_teacher': 0,
          'launches_vocoder': voc_launches['wavernn_sample'],
          'launches_options': opt_launches['wavernn_sample'],
+         'launches_fast_pitch': fpl['wavernn_sample'],
+         'launches_gen_tacotron': gtl['wavernn_sample'],
          'max_abs_err': wr['max_abs_err'], 'agreement': wr['agreement'],
          'ms': wr['ms'], 'plain_ms': wr['plain_ms'],
          'bound_ms': wr['bound_ms'], 'bound_by': wr['bound_by'],
@@ -3487,6 +3921,8 @@ def main(argv=None) -> int:
             'launches_vocoder': voc_launches[count],
             'launches_options': opt_launches[count],
             'launches_options_bfloat16': opt_launches[f'{count}_bfloat16'],
+            'launches_fast_pitch': fpl[count],
+            'launches_gen_tacotron': gtl[count],
             'case': row['case'],
             'max_abs_err': row[f'max_abs_err_{sfx}'],
             'ms': row[f'ms_{sfx}'], 'plain_ms': row[f'plain_ms_{sfx}'],

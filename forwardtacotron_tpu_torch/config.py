@@ -2,8 +2,9 @@
 
 The machine that runs the port has no `pyyaml`, so the `data_path`,
 model ids, `tts_model`, `dsp`, `preprocessing`, and the model and
-training sections of `tacotron`, `forward_tacotron`, `vocoder` and
-`hifigan` of the repository's `config.yaml` live here as plain dicts. A
+training sections of `tacotron`, `forward_tacotron`, `fast_pitch`,
+`vocoder` and `hifigan` of the repository's `config.yaml` live here as
+plain dicts. A
 YAML file is read only by `read_config`, and only where `yaml` can be
 imported.
 """
@@ -113,6 +114,58 @@ FORWARD_TACOTRON_TRAINING = {
     'min_attention_alignment': 0.95,
 }
 
+FAST_PITCH_MODEL = {
+    'durpred_d_model': 128,
+    'durpred_n_heads': 2,
+    'durpred_layers': 4,
+    'durpred_d_fft': 128,
+    'durpred_dropout': 0.5,
+    'pitch_d_model': 128,
+    'pitch_n_heads': 2,
+    'pitch_layers': 4,
+    'pitch_d_fft': 128,
+    'pitch_dropout': 0.5,
+    'pitch_strength': 1.0,
+    'energy_d_model': 128,
+    'energy_n_heads': 2,
+    'energy_layers': 4,
+    'energy_d_fft': 128,
+    'energy_dropout': 0.5,
+    'energy_strength': 1.0,
+    'd_model': 256,
+    'conv1_kernel': 9,
+    'conv2_kernel': 1,
+    'prenet_layers': 4,
+    'prenet_heads': 2,
+    'prenet_fft': 1024,
+    'prenet_dropout': 0.1,
+    'postnet_layers': 4,
+    'postnet_heads': 2,
+    'postnet_fft': 1024,
+    'postnet_dropout': 0.1,
+}
+
+FAST_PITCH_TRAINING = {
+    'schedule': ['1e-5,  5_000,  32', '5e-5,  100_000,  32',
+                 '2e-5,  300_000,  32'],
+    'dur_loss_factor': 0.1,
+    'pitch_loss_factor': 0.1,
+    'energy_loss_factor': 0.1,
+    'pitch_zoneout': 0.0,
+    'energy_zoneout': 0.0,
+    'max_mel_len': 1250,
+    'clip_grad_norm': 1.0,
+    'precision': 'f32',
+    'ema_decay': 0.0,
+    'grad_accum': 1,
+    'remat': False,
+    'checkpoint_every': 10_000,
+    'plot_every': 1000,
+    'filter_attention': True,
+    'min_attention_sharpness': 0.5,
+    'min_attention_alignment': 0.95,
+}
+
 HIFIGAN_MODEL = {
     'generator_type': 'hifigan',
     'resblock': '1',
@@ -175,6 +228,8 @@ def default_config() -> Dict[str, Any]:
         'tacotron': {'model': TACOTRON_MODEL, 'training': TACOTRON_TRAINING},
         'forward_tacotron': {'model': FORWARD_TACOTRON_MODEL,
                              'training': FORWARD_TACOTRON_TRAINING},
+        'fast_pitch': {'model': FAST_PITCH_MODEL,
+                       'training': FAST_PITCH_TRAINING},
         'vocoder': {'model': VOCODER_MODEL, 'training': VOCODER_TRAINING},
         'hifigan': {'model': HIFIGAN_MODEL, 'training': HIFIGAN_TRAINING},
     })

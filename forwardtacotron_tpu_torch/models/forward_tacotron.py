@@ -120,7 +120,8 @@ class ForwardTacotron(nn.Module):
         return cls(**model_config)
 
     # ------------------------------------------------ teacher-forced
-    def forward(self, batch: Dict[str, torch.Tensor]
+    def forward(self, batch: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None
                 ) -> Dict[str, torch.Tensor]:
         """Teacher-forced forward of training (JAX `__call__`). batch: x
         (B, Tx) int, mel (B, Tm, M), mel_len (B,), dur, pitch, energy
@@ -132,7 +133,10 @@ class ForwardTacotron(nn.Module):
         input (`ops/rnn.py:follow_dtype`): float32, or bfloat16 when the
         parameters and the batch are cast to it (`train/common.py`'s
         mixed precision), and the predictions come back in that dtype.
-        Returns mel, mel_post, dur, pitch, energy."""
+        `generator`, the trainers' step generator that every TTS model is
+        handed, draws nothing here: the dropouts are `nn.Dropout`, on the
+        global RNG. Returns mel, mel_post, dur, pitch, energy."""
+        del generator
         x, mel_len = batch['x'], batch['mel_len']
         out = {name: pred(x, compute_dtype=None) for name, pred in
                (('dur', self.dur_pred), ('pitch', self.pitch_pred),

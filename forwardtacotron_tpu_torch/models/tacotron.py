@@ -26,7 +26,9 @@ reference's `state_dict` keys (`encoder.embedding`, `encoder.pre_net`,
   probability `Decoder.zoneout`, 0.1; c is updated) drawn from the
   `generator` that `forward` is given. Train mode needs one; eval mode
   draws nothing.
-- `generate` (free-running inference) is not ported.
+- `generate` is the free-running synthesis of `gen_tacotron`: the same
+  decoder step in eval mode, fed its own last frame, until the reference's
+  stop criterion; the two CBHG BiGRUs run kernel #1.
 """
 from __future__ import annotations
 
@@ -40,6 +42,9 @@ from forwardtacotron_tpu_torch.models.layers import CBHG, dropout
 from forwardtacotron_tpu_torch.text.symbols import phonemes
 
 MAX_R = 20        # the largest reduction factor mel_proj is sized for
+# `generate` reads its stop flag from the device every this many steps (a
+# read each step would wait for the device each step)
+STOP_CHECK_EVERY = 8
 
 
 class PreNet(nn.Module):
@@ -228,6 +233,61 @@ class Tacotron(nn.Module):
         mel_out = mels.transpose(2, 3).reshape(B, steps * r, self.n_mels)
         linear = self.post_proj(self.postnet(mel_out, generator=gen))
         return mel_out, linear, torch.stack(scores, dim=1)
+
+    @torch.no_grad()
+    def generate(self, x: torch.Tensor, steps: int = 2000, r: int = 1
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
+        """Free-running synthesis in eval mode (the JAX package's
+        `Tacotron.generate`). x (B, Tx) token ids; at most `steps` frames,
+        a multiple of r. Each step feeds the last of its r frames to the
+        next; the run stops after the first step whose r frames are all
+        below `stop_threshold` for every item, once more than 10 frames are
+        out. The flag lives on the device and is read every
+        STOP_CHECK_EVERY steps; the steps run past it are zeroed, so the
+        buffers are those of a loop that stopped there. The postnet runs
+        over the whole buffer, zeros included, as in JAX. Returns (mel (B,
+        steps, n_mels), linear (B, steps, n_mels), attention (B, steps //
+        r, Tx), n_valid): n_valid frames are valid."""
+        if steps % r != 0:
+            raise ValueError(f'steps={steps} is not a multiple of r={r}')
+        was_training = self.training
+        self.eval()
+        try:
+            B, Tx = x.shape
+            n_steps = steps // r
+            encoder_seq = self.encoder(x)
+            encoder_seq_proj = self.encoder_proj(encoder_seq)
+            mel_buf = encoder_seq.new_zeros((B, n_steps, self.n_mels * MAX_R))
+            attn_buf = encoder_seq.new_zeros((B, n_steps, Tx))
+            state = self._init_state(B, Tx, encoder_seq)
+            prenet_in = encoder_seq.new_zeros((B, self.n_mels))
+            # the first step after which the run stops (n_steps: none yet)
+            stop = torch.full((), n_steps, dtype=torch.long, device=x.device)
+            for t in range(n_steps):
+                m, s, state = self.decoder.step(
+                    encoder_seq, encoder_seq_proj,
+                    self.decoder.prenet(prenet_in), state, None)
+                mel_buf[:, t] = m
+                attn_buf[:, t] = s
+                frames = m.reshape(B, self.n_mels, MAX_R)[..., :r]
+                prenet_in = frames[..., -1]
+                if (t + 1) * r > 10:
+                    done = (frames < self.stop_threshold).all() \
+                        & (stop == n_steps)
+                    stop = torch.where(done, t + 1, stop)
+                if (t + 1) % STOP_CHECK_EVERY == 0 \
+                        and int(stop) < n_steps:
+                    break
+            n_valid = int(stop)
+            mel_buf[:, n_valid:] = 0.0
+            attn_buf[:, n_valid:] = 0.0
+            mels = mel_buf.reshape(B, n_steps, self.n_mels, MAX_R)[..., :r]
+            mel_out = mels.transpose(2, 3).reshape(B, n_steps * r,
+                                                   self.n_mels)
+            linear = self.post_proj(self.postnet(mel_out))
+            return mel_out, linear, attn_buf, n_valid * r
+        finally:
+            self.train(was_training)
 
     @classmethod
     def from_config(cls, config: Dict[str, Any]) -> 'Tacotron':

@@ -8,8 +8,9 @@
         -o out.wav
 
 The flags are the JAX package's `serve_forward.py`'s, plus `--device`
-and `--seed` (random weights where no checkpoint is given); `--fused`
-and `--fused_max_t` are not ported and are refused by name.
+and `--seed` (random weights where no checkpoint is given). The TTS model,
+ForwardTacotron or FastPitch, is the one the checkpoint's config names.
+`--fused` and `--fused_max_t` are not ported and are refused by name.
 """
 from __future__ import annotations
 

@@ -33,7 +33,8 @@ import torch
 from forwardtacotron_tpu_torch import resolve_device
 from forwardtacotron_tpu_torch.config import default_config
 from forwardtacotron_tpu_torch.dsp.audio import DSP
-from forwardtacotron_tpu_torch.gen_forward import VOCODERS, load_tts, load_voc
+from forwardtacotron_tpu_torch.gen_forward import (VOCODERS, load_tts,
+                                                   load_voc, tts_dtype)
 from forwardtacotron_tpu_torch.kernels.birnn import recurrence
 from forwardtacotron_tpu_torch.models.forward_tacotron import PADDING_VALUE
 from forwardtacotron_tpu_torch.models.hifigan import (load_gan_vocoder,
@@ -71,12 +72,15 @@ def _pow2(n: int) -> int:
 class TTSServer:
     """Thread-safe dynamic-batching synthesis server on `device`.
 
-    tts_checkpoint: a `.pt` (this package) or `.fjax` ForwardTacotron, or
-    None for seeded random weights from `config` (default: the built-in
-    config). vocoder: 'griffinlim' | 'wavernn' (voc_checkpoint `.fjax`, or
-    None for seeded random weights) | 'hifigan' | 'melgan' (any file
-    `load_gan_vocoder` takes). Futures resolve to int16 PCM at the
-    config's sample rate.
+    tts_checkpoint: a `.pt` (this package) or `.fjax` of the TTS model its
+    config names (ForwardTacotron or FastPitch), or None for seeded random
+    weights of the model `config` names (default: the built-in config).
+    `compute_dtype` is the type of ForwardTacotron's recurrences and of
+    the WaveRNN sampler; FastPitch infers in float32 (`tts_dtype`), its
+    padded rows masked at their lengths. vocoder: 'griffinlim' |
+    'wavernn' (voc_checkpoint `.fjax`, or None for seeded random weights)
+    | 'hifigan' | 'melgan' (any file `load_gan_vocoder` takes). Futures
+    resolve to int16 PCM at the config's sample rate.
     """
 
     def __init__(self, tts_checkpoint: Optional[str],
@@ -105,6 +109,7 @@ class TTSServer:
         self.tokenizer = Tokenizer()
         self.vocoder = vocoder
         self.compute_dtype = compute_dtype
+        self.tts_dtype = tts_dtype(self.model, compute_dtype)
         self.voc_model = None
         self._voc_mu_law = False
         if vocoder == 'wavernn':
@@ -397,14 +402,14 @@ class TTSServer:
 
     def _series(self, x: torch.Tensor, xl: torch.Tensor):
         return self.model.predict_series(x, x_len=xl,
-                                         compute_dtype=self.compute_dtype)
+                                         compute_dtype=self.tts_dtype)
 
     def _decode(self, x, xl, dur, pitch, energy, max_t: int):
         return self.model.generate_from_series(
             x, torch.as_tensor(dur, device=self.device),
             torch.as_tensor(pitch, device=self.device),
             torch.as_tensor(energy, device=self.device), max_t, x_len=xl,
-            compute_dtype=self.compute_dtype)
+            compute_dtype=self.tts_dtype)
 
     def _record_paths(self, B: int, before: Dict[str, int]) -> None:
         """Kernel #1's launches by path since `before`, for batch B."""

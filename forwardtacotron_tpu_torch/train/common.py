@@ -68,13 +68,14 @@ OPTION_ON = {
 }
 
 
-def check_supported(train_cfg: Dict[str, Any], trainer: str) -> None:
-    """Refuse, by name, an option that the JAX `trainer` does not run, and
-    an unknown precision (`half_dtype`)."""
+def check_supported(train_cfg: Dict[str, Any], trainer: str,
+                    section: str = 'training') -> None:
+    """Refuse, by name (`section`.key), an option that the JAX `trainer`
+    does not run, and an unknown precision (`half_dtype`)."""
     for key, is_on in OPTION_ON.items():
         if key in train_cfg and key not in HONOURED[trainer] \
                 and is_on(train_cfg[key]):
-            raise ValueError(f'training.{key}={train_cfg[key]!r}: the JAX '
+            raise ValueError(f'{section}.{key}={train_cfg[key]!r}: the JAX '
                              f'{trainer} trainer has no such option')
     half_dtype(train_cfg)
 
@@ -430,7 +431,8 @@ def forward_loss(pred: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
                  pitch_target: torch.Tensor, energy_target: torch.Tensor,
                  train_cfg: Dict[str, Any]
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """ForwardTacotron loss (the reference's forward_trainer.py:86-96)."""
+    """ForwardTacotron / FastPitch loss (the reference's
+    forward_trainer.py:86-96): both mels, FastPitch's being one tensor."""
     m1 = masked_l1(pred['mel'], batch['mel'], batch['mel_len'])
     m2 = masked_l1(pred['mel_post'], batch['mel'], batch['mel_len'])
     dur_loss = masked_l1(pred['dur'], batch['dur'], batch['x_len'])
@@ -472,17 +474,22 @@ def forward_step_batch(batch: Dict[str, torch.Tensor],
                 pitch_target=batch['pitch'], energy_target=batch['energy'])
 
 
-def forward_micro_loss(model: torch.nn.Module, train_cfg: Dict[str, Any]
+def forward_micro_loss(model: torch.nn.Module, train_cfg: Dict[str, Any],
+                       generator: Optional[torch.Generator] = None
                        ) -> Callable:
     """The student step's `micro_loss(b) -> (loss, metrics, None)` for
     `accumulate`, `b` a (micro-)batch of `forward_step_batch`: the
     teacher-forced forward under `train_cfg`'s precision and remat, its
-    predictions in float32, the loss against the true targets."""
+    predictions in float32, the loss against the true targets. The model
+    is given `generator` for its dropout draws (FastPitch draws from it,
+    ForwardTacotron's `nn.Dropout` from the global RNG)."""
     half = half_dtype(train_cfg)
     remat = bool(train_cfg.get('remat', False))
+    gens = () if generator is None else (generator,)
 
     def micro_loss(b):
-        pred = full(forward_model(model, b, half=half, remat=remat))
+        pred = full(forward_model(model, b, *gens, half=half, remat=remat,
+                                  generators=gens))
         loss, metrics = forward_loss(pred, b, b['pitch_target'],
                                      b['energy_target'], train_cfg)
         return loss, metrics, None
@@ -494,14 +501,16 @@ def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                train_cfg: Dict[str, Any], ema: Optional[EMA] = None
                ) -> Dict[str, torch.Tensor]:
     """One optimization step in train mode (the JAX package's
-    `build_forward_train_step`): teacher-forced forward on the zoned-out
-    batch, loss against the true targets, backward, global-norm clip,
-    Adam, the EMA, with the options of `train_cfg` (precision, grad_accum,
-    remat). The clipped gradients stay in `.grad`. Returns the step's
-    metrics (device tensors, including the norm before clipping)."""
+    `build_forward_train_step`, ForwardTacotron or FastPitch):
+    teacher-forced forward on the zoned-out batch, loss against the true
+    targets, backward, global-norm clip, Adam, the EMA, with the options of
+    `train_cfg` (precision, grad_accum, remat). `generator` draws the
+    zoneout, then FastPitch's dropout. The clipped gradients stay in
+    `.grad`. Returns the step's metrics (device tensors, including the norm
+    before clipping)."""
     model.train()
     optimizer.zero_grad(set_to_none=True)
-    metrics, _ = accumulate(forward_micro_loss(model, train_cfg),
+    metrics, _ = accumulate(forward_micro_loss(model, train_cfg, generator),
                             forward_step_batch(batch, generator, train_cfg),
                             grad_accum(train_cfg), model)
     apply_update(model, optimizer, metrics, train_cfg.get('clip_grad_norm'),

@@ -1,7 +1,8 @@
-"""ForwardTacotron student trainer.
+"""Student trainer of ForwardTacotron and FastPitch.
 
 Mirrors the JAX package's `train/forward_trainer.py` (the reference's
-trainer/forward_trainer.py): progressive (lr, max_step, batch size)
+trainer/forward_trainer.py), for the model `config['tts_model']` names and
+with that model's `training` section: progressive (lr, max_step, batch size)
 schedule sessions, epoch-seeded bucket batches with mid-epoch resume, the
 masked-L1 losses, metrics read one step late, `evaluate()` in eval mode at
 the end of every epoch, `latest_model.pt` / `forward_step{k}k.pt`
@@ -9,12 +10,15 @@ checkpoints, and the `keep_top_k` (default 3) best by validation mel loss
 in `top_k_models/`, written off the step loop (`AsyncCheckpointWriter`).
 It runs every option of the JAX step (`train/common.py`): `precision`,
 `grad_accum`, `remat` and `ema_decay`, whose EMA weights `evaluate()`
-and the top-k score use and the checkpoints serve. Scalars go to stdout,
-and to an optional `writer` with an `add_scalar(tag, value, step)`
-method. Not ported yet: plots and audio (`plot_every` is ignored).
+and the top-k score use and the checkpoints serve. FastPitch draws its
+dropout from the step's generator. Scalars go to stdout, and to an
+optional `writer` with an `add_scalar(tag, value, step)` method;
+`FTT_PROFILE_DIR` traces a window of steps (`utils/profiling.py`). Not
+ported yet: plots and audio (`plot_every` is ignored).
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Any, Dict, Optional
 
@@ -29,6 +33,7 @@ from forwardtacotron_tpu_torch.utils.async_ckpt import AsyncCheckpointWriter
 from forwardtacotron_tpu_torch.utils.checkpoints import checkpoint_payload
 from forwardtacotron_tpu_torch.utils.files import parse_schedule
 from forwardtacotron_tpu_torch.utils.paths import Paths
+from forwardtacotron_tpu_torch.utils.profiling import StepTraceController
 
 BATCH_KEYS = ('x', 'x_len', 'mel', 'mel_len', 'dur', 'pitch', 'energy')
 
@@ -43,20 +48,21 @@ class ForwardTrainer:
 
     def __init__(self, paths: Paths, config: Dict[str, Any],
                  device='cuda', writer=None) -> None:
-        if config.get('tts_model', 'forward_tacotron') != 'forward_tacotron':
-            raise ValueError(f"tts_model {config['tts_model']!r} is not "
-                             'ported yet')
         self.paths = paths
         self.config = config
         self.device = resolve_device(device)
-        self.train_cfg = config['forward_tacotron']['training']
-        tc.check_supported(self.train_cfg, 'forward')
+        # the section of the model that config['tts_model'] names
+        model_type = config.get('tts_model', 'forward_tacotron')
+        self.train_cfg = config[model_type]['training']
+        tc.check_supported(self.train_cfg, 'forward', f'{model_type}.training')
         self.writer = writer
         self.preemption = tc.Preemption()
         self.top_k = tc.TopKTracker(
             paths.forward_top_k, k=int(self.train_cfg.get('keep_top_k', 3)),
             prefix='forward')
         self.ckpt = AsyncCheckpointWriter()
+        # FTT_PROFILE_DIR traces a window of steps
+        self.tracer = StepTraceController()
         # the EMA weights (`ema_decay` > 0); a resume sets them first
         self.ema: Optional[tc.EMA] = None
 
@@ -84,7 +90,7 @@ class ForwardTrainer:
             self.ema = tc.make_ema(model, self.train_cfg)
         schedule = parse_schedule(self.train_cfg['schedule'])
         session_start = 0
-        with self.preemption:
+        with self.preemption, contextlib.closing(self.tracer):
             for i, (lr, max_step, bs) in enumerate(schedule, 1):
                 prev_max, session_start = session_start, max_step
                 if self.preemption.requested:
@@ -162,14 +168,15 @@ class ForwardTrainer:
             start = offset0 if epoch == epoch0 else 0
             batches = Prefetcher(session.train_set.batches(epoch, start))
             for i, batch in enumerate(batches, start + 1):
-                # zoneout draws from (seed, step): a resumed run draws the
-                # same masks
+                # zoneout (and FastPitch's dropout) draws from (seed,
+                # step): a resumed run draws the same masks
                 gen = torch.Generator(device=self.device).manual_seed(
                     seed * 1_000_003 + step)
                 metrics = tc.train_step(model, optimizer,
                                         batch_to_device(batch, self.device),
                                         gen, self.train_cfg, self.ema)
                 step += 1
+                self.tracer.tick(step)
                 deferred.push(metrics, step, e, i, batch['mel'].shape[:2])
                 if step % self.train_cfg['checkpoint_every'] == 0:
                     self._save(model, optimizer,

@@ -33,6 +33,7 @@ cuDNN.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import time
 from typing import Any, Callable, Dict, Optional
@@ -56,6 +57,7 @@ from forwardtacotron_tpu_torch.utils.async_ckpt import AsyncCheckpointWriter
 from forwardtacotron_tpu_torch.utils.display import log_audio, simple_table
 from forwardtacotron_tpu_torch.utils.files import parse_schedule
 from forwardtacotron_tpu_torch.utils.paths import Paths
+from forwardtacotron_tpu_torch.utils.profiling import StepTraceController
 
 
 def make_gan_optimizer(model: torch.nn.Module, lr: float = 2e-4
@@ -155,6 +157,8 @@ class HiFiGANTrainer:
         self.train_cfg = config['hifigan']['training']
         tc.check_supported(self.train_cfg, 'gan')
         self.ckpt = AsyncCheckpointWriter()
+        # FTT_PROFILE_DIR traces a window of steps
+        self.tracer = StepTraceController()
         self.writer = writer
         self.preemption = tc.Preemption()
         self.top_k = tc.TopKTracker(
@@ -190,7 +194,7 @@ class HiFiGANTrainer:
         disc_opt = disc_opt or make_gan_optimizer(disc)
         schedule = parse_schedule(self.train_cfg['schedule'])
         session_start = 0
-        with self.preemption:
+        with self.preemption, contextlib.closing(self.tracer):
             for i, (lr, max_step, bs) in enumerate(schedule, 1):
                 prev_max, session_start = session_start, max_step
                 if self.preemption.requested:
@@ -261,6 +265,7 @@ class HiFiGANTrainer:
                     batch_to_device(batch, self.device),
                     self.dsp.wav_to_mel_batch, half)
                 step += 1
+                self.tracer.tick(step)
                 deferred.push(metrics, step, e, i)
                 if step % self.train_cfg['gen_samples_every'] == 0:
                     mel_loss = self.generate_samples(gen, session, step)

@@ -25,6 +25,7 @@ ported: plots and audio samples (`plot_every` is ignored).
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Any, Dict, Optional, Tuple
 
@@ -40,6 +41,7 @@ from forwardtacotron_tpu_torch.utils.async_ckpt import AsyncCheckpointWriter
 from forwardtacotron_tpu_torch.utils.checkpoints import checkpoint_payload
 from forwardtacotron_tpu_torch.utils.files import parse_schedule
 from forwardtacotron_tpu_torch.utils.paths import Paths
+from forwardtacotron_tpu_torch.utils.profiling import StepTraceController
 
 
 def taco_batch_to_device(batch: Dict[str, Any], device
@@ -126,6 +128,8 @@ class TacoTrainer:
             paths.taco_top_k, k=int(self.train_cfg.get('keep_top_k', 3)),
             prefix='taco')
         self.ckpt = AsyncCheckpointWriter()
+        # FTT_PROFILE_DIR traces a window of steps
+        self.tracer = StepTraceController()
 
     def _scalar(self, tag: str, value: float, step: int) -> None:
         if self.writer is not None:
@@ -148,7 +152,7 @@ class TacoTrainer:
             optimizer = tc.make_optimizer(model)
         schedule = parse_schedule(self.train_cfg['schedule'])
         session_start = 0
-        with self.preemption:
+        with self.preemption, contextlib.closing(self.tracer):
             for i, (r, lr, max_step, bs) in enumerate(schedule, 1):
                 prev_max, session_start = session_start, max_step
                 if self.preemption.requested:
@@ -222,6 +226,7 @@ class TacoTrainer:
                                                session.r, gen,
                                                self.train_cfg)
                 step += 1
+                self.tracer.tick(step)
                 deferred.push(metrics, att, tbatch['mel_len'], step, e, i)
                 if step % self.train_cfg['checkpoint_every'] == 0:
                     self._save(model, optimizer,

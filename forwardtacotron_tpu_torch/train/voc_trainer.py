@@ -23,6 +23,7 @@ or, failing that, to wav files under the log directory.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Any, Dict, Optional
 
@@ -41,6 +42,7 @@ from forwardtacotron_tpu_torch.utils.checkpoints import checkpoint_payload
 from forwardtacotron_tpu_torch.utils.display import log_audio, simple_table
 from forwardtacotron_tpu_torch.utils.files import parse_schedule
 from forwardtacotron_tpu_torch.utils.paths import Paths
+from forwardtacotron_tpu_torch.utils.profiling import StepTraceController
 
 
 def voc_loss(logits: torch.Tensor, y: torch.Tensor, mode: str
@@ -107,6 +109,8 @@ class VocTrainer:
             paths.voc_top_k, k=int(self.train_cfg.get('keep_top_k', 3)),
             prefix='wave')
         self.ckpt = AsyncCheckpointWriter()
+        # FTT_PROFILE_DIR traces a window of steps
+        self.tracer = StepTraceController()
 
     def _scalar(self, tag: str, value: float, step: int) -> None:
         if self.writer is not None:
@@ -129,7 +133,7 @@ class VocTrainer:
             optimizer = tc.make_optimizer(model)
         schedule = parse_schedule(self.train_cfg['schedule'])
         session_start = 0
-        with self.preemption:
+        with self.preemption, contextlib.closing(self.tracer):
             for i, (lr, max_step, bs) in enumerate(schedule, 1):
                 prev_max, session_start = session_start, max_step
                 if self.preemption.requested:
@@ -198,6 +202,7 @@ class VocTrainer:
                                          batch_to_device(batch, self.device),
                                          mode, clip, half, remat)
                 step += 1
+                self.tracer.tick(step)
                 deferred.push(metrics, step, e, i)
                 if step % self.train_cfg['gen_samples_every'] == 0:
                     mel_loss = self.generate_samples(model, session, step)

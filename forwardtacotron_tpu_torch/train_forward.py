@@ -1,4 +1,5 @@
-"""ForwardTacotron student training CLI.
+"""Student training CLI: ForwardTacotron or FastPitch, as the config's
+`tts_model` names.
 
     python -m forwardtacotron_tpu_torch.train_forward [--config FILE] \\
         [--device cuda]
@@ -36,16 +37,15 @@ import torch
 from forwardtacotron_tpu_torch import resolve_device
 from forwardtacotron_tpu_torch.config import default_config, read_config
 from forwardtacotron_tpu_torch.data.dataset import get_tts_datasets
-from forwardtacotron_tpu_torch.models.forward_tacotron import ForwardTacotron
 from forwardtacotron_tpu_torch.train import common as tc
 from forwardtacotron_tpu_torch.train.forward_trainer import (
     ForwardTrainer, batch_to_device)
-from forwardtacotron_tpu_torch.utils.checkpoints import (load_checkpoint,
+from forwardtacotron_tpu_torch.utils.checkpoints import (init_tts_model,
+                                                         load_checkpoint,
                                                          restore)
 from forwardtacotron_tpu_torch.utils.display import progbar, stream
 from forwardtacotron_tpu_torch.utils.paths import Paths
-from forwardtacotron_tpu_torch.weights import (forward_tacotron_state_dict,
-                                               load_fjax)
+from forwardtacotron_tpu_torch.weights import load_fjax, tts_state_dict
 
 SEED = 42      # the JAX trainer's fixed seed
 
@@ -75,8 +75,8 @@ def create_gta_features(model: torch.nn.Module, train_set, val_set,
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
-    parser = argparse.ArgumentParser(description='Train ForwardTacotron TTS '
-                                                 '(PyTorch)')
+    parser = argparse.ArgumentParser(description='Train ForwardTacotron or '
+                                                 'FastPitch TTS (PyTorch)')
     parser.add_argument('--force_gta', '-g', action='store_true',
                         help='write the GTA mels of a trained model to '
                              'data/gta')
@@ -97,10 +97,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     trainer = ForwardTrainer(paths, config, device)
 
     torch.manual_seed(SEED)
-    model = ForwardTacotron.from_config(config).to(device)
+    model = init_tts_model(config).to(device)
     print(f'Initialized tts model: {type(model).__name__}')
     optimizer = tc.make_optimizer(model)
-    trainer.ema = tc.make_ema(model, config['forward_tacotron']['training'])
+    trainer.ema = tc.make_ema(model, trainer.train_cfg)
     step = 0
     latest = paths.forward_checkpoints / 'latest_model.pt'
     latest_fjax = latest.with_suffix('.fjax')
@@ -109,15 +109,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                        trainer.ema)
         print(f'Restored model and optimizer with step {step}')
     elif latest_fjax.is_file():
-        model_cfg = config['forward_tacotron']['model']
         payload = load_fjax(latest_fjax, use_ema=False)
         step = payload['step']
-        model.load_state_dict(forward_tacotron_state_dict(
-            payload['model'], model_cfg, step))
+        model.load_state_dict(tts_state_dict(payload['model'], config, step))
         if trainer.ema is not None:
             ema = load_fjax(latest_fjax, use_ema=True)['model']
-            trainer.ema.load(forward_tacotron_state_dict(ema, model_cfg,
-                                                         step), model)
+            trainer.ema.load(tts_state_dict(ema, config, step), model)
         print(f'Seeded the weights from {latest_fjax} (step {step}); the '
               'optimizer state is not converted and starts fresh')
     if args.force_gta:

@@ -10,7 +10,8 @@ parameters with the live buffers, the weights meant to be served (what
 the JAX package's `export_forward_tacotron(..., use_ema=True)` writes),
 and 'raw_model' the raw training parameters, from which a run resumes.
 Loading uses torch's weights-only unpickler: tensors, numbers, strings
-and containers, no code.
+and containers, no code. `init_tts_model` builds the TTS model a config
+names.
 """
 from __future__ import annotations
 
@@ -18,6 +19,21 @@ from pathlib import Path
 from typing import Any, Dict, Optional, Union
 
 import torch
+
+from forwardtacotron_tpu_torch.models.fast_pitch import FastPitch
+from forwardtacotron_tpu_torch.models.forward_tacotron import ForwardTacotron
+
+
+def init_tts_model(config: Dict[str, Any]) -> torch.nn.Module:
+    """The TTS model that `config['tts_model']` names (the JAX package's
+    `utils/checkpoints.py:init_tts_model`), built from its config section
+    with the global RNG's draws."""
+    model_type = config.get('tts_model', 'forward_tacotron')
+    if model_type == 'forward_tacotron':
+        return ForwardTacotron.from_config(config)
+    if model_type == 'fast_pitch':
+        return FastPitch.from_config(config)
+    raise ValueError(f'Model type not supported: {model_type}')
 
 
 def save_payload(payload: Dict[str, Any], path: Union[str, Path]) -> None:

@@ -1,9 +1,10 @@
 """Weights from the JAX package's checkpoints.
 
 `load_fjax` reads a `.fjax` file (a pickle of numpy arrays plus the
-config). `forward_tacotron_state_dict` / `tacotron_state_dict` /
-`wavernn_state_dict` / `hifigan_state_dict` / `discriminator_state_dict`
-turn its flax variables into this package's `state_dict`, under the
+config). `forward_tacotron_state_dict` / `fast_pitch_state_dict` /
+`tacotron_state_dict` / `wavernn_state_dict` / `hifigan_state_dict` /
+`discriminator_state_dict` turn its flax variables into this package's
+`state_dict` (`tts_state_dict` picks the TTS model's), under the
 reference's torch key names (the official generator's for HiFi-GAN, the
 hub model's for MelGAN), so `load_state_dict(strict=True)` takes them as
 they are. Layout transforms: conv kernels (W, Cin, Cout) -> (Cout, Cin,
@@ -19,6 +20,8 @@ from typing import Any, Dict, Union
 
 import numpy as np
 import torch
+
+from forwardtacotron_tpu_torch.models.fast_pitch import positional_table
 
 
 def load_fjax(path: Union[str, Path], use_ema: bool = True
@@ -136,6 +139,76 @@ def forward_tacotron_state_dict(variables: Dict[str, Any],
               num_highways=model_cfg['postnet_num_highways'])
     _put_dense(out, 'post_proj', params['post_proj'])
     return out
+
+
+def _put_layer_norm(out: Dict, name: str, p: Dict) -> None:
+    out[f'{name}.weight'] = _t(p['scale'])
+    out[f'{name}.bias'] = _t(p['bias'])
+
+
+def _put_forward_transformer(out: Dict, name: str, p: Dict,
+                             n_layers: int) -> None:
+    d_model = int(np.asarray(
+        p['layer_0']['self_attn']['in_proj_weight']).shape[1])
+    out[f'{name}.pos_encoder.scale'] = _t(p['pos_scale'])
+    out[f'{name}.pos_encoder.pe'] = positional_table(d_model)
+    _put_layer_norm(out, f'{name}.norm', p['norm'])
+    for i in range(n_layers):
+        block, lp = f'{name}.layers.{i}', p[f'layer_{i}']
+        for key in ('in_proj_weight', 'in_proj_bias'):
+            out[f'{block}.self_attn.{key}'] = _t(lp['self_attn'][key])
+        _put_dense(out, f'{block}.self_attn.out_proj',
+                   lp['self_attn']['out_proj'])
+        _put_conv1d(out, f'{block}.conv1', lp['conv1'])
+        _put_conv1d(out, f'{block}.conv2', lp['conv2'])
+        _put_layer_norm(out, f'{block}.norm1', lp['norm1'])
+        _put_layer_norm(out, f'{block}.norm2', lp['norm2'])
+
+
+def fast_pitch_state_dict(variables: Dict[str, Any],
+                          model_cfg: Dict[str, Any], step: int = 0
+                          ) -> Dict[str, torch.Tensor]:
+    """Flax FastPitch variables ({'params'}, numpy) -> the port's
+    state_dict, key for key and value for value the JAX package's
+    `export_fast_pitch` (the positional tables recomputed). Multi-speaker
+    checkpoints are rejected."""
+    params = variables['params']
+    if int(model_cfg.get('n_speakers', 1)) > 1 or any(
+            k in params for k in ('speaker_embedding', 'speaker_proj')):
+        raise ValueError('multi-speaker FastPitch checkpoints '
+                         '(n_speakers > 1) are not ported yet')
+    out: Dict[str, torch.Tensor] = {
+        'step': torch.tensor([int(step)], dtype=torch.long),
+        'embedding.weight': _t(params['embedding']['embedding'])}
+    for pred, layers in (('dur_pred', 'durpred_layers'),
+                         ('pitch_pred', 'pitch_layers'),
+                         ('energy_pred', 'energy_layers')):
+        p = params[pred]
+        out[f'{pred}.embedding.weight'] = _t(p['embedding']['embedding'])
+        _put_forward_transformer(out, f'{pred}.transformer',
+                                 p['transformer'], model_cfg[layers])
+        _put_dense(out, f'{pred}.lin', p['lin'])
+    for net in ('prenet', 'postnet'):
+        _put_forward_transformer(out, net, params[net],
+                                 model_cfg[f'{net}_layers'])
+    _put_conv1d(out, 'pitch_proj', params['pitch_proj'])
+    _put_conv1d(out, 'energy_proj', params['energy_proj'])
+    _put_dense(out, 'lin', params['lin'])
+    return out
+
+
+def tts_state_dict(variables: Dict[str, Any], config: Dict[str, Any],
+                   step: int = 0) -> Dict[str, torch.Tensor]:
+    """The state_dict of the TTS model that `config['tts_model']` names
+    (ForwardTacotron or FastPitch) from its flax variables."""
+    model_type = config.get('tts_model', 'forward_tacotron')
+    if model_type == 'forward_tacotron':
+        return forward_tacotron_state_dict(
+            variables, config['forward_tacotron']['model'], step)
+    if model_type == 'fast_pitch':
+        return fast_pitch_state_dict(variables, config['fast_pitch']['model'],
+                                     step)
+    raise ValueError(f'Model type not supported: {model_type}')
 
 
 def _put_prenet(out: Dict, name: str, p: Dict) -> None:

@@ -608,3 +608,70 @@ def test_sampler_lanes_match_plain(cuda, lanes, mode):
         s2 = ws.sample(c, w, 5, nr_mix, False, dtype)
         assert torch.equal(s1, s2) and bool((s1.abs() <= 1).all())
         assert float(s1.std()) > 0
+
+
+@pytest.mark.parametrize('T', [1000, 40])
+def test_teacher_synthesis_birnn_matches_plain(cuda, T):
+    """Kernel #1 at the teacher's free-running shapes: the postnet CBHG
+    BiGRU over 1000 frames and the encoder's over a 40-token text, B=1,
+    H=128, float32, at atol 1e-4 on the path its plan names."""
+    from forwardtacotron_tpu_torch.kernels import birnn as kb
+    from forwardtacotron_tpu_torch.ops.rnn import birnn_recurrence
+    g = torch.Generator().manual_seed(T)
+    H = 128
+    gi = torch.randn((T, 1, 2, 3 * H), generator=g) * 0.5
+    w = (torch.rand((2, 3 * H, H), generator=g) * 2 - 1) / H ** 0.5
+    b = torch.rand((2, 3 * H), generator=g) * 0.1
+    lengths = torch.tensor([T], dtype=torch.int32)
+    args = [t.to(cuda).contiguous() for t in (gi, w, b, lengths)]
+    launches = kb.recurrence.launches
+    y = kb.recurrence('gru', *args, torch.float32)
+    assert kb.recurrence.launches == launches + 1
+    ref = birnn_recurrence('gru', *args, torch.float32)
+    assert float((y - ref).abs().max()) <= 1e-4
+
+
+def test_fast_pitch_card_matches_cpu(cuda):
+    """FastPitch at config.yaml's width, random seeded weights: the
+    padded-bucket float32 generate on the card against the CPU at atol
+    1e-4 (TF32 off), with equal mel lengths."""
+    from forwardtacotron_tpu_torch.config import default_config
+    from forwardtacotron_tpu_torch.models.fast_pitch import FastPitch
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = default_config()
+    cfg['tts_model'] = 'fast_pitch'
+    torch.manual_seed(0)
+    model = FastPitch.from_config(cfg)
+    model.dur_pred.lin.bias.data.fill_(4.0)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randint(1, 60, (2, 48), generator=g)
+    xl = torch.tensor([48, 31])
+    ref = model.generate(x, 512, x_len=xl)
+    got = model.to(cuda).generate(x.to(cuda), 512, x_len=xl.to(cuda))
+    assert torch.equal(got['mel_len'].cpu(), ref['mel_len'])
+    for i, n in enumerate(ref['mel_len'].tolist()):
+        err = (got['mel'][i, :n].cpu() - ref['mel'][i, :n]).abs().max()
+        assert float(err) <= 1e-4
+
+
+def test_tacotron_generate_card_matches_cpu(cuda):
+    """The teacher's free-running synthesis at config.yaml's width with
+    random seeded weights and a threshold that stops the run: mel, linear
+    and attention of the first 16 steps at atol 1e-4 on the card (kernel
+    #1 in both CBHGs) against the CPU, and an equal n_valid."""
+    from forwardtacotron_tpu_torch.config import default_config
+    from forwardtacotron_tpu_torch.kernels import birnn as kb
+    from forwardtacotron_tpu_torch.models.tacotron import Tacotron
+    torch.backends.cudnn.allow_tf32 = False
+    torch.manual_seed(0)
+    model = Tacotron.from_config(default_config()).eval()
+    model.stop_threshold.fill_(1e9)          # stops once 10 frames are out
+    x = torch.randint(1, 60, (1, 30),
+                      generator=torch.Generator().manual_seed(2))
+    ref = model.generate(x, 64, 1)
+    launches = kb.recurrence.launches
+    got = model.to(cuda).generate(x.to(cuda), 64, 1)
+    assert kb.recurrence.launches == launches + 2
+    assert got[3] == ref[3] == 11
+    for a, b in zip(got[:3], ref[:3]):
+        assert float((a[:, :16].cpu() - b[:, :16]).abs().max()) <= 1e-4

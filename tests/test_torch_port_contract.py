@@ -98,9 +98,10 @@ def test_builtin_config_equals_config_yaml():
         assert cfg[key] == ref[key], key
     for section in ('dsp', 'preprocessing'):
         assert cfg[section] == ref[section], section
-    for section in ('forward_tacotron', 'vocoder', 'tacotron'):
+    for section in ('forward_tacotron', 'vocoder', 'tacotron', 'fast_pitch'):
         assert cfg[section]['model'] == ref[section]['model'], section
-    for section in ('forward_tacotron', 'tacotron', 'vocoder', 'hifigan'):
+    for section in ('forward_tacotron', 'tacotron', 'vocoder', 'hifigan',
+                    'fast_pitch'):
         assert cfg[section]['training'] == ref[section]['training'], section
     assert cfg['hifigan']['model'] == ref['hifigan']['model']
 
@@ -139,7 +140,8 @@ def test_port_imports_no_jax():
     files.append(ROOT / 'chip_smoke.py')
     assert len(files) > 10
     # the serving, data, vocoder-training and trainer-option paths'
-    # modules are scanned
+    # modules are scanned, and FastPitch's, the teacher's synthesis,
+    # evaluation and tracing
     names = {p.relative_to(ROOT).as_posix() for p in files}
     for module in ('dsp/stft', 'dsp/griffinlim', 'dsp/audio',
                    'text/segmenter', 'models/hifigan', 'models/melgan',
@@ -152,7 +154,9 @@ def test_port_imports_no_jax():
                    'train/gan_losses', 'train/voc_trainer',
                    'train/hifigan_trainer', 'train_wavernn',
                    'train_hifigan', 'utils/async_ckpt', 'train/common',
-                   'utils/checkpoints'):
+                   'utils/checkpoints', 'models/fast_pitch', 'gen_tacotron',
+                   'evaluation', 'eval_tts', 'utils/profiling', 'weights',
+                   'gen_forward', 'train_forward', 'train/forward_trainer'):
         assert f'forwardtacotron_tpu_torch/{module}.py' in names, module
     for path in files:
         for name in _imports(path):
