@@ -157,11 +157,33 @@ printed only when every phase passed):
    a copy 100 cents higher (F0 RMSE near 100 cents), both against the
    CPU's numbers; kernel #1 at the teacher's free-running shapes (B=1,
    H=128, float32: `TEACHER_GEN_BIRNN_CASES`) runs in phase 3;
-13. a {"kernels": [...]} JSON line (launches of the main paths, of the
+13. multi-speaker training and synthesis, the teacher-free aligner and
+   the DeepMind WaveRNN at the full width of config.yaml, random weights
+   (`speakers_and_aligner_path` lists its cuts): a seeded corpus of 8
+   speakers in `id|speaker|text` layout through `preprocess.main(...,
+   '--metadata_format', 'multispeaker')` (speaker_dict.pkl checked);
+   `TacoTrainer.train` with 8 speakers at r=5 batch 32 (#2/#3 on their
+   planned paths), its step by `step_timing`, `train_tacotron
+   --force_align` (#1 two a batch; utterances a second); `train_aligner`
+   at batch 32 and `--force_align` (no kernel launched, counted from 0;
+   every parameter moved, durations summing to mel_len, utterances a
+   second), its step with the dynamic program's share, on one batch card
+   against CPU (Viterbi durations equal, loss and gradients within 1e-4);
+   `ForwardTrainer.train` with 8 speakers for 3 steps on the aligner's
+   durations (#2/#3 planned), its step, eval outputs card vs CPU;
+   `gen_forward wavernn --speaker 0 / 5` (#1 and #4; the voices differ),
+   `gen_tacotron --speaker 3`; `TTSServer` answering 8 concurrent
+   requests of the 8 voices (wall time, audio seconds a second) and, in
+   float32, each voice's mel in the batch equal to its solo run at
+   1e-4; FastPitch with 8 speakers, generate card vs CPU; the DeepMind
+   WaveRNN's step card vs CPU at 1e-5 and 1000 generate steps timed;
+14. a {"kernels": [...]} JSON line (launches of the main paths, of the
    teacher phase in `launches_teacher`, of the vocoder phase in
    `launches_vocoder`, of the options phase in `launches_options`, of
    phase 12's FastPitch paths in `launches_fast_pitch` and of its
-   gen_tacotron runs in `launches_gen_tacotron`,
+   gen_tacotron runs in `launches_gen_tacotron`, of phase 13's
+   multi-speaker paths in `launches_multispeaker` and of its aligner runs
+   in `launches_aligner`,
    each kernel's time at the vocoder path's shape in `vocoder_*` and #2/#3
    in bf16 in `bf16_*`; #2's cluster path with the cooperative path's
    times on the same inputs in `*cooperative_ms`), the nvidia-smi line,
@@ -3788,6 +3810,608 @@ def fast_pitch_and_teacher_path():
     return out['launches']
 
 
+# ------------------------------------ speakers and the teacher-free aligner
+
+MS_DIR = Path('smoke_speakers')      # corpus, data, checkpoints and outputs
+MS_SPEAKERS = 8
+MS_UTTERANCES = 5 * MS_SPEAKERS      # five utterances of 2-8 s a speaker
+MS_TEACHER_SCHEDULE = ['5, 1e-3, 2, 32']    # config.yaml's first session
+MS_ALIGNER_SCHEDULE = ['1e-3, 3, 32']       # config.yaml's first session
+MS_STUDENT_STEPS = 3
+DM_STEPS = 1000                      # DeepMind WaveRNN generate steps
+
+
+@contextlib.contextmanager
+def _speaker_env(base):
+    """`_teacher_env(base)` with the built-in config's teacher, student and
+    FastPitch at MS_SPEAKERS speakers and the teacher's and the aligner's
+    schedules cut to MS_TEACHER_SCHEDULE and MS_ALIGNER_SCHEDULE, in
+    memory (the CLIs read the built-in config)."""
+    from forwardtacotron_tpu_torch import config
+    with _teacher_env(base), \
+            _patched(config.TACOTRON_MODEL, n_speakers=MS_SPEAKERS), \
+            _patched(config.FORWARD_TACOTRON_MODEL, n_speakers=MS_SPEAKERS), \
+            _patched(config.FAST_PITCH_MODEL, n_speakers=MS_SPEAKERS), \
+            _patched(config.TACOTRON_TRAINING, schedule=MS_TEACHER_SCHEDULE), \
+            _patched(config.ALIGNER_TRAINING, schedule=MS_ALIGNER_SCHEDULE,
+                     checkpoint_every=1000):
+        yield
+
+
+def _ms_corpus(cfg, smi):
+    """`_write_corpus`'s wavs with `id|speaker_<k>|text` metadata, k the
+    line's index mod MS_SPEAKERS, through `preprocess.main(...,
+    '--metadata_format', 'multispeaker')` on the card; speaker_dict.pkl
+    checked item by item."""
+    from forwardtacotron_tpu_torch import preprocess
+    from forwardtacotron_tpu_torch.utils.files import unpickle_binary
+    sr = cfg['dsp']['sample_rate']
+    items = _write_corpus(Path('corpus'), sr, n_items=MS_UTTERANCES, seed=3)
+    meta = Path('corpus') / 'metadata.csv'
+    want = {}
+    lines = []
+    for k, line in enumerate(meta.read_text().splitlines()):
+        item, text, _ = line.split('|')
+        want[item] = k % MS_SPEAKERS
+        lines.append(f'{item}|speaker_{k % MS_SPEAKERS}|{text}')
+    meta.write_text('\n'.join(lines) + '\n')
+    audio_s = sum(n for n, _ in items.values()) / sr
+    t0 = time.perf_counter()
+    train, val = preprocess.main(['--path', 'corpus', '--num_workers', '4',
+                                  '--device', DEVICE, '--metadata_format',
+                                  'multispeaker'])
+    wall = time.perf_counter() - t0
+    got = unpickle_binary(Path(cfg['data_path']) / 'speaker_dict.pkl')
+    check(got == want and len(train) + len(val) == MS_UTTERANCES,
+          f'multispeaker preprocess: {len(train)} train / {len(val)} val, '
+          f'speaker_dict.pkl of {len(got)} items and '
+          f'{len(set(got.values()))} speakers, each its line\'s')
+    log(f'  preprocess: {len(items)} files, {audio_s:.1f} s of audio in '
+        f'{wall:.2f} s | {smi}')
+    return {'files': len(items), 'audio_s': audio_s, 'wall_s': wall,
+            'speakers': len(set(got.values()))}
+
+
+def _ms_teacher(cfg, paths, smi):
+    """The teacher at MS_SPEAKERS speakers: `TacoTrainer.train` on
+    MS_TEACHER_SCHEDULE (#2/#3 two a step on their planned paths), the step
+    at r=5 B=32 on the longest bucket (`step_timing`), then `train_tacotron
+    --force_align` (#1 two a batch, every duration sum its mel_len;
+    utterances a second). Returns (out, launches)."""
+    from forwardtacotron_tpu_torch import train_tacotron
+    from forwardtacotron_tpu_torch.data.dataset import get_tts_datasets
+    from forwardtacotron_tpu_torch.models.tacotron import Tacotron
+    from forwardtacotron_tpu_torch.train import common as tc
+    from forwardtacotron_tpu_torch.train.taco_trainer import (
+        TacoTrainer, taco_batch_to_device, taco_micro_loss)
+    from forwardtacotron_tpu_torch.utils.files import unpickle_binary
+    writer = _Scalars()
+    torch.manual_seed(0)
+    model = Tacotron.from_config(cfg).to(DEVICE)
+    optimizer = tc.make_optimizer(model)
+    before = copy.deepcopy(model.state_dict())
+    _all_counts(reset=True)
+    step = TacoTrainer(paths, cfg, DEVICE, writer=writer).train(model,
+                                                                optimizer)
+    train = _all_counts()
+    want = _planned_launches(_teacher_shapes(cfg), 32, torch.float32, step,
+                             step)
+    losses = [v for tag, v, _ in writer.values if tag == 'Loss/train']
+    moved = sum(not torch.equal(p.detach(), before[k])
+                for k, p in model.named_parameters())
+    check(step == 2 and all(train[k] == n for k, n in want.items())
+          and len(losses) == step
+          and all(map(math.isfinite, losses))
+          and moved == len(list(model.parameters())),
+          f'{MS_SPEAKERS}-speaker teacher: {step} steps, #2/#3 by path '
+          f'{train} == planned {want}, losses {losses}, {moved} parameters '
+          f'moved (speaker_embedding and speaker_proj among them)')
+    train_set, _ = get_tts_datasets(paths.data, 32, 5, None,
+                                    filter_attention=False,
+                                    model_type='tacotron')
+    batch = taco_batch_to_device(max(train_set.batches(0),
+                                     key=lambda b: b['mel'].shape[1]), DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    train_cfg = cfg['tacotron']['training']
+    timing = step_timing(
+        train_parts(model, optimizer,
+                    taco_micro_loss(model, 5, gen, train_cfg), batch,
+                    train_cfg),
+        f'{MS_SPEAKERS}-speaker teacher step r=5 B=32 '
+        f'{list(batch["mel"].shape)}', smi)
+    timing['batch'] = list(batch['mel'].shape)
+    timing['single_speaker'] = _single_speaker_timing(
+        Tacotron, cfg, 'tacotron', batch,
+        lambda m, o, b: train_parts(m, o, taco_micro_loss(m, 5, gen,
+                                                          train_cfg),
+                                    b, train_cfg), 'teacher', smi)
+
+    items = dict(unpickle_binary(paths.data / 'train_dataset.pkl')
+                 + unpickle_binary(paths.data / 'val_dataset.pkl'))
+    sets = get_tts_datasets(paths.data, 8, 1, None, filter_attention=False,
+                            model_type='tacotron')
+    n_batches = sum(len(s) for s in sets)
+    _all_counts(reset=True)
+    t0 = time.perf_counter()
+    train_tacotron.main(['--force_align', '--device', DEVICE])
+    wall = time.perf_counter() - t0
+    align = _all_counts()
+    bad = [i for i, n in items.items()
+           if int(np.load(paths.alg / f'{i}.npy').sum()) != n]
+    check(align['birnn'] == 2 * n_batches and align['birnn_train_fwd'] == 0
+          and not bad,
+          f'{MS_SPEAKERS}-speaker teacher --force_align: #1 launched '
+          f'{align["birnn"]} times for {n_batches} batches; durations of '
+          f'{len(items)} utterances sum to their mel_len (off: {bad})')
+    log(f'  teacher alignment: {len(items)} utterances in {wall:.2f} s '
+        f'({len(items) / wall:.2f} a second, host clock) | {smi}')
+    out = {'steps': step, 'losses': losses, 'launches': train,
+           'step_ms': timing,
+           'align': {'launches': align, 'wall_s': wall,
+                     'utterances_per_s': len(items) / wall}}
+    return out, {k: train[k] + align[k] for k in train}
+
+
+def _single_speaker_timing(build, cfg, section, batch, parts, what, smi):
+    """`step_timing` of `parts(model, optimizer, batch)` for a
+    single-speaker model of `cfg[section]` (seeded 0) on the same batch
+    without its `speaker`: the multi-speaker step's yardstick in the same
+    call."""
+    from forwardtacotron_tpu_torch.train import common as tc
+    one = copy.deepcopy(cfg)
+    one[section]['model']['n_speakers'] = 1
+    torch.manual_seed(0)
+    model = build.from_config(one).to(DEVICE)
+    plain = {k: v for k, v in batch.items() if k != 'speaker'}
+    return step_timing(parts(model, tc.make_optimizer(model), plain),
+                       f'single-speaker {what} step on the same batch', smi)
+
+
+def _aligner_parts(model, optimizer, batch, clip, gen):
+    """The aligner's step as `aligner_train_step` runs it, for
+    `step_timing`: the encoders and the distances, the forward-sum dynamic
+    program, the backward (both), the clip and Adam."""
+    from forwardtacotron_tpu_torch.align.aligner import forward_sum_loss
+    from forwardtacotron_tpu_torch.train import common as tc
+    held = {}
+
+    def encoders():
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        held['la'] = model(batch['x'], batch['mel'], batch['x_len'], gen)
+
+    def dp():
+        held['loss'] = forward_sum_loss(held.pop('la'), batch['x_len'],
+                                        batch['mel_len'])
+    return [('encoders_ms', encoders), ('dp_ms', dp),
+            ('backward_ms', lambda: held.pop('loss').backward()),
+            ('optimizer_ms', lambda: tc.apply_update(model, optimizer, {},
+                                                     clip))]
+
+
+def _ms_aligner(cfg, paths, smi):
+    """`train_aligner.main` on MS_ALIGNER_SCHEDULE (batch 32), then
+    `--force_align`: no kernel launched, counted from 0; the checkpoint at
+    its step with every parameter moved from the seeded start and a finite
+    validation loss; durations summing to mel_len; the step at batch 32 on
+    the longest bucket (`step_timing`, the dynamic program's share of it
+    with its backward); on one batch, the card against the CPU with the
+    same weights: Viterbi durations equal as integers, the forward-sum
+    loss and every parameter's gradient within 1e-4. Returns (out,
+    launches)."""
+    from forwardtacotron_tpu_torch import train_aligner
+    from forwardtacotron_tpu_torch.align.aligner import (
+        aligner_from_config, forward_sum_loss, viterbi_durations)
+    from forwardtacotron_tpu_torch.data.dataset import get_tts_datasets
+    from forwardtacotron_tpu_torch.train import common as tc
+    from forwardtacotron_tpu_torch.train.aligner_trainer import (
+        aligner_batch_to_device, aligner_eval_loss)
+    from forwardtacotron_tpu_torch.utils.checkpoints import (load_checkpoint,
+                                                             restore)
+    from forwardtacotron_tpu_torch.utils.files import unpickle_binary
+    items = dict(unpickle_binary(paths.data / 'train_dataset.pkl')
+                 + unpickle_binary(paths.data / 'val_dataset.pkl'))
+    _all_counts(reset=True)
+    t0 = time.perf_counter()
+    step = train_aligner.main(['--device', DEVICE])
+    train_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train_aligner.main(['--force_align', '--device', DEVICE])
+    wall = time.perf_counter() - t0
+    launches = _all_counts()
+    check(step == 3 and sum(launches.values()) == 0,
+          f'train_aligner to step {step} == 3 and --force_align launched no '
+          f'kernel #1-#4 (no recurrence): {launches}')
+    torch.manual_seed(train_aligner.SEED)
+    start = aligner_from_config(cfg)
+    model = aligner_from_config(cfg)
+    payload = load_checkpoint(paths.aligner_checkpoints / 'latest_model.pt')
+    restore(model, None, payload)
+    moved = sum(not torch.equal(p, q) for p, q in
+                zip(model.parameters(), start.parameters()))
+    model.to(DEVICE)
+    sets = get_tts_datasets(paths.data, 8, 1, None, filter_attention=False,
+                            model_type='tacotron')
+    val = aligner_eval_loss(model, sets[1], DEVICE)
+    bad = [i for i, n in items.items()
+           if int(np.load(paths.alg / f'{i}.npy').sum()) != n]
+    check(payload['step'] == 3 and moved == len(list(model.parameters()))
+          and math.isfinite(val) and not bad,
+          f'aligner checkpoint at step {payload["step"]}: {moved} parameters '
+          f'moved, validation loss {val:.4f}, durations of {len(items)} '
+          f'utterances sum to their mel_len (off: {bad})')
+    log(f'  aligner: trained and aligned in {train_wall:.2f} s; '
+        f'--force_align {len(items)} utterances in {wall:.2f} s '
+        f'({len(items) / wall:.2f} a second, host clock) | {smi}')
+
+    train_set, _ = get_tts_datasets(paths.data, 32, 1, 1250,
+                                    filter_attention=False,
+                                    model_type='tacotron')
+    batch = aligner_batch_to_device(max(train_set.batches(0),
+                                        key=lambda b: b['mel'].shape[1]),
+                                    DEVICE)
+    optimizer = tc.make_optimizer(model)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    timing = step_timing(_aligner_parts(model, optimizer, batch, 1.0, gen),
+                         f'aligner step B=32 {list(batch["mel"].shape)}',
+                         smi)
+    model.eval()
+    with torch.no_grad():
+        la = model(batch['x'], batch['mel'], batch['x_len'])
+    la.requires_grad_()
+    dp_ms = cuda_ms(lambda: forward_sum_loss(la, batch['x_len'],
+                                             batch['mel_len']).backward(),
+                    reps=3)
+    timing.update(batch=list(batch['mel'].shape), dp_fwd_bwd_ms=dp_ms,
+                  dp_share=dp_ms / timing['step_ms'])
+    log(f'  aligner DP forward + backward {dp_ms:.2f} ms of a '
+        f'{timing["step_ms"]:.2f} ms step ({dp_ms / timing["step_ms"]:.3f})')
+
+    # one batch, card against CPU, the same weights, eval mode
+    b = next(iter(sets[1]))
+    cpu = copy.deepcopy(model).cpu().eval()
+    errs, durs = {}, []
+    grads = []
+    for m, dev in ((model, DEVICE), (cpu, 'cpu')):
+        t = aligner_batch_to_device(b, dev)
+        m.zero_grad(set_to_none=True)
+        la = m(t['x'], t['mel'], t['x_len'])
+        loss = forward_sum_loss(la, t['x_len'], t['mel_len'])
+        loss.backward()
+        durs.append(viterbi_durations(la.detach(), t['x_len'],
+                                      t['mel_len']).cpu())
+        grads.append((float(loss.detach()),
+                      {k: p.grad.cpu() for k, p in m.named_parameters()}))
+    errs['loss'] = abs(grads[0][0] - grads[1][0])
+    errs['grad'] = max(float((grads[0][1][k] - grads[1][1][k]).abs().max())
+                       for k in grads[1][1])
+    same = bool(torch.equal(durs[0], durs[1]))
+    check(same and errs['loss'] <= 1e-4 and errs['grad'] <= 1e-4,
+          f'aligner on a batch of {tuple(b["mel"].shape)}, card vs CPU: '
+          f'Viterbi durations equal {same}, forward-sum loss error '
+          f'{errs["loss"]:.2e}, largest gradient error {errs["grad"]:.2e} '
+          f'(both <= 1e-4)')
+    out = {'steps': step, 'train_and_align_wall_s': train_wall,
+           'val_loss': val, 'launches': launches, 'step_ms': timing,
+           'align': {'wall_s': wall, 'utterances_per_s': len(items) / wall},
+           'card_vs_cpu': dict(errs, durations_equal=same)}
+    return out, launches
+
+
+def _ms_student(cfg, paths, smi):
+    """`ForwardTrainer.train` at MS_SPEAKERS speakers for MS_STUDENT_STEPS
+    steps at batch 32 on the aligner's durations (#2/#3 on their planned
+    paths), its step at batch 32 on the longest bucket (`step_timing`), the
+    float32 teacher-forced eval outputs of two items card vs CPU. Returns
+    (out, launches, checkpoint)."""
+    from forwardtacotron_tpu_torch.data.dataset import get_tts_datasets
+    from forwardtacotron_tpu_torch.models.forward_tacotron import (
+        ForwardTacotron)
+    from forwardtacotron_tpu_torch.train import common as tc
+    from forwardtacotron_tpu_torch.train.forward_trainer import (
+        ForwardTrainer, batch_to_device)
+    cfg['forward_tacotron']['training']['filter_attention'] = False
+    writer = _Scalars()
+    trainer = ForwardTrainer(paths, cfg, DEVICE, writer=writer)
+    torch.manual_seed(0)
+    model = ForwardTacotron.from_config(cfg).to(DEVICE)
+    optimizer = tc.make_optimizer(model)
+    _all_counts(reset=True)
+    step = trainer.train(model, optimizer,
+                         max_steps_override=MS_STUDENT_STEPS)
+    launches = _all_counts()
+    want = _planned_launches(_student_shapes(cfg), 32, torch.float32, step,
+                             step)
+    losses = [v for tag, v, _ in writer.values if tag == 'Mel_Loss/train']
+    check(step == MS_STUDENT_STEPS
+          and all(launches[k] == n for k, n in want.items())
+          and len(losses) == step and all(map(math.isfinite, losses)),
+          f'{MS_SPEAKERS}-speaker student on the aligner\'s durations: '
+          f'{step} steps, #2/#3 by path {launches} == planned {want}, mel '
+          f'losses {losses}')
+    train_set, val_set = get_tts_datasets(
+        paths.data, 32, 1, None, filter_attention=False)
+    batch = batch_to_device(max(train_set.batches(0),
+                                key=lambda b: b['mel'].shape[1]), DEVICE)
+    timing = step_timing(_student_parts(model, optimizer, batch,
+                                        trainer.train_cfg),
+                         f'{MS_SPEAKERS}-speaker student step B=32 '
+                         f'{list(batch["mel"].shape)}', smi)
+    timing['batch'] = list(batch['mel'].shape)
+    timing['single_speaker'] = _single_speaker_timing(
+        ForwardTacotron, cfg, 'forward_tacotron', batch,
+        lambda m, o, b: _student_parts(m, o, b, trainer.train_cfg),
+        'student', smi)
+
+    b = next(iter(val_set))
+    two = {k: torch.from_numpy(np.asarray(b[k])[:2])
+           for k in ('x', 'x_len', 'mel', 'mel_len', 'dur', 'pitch',
+                     'energy', 'speaker')}
+    cpu = copy.deepcopy(model).cpu().eval()
+    model.eval()
+    with torch.no_grad():
+        got = model({k: v.to(DEVICE) for k, v in two.items()})
+        ref = cpu(two)
+    errs = {k: float((got[k].cpu() - ref[k]).abs().max()
+                     / max(1.0, float(ref[k].abs().max())))
+            for k in ('mel', 'mel_post', 'dur', 'pitch', 'energy')}
+    check(max(errs.values()) <= 1e-4,
+          f'{MS_SPEAKERS}-speaker student eval forward of speakers '
+          f'{two["speaker"].tolist()}, card vs CPU: max abs errors over '
+          f'max(1, |ref|) {errs} <= 1e-4')
+    out = {'steps': step, 'mel_losses': losses, 'launches': launches,
+           'step_ms': timing, 'card_vs_cpu': errs}
+    return out, launches, paths.forward_checkpoints / 'latest_model.pt'
+
+
+def _serve_speakers(srv, lines, speakers):
+    """len(speakers) concurrent requests from threads, request i in the
+    voice speakers[i]: (results, wall seconds)."""
+    import threading
+    results = [None] * len(speakers)
+
+    def client(i):
+        results[i] = srv.synthesize(lines[i % len(lines)],
+                                    speaker=speakers[i], timeout=300)
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(speakers))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    return results, time.perf_counter() - t0
+
+
+def _ms_serving(student_ckpt, teacher_ckpt, lines, smi):
+    """`gen_forward.main` wavernn with --speaker 0 and 5 (#1 and #4 > 0,
+    the two voices' mels differ), `gen_tacotron.main` griffinlim with
+    --speaker 3 (#1 two), and `TTSServer`: 8 concurrent requests of the 8
+    voices with WaveRNN (wall time, audio seconds a second, #1 and #4),
+    and in float32 with the vocoder stage handing the mels through, each
+    request's mel against its solo run's at atol 1e-4. Returns (out,
+    launches)."""
+    from scipy.io import wavfile
+    from forwardtacotron_tpu_torch import gen_forward, gen_tacotron
+    from forwardtacotron_tpu_torch.serving import TTSServer
+    out, launches = {}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    for spk in ('0', '5'):
+        _all_counts(reset=True)
+        t0 = time.perf_counter()
+        (path,) = gen_forward.main(['--checkpoint', str(student_ckpt),
+                                    '--device', DEVICE, '--speaker', spk,
+                                    '-i', lines[0], 'wavernn'])
+        wall = time.perf_counter() - t0
+        counts = _all_counts()
+        wav = wavfile.read(path)[1]
+        check(wav.dtype == np.int16 and len(wav) > 0 and counts['birnn'] > 0
+              and counts['wavernn_sample'] > 0,
+              f'gen_forward --speaker {spk} wavernn: {len(wav)} samples in '
+              f'{wall:.2f} s, launches {counts}')
+        out[f'gen_forward speaker {spk}'] = {'wall_s': wall,
+                                             'launches': counts}
+        add(counts)
+    model, cfg, _ = gen_forward.load_tts(str(student_ckpt), None, DEVICE)
+    ids = gen_forward.text_to_ids(lines[0], cfg)
+    mels = [gen_forward.synthesize(model, ids, speaker=s) for s in (0, 5)]
+    differ = mels[0].shape != mels[1].shape or float(
+        np.abs(mels[0] - mels[1]).max()) > 1e-3
+    check(differ, f'speakers 0 and 5 give different mels '
+                  f'{mels[0].shape} / {mels[1].shape}')
+
+    _all_counts(reset=True)
+    (path,) = gen_tacotron.main(['--checkpoint', str(teacher_ckpt),
+                                 '--device', DEVICE, '--speaker', '3', '-i',
+                                 lines[0], 'griffinlim'])
+    counts = _all_counts()
+    wav = wavfile.read(path)[1]
+    check(wav.dtype == np.int16 and len(wav) > 0 and counts['birnn'] == 2,
+          f'gen_tacotron --speaker 3 griffinlim: {len(wav)} samples, '
+          f'launches {counts}')
+    out['gen_tacotron speaker 3'] = {'launches': counts}
+    add(counts)
+
+    speakers = list(range(MS_SPEAKERS))
+    with TTSServer(str(student_ckpt), vocoder='wavernn', max_batch=8,
+                   max_wait_ms=20.0, device=DEVICE) as srv:
+        warm = srv.warmup(batch_sizes=[8])
+        _serve_speakers(srv, lines, speakers)      # the vocoder's shapes
+        _all_counts(reset=True)
+        srv.batch_sizes.clear()
+        results, wall = _serve_speakers(srv, lines, speakers)
+        counts = _all_counts()
+        sizes = list(srv.batch_sizes)
+    audio_s = sum(len(r) for r in results if r is not None) / srv.sample_rate
+    check(all(r is not None and r.dtype == np.int16 and len(r) > 0
+              for r in results) and counts['birnn'] > 0
+          and counts['wavernn_sample'] > 0,
+          f'TTSServer wavernn, 8 concurrent requests of speakers {speakers}: '
+          f'{wall:.3f} s, {audio_s:.2f} s of audio, batches {sizes}, '
+          f'launches {counts} | {smi}')
+    out['server'] = {'warmup_s': warm['seconds'], 'wall_s': wall,
+                     'audio_s': audio_s, 'audio_s_per_s': audio_s / wall,
+                     'batch_sizes': sizes, 'launches': counts}
+    add(counts)
+
+    with TTSServer(str(student_ckpt), vocoder='griffinlim', max_batch=8,
+                   max_wait_ms=200.0, device=DEVICE,
+                   compute_dtype=torch.float32) as srv:
+        srv._vocode = lambda ms: [m.copy() for m in ms]
+        srv.warmup(batch_sizes=[1, 8], vocoder=False)
+        srv.batch_sizes.clear()
+        futs = [srv.submit(lines[i % len(lines)], speaker=s)
+                for i, s in enumerate(speakers)]
+        batched = [f.result(timeout=300) for f in futs]
+        sizes = list(srv.batch_sizes)
+        errs = []
+        for i, s in enumerate(speakers):
+            solo = srv.synthesize(lines[i % len(lines)], speaker=s,
+                                  timeout=300)
+            errs.append(float(np.abs(batched[i] - solo).max())
+                        if batched[i].shape == solo.shape else math.inf)
+    check(sizes[0] == 8 and max(errs) <= 1e-4,
+          f'TTSServer float32, 8 voices in batches {sizes}: each mel vs its '
+          f'solo run max abs error {max(errs):.2e} <= 1e-4')
+    out['server_vs_solo'] = {'batch_sizes': sizes, 'max_abs_err': errs}
+    return out, launches
+
+
+def _ms_fast_pitch(lines, smi):
+    """FastPitch at MS_SPEAKERS speakers, random seeded weights: `generate`
+    of 8 lines in the 8 voices on the card against the CPU (equal
+    mel_len, mel within 1e-4 of max(1, |ref|))."""
+    from forwardtacotron_tpu_torch import gen_forward
+    from forwardtacotron_tpu_torch.config import default_config
+    from forwardtacotron_tpu_torch.models.fast_pitch import FastPitch
+    cfg = default_config()
+    torch.manual_seed(0)
+    model = FastPitch.from_config(cfg).eval()
+    ids = [gen_forward.text_to_ids(lines[i % len(lines)], cfg)
+           for i in range(MS_SPEAKERS)]
+    x = torch.zeros((MS_SPEAKERS, max(map(len, ids))), dtype=torch.long)
+    for i, seq in enumerate(ids):
+        x[i, :len(seq)] = torch.tensor(seq)
+    x_len = torch.tensor([len(s) for s in ids])
+    spk = torch.arange(MS_SPEAKERS)
+    ref = model.generate(x, 1024, x_len=x_len, speaker=spk)
+    card = copy.deepcopy(model).to(DEVICE)
+    got = card.generate(x.to(DEVICE), 1024, x_len=x_len.to(DEVICE),
+                        speaker=spk.to(DEVICE))
+    same = torch.equal(got['mel_len'].cpu(), ref['mel_len'])
+    err = max(float((got['mel_post'][i, :n].cpu() - ref['mel_post'][i, :n])
+                    .abs().max()) for i, n in enumerate(ref['mel_len']))
+    scale = max(1.0, float(ref['mel_post'].abs().max()))
+    check(same and err <= 1e-4 * scale,
+          f'{MS_SPEAKERS}-speaker FastPitch generate of speakers 0-7, card vs '
+          f'CPU: mel_len {ref["mel_len"].tolist()} equal {same}, mel max '
+          f'abs error {err:.2e} <= {1e-4 * scale:.2e} | {smi}')
+    return {'mel_len': ref['mel_len'].tolist(), 'max_abs_err': err}
+
+
+def _deepmind(smi):
+    """The DeepMind WaveRNN at hidden 896 and 256 classes, random seeded
+    weights: the step on the card against the CPU at atol 1e-5; DM_STEPS
+    generate steps timed by CUDA events (one seed twice: the same
+    samples)."""
+    from forwardtacotron_tpu_torch.models.deepmind_wavernn import (
+        DeepMindWaveRNN)
+    torch.manual_seed(0)
+    model = DeepMindWaveRNN()
+    with torch.no_grad():
+        for b in (model.bias_u, model.bias_r, model.bias_e):
+            b.normal_(0, 0.3)
+    g = torch.Generator().manual_seed(1)
+    prev_y = torch.rand(4, 2, generator=g) * 2 - 1
+    hidden = torch.randn(4, model.hidden_size, generator=g)
+    cur = torch.rand(4, 1, generator=g) * 2 - 1
+    with torch.no_grad():
+        ref = model(prev_y, hidden, cur)
+        card = copy.deepcopy(model).to(DEVICE)
+        got = card(prev_y.to(DEVICE), hidden.to(DEVICE), cur.to(DEVICE))
+    errs = [float((a.cpu() - b).abs().max()) for a, b in zip(got, ref)]
+    check(max(errs) <= 1e-5, f'DeepMind WaveRNN step card vs CPU: coarse, '
+                             f'fine, hidden max abs error {errs} <= 1e-5')
+
+    def run(seed):
+        return card.generate(DM_STEPS,
+                             torch.Generator(device=DEVICE).manual_seed(seed))
+    run(0)                                     # warm
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    c, f = run(7)
+    ev[1].record()
+    ev[1].synchronize()
+    ms = ev[0].elapsed_time(ev[1])
+    c2, f2 = run(7)
+    same = bool(torch.equal(c, c2) and torch.equal(f, f2))
+    check(same and c.shape == (1, DM_STEPS) and int(c.max()) < 256
+          and int(f.max()) < 256,
+          f'DeepMind WaveRNN generate {DM_STEPS} steps in {ms:.1f} ms '
+          f'({ms / DM_STEPS:.3f} ms a step), same seed same samples {same} '
+          f'| {smi}')
+    return {'step_max_abs_err': errs, 'generate_ms': ms,
+            'ms_per_step': ms / DM_STEPS, 'steps': DM_STEPS}
+
+
+@phase('speakers and the teacher-free aligner (full width)')
+def speakers_and_aligner_path():
+    """Multi-speaker training and synthesis, the teacher-free aligner and
+    the DeepMind WaveRNN at config.yaml's widths, random weights from
+    seeds, in MS_DIR. Cuts: MS_SPEAKERS speakers of MS_UTTERANCES // 8
+    utterances of 2-8 s each (VCTK: 109 speakers, ~400 each), n_val
+    TEACHER_N_VAL, the teacher on MS_TEACHER_SCHEDULE (2 steps at r=5
+    batch 32 against config.yaml's 40k), the aligner on
+    MS_ALIGNER_SCHEDULE (3 steps at batch 32 against 15k), the student
+    MS_STUDENT_STEPS steps (300k) without the attention filter.
+
+    1. `_ms_corpus`: `id|speaker|text` metadata through `preprocess`;
+    2. `_ms_teacher`: TacoTrainer (#2/#3 planned), its step, --force_align
+       (#1);
+    3. `_ms_aligner`: train_aligner and --force_align (no kernel), its
+       step and the DP's share, card against CPU;
+    4. `_ms_student`: ForwardTrainer on the aligner's durations (#2/#3
+       planned), its step, card against CPU;
+    5. `_ms_serving`: gen_forward --speaker, gen_tacotron --speaker,
+       TTSServer with mixed voices;
+    6. `_ms_fast_pitch`: FastPitch generate card against CPU;
+    7. `_deepmind`: the DeepMind WaveRNN."""
+    from forwardtacotron_tpu_torch.config import default_config
+    from forwardtacotron_tpu_torch.utils.paths import Paths
+    smi = nvidia_smi_line()
+    lines = [s for s in Path('sentences.txt').read_text().splitlines()
+             if s.strip()]
+    shutil.rmtree(MS_DIR, ignore_errors=True)
+    MS_DIR.mkdir(parents=True)
+    base = MS_DIR.resolve()
+    (base / 'sentences.txt').write_text(Path('sentences.txt').read_text())
+    out = {}
+    try:
+        with _speaker_env(base):
+            cfg = default_config()
+            paths = Paths(cfg['data_path'], cfg['tts_model_id'])
+            out['preprocess'] = _ms_corpus(cfg, smi)
+            out['teacher'], teacher = _ms_teacher(cfg, paths, smi)
+            out['aligner'], aligner = _ms_aligner(cfg, paths, smi)
+            out['student'], student, ckpt = _ms_student(cfg, paths, smi)
+            out['serving'], serving = _ms_serving(
+                ckpt.resolve(), paths.taco_checkpoints / 'latest_model.pt',
+                lines, smi)
+            out['fast_pitch'] = _ms_fast_pitch(lines, smi)
+        out['deepmind'] = _deepmind(smi)
+    finally:
+        shutil.rmtree(MS_DIR, ignore_errors=True)
+    out['launches'] = {
+        'multispeaker': {k: teacher[k] + student[k] + serving.get(k, 0)
+                         for k in teacher},
+        'aligner': aligner}
+    DETAILS['speakers_and_aligner_path'] = out
+    return out['launches']
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser()
@@ -3824,6 +4448,7 @@ def main(argv=None) -> int:
     voc = vocoder_path() or {}
     opts = options_path() or {}
     fp = fast_pitch_and_teacher_path() or {}
+    ms = speakers_and_aligner_path() or {}
 
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / 'chip_smoke.json').write_text(json.dumps(
@@ -3854,6 +4479,9 @@ def main(argv=None) -> int:
     # the FastPitch paths (phase 12: training, gen_forward, TTSServer) and
     # the teacher's free-running synthesis (gen_tacotron)
     fpl, gtl = fp['fast_pitch'], fp['gen_tacotron']
+    # phase 13: the multi-speaker teacher, student, CLIs and server, and
+    # the teacher-free aligner (which launches none)
+    msl, all_ = ms['multispeaker'], ms['aligner']
     kernels = [
         {'name': 'birnn (stream-local path)', 'route': 'cuda',
          'source': 'forwardtacotron_tpu_torch/csrc/birnn.cu',
@@ -3870,6 +4498,8 @@ def main(argv=None) -> int:
          'launches_options': opt_launches['birnn_stream_local'],
          'launches_fast_pitch': fpl['birnn_stream_local'],
          'launches_gen_tacotron': gtl['birnn_stream_local'],
+         'launches_multispeaker': msl['birnn_stream_local'],
+         'launches_aligner': all_['birnn_stream_local'],
          'vocoder_case': voc_birnn['case'],
          'vocoder_ms': voc_birnn['ms_stream_local'],
          'vocoder_plain_ms': voc_birnn['plain_ms'],
@@ -3884,6 +4514,8 @@ def main(argv=None) -> int:
          'launches_options': opt_launches['wavernn_sample'],
          'launches_fast_pitch': fpl['wavernn_sample'],
          'launches_gen_tacotron': gtl['wavernn_sample'],
+         'launches_multispeaker': msl['wavernn_sample'],
+         'launches_aligner': all_['wavernn_sample'],
          'max_abs_err': wr['max_abs_err'], 'agreement': wr['agreement'],
          'ms': wr['ms'], 'plain_ms': wr['plain_ms'],
          'bound_ms': wr['bound_ms'], 'bound_by': wr['bound_by'],
@@ -3923,6 +4555,8 @@ def main(argv=None) -> int:
             'launches_options_bfloat16': opt_launches[f'{count}_bfloat16'],
             'launches_fast_pitch': fpl[count],
             'launches_gen_tacotron': gtl[count],
+            'launches_multispeaker': msl[count],
+            'launches_aligner': all_[count],
             'case': row['case'],
             'max_abs_err': row[f'max_abs_err_{sfx}'],
             'ms': row[f'ms_{sfx}'], 'plain_ms': row[f'plain_ms_{sfx}'],

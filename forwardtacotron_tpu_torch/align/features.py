@@ -104,15 +104,19 @@ def extract_pitch_energy(paths: Paths, save_path_pitch: Path,
 
 def _teacher_batches(model: torch.nn.Module, train_set, val_set, r: int):
     """(batch, (mel_out, linear, attention)) of the teacher-forced eval
-    forward at reduction r over every batch, on the model's device."""
+    forward at reduction r over every batch, on the model's device, each
+    conditioned on its batch's `speaker` where the corpus has them."""
     device = next(model.parameters()).device
     model.eval()
     for batcher in (train_set, val_set):
         for batch in batcher:
             x = torch.from_numpy(batch['x']).to(device)
             mel = torch.from_numpy(batch['mel']).to(device)
+            spk = batch.get('speaker')
+            if spk is not None:
+                spk = torch.from_numpy(spk).to(device)
             with torch.no_grad():
-                out = model(x, mel, r)
+                out = model(x, mel, r, speaker=spk)
             yield batch, out
 
 

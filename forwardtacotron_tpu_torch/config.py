@@ -2,11 +2,10 @@
 
 The machine that runs the port has no `pyyaml`, so the `data_path`,
 model ids, `tts_model`, `dsp`, `preprocessing`, and the model and
-training sections of `tacotron`, `forward_tacotron`, `fast_pitch`,
-`vocoder` and `hifigan` of the repository's `config.yaml` live here as
-plain dicts. A
-YAML file is read only by `read_config`, and only where `yaml` can be
-imported.
+training sections of `tacotron`, `aligner`, `forward_tacotron`,
+`fast_pitch`, `vocoder` and `hifigan` of the repository's `config.yaml`
+live here as plain dicts. A YAML file is read only by `read_config`, and
+only where `yaml` can be imported.
 """
 from __future__ import annotations
 
@@ -204,6 +203,23 @@ VOCODER_TRAINING = {
     'overlap': 550,
 }
 
+ALIGNER_MODEL = {
+    'embed_dims': 128,
+    'conv_dims': 128,
+    'key_dims': 64,
+    'n_text_convs': 3,
+    'n_mel_convs': 2,
+    'dropout': 0.1,
+    'prior_width': 10.0,
+}
+
+ALIGNER_TRAINING = {
+    'schedule': ['1e-3,  5_000,  32', '3e-4,  10_000,  32'],
+    'max_mel_len': 1250,
+    'clip_grad_norm': 1.0,
+    'checkpoint_every': 2000,
+}
+
 HIFIGAN_TRAINING = {
     'schedule': ['2e-4,  400_000,  16', '1e-4,  800_000,  16'],
     'checkpoint_every': 25_000,
@@ -226,6 +242,7 @@ def default_config() -> Dict[str, Any]:
         'dsp': DSP,
         'preprocessing': PREPROCESSING,
         'tacotron': {'model': TACOTRON_MODEL, 'training': TACOTRON_TRAINING},
+        'aligner': {'model': ALIGNER_MODEL, 'training': ALIGNER_TRAINING},
         'forward_tacotron': {'model': FORWARD_TACOTRON_MODEL,
                              'training': FORWARD_TACOTRON_TRAINING},
         'fast_pitch': {'model': FAST_PITCH_MODEL,

@@ -3,7 +3,9 @@
 A copy of the TTS parts of the JAX package's `data/dataset.py` (the
 reference's utils/dataset.py field contracts and collate_tts padding):
 `TacoDataset` (the Tacotron teacher's items: text and mel),
-`ForwardDataset` (the student's: also durations, pitch and energy), the
+`ForwardDataset` (the student's: also durations, pitch and energy; both
+add an int `speaker` to each item when given a multi-speaker corpus's
+`speaker_dict`), the
 max-length and attention filters, `collate_tts` (mels padded to a
 multiple of r), `BucketBatcher` on its numpy path, `get_tts_datasets`
 and `Prefetcher`; and the vocoders' parts, `VocoderDataset`, the
@@ -54,32 +56,34 @@ def filter_bad_attentions(dataset: List[tuple],
 class TacoDataset:
 
     def __init__(self, path: Path, dataset_ids: Sequence[str],
-                 text_dict: Dict[str, str], tokenizer: Tokenizer) -> None:
+                 text_dict: Dict[str, str], tokenizer: Tokenizer,
+                 speaker_dict: Optional[Dict[str, int]] = None) -> None:
         self.path = Path(path)
         self.metadata = list(dataset_ids)
         self.text_dict = text_dict
         self.tokenizer = tokenizer
+        self.speaker_dict = speaker_dict
+
+    def _with_speaker(self, item: Dict) -> Dict:
+        """`item` with its int `speaker` (0 for an id the dict lacks) when
+        the corpus has a speaker_dict; unchanged otherwise."""
+        if self.speaker_dict is not None:
+            item['speaker'] = int(self.speaker_dict.get(item['item_id'], 0))
+        return item
 
     def __getitem__(self, index: int) -> Dict:
         item_id = self.metadata[index]
         x = self.tokenizer(self.text_dict[item_id])
         mel = np.load(str(self.path / 'mel' / f'{item_id}.npy'))
-        return {'x': np.asarray(x, dtype=np.int64), 'mel': mel,
-                'item_id': item_id, 'mel_len': mel.shape[-1],
-                'x_len': len(x)}
+        return self._with_speaker({
+            'x': np.asarray(x, dtype=np.int64), 'mel': mel,
+            'item_id': item_id, 'mel_len': mel.shape[-1], 'x_len': len(x)})
 
     def __len__(self) -> int:
         return len(self.metadata)
 
 
-class ForwardDataset:
-
-    def __init__(self, path: Path, dataset_ids: Sequence[str],
-                 text_dict: Dict[str, str], tokenizer: Tokenizer) -> None:
-        self.path = Path(path)
-        self.metadata = list(dataset_ids)
-        self.text_dict = text_dict
-        self.tokenizer = tokenizer
+class ForwardDataset(TacoDataset):
 
     def __getitem__(self, index: int) -> Dict:
         item_id = self.metadata[index]
@@ -88,13 +92,10 @@ class ForwardDataset:
         dur = np.load(str(self.path / 'alg' / f'{item_id}.npy'))
         pitch = np.load(str(self.path / 'phon_pitch' / f'{item_id}.npy'))
         energy = np.load(str(self.path / 'phon_energy' / f'{item_id}.npy'))
-        return {'x': np.asarray(x, dtype=np.int64), 'mel': mel,
-                'item_id': item_id, 'x_len': len(x),
-                'mel_len': mel.shape[-1], 'dur': dur, 'pitch': pitch,
-                'energy': energy}
-
-    def __len__(self) -> int:
-        return len(self.metadata)
+        return self._with_speaker({
+            'x': np.asarray(x, dtype=np.int64), 'mel': mel,
+            'item_id': item_id, 'x_len': len(x), 'mel_len': mel.shape[-1],
+            'dur': dur, 'pitch': pitch, 'energy': energy})
 
 
 def pad1d(x, max_len: int) -> np.ndarray:
@@ -111,7 +112,8 @@ def collate_tts(batch: List[Dict], r: int,
     """Pad and stack a list of items: text zero-padded, mel padded with
     -11.5129 to max_len+1 rounded up to a multiple of r (the reference's
     collate_tts). `pad_to` forces static (T_text, T_mel) bucket shapes
-    (both still r-rounded). Mel is returned time-major (B, T, n_mels)."""
+    (both still r-rounded). Mel is returned time-major (B, T, n_mels);
+    items with a `speaker` give a (B,) int32 `speaker`."""
     x_len = np.asarray([b['x_len'] for b in batch], dtype=np.int64)
     mel_lens = np.asarray([b['mel_len'] for b in batch], dtype=np.int64)
 
@@ -133,6 +135,9 @@ def collate_tts(batch: List[Dict], r: int,
             out[key] = np.stack(
                 [pad1d(b[key][:max_x_len], max_x_len) for b in batch]
             ).astype(np.float32)
+    if 'speaker' in batch[0]:
+        out['speaker'] = np.asarray([b['speaker'] for b in batch],
+                                    dtype=np.int32)
     return out
 
 
@@ -231,14 +236,14 @@ def get_tts_datasets(path: Path, batch_size: int, r: int,
     """(train, val) BucketBatchers of the Tacotron teacher
     (`model_type='tacotron'`) or the forward model (the reference's
     get_tts_datasets); the attention filter applies to the forward model
-    only. Multi-speaker datasets are not ported yet."""
+    only. A `speaker_dict.pkl` beside the indexes (a multi-speaker corpus)
+    gives every batch a (B,) int32 `speaker`."""
     if model_type not in ('tacotron', 'forward'):
         raise ValueError(f'Unknown model: {model_type}, must be either '
                          '[tacotron, forward]!')
     path = Path(path)
-    if (path / 'speaker_dict.pkl').exists():
-        raise ValueError('multi-speaker datasets (speaker_dict.pkl) are not '
-                         'ported yet')
+    spk_path = path / 'speaker_dict.pkl'
+    speaker_dict = unpickle_binary(spk_path) if spk_path.exists() else None
     tokenizer = Tokenizer()
     train_data = unpickle_binary(path / 'train_dataset.pkl')
     val_data = unpickle_binary(path / 'val_dataset.pkl')
@@ -262,7 +267,8 @@ def get_tts_datasets(path: Path, batch_size: int, r: int,
     ds_cls = TacoDataset if model_type == 'tacotron' else ForwardDataset
 
     def batcher(data, shuffle):
-        ds = ds_cls(path, [i for i, _ in data], text_dict, tokenizer)
+        ds = ds_cls(path, [i for i, _ in data], text_dict, tokenizer,
+                    speaker_dict)
         return BucketBatcher(ds, batch_size, r=r, mel_multiple=mel_multiple,
                              shuffle=shuffle)
     return batcher(train_data, True), batcher(val_data, False)

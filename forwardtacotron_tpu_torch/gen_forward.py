@@ -8,14 +8,14 @@ waveform.
          [--voc_config config.json] | melgan [--voc_checkpoint g.pt]}
 
 The contract follows the JAX package's `gen_forward.py`: `-i`,
-`--checkpoint`, `--config`, `--alpha`, `--amp`, `--speaker` (0 only:
-multi-speaker models are not ported), `--split_sentences` and the four
-vocoder subcommands. The TTS model is the one the checkpoint's config
-(or `--config`) names in `tts_model`: `forward_tacotron` or
-`fast_pitch`. `hifigan` and `melgan` without `--voc_checkpoint`
-export the mels (`.npy`, `.mel`) as the reference does. Without
-checkpoints the TTS model and WaveRNN are built from the built-in config
-with random weights from `--seed`. Everything runs on `--device`
+`--checkpoint`, `--config`, `--alpha`, `--amp`, `--speaker` (the voice of
+a multi-speaker model, range-checked against its `n_speakers`),
+`--split_sentences` and the four vocoder subcommands. The TTS model is the
+one the checkpoint's config (or `--config`) names in `tts_model`:
+`forward_tacotron` or `fast_pitch`. `hifigan` and `melgan` without
+`--voc_checkpoint` export the mels (`.npy`, `.mel`) as the reference does.
+Without checkpoints the TTS model and WaveRNN are built from the built-in
+config with random weights from `--seed`. Everything runs on `--device`
 (default `cuda`); `--device cpu` runs the plain PyTorch versions of the
 kernels. Outputs are written to `model_outputs/`.
 """
@@ -177,14 +177,27 @@ def text_to_ids(text: str, config: Dict[str, Any]) -> List[int]:
     return Tokenizer()(Cleaner.from_config(config)(text))
 
 
+def check_speaker(model: torch.nn.Module, speaker: int,
+                  what: str = 'model') -> Optional[str]:
+    """The error of a speaker id outside [0, n_speakers) of `model` (a
+    single-speaker model has speaker 0 only), else None; `what` names the
+    model in the message ('checkpoint' in the CLIs, as JAX's)."""
+    n_spk = getattr(model, 'n_speakers', 1)
+    if not 0 <= int(speaker) < n_spk:
+        return f'speaker {speaker} out of range for a {n_spk}-speaker {what}'
+    return None
+
+
 def synthesize(model: torch.nn.Module, text_ids: Sequence[int],
                alpha: float = 1.0, amp: float = 1.0,
                mel_multiple: int = 256, energy_scale: float = 1.0,
-               compute_dtype: torch.dtype = torch.bfloat16) -> np.ndarray:
-    """Phoneme ids -> mel_post (n_mels, T) of either TTS model: predict
-    the series on a 16-token bucket, scale the pitch by `amp` and the
-    energy by `energy_scale`, then expand and decode on a `mel_multiple`
-    frame bucket (`tts_dtype` of `compute_dtype`)."""
+               compute_dtype: torch.dtype = torch.bfloat16,
+               speaker: int = 0) -> np.ndarray:
+    """Phoneme ids -> mel_post (n_mels, T) of either TTS model in the
+    voice `speaker`: predict the series on a 16-token bucket, scale the
+    pitch by `amp` and the energy by `energy_scale`, then expand and
+    decode on a `mel_multiple` frame bucket (`tts_dtype` of
+    `compute_dtype`)."""
     device = next(model.parameters()).device
     compute_dtype = tts_dtype(model, compute_dtype)
     x_len = len(text_ids)
@@ -192,22 +205,26 @@ def synthesize(model: torch.nn.Module, text_ids: Sequence[int],
                     device=device)
     x[0, :x_len] = torch.as_tensor(list(text_ids), device=device)
     xl = torch.tensor([x_len], device=device)
+    spk = torch.tensor([int(speaker)], device=device)
     series = model.predict_series(x, alpha=alpha, x_len=xl,
-                                  compute_dtype=compute_dtype)
+                                  compute_dtype=compute_dtype, speaker=spk)
     dur = series['dur'][0, :x_len].float().cpu().numpy()
     total = int(np.sum(np.floor(np.maximum(dur, 0) + 0.5)))
     max_t = _bucket(total + 1, mel_multiple, mel_multiple)
     gen = model.generate_from_series(x, series['dur'], series['pitch'] * amp,
                                      series['energy'] * energy_scale, max_t,
-                                     x_len=xl, compute_dtype=compute_dtype)
+                                     x_len=xl, compute_dtype=compute_dtype,
+                                     speaker=spk)
     mel_len = int(gen['mel_len'][0])
     return gen['mel_post'][0, :mel_len].T.float().cpu().numpy()
 
 
 def synthesize_text(model: torch.nn.Module, text: str,
                     config: Dict[str, Any], alpha: float = 1.0,
-                    amp: float = 1.0, split: bool = False) -> np.ndarray:
-    """Text -> mel (n_mels, T). With `split`, each sentence is synthesized
+                    amp: float = 1.0, split: bool = False,
+                    speaker: int = 0) -> np.ndarray:
+    """Text -> mel (n_mels, T) in the voice `speaker`. With `split`, each
+    sentence is synthesized
     alone and the mels are joined with SENTENCE_GAP_FRAMES of MEL_PAD (a
     silence for every vocoder)."""
     pieces = (split_sentences(text) or [text]) if split else [text]
@@ -218,7 +235,7 @@ def synthesize_text(model: torch.nn.Module, text: str,
         if mels:
             mels.append(gap)
         mels.append(synthesize(model, text_to_ids(sentence, config), alpha,
-                               amp))
+                               amp, speaker=speaker))
     return np.concatenate(mels, axis=1)
 
 
@@ -274,8 +291,8 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument('--amp', type=float, default=1.0,
                         help='pitch amplification')
     parser.add_argument('--speaker', type=int, default=0,
-                        help='speaker id (0; multi-speaker models are not '
-                             'ported)')
+                        help='speaker id of a multi-speaker model, in '
+                             '[0, n_speakers)')
     parser.add_argument('--split_sentences', action='store_true',
                         help='synthesize each sentence alone and join the '
                              'mels with short silences')
@@ -299,13 +316,13 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Path]:
         parser.error(f'please choose a vocoder: {", ".join(VOCODERS)}')
     if args.alpha <= 0:
         parser.error('--alpha must be > 0')
-    if args.speaker != 0:
-        parser.error('--speaker: multi-speaker models are not ported yet; '
-                     'only speaker 0')
 
     config = read_config(args.config) if args.config else default_config()
     model, config, step = load_tts(args.checkpoint, config, args.device,
                                    args.seed)
+    error = check_speaker(model, args.speaker, 'checkpoint')
+    if error:
+        parser.error(f'--{error}')
     dsp = DSP.from_config(config, args.device)
     voc_model, mu_law = load_vocoder(args, config)
     texts = read_texts(args)
@@ -319,7 +336,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Path]:
         name = (f'{i}_forward_{tts_k}k_alpha{args.alpha}_amp{args.amp}_'
                 f'{args.vocoder}')
         mel = synthesize_text(model, text, config, args.alpha, args.amp,
-                              args.split_sentences)
+                              args.split_sentences, args.speaker)
         if wavernn and args.stream:
             path = out_dir / f'{name}.wav'
             n = write_wav_streaming(stream_wav(

@@ -8,8 +8,9 @@ waveform.
          [--voc_config config.json] | melgan [--voc_checkpoint g.pt]}
 
 The contract follows the JAX package's `gen_tacotron.py`: `-i`,
-`--checkpoint`, `--config`, `--speaker` (0 only: multi-speaker teachers
-are not ported), `--steps` (at most that many frames, r = 1) and the four
+`--checkpoint`, `--config`, `--speaker` (the voice of a multi-speaker
+teacher, range-checked as `gen_forward`'s), `--steps` (at most that many
+frames, r = 1) and the four
 vocoder subcommands, built and written as `gen_forward`'s (its `hifigan
 --voc_config` too); `hifigan` and `melgan` without `--voc_checkpoint`
 export the mels (`.npy`, `.mel`). The teacher is a `.pt` of this
@@ -35,6 +36,7 @@ from forwardtacotron_tpu_torch.config import default_config, read_config
 from forwardtacotron_tpu_torch.dsp.audio import DSP
 from forwardtacotron_tpu_torch.gen_forward import (VOCODERS,
                                                    add_vocoder_subcommands,
+                                                   check_speaker,
                                                    load_vocoder, load_weights,
                                                    read_texts, text_to_ids,
                                                    write_output)
@@ -48,12 +50,13 @@ def _tacotron_state_dict(variables, config, step):
 
 
 def synthesize(model: Tacotron, text_ids: Sequence[int],
-               steps: int = 1000) -> np.ndarray:
+               steps: int = 1000, speaker: int = 0) -> np.ndarray:
     """Phoneme ids -> the teacher's linear (postnet) mel (n_mels, T) of
-    its valid frames, at r = 1."""
+    its valid frames, at r = 1, in the voice `speaker`."""
     device = next(model.parameters()).device
     x = torch.as_tensor([list(text_ids)], dtype=torch.long, device=device)
-    _, linear, _, n_valid = model.generate(x, steps, 1)
+    spk = torch.tensor([int(speaker)], device=device)
+    _, linear, _, n_valid = model.generate(x, steps, 1, speaker=spk)
     return linear[0, :max(n_valid, 1)].T.float().cpu().numpy()
 
 
@@ -71,8 +74,8 @@ def _parser() -> argparse.ArgumentParser:
                         help='YAML config (needs pyyaml; default: built-in '
                              'config)')
     parser.add_argument('--speaker', type=int, default=0,
-                        help='speaker id (0; multi-speaker teachers are '
-                             'not ported)')
+                        help='speaker id of a multi-speaker teacher, in '
+                             '[0, n_speakers)')
     parser.add_argument('--steps', type=int, default=1000,
                         help='most decoder steps (frames) per utterance')
     parser.add_argument('--device', default='cuda')
@@ -87,9 +90,6 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Path]:
     args = parser.parse_args(argv)
     if args.vocoder not in VOCODERS:
         parser.error(f'please choose a vocoder: {", ".join(VOCODERS)}')
-    if args.speaker != 0:
-        parser.error('--speaker: multi-speaker teachers are not ported yet; '
-                     'only speaker 0')
     if args.steps < 1:
         parser.error('--steps must be >= 1')
 
@@ -109,6 +109,9 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Path]:
                                        Tacotron.from_config,
                                        _tacotron_state_dict, args.device,
                                        args.seed)
+    error = check_speaker(model, args.speaker, 'checkpoint')
+    if error:
+        parser.error(f'--{error}')
     dsp = DSP.from_config(config, args.device)
     voc_model, mu_law = load_vocoder(args, config)
     texts = read_texts(args)
@@ -119,7 +122,8 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Path]:
     written = []
     for i, text in enumerate(texts, 1):
         t0 = time.perf_counter()
-        mel = synthesize(model, text_to_ids(text, config), args.steps)
+        mel = synthesize(model, text_to_ids(text, config), args.steps,
+                         args.speaker)
         path = write_output(args, mel, out_dir,
                             f'{i}_tacotron_{tts_k}k_{args.vocoder}', dsp,
                             voc_model, mu_law)

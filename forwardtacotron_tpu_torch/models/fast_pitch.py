@@ -32,6 +32,10 @@ Conventions kept from the JAX model:
   bf16 cast the float32 positional table makes the transformers compute
   in float32 with bf16-rounded weights, as the JAX model does. Inference
   is float32; there is no recurrence and no kernel behind the model.
+- With `n_speakers` > 1 a speaker embedding, through a bias-free
+  projection, is added to the token embeddings of the encoder
+  (`speaker_proj`, d_model wide) and of each predictor (`spk_proj`);
+  `n_speakers: 1` adds no parameter.
 """
 from __future__ import annotations
 
@@ -42,7 +46,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from forwardtacotron_tpu_torch.models.layers import dropout
+from forwardtacotron_tpu_torch.models.layers import dropout, speaker_emb
 from forwardtacotron_tpu_torch.ops.length_regulator import length_regulate
 from forwardtacotron_tpu_torch.text.symbols import phonemes
 
@@ -194,13 +198,18 @@ class ForwardTransformer(nn.Module):
 
 
 class SeriesPredictor(nn.Module):
-    """embedding -> ForwardTransformer -> Linear(1)."""
+    """embedding -> ForwardTransformer -> Linear(1). With `speaker_dims`,
+    a (B, E) speaker embedding projected by `spk_proj` (no bias) is added
+    to the token embeddings."""
 
     def __init__(self, num_chars: int, d_model: int, n_heads: int,
                  d_fft: int, layers: int, conv1_kernel: int,
-                 conv2_kernel: int, p: float = 0.1) -> None:
+                 conv2_kernel: int, p: float = 0.1,
+                 speaker_dims: Optional[int] = None) -> None:
         super().__init__()
         self.embedding = nn.Embedding(num_chars, d_model)
+        if speaker_dims is not None:
+            self.spk_proj = nn.Linear(speaker_dims, d_model, bias=False)
         self.transformer = ForwardTransformer(d_model, d_fft, layers,
                                               n_heads, conv1_kernel,
                                               conv2_kernel, p)
@@ -210,8 +219,11 @@ class SeriesPredictor(nn.Module):
                 key_padding_mask: Optional[torch.Tensor] = None,
                 alpha: float = 1.0,
                 generator: Optional[torch.Generator] = None,
-                masked: bool = False) -> torch.Tensor:
+                masked: bool = False,
+                spk: Optional[torch.Tensor] = None) -> torch.Tensor:
         h = self.embedding(x)
+        if spk is not None:
+            h = h + _linear(spk, self.spk_proj.weight, None)[:, None, :]
         if masked:
             h = _zero_padded(h, key_padding_mask)
         h = self.transformer(h, key_padding_mask, generator, masked)
@@ -260,10 +272,8 @@ class FastPitch(nn.Module):
                  n_mels: int = 80, n_speakers: int = 1,
                  speaker_embed_dims: int = 64) -> None:
         super().__init__()
-        if n_speakers > 1:
-            raise ValueError('multi-speaker FastPitch (n_speakers > 1) is '
-                             'not ported yet')
-        del speaker_embed_dims
+        self.n_speakers = n_speakers
+        spk_dims = speaker_embed_dims if n_speakers > 1 else None
         self.pitch_strength = pitch_strength
         self.energy_strength = energy_strength
         self.register_buffer('step', torch.zeros(1, dtype=torch.long))
@@ -271,7 +281,7 @@ class FastPitch(nn.Module):
 
         def predictor(dm, heads, fft, layers, p):
             return SeriesPredictor(num_chars, dm, heads, fft, layers,
-                                   conv1_kernel, conv2_kernel, p)
+                                   conv1_kernel, conv2_kernel, p, spk_dims)
         self.dur_pred = predictor(durpred_d_model, durpred_n_heads,
                                   durpred_d_fft, durpred_layers,
                                   durpred_dropout)
@@ -290,6 +300,11 @@ class FastPitch(nn.Module):
         self.pitch_proj = nn.Conv1d(1, d_model, 3, padding=1)
         self.energy_proj = nn.Conv1d(1, d_model, 3, padding=1)
         self.lin = nn.Linear(d_model, n_mels)
+        if n_speakers > 1:
+            self.speaker_embedding = nn.Embedding(n_speakers,
+                                                  speaker_embed_dims)
+            self.speaker_proj = nn.Linear(speaker_embed_dims, d_model,
+                                          bias=False)
         self.eval()
 
     @classmethod
@@ -298,6 +313,13 @@ class FastPitch(nn.Module):
         model_config['num_chars'] = len(phonemes)
         model_config['n_mels'] = config['dsp']['num_mels']
         return cls(**model_config)
+
+    def _embed(self, x: torch.Tensor, spk: Optional[torch.Tensor]
+               ) -> torch.Tensor:
+        h = self.embedding(x)
+        if spk is not None:
+            h = h + _linear(spk, self.speaker_proj.weight, None)[:, None, :]
+        return h
 
     def _series_proj(self, h, pitch, energy):
         for series, proj, strength in (
@@ -316,8 +338,9 @@ class FastPitch(nn.Module):
         from mel_len, and every block runs unmasked. Frames at or beyond
         the batch's largest mel_len hold PADDING_VALUE; `mel` and
         `mel_post` are the same tensor. Train mode draws its dropout from
-        `generator` and needs one. Returns mel, mel_post, dur, pitch,
-        energy."""
+        `generator` and needs one. A multi-speaker model reads the batch's
+        `speaker` (B,) ids (0 where absent). Returns mel, mel_post, dur,
+        pitch, energy."""
         if self.training and generator is None:
             raise ValueError('train mode draws dropout from a '
                              'torch.Generator: pass `generator`')
@@ -325,10 +348,11 @@ class FastPitch(nn.Module):
         x, mel_len = batch['x'], batch['mel_len']
         max_t = batch['mel'].shape[1]
         pad = x == 0
-        out = {name: pred(x, pad, generator=gen) for name, pred in
+        spk = speaker_emb(self, batch.get('speaker'), x.shape[0], x.device)
+        out = {name: pred(x, pad, generator=gen, spk=spk) for name, pred in
                (('dur', self.dur_pred), ('pitch', self.pitch_pred),
                 ('energy', self.energy_pred))}
-        h = self.prenet(self.embedding(x), pad, gen)
+        h = self.prenet(self._embed(x, spk), pad, gen)
         h = self._series_proj(h, batch['pitch'], batch['energy'])
         h, _ = length_regulate(h, batch['dur'], max_t)
         frames = torch.arange(max_t, device=x.device)
@@ -344,19 +368,23 @@ class FastPitch(nn.Module):
     def predict_series(self, x: torch.Tensor, alpha: float = 1.0,
                        pitch_scale: float = 1.0, energy_scale: float = 1.0,
                        x_len: Optional[torch.Tensor] = None,
-                       compute_dtype: Optional[torch.dtype] = torch.float32
+                       compute_dtype: Optional[torch.dtype] = torch.float32,
+                       speaker: Optional[torch.Tensor] = None
                        ) -> Dict[str, torch.Tensor]:
         """dur/pitch/energy series (B, T), every block masked. When the
         batch's summed (truncated) valid durations are <= 0, every
-        duration becomes 2."""
+        duration becomes 2. `speaker` (B,) ids pick the voice of a
+        multi-speaker model (0 where None)."""
         _check_float32(compute_dtype)
         pad = _key_padding(x, x_len)
-        dur = self.dur_pred(x, pad, alpha=alpha, masked=True)
+        spk = speaker_emb(self, speaker, x.shape[0], x.device)
+        dur = self.dur_pred(x, pad, alpha=alpha, masked=True, spk=spk)
         total = dur.masked_fill(pad, 0.0).to(torch.int32).sum()
         dur = torch.where(total <= 0, torch.full_like(dur, 2.0), dur)
         return {'dur': dur,
-                'pitch': self.pitch_pred(x, pad, masked=True) * pitch_scale,
-                'energy': self.energy_pred(x, pad, masked=True)
+                'pitch': self.pitch_pred(x, pad, masked=True, spk=spk)
+                * pitch_scale,
+                'energy': self.energy_pred(x, pad, masked=True, spk=spk)
                 * energy_scale}
 
     @torch.no_grad()
@@ -365,12 +393,15 @@ class FastPitch(nn.Module):
                              max_t: int,
                              x_len: Optional[torch.Tensor] = None,
                              compute_dtype: Optional[torch.dtype] =
-                             torch.float32) -> Dict[str, torch.Tensor]:
+                             torch.float32,
+                             speaker: Optional[torch.Tensor] = None
+                             ) -> Dict[str, torch.Tensor]:
         """Encode, expand to a `max_t` bucket and decode, every block
         masked; `mel_len` (B,) is the true length of each mel."""
         _check_float32(compute_dtype)
         pad = _key_padding(x, x_len)
-        h = _zero_padded(self.embedding(x), pad)
+        spk = speaker_emb(self, speaker, x.shape[0], x.device)
+        h = _zero_padded(self._embed(x, spk), pad)
         h = self.prenet(h, pad, masked=True)
         h = self._series_proj(h, pitch.masked_fill(pad, 0.0),
                               energy.masked_fill(pad, 0.0))
@@ -387,12 +418,13 @@ class FastPitch(nn.Module):
     def generate(self, x: torch.Tensor, max_t: int, alpha: float = 1.0,
                  pitch_scale: float = 1.0, energy_scale: float = 1.0,
                  x_len: Optional[torch.Tensor] = None,
-                 compute_dtype: Optional[torch.dtype] = torch.float32
+                 compute_dtype: Optional[torch.dtype] = torch.float32,
+                 speaker: Optional[torch.Tensor] = None
                  ) -> Dict[str, torch.Tensor]:
         series = self.predict_series(x, alpha, pitch_scale, energy_scale,
-                                     x_len, compute_dtype)
+                                     x_len, compute_dtype, speaker)
         out = self.generate_from_series(x, series['dur'], series['pitch'],
                                         series['energy'], max_t, x_len,
-                                        compute_dtype)
+                                        compute_dtype, speaker)
         out['dur'] = series['dur']
         return out

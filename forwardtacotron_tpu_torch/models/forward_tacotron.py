@@ -11,6 +11,13 @@ decoder LSTM) goes through the BiRNN kernel wrapper; `compute_dtype`
 selects its precision (bfloat16 weights and inputs with float32
 accumulation, or float32).
 
+With `n_speakers` > 1 (the JAX package's multi-speaker extension) a
+speaker embedding conditions the predictors (each its own bias-free
+`spk_proj`, added to the token embeddings; the fused path adds the three
+concatenated in the stacked layout) and the encoder (`speaker_proj`,
+added after the pitch and energy projections); `n_speakers: 1` adds no
+parameter.
+
 `forward(batch)` is the teacher-forced forward of training (the JAX
 package's `__call__`), in train or eval mode by `self.training`. Under
 autograd its recurrences run the training kernels #2/#3; evaluation under
@@ -25,7 +32,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from forwardtacotron_tpu_torch.models.layers import (BatchNormConv, BiRNN,
-                                                     CBHG)
+                                                     CBHG, speaker_emb)
 from forwardtacotron_tpu_torch.ops.length_regulator import length_regulate
 from forwardtacotron_tpu_torch.ops.masking import pad_mask, time_mask
 from forwardtacotron_tpu_torch.ops.rnn import grouped_birnn, pad_gru_gates
@@ -35,13 +42,18 @@ PADDING_VALUE = -11.5129
 
 
 class SeriesPredictor(nn.Module):
-    """embed -> [conv5-relu-BN-dropout]x3 -> BiGRU -> Linear(1)."""
+    """embed -> [conv5-relu-BN-dropout]x3 -> BiGRU -> Linear(1). With
+    `speaker_dims`, a (B, E) speaker embedding projected by `spk_proj`
+    (no bias) is added to the token embeddings."""
 
     def __init__(self, num_chars: int, emb_dim: int, conv_dims: int,
-                 rnn_dims: int, dropout: float) -> None:
+                 rnn_dims: int, dropout: float,
+                 speaker_dims: Optional[int] = None) -> None:
         super().__init__()
         self.dropout = nn.Dropout(dropout)
         self.embedding = nn.Embedding(num_chars, emb_dim)
+        if speaker_dims is not None:
+            self.spk_proj = nn.Linear(speaker_dims, emb_dim, bias=False)
         self.convs = nn.ModuleList([
             BatchNormConv(emb_dim if i == 0 else conv_dims, conv_dims, 5)
             for i in range(3)])
@@ -50,9 +62,12 @@ class SeriesPredictor(nn.Module):
 
     def forward(self, x: torch.Tensor, alpha: float = 1.0,
                 lengths: Optional[torch.Tensor] = None,
-                compute_dtype: Optional[torch.dtype] = torch.float32
-                ) -> torch.Tensor:
-        h = time_mask(self.embedding(x), lengths)
+                compute_dtype: Optional[torch.dtype] = torch.float32,
+                spk: Optional[torch.Tensor] = None) -> torch.Tensor:
+        h = self.embedding(x)
+        if spk is not None:
+            h = h + self.spk_proj(spk)[:, None, :]
+        h = time_mask(h, lengths)
         for conv in self.convs:
             h = time_mask(self.dropout(conv(h)), lengths)
         h = self.rnn(h, lengths=lengths, compute_dtype=compute_dtype)
@@ -76,10 +91,8 @@ class ForwardTacotron(nn.Module):
                  postnet_dropout: float = 0.0, n_mels: int = 80,
                  n_speakers: int = 1, speaker_embed_dims: int = 64) -> None:
         super().__init__()
-        if n_speakers > 1:
-            raise ValueError('multi-speaker ForwardTacotron (n_speakers > 1) '
-                             'is not ported yet')
-        del speaker_embed_dims
+        self.n_speakers = n_speakers
+        spk_dims = speaker_embed_dims if n_speakers > 1 else None
         self.pitch_strength = pitch_strength
         self.energy_strength = energy_strength
         self.rnn_dims_series = (durpred_rnn_dims, pitch_rnn_dims,
@@ -93,13 +106,13 @@ class ForwardTacotron(nn.Module):
                            dropout=prenet_dropout)
         self.dur_pred = SeriesPredictor(num_chars, series_embed_dims,
                                         durpred_conv_dims, durpred_rnn_dims,
-                                        durpred_dropout)
+                                        durpred_dropout, spk_dims)
         self.pitch_pred = SeriesPredictor(num_chars, series_embed_dims,
                                           pitch_conv_dims, pitch_rnn_dims,
-                                          pitch_dropout)
+                                          pitch_dropout, spk_dims)
         self.energy_pred = SeriesPredictor(num_chars, series_embed_dims,
                                            energy_conv_dims, energy_rnn_dims,
-                                           energy_dropout)
+                                           energy_dropout, spk_dims)
         self.pitch_proj = nn.Conv1d(1, 2 * prenet_dims, 3, padding=1)
         self.energy_proj = nn.Conv1d(1, 2 * prenet_dims, 3, padding=1)
         self.lstm = BiRNN('lstm', 2 * prenet_dims, rnn_dims)
@@ -110,6 +123,11 @@ class ForwardTacotron(nn.Module):
                             num_highways=postnet_num_highways,
                             dropout=postnet_dropout)
         self.post_proj = nn.Linear(2 * postnet_dims, n_mels, bias=False)
+        if n_speakers > 1:
+            self.speaker_embedding = nn.Embedding(n_speakers,
+                                                  speaker_embed_dims)
+            self.speaker_proj = nn.Linear(speaker_embed_dims,
+                                          2 * prenet_dims, bias=False)
         self.eval()
 
     @classmethod
@@ -135,13 +153,16 @@ class ForwardTacotron(nn.Module):
         mixed precision), and the predictions come back in that dtype.
         `generator`, the trainers' step generator that every TTS model is
         handed, draws nothing here: the dropouts are `nn.Dropout`, on the
-        global RNG. Returns mel, mel_post, dur, pitch, energy."""
+        global RNG. A multi-speaker model reads the batch's `speaker` (B,)
+        ids (0 where absent). Returns mel, mel_post, dur, pitch, energy."""
         del generator
         x, mel_len = batch['x'], batch['mel_len']
-        out = {name: pred(x, compute_dtype=None) for name, pred in
+        spk = speaker_emb(self, batch.get('speaker'), x.shape[0], x.device)
+        out = {name: pred(x, compute_dtype=None, spk=spk) for name, pred in
                (('dur', self.dur_pred), ('pitch', self.pitch_pred),
                 ('energy', self.energy_pred))}
-        h = self._encode(x, batch['pitch'], batch['energy'], None, None)
+        h = self._encode(x, batch['pitch'], batch['energy'], None, None,
+                         spk)
         h, _ = length_regulate(h, batch['dur'], batch['mel'].shape[1])
         y = self.lstm(h, lengths=mel_len, pad_value=PADDING_VALUE,
                       compute_dtype=None)
@@ -162,15 +183,18 @@ class ForwardTacotron(nn.Module):
     def predict_series(self, x: torch.Tensor, alpha: float = 1.0,
                        pitch_scale: float = 1.0, energy_scale: float = 1.0,
                        x_len: Optional[torch.Tensor] = None,
-                       compute_dtype: torch.dtype = torch.bfloat16
+                       compute_dtype: torch.dtype = torch.bfloat16,
+                       speaker: Optional[torch.Tensor] = None
                        ) -> Dict[str, torch.Tensor]:
         """dur/pitch/energy series (B, T). The three predictors run as one
-        6-stream grouped BiGRU when their conv widths agree."""
+        6-stream grouped BiGRU when their conv widths agree. `speaker`
+        (B,) ids pick the voice of a multi-speaker model (0 where None)."""
         if self._series_fusable():
             return self.predict_series_fused(x, alpha, pitch_scale,
                                              energy_scale, x_len,
-                                             compute_dtype)
-        kw = dict(lengths=x_len, compute_dtype=compute_dtype)
+                                             compute_dtype, speaker)
+        kw = dict(lengths=x_len, compute_dtype=compute_dtype,
+                  spk=speaker_emb(self, speaker, x.shape[0], x.device))
         dur = self._dur_floor(x, self.dur_pred(x, alpha=alpha, **kw), x_len)
         return {'dur': dur,
                 'pitch': self.pitch_pred(x, **kw) * pitch_scale,
@@ -192,18 +216,26 @@ class ForwardTacotron(nn.Module):
                              pitch_scale: float = 1.0,
                              energy_scale: float = 1.0,
                              x_len: Optional[torch.Tensor] = None,
-                             compute_dtype: torch.dtype = torch.bfloat16
+                             compute_dtype: torch.dtype = torch.bfloat16,
+                             speaker: Optional[torch.Tensor] = None
                              ) -> Dict[str, torch.Tensor]:
         """Stacked embedding gather, grouped convolutions and one
         6-stream BiGRU (3 predictors x 2 directions, gate blocks
-        zero-padded to the widest H), then a per-group linear head."""
+        zero-padded to the widest H), then a per-group linear head. A
+        speaker's three `spk_proj`s are concatenated in the stacked
+        embedding's layout and added before the convolutions."""
         preds = self._preds()
         G = len(preds)
         B, T = x.shape
         h_groups = self.rnn_dims_series
         H = max(h_groups)
         table = torch.cat([p.embedding.weight for p in preds], dim=-1)
-        h = time_mask(table[x], x_len)
+        h = table[x]
+        spk = speaker_emb(self, speaker, x.shape[0], x.device)
+        if spk is not None:
+            h = h + torch.cat([p.spk_proj(spk) for p in preds],
+                              dim=-1)[:, None, :]
+        h = time_mask(h, x_len)
         for i in range(3):
             convs = [p.convs[i] for p in preds]
             weight = torch.cat([c.conv.weight for c in convs], dim=0)
@@ -246,7 +278,7 @@ class ForwardTacotron(nn.Module):
                 'energy': out[..., 2] * energy_scale}
 
     # ---------------------------------------------------------- decode
-    def _encode(self, x, pitch, energy, lengths, compute_dtype):
+    def _encode(self, x, pitch, energy, lengths, compute_dtype, spk=None):
         h = time_mask(self.embedding(x), lengths)
         h = self.prenet(h, lengths=lengths, compute_dtype=compute_dtype)
         for series, proj, strength in (
@@ -254,6 +286,8 @@ class ForwardTacotron(nn.Module):
                 (energy, self.energy_proj, self.energy_strength)):
             s = time_mask(series[..., None], lengths)
             h = h + proj(s.transpose(1, 2)).transpose(1, 2) * strength
+        if spk is not None:
+            h = h + self.speaker_proj(spk)[:, None, :]
         return h
 
     def _decode(self, h, mel_lens, compute_dtype):
@@ -269,11 +303,13 @@ class ForwardTacotron(nn.Module):
                              pitch: torch.Tensor, energy: torch.Tensor,
                              max_t: int,
                              x_len: Optional[torch.Tensor] = None,
-                             compute_dtype: torch.dtype = torch.bfloat16
+                             compute_dtype: torch.dtype = torch.bfloat16,
+                             speaker: Optional[torch.Tensor] = None
                              ) -> Dict[str, torch.Tensor]:
         """Encode, expand to a `max_t` bucket and decode; `mel_len` (B,)
         is the true length of each mel."""
-        h = self._encode(x, pitch, energy, x_len, compute_dtype)
+        h = self._encode(x, pitch, energy, x_len, compute_dtype,
+                         speaker_emb(self, speaker, x.shape[0], x.device))
         if x_len is not None:
             dur = torch.where(pad_mask(x_len, x.shape[1]), dur,
                               torch.zeros_like(dur))
@@ -287,12 +323,13 @@ class ForwardTacotron(nn.Module):
     def generate(self, x: torch.Tensor, max_t: int, alpha: float = 1.0,
                  pitch_scale: float = 1.0, energy_scale: float = 1.0,
                  x_len: Optional[torch.Tensor] = None,
-                 compute_dtype: torch.dtype = torch.bfloat16
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 speaker: Optional[torch.Tensor] = None
                  ) -> Dict[str, torch.Tensor]:
         series = self.predict_series(x, alpha, pitch_scale, energy_scale,
-                                     x_len, compute_dtype)
+                                     x_len, compute_dtype, speaker)
         out = self.generate_from_series(x, series['dur'], series['pitch'],
                                         series['energy'], max_t, x_len,
-                                        compute_dtype)
+                                        compute_dtype, speaker)
         out['dur'] = series['dur']
         return out

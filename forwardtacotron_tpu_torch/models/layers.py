@@ -22,6 +22,18 @@ from forwardtacotron_tpu_torch.ops import rnn as rnn_ops
 from forwardtacotron_tpu_torch.ops.masking import time_mask
 
 
+def speaker_emb(model: nn.Module, speaker: Optional[torch.Tensor],
+                batch: int, device) -> Optional[torch.Tensor]:
+    """(batch, E) rows of a multi-speaker model's `speaker_embedding` for
+    the (batch,) ids `speaker` (speaker 0 where None); None for a model
+    whose `n_speakers` is 1, which has no speaker parameter."""
+    if model.n_speakers <= 1:
+        return None
+    if speaker is None:
+        speaker = torch.zeros(batch, dtype=torch.long, device=device)
+    return model.speaker_embedding(speaker.to(device).long())
+
+
 def dropout(x: torch.Tensor, p: float,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """Inverted dropout whose mask is drawn from `generator` (none drawn,

@@ -38,7 +38,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from forwardtacotron_tpu_torch.models.layers import CBHG, dropout
+from forwardtacotron_tpu_torch.models.layers import (CBHG, dropout,
+                                                     speaker_emb)
 from forwardtacotron_tpu_torch.text.symbols import phonemes
 
 MAX_R = 20        # the largest reduction factor mel_proj is sized for
@@ -164,13 +165,13 @@ class Tacotron(nn.Module):
                  encoder_k: int = 16, lstm_dims: int = 512,
                  postnet_k: int = 8, num_highways: int = 4,
                  dropout: float = 0.5, stop_threshold: float = -11.0,
-                 n_speakers: int = 1) -> None:
+                 n_speakers: int = 1, speaker_embed_dims: int = 64) -> None:
         """`dropout` is kept for the config's sake: as in the JAX package,
-        the prenets and CBHGs use their own rate of 0.5."""
+        the prenets and CBHGs use their own rate of 0.5. `n_speakers` > 1
+        adds a speaker embedding, projected (no bias) onto the encoder's
+        output; 1 adds no parameter."""
         super().__init__()
-        if n_speakers > 1:
-            raise ValueError('multi-speaker Tacotron (n_speakers > 1) is not '
-                             'ported yet')
+        self.n_speakers = n_speakers
         self.n_mels = n_mels
         self.encoder_dims = encoder_dims
         self.decoder_dims = decoder_dims
@@ -179,6 +180,11 @@ class Tacotron(nn.Module):
                                encoder_k, num_highways)
         self.encoder_proj = nn.Linear(2 * encoder_dims, decoder_dims,
                                       bias=False)
+        if n_speakers > 1:
+            self.speaker_embedding = nn.Embedding(n_speakers,
+                                                  speaker_embed_dims)
+            self.speaker_proj = nn.Linear(speaker_embed_dims,
+                                          2 * encoder_dims, bias=False)
         self.decoder = Decoder(n_mels, encoder_dims, decoder_dims, lstm_dims)
         self.postnet = CBHG(K=postnet_k, in_channels=n_mels,
                             channels=postnet_dims,
@@ -189,6 +195,16 @@ class Tacotron(nn.Module):
         self.register_buffer('stop_threshold', torch.tensor(
             float(stop_threshold), dtype=torch.float32))
 
+    def _condition_encoder(self, encoder_seq: torch.Tensor,
+                           speaker: Optional[torch.Tensor]) -> torch.Tensor:
+        """The encoder's output plus the projected speaker embedding (as
+        it is for a single-speaker model); a missing id is speaker 0."""
+        emb = speaker_emb(self, speaker, encoder_seq.shape[0],
+                          encoder_seq.device)
+        if emb is None:
+            return encoder_seq
+        return encoder_seq + self.speaker_proj(emb)[:, None, :]
+
     def _init_state(self, B: int, Tx: int, like: torch.Tensor):
         def z(*shape):
             return like.new_zeros(shape)
@@ -198,10 +214,12 @@ class Tacotron(nn.Module):
                 z(B, Tx), z(B, Tx))
 
     def forward(self, x: torch.Tensor, mel: torch.Tensor, r: int,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                speaker: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Teacher-forced forward. x (B, Tx) token ids; mel (B, T_mel,
-        n_mels) time-major with T_mel a multiple of r. Returns (mel_out
+        n_mels) time-major with T_mel a multiple of r; `speaker` (B,) ids
+        condition a multi-speaker teacher's encoder. Returns (mel_out
         (B, T_mel, n_mels), linear (B, T_mel, n_mels), attention
         (B, T_mel // r, Tx))."""
         B, Tx = x.shape
@@ -213,7 +231,7 @@ class Tacotron(nn.Module):
                              'torch.Generator: pass `generator`')
         gen = generator if self.training else None
         steps = T_mel // r
-        encoder_seq = self.encoder(x, gen)
+        encoder_seq = self._condition_encoder(self.encoder(x, gen), speaker)
         encoder_seq_proj = self.encoder_proj(encoder_seq)
 
         # teacher forcing: the go frame, then the last frame of each step
@@ -235,7 +253,8 @@ class Tacotron(nn.Module):
         return mel_out, linear, torch.stack(scores, dim=1)
 
     @torch.no_grad()
-    def generate(self, x: torch.Tensor, steps: int = 2000, r: int = 1
+    def generate(self, x: torch.Tensor, steps: int = 2000, r: int = 1,
+                 speaker: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
         """Free-running synthesis in eval mode (the JAX package's
         `Tacotron.generate`). x (B, Tx) token ids; at most `steps` frames,
@@ -255,7 +274,7 @@ class Tacotron(nn.Module):
         try:
             B, Tx = x.shape
             n_steps = steps // r
-            encoder_seq = self.encoder(x)
+            encoder_seq = self._condition_encoder(self.encoder(x), speaker)
             encoder_seq_proj = self.encoder_proj(encoder_seq)
             mel_buf = encoder_seq.new_zeros((B, n_steps, self.n_mels * MAX_R))
             attn_buf = encoder_seq.new_zeros((B, n_steps, Tx))

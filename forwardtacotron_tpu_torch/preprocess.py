@@ -14,8 +14,11 @@ seeded split (Random(seed) over the sorted items, the first `n_val` as
 validation, sorted longest first). Host threads decode and trim the wavs
 while the mel and the F0 run on `--device` (default `cuda`). A file that
 fails to decode or to featurize is skipped with a log line. Without
-`--config` the built-in copy of config.yaml is used. Multi-speaker
-metadata (`--metadata_format multispeaker`) is not ported yet.
+`--config` the built-in copy of config.yaml is used. With
+`--metadata_format multispeaker` the metadata lines are `id|speaker|text`
+and `speaker_dict.pkl` ({item id: speaker id}, dense ids in sorted name
+order, only the items written) goes beside the other pickles; the model
+sections' `n_speakers` must then match it.
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ from forwardtacotron_tpu_torch.config import default_config, read_config
 from forwardtacotron_tpu_torch.dsp.audio import DSP
 from forwardtacotron_tpu_torch.dsp.pitch import extract_pitch_bucketed
 from forwardtacotron_tpu_torch.text.cleaners import Cleaner
-from forwardtacotron_tpu_torch.text.recipes import ljspeech
+from forwardtacotron_tpu_torch.text.recipes import ljspeech, multispeaker
 from forwardtacotron_tpu_torch.utils.display import (progbar, simple_table,
                                                      stream)
 from forwardtacotron_tpu_torch.utils.files import get_files, pickle_binary
@@ -164,12 +167,12 @@ def main(argv: Optional[Sequence[str]] = None) -> Tuple[list, list]:
                              'copy of config.yaml)')
     parser.add_argument('--metadata_format', default='ljspeech',
                         choices=['ljspeech', 'multispeaker'],
-                        help='metadata csv layout (multispeaker is not '
-                             'ported yet)')
+                        help='metadata csv layout: ljspeech '
+                             '(id|...|text) or multispeaker '
+                             '(id|speaker|text; also writes '
+                             'speaker_dict.pkl)')
     parser.add_argument('--device', default='cuda')
     args = parser.parse_args(argv)
-    if args.metadata_format == 'multispeaker':
-        parser.error('--metadata_format multispeaker is not ported yet')
 
     config = read_config(args.config) if args.config else default_config()
     dsp = DSP.from_config(config, device=args.device)
@@ -180,8 +183,13 @@ def main(argv: Optional[Sequence[str]] = None) -> Tuple[list, list]:
     if not wav_files:
         raise SystemExit(f'Found no wav files in {args.path}, exiting.')
 
+    speaker_dict = None
+    if args.metadata_format == 'multispeaker':
+        text_dict, speaker_dict = multispeaker(args.path)
+    else:
+        text_dict = ljspeech(args.path)
     min_len = config['preprocessing']['min_text_len']
-    text_dict = {item_id: text for item_id, text in ljspeech(args.path).items()
+    text_dict = {item_id: text for item_id, text in text_dict.items()
                  if item_id in wav_ids and len(text) > min_len}
     wav_files = [w for w in wav_files if w.stem in text_dict]
     print(f'Using {len(wav_files)} wav files that are indexed in '
@@ -207,6 +215,13 @@ def main(argv: Optional[Sequence[str]] = None) -> Tuple[list, list]:
     pickle_binary(dict(cleaned_texts), paths.data / 'text_dict.pkl')
     pickle_binary(train_dataset, paths.data / 'train_dataset.pkl')
     pickle_binary(val_dataset, paths.data / 'val_dataset.pkl')
+    if speaker_dict is not None:
+        used = {i for i, _ in cleaned_texts}
+        speaker_dict = {i: s for i, s in speaker_dict.items() if i in used}
+        pickle_binary(speaker_dict, paths.data / 'speaker_dict.pkl')
+        n_spk = len(set(speaker_dict.values()))
+        print(f'\n{n_spk} speakers -> speaker_dict.pkl; set '
+              f'n_speakers: {n_spk} in the model config section.')
     print('\n\nCompleted. Ready to run "python -m forwardtacotron_tpu_torch.'
           'train_tacotron".\n')
     return train_dataset, val_dataset

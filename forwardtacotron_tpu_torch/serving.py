@@ -7,12 +7,14 @@ device: requests submitted concurrently are collected for up to
 `text_bucket` token bucket and a `mel_bucket` frame bucket, and run
 through one series pass and one decode for the whole group (kernel #1 at
 batch 1, 2, 4 or 8), then vocoded together: WaveRNN through one
-`vocode_batch` (every utterance's fold lanes in sampler launches of up
-to 128 lanes), HiFi-GAN / MelGAN one utterance at a time, or
-Griffin-Lim. Per-request `alpha` / `pitch_scale` / `energy_scale` are
-applied on the host to the shared series pass (alpha divides the
-durations, as the model's own argument does), so heterogeneous requests
-batch together. Request threads only wait on futures of numpy arrays.
+`vocode_batch` (every utterance's fold lanes in sampler launches of up to
+128 lanes), HiFi-GAN / MelGAN one utterance at a time, or Griffin-Lim.
+Per-request `alpha` / `pitch_scale` / `energy_scale` are applied on the
+host to the shared series pass (alpha divides the durations, as the
+model's own argument does), and a multi-speaker model takes each row's
+`speaker` (the pad rows speaker 0), so heterogeneous requests, voices
+included, batch together. Request threads only wait on futures of numpy
+arrays.
 
 Not ported: `fused=True` (text -> PCM as one program) and `mesh=`
 (utterances sharded over devices); both raise ValueError.
@@ -33,8 +35,9 @@ import torch
 from forwardtacotron_tpu_torch import resolve_device
 from forwardtacotron_tpu_torch.config import default_config
 from forwardtacotron_tpu_torch.dsp.audio import DSP
-from forwardtacotron_tpu_torch.gen_forward import (VOCODERS, load_tts,
-                                                   load_voc, tts_dtype)
+from forwardtacotron_tpu_torch.gen_forward import (VOCODERS, check_speaker,
+                                                   load_tts, load_voc,
+                                                   tts_dtype)
 from forwardtacotron_tpu_torch.kernels.birnn import recurrence
 from forwardtacotron_tpu_torch.models.forward_tacotron import PADDING_VALUE
 from forwardtacotron_tpu_torch.models.hifigan import (load_gan_vocoder,
@@ -56,6 +59,7 @@ class _Request:
     alpha: float
     pitch_scale: float
     energy_scale: float
+    speaker: int = 0
     future: Future = field(default_factory=Future)
     deadline: Optional[float] = None   # time.monotonic() cutoff
     enqueued: float = 0.0              # time.monotonic() at submit
@@ -157,10 +161,11 @@ class TTSServer:
                pitch_scale: float = 1.0, energy_scale: float = 1.0,
                speaker: int = 0) -> Future:
         """Enqueue a request; the Future resolves to int16 PCM. Raises
+        ValueError for a speaker outside [0, n_speakers) and
         ServerOverloaded when max_queue requests wait already."""
-        if int(speaker) != 0:
-            raise ValueError('speaker: multi-speaker models are not ported '
-                             'yet; only speaker 0')
+        error = check_speaker(self.model, speaker)
+        if error:
+            raise ValueError(error)
         with self._submit_lock:
             if self._closed:
                 raise RuntimeError('server is closed')
@@ -172,8 +177,8 @@ class TTSServer:
             deadline = None if self.request_timeout_s is None \
                 else now + self.request_timeout_s
             req = _Request(text, float(alpha), float(pitch_scale),
-                           float(energy_scale), deadline=deadline,
-                           enqueued=now)
+                           float(energy_scale), int(speaker),
+                           deadline=deadline, enqueued=now)
             self._count('submitted')
             self._q.put(req)
         return req.future
@@ -381,12 +386,13 @@ class TTSServer:
                                    device=self.device)
                     xl = torch.full((B,), min(int(tl), tx),
                                     device=self.device)
-                    series = self._series(x, xl)
+                    spk = self._speakers(None, B)
+                    series = self._series(x, xl, spk)
                     for mt in mel_caps:
                         max_t = _bucket(int(mt), self.mel_bucket,
                                         self.mel_bucket)
                         self._decode(x, xl, series['dur'], series['pitch'],
-                                     series['energy'], max_t)
+                                     series['energy'], max_t, spk)
                         runs += 1
                     self._record_paths(B, before)
                 if vocoder:
@@ -400,16 +406,29 @@ class TTSServer:
             torch.cuda.synchronize(self.device)
         return {'programs': runs, 'seconds': time.monotonic() - t0}
 
-    def _series(self, x: torch.Tensor, xl: torch.Tensor):
-        return self.model.predict_series(x, x_len=xl,
-                                         compute_dtype=self.tts_dtype)
+    def _speakers(self, reqs: Optional[List[_Request]], B: int
+                  ) -> torch.Tensor:
+        """(B,) speaker ids on the device, the rows past the requests (the
+        power-of-two pad) speaker 0; a single-speaker model ignores
+        them."""
+        spk = np.zeros((B,), np.int64)
+        if reqs is not None:
+            spk[:len(reqs)] = [r.speaker for r in reqs]
+        return torch.as_tensor(spk, device=self.device)
 
-    def _decode(self, x, xl, dur, pitch, energy, max_t: int):
+    def _series(self, x: torch.Tensor, xl: torch.Tensor,
+                speaker: Optional[torch.Tensor] = None):
+        return self.model.predict_series(x, x_len=xl,
+                                         compute_dtype=self.tts_dtype,
+                                         speaker=speaker)
+
+    def _decode(self, x, xl, dur, pitch, energy, max_t: int,
+                speaker: Optional[torch.Tensor] = None):
         return self.model.generate_from_series(
             x, torch.as_tensor(dur, device=self.device),
             torch.as_tensor(pitch, device=self.device),
             torch.as_tensor(energy, device=self.device), max_t, x_len=xl,
-            compute_dtype=self.tts_dtype)
+            compute_dtype=self.tts_dtype, speaker=speaker)
 
     def _record_paths(self, B: int, before: Dict[str, int]) -> None:
         """Kernel #1's launches by path since `before`, for batch B."""
@@ -433,9 +452,10 @@ class TTSServer:
             x[i, :len(seq)] = seq
         x = torch.as_tensor(x, device=self.device)
         xl = torch.as_tensor(x_lens, device=self.device)
+        spk = self._speakers(reqs, B)
         before = dict(recurrence.path_launches)
         series = {k: v.float().cpu().numpy()
-                  for k, v in self._series(x, xl).items()}
+                  for k, v in self._series(x, xl, spk).items()}
         # per-request controls on the shared series pass
         scale = np.ones((3, B), np.float32)
         scale[:, :B_real] = [[r.alpha for r in reqs],
@@ -447,7 +467,7 @@ class TTSServer:
         rounded = np.floor(np.maximum(dur, 0.0) + 0.5)
         total = max(int(rounded[i, :x_lens[i]].sum()) for i in range(B))
         max_t = _bucket(total + 1, self.mel_bucket, self.mel_bucket)
-        gen = self._decode(x, xl, dur, pitch, energy, max_t)
+        gen = self._decode(x, xl, dur, pitch, energy, max_t, spk)
         self._record_paths(B, before)
         mel_lens = gen['mel_len'].cpu().numpy()
         mels = gen['mel_post'].float().cpu().numpy()   # (B, max_t, n_mels)

@@ -59,6 +59,7 @@ HONOURED = {
     'tacotron': ('precision', 'grad_accum', 'remat'),
     'wavernn': ('precision', 'remat'),
     'gan': ('precision',),
+    'aligner': (),
 }
 OPTION_ON = {
     'precision': lambda v: str(v).lower() not in ('f32', 'float32', 'fp32'),

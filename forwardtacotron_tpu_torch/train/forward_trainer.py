@@ -39,9 +39,12 @@ BATCH_KEYS = ('x', 'x_len', 'mel', 'mel_len', 'dur', 'pitch', 'energy')
 
 
 def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, Any]:
+    """The batch's tensors on `device`, with a multi-speaker corpus's (B,)
+    `speaker` ids."""
+    keys = BATCH_KEYS + (('speaker',) if 'speaker' in batch else ())
     return {k: torch.from_numpy(np.asarray(batch[k])).to(device,
                                                          non_blocking=True)
-            for k in BATCH_KEYS}
+            for k in keys}
 
 
 class ForwardTrainer:

@@ -46,9 +46,13 @@ from forwardtacotron_tpu_torch.utils.profiling import StepTraceController
 
 def taco_batch_to_device(batch: Dict[str, Any], device
                          ) -> Dict[str, torch.Tensor]:
+    """x, mel and mel_len on `device`, with a multi-speaker corpus's (B,)
+    `speaker` ids."""
+    keys = ('x', 'mel', 'mel_len') + (('speaker',) if 'speaker' in batch
+                                      else ())
     return {k: torch.from_numpy(np.asarray(batch[k])).to(device,
                                                          non_blocking=True)
-            for k in ('x', 'mel', 'mel_len')}
+            for k in keys}
 
 
 def taco_loss(m1: torch.Tensor, m2: torch.Tensor, mel: torch.Tensor
@@ -67,14 +71,15 @@ def taco_micro_loss(model: torch.nn.Module, r: int,
     """The teacher step's `micro_loss(b) -> (loss, metrics, attention)`
     for `tc.accumulate`: the teacher-forced forward at r under
     `train_cfg`'s precision and remat (`generator` replayed for the
-    recompute), m1, m2 and the attention in float32, the loss."""
+    recompute), conditioned on the batch's `speaker` where it has one;
+    m1, m2 and the attention in float32, the loss."""
     half = tc.half_dtype(train_cfg)
     remat = bool(train_cfg.get('remat', False))
 
     def micro_loss(b):
         m1, m2, att = tc.full(tc.forward_model(
-            model, b['x'], b['mel'], r, generator, half=half, remat=remat,
-            generators=(generator,)))
+            model, b['x'], b['mel'], r, generator, b.get('speaker'),
+            half=half, remat=remat, generators=(generator,)))
         loss, metrics = taco_loss(m1, m2, b['mel'])
         return loss, metrics, att.detach()
     return micro_loss
@@ -107,7 +112,8 @@ def taco_eval_step(model: torch.nn.Module, batch: Dict[str, torch.Tensor],
     was_training = model.training
     model.eval()
     try:
-        m1, m2, att = model(batch['x'], batch['mel'], r)
+        m1, m2, att = model(batch['x'], batch['mel'], r,
+                            speaker=batch.get('speaker'))
     finally:
         model.train(was_training)
     return taco_loss(m1, m2, batch['mel'])[0], att

@@ -3,9 +3,10 @@
 A copy of the JAX package's `utils/paths.py` (the reference's
 utils/paths.py:5-46), cut to what the port reads and writes: the data
 sub-directories of preprocessing, alignment and training, and the
-checkpoint directories of the Tacotron teacher, the ForwardTacotron
-student, and of WaveRNN and the GAN vocoders when a vocoder id is given
-(each with its top-k directory), where the port writes torch `.pt` files.
+checkpoint directories of the Tacotron teacher, the teacher-free aligner,
+the ForwardTacotron student, and of WaveRNN and the GAN vocoders when a
+vocoder id is given (each with its top-k directory), where the port writes
+torch `.pt` files.
 """
 from __future__ import annotations
 
@@ -39,10 +40,12 @@ class Paths:
         self.taco_top_k = self.taco_checkpoints / 'top_k_models'
         self.forward_checkpoints = checkpoints / f'{tts_id}.forward'
         self.forward_top_k = self.forward_checkpoints / 'top_k_models'
+        self.aligner_checkpoints = checkpoints / f'{tts_id}.aligner'
         dirs = [self.data, self.quant, self.mel, self.gta, self.alg,
                 self.raw_pitch, self.phon_pitch, self.phon_energy,
                 self.taco_checkpoints, self.taco_top_k,
-                self.forward_checkpoints, self.forward_top_k]
+                self.forward_checkpoints, self.forward_top_k,
+                self.aligner_checkpoints]
         if voc_id is not None:
             self.voc_checkpoints = checkpoints / f'{voc_id}.wavernn'
             self.voc_top_k = self.voc_checkpoints / 'top_k_models'

@@ -3,14 +3,16 @@
 `load_fjax` reads a `.fjax` file (a pickle of numpy arrays plus the
 config). `forward_tacotron_state_dict` / `fast_pitch_state_dict` /
 `tacotron_state_dict` / `wavernn_state_dict` / `hifigan_state_dict` /
-`discriminator_state_dict` turn its flax variables into this package's
-`state_dict` (`tts_state_dict` picks the TTS model's), under the
-reference's torch key names (the official generator's for HiFi-GAN, the
-hub model's for MelGAN), so `load_state_dict(strict=True)` takes them as
-they are. Layout transforms: conv kernels (W, Cin, Cout) -> (Cout, Cin,
-W), transposed-conv kernels (stored flipped, (W, Cin, Cout)) -> (Cin,
-Cout, W) unflipped, dense kernels transposed, RNN gates already in the
-torch layout.
+`discriminator_state_dict` / `deepmind_wavernn_state_dict` turn its flax
+variables into this package's `state_dict` (`tts_state_dict` picks the TTS
+model's), under the reference's torch key names (the official generator's
+for HiFi-GAN, the hub model's for MelGAN), so
+`load_state_dict(strict=True)` takes them as they are. The reference has
+no multi-speaker model and no aligner: their parameters are named after
+the port's modules (`_put_speaker`, `aligner_state_dict`). Layout
+transforms: conv kernels (W, Cin, Cout) -> (Cout, Cin, W), transposed-conv
+kernels (stored flipped, (W, Cin, Cout)) -> (Cin, Cout, W) unflipped,
+dense kernels transposed, RNN gates already in the torch layout.
 """
 from __future__ import annotations
 
@@ -101,6 +103,20 @@ def _put_cbhg(out: Dict, name: str, params: Dict, stats: Dict, K: int,
     _put_birnn(out, f'{name}.rnn', params['rnn'])
 
 
+def _put_speaker(out: Dict, params: Dict, preds=()) -> None:
+    """A multi-speaker model's `speaker_embedding`, `speaker_proj` and
+    each predictor's `spk_proj` (no bias), named after the port's modules
+    (the reference has no multi-speaker model, so no names of its own);
+    nothing for a single-speaker one."""
+    if 'speaker_embedding' not in params:
+        return
+    out['speaker_embedding.weight'] = _t(
+        params['speaker_embedding']['embedding'])
+    _put_dense(out, 'speaker_proj', params['speaker_proj'])
+    for pred in preds:
+        _put_dense(out, f'{pred}.spk_proj', params[pred]['spk_proj'])
+
+
 def _put_series_predictor(out: Dict, name: str, params: Dict,
                           stats: Dict) -> None:
     out[f'{name}.embedding.weight'] = _t(params['embedding']['embedding'])
@@ -115,13 +131,10 @@ def forward_tacotron_state_dict(variables: Dict[str, Any],
                                 model_cfg: Dict[str, Any], step: int = 0
                                 ) -> Dict[str, torch.Tensor]:
     """Flax ForwardTacotron variables ({'params', 'batch_stats'}, numpy)
-    -> the port's state_dict. Multi-speaker checkpoints are rejected."""
+    -> the port's state_dict, with a multi-speaker model's speaker
+    parameters (`_put_speaker`)."""
     params = variables['params']
     stats = variables.get('batch_stats', {})
-    if int(model_cfg.get('n_speakers', 1)) > 1 or any(
-            k in params for k in ('speaker_embedding', 'speaker_proj')):
-        raise ValueError('multi-speaker ForwardTacotron checkpoints '
-                         '(n_speakers > 1) are not ported yet')
     out: Dict[str, torch.Tensor] = {
         'step': torch.tensor([int(step)], dtype=torch.long),
         'embedding.weight': _t(params['embedding']['embedding'])}
@@ -138,6 +151,7 @@ def forward_tacotron_state_dict(variables: Dict[str, Any],
               K=model_cfg['postnet_k'],
               num_highways=model_cfg['postnet_num_highways'])
     _put_dense(out, 'post_proj', params['post_proj'])
+    _put_speaker(out, params, ('dur_pred', 'pitch_pred', 'energy_pred'))
     return out
 
 
@@ -170,13 +184,9 @@ def fast_pitch_state_dict(variables: Dict[str, Any],
                           ) -> Dict[str, torch.Tensor]:
     """Flax FastPitch variables ({'params'}, numpy) -> the port's
     state_dict, key for key and value for value the JAX package's
-    `export_fast_pitch` (the positional tables recomputed). Multi-speaker
-    checkpoints are rejected."""
+    `export_fast_pitch` (the positional tables recomputed), with a
+    multi-speaker model's speaker parameters (`_put_speaker`)."""
     params = variables['params']
-    if int(model_cfg.get('n_speakers', 1)) > 1 or any(
-            k in params for k in ('speaker_embedding', 'speaker_proj')):
-        raise ValueError('multi-speaker FastPitch checkpoints '
-                         '(n_speakers > 1) are not ported yet')
     out: Dict[str, torch.Tensor] = {
         'step': torch.tensor([int(step)], dtype=torch.long),
         'embedding.weight': _t(params['embedding']['embedding'])}
@@ -194,6 +204,7 @@ def fast_pitch_state_dict(variables: Dict[str, Any],
     _put_conv1d(out, 'pitch_proj', params['pitch_proj'])
     _put_conv1d(out, 'energy_proj', params['energy_proj'])
     _put_dense(out, 'lin', params['lin'])
+    _put_speaker(out, params, ('dur_pred', 'pitch_pred', 'energy_pred'))
     return out
 
 
@@ -226,14 +237,10 @@ def tacotron_state_dict(variables: Dict[str, Any], model_cfg: Dict[str, Any],
                         step: int = 0, r: int = 1
                         ) -> Dict[str, torch.Tensor]:
     """Flax Tacotron variables (numpy) -> the port's state_dict, with the
-    `decoder.r` and `stop_threshold` buffers. Multi-speaker checkpoints
-    are rejected."""
+    `decoder.r` and `stop_threshold` buffers, and a multi-speaker
+    teacher's `speaker_embedding` and `speaker_proj`."""
     params = variables['params']
     stats = variables.get('batch_stats', {})
-    if int(model_cfg.get('n_speakers', 1)) > 1 or any(
-            k in params for k in ('speaker_embedding', 'speaker_proj')):
-        raise ValueError('multi-speaker Tacotron checkpoints '
-                         '(n_speakers > 1) are not ported yet')
     enc = params['encoder']
     out: Dict[str, torch.Tensor] = {
         'step': torch.tensor([int(step)], dtype=torch.long),
@@ -260,6 +267,7 @@ def tacotron_state_dict(variables: Dict[str, Any], model_cfg: Dict[str, Any],
               K=model_cfg['postnet_k'],
               num_highways=model_cfg['num_highways'])
     _put_dense(out, 'post_proj', params['post_proj'])
+    _put_speaker(out, params)
     return out
 
 
@@ -371,4 +379,42 @@ def discriminator_state_dict(variables: Dict[str, Any],
             for i in range(n_convs):
                 put(out, f'{name}.{j}.convs.{i}', p[f'conv_{i}'])
             put(out, f'{name}.{j}.conv_post', p['conv_post'])
+    return out
+
+
+def _put_conv_stack(out: Dict, name: str, p: Dict) -> None:
+    i = 0
+    while f'Conv_{i}' in p:
+        _put_conv1d(out, f'{name}.convs.{i}', p[f'Conv_{i}'])
+        _put_layer_norm(out, f'{name}.norms.{i}', p[f'LayerNorm_{i}'])
+        i += 1
+    _put_dense(out, f'{name}.lin', p['Dense_0'])
+
+
+def aligner_state_dict(variables: Dict[str, Any], step: int = 0
+                       ) -> Dict[str, torch.Tensor]:
+    """Flax Aligner variables (numpy) -> the state_dict of
+    `align/aligner.py:Aligner` (`Embed_0` -> `embedding`, each encoder's
+    `Conv_i` / `LayerNorm_i` / `Dense_0` -> `convs.i` / `norms.i` /
+    `lin`)."""
+    params = variables['params']
+    out: Dict[str, torch.Tensor] = {
+        'step': torch.tensor([int(step)], dtype=torch.long),
+        'embedding.weight': _t(params['Embed_0']['embedding'])}
+    for enc in ('text_enc', 'mel_enc'):
+        _put_conv_stack(out, enc, params[enc])
+    return out
+
+
+def deepmind_wavernn_state_dict(variables: Dict[str, Any]
+                                ) -> Dict[str, torch.Tensor]:
+    """Flax DeepMindWaveRNN variables (numpy) -> the reference's
+    `models/deepmind_version.py` keys: `R`, `I_coarse`, `I_fine` (no bias),
+    `O1`..`O4` and `bias_u` / `bias_r` / `bias_e`."""
+    params = variables['params']
+    out: Dict[str, torch.Tensor] = {}
+    for name in ('R', 'O1', 'O2', 'O3', 'O4', 'I_coarse', 'I_fine'):
+        _put_dense(out, name, params[name])
+    for name in ('bias_u', 'bias_r', 'bias_e'):
+        out[name] = _t(params[name])
     return out

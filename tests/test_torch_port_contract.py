@@ -51,10 +51,9 @@ def test_forward_tacotron_state_dict_equals_torch_export():
     _assert_same(sd, export_forward_tacotron(variables, FT_CFG, step=42))
     ForwardTacotron(num_chars=30, n_mels=5, **FT_CFG).load_state_dict(
         sd, strict=True)
-    bad = dict(variables, params=dict(variables['params'],
-                                      speaker_embedding={}))
-    with pytest.raises(ValueError, match='multi-speaker'):
-        forward_tacotron_state_dict(bad, FT_CFG)
+    # a single-speaker model has no speaker parameter (the multi-speaker
+    # ones: tests/test_torch_multispeaker.py)
+    assert not any('speaker' in k or 'spk' in k for k in sd)
 
 
 def test_wavernn_state_dict_equals_torch_export():
@@ -98,10 +97,11 @@ def test_builtin_config_equals_config_yaml():
         assert cfg[key] == ref[key], key
     for section in ('dsp', 'preprocessing'):
         assert cfg[section] == ref[section], section
-    for section in ('forward_tacotron', 'vocoder', 'tacotron', 'fast_pitch'):
+    for section in ('forward_tacotron', 'vocoder', 'tacotron', 'fast_pitch',
+                    'aligner'):
         assert cfg[section]['model'] == ref[section]['model'], section
     for section in ('forward_tacotron', 'tacotron', 'vocoder', 'hifigan',
-                    'fast_pitch'):
+                    'fast_pitch', 'aligner'):
         assert cfg[section]['training'] == ref[section]['training'], section
     assert cfg['hifigan']['model'] == ref['hifigan']['model']
 

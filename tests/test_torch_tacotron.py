@@ -111,10 +111,9 @@ def test_tacotron_state_dict_equals_torch_export():
     assert set(model.state_dict()) == set(ref)
     model.load_state_dict(sd, strict=True)
     assert int(model.decoder.r) == 5 and int(model.step) == 42
-    bad = dict(_variables(), params=dict(_variables()['params'],
-                                         speaker_embedding={}))
-    with pytest.raises(ValueError, match='multi-speaker'):
-        tacotron_state_dict(bad, CFG)
+    # a single-speaker teacher has no speaker parameter (the
+    # multi-speaker ones: tests/test_torch_multispeaker.py)
+    assert not any('speaker' in k for k in sd)
 
 
 def test_port_checkpoint_converts_to_the_same_jax_outputs(tmp_path):
