@@ -177,13 +177,30 @@ printed only when every phase passed):
    float32, each voice's mel in the batch equal to its solo run at
    1e-4; FastPitch with 8 speakers, generate card vs CPU; the DeepMind
    WaveRNN's step card vs CPU at 1e-5 and 1000 generate steps timed;
-14. a {"kernels": [...]} JSON line (launches of the main paths, of the
+14. the fused server and the export at the full width of config.yaml,
+   random weights (`export_and_fused_path` lists its cuts):
+   `TTSServer(fused=True)` (each key one captured CUDA graph) and the
+   staged server with HiFi-GAN V1 and with WaveRNN (bf16) answering two
+   rounds of 8 concurrent requests (wall time, audio seconds a second,
+   batch sizes, the capture seconds of each key, the graph pool's
+   memory), the 920-frame utterance staged against one fused replay (CUDA
+   events and host clock); the replay against the same function run
+   eagerly, bit for bit, with #1 and #4 counted by kernel name in a
+   profiled replay and held to the eager run's counts; WaveRNN replays
+   with another seed differ; the float32 fused mel against the CPU at
+   atol 1e-4; a mel past fused_max_t served by the staged path;
+   `export_forward --device cuda` with WaveRNN and with HiFi-GAN (export
+   seconds, file size), the artifact's synthesize repeatable at a fixed
+   seed with #1 and #4 counted, its generate against the live model (mel
+   L1 < 1e-3);
+15. a {"kernels": [...]} JSON line (launches of the main paths, of the
    teacher phase in `launches_teacher`, of the vocoder phase in
    `launches_vocoder`, of the options phase in `launches_options`, of
    phase 12's FastPitch paths in `launches_fast_pitch` and of its
    gen_tacotron runs in `launches_gen_tacotron`, of phase 13's
    multi-speaker paths in `launches_multispeaker` and of its aligner runs
-   in `launches_aligner`,
+   in `launches_aligner`, of phase 14's fused replays in `launches_fused`
+   and of its exported artifacts in `launches_export`,
    each kernel's time at the vocoder path's shape in `vocoder_*` and #2/#3
    in bf16 in `bf16_*`; #2's cluster path with the cooperative path's
    times on the same inputs in `*cooperative_ms`), the nvidia-smi line,
@@ -620,11 +637,13 @@ def wavernn_cases():
     from forwardtacotron_tpu_torch.kernels import wavernn_sample as ws
     out = {}
     f32, bf16 = torch.float32, torch.bfloat16
+    # the sampler reads its seed from an int64 on the card
+    seeds = {n: ws.seed_tensor(n, 'cuda') for n in (0, 3, 5, 7, 8, 9)}
     # RAW greedy float32 at 64 lanes x 3850 steps
     model, mels, aux = _wavernn_inputs('RAW', 64, 3850, seed=1)
     w32 = ws.pack_weights(model, f32)
     cond32 = ws.compact_cond(mels, aux, f32)
-    k = ws.sample(cond32, w32, 0, 0, True, f32)
+    k = ws.sample(cond32, w32, seeds[0], 0, True, f32)
     torch.cuda.synchronize()
     p = ws.sample_plain(cond32, w32, 0, 0, True, f32)
     agree = float(((k - p).abs() < 1e-6).float().mean())
@@ -636,9 +655,9 @@ def wavernn_cases():
     # RAW sampled bfloat16 (the main path's mode): timing and checks
     wbf = ws.pack_weights(model, bf16)
     condbf = ws.compact_cond(mels, aux, bf16)
-    a = ws.sample(condbf, wbf, 7, 0, False, bf16)
-    b = ws.sample(condbf, wbf, 7, 0, False, bf16)
-    c = ws.sample(condbf, wbf, 8, 0, False, bf16)
+    a = ws.sample(condbf, wbf, seeds[7], 0, False, bf16)
+    b = ws.sample(condbf, wbf, seeds[7], 0, False, bf16)
+    c = ws.sample(condbf, wbf, seeds[8], 0, False, bf16)
     torch.cuda.synchronize()
     check(bool((a.abs() <= 1).all()) and float(a.std()) > 0,
           f'RAW sampled bf16: in [-1, 1], std {float(a.std()):.3f} > 0')
@@ -653,7 +672,7 @@ def wavernn_cases():
     # the main path's compute type, greedy: the same class on > 95% of the
     # samples (products sum in another order than the plain version's, so
     # a near tie may flip, and the trajectory then differs for a while)
-    gk = ws.sample(condbf, wbf, 0, 0, True, bf16)
+    gk = ws.sample(condbf, wbf, seeds[0], 0, True, bf16)
     gp = ws.sample_plain(condbf, wbf, 0, 0, True, bf16)
     agree = float(((gk - gp).abs() < 1e-6).float().mean())
     check(agree > 0.95, f'RAW greedy bf16 64x3850: class agreement '
@@ -661,8 +680,8 @@ def wavernn_cases():
     out['raw_greedy_bf16_agreement'] = agree
     out['raw_greedy_bf16_max_abs_err'] = float((gk - gp).abs().max())
     T, L, C = condbf.shape
-    out['ms'] = cuda_ms(lambda: ws.sample(condbf, wbf, 7, 0, False, bf16),
-                        reps=2)
+    out['ms'] = cuda_ms(lambda: ws.sample(condbf, wbf, seeds[7], 0, False,
+                                          bf16), reps=2)
     out['plain_ms'] = cuda_ms(lambda: ws.sample_plain(
         condbf, wbf, 7, 0, False, bf16), reps=1, warmup=0)
     H, F, NC = model.rnn_dims, model.fc_dims, model.n_classes
@@ -685,7 +704,7 @@ def wavernn_cases():
     model128, mels128, aux128 = _wavernn_inputs('RAW', 128, 600, seed=4)
     w32 = ws.pack_weights(model128, f32)
     cond128 = ws.compact_cond(mels128, aux128, f32)
-    k = ws.sample(cond128, w32, 0, 0, True, f32)
+    k = ws.sample(cond128, w32, seeds[0], 0, True, f32)
     p = ws.sample_plain(cond128, w32, 0, 0, True, f32)
     agree = float(((k - p).abs() < 1e-6).float().mean())
     check(agree > 0.95, f'RAW greedy f32 128x600: class agreement '
@@ -693,8 +712,8 @@ def wavernn_cases():
     out['raw_greedy_f32_128_agreement'] = agree
     cbf = ws.compact_cond(mels128, aux128, bf16)
     w128 = ws.pack_weights(model128, bf16)
-    check(torch.equal(ws.sample(cbf, w128, 9, 0, False, bf16),
-                      ws.sample(cbf, w128, 9, 0, False, bf16)),
+    check(torch.equal(ws.sample(cbf, w128, seeds[9], 0, False, bf16),
+                      ws.sample(cbf, w128, seeds[9], 0, False, bf16)),
           'RAW sampled bf16 128x600: same seed, same output')
 
     # 72 lanes x 3850 steps, the fold of the 920-frame utterance (a lane
@@ -702,7 +721,7 @@ def wavernn_cases():
     model72, mels72, aux72 = _wavernn_inputs('RAW', 72, 3850, seed=6)
     w72 = ws.pack_weights(model72, bf16)
     cond72 = ws.compact_cond(mels72, aux72, bf16)
-    k = ws.sample(cond72, w72, 0, 0, True, bf16)
+    k = ws.sample(cond72, w72, seeds[0], 0, True, bf16)
     p = ws.sample_plain(cond72, w72, 0, 0, True, bf16)
     agree = float(((k - p).abs() < 1e-6).float().mean())
     check(agree > 0.95, f'RAW greedy bf16 72x3850: class agreement '
@@ -725,7 +744,7 @@ def wavernn_cases():
     for dtype in (f32, bf16):
         w_g = ws.pack_weights(model_g, dtype)
         cond_g = ws.compact_cond(mels_g, aux_g, dtype)
-        k = ws.sample(cond_g, w_g, 0, 0, True, dtype)
+        k = ws.sample(cond_g, w_g, seeds[0], 0, True, dtype)
         t0 = time.perf_counter()
         p = ws.sample_plain(cond_g, w_g, 0, 0, True, dtype)
         torch.cuda.synchronize()
@@ -745,7 +764,7 @@ def wavernn_cases():
         'shape': f'RAW sampled bf16 {lanes} lanes x {steps} steps',
         'agreement': agree, 'max_abs_err': fold[f32][2],
         'bf16_greedy_agreement': fold[bf16][1],
-        'ms': cuda_ms(lambda: ws.sample(cond_g, w_g, 7, 0, False, bf16),
+        'ms': cuda_ms(lambda: ws.sample(cond_g, w_g, seeds[7], 0, False, bf16),
                       reps=2),
         'plain_ms': fold[bf16][0], 'bound_ms': gen_bound[0],
         'bound_by': gen_bound[1]}
@@ -759,15 +778,16 @@ def wavernn_cases():
         cond_l = (torch.randn((3850, lanes, C), device='cuda', generator=g)
                   * 0.5).to(bf16)
         out['lanes_ms'][lanes] = cuda_ms(
-            lambda: ws.sample(cond_l, wbf, 7, 0, False, bf16), reps=2)
+            lambda: ws.sample(cond_l, wbf, seeds[7], 0, False, bf16), reps=2)
     log(f'  RAW sampled bf16 x 3850 steps, ms by lanes: {out["lanes_ms"]}')
 
     # lane groups: 64 lanes as groups of 16 == one launch (greedy)
-    one = ws.sample_conditioned(model, mels, aux, 0, True, bf16)
+    one = ws.sample_conditioned(model, mels, aux, seeds[0], True, bf16)
     saved = ws.MAX_LANES
     ws.MAX_LANES = 16
     try:
-        grouped = ws.sample_conditioned(model, mels, aux, 0, True, bf16)
+        grouped = ws.sample_conditioned(model, mels, aux, seeds[0], True,
+                                        bf16)
     finally:
         ws.MAX_LANES = saved
     check(torch.equal(one, grouped), 'lane groups of 16 == one launch')
@@ -776,7 +796,7 @@ def wavernn_cases():
     model, mels, aux = _wavernn_inputs('MOL', 16, 1650, seed=2)
     w32 = ws.pack_weights(model, f32)
     cond32 = ws.compact_cond(mels, aux, f32)
-    k = ws.sample(cond32, w32, 0, 10, True, f32)
+    k = ws.sample(cond32, w32, seeds[0], 10, True, f32)
     p = ws.sample_plain(cond32, w32, 0, 10, True, f32)
     agree = float(((k - p).abs() < 1e-3).float().mean())
     check(agree > 0.95, f'MOL greedy f32 16x1650: agreement {agree:.4f} '
@@ -784,13 +804,13 @@ def wavernn_cases():
     out['mol_greedy_f32_agreement'] = agree
     condbf, wbf = ws.compact_cond(mels, aux, bf16), ws.pack_weights(model,
                                                                     bf16)
-    k = ws.sample(condbf, wbf, 0, 10, True, bf16)
+    k = ws.sample(condbf, wbf, seeds[0], 10, True, bf16)
     p = ws.sample_plain(condbf, wbf, 0, 10, True, bf16)
     agree = float(((k - p).abs() < 1e-3).float().mean())
     check(agree > 0.95, f'MOL greedy bf16 16x1650: agreement {agree:.4f} '
                         '> 0.95 at |d| < 1e-3')
     out['mol_greedy_bf16_agreement'] = agree
-    s = ws.sample(condbf, wbf, 3, 10, False, bf16)
+    s = ws.sample(condbf, wbf, seeds[3], 10, False, bf16)
     torch.cuda.synchronize()
     check(bool((s.abs() <= 1).all()) and float(s.std()) > 0,
           'MOL sampled bf16: in [-1, 1], std > 0')
@@ -954,26 +974,28 @@ def _reset_counts():
     sample.launches = 0
 
 
-def _gan_files(cfg):
+def _gan_files(cfg, directory=None):
     """Seeded random generators at config.yaml's widths, written in the
-    layouts users bring: HiFi-GAN V1 as the official {'generator': sd}
-    with weight_g / weight_v and a config.json beside it, MelGAN as the
-    hub's {'model_g': sd} (base width 512, rates 8, 8, 2, 2)."""
+    layouts users bring into `directory` (SERVING_DIR where None):
+    HiFi-GAN V1 as the official {'generator': sd} with weight_g /
+    weight_v and a config.json beside it, MelGAN as the hub's
+    {'model_g': sd} (base width 512, rates 8, 8, 2, 2)."""
     from forwardtacotron_tpu_torch.models.hifigan import (
         HiFiGANGenerator, weight_norm_state_dict)
     from forwardtacotron_tpu_torch.models.melgan import MelGANGenerator
-    SERVING_DIR.mkdir(parents=True, exist_ok=True)
+    directory = SERVING_DIR if directory is None else directory
+    directory.mkdir(parents=True, exist_ok=True)
     model_cfg = cfg['hifigan']['model']
     n_mels = cfg['dsp']['num_mels']
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(11)
         hifi = HiFiGANGenerator.from_config(model_cfg, n_mels=n_mels)
         melgan = MelGANGenerator(n_mels=n_mels, base_channels=512)
-    hifi_path = SERVING_DIR / 'g_00000000'
+    hifi_path = directory / 'g_00000000'
     torch.save({'generator': weight_norm_state_dict(hifi)}, hifi_path)
-    (SERVING_DIR / 'config.json').write_text(json.dumps(
+    (directory / 'config.json').write_text(json.dumps(
         {k: v for k, v in model_cfg.items() if k != 'generator_type'}))
-    melgan_path = SERVING_DIR / 'melgan.pt'
+    melgan_path = directory / 'melgan.pt'
     torch.save({'model_g': weight_norm_state_dict(melgan)}, melgan_path)
     return hifi_path.resolve(), melgan_path.resolve()
 
@@ -4412,6 +4434,389 @@ def speakers_and_aligner_path():
     return out['launches']
 
 
+# --------------------------------------------------- export and fused path
+
+EXPORT_DIR = Path('model_outputs/smoke_export')   # artifacts, vocoder files
+FUSED_MAX_T = 1024           # TTSServer's and serve_forward's default
+EXPORT_BUCKET = '64:512'
+
+
+def _fused_batch(srv, texts, seed, knobs=None):
+    """(tx, B, the seven host inputs) of the fused program for `texts` as
+    the server pads a batch (`knobs`: (alpha, pitch_scale, energy_scale)
+    per text, 1 where None)."""
+    from forwardtacotron_tpu_torch.serving import _Request
+    knobs = knobs or [(1.0, 1.0, 1.0)] * len(texts)
+    reqs = [_Request(t, *k) for t, k in zip(texts, knobs)]
+    ids = [srv.tokenizer(srv.cleaner(t)) for t in texts]
+    x, x_lens, scale = srv._padded_batch(reqs, ids, srv.text_bucket)
+    B, tx = x.shape
+    return tx, B, [x, x_lens, scale[0], scale[1], scale[2],
+                   np.zeros((B,), np.int64), np.asarray(seed, np.int64)]
+
+
+def _kernel_counts_now():
+    """Every kernel's launches by path under
+    `utils/profiling.kernel_launches`' keys."""
+    from forwardtacotron_tpu_torch.utils.profiling import KERNEL_NAMES
+    counts = _all_counts()
+    return {k: counts[k] for k in KERNEL_NAMES.values()}
+
+
+def _concurrent(srv, lines, hop):
+    """8 concurrent requests of mixed alpha / pitch_scale (phase 6's):
+    every answer int16, non-empty and a whole number of hops."""
+    import threading
+    results = [None] * 8
+    alphas = (1.0, 1.2, 0.9, 1.1, 1.0, 0.8, 1.3, 1.0)
+    pitches = (1.0, 0.9, 1.1, 1.0, 1.2, 1.0, 0.8, 1.05)
+
+    def client(i):
+        results[i] = srv.synthesize(lines[i % len(lines)], alpha=alphas[i],
+                                    pitch_scale=pitches[i], timeout=300)
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(8)]
+    srv.batch_sizes.clear()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    ok = all(r is not None and r.dtype == np.int16 and len(r) > 0
+             and len(r) % hop == 0 for r in results)
+    audio_s = sum(len(r) for r in results if r is not None) / srv.sample_rate
+    return ok, wall, audio_s
+
+
+def _counting_fallbacks(srv):
+    """Wrap the server's fused batch so that the batches it hands to the
+    staged path (a mel of fused_max_t frames or more) are counted."""
+    fused, counted = srv._synthesize_batch_fused, {'fallbacks': 0}
+
+    def wrapped(reqs, ids):
+        out = fused(reqs, ids)
+        counted['fallbacks'] += out is None
+        return out
+    srv._synthesize_batch_fused = wrapped
+    return counted
+
+
+def _replay_exact(srv, texts, vocoder):
+    """The captured graph against the same function run eagerly on the
+    card (same inputs and seed): pcm, mel_len, wav_len and the mel equal
+    bit for bit; every kernel counted by name in a profiled replay and
+    held to the eager run's counts; WaveRNN replays with another seed
+    differ, with the same seed repeat."""
+    from torch.profiler import ProfilerActivity, profile
+    from forwardtacotron_tpu_torch.utils.profiling import kernel_launches
+    tx, B, inputs = _fused_batch(srv, texts, 11,
+                                 [(1.0, 1.0, 1.0), (1.2, 0.9, 1.1)])
+    run = srv._fused_program(tx, B, FUSED_MAX_T)
+    before = _kernel_counts_now()
+    with torch.no_grad():
+        eager = srv._fused_forward(
+            *(torch.as_tensor(v).to(DEVICE) for v in inputs), FUSED_MAX_T)
+    torch.cuda.synchronize()
+    eager_counts = {k: v - before[k] for k, v in _kernel_counts_now().items()}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        replay = run(*inputs)
+    counted = kernel_launches(prof)
+    equal = all(np.array_equal(r, e.cpu().numpy())
+                for r, e in zip(replay, eager[:3])) \
+        and torch.equal(run.outputs[3], eager[3])
+    need = ('birnn_stream_local', 'wavernn_sample') \
+        if vocoder == 'wavernn' else ('birnn_stream_local',)
+    check(equal and counted == eager_counts
+          and all(counted[k] > 0 for k in need),
+          f'fused {vocoder} (tx {tx}, B {B}): graph replay == eager, bit '
+          f'for bit (pcm {replay[0].dtype} {replay[0].shape}, mel_len '
+          f'{replay[1].tolist()}); kernels in the replay {counted}, eager '
+          f'{eager_counts}')
+    out = {'key': [tx, B, FUSED_MAX_T], 'launches_replay': counted,
+           'launches_eager': eager_counts, 'mel_len': replay[1].tolist()}
+    if vocoder == 'wavernn':
+        again = run(*inputs[:-1], np.asarray(11))
+        other = run(*inputs[:-1], np.asarray(12))
+        check(np.array_equal(again[0], replay[0])
+              and not np.array_equal(other[0], replay[0]),
+              'fused wavernn: replays with seed 11 repeat, seed 12 differs')
+    return out
+
+
+def _utterance_920(srv, text, hop):
+    """The 920-frame utterance (phase 5: 8 frames a phoneme, forced on the
+    server's model) from text to PCM through the server's batch path: the
+    staged one, or one fused replay (captured on the first call); ms by
+    CUDA events and by the host clock (median of 3 after one call), and
+    the graph's replay alone by CUDA events."""
+    from forwardtacotron_tpu_torch.serving import _Request
+    model = srv.model
+    series = model.predict_series
+    reqs = [_Request(text, 1.0, 1.0, 1.0)]
+    ids = [srv.tokenizer(srv.cleaner(text))]
+    tx = -(-len(ids[0]) // srv.text_bucket) * srv.text_bucket
+    key = (tx, 1, FUSED_MAX_T)
+    # the key's graph is captured again with the forced durations
+    held = srv._fused_programs.pop(key, None)
+
+    def eight(*args, **kw):
+        out = series(*args, **kw)
+        return dict(out, dur=torch.full_like(out['dur'], 8.0))
+    model.predict_series = eight
+    try:
+        wav = srv._synthesize_batch(reqs, ids)[0]
+        rows = []
+        for _ in range(3):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            t0 = time.perf_counter()
+            ev[0].record()
+            wav = srv._synthesize_batch(reqs, ids)[0]
+            ev[1].record()
+            ev[1].synchronize()
+            rows.append(((time.perf_counter() - t0) * 1e3,
+                         ev[0].elapsed_time(ev[1])))
+        row = {'host_ms': float(np.median([r[0] for r in rows])),
+               'event_ms': float(np.median([r[1] for r in rows])),
+               'samples': len(wav),
+               'audio_s': len(wav) / srv.sample_rate}
+        if srv.fused:
+            row['capture_s'] = srv.capture_seconds[key]
+            graph = srv._fused_programs[key].graph
+            row['replay_event_ms'] = cuda_ms(graph.replay, reps=3)
+    finally:
+        model.predict_series = series
+        if srv.fused:
+            srv._fused_programs.pop(key, None)
+            if held is not None:
+                srv._fused_programs[key] = held
+    frames = 8 * len(ids[0])
+    n = frames * hop if srv.vocoder != 'wavernn' else (frames - 1) * hop
+    check(len(wav) == n and wav.dtype == np.int16,
+          f'{"fused" if srv.fused else "staged"} {srv.vocoder}: the '
+          f'{frames}-frame utterance, {len(wav)} int16 samples, '
+          f'{row["event_ms"]:.1f} ms (events), {row["host_ms"]:.1f} ms '
+          f'(host)' + (f', replay alone {row["replay_event_ms"]:.1f} ms'
+                       if srv.fused else ''))
+    return row
+
+
+def _pool_gib(pool):
+    """GiB the caching allocator holds in the private pool `pool` (the
+    fused server's CUDA graphs), from its segments; 'not measured' where
+    this torch's snapshot does not name the pools."""
+    segments = torch.cuda.memory_snapshot()
+    if not segments or 'segment_pool_id' not in segments[0]:
+        return 'not measured'
+    return sum(s['total_size'] for s in segments
+               if tuple(s['segment_pool_id']) == tuple(pool)) / 2 ** 30
+
+
+def _servers(lines, hifi_path, hop, long_text):
+    """For HiFi-GAN V1 and WaveRNN (bf16): the staged and the fused
+    server, each warmed up (fused: the capture seconds of each key and
+    the graph pool's memory), two rounds of 8 concurrent requests, the
+    920-frame utterance; on the fused one the replay against the eager
+    function."""
+    from forwardtacotron_tpu_torch.serving import TTSServer
+    out, exact = {}, {}
+    for vocoder, voc_ckpt in (('hifigan', str(hifi_path)),
+                              ('wavernn', None)):
+        for mode in ('staged', 'fused'):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with TTSServer(None, vocoder=vocoder, voc_checkpoint=voc_ckpt,
+                           max_batch=8, max_wait_ms=20.0, device=DEVICE,
+                           fused=mode == 'fused',
+                           fused_max_t=FUSED_MAX_T) as srv:
+                n_ids = max(len(srv.tokenizer(srv.cleaner(t)))
+                            for t in lines[:8])
+                warm = srv.warmup(batch_sizes=[1, 8], text_lens=[n_ids])
+                row = {'warmup_s': warm['seconds'],
+                       'warmup_peak_gib':
+                           torch.cuda.max_memory_allocated() / 2 ** 30}
+                counted = _counting_fallbacks(srv) if srv.fused else None
+                for rnd in ('first', 'second'):
+                    ok, wall, audio_s = _concurrent(srv, lines, hop)
+                    check(ok, f'TTSServer {mode} {vocoder}, {rnd} round: 8 '
+                              f'concurrent requests in {wall:.3f} s '
+                              f'({audio_s:.2f} s of audio), batches '
+                              f'{list(srv.batch_sizes)}')
+                    row[rnd] = {'wall_s': wall, 'audio_s': audio_s,
+                                'audio_s_per_s': audio_s / wall,
+                                'batch_sizes': list(srv.batch_sizes)}
+                if srv.fused:
+                    row['fallbacks'] = counted['fallbacks']
+                    exact[vocoder] = _replay_exact(srv, lines[:2], vocoder)
+                    row['capture_s'] = {str(k): v for k, v in
+                                        srv.capture_seconds.items()}
+                    row['graph_pool_gib'] = _pool_gib(srv._graph_pool)
+                row['utterance_920'] = _utterance_920(srv, long_text, hop)
+                log(f'  TTSServer {mode} {vocoder}: {row}')
+                out[f'{mode}_{vocoder}'] = row
+    return out, exact
+
+
+def _fused_f32_vs_cpu(text, hifi_path):
+    """The float32 mel out of a float32 fused program (HiFi-GAN, 512
+    frames, one replay) against the same series and decode on the CPU's
+    plain path, same seeded weights: atol 1e-4, an equal mel_len."""
+    from forwardtacotron_tpu_torch import gen_forward
+    from forwardtacotron_tpu_torch.config import default_config
+    from forwardtacotron_tpu_torch.serving import TTSServer
+    hifi = str(hifi_path)
+    max_t = 512
+    with TTSServer(None, vocoder='hifigan', voc_checkpoint=hifi,
+                   device=DEVICE, fused=True, fused_max_t=max_t,
+                   compute_dtype=torch.float32) as srv:
+        tx, B, inputs = _fused_batch(srv, [text], 0, [(1.1, 0.9, 1.2)])
+        run = srv._fused_program(tx, B, max_t)
+        mel_len = run(*inputs)[1]
+        mel = run.outputs[3].cpu()
+    model, _, _ = gen_forward.load_tts(None, default_config(), 'cpu', 0)
+    x, xl = torch.as_tensor(inputs[0]), torch.as_tensor(inputs[1])
+    a, ps, es = (torch.as_tensor(v) for v in inputs[2:5])
+    with torch.no_grad():
+        s = model.predict_series(x, x_len=xl, compute_dtype=torch.float32)
+        ref = model.generate_from_series(
+            x, s['dur'] / a[:, None], s['pitch'] * ps[:, None],
+            s['energy'] * es[:, None], max_t, x_len=xl,
+            compute_dtype=torch.float32)
+    n = int(ref['mel_len'][0])
+    err = float((mel[0, :n] - ref['mel_post'][0, :n]).abs().max())
+    check(int(mel_len[0]) == n < max_t and err < 1e-4,
+          f'float32 fused mel, card vs CPU: mel_len {int(mel_len[0])} / {n}, '
+          f'max err {err:.2e} < 1e-4')
+    return {'mel_len': n, 'max_abs_err': err}
+
+
+def _fused_overflow(text, hop, hifi_path):
+    """A request whose mel reaches fused_max_t (64) frames is served
+    through the staged path."""
+    from forwardtacotron_tpu_torch.serving import TTSServer
+    hifi = str(hifi_path)
+    with TTSServer(None, vocoder='hifigan', voc_checkpoint=hifi,
+                   device=DEVICE, fused=True, fused_max_t=64) as srv:
+        counted = _counting_fallbacks(srv)
+        pcm = srv.synthesize(text, timeout=300)
+    check(counted['fallbacks'] == 1 and len(pcm) > 64 * hop,
+          f'fused_max_t 64: {counted["fallbacks"]} batch rerun on the '
+          f'staged path, {len(pcm)} samples > {64 * hop}')
+    return {'fallbacks': counted['fallbacks'], 'samples': len(pcm)}
+
+
+def _exports(text, hifi_path):
+    """`export_forward --device cuda` with WaveRNN and with HiFi-GAN, one
+    bucket each (export seconds, file size); the artifact's synthesize
+    with a fixed seed twice equal, #1 and #4 counted in a profiled call
+    (the wrappers' counters and the kernel names); generate against the
+    live model (float32: mel L1 < 1e-3, an equal mel_len)."""
+    from torch.profiler import ProfilerActivity, profile
+    from forwardtacotron_tpu_torch import export_forward, gen_forward
+    from forwardtacotron_tpu_torch.config import default_config
+    from forwardtacotron_tpu_torch.utils.export import ExportedTTS
+    from forwardtacotron_tpu_torch.utils.profiling import (KERNEL_NAMES,
+                                                           kernel_launches)
+    out, launches = {}, dict.fromkeys(KERNEL_NAMES.values(), 0)
+    cfg = default_config()
+    ids = gen_forward.text_to_ids(text, cfg)
+    tx, max_t = (int(v) for v in EXPORT_BUCKET.split(':'))
+    for name, argv in (('wavernn', ['--voc_type', 'wavernn']),
+                       ('hifigan', ['--voc_checkpoint', str(hifi_path)])):
+        path = EXPORT_DIR / f'{name}.ftpt'
+        t0 = time.perf_counter()
+        export_forward.main(['--device', 'cuda', '--output', str(path),
+                             '--buckets', EXPORT_BUCKET, *argv])
+        row = {'export_s': time.perf_counter() - t0,
+               'file_mib': path.stat().st_size / 2 ** 20}
+        t0 = time.perf_counter()
+        art = ExportedTTS(path)
+        row['load_s'] = time.perf_counter() - t0
+        art.synthesize(ids, seed=3)                # first call
+        before = _kernel_counts_now()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            pcm = art.synthesize(ids, seed=3)
+            row['synthesize_ms'] = (time.perf_counter() - t0) * 1e3
+        counts = {k: v - before[k] for k, v in _kernel_counts_now().items()}
+        named = kernel_launches(prof)
+        for k in launches:
+            launches[k] += counts[k]
+        need = ('birnn_stream_local', 'wavernn_sample') \
+            if name == 'wavernn' else ('birnn_stream_local',)
+        same = np.array_equal(pcm, art.synthesize(ids, seed=3))
+        check(counts == named and all(counts[k] > 0 for k in need)
+              and same and pcm.dtype == np.int16 and len(pcm) > 0,
+              f'export {name}: {row["export_s"]:.1f} s, '
+              f'{row["file_mib"]:.1f} MiB; synthesize {len(pcm)} int16 '
+              f'samples in {row["synthesize_ms"]:.1f} ms, seed 3 twice '
+              f'equal {same}; kernels {counts} (profiler {named})')
+        row.update(launches=counts, samples=len(pcm))
+        if name == 'hifigan':
+            mel, _ = art.generate(ids)
+            model, _, _ = gen_forward.load_tts(None, cfg, DEVICE, 0)
+            x = torch.zeros((1, tx), dtype=torch.long)
+            x[0, :len(ids)] = torch.tensor(ids)
+            live = model.generate(x.to(DEVICE), max_t, x_len=torch.tensor(
+                [len(ids)], device=DEVICE), compute_dtype=torch.float32)
+            n = int(live['mel_len'][0])
+            ref = live['mel_post'][0, :n].T.float().cpu().numpy()
+            l1 = float(np.abs(mel - ref).mean()) if mel.shape == ref.shape \
+                else float('inf')
+            check(mel.shape[1] == n and l1 < 1e-3,
+                  f'export generate on the card vs the live model: mel_len '
+                  f'{mel.shape[1]} / {n}, mel L1 {l1:.2e} < 1e-3')
+            row['generate_l1'] = l1
+        out[name] = row
+        log(f'  export {name}: {row}')
+        path.unlink()
+    return out, launches
+
+
+@phase('export and the fused server (full width)')
+def export_and_fused_path():
+    """The fused server and the exported artifact at config.yaml's widths,
+    random weights from seeds (HiFi-GAN V1 written in the official layout,
+    WaveRNN from config.yaml, bf16 in the servers). Cuts: 8 requests a
+    round (phase 6's), the fused servers warmed at B 1 and 8 and one text
+    bucket; one export bucket (64 tokens, 512 frames) of the CLI's
+    default two (64:512, 192:1536), float32 (the export's default).
+
+    1. `_servers`: staged and fused servers, HiFi-GAN and WaveRNN, two
+       rounds of 8 concurrent requests, capture seconds, graph pool
+       memory, the 920-frame utterance staged against one fused replay;
+       the replay against the eager function (`_replay_exact`);
+    2. `_fused_f32_vs_cpu`: the float32 mel of the fused program against
+       the CPU;
+    3. `_fused_overflow`: a mel of fused_max_t frames falls back;
+    4. `_exports`: export_forward --device cuda, the artifact on the card.
+    """
+    from forwardtacotron_tpu_torch.config import default_config
+    lines = [s for s in Path('sentences.txt').read_text().splitlines()
+             if s.strip()]
+    cfg = default_config()
+    hop = cfg['dsp']['hop_length']
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    out = {}
+    try:
+        hifi_path, _ = _gan_files(cfg, EXPORT_DIR)
+        out['servers'], out['exact'] = _servers(lines, hifi_path, hop,
+                                                lines[-1])
+        out['f32_vs_cpu'] = _fused_f32_vs_cpu(lines[0], hifi_path)
+        out['overflow'] = _fused_overflow(lines[-1], hop, hifi_path)
+        out['export'], export_launches = _exports(lines[0], hifi_path)
+    finally:
+        shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    fused = dict.fromkeys(export_launches, 0)
+    for row in out['exact'].values():
+        for k, v in row['launches_replay'].items():
+            fused[k] += v
+    out['launches'] = {'fused': fused, 'export': export_launches}
+    DETAILS['export_and_fused_path'] = out
+    return out['launches']
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser()
@@ -4449,6 +4854,7 @@ def main(argv=None) -> int:
     opts = options_path() or {}
     fp = fast_pitch_and_teacher_path() or {}
     ms = speakers_and_aligner_path() or {}
+    ef = export_and_fused_path() or {}
 
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / 'chip_smoke.json').write_text(json.dumps(
@@ -4482,6 +4888,10 @@ def main(argv=None) -> int:
     # phase 13: the multi-speaker teacher, student, CLIs and server, and
     # the teacher-free aligner (which launches none)
     msl, all_ = ms['multispeaker'], ms['aligner']
+    # phase 14: every kernel counted by name in one profiled replay of each
+    # fused graph (HiFi-GAN, WaveRNN), and in the exported artifacts'
+    # profiled calls (#2/#3, training kernels, are counted there too)
+    fus, exl = ef['fused'], ef['export']
     kernels = [
         {'name': 'birnn (stream-local path)', 'route': 'cuda',
          'source': 'forwardtacotron_tpu_torch/csrc/birnn.cu',
@@ -4500,6 +4910,8 @@ def main(argv=None) -> int:
          'launches_gen_tacotron': gtl['birnn_stream_local'],
          'launches_multispeaker': msl['birnn_stream_local'],
          'launches_aligner': all_['birnn_stream_local'],
+         'launches_fused': fus['birnn_stream_local'],
+         'launches_export': exl['birnn_stream_local'],
          'vocoder_case': voc_birnn['case'],
          'vocoder_ms': voc_birnn['ms_stream_local'],
          'vocoder_plain_ms': voc_birnn['plain_ms'],
@@ -4516,6 +4928,8 @@ def main(argv=None) -> int:
          'launches_gen_tacotron': gtl['wavernn_sample'],
          'launches_multispeaker': msl['wavernn_sample'],
          'launches_aligner': all_['wavernn_sample'],
+         'launches_fused': fus['wavernn_sample'],
+         'launches_export': exl['wavernn_sample'],
          'max_abs_err': wr['max_abs_err'], 'agreement': wr['agreement'],
          'ms': wr['ms'], 'plain_ms': wr['plain_ms'],
          'bound_ms': wr['bound_ms'], 'bound_by': wr['bound_by'],
@@ -4557,6 +4971,7 @@ def main(argv=None) -> int:
             'launches_gen_tacotron': gtl[count],
             'launches_multispeaker': msl[count],
             'launches_aligner': all_[count],
+            'launches_fused': fus[count], 'launches_export': exl[count],
             'case': row['case'],
             'max_abs_err': row[f'max_abs_err_{sfx}'],
             'ms': row[f'ms_{sfx}'], 'plain_ms': row[f'plain_ms_{sfx}'],

@@ -68,7 +68,8 @@
 //   the picked component's mean and log-scale from the logits its owners
 //   wrote). Six grid barriers per step.
 //
-// Random numbers come from Philox4x32-10 keyed by the seed, with counter
+// Random numbers come from Philox4x32-10 keyed by the seed (an int64 in
+// device memory, read once at the kernel's start), with counter
 // (slot / 4, lane, step, stream): RAW draws Gumbel noise per class (stream
 // 0); MOL draws a Gumbel per mixture component (stream 1) and one logistic
 // uniform (stream 2). Greedy mode uses no random numbers.
@@ -387,11 +388,11 @@ __device__ void load_rows(T* dst, const T* src, int K, int n_rows, int n_pad,
 enum Ptr {
   P_COND, P_W_IC, P_W_X, P_B_I, P_W1_IH, P_W1_HH, P_B1_IH, P_B1_HH,
   P_W2_X, P_W2_A, P_W2_HH, P_B2_IH, P_B2_HH, P_FC1_X, P_FC1_A, P_FC1_B,
-  P_FC2_X, P_FC2_A, P_FC2_B, P_FC3, P_FC3_B, P_OUT, P_SCRATCH, P_COUNT
+  P_FC2_X, P_FC2_A, P_FC2_B, P_FC3, P_FC3_B, P_OUT, P_SCRATCH, P_SEED,
+  P_COUNT
 };
 enum Int {
-  I_STEPS, I_L, I_FEAT, I_D, I_H, I_F, I_NC, I_NR_MIX, I_GREEDY, I_SEED,
-  I_COUNT
+  I_STEPS, I_L, I_FEAT, I_D, I_H, I_F, I_NC, I_NR_MIX, I_GREEDY, I_COUNT
 };
 
 struct Args {
@@ -400,7 +401,6 @@ struct Args {
   int U, FC, NCC;  // units, fc columns and classes per block
   int tile;        // lanes staged at once
   int cs;          // blocks of a cluster (their staging tiles multicast)
-  uint2 key;
 };
 
 // the staged conditioning row: its four segments, each padded to 16
@@ -536,6 +536,13 @@ __global__ void __launch_bounds__(kThreads) wavernn_kernel(Args a) {
   const bool mol = a.nr_mix > 0;
 
   const T* cond = static_cast<const T*>(a.p[P_COND]);
+  // the Philox key: the int64 seed, read from device memory once (not a
+  // launch parameter, so a replay of a captured graph takes the seed that
+  // its input buffer holds at that time)
+  const unsigned long long seed =
+      *static_cast<const unsigned long long*>(a.p[P_SEED]);
+  const uint2 key =
+      make_uint2((uint32_t)(seed & 0xffffffffull), (uint32_t)(seed >> 32));
   // bias layout: b1_ih b1_hh b2_ih b2_hh (3U each, row q*U+u), b_i w_x
   // (U), fc1_b fc2_b (FC), fc3_b (NCC): local index -> global
   float* b1_ih = bias;
@@ -670,7 +677,7 @@ __global__ void __launch_bounds__(kThreads) wavernn_kernel(Args a) {
           } else {
             const float log_s =
                 fmaxf(__ldcg(lg + k + 2 * a.nr_mix), kLogScaleMin);
-            const uint4 bits = philox(make_uint4(0, l, tp, 2u), a.key);
+            const uint4 bits = philox(make_uint4(0, l, tp, 2u), key);
             const float u =
                 fminf(fmaxf(uniform24(bits.x), 1e-5f), 1.0f - 1e-5f);
             const float x = mean + expf(log_s) * (logf(u) - logf(1.0f - u));
@@ -811,7 +818,7 @@ __global__ void __launch_bounds__(kThreads) wavernn_kernel(Args a) {
       if (j >= n_pick) continue;
       float v = lg;
       if (!a.greedy) {
-        const uint4 bits = philox(make_uint4(j / 4, l, t, stream), a.key);
+        const uint4 bits = philox(make_uint4(j / 4, l, t, stream), key);
         const float u = uniform24(word(bits, j % 4));
         if (mol)
           v -= logf(-logf(fminf(fmaxf(u, 1e-5f), 1.0f - 1e-5f)));
@@ -891,8 +898,9 @@ cudaError_t launch(Args a, cudaStream_t stream) {
 
 extern "C" {
 
-// ptrs: P_COUNT device pointers in `enum Ptr` order (the scratch zeroed);
-// ints: I_COUNT values in `enum Int` order. Returns a cudaError_t (0:
+// ptrs: P_COUNT device pointers in `enum Ptr` order (the scratch zeroed;
+// P_SEED an int64 scalar, the Philox key); ints: I_COUNT values in
+// `enum Int` order. Returns a cudaError_t (0:
 // launch accepted).
 int ftt_wavernn_launch(int use_bf16, void** ptrs, const long long* ints,
                        void* stream) {
@@ -907,8 +915,6 @@ int ftt_wavernn_launch(int use_bf16, void** ptrs, const long long* ints,
   a.NC = (int)ints[I_NC];
   a.nr_mix = (int)ints[I_NR_MIX];
   a.greedy = (int)ints[I_GREEDY];
-  const unsigned long long seed = (unsigned long long)ints[I_SEED];
-  a.key = make_uint2((uint32_t)(seed & 0xffffffffull), (uint32_t)(seed >> 32));
   if (a.L <= 0 || a.n_steps <= 0 || a.H <= 0 || a.F <= 0 || a.NC <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -25,6 +25,13 @@ bytes or FLOPs. Two paths, chosen by `inference_plan`:
 `recurrence(..., path=, cluster=)` forces a path (and the stream-local
 cluster size), so that they can be timed on the same inputs;
 `recurrence.path_launches` counts the launches of each path.
+
+`recurrence` reaches the kernel through the custom op
+`ftt::birnn_recurrence` (`kernels/ops.py`): its CUDA implementation is
+`launch` (the plan is made there, from the real tensors), its CPU one the
+plain version; `torch.export` records the op. Plain CUDA tensors call
+`launch` directly (eager, and under CUDA graph capture), without the
+op's dispatcher.
 """
 from __future__ import annotations
 
@@ -168,24 +175,30 @@ def recurrence(cell: str, gi: torch.Tensor, w_hh: torch.Tensor,
                compute_dtype: torch.dtype = torch.float32,
                path: str = None, cluster: int = None) -> torch.Tensor:
     """The BiRNN recurrence (see `ops/rnn.py:birnn_recurrence` for the
-    contract). CUDA tensors launch the kernel on the path of
-    `inference_plan`, or on `path` when given (stream-local: with
-    `cluster` blocks a cluster, where given); CPU tensors take the plain
-    version. The kernel's output carries no gradient, so CUDA inputs that
-    require grad under grad mode raise: the trainable path is
-    `ops/rnn.py:BiRNNTrain`, which `grouped_birnn` picks for them."""
-    if gi.device.type == 'cpu':
-        return birnn_recurrence(cell, gi, w_hh, b_hh, lengths,
-                                compute_dtype)
-    if gi.device.type != 'cuda':
-        raise ValueError(f'BiRNN kernel: unsupported device {gi.device}')
+    contract), through the op `ftt::birnn_recurrence`: CUDA tensors launch
+    the kernel on the path of `inference_plan`, or on `path` when given
+    (stream-local: with `cluster` blocks a cluster, where given); CPU
+    tensors take the plain version. The kernel's output carries no
+    gradient, so CUDA inputs that require grad under grad mode raise: the
+    trainable path is `ops/rnn.py:BiRNNTrain`, which `grouped_birnn`
+    picks for them. CPU inputs that require grad take the plain version
+    directly, which autograd differentiates. A plain CUDA tensor, eager
+    or under graph capture, launches directly: the op's dispatcher,
+    which only torch.export's fake tensors need, is left out of the
+    launch's host time."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (gi, w_hh, b_hh)):
+        if gi.device.type == 'cpu':
+            return birnn_recurrence(cell, gi, w_hh, b_hh, lengths,
+                                    compute_dtype)
         raise RuntimeError('BiRNN kernel: inputs require grad, but the '
                            'inference kernel would cut the graph; use '
                            'ops/rnn.py:BiRNNTrain (kernels #2 and #3)')
-    return _launch(cell, gi, w_hh, b_hh, lengths, compute_dtype,
-                   path, cluster)
+    if type(gi) is torch.Tensor and gi.is_cuda:
+        return launch(cell, gi, w_hh, b_hh, lengths, compute_dtype, path,
+                      cluster)
+    return torch.ops.ftt.birnn_recurrence(cell, gi, w_hh, b_hh, lengths,
+                                          compute_dtype, path, cluster)
 
 
 recurrence.launches = 0
@@ -217,8 +230,13 @@ def _plan(cell, S, B, H, dtype, props, path=None, cluster=None):
     return {'path': 'stream_local', 'clusters': S * B, **shape}
 
 
-def _launch(cell, gi, w_hh, b_hh, lengths, compute_dtype, path, cluster):
+def launch(cell, gi, w_hh, b_hh, lengths, compute_dtype, path=None,
+           cluster=None):
+    """The kernel's launch on CUDA tensors (the CUDA implementation of
+    `ftt::birnn_recurrence`)."""
     from forwardtacotron_tpu_torch.kernels import _build
+    if gi.device.type != 'cuda':
+        raise ValueError(f'BiRNN kernel: unsupported device {gi.device}')
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f'BiRNN kernel: compute dtype {compute_dtype}')
     T, B, S, GH = gi.shape

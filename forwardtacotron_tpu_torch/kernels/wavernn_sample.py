@@ -21,13 +21,19 @@ per row (L2 serves each row once per cluster), and folds the
 sampling (Gumbel-max for RAW; mixture pick plus logistic inverse-CDF for
 MOL) into the logits stage through one 64-bit `atomicMax` key per lane,
 so a step has six grid barriers. Random numbers come from a counter-based
-Philox generator keyed by (seed, step, lane, class). The source note of
-`csrc/wavernn_sample.cu` gives the layout and why.
+Philox generator keyed by (seed, step, lane, class). The seed is an int64
+scalar in device memory that the kernel reads at its start, so a captured
+CUDA graph draws new noise when its seed buffer changes. The source note
+of `csrc/wavernn_sample.cu` gives the layout and why.
+
+`sample` reaches the kernel through the custom op `ftt::wavernn_sample`
+(`kernels/ops.py`), whose CPU implementation is `sample_plain`; plain
+CUDA tensors call `launch` directly, without the op's dispatcher.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Optional, Union
 
 import torch
 
@@ -132,17 +138,29 @@ def compact_cond(mels_up: torch.Tensor, aux: torch.Tensor,
     return cond.to(compute_dtype).contiguous()
 
 
+def seed_tensor(seed: Union[int, torch.Tensor], device) -> torch.Tensor:
+    """`seed` as the int64 scalar the kernel reads from device memory, on
+    `device` (a tensor is moved and cast; an int is written by a fill on
+    the device, which does not wait for the card as a copy from the host
+    would)."""
+    if isinstance(seed, torch.Tensor):
+        return seed.to(device=device, dtype=torch.int64).reshape(())
+    return torch.full((), int(seed), dtype=torch.int64, device=device)
+
+
 # ----------------------------------------------------------- plain version
 
-def sample_plain(cond: torch.Tensor, w: Dict[str, torch.Tensor], seed: int,
-                 nr_mix: int = 0, greedy: bool = False,
+def sample_plain(cond: torch.Tensor, w: Dict[str, torch.Tensor],
+                 seed: Union[int, torch.Tensor], nr_mix: int = 0,
+                 greedy: bool = False,
                  compute_dtype: torch.dtype = torch.float32
                  ) -> torch.Tensor:
     """Plain version of the sampling kernel. cond (T, L, C) in
-    `compute_dtype`; `w` from `pack_weights`; nr_mix > 0 selects MOL.
-    Activations are rounded to `compute_dtype` before each product,
-    which accumulates in float32. Returns samples (T, L) float32 in
-    [-1, 1]."""
+    `compute_dtype`; `w` from `pack_weights`; `seed` an int or an integer
+    scalar tensor; nr_mix > 0 selects MOL. Activations are rounded to
+    `compute_dtype` before each product, which accumulates in float32.
+    Returns samples (T, L) float32 in [-1, 1]."""
+    seed = int(seed)
     T, L, _ = cond.shape
     f = {k: v.float() for k, v in w.items()}
     H = f['w1_hh'].shape[1]
@@ -207,23 +225,31 @@ def scratch_bytes(lanes: int, hidden: int, fc: int, n_classes: int,
             + item * lanes * (5 * hidden + 2 * fc))
 
 
-def sample(cond: torch.Tensor, w: Dict[str, torch.Tensor], seed: int,
-           nr_mix: int = 0, greedy: bool = False,
+def sample(cond: torch.Tensor, w: Dict[str, torch.Tensor],
+           seed: Union[int, torch.Tensor], nr_mix: int = 0,
+           greedy: bool = False,
            compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """One launch of the sampler over L <= MAX_LANES lanes (contract of
-    `sample_plain`). CUDA tensors launch the kernel; CPU tensors take the
-    plain version."""
-    if cond.device.type == 'cpu':
-        return sample_plain(cond, w, seed, nr_mix, greedy, compute_dtype)
-    if cond.device.type != 'cuda':
-        raise ValueError(f'WaveRNN kernel: unsupported device {cond.device}')
-    return _launch(cond, w, seed, nr_mix, greedy, compute_dtype)
+    `sample_plain`), through the op `ftt::wavernn_sample`: CUDA tensors
+    launch the kernel, CPU tensors take the plain version. `seed` is an
+    int64 scalar tensor on cond's device (`seed_tensor`), or an int that
+    is written there. A plain CUDA tensor, eager or under graph capture,
+    launches directly: the op's dispatcher, which only torch.export's
+    fake tensors need, is left out of the launch's host time."""
+    seed = seed_tensor(seed, cond.device)
+    if type(cond) is torch.Tensor and cond.is_cuda:
+        return launch(cond, w, seed, nr_mix, greedy, compute_dtype)
+    return torch.ops.ftt.wavernn_sample(
+        cond, [w[k] for k in WEIGHT_KEYS], seed, nr_mix, greedy,
+        compute_dtype)
 
 
 sample.launches = 0
 
 
-def _launch(cond, w, seed, nr_mix, greedy, compute_dtype):
+def launch(cond, w, seed, nr_mix, greedy, compute_dtype):
+    """The kernel's launch on CUDA tensors (the CUDA implementation of
+    `ftt::wavernn_sample`); `seed` an int64 scalar on cond's device."""
     from forwardtacotron_tpu_torch.kernels import _build
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f'WaveRNN kernel: compute dtype {compute_dtype}')
@@ -238,9 +264,12 @@ def _launch(cond, w, seed, nr_mix, greedy, compute_dtype):
         raise ValueError(f'WaveRNN kernel: cond {tuple(cond.shape)} does not '
                          f'match feat={feat}, aux={d} (at most {MAX_LANES} '
                          'lanes)')
-    tensors = [cond] + [w[k] for k in WEIGHT_KEYS]
-    for name, t in zip(('cond',) + WEIGHT_KEYS, tensors):
-        dt = compute_dtype if name in MATRICES + ('cond',) else torch.float32
+    if cond.device.type != 'cuda':
+        raise ValueError(f'WaveRNN kernel: unsupported device {cond.device}')
+    tensors = [cond] + [w[k] for k in WEIGHT_KEYS] + [seed]
+    for name, t in zip(('cond',) + WEIGHT_KEYS + ('seed',), tensors):
+        dt = compute_dtype if name in MATRICES + ('cond',) else \
+            torch.int64 if name == 'seed' else torch.float32
         if t.device != dev or t.dtype != dt or not t.is_contiguous():
             raise ValueError(f'WaveRNN kernel: {name} must be a contiguous '
                              f'{dt} tensor on {dev}, got {t.dtype} on '
@@ -249,10 +278,13 @@ def _launch(cond, w, seed, nr_mix, greedy, compute_dtype):
     item = torch.empty((), dtype=compute_dtype).element_size()
     scratch = torch.zeros(scratch_bytes(L, H, F, n_classes, item),
                           dtype=torch.uint8, device=dev)
-    ptrs = (ctypes.c_void_p * 23)(*[t.data_ptr() for t in tensors],
-                                  out.data_ptr(), scratch.data_ptr())
-    ints = (ctypes.c_longlong * 10)(T, L, feat, d, H, F, n_classes, nr_mix,
-                                    int(greedy), seed & 0x7FFFFFFFFFFFFFFF)
+    if seed.numel() != 1:
+        raise ValueError('WaveRNN kernel: the seed is one int64 value')
+    ptrs = (ctypes.c_void_p * 24)(*[t.data_ptr() for t in tensors[:-1]],
+                                  out.data_ptr(), scratch.data_ptr(),
+                                  seed.data_ptr())
+    ints = (ctypes.c_longlong * 9)(T, L, feat, d, H, F, n_classes, nr_mix,
+                                   int(greedy))
     lib = _build.load('wavernn_sample')
     fn = lib.ftt_wavernn_launch
     fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
@@ -267,14 +299,20 @@ def _launch(cond, w, seed, nr_mix, greedy, compute_dtype):
 
 
 def sample_conditioned(model, mels_up: torch.Tensor, aux: torch.Tensor,
-                       seed: int = 0, greedy: bool = False,
-                       compute_dtype: torch.dtype = torch.bfloat16
+                       seed: Union[int, torch.Tensor] = 0,
+                       greedy: bool = False,
+                       compute_dtype: torch.dtype = torch.bfloat16,
+                       w: Optional[Dict[str, torch.Tensor]] = None
                        ) -> torch.Tensor:
     """Samples (L, T) for fold lanes mels_up (L, T, n_mels) and aux
     (L, T, 4d). More than MAX_LANES lanes run as groups of MAX_LANES
     (each fold starts from zero state, so groups are independent); the
-    group starting at lane g uses seed + g."""
-    w = pack_weights(model, compute_dtype)
+    group starting at lane g uses seed + g, formed on the device from the
+    seed tensor (an int seed is written there first). `w` is
+    `pack_weights(model, compute_dtype)`, packed here where not given."""
+    if w is None:
+        w = pack_weights(model, compute_dtype)
+    seed = seed_tensor(seed, mels_up.device)
     nr_mix = model.n_classes // 3 if model.mode == 'MOL' else 0
     parts = []
     for g in range(0, mels_up.shape[0], MAX_LANES):

@@ -40,7 +40,7 @@ Conventions kept from the JAX model:
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Union
 
 import torch
 from torch import nn
@@ -51,6 +51,9 @@ from forwardtacotron_tpu_torch.ops.length_regulator import length_regulate
 from forwardtacotron_tpu_torch.text.symbols import phonemes
 
 PADDING_VALUE = -11.5129
+# a synthesis knob: a float, or a 0-d tensor on the model's device (a
+# runtime input of an exported or captured program)
+Knob = Union[float, torch.Tensor]
 
 
 def positional_table(d_model: int, max_len: int = 5000) -> torch.Tensor:
@@ -217,7 +220,7 @@ class SeriesPredictor(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 key_padding_mask: Optional[torch.Tensor] = None,
-                alpha: float = 1.0,
+                alpha: Knob = 1.0,
                 generator: Optional[torch.Generator] = None,
                 masked: bool = False,
                 spk: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -365,8 +368,8 @@ class FastPitch(nn.Module):
 
     # ------------------------------------------------------- inference
     @torch.no_grad()
-    def predict_series(self, x: torch.Tensor, alpha: float = 1.0,
-                       pitch_scale: float = 1.0, energy_scale: float = 1.0,
+    def predict_series(self, x: torch.Tensor, alpha: Knob = 1.0,
+                       pitch_scale: Knob = 1.0, energy_scale: Knob = 1.0,
                        x_len: Optional[torch.Tensor] = None,
                        compute_dtype: Optional[torch.dtype] = torch.float32,
                        speaker: Optional[torch.Tensor] = None
@@ -415,12 +418,15 @@ class FastPitch(nn.Module):
                 'energy': energy, 'mel_len': mel_len}
 
     @torch.no_grad()
-    def generate(self, x: torch.Tensor, max_t: int, alpha: float = 1.0,
-                 pitch_scale: float = 1.0, energy_scale: float = 1.0,
+    def generate(self, x: torch.Tensor, max_t: int, alpha: Knob = 1.0,
+                 pitch_scale: Knob = 1.0, energy_scale: Knob = 1.0,
                  x_len: Optional[torch.Tensor] = None,
                  compute_dtype: Optional[torch.dtype] = torch.float32,
                  speaker: Optional[torch.Tensor] = None
                  ) -> Dict[str, torch.Tensor]:
+        """Series, then decode to a `max_t` bucket. The knobs are floats
+        or 0-d tensors, so that one exported program takes them as
+        runtime inputs (`utils/export.py`)."""
         series = self.predict_series(x, alpha, pitch_scale, energy_scale,
                                      x_len, compute_dtype, speaker)
         out = self.generate_from_series(x, series['dur'], series['pitch'],

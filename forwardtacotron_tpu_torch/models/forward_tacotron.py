@@ -25,7 +25,7 @@ autograd its recurrences run the training kernels #2/#3; evaluation under
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Union
 
 import torch
 from torch import nn
@@ -39,6 +39,9 @@ from forwardtacotron_tpu_torch.ops.rnn import grouped_birnn, pad_gru_gates
 from forwardtacotron_tpu_torch.text.symbols import phonemes
 
 PADDING_VALUE = -11.5129
+# a synthesis knob: a float, or a 0-d tensor on the model's device (a
+# runtime input of an exported or captured program)
+Knob = Union[float, torch.Tensor]
 
 
 class SeriesPredictor(nn.Module):
@@ -60,7 +63,7 @@ class SeriesPredictor(nn.Module):
         self.rnn = BiRNN('gru', conv_dims, rnn_dims)
         self.lin = nn.Linear(2 * rnn_dims, 1)
 
-    def forward(self, x: torch.Tensor, alpha: float = 1.0,
+    def forward(self, x: torch.Tensor, alpha: Knob = 1.0,
                 lengths: Optional[torch.Tensor] = None,
                 compute_dtype: Optional[torch.dtype] = torch.float32,
                 spk: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -180,8 +183,8 @@ class ForwardTacotron(nn.Module):
         return [self.dur_pred, self.pitch_pred, self.energy_pred]
 
     @torch.no_grad()
-    def predict_series(self, x: torch.Tensor, alpha: float = 1.0,
-                       pitch_scale: float = 1.0, energy_scale: float = 1.0,
+    def predict_series(self, x: torch.Tensor, alpha: Knob = 1.0,
+                       pitch_scale: Knob = 1.0, energy_scale: Knob = 1.0,
                        x_len: Optional[torch.Tensor] = None,
                        compute_dtype: torch.dtype = torch.bfloat16,
                        speaker: Optional[torch.Tensor] = None
@@ -212,9 +215,9 @@ class ForwardTacotron(nn.Module):
         return torch.where(total <= 0, torch.full_like(dur_hat, 2.0), dur_hat)
 
     @torch.no_grad()
-    def predict_series_fused(self, x: torch.Tensor, alpha: float = 1.0,
-                             pitch_scale: float = 1.0,
-                             energy_scale: float = 1.0,
+    def predict_series_fused(self, x: torch.Tensor, alpha: Knob = 1.0,
+                             pitch_scale: Knob = 1.0,
+                             energy_scale: Knob = 1.0,
                              x_len: Optional[torch.Tensor] = None,
                              compute_dtype: torch.dtype = torch.bfloat16,
                              speaker: Optional[torch.Tensor] = None
@@ -320,12 +323,15 @@ class ForwardTacotron(nn.Module):
         return out
 
     @torch.no_grad()
-    def generate(self, x: torch.Tensor, max_t: int, alpha: float = 1.0,
-                 pitch_scale: float = 1.0, energy_scale: float = 1.0,
+    def generate(self, x: torch.Tensor, max_t: int, alpha: Knob = 1.0,
+                 pitch_scale: Knob = 1.0, energy_scale: Knob = 1.0,
                  x_len: Optional[torch.Tensor] = None,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  speaker: Optional[torch.Tensor] = None
                  ) -> Dict[str, torch.Tensor]:
+        """Series, then decode to a `max_t` bucket. The knobs are floats
+        or 0-d tensors, so that one exported program takes them as
+        runtime inputs (`utils/export.py`)."""
         series = self.predict_series(x, alpha, pitch_scale, energy_scale,
                                      x_len, compute_dtype, speaker)
         out = self.generate_from_series(x, series['dur'], series['pitch'],

@@ -20,7 +20,7 @@ from torch.nn import functional as F
 
 from forwardtacotron_tpu_torch.dsp.audio import decode_mu_law
 from forwardtacotron_tpu_torch.kernels.wavernn_sample import (
-    sample_conditioned)
+    pack_weights, sample_conditioned, seed_tensor)
 from forwardtacotron_tpu_torch.models.wavernn import (OVERLAP, _fades,
                                                       _time_major,
                                                       fold_target,
@@ -91,9 +91,13 @@ def stream_wav(model, mel, target: Optional[int] = None,
     mels_f = fold_with_overlap(mels_up, target, overlap)
     aux_f = fold_with_overlap(aux, target, overlap)
     if sample_fn is None:
+        w = pack_weights(model, compute_dtype)   # once for every group
+
         def sample_fn(m, a, s):
-            return sample_conditioned(model, m, a, seed=s, greedy=greedy,
-                                      compute_dtype=compute_dtype)
+            return sample_conditioned(model, m, a,
+                                      seed=seed_tensor(s, device),
+                                      greedy=greedy,
+                                      compute_dtype=compute_dtype, w=w)
 
     def groups():
         for g0 in range(0, mels_f.shape[0], group):

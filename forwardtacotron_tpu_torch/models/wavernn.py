@@ -4,13 +4,16 @@ Mirrors `forwardtacotron_tpu/models/wavernn.py`: the teacher-forced
 forward of training (`WaveRNN.forward`), the upsampling network
 (MelResNet + nearest-neighbour stretches with one shared time kernel per
 scale), the fold/crossfade batching of one utterance (`vocode`) or of
-many (`vocode_batch`) into fold lanes, and the autoregressive sampler, which runs through the sampling kernel
-wrapper (`kernels/wavernn_sample.py`). Parameter names are the
-reference's torch `state_dict` keys.
+many (`vocode_batch`, over `vocode_program`: the JAX package's
+`build_vocode_program`, a device function of static fold geometry that the
+fused server and the exported artifact also run) into fold lanes, and the
+autoregressive sampler, which runs through the sampling kernel wrapper
+(`kernels/wavernn_sample.py`). Parameter names are the reference's torch
+`state_dict` keys.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -19,7 +22,8 @@ from torch.nn import functional as F
 
 from forwardtacotron_tpu_torch.dsp.audio import decode_mu_law
 from forwardtacotron_tpu_torch.kernels.wavernn_sample import (
-    compact_cond, pack_weights, sample_conditioned, sample_plain)
+    compact_cond, pack_weights, sample_conditioned, sample_plain,
+    seed_tensor)
 from forwardtacotron_tpu_torch.models.layers import batch_norm
 from forwardtacotron_tpu_torch.ops import rnn as rnn_ops
 
@@ -272,19 +276,27 @@ def xfade_and_unfold(y: np.ndarray, overlap: int) -> np.ndarray:
     return out
 
 
-def xfade_unfold_device(y: torch.Tensor, overlap: int) -> torch.Tensor:
+def xfade_unfold_device(y: torch.Tensor, overlap: int,
+                        fades: Optional[Tuple[torch.Tensor,
+                                              torch.Tensor]] = None
+                        ) -> torch.Tensor:
     """Float32 crossfade overlap-add on the samples' device: lane i's
     tail overlaps lane i+1's head, so the unfold is a flatten of each
-    lane's first target+overlap samples plus a shifted add of the tails."""
-    num_folds, length = y.shape
+    lane's first target+overlap samples plus a shifted add of the tails.
+    y (..., num_folds, length) -> (..., total); `fades` (fade_in,
+    fade_out) on y's device, made from `_fades` where not given."""
+    *lead, num_folds, length = y.shape
     target = length - 2 * overlap
     stride = target + overlap
-    fade_in, fade_out = (torch.as_tensor(f, dtype=y.dtype, device=y.device)
-                         for f in _fades(overlap))
-    y = torch.cat([y[:, :overlap] * fade_in, y[:, overlap:-overlap],
-                   y[:, -overlap:] * fade_out], dim=1)
-    main = F.pad(y[:, :stride].reshape(-1), (0, overlap))
-    tails = F.pad(y[:, stride:], (0, target)).reshape(-1)[:-target]
+    if fades is None:
+        fades = tuple(torch.as_tensor(f, dtype=y.dtype, device=y.device)
+                      for f in _fades(overlap))
+    fade_in, fade_out = fades
+    y = torch.cat([y[..., :overlap] * fade_in, y[..., overlap:-overlap],
+                   y[..., -overlap:] * fade_out], dim=-1)
+    main = F.pad(y[..., :stride].reshape(*lead, -1), (0, overlap))
+    tails = F.pad(y[..., stride:], (0, target)).reshape(
+        *lead, -1)[..., :-target]
     return main + F.pad(tails, (stride, 0))
 
 
@@ -354,23 +366,104 @@ def vocode(model: WaveRNN, mel, target: Optional[int] = None,
     return wave.cpu().numpy()
 
 
+class VocodeProgram(nn.Module):
+    """The device core of batched vocoding (the JAX package's
+    `build_vocode_program`): mel (B, T, n_mels) float32, wave_lens (B,)
+    and an int64 seed scalar -> (B, total) waveform, float32 or int16
+    PCM. Upsampling, the fold (a gather of static geometry for T),
+    sampling of all B x F lanes (`sample_conditioned`: groups of
+    MAX_LANES, the group at lane g seeded seed + g on the device), the
+    mu-law decode, the crossfade unfold and each row's trim and terminal
+    fade run on the mel's device as masks of `wave_lens`; samples at and
+    past a row's length are 0. The sampler's weights are packed once
+    (buffers `w_<key>`) and the fades made once, so a call copies nothing
+    from the host: a CUDA graph captures it and `torch.export` traces
+    it."""
+
+    def __init__(self, model: WaveRNN, target: int, overlap: int,
+                 mu_law: bool, greedy: bool, pcm16: bool,
+                 compute_dtype: torch.dtype) -> None:
+        super().__init__()
+        self.model = model
+        self.target, self.overlap = int(target), int(overlap)
+        self.mu_law = bool(mu_law) and model.mode == 'RAW'
+        self.greedy, self.pcm16 = bool(greedy), bool(pcm16)
+        self.compute_dtype = compute_dtype
+        device = next(model.parameters()).device
+        for k, v in pack_weights(model, compute_dtype).items():
+            self.register_buffer(f'w_{k}', v)
+        fade_in, fade_out = _fades(overlap)
+        self.register_buffer('fade_in', torch.as_tensor(
+            fade_in, dtype=torch.float32, device=device))
+        self.register_buffer('fade_out', torch.as_tensor(
+            fade_out, dtype=torch.float32, device=device))
+
+    def packed(self) -> Dict[str, torch.Tensor]:
+        return {k[2:]: v for k, v in self.named_buffers()
+                if k.startswith('w_')}
+
+    def forward(self, mel: torch.Tensor, wave_lens: torch.Tensor,
+                seed: torch.Tensor) -> torch.Tensor:
+        model, overlap = self.model, self.overlap
+        B = mel.shape[0]
+        m = F.pad(mel, (0, 0, model.pad, model.pad))
+        mels_up, aux = model.upsample_cond(m)
+        idx, padded_len = fold_indices(mels_up.shape[1], self.target,
+                                       overlap)
+        n_folds, length = idx.shape
+        pad_t = padded_len - mels_up.shape[1]
+        mels_up = F.pad(mels_up, (0, 0, 0, pad_t))
+        aux = F.pad(aux, (0, 0, 0, pad_t))
+        # the gather's indices from the static geometry, on the device
+        idx = (torch.arange(n_folds, device=mel.device)
+               * (self.target + overlap))[:, None] \
+            + torch.arange(length, device=mel.device)[None, :]
+        samples = sample_conditioned(
+            model, mels_up[:, idx].reshape(B * n_folds, length, -1),
+            aux[:, idx].reshape(B * n_folds, length, -1), seed=seed,
+            greedy=self.greedy, compute_dtype=self.compute_dtype,
+            w=self.packed())
+        if self.mu_law:
+            samples = decode_mu_law(samples, model.n_classes, False)
+        wave = xfade_unfold_device(samples.reshape(B, n_folds, length),
+                                   overlap, (self.fade_in, self.fade_out))
+        # each row's trim and vocode's terminal fade (linspace(1, 0,
+        # n_fade) over its last samples) as masks of its length
+        pos = torch.arange(wave.shape[1], device=mel.device,
+                           dtype=torch.float32)[None, :]
+        wl = wave_lens.to(torch.float32)[:, None]
+        n_fade = 20.0 * model.hop_length
+        wave = wave * torch.clamp((wl - 1.0 - pos) / (n_fade - 1.0),
+                                  0.0, 1.0) * (pos < wl)
+        return _pcm16(wave) if self.pcm16 else wave
+
+
+def vocode_program(model: WaveRNN, target: Optional[int] = None,
+                   overlap: int = OVERLAP, mu_law: bool = True,
+                   greedy: bool = False, pcm16: bool = False,
+                   compute_dtype: torch.dtype = torch.bfloat16
+                   ) -> VocodeProgram:
+    """The `VocodeProgram` of `model` (JAX `build_vocode_program`);
+    `target=None` folds as `fold_target` says for the model's device."""
+    target = fold_target(target, next(model.parameters()).device)
+    return VocodeProgram(model, target, overlap, mu_law, greedy, pcm16,
+                         compute_dtype)
+
+
 def vocode_batch(model: WaveRNN, mels: Sequence, target: Optional[int] = None,
-                 overlap: int = OVERLAP, mu_law: bool = True, seed: int = 0,
-                 greedy: bool = False,
+                 overlap: int = OVERLAP, mu_law: bool = True,
+                 seed: Union[int, torch.Tensor] = 0, greedy: bool = False,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  pcm16: bool = False, frame_bucket: int = 64
                  ) -> List[np.ndarray]:
     """Many utterances in one pass: the mels ((n_mels, T_i) or (T_i,
-    n_mels)) are padded to a common `frame_bucket` multiple, upsampled as
-    one batch, every row folded with the same geometry, and all B x F
-    fold lanes sampled together (`sample_conditioned` splits them into
-    groups of MAX_LANES, the group at lane g seeded seed + g). Each row
-    is crossfaded on the device, trimmed to its own length with
-    `vocode`'s terminal fade, and copied to the host once. Greedy output
-    equals per-utterance `vocode` calls (each lane starts from zero
-    state); sampled output draws other noise streams."""
+    n_mels)) are padded to a common `frame_bucket` multiple and run
+    through one `vocode_program` call (one upsample, all B x F fold lanes
+    sampled together, each row trimmed and faded on the device), copied
+    to the host once and cut to each row's length. Greedy output equals
+    per-utterance `vocode` calls (each lane starts from zero state);
+    sampled output draws other noise streams."""
     device = next(model.parameters()).device
-    target = fold_target(target, device)
     prepped = [_time_major(model, m) for m in mels]
     n_frames = [m.shape[0] for m in prepped]
     t_pad = -(-max(n_frames) // frame_bucket) * frame_bucket
@@ -378,33 +471,14 @@ def vocode_batch(model: WaveRNN, mels: Sequence, target: Optional[int] = None,
     for i, m in enumerate(prepped):
         batch[i, :m.shape[0]] = m
     wave_lens = [(n - 1) * model.hop_length for n in n_frames]
-    m = F.pad(torch.as_tensor(batch, device=device),
-              (0, 0, model.pad, model.pad))
-    mels_up, aux = model.upsample_cond(m)
-    idx, padded_len = fold_indices(mels_up.shape[1], target, overlap)
-    pad_t = padded_len - mels_up.shape[1]
-    mels_up = F.pad(mels_up, (0, 0, 0, pad_t))
-    aux = F.pad(aux, (0, 0, 0, pad_t))
-    idx = torch.as_tensor(idx, device=device)
-    B, (n_folds, length) = len(prepped), idx.shape
-    samples = sample_conditioned(
-        model, mels_up[:, idx].reshape(B * n_folds, length, -1),
-        aux[:, idx].reshape(B * n_folds, length, -1), seed=seed,
-        greedy=greedy, compute_dtype=compute_dtype)
-    if mu_law and model.mode == 'RAW':
-        samples = decode_mu_law(samples, model.n_classes, False)
-    samples = samples.reshape(B, n_folds, length)
-    n_fade = 20 * model.hop_length
-    out = []
-    for i, wave_len in enumerate(wave_lens):
-        wave = xfade_unfold_device(samples[i], overlap)[:wave_len]
-        # vocode's tail: linspace(1, 0, n_fade) over the last samples
-        pos = torch.arange(wave_len, device=device, dtype=torch.float32)
-        wave = wave * torch.clamp((wave_len - 1.0 - pos) / (n_fade - 1.0),
-                                  0.0, 1.0)
-        out.append(_pcm16(wave) if pcm16 else wave)
-    flat = torch.cat(out).cpu().numpy()
-    return np.split(flat, np.cumsum(wave_lens)[:-1])
+    program = vocode_program(model, target, overlap, mu_law, greedy, pcm16,
+                             compute_dtype)
+    with torch.no_grad():
+        wave = program(torch.as_tensor(batch, device=device),
+                       torch.as_tensor(wave_lens, device=device),
+                       seed_tensor(seed, device))
+    wave = wave.cpu().numpy()
+    return [wave[i, :n] for i, n in enumerate(wave_lens)]
 
 
 def generate_wav(model: WaveRNN, mel, batched: bool = True,

@@ -10,7 +10,9 @@
 The flags are the JAX package's `serve_forward.py`'s, plus `--device`
 and `--seed` (random weights where no checkpoint is given). The TTS model,
 ForwardTacotron or FastPitch, is the one the checkpoint's config names.
-`--fused` and `--fused_max_t` are not ported and are refused by name.
+`--fused` (a neural vocoder only) serves each batch as one program, on
+the card a captured CUDA graph, with the mel axis fixed at
+`--fused_max_t` frames (longer outputs rerun on the staged path).
 """
 from __future__ import annotations
 
@@ -33,9 +35,11 @@ def _parser() -> argparse.ArgumentParser:
                         help='dynamic batching: longest wait for more '
                              'requests')
     parser.add_argument('--fused', action='store_true',
-                        help='not ported; refused')
-    parser.add_argument('--fused_max_t', type=int, default=None,
-                        help='not ported; refused')
+                        help='neural vocoders: text -> PCM as ONE program '
+                             'per batch, a captured CUDA graph on the card '
+                             '(falls back to the staged path when an '
+                             'output exceeds --fused_max_t frames)')
+    parser.add_argument('--fused_max_t', type=int, default=1024)
     parser.add_argument('--max_queue', type=int, default=64,
                         help='queued requests beyond this get HTTP 503')
     parser.add_argument('--request_timeout', type=float, default=60.0,
@@ -58,15 +62,13 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv: Optional[Sequence[str]] = None) -> None:
     parser = _parser()
     args = parser.parse_args(argv)
-    if args.fused or args.fused_max_t is not None:
-        parser.error('--fused / --fused_max_t are not ported yet: the '
-                     'staged server runs every vocoder')
     from forwardtacotron_tpu_torch.serving import TTSServer, make_http_server
     vocoder = args.vocoder or 'griffinlim'
     server = TTSServer(
         args.checkpoint, vocoder=vocoder,
         voc_checkpoint=getattr(args, 'voc_checkpoint', None),
         max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
+        fused=args.fused, fused_max_t=args.fused_max_t,
         max_queue=args.max_queue,
         request_timeout_s=(args.request_timeout
                            if args.request_timeout > 0 else None),

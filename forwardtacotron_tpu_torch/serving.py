@@ -16,8 +16,19 @@ model's own argument does), and a multi-speaker model takes each row's
 included, batch together. Request threads only wait on futures of numpy
 arrays.
 
-Not ported: `fused=True` (text -> PCM as one program) and `mesh=`
-(utterances sharded over devices); both raise ValueError.
+`fused=True` (a neural vocoder only) runs tokens -> int16 PCM as one
+function a batch, as the JAX package's one `jit` does: the series, the
+knobs applied on the device, the decode to `fused_max_t` frames and the
+vocoder (`utils/export.py:PcmVocoder`, the exported program's tail). On
+the card each (text bucket, batch, fused_max_t) is captured once into a
+CUDA graph over static input buffers (all graphs share one memory pool,
+`capture_error_mode='thread_local'`), so a batch is a copy in, one
+replay and one copy of pcm, mel_len and wav_len out; kernels #1 and #4
+run inside the graph. A batch whose mel reaches `fused_max_t` frames
+reruns on the staged path (JAX's rule). On the CPU the same function
+runs directly.
+
+Not ported: `mesh=` (utterances sharded over devices) raises ValueError.
 """
 from __future__ import annotations
 
@@ -46,6 +57,7 @@ from forwardtacotron_tpu_torch.models.wavernn import vocode_batch
 from forwardtacotron_tpu_torch.text.cleaners import Cleaner
 from forwardtacotron_tpu_torch.text.segmenter import split_sentences
 from forwardtacotron_tpu_torch.text.tokenizer import Tokenizer
+from forwardtacotron_tpu_torch.utils.export import PcmVocoder
 
 
 class ServerOverloaded(RuntimeError):
@@ -92,19 +104,20 @@ class TTSServer:
                  voc_checkpoint: Optional[str] = None,
                  max_batch: int = 8, max_wait_ms: float = 20.0,
                  text_bucket: int = 16, mel_bucket: int = 256,
-                 fused: bool = False, max_queue: int = 64,
+                 fused: bool = False, fused_max_t: int = 1024,
+                 max_queue: int = 64,
                  request_timeout_s: Optional[float] = 60.0, mesh=None,
                  device='cuda', config: Optional[Dict[str, Any]] = None,
                  seed: int = 0,
                  compute_dtype: torch.dtype = torch.bfloat16) -> None:
-        if fused:
-            raise ValueError('TTSServer(fused=True) is not ported yet; '
-                             'the staged path serves every vocoder')
         if mesh is not None:
             raise ValueError('TTSServer(mesh=...) is not ported yet: one '
                              'device per server')
         if vocoder not in VOCODERS:
             raise ValueError(f'unknown vocoder: {vocoder}')
+        if fused and vocoder not in ('hifigan', 'melgan', 'wavernn'):
+            raise ValueError('fused serving needs a neural vocoder '
+                             '(hifigan/melgan/wavernn)')
         self.device = resolve_device(device)
         self.model, self.config, _ = load_tts(
             tts_checkpoint, config or default_config(), self.device, seed)
@@ -140,6 +153,18 @@ class TTSServer:
         self.birnn_paths: Dict[int, Dict[str, int]] = {}
         # the WaveRNN sampler's seed of each batch
         self._seeds = torch.Generator().manual_seed(seed)
+        # fused=True: one program a (text bucket, batch, fused_max_t); on
+        # the card a captured CUDA graph, its capture seconds kept
+        self.fused = bool(fused)
+        self.fused_max_t = int(fused_max_t)
+        self._fused_programs: Dict[tuple, Any] = {}
+        self._fused_lock = threading.Lock()   # warmup() and the batcher
+        self.capture_seconds: Dict[tuple, float] = {}
+        self._graph_pool = None
+        # the fused program's tail, mel -> int16 PCM (the exported
+        # program's), WaveRNN in the server's compute dtype
+        self._pcm = PcmVocoder(self.voc_model, self._voc_mu_law,
+                               compute_dtype) if self.fused else None
         self._q: 'queue.Queue[Optional[_Request]]' = queue.Queue()
         self._closed = False
         self._stats_lock = threading.Lock()
@@ -368,7 +393,10 @@ class TTSServer:
         before serving: the first call of a shape builds the kernels and
         fills the allocator's and cuDNN's caches (there is no program to
         compile). Defaults: batch 1 and the pow-2 max batch, one text
-        bucket, one mel bucket. Returns {'programs': shapes run,
+        bucket, one mel bucket. With `fused` each (batch, text bucket)
+        program is made first (on the card captured into its CUDA graph),
+        then the staged series and decode, for the overflow fallback; the
+        staged vocoder is not run. Returns {'programs': shapes run,
         'seconds': wall}."""
         t0 = time.monotonic()
         if batch_sizes is None:
@@ -387,6 +415,9 @@ class TTSServer:
                     xl = torch.full((B,), min(int(tl), tx),
                                     device=self.device)
                     spk = self._speakers(None, B)
+                    if self.fused:
+                        self._fused_program(tx, B, self.fused_max_t)
+                        runs += 1
                     series = self._series(x, xl, spk)
                     for mt in mel_caps:
                         max_t = _bucket(int(mt), self.mel_bucket,
@@ -395,7 +426,7 @@ class TTSServer:
                                      series['energy'], max_t, spk)
                         runs += 1
                     self._record_paths(B, before)
-                if vocoder:
+                if vocoder and not self.fused:
                     for mt in mel_caps:
                         max_t = _bucket(int(mt), self.mel_bucket,
                                         self.mel_bucket)
@@ -438,18 +469,38 @@ class TTSServer:
         if counted:
             self.birnn_paths[B] = counted
 
-    @torch.no_grad()
-    def _synthesize_batch(self, reqs: List[_Request],
-                          ids: List[List[int]]) -> List[np.ndarray]:
-        self.batch_sizes.append(len(reqs))
+    @staticmethod
+    def _padded_batch(reqs: List[_Request], ids: List[List[int]],
+                      text_bucket: int):
+        """(x (B, tx), x_lens (B,), scale (3, B): alpha, pitch_scale,
+        energy_scale) of a group, padded to the power-of-two batch B (a
+        few batch shapes serve every group size; pad rows 1 token long,
+        knobs 1)."""
         B_real = len(ids)
-        B = _pow2(B_real)      # a few batch shapes serve every group size
+        B = _pow2(B_real)
         x_lens = np.ones((B,), np.int64)
         x_lens[:B_real] = [len(i) for i in ids]
-        tx = _bucket(int(x_lens.max()), self.text_bucket, self.text_bucket)
+        tx = _bucket(int(x_lens.max()), text_bucket, text_bucket)
         x = np.zeros((B, tx), np.int64)
         for i, seq in enumerate(ids):
             x[i, :len(seq)] = seq
+        scale = np.ones((3, B), np.float32)
+        scale[:, :B_real] = [[r.alpha for r in reqs],
+                             [r.pitch_scale for r in reqs],
+                             [r.energy_scale for r in reqs]]
+        return x, x_lens, scale
+
+    @torch.no_grad()
+    def _synthesize_batch(self, reqs: List[_Request],
+                          ids: List[List[int]]) -> List[np.ndarray]:
+        if self.fused:
+            out = self._synthesize_batch_fused(reqs, ids)
+            if out is not None:
+                return out
+        self.batch_sizes.append(len(reqs))
+        B_real = len(ids)
+        x, x_lens, scale = self._padded_batch(reqs, ids, self.text_bucket)
+        B = len(x_lens)
         x = torch.as_tensor(x, device=self.device)
         xl = torch.as_tensor(x_lens, device=self.device)
         spk = self._speakers(reqs, B)
@@ -457,10 +508,6 @@ class TTSServer:
         series = {k: v.float().cpu().numpy()
                   for k, v in self._series(x, xl, spk).items()}
         # per-request controls on the shared series pass
-        scale = np.ones((3, B), np.float32)
-        scale[:, :B_real] = [[r.alpha for r in reqs],
-                             [r.pitch_scale for r in reqs],
-                             [r.energy_scale for r in reqs]]
         dur = series['dur'] / scale[0][:, None]
         pitch = series['pitch'] * scale[1][:, None]
         energy = series['energy'] * scale[2][:, None]
@@ -473,6 +520,110 @@ class TTSServer:
         mels = gen['mel_post'].float().cpu().numpy()   # (B, max_t, n_mels)
         return self._vocode([mels[i, :int(mel_lens[i])].T
                              for i in range(B_real)])
+
+    # ------------------------------------------------------------ fused
+
+    def _fused_forward(self, x, xl, alpha, pitch_scale, energy_scale, spk,
+                       seed, max_t: int):
+        """Tokens -> int16 PCM on the device, with no host copy in
+        between (JAX `_fused_program`'s function): (pcm (B, total),
+        mel_len (B,), wav_len (B,), mel_post (B, max_t, n_mels) float32;
+        the mel stays on the device)."""
+        series = self._series(x, xl, spk)
+        gen = self.model.generate_from_series(
+            x, series['dur'] / alpha[:, None],
+            series['pitch'] * pitch_scale[:, None],
+            series['energy'] * energy_scale[:, None], max_t, x_len=xl,
+            compute_dtype=self.tts_dtype, speaker=spk)
+        mel = gen['mel_post'].float()
+        pcm, wav_len = self._pcm(mel, gen['mel_len'], seed)
+        return pcm, gen['mel_len'], wav_len, mel
+
+    def _fused_inputs(self, tx: int, B: int) -> List[torch.Tensor]:
+        """Input buffers of a fused program: x, x_len, alpha,
+        pitch_scale, energy_scale, speaker, seed."""
+        dev = self.device
+        return [torch.ones((B, tx), dtype=torch.long, device=dev),
+                torch.full((B,), tx, dtype=torch.long, device=dev),
+                *(torch.ones((B,), device=dev) for _ in range(3)),
+                torch.zeros((B,), dtype=torch.long, device=dev),
+                torch.zeros((), dtype=torch.long, device=dev)]
+
+    @torch.no_grad()
+    def _fused_program(self, tx: int, B: int, max_t: int):
+        """The program of (tx, B, max_t): a function of the seven inputs
+        (host arrays) -> [pcm, mel_len, wav_len] as numpy. On the card its
+        graph is captured at first use, after one eager run on a side
+        stream (kernel builds, library handles, the kernels' plan caches);
+        a failed capture raises. The card's program keeps the graph, its
+        input buffers and its outputs (the mel among them) as `graph`,
+        `inputs` and `outputs`."""
+        key = (tx, B, max_t)
+        with self._fused_lock:
+            program = self._fused_programs.get(key)
+            if program is None:
+                program = self._make_fused_program(tx, B, max_t)
+                self._fused_programs[key] = program
+        return program
+
+    def _make_fused_program(self, tx: int, B: int, max_t: int):
+        if self.device.type != 'cuda':
+            def program(*inputs):
+                outs = self._fused_forward(
+                    *(torch.as_tensor(v) for v in inputs), max_t)
+                return [o.numpy() for o in outs[:3]]
+            return program
+        dev = self.device
+        static = self._fused_inputs(tx, B)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._fused_forward(*static, max_t)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        # thread_local: only this thread's calls are checked during the
+        # capture, so request threads and other servers on the card may
+        # go on using it meanwhile
+        with torch.cuda.graph(graph, pool=self._graph_pool,
+                              capture_error_mode='thread_local'):
+            outs = self._fused_forward(*static, max_t)
+        torch.cuda.synchronize(dev)
+        self.capture_seconds[(tx, B, max_t)] = time.perf_counter() - t0
+
+        def program(*inputs):
+            for buf, value in zip(static, inputs):
+                buf.copy_(torch.as_tensor(value))
+            graph.replay()
+            host = [o.to('cpu', non_blocking=True) for o in outs[:3]]
+            torch.cuda.current_stream(dev).synchronize()
+            return [h.numpy() for h in host]
+        program.graph, program.inputs, program.outputs = graph, static, outs
+        return program
+
+    def _synthesize_batch_fused(self, reqs: List[_Request],
+                                ids: List[List[int]]
+                                ) -> Optional[List[np.ndarray]]:
+        """One fused program for the whole group. None when a mel
+        reaches `fused_max_t` frames (the caller then reruns the group on
+        the staged path)."""
+        B_real = len(ids)
+        x, x_lens, scale = self._padded_batch(reqs, ids, self.text_bucket)
+        B, tx = x.shape
+        spk = np.zeros((B,), np.int64)
+        spk[:B_real] = [r.speaker for r in reqs]
+        seed = np.asarray(int(torch.randint(2 ** 31 - 1, (),
+                                            generator=self._seeds)))
+        run = self._fused_program(tx, B, self.fused_max_t)
+        pcm, mel_lens, wav_lens = run(x, x_lens, scale[0], scale[1],
+                                      scale[2], spk, seed)
+        if int(mel_lens[:B_real].max()) >= self.fused_max_t:
+            return None                      # overflow: staged fallback
+        self.batch_sizes.append(B_real)
+        return [pcm[i, :int(wav_lens[i])] for i in range(B_real)]
 
     def _vocode(self, mels: List[np.ndarray]) -> List[np.ndarray]:
         if self.vocoder == 'wavernn':

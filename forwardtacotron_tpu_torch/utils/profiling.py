@@ -7,7 +7,9 @@ which Perfetto and TensorBoard's profiler plugin open; `annotate()` names
 a span inside it; `StepTimer` keeps per-step wall times with percentiles;
 `StepTraceController` traces a window of training steps when
 `FTT_PROFILE_DIR` is set; `device_memory_stats` reads the CUDA caching
-allocator.
+allocator; `kernel_launches` counts the port's kernels in a trace (where
+the wrappers' Python counters do not tick: the replay of a captured CUDA
+graph).
 """
 from __future__ import annotations
 
@@ -139,3 +141,29 @@ def device_memory_stats(device=None) -> Dict[str, int]:
                                                0)),
             'bytes_limit': int(torch.cuda.get_device_properties(
                 device or torch.cuda.current_device()).total_memory)}
+
+
+# kernel name (as the profiler reports the CUDA symbol) -> launch count key,
+# the keys of the wrappers' counters by path: #1 (`kernels/birnn.py`), #2
+# and #3 (`kernels/birnn_train.py`), #4 (`kernels/wavernn_sample.py`)
+KERNEL_NAMES = {'birnn_sl_kernel<': 'birnn_stream_local',
+                'birnn_kernel<': 'birnn_cooperative',
+                'train_fwd_kernel<': 'birnn_train_fwd_cooperative',
+                'train_fwd_bs_kernel<': 'birnn_train_fwd_batch_split',
+                'train_fwd_cl_kernel<': 'birnn_train_fwd_cluster',
+                'train_bwd_kernel<': 'birnn_train_bwd_cooperative',
+                'train_bwd_bs_kernel<': 'birnn_train_bwd_batch_split',
+                'wavernn_kernel<': 'wavernn_sample'}
+
+
+def kernel_launches(prof: torch.profiler.profile) -> Dict[str, int]:
+    """Launches of every kernel of the port (#1-#3 by path, #4) that
+    `prof` recorded on the card, counted by kernel name."""
+    counts = dict.fromkeys(KERNEL_NAMES.values(), 0)
+    for e in prof.events():
+        if not str(e.device_type).endswith('CUDA'):
+            continue
+        for name, key in KERNEL_NAMES.items():
+            if name in e.name:
+                counts[key] += 1
+    return counts

@@ -180,3 +180,41 @@ def test_step_trace_controller(tmp_path, monkeypatch):
             _work()
     assert len(timer.times) == 3 and timer.stats()['steps_per_sec'] > 0
     assert profiling.device_memory_stats() == {}     # no CUDA here
+
+
+def test_kernel_launches_by_name():
+    """`kernel_launches` maps every `__global__` kernel of the shipped
+    CUDA sources to one key of the wrappers' launch counters, and counts
+    only the card's events whose name holds that kernel's, each once."""
+    import re
+    from types import SimpleNamespace
+    from forwardtacotron_tpu_torch.kernels.birnn import recurrence
+    from forwardtacotron_tpu_torch.kernels.birnn_train import (
+        train_backward, train_forward)
+    from forwardtacotron_tpu_torch.utils.profiling import (KERNEL_NAMES,
+                                                           kernel_launches)
+    csrc = ROOT / 'forwardtacotron_tpu_torch' / 'csrc'
+    shipped = set()
+    for name in ('birnn.cu', 'birnn_train.cu', 'wavernn_sample.cu'):
+        shipped |= set(re.findall(
+            r'__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\(',
+            (csrc / name).read_text()))
+    assert {k.rstrip('<') for k in KERNEL_NAMES} == shipped
+    keys = ({f'birnn_{p}' for p in recurrence.path_launches}
+            | {f'birnn_train_fwd_{p}' for p in train_forward.path_launches}
+            | {f'birnn_train_bwd_{p}' for p in train_backward.path_launches}
+            | {'wavernn_sample'})
+    assert set(KERNEL_NAMES.values()) == keys
+
+    def event(name, device='DeviceType.CUDA'):
+        return SimpleNamespace(name=name, device_type=device)
+    events = [event(f'void {k}float, true, 4>(Args)') for k in KERNEL_NAMES]
+    events += [event('void train_fwd_cl_kernel<__nv_bfloat16, true, 8, '
+                     '4, true>(ClArgs)'),
+               event('cudaLaunchKernelExC', 'DeviceType.CPU'),
+               event('void birnn_sl_kernel<float>(SlArgs)',
+                     'DeviceType.CPU'),
+               event('ampere_sgemm_128x64_nn')]
+    counted = kernel_launches(SimpleNamespace(events=lambda: events))
+    assert counted == {**dict.fromkeys(keys, 1),
+                       'birnn_train_fwd_cluster': 2}

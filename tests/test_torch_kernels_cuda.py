@@ -141,12 +141,12 @@ def test_sampler_kernel_matches_plain(cuda, mode):
     w = ws.pack_weights(model, f32)
     cond = (torch.randn((300, 12, 20 + 16), device=cuda) * 0.5).to(f32)
     nr_mix = 10 if mode == 'MOL' else 0
-    k = ws.sample(cond, w, 0, nr_mix, True, f32)
+    k = ws.sample(cond, w, ws.seed_tensor(0, cuda), nr_mix, True, f32)
     p = ws.sample_plain(cond, w, 0, nr_mix, True, f32)
     tol = 1e-6 if mode == 'RAW' else 1e-3
     assert float(((k - p).abs() < tol).float().mean()) > 0.95
-    s1 = ws.sample(cond, w, 5, nr_mix, False, f32)
-    s2 = ws.sample(cond, w, 5, nr_mix, False, f32)
+    s1 = ws.sample(cond, w, ws.seed_tensor(5, cuda), nr_mix, False, f32)
+    s2 = ws.sample(cond, w, ws.seed_tensor(5, cuda), nr_mix, False, f32)
     assert torch.equal(s1, s2) and bool((s1.abs() <= 1).all())
 
 
@@ -600,12 +600,12 @@ def test_sampler_lanes_match_plain(cuda, lanes, mode):
         w = ws.pack_weights(model, dtype)
         c = cond.to(dtype)
         before = ws.sample.launches
-        k = ws.sample(c, w, 0, nr_mix, True, dtype)
+        k = ws.sample(c, w, ws.seed_tensor(0, cuda), nr_mix, True, dtype)
         assert ws.sample.launches == before + 1
         p = ws.sample_plain(c, w, 0, nr_mix, True, dtype)
         assert float(((k - p).abs() < tol).float().mean()) > 0.95, dtype
-        s1 = ws.sample(c, w, 5, nr_mix, False, dtype)
-        s2 = ws.sample(c, w, 5, nr_mix, False, dtype)
+        s1 = ws.sample(c, w, ws.seed_tensor(5, cuda), nr_mix, False, dtype)
+        s2 = ws.sample(c, w, ws.seed_tensor(5, cuda), nr_mix, False, dtype)
         assert torch.equal(s1, s2) and bool((s1.abs() <= 1).all())
         assert float(s1.std()) > 0
 
@@ -675,3 +675,178 @@ def test_tacotron_generate_card_matches_cpu(cuda):
     assert got[3] == ref[3] == 11
     for a, b in zip(got[:3], ref[:3]):
         assert float((a[:, :16].cpu() - b[:, :16]).abs().max()) <= 1e-4
+
+
+def test_sampler_seed_from_device_memory(cuda):
+    """Kernel #4 reads its seed from an int64 on the card: the same seed
+    tensor gives the same samples, another seed others; rewriting the
+    seed in place before a replay of a captured launch changes the
+    draw; lane groups are seeded seed + g on the card."""
+    from forwardtacotron_tpu_torch.kernels import wavernn_sample as ws
+    from forwardtacotron_tpu_torch.models.wavernn import WaveRNN
+    torch.manual_seed(2)
+    model = WaveRNN(rnn_dims=128, fc_dims=128, feat_dims=20, res_blocks=1,
+                    compute_dims=16, res_out_dims=16).to(cuda)
+    bf16 = torch.bfloat16
+    w = ws.pack_weights(model, bf16)
+    cond = (torch.randn((150, 24, 20 + 16), device=cuda) * 0.5).to(bf16)
+    seed = ws.seed_tensor(7, cuda)
+    a = ws.sample(cond, w, seed, 0, False, bf16)
+    assert torch.equal(a, ws.sample(cond, w, seed.clone(), 0, False, bf16))
+    assert not torch.equal(a, ws.sample(cond, w, ws.seed_tensor(8, cuda),
+                                        0, False, bf16))
+    ws.sample(cond, w, seed, 0, False, bf16)      # warm before capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode='thread_local'):
+        out = ws.sample(cond, w, seed, 0, False, bf16)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, a)
+    seed.fill_(8)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert not torch.equal(out, a)
+    # groups of 16 lanes: the group at lane 16 draws with seed + 16
+    mels_up = torch.randn((32, 150, 20), device=cuda) * 0.5
+    aux = torch.randn((32, 150, 16), device=cuda) * 0.5
+    saved = ws.MAX_LANES
+    ws.MAX_LANES = 16
+    try:
+        grouped = ws.sample_conditioned(model, mels_up, aux,
+                                        ws.seed_tensor(3, cuda), False, bf16)
+    finally:
+        ws.MAX_LANES = saved
+    second = ws.sample(ws.compact_cond(mels_up[16:], aux[16:], bf16), w,
+                       ws.seed_tensor(3 + 16, cuda), 0, False, bf16)
+    assert torch.equal(grouped[16:], second.T)
+
+
+def _tiny_serving_config(voc_dims=128):
+    """config.yaml with small ForwardTacotron and WaveRNN widths (the
+    sampler kernel takes rnn_dims 128)."""
+    from forwardtacotron_tpu_torch.config import default_config
+    cfg = default_config()
+    cfg['forward_tacotron']['model'].update(
+        embed_dims=32, series_embed_dims=16, durpred_conv_dims=32,
+        durpred_rnn_dims=16, pitch_conv_dims=32, pitch_rnn_dims=16,
+        energy_conv_dims=32, energy_rnn_dims=16, rnn_dims=64,
+        prenet_dims=32, prenet_k=4, postnet_dims=32, postnet_k=4)
+    cfg['vocoder']['model'].update(rnn_dims=voc_dims, fc_dims=voc_dims,
+                                   compute_dims=16, res_out_dims=16,
+                                   res_blocks=1)
+    return cfg
+
+
+def _tiny_hifigan(tmp_path):
+    import json
+    from forwardtacotron_tpu_torch.models.hifigan import (
+        HiFiGANGenerator, weight_norm_state_dict)
+    cfg = {'resblock': '2', 'upsample_rates': [8, 8, 4],
+           'upsample_kernel_sizes': [16, 16, 8],
+           'upsample_initial_channel': 32, 'resblock_kernel_sizes': [3],
+           'resblock_dilation_sizes': [[1, 3]]}
+    torch.manual_seed(7)
+    gen = HiFiGANGenerator.from_config(cfg, n_mels=80)
+    torch.save({'generator': weight_norm_state_dict(gen)},
+               tmp_path / 'g_00000001')
+    (tmp_path / 'config.json').write_text(json.dumps(cfg))
+    return str(tmp_path / 'g_00000001')
+
+
+@pytest.mark.parametrize('vocoder', ['hifigan', 'wavernn'])
+def test_fused_graph_replay_equals_eager(cuda, tmp_path, vocoder):
+    """The fused server's captured graph against the same function run
+    eagerly on the card with the same inputs and seed: int16 PCM, mel_len
+    and wav_len equal bit for bit; kernels #1 and #4 run inside the
+    replay (profiler, by kernel name) as often as in the eager run (the
+    wrappers' counters); WaveRNN replays with other seeds differ."""
+    from torch.profiler import ProfilerActivity, profile
+    from forwardtacotron_tpu_torch.kernels.birnn import recurrence
+    from forwardtacotron_tpu_torch.kernels.wavernn_sample import sample
+    from forwardtacotron_tpu_torch.serving import TTSServer
+    from forwardtacotron_tpu_torch.utils.profiling import kernel_launches
+    voc = _tiny_hifigan(tmp_path) if vocoder == 'hifigan' else None
+    with TTSServer(None, vocoder=vocoder, voc_checkpoint=voc,
+                   config=_tiny_serving_config(), device=cuda, fused=True,
+                   fused_max_t=128) as srv:
+        B, tx = 2, 16
+        g = torch.Generator().manual_seed(0)
+        x = torch.randint(1, 40, (B, tx), generator=g)
+        inputs = [x.numpy(), torch.tensor([tx, 9]).numpy(),
+                  torch.tensor([1.0, 1.3]).numpy(),
+                  torch.tensor([0.9, 1.1]).numpy(),
+                  torch.tensor([1.0, 0.8]).numpy(),
+                  torch.zeros(B, dtype=torch.long).numpy(),
+                  torch.tensor(11).numpy()]
+        run = srv._fused_program(tx, B, 128)
+        assert (tx, B, 128) in srv.capture_seconds
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            replay = run(*inputs)
+        counted = kernel_launches(prof)
+        n1, n4 = recurrence.launches, sample.launches
+        with torch.no_grad():
+            eager = srv._fused_forward(
+                *(torch.as_tensor(v).to(cuda) for v in inputs), 128)
+        torch.cuda.synchronize()
+        assert counted['birnn_stream_local'] + counted['birnn_cooperative'] \
+            == recurrence.launches - n1 > 0
+        assert counted['wavernn_sample'] == sample.launches - n4
+        assert torch.equal(run.outputs[3], eager[3])    # the mel
+        for got, ref in zip(replay, eager[:3]):
+            assert got.dtype == ref.cpu().numpy().dtype
+            assert (got == ref.cpu().numpy()).all()
+        assert replay[0].dtype.name == 'int16'
+        if vocoder == 'wavernn':
+            assert counted['wavernn_sample'] > 0
+            again = run(*inputs[:-1], torch.tensor(11).numpy())
+            other = run(*inputs[:-1], torch.tensor(12).numpy())
+            assert (again[0] == replay[0]).all()
+            assert not (other[0] == replay[0]).all()
+
+
+def test_exported_artifact_launches_kernels(cuda, tmp_path):
+    """An artifact exported on the card (ForwardTacotron + WaveRNN) runs
+    kernels #1 and #4 as the ops ftt::birnn_recurrence /
+    ftt::wavernn_sample, not their plain versions: the wrappers' counters
+    and the profiler's kernel names both move; a fixed seed repeats its
+    PCM, and generate matches the live model."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from forwardtacotron_tpu_torch.kernels.birnn import recurrence
+    from forwardtacotron_tpu_torch.kernels.wavernn_sample import sample
+    from forwardtacotron_tpu_torch.models.forward_tacotron import (
+        ForwardTacotron)
+    from forwardtacotron_tpu_torch.models.wavernn import WaveRNN
+    from forwardtacotron_tpu_torch.utils.export import (ExportedTTS,
+                                                        save_exported_tts)
+    from forwardtacotron_tpu_torch.utils.profiling import kernel_launches
+    cfg = _tiny_serving_config()
+    torch.manual_seed(0)
+    model = ForwardTacotron.from_config(cfg).to(cuda).eval()
+    voc = WaveRNN.from_config(cfg).to(cuda).eval()
+    path = tmp_path / 'tts.ftpt'
+    save_exported_tts(model, path, buckets=[(16, 128)], vocoder=voc)
+    art = ExportedTTS(path)
+    ids = [5, 9, 12, 3, 7, 22, 14]
+    n1, n4 = recurrence.launches, sample.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        a = art.synthesize(ids, seed=4)
+    counted = kernel_launches(prof)
+    assert recurrence.launches > n1 and sample.launches > n4
+    assert counted['birnn_stream_local'] + counted['birnn_cooperative'] \
+        == recurrence.launches - n1
+    assert counted['wavernn_sample'] == sample.launches - n4
+    assert a.dtype == np.int16 and np.array_equal(
+        a, art.synthesize(ids, seed=4))
+    mel, _ = art.generate(ids)
+    x = torch.zeros((1, 16), dtype=torch.long)
+    x[0, :len(ids)] = torch.tensor(ids)
+    live = model.generate(x.to(cuda), 128, x_len=torch.tensor(
+        [len(ids)], device=cuda), compute_dtype=torch.float32)
+    n = int(live['mel_len'][0])
+    assert mel.shape == (80, n)
+    ref = live['mel_post'][0, :n].T.cpu().numpy()
+    assert float(np.abs(mel - ref).mean()) < 1e-3

@@ -141,7 +141,7 @@ def test_port_imports_no_jax():
     assert len(files) > 10
     # the serving, data, vocoder-training and trainer-option paths'
     # modules are scanned, and FastPitch's, the teacher's synthesis,
-    # evaluation and tracing
+    # evaluation and tracing, and the custom ops and the export
     names = {p.relative_to(ROOT).as_posix() for p in files}
     for module in ('dsp/stft', 'dsp/griffinlim', 'dsp/audio',
                    'text/segmenter', 'models/hifigan', 'models/melgan',
@@ -156,7 +156,8 @@ def test_port_imports_no_jax():
                    'train_hifigan', 'utils/async_ckpt', 'train/common',
                    'utils/checkpoints', 'models/fast_pitch', 'gen_tacotron',
                    'evaluation', 'eval_tts', 'utils/profiling', 'weights',
-                   'gen_forward', 'train_forward', 'train/forward_trainer'):
+                   'gen_forward', 'train_forward', 'train/forward_trainer',
+                   'kernels/ops', 'utils/export', 'export_forward'):
         assert f'forwardtacotron_tpu_torch/{module}.py' in names, module
     for path in files:
         for name in _imports(path):

@@ -302,7 +302,8 @@ def test_warmup_and_refusals(tts_ckpt, monkeypatch):
     assert out['programs'] == 2 * (2 + 1)    # B in {1, 4}: 2 decodes + voc
     assert out['seconds'] > 0
     srv.close()
-    for kw, what in ((dict(fused=True), 'fused'),
+    for kw, what in ((dict(fused=True),
+                      'fused serving needs a neural vocoder'),
                      (dict(mesh=object()), 'mesh'),
                      (dict(vocoder='hifigan'), 'voc_checkpoint'),
                      (dict(vocoder='world'), 'unknown vocoder')):
@@ -313,10 +314,21 @@ def test_warmup_and_refusals(tts_ckpt, monkeypatch):
         TTSServer(tts_ckpt)
 
 
-def test_serve_forward_refuses_fused():
+def test_serve_forward_refuses_fused(tts_ckpt, hifigan_file):
+    """`--fused` is refused with griffinlim (JAX's message) and accepted
+    with a neural vocoder; `--fused_max_t` defaults to JAX's 1024."""
     from forwardtacotron_tpu_torch import serve_forward
     args = serve_forward._parser().parse_args(['wavernn'])
     assert args.device == 'cuda' and args.voc_checkpoint is None
-    for flags in (['--fused'], ['--fused_max_t', '512']):
-        with pytest.raises(SystemExit):
-            serve_forward.main(flags + ['griffinlim'])
+    assert not args.fused and args.fused_max_t == 1024
+    with pytest.raises(ValueError,
+                       match='fused serving needs a neural vocoder'):
+        serve_forward.main(['--checkpoint', tts_ckpt, '--device', 'cpu',
+                            '--fused', 'griffinlim'])
+    args = serve_forward._parser().parse_args(
+        ['--fused', '--fused_max_t', '512', 'hifigan', '--voc_checkpoint',
+         hifigan_file])
+    assert args.fused and args.fused_max_t == 512
+    with _server(tts_ckpt, vocoder='hifigan', voc_checkpoint=hifigan_file,
+                 fused=args.fused, fused_max_t=args.fused_max_t) as srv:
+        assert srv.fused and srv.fused_max_t == 512

@@ -4,7 +4,7 @@
                                        [--phases] [--seeds 6] [--rounds 2]
                                        [--dtypes bfloat16,float32]
                                        [--batches 32] [--shapes decoder,...]
-                                       [--only train,train_bwd,sampler,birnn,birnn_eval,grads]
+                                       [--only train,train_bwd,sampler,birnn,birnn_eval,grads,dispatch]
     python tools/torch_kernel_probe.py --fit KERNEL_PROBE.jsonl
 
 Times, with CUDA events:
@@ -47,6 +47,14 @@ Times, with CUDA events:
   stream-local path at every cluster size that fits (its 64 clusters in
   waves where the card holds fewer at once) and the cooperative path, in
   turns on the same inputs;
+- with `--only dispatch`: the host µs of a call of kernels #1 and #4
+  through their custom ops (`kernels/ops.py`), through the wrappers the
+  models call (`recurrence`, `sample`) and through their ctypes
+  launchers called directly, on inputs of 4 steps (device time small),
+  `--rounds` turns of the ways: #1 at the serving shapes, B=1, in each
+  of `--dtypes`; #4 at 8 lanes in bfloat16, the wrapper with an int seed
+  (written to the card a call) and the others with a seed already
+  there;
 - with `--only grads` (not run by default): the float32 gradients of the
   full-width model on chip_smoke's two-item batch, card (kernels #2/#3)
   against CPU (plain versions), for `--seeds` random models: with the CPU
@@ -168,13 +176,15 @@ def sampler(args):
     torch.manual_seed(0)
     model = WaveRNN.from_config(default_config()).cuda()
     C = model.feat_dims + 4 * model.aux_dims
+    seed = ws.seed_tensor(0, 'cuda')      # read by the kernel from the card
     for dtype in (torch.bfloat16, torch.float32):
         w = ws.pack_weights(model, dtype)
         for lanes in (int(v) for v in args.lanes.split(',')):
             cond = (torch.randn((args.steps, lanes, C), device='cuda')
                     * 0.5).to(dtype)
             for greedy in (True, False):
-                ms = cuda_ms(lambda: ws.sample(cond, w, 0, 0, greedy, dtype))
+                ms = cuda_ms(lambda: ws.sample(cond, w, seed, 0, greedy,
+                                               dtype))
                 emit({'kernel': 'wavernn_sample', 'dtype': str(dtype)[6:],
                       'lanes': lanes, 'greedy': greedy, 'steps': args.steps,
                       'ms': ms, 'us_per_step': 1e3 * ms / args.steps})
@@ -182,7 +192,7 @@ def sampler(args):
                     and dtype == torch.bfloat16):
                 emit({'kernel': 'wavernn_sample', 'probe_us_per_step': phases(
                     'wavernn_sample', SAMPLER_PHASES,
-                    lambda: ws.sample(cond, w, 0, 0, False, dtype), 2,
+                    lambda: ws.sample(cond, w, seed, 0, False, dtype), 2,
                     args.steps), 'dtype': 'bfloat16', 'lanes': lanes})
 
 
@@ -678,13 +688,54 @@ def evaluate_birnn(args):
             emit(row)
 
 
+def dispatch(args):
+    """Host µs a call of #1 and #4: the op, the wrapper and the direct
+    launch (the module docstring)."""
+    from forwardtacotron_tpu_torch.config import default_config
+    from forwardtacotron_tpu_torch.kernels import birnn as kb
+    from forwardtacotron_tpu_torch.kernels import wavernn_sample as ws
+    from forwardtacotron_tpu_torch.models.wavernn import WaveRNN
+    from chip_smoke import SERVING_BIRNN_CASES, _birnn_inputs
+
+    def turns(row, ways):
+        for _ in range(args.rounds):
+            for name, fn in ways.items():
+                row.setdefault(f'host_us_{name}', []).append(host_us(fn))
+        emit(row)
+    for dtype in (getattr(torch, d) for d in args.dtypes.split(',')):
+        for what, cell, S, _, H in SERVING_BIRNN_CASES:
+            short = _birnn_inputs(cell, 4, 1, S, H, dtype, seed=H, lens=[4])
+            turns({'kernel': 'birnn', 'case': what, 'dtype': str(dtype)[6:],
+                   'steps': 4},
+                  {'op': lambda: torch.ops.ftt.birnn_recurrence(
+                      cell, *short, dtype),
+                   'wrapper': lambda: kb.recurrence(cell, *short, dtype),
+                   'direct': lambda: kb.launch(cell, *short, dtype)})
+    torch.manual_seed(0)
+    model = WaveRNN.from_config(default_config()).cuda()
+    bf16 = torch.bfloat16
+    w = ws.pack_weights(model, bf16)
+    cond = (torch.randn((4, 8, model.feat_dims + 4 * model.aux_dims),
+                        device='cuda') * 0.5).to(bf16)
+    seed = ws.seed_tensor(0, 'cuda')
+    turns({'kernel': 'wavernn_sample', 'lanes': 8, 'dtype': 'bfloat16',
+           'steps': 4},
+          {'op': lambda: torch.ops.ftt.wavernn_sample(
+              cond, [w[k] for k in ws.WEIGHT_KEYS], seed, 0, False, bf16),
+           'wrapper_int_seed': lambda: ws.sample(cond, w, 0, 0, False,
+                                                 bf16),
+           'wrapper': lambda: ws.sample(cond, w, seed, 0, False, bf16),
+           'direct': lambda: ws.launch(cond, w, seed, 0, False, bf16)})
+
+
 def main() -> None:
     parser = argparse.ArgumentParser()
     parser.add_argument('--steps', type=int, default=400)
     parser.add_argument('--lanes', default='1,8,64,128')
     parser.add_argument('--only', default='train,train_bwd,sampler,birnn',
                         help='kernels to probe, of train (#2), train_bwd '
-                             '(#3), sampler, birnn, birnn_eval, grads')
+                             '(#3), sampler, birnn, birnn_eval, grads, '
+                             'dispatch')
     parser.add_argument('--rounds', type=int, default=2,
                         help='turns of the birnn sections\' variants')
     parser.add_argument('--dtypes', default='bfloat16',
@@ -728,6 +779,8 @@ def main() -> None:
         evaluate_birnn(args)
     if 'grads' in only:
         grads_vs_cpu(args)
+    if 'dispatch' in only:
+        dispatch(args)
 
 
 if __name__ == '__main__':
