@@ -193,14 +193,27 @@ printed only when every phase passed):
    seconds, file size), the artifact's synthesize repeatable at a fixed
    seed with #1 and #4 counted, its generate against the live model (mel
    L1 < 1e-3);
-15. a {"kernels": [...]} JSON line (launches of the main paths, of the
+15. native I/O and the batch loader at the full width of config.yaml,
+   random weights (`native_io_path` lists its cuts): the host library
+   built by g++ from `forwardtacotron_tpu_torch/native/` (the seconds of
+   each source); a seeded corpus at 44.1 kHz 16-bit, 48 kHz 24-bit stereo
+   and 22.05 kHz float32 through `preprocess.main` (audio seconds a
+   second), `DSP.load_wav` against numpy within one ulp and a `save_wav`
+   round trip; `ForwardTrainer.train` (3 steps, batch 32) with
+   `evaluate()` and `VocTrainer.train` (3 RAW steps at seq_len 1280, its
+   evaluate() and one generate_samples) fed by the native loader, #1-#4
+   counted from 0 just before and read just after, every batch native and
+   equal to the numpy collation of its plan bit for bit; batch assembly
+   ms native against numpy; each step by `step_timing`;
+16. a {"kernels": [...]} JSON line (launches of the main paths, of the
    teacher phase in `launches_teacher`, of the vocoder phase in
    `launches_vocoder`, of the options phase in `launches_options`, of
    phase 12's FastPitch paths in `launches_fast_pitch` and of its
    gen_tacotron runs in `launches_gen_tacotron`, of phase 13's
    multi-speaker paths in `launches_multispeaker` and of its aligner runs
    in `launches_aligner`, of phase 14's fused replays in `launches_fused`
-   and of its exported artifacts in `launches_export`,
+   and of its exported artifacts in `launches_export`, of phase 15 in
+   `launches_native_io`,
    each kernel's time at the vocoder path's shape in `vocoder_*` and #2/#3
    in bf16 in `bf16_*`; #2's cluster path with the cooperative path's
    times on the same inputs in `*cooperative_ms`), the nvidia-smi line,
@@ -1990,29 +2003,35 @@ def _write_corpus(root, sr, n_items=TEACHER_N_UTTERANCES, seed=0,
     (root / 'wavs').mkdir(parents=True)
     meta, items = [], {}
     for i in range(n_items):
-        seconds = rng.uniform(*TEACHER_SECONDS)
-        n = int(seconds * sr)
-        lead = int(0.3 * sr)
-        voiced = np.zeros(n, bool)
-        segments, pos = [], lead
-        while pos < n - lead - int(0.4 * sr):
-            end = min(pos + int(rng.uniform(0.4, 1.2) * sr), n - lead)
-            segments.append((pos, end))
-            voiced[pos:end] = True
-            pos = end + int(0.12 * sr)
-        t = np.arange(n) / sr
-        phase = 2 * np.pi * np.cumsum(contour(t)) / sr
-        y = sum(0.3 / k * np.sin(k * phase) for k in range(1, 6)) * voiced
-        y = y + 1e-4 * rng.randn(n)
+        seconds, y, segments = _utterance(rng, sr, contour)
         item = f'LJ{i:03d}'
         wavfile.write(str(root / 'wavs' / f'{item}.wav'), sr,
                       np.clip(np.round(y * 32767), -32768,
                               32767).astype(np.int16))
         text = ' '.join(rng.choice(lines, 3))[:int(15 * seconds)]
         meta.append(f'{item}|{text}|{text}')
-        items[item] = (n, segments)
+        items[item] = (len(y), segments)
     (root / 'metadata.csv').write_text('\n'.join(meta) + '\n')
     return items
+
+
+def _utterance(rng, sr, contour=_true_f0):
+    """One utterance of `_write_corpus`: (seconds, samples, voiced
+    segments)."""
+    seconds = rng.uniform(*TEACHER_SECONDS)
+    n = int(seconds * sr)
+    lead = int(0.3 * sr)
+    voiced = np.zeros(n, bool)
+    segments, pos = [], lead
+    while pos < n - lead - int(0.4 * sr):
+        end = min(pos + int(rng.uniform(0.4, 1.2) * sr), n - lead)
+        segments.append((pos, end))
+        voiced[pos:end] = True
+        pos = end + int(0.12 * sr)
+    t = np.arange(n) / sr
+    phase = 2 * np.pi * np.cumsum(contour(t)) / sr
+    y = sum(0.3 / k * np.sin(k * phase) for k in range(1, 6)) * voiced
+    return seconds, y + 1e-4 * rng.randn(n), segments
 
 
 @contextlib.contextmanager
@@ -2512,10 +2531,12 @@ def _voc_env(base):
         yield
 
 
-def _write_voc_dataset(data, cfg, seed=1):
+def _write_voc_dataset(data, cfg, seed=1, quant_dtype=np.int16):
     """Phase 8's synthetic items (60-120 phonemes, 400-600 frames) with
-    9-bit labels of frames x hop samples in quant/, so one dataset serves
-    the student, WaveRNN and the GAN vocoders."""
+    9-bit labels of frames x hop samples in quant/ (int16; the native
+    loader reads windows of preprocess's int64 only, so int16 labels take
+    the numpy path), so one dataset serves the student, WaveRNN and the
+    GAN vocoders."""
     from forwardtacotron_tpu_torch.text.symbols import phonemes
     from forwardtacotron_tpu_torch.utils.files import pickle_binary
     rng = np.random.RandomState(seed)
@@ -2531,7 +2552,7 @@ def _write_voc_dataset(data, cfg, seed=1):
         np.save(data / 'mel' / f'{item}.npy',
                 (rng.randn(80, frames) * 2 - 5).astype(np.float32))
         np.save(data / 'quant' / f'{item}.npy',
-                rng.randint(0, 2 ** bits, frames * hop).astype(np.int16))
+                rng.randint(0, 2 ** bits, frames * hop).astype(quant_dtype))
         np.save(data / 'alg' / f'{item}.npy', dur.astype(np.int32))
         np.save(data / 'phon_pitch' / f'{item}.npy',
                 rng.randn(n).astype(np.float32))
@@ -4817,6 +4838,417 @@ def export_and_fused_path():
     return out['launches']
 
 
+# ------------------------------------------- native I/O and the loader
+
+NATIVE_DIR = Path('smoke_native')     # corpus, datasets and checkpoints
+# the corpus's formats, in turn: (sample rate, WAVE format, bits, channels)
+NATIVE_FORMATS = ((44100, 1, 16, 1), (48000, 1, 24, 2), (22050, 3, 32, 1))
+NATIVE_N_UTTERANCES = 8
+NATIVE_STEPS = 3
+
+
+def _pcm_frames(y, fmt, bits, channels, rng):
+    """(frames as written, (n, channels) int or float32 array): `y` on the
+    first channel, 0.8 y plus its own faint noise on a second."""
+    cols = [y] + [0.8 * y + 1e-4 * rng.randn(len(y))
+                  for _ in range(channels - 1)]
+    x = np.stack(cols, axis=1)
+    if fmt == 3:
+        return x.astype('<f4')
+    scale = 2 ** (bits - 1)
+    return np.clip(np.round(x * scale), -scale, scale - 1).astype(np.int64)
+
+
+def _write_wav_frames(path, frames, sr, fmt, bits):
+    """A RIFF wav of (n, channels) PCM integers of `bits` bits (format 1)
+    or IEEE float32 samples (format 3)."""
+    import struct
+    ch = frames.shape[1]
+    if fmt == 3:
+        data = frames.astype('<f4').tobytes()
+    elif bits == 24:
+        data = frames.astype('<i4').view(np.uint8).reshape(-1, 4)[:, :3] \
+            .tobytes()
+    else:
+        data = frames.astype(f'<i{bits // 8}').tobytes()
+    block = ch * bits // 8
+    path.write_bytes(
+        b'RIFF' + struct.pack('<I', 36 + len(data)) + b'WAVE' + b'fmt '
+        + struct.pack('<IHHIIHH', 16, fmt, ch, sr, sr * block, block, bits)
+        + b'data' + struct.pack('<I', len(data)) + data)
+
+
+def _reference_load(frames, sr, fmt, bits, target_sr):
+    """`DSP.load_wav`'s arithmetic in numpy: integers over 2^(bits-1) (or
+    the float samples), the channels' mean in float64, then linear
+    interpolation at i * sr / target_sr."""
+    acc = frames.astype(np.float64).sum(axis=1) * (1.0 / frames.shape[1])
+    wav = (acc if fmt == 3 else acc / 2.0 ** (bits - 1)).astype(np.float32)
+    if sr == target_sr:
+        return wav
+    n = len(wav)
+    m = int(float(n) * target_sr / sr)
+    pos = np.arange(m) * (sr / target_sr)
+    i0 = pos.astype(np.int64)
+    i1 = np.minimum(i0 + 1, n - 1)
+    frac = pos - i0
+    src = wav.astype(np.float64)
+    return (src[i0] * (1.0 - frac) + src[i1] * frac).astype(np.float32)
+
+
+def _write_native_corpus(root, target_sr, seed=3):
+    """NATIVE_N_UTTERANCES utterances of `_write_corpus`'s harmonics, in
+    NATIVE_FORMATS by turns, as an LJSpeech-layout corpus. Returns {item:
+    (sample rate, format, bits, frames as written)}."""
+    rng = np.random.RandomState(seed)
+    lines = [s.strip() for s in Path('sentences.txt').read_text().splitlines()
+             if s.strip()]
+    (root / 'wavs').mkdir(parents=True)
+    meta, items = [], {}
+    for i in range(NATIVE_N_UTTERANCES):
+        sr, fmt, bits, ch = NATIVE_FORMATS[i % len(NATIVE_FORMATS)]
+        seconds, y, _ = _utterance(rng, sr)
+        frames = _pcm_frames(y, fmt, bits, ch, rng)
+        item = f'LJ{i:03d}'
+        _write_wav_frames(root / 'wavs' / f'{item}.wav', frames, sr, fmt,
+                          bits)
+        text = ' '.join(rng.choice(lines, 3))[:int(15 * seconds)]
+        meta.append(f'{item}|{text}|{text}')
+        items[item] = (sr, fmt, bits, frames)
+    (root / 'metadata.csv').write_text('\n'.join(meta) + '\n')
+    return items
+
+
+def _host_library():
+    """Builds the port's host library from its sources into a fresh
+    directory (the g++ seconds of each), then loads the package's own."""
+    from forwardtacotron_tpu_torch import native
+    version = subprocess.run([native.cxx_path(), '--version'],
+                             capture_output=True, text=True,
+                             check=True).stdout.splitlines()[0]
+    saved = native.BUILD_DIR
+    native.BUILD_DIR = (NATIVE_DIR / 'build').resolve()
+    try:
+        seconds = {}
+        for name in ('audio_io', 'batch_loader'):
+            t0 = time.perf_counter()
+            native.build(name)
+            seconds[name] = time.perf_counter() - t0
+    finally:
+        native.BUILD_DIR = saved
+    for name in ('audio_io', 'batch_loader'):
+        native.load(name)
+    log(f'  host library: {version}; built {seconds} s')
+    return {'gxx': version, 'build_s': seconds}
+
+
+def _native_preprocess(cfg, smi):
+    """The corpus through `preprocess.main` (the module's CLI; mel and F0
+    on the card), `DSP.load_wav` against `_reference_load` within one ulp,
+    a `save_wav` -> `load_wav` round trip; audio seconds a second."""
+    from forwardtacotron_tpu_torch import preprocess
+    from forwardtacotron_tpu_torch.dsp.audio import DSP
+    sr = cfg['dsp']['sample_rate']
+    items = _write_native_corpus(Path('corpus'), sr)
+    audio_s = sum(len(f) / r for r, _, _, f in items.values())
+    t0 = time.perf_counter()
+    train, val = preprocess.main(['--path', 'corpus', '--num_workers', '4',
+                                  '--device', DEVICE])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log(f'  preprocess: {len(items)} files ({NATIVE_FORMATS}), '
+        f'{audio_s:.1f} s of audio in {wall:.2f} s ({audio_s / wall:.1f} '
+        f'audio seconds a second, host clock) | {smi}')
+    check(len(train) + len(val) == len(items),
+          f'preprocess wrote {len(train)} train + {len(val)} val items')
+    dsp = DSP.from_config(cfg, DEVICE)
+    worst_ulps, worst_trip = 0.0, 0.0
+    for item, (rate, fmt, bits, frames) in items.items():
+        got = dsp.load_wav(Path('corpus') / 'wavs' / f'{item}.wav')
+        want = _reference_load(frames, rate, fmt, bits, sr)
+        ulps = np.abs(got.astype(np.float64) - want) / np.spacing(
+            np.abs(want).astype(np.float32)).astype(np.float64)
+        worst_ulps = max(worst_ulps, float(ulps.max()))
+        check(got.shape == want.shape and ulps.max() <= 1,
+              f'{item} ({rate} Hz, format {fmt}, {bits} bits, '
+              f'{frames.shape[1]} ch): load_wav {got.shape} vs numpy '
+              f'{want.shape}, {ulps.max():.0f} ulp')
+        dsp.save_wav(got, Path('corpus') / 'trip.wav')
+        back = dsp.load_wav(Path('corpus') / 'trip.wav')
+        worst_trip = max(worst_trip, float(np.abs(back - got).max()))
+    # half an LSB of rounding, and the reader's scale of 2^15 against the
+    # writer's 2^15 - 1 at full scale
+    check(worst_trip <= 0.5 / 32767 + 1 / 32768,
+          f'save_wav -> load_wav within {worst_trip:.3g} (bound '
+          f'{0.5 / 32767 + 1 / 32768:.3g})')
+    mels = [np.load(Path(cfg['data_path']) / 'mel' / f'{i}.npy')
+            for i, _ in train + val]
+    check(all(m.shape[0] == 80 and np.isfinite(m).all() for m in mels),
+          f'{len(mels)} mels of 80 bands, all finite')
+    return {'files': len(items), 'audio_s': audio_s, 'wall_s': wall,
+            'audio_s_per_s': audio_s / wall, 'load_wav_max_ulp': worst_ulps,
+            'round_trip_max_abs': worst_trip}
+
+
+class _BatchLog:
+    """For the block: records what each `batches` call of the two
+    batchers yields, with the native loader's accepted calls that made
+    each batch (counted on the thread that assembled it: the trainers'
+    prefetch threads or the caller's)."""
+
+    LOADER = ('load_mel_batch', 'load_mel_windows', 'load_i64_windows')
+
+    def __init__(self):
+        import threading
+        from forwardtacotron_tpu_torch.data import dataset, native_loader
+        self.runs, self._local, self._saved = [], threading.local(), []
+        for cls in (dataset.BucketBatcher, dataset.VocBatcher):
+            self._saved.append((cls, 'batches', cls.batches))
+            cls.batches = self._recording(cls.batches)
+        for name in self.LOADER:
+            fn = getattr(native_loader, name)
+            self._saved.append((native_loader, name, fn))
+            setattr(native_loader, name, self._counting(fn))
+
+    def _recording(self, batches):
+        runs, local = self.runs, self._local
+
+        def recorded(batcher, epoch, start=0):
+            rng = getattr(getattr(batcher, 'collator', None), 'rng', None)
+            got = []
+            runs.append((batches, batcher, epoch, start,
+                         None if rng is None else rng.get_state(), got))
+            it = batches(batcher, epoch, start)
+            while True:
+                local.accepted = 0
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                got.append((batch, local.accepted))
+                yield batch
+        return recorded
+
+    def _counting(self, fn):
+        local = self._local
+
+        def counted(*args):
+            out = fn(*args)
+            local.accepted = getattr(local, 'accepted', 0) + (
+                out is not None)
+            return out
+        return counted
+
+    def restore(self):
+        for owner, name, value in self._saved:
+            setattr(owner, name, value)
+
+    def native_share(self):
+        """{'tts': (batches, on the native path), 'voc': ...}: a TTS batch
+        is native when its mel block was read natively, a WaveRNN batch
+        when its mel and label windows both were."""
+        out = {'tts': [0, 0], 'voc': [0, 0]}
+        for _, batcher, _, _, _, got in self.runs:
+            kind, need = (('voc', 2) if hasattr(batcher, 'collator')
+                          else ('tts', 1))
+            for _, accepted in list(got):
+                out[kind][0] += 1
+                out[kind][1] += accepted == need
+        return out
+
+    def replay_numpy(self):
+        """Every recorded run again with FTT_NATIVE_LOADER=0 (each
+        collator's generator at its state then): (batches, batches equal
+        bit for bit)."""
+        import itertools
+        import os
+        n = same = 0
+        with _patched(os.environ, FTT_NATIVE_LOADER='0'):
+            for batches, batcher, epoch, start, rng, got in self.runs:
+                got = [b for b, _ in list(got)]
+                if rng is not None:
+                    batcher.collator.rng.set_state(rng)
+                want = list(itertools.islice(
+                    batches(batcher, epoch, start), len(got)))
+                for a, b in zip(got, want):
+                    n += 1
+                    same += set(a) == set(b) and all(
+                        np.array_equal(np.asarray(a[k]), np.asarray(b[k]))
+                        and np.asarray(a[k]).dtype == np.asarray(b[k]).dtype
+                        for k in a)
+        return n, same
+
+
+def _assembly_ms(batcher, epoch=0, reps=3):
+    """Host ms to assemble each batch of one epoch's plan, native and
+    numpy (FTT_NATIVE_LOADER=0), each the median of `reps` passes after
+    one that warms the page cache."""
+    import os
+
+    def per_batch():
+        times = []
+        for _ in range(reps + 1):
+            t0 = time.perf_counter()
+            n = sum(1 for _ in batcher.batches(epoch))
+            times.append((time.perf_counter() - t0) * 1e3 / max(n, 1))
+        return float(np.median(times[1:]))
+    native = per_batch()
+    with _patched(os.environ, FTT_NATIVE_LOADER='0'):
+        plain = per_batch()
+    return {'native_ms': native, 'numpy_ms': plain}
+
+
+@phase('native I/O and the batch loader (full width)')
+def native_io_path():
+    """The port's host library on the card's machine at config.yaml's
+    widths, random weights from seeds, in NATIVE_DIR. Cuts: a corpus of
+    NATIVE_N_UTTERANCES utterances of 2-8 s (VCTK, 48 kHz: ~44k;
+    LibriTTS, 24 kHz: ~375k), in the formats of NATIVE_FORMATS by turns;
+    training on a synthetic dataset of 64 + 32 items of 400-600 frames
+    (`_write_voc_dataset`, int64 labels), the student and WaveRNN
+    NATIVE_STEPS steps each at batch 32 (300k and 600k); one
+    generate_samples sample.
+
+    1. the host library built by g++ from the port's C++ sources
+       (`_host_library`);
+    2. the corpus through `preprocess.main`, `DSP.load_wav` against numpy,
+       the round trip (`_native_preprocess`);
+    3. `ForwardTrainer.train` and `evaluate()`, then `VocTrainer.train`
+       (its evaluate() and one generate_samples), fed by the native loader:
+       launches of #1-#4 counted from 0 just before and read just after,
+       every batch on the native path and equal to the numpy collation of
+       the same plan; batch assembly ms, native against numpy; each step
+       by `step_timing` with its idle share."""
+    import os
+    from forwardtacotron_tpu_torch import config
+    from forwardtacotron_tpu_torch.config import default_config
+    from forwardtacotron_tpu_torch.data.dataset import (get_tts_datasets,
+                                                        get_vocoder_datasets)
+    from forwardtacotron_tpu_torch.dsp.audio import DSP
+    from forwardtacotron_tpu_torch.kernels.wavernn_sample import sample
+    from forwardtacotron_tpu_torch.models.forward_tacotron import (
+        ForwardTacotron)
+    from forwardtacotron_tpu_torch.models.wavernn import WaveRNN
+    from forwardtacotron_tpu_torch.train import common as tc
+    from forwardtacotron_tpu_torch.train.forward_trainer import (
+        ForwardTrainer, batch_to_device)
+    from forwardtacotron_tpu_torch.train.voc_trainer import (VocTrainer,
+                                                             voc_micro_loss)
+    from forwardtacotron_tpu_torch.train.voc_trainer import (
+        batch_to_device as voc_to_device)
+    from forwardtacotron_tpu_torch.utils.paths import Paths
+    smi = nvidia_smi_line()
+    shutil.rmtree(NATIVE_DIR, ignore_errors=True)
+    NATIVE_DIR.mkdir(parents=True)
+    out = {'host_library': _host_library()}
+    base = NATIVE_DIR.resolve()
+    (base / 'sentences.txt').write_text(Path('sentences.txt').read_text())
+    record = None
+    try:
+        with _patched(os.environ, FTT_BASE=str(base)), _cwd(base), \
+                _patched(config.PREPROCESSING, n_val=2):
+            cfg = default_config()
+            out['preprocess'] = _native_preprocess(cfg, smi)
+
+            data = base / 'train_data'
+            cfg['data_path'] = str(data)
+            _write_voc_dataset(data, cfg, quant_dtype=np.int64)
+            paths = Paths(cfg['data_path'], 'smoke_native_tts', base=base,
+                          voc_id='smoke_native_voc')
+            voc_cfg = cfg['vocoder']['training']
+            voc_cfg.update(schedule=[f'1e-4, {NATIVE_STEPS}, 32'],
+                           checkpoint_every=NATIVE_STEPS,
+                           gen_samples_every=NATIVE_STEPS,
+                           num_gen_samples=1)
+            trainer = ForwardTrainer(paths, cfg, DEVICE)
+            voc_trainer = VocTrainer(paths, DSP.from_config(cfg, DEVICE),
+                                     cfg, DEVICE, writer=_Scalars())
+            torch.manual_seed(0)
+            student = ForwardTacotron.from_config(cfg).to(DEVICE)
+            s_opt = tc.make_optimizer(student)
+            vocoder = WaveRNN.from_config(cfg).to(DEVICE)
+            v_opt = tc.make_optimizer(vocoder)
+
+            record = _BatchLog()
+            _train_counts(reset=True)
+            sample.launches = 0
+            t0 = time.perf_counter()
+            s_step = trainer.train(student, s_opt,
+                                   max_steps_override=NATIVE_STEPS)
+            torch.cuda.synchronize()
+            s_wall = time.perf_counter() - t0
+            _, s_val = get_tts_datasets(cfg['data_path'], 32, 1, None)
+            s_eval = trainer.evaluate(student, s_val)
+            t0 = time.perf_counter()
+            v_step = voc_trainer.train(vocoder, v_opt)
+            torch.cuda.synchronize()
+            v_wall = time.perf_counter() - t0
+            launches = {**_train_counts(), 'wavernn_sample': sample.launches}
+            record.restore()
+            native = record.native_share()
+            n_batches, n_same = record.replay_numpy()
+            log(f'  student {s_step} steps in {s_wall:.1f} s, WaveRNN '
+                f'{v_step} steps in {v_wall:.1f} s (host clock, first '
+                f'steps, evaluate() and generate_samples included); '
+                f'launches {launches}; batches (all, native) {native}')
+            check(s_step == v_step == NATIVE_STEPS
+                  and all(map(math.isfinite, s_eval.values())),
+                  f'student and WaveRNN reached step {NATIVE_STEPS}; '
+                  f'student evaluate() {s_eval}')
+            voc_values = voc_trainer.writer.values
+            gen_l1 = [v for t, v, _ in voc_values
+                      if t == 'Loss/generated_mel_l1']
+            val = [v for t, v, _ in voc_values if t == 'Loss/val']
+            check(len(gen_l1) == 1 and len(val) == 1
+                  and math.isfinite(gen_l1[0]) and math.isfinite(val[0]),
+                  f'WaveRNN evaluate() {val}, generate_samples mel L1 '
+                  f'{gen_l1}')
+            for name in ('birnn', 'birnn_train_fwd', 'birnn_train_bwd',
+                         'wavernn_sample'):
+                check(launches[name] > 0,
+                      f'{name} launched {launches[name]} times')
+            check(n_batches > 0 and n_same == n_batches,
+                  f'{n_same} of {n_batches} batches equal to the numpy '
+                  f'collation of the same plan, bit for bit')
+            check(all(n == on > 0 for n, on in native.values()),
+                  f'every batch on the native path: (batches, native) '
+                  f'{native}')
+
+            s_train, _ = get_tts_datasets(cfg['data_path'], 32, 1, None)
+            v_train, _, _ = get_vocoder_datasets(
+                cfg['data_path'], 32, False, voc_cfg['max_mel_len'],
+                cfg['dsp']['hop_length'], vocoder.pad, voc_cfg['seq_len'],
+                'RAW', cfg['dsp']['bits'], 1)
+            assembly = {'bucket_batcher': _assembly_ms(s_train),
+                        'voc_batcher': _assembly_ms(v_train)}
+            log(f'  batch assembly at B=32, host ms a batch: {assembly}')
+            s_batch = next(iter(s_train))
+            timing = {
+                'student': step_timing(_student_parts(
+                    student, s_opt, batch_to_device(s_batch, DEVICE),
+                    trainer.train_cfg),
+                    f'student step, native batch {list(s_batch["mel"].shape)}',
+                    smi),
+                'wavernn': step_timing(train_parts(
+                    vocoder, v_opt, voc_micro_loss(vocoder, 'RAW'),
+                    voc_to_device(next(iter(v_train)), DEVICE), voc_cfg),
+                    'WaveRNN step, native batch', smi)}
+            out.update({
+                'launches': launches, 'native_batches': native,
+                'batches': n_batches, 'batches_equal': n_same,
+                'student': {'steps': s_step, 'wall_s': s_wall,
+                            'evaluate': s_eval},
+                'wavernn': {'steps': v_step, 'wall_s': v_wall,
+                            'val_loss': val, 'generated_mel_l1': gen_l1},
+                'assembly_ms': assembly, 'step_ms': timing, 'nvidia_smi': smi})
+    finally:
+        if record is not None:
+            record.restore()
+        shutil.rmtree(NATIVE_DIR, ignore_errors=True)
+    DETAILS['native_io_path'] = out
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser()
@@ -4855,6 +5287,7 @@ def main(argv=None) -> int:
     fp = fast_pitch_and_teacher_path() or {}
     ms = speakers_and_aligner_path() or {}
     ef = export_and_fused_path() or {}
+    nio = native_io_path() or {}
 
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / 'chip_smoke.json').write_text(json.dumps(
@@ -4892,6 +5325,8 @@ def main(argv=None) -> int:
     # fused graph (HiFi-GAN, WaveRNN), and in the exported artifacts'
     # profiled calls (#2/#3, training kernels, are counted there too)
     fus, exl = ef['fused'], ef['export']
+    # phase 15: the student and WaveRNN fed by the native loader
+    nil = nio['launches']
     kernels = [
         {'name': 'birnn (stream-local path)', 'route': 'cuda',
          'source': 'forwardtacotron_tpu_torch/csrc/birnn.cu',
@@ -4912,6 +5347,7 @@ def main(argv=None) -> int:
          'launches_aligner': all_['birnn_stream_local'],
          'launches_fused': fus['birnn_stream_local'],
          'launches_export': exl['birnn_stream_local'],
+         'launches_native_io': nil['birnn_stream_local'],
          'vocoder_case': voc_birnn['case'],
          'vocoder_ms': voc_birnn['ms_stream_local'],
          'vocoder_plain_ms': voc_birnn['plain_ms'],
@@ -4930,6 +5366,7 @@ def main(argv=None) -> int:
          'launches_aligner': all_['wavernn_sample'],
          'launches_fused': fus['wavernn_sample'],
          'launches_export': exl['wavernn_sample'],
+         'launches_native_io': nil['wavernn_sample'],
          'max_abs_err': wr['max_abs_err'], 'agreement': wr['agreement'],
          'ms': wr['ms'], 'plain_ms': wr['plain_ms'],
          'bound_ms': wr['bound_ms'], 'bound_by': wr['bound_by'],
@@ -4972,6 +5409,7 @@ def main(argv=None) -> int:
             'launches_multispeaker': msl[count],
             'launches_aligner': all_[count],
             'launches_fused': fus[count], 'launches_export': exl[count],
+            'launches_native_io': nil[count],
             'case': row['case'],
             'max_abs_err': row[f'max_abs_err_{sfx}'],
             'ms': row[f'ms_{sfx}'], 'plain_ms': row[f'plain_ms_{sfx}'],

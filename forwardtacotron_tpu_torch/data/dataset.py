@@ -7,18 +7,22 @@ reference's utils/dataset.py field contracts and collate_tts padding):
 add an int `speaker` to each item when given a multi-speaker corpus's
 `speaker_dict`), the
 max-length and attention filters, `collate_tts` (mels padded to a
-multiple of r), `BucketBatcher` on its numpy path, `get_tts_datasets`
-and `Prefetcher`; and the vocoders' parts, `VocoderDataset`, the
-`VocCollator` and `GANVocCollator` crops, `VocBatcher`,
-`get_vocoder_datasets` and `get_gan_vocoder_datasets`. Items are grouped
-by mel length into a ladder of padded (T_text, T_mel) shapes; the batch
-plan of an epoch is a pure function of (seed, epoch), so a resumed run
-replays the data order of an uninterrupted one. Batches are numpy; the
-trainer moves them to its device. Mels are stored on disk as (n_mels, T)
-and come out time-major.
+multiple of r), `BucketBatcher`, `get_tts_datasets` and `Prefetcher`;
+and the vocoders' parts, `VocoderDataset`, the `VocCollator` and
+`GANVocCollator` crops, `VocBatcher`, `get_vocoder_datasets` and
+`get_gan_vocoder_datasets`. Items are grouped by mel length into a
+ladder of padded (T_text, T_mel) shapes; the batch plan of an epoch is a
+pure function of (seed, epoch), so a resumed run replays the data order
+of an uninterrupted one. The TTS batches' padded mel block and WaveRNN's
+windows are read by the port's C++ loader (`data/native_loader.py`); a
+batch with a file the loader refuses, or every batch under
+`FTT_NATIVE_LOADER=0`, is assembled by numpy with the same output.
+Batches are numpy; the trainer moves them to its device. Mels are stored
+on disk as (n_mels, T) and come out time-major.
 """
 from __future__ import annotations
 
+import os
 import queue
 import random
 import threading
@@ -27,11 +31,18 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from forwardtacotron_tpu_torch.data import native_loader
 from forwardtacotron_tpu_torch.dsp.audio import decode_mu_law, label_2_float
 from forwardtacotron_tpu_torch.text.tokenizer import Tokenizer
 from forwardtacotron_tpu_torch.utils.files import unpickle_binary
 
 MEL_PAD = -11.5129
+
+
+def native_enabled() -> bool:
+    """False under `FTT_NATIVE_LOADER=0`, which sends every batch through
+    numpy."""
+    return os.environ.get('FTT_NATIVE_LOADER') != '0'
 
 
 def filter_max_len(dataset: List[tuple], max_mel_len: Optional[int]
@@ -63,6 +74,7 @@ class TacoDataset:
         self.text_dict = text_dict
         self.tokenizer = tokenizer
         self.speaker_dict = speaker_dict
+        self._light_cache: Dict[int, Dict] = {}
 
     def _with_speaker(self, item: Dict) -> Dict:
         """`item` with its int `speaker` (0 for an id the dict lacks) when
@@ -78,6 +90,21 @@ class TacoDataset:
         return self._with_speaker({
             'x': np.asarray(x, dtype=np.int64), 'mel': mel,
             'item_id': item_id, 'mel_len': mel.shape[-1], 'x_len': len(x)})
+
+    def _light(self, item_id: str) -> Dict:
+        x = self.tokenizer(self.text_dict[item_id])
+        return {'x': np.asarray(x, dtype=np.int64), 'item_id': item_id,
+                'x_len': len(x)}
+
+    def light_item(self, index: int) -> Dict:
+        """Everything of the item but its mel (the native loader reads
+        the mels straight into the batch); cached, as epochs revisit every
+        item."""
+        cached = self._light_cache.get(index)
+        if cached is None:
+            cached = self._with_speaker(self._light(self.metadata[index]))
+            self._light_cache[index] = cached
+        return cached
 
     def __len__(self) -> int:
         return len(self.metadata)
@@ -97,6 +124,13 @@ class ForwardDataset(TacoDataset):
             'item_id': item_id, 'x_len': len(x), 'mel_len': mel.shape[-1],
             'dur': dur, 'pitch': pitch, 'energy': energy})
 
+    def _light(self, item_id: str) -> Dict:
+        out = super()._light(item_id)
+        for key, sub in (('dur', 'alg'), ('pitch', 'phon_pitch'),
+                         ('energy', 'phon_energy')):
+            out[key] = np.load(str(self.path / sub / f'{item_id}.npy'))
+        return out
+
 
 def pad1d(x, max_len: int) -> np.ndarray:
     return np.pad(x, (0, max_len - len(x)), mode='constant')
@@ -108,24 +142,27 @@ def pad2d(x, max_len: int) -> np.ndarray:
 
 
 def collate_tts(batch: List[Dict], r: int,
-                pad_to: Optional[Tuple[int, int]] = None) -> Dict:
+                pad_to: Optional[Tuple[int, int]] = None,
+                mel: Optional[Tuple[np.ndarray, np.ndarray]] = None) -> Dict:
     """Pad and stack a list of items: text zero-padded, mel padded with
     -11.5129 to max_len+1 rounded up to a multiple of r (the reference's
     collate_tts). `pad_to` forces static (T_text, T_mel) bucket shapes
     (both still r-rounded). Mel is returned time-major (B, T, n_mels);
-    items with a `speaker` give a (B,) int32 `speaker`."""
+    items with a `speaker` give a (B,) int32 `speaker`. `mel`, the padded
+    block and its lengths already read (the native loader's), stands in
+    for the items' mels, which they then need not carry."""
     x_len = np.asarray([b['x_len'] for b in batch], dtype=np.int64)
-    mel_lens = np.asarray([b['mel_len'] for b in batch], dtype=np.int64)
-
     max_x_len = int(x_len.max()) if pad_to is None else pad_to[0]
-    max_spec_len = (int(mel_lens.max()) + 1) if pad_to is None else pad_to[1]
-    if max_spec_len % r != 0:
-        max_spec_len += r - max_spec_len % r
-
     text = np.stack([pad1d(b['x'], max_x_len) for b in batch]
                     ).astype(np.int64)
-    mel = np.stack([pad2d(b['mel'], max_spec_len) for b in batch])
-    mel = mel.transpose(0, 2, 1).astype(np.float32)
+    if mel is None:
+        mel_lens = np.asarray([b['mel_len'] for b in batch], dtype=np.int64)
+        max_spec_len = (int(mel_lens.max()) + 1) if pad_to is None \
+            else pad_to[1]
+        mel = np.stack([pad2d(b['mel'], _round_up(max_spec_len, r))
+                        for b in batch]).transpose(0, 2, 1).astype(np.float32)
+    else:
+        mel, mel_lens = mel
 
     out = {'x': text, 'mel': mel,
            'item_id': [b['item_id'] for b in batch],
@@ -160,6 +197,7 @@ class BucketBatcher:
     rounded to `x_multiple`. Batches within a bucket have one shape and
     are shuffled across and within buckets. Incomplete tail batches are
     padded by repeating items, with `n_real` counting the genuine rows.
+    The padded mel block comes from the native loader (`_make_batch`).
     """
 
     def __init__(self, dataset, batch_size: int, r: int = 1,
@@ -171,6 +209,7 @@ class BucketBatcher:
         self.shuffle = shuffle
         self.seed = seed
         self._epoch = 0  # next epoch yielded by plain iter()
+        self._n_mels: Optional[int] = None
 
         self.buckets: Dict[int, List[int]] = {}
         self.x_pad: Dict[int, int] = {}
@@ -194,10 +233,32 @@ class BucketBatcher:
         while len(idxs) < self.batch_size:
             idxs = idxs + idxs[:self.batch_size - len(idxs)]
         idxs = idxs[:self.batch_size]
-        batch = collate_tts([self.dataset[i] for i in idxs], self.r,
-                            pad_to=(self.x_pad[bucket], bucket))
+        batch = self._make_batch_native(bucket, idxs)
+        if batch is None:
+            batch = collate_tts([self.dataset[i] for i in idxs], self.r,
+                                pad_to=(self.x_pad[bucket], bucket))
         batch['n_real'] = n_real
         return batch
+
+    def _make_batch_native(self, bucket: int,
+                           idxs: List[int]) -> Optional[Dict]:
+        """`collate_tts`'s batch of the padded mel block read by the native
+        loader and the datasets' `light_item`s; None when a file fails the
+        loader's validation or under `FTT_NATIVE_LOADER=0`."""
+        if not native_enabled():
+            return None
+        ds = self.dataset
+        paths = [ds.path / 'mel' / f'{ds.metadata[i]}.npy' for i in idxs]
+        if self._n_mels is None:
+            self._n_mels = int(np.load(str(paths[0]),
+                                       mmap_mode='r').shape[0])
+        max_spec = _round_up(bucket, self.r)
+        loaded = native_loader.load_mel_batch(paths, max_spec, self._n_mels,
+                                              MEL_PAD)
+        if loaded is None:
+            return None
+        return collate_tts([ds.light_item(i) for i in idxs], self.r,
+                           pad_to=(self.x_pad[bucket], bucket), mel=loaded)
 
     def epoch_plan(self, epoch: int) -> List[tuple]:
         """The batch plan of one epoch as a pure function of (seed,
@@ -285,6 +346,32 @@ class VocoderDataset:
         self.metadata = list(dataset_ids)
         self.mel_path = Path(path) / ('gta' if train_gta else 'mel')
         self.quant_path = Path(path) / 'quant'
+        self._len_cache: Dict[int, int] = {}
+
+    def prime_len_cache(self) -> None:
+        """Fill the frame-count cache with one threaded native sweep of
+        the headers; a refused file is left to `mel_len`."""
+        missing = [i for i in range(len(self.metadata))
+                   if i not in self._len_cache]
+        if not missing:
+            return
+        lens = native_loader.npy_lengths(
+            [self.mel_path / f'{self.metadata[i]}.npy' for i in missing])
+        if lens is None:
+            return
+        for i, length in zip(missing, lens):
+            self._len_cache[i] = int(length)
+
+    def mel_len(self, index: int) -> int:
+        """The frame count of the mel on disk (its header, cached): GTA
+        mels can differ from the index pickles' lengths."""
+        length = self._len_cache.get(index)
+        if length is None:
+            length = int(np.load(
+                str(self.mel_path / f'{self.metadata[index]}.npy'),
+                mmap_mode='r').shape[-1])
+            self._len_cache[index] = length
+        return length
 
     def __getitem__(self, index: int) -> Dict:
         item_id = self.metadata[index]
@@ -312,26 +399,62 @@ class VocCollator:
         self.voc_mode = voc_mode
         self.bits = bits
         self.rng = rng or np.random.RandomState()
+        self._n_mels: Optional[int] = None
 
-    def __call__(self, batch: List[Dict]) -> Dict[str, np.ndarray]:
+    def _offsets(self, mel_lens: Sequence[int]) -> Tuple[int, list, list]:
+        """(mel window, mel offsets, signal offsets): one draw an item,
+        in item order."""
         mel_win = self.voc_seq_len // self.hop_length + 2 * self.voc_pad
-        max_offsets = [b['mel'].shape[-1] - 2 - (mel_win + 2 * self.voc_pad)
-                       for b in batch]
-        mel_offsets = [self.rng.randint(0, o) for o in max_offsets]
+        mel_offsets = [self.rng.randint(0, n - 2 - (mel_win
+                                                    + 2 * self.voc_pad))
+                       for n in mel_lens]
         sig_offsets = [(o + self.voc_pad) * self.hop_length
                        for o in mel_offsets]
-        mels = np.stack([b['mel'][:, mel_offsets[i]:mel_offsets[i] + mel_win]
-                         for i, b in enumerate(batch)]).astype(np.float32)
-        labels = np.stack(
-            [b['x'][sig_offsets[i]:sig_offsets[i] + self.voc_seq_len + 1]
-             for i, b in enumerate(batch)]).astype(np.int64)
+        return mel_win, mel_offsets, sig_offsets
+
+    def _labels(self, labels: np.ndarray) -> Dict[str, np.ndarray]:
         x = labels[:, :self.voc_seq_len]
         y = labels[:, 1:]
         bits = 16 if self.voc_mode == 'MOL' else self.bits
         x = label_2_float(x.astype(np.float32), bits)
         if self.voc_mode == 'MOL':
             y = label_2_float(y.astype(np.float32), bits)
-        return {'mel': mels.transpose(0, 2, 1), 'x': x, 'y': y}
+        return {'x': x, 'y': y}
+
+    def __call__(self, batch: List[Dict]) -> Dict[str, np.ndarray]:
+        mel_win, mel_offsets, sig_offsets = self._offsets(
+            [b['mel'].shape[-1] for b in batch])
+        mels = np.stack([b['mel'][:, mel_offsets[i]:mel_offsets[i] + mel_win]
+                         for i, b in enumerate(batch)]).astype(np.float32)
+        labels = np.stack(
+            [b['x'][sig_offsets[i]:sig_offsets[i] + self.voc_seq_len + 1]
+             for i, b in enumerate(batch)]).astype(np.int64)
+        return {'mel': mels.transpose(0, 2, 1), **self._labels(labels)}
+
+    def collate_native(self, mel_paths: List[Path], quant_paths: List[Path],
+                       mel_lens: List[int]) -> Dict[str, np.ndarray]:
+        """`__call__`'s batch from the files, reading only the windows
+        through the native loader. The draws come once, in `__call__`'s
+        order, and a refused file's windows are read by numpy at the same
+        offsets, so every path gives the same batch."""
+        mel_win, mel_offsets, sig_offsets = self._offsets(mel_lens)
+        if self._n_mels is None:
+            self._n_mels = int(np.load(str(mel_paths[0]),
+                                       mmap_mode='r').shape[0])
+        mels = native_loader.load_mel_windows(mel_paths, mel_offsets,
+                                              mel_win, self._n_mels)
+        if mels is None:
+            mels = np.stack([np.load(str(p))[:, o:o + mel_win].T
+                             for p, o in zip(mel_paths, mel_offsets)]
+                            ).astype(np.float32)
+        count = self.voc_seq_len + 1
+        labels = native_loader.load_i64_windows(quant_paths, sig_offsets,
+                                                count)
+        if labels is None:
+            labels = np.stack([np.load(str(p))[s:s + count]
+                               for p, s in zip(quant_paths, sig_offsets)]
+                              ).astype(np.int64)
+        return {'mel': mels, **self._labels(labels)}
 
 
 class VocBatcher:
@@ -340,7 +463,8 @@ class VocBatcher:
     shuffling batcher reseeds its collator's window draws per (seed,
     epoch, batch), so a run resumed mid-epoch draws the crops of an
     uninterrupted one. A batcher that does not shuffle (the validation
-    sets) keeps its collator's own generator."""
+    sets) keeps its collator's own generator. A collator with
+    `collate_native` (WaveRNN's) reads only its windows from the files."""
 
     def __init__(self, dataset: VocoderDataset, batch_size: int,
                  collator, shuffle: bool = True, seed: int = 42) -> None:
@@ -364,11 +488,23 @@ class VocBatcher:
 
     def batches(self, epoch: int, start: int = 0):
         """Yield epoch `epoch`'s batches from position `start`."""
+        use_native = native_enabled() and hasattr(self.collator,
+                                                  'collate_native')
+        if use_native:
+            self.dataset.prime_len_cache()
+        ds = self.dataset
         for b, chunk in enumerate(self.epoch_plan(epoch)[start:], start):
             if self.shuffle:
                 self.collator.rng = np.random.RandomState(
                     _epoch_seed(self.seed, epoch, b))
-            yield self.collator([self.dataset[j] for j in chunk])
+            if use_native:
+                ids = [ds.metadata[j] for j in chunk]
+                yield self.collator.collate_native(
+                    [ds.mel_path / f'{i}.npy' for i in ids],
+                    [ds.quant_path / f'{i}.npy' for i in ids],
+                    [ds.mel_len(j) for j in chunk])
+            else:
+                yield self.collator([ds[j] for j in chunk])
 
     def __iter__(self):
         epoch, self._epoch = self._epoch, self._epoch + 1

@@ -5,8 +5,9 @@ Mirrors `forwardtacotron_tpu/dsp/audio.py`: the same constructor fields
 wav_to_mel_bucketed / wav_to_mel_batch / griffinlim / normalize /
 denormalize / trim_silence / trim_long_silences / the quantizers). The
 spectral work runs in PyTorch (`dsp/stft.py`, `dsp/griffinlim.py`) on the
-DSP's `device`, which defaults to ``'cuda'``; file input and output go
-through `scipy.io.wavfile`. Mels keep the reference layout (n_mels, T).
+DSP's `device`, which defaults to ``'cuda'``; wavs are read and written
+through the port's C++ library (`utils/native_audio.py`), as the JAX
+package does. Mels keep the reference layout (n_mels, T).
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import torch
 from forwardtacotron_tpu_torch import resolve_device
 from forwardtacotron_tpu_torch.dsp import griffinlim as _gl
 from forwardtacotron_tpu_torch.dsp import stft as _stft
+from forwardtacotron_tpu_torch.utils import native_audio
 
 
 def label_2_float(x, bits: float):
@@ -60,14 +62,15 @@ def decode_mu_law(y, mu: float, from_labels: bool = True):
 
 def save_wav(wav: np.ndarray, path: Union[str, Path],
              sample_rate: int) -> None:
-    """Write int16 PCM as it is; float audio is clipped to [-1, 1] and
-    scaled to int16 first."""
-    from scipy.io import wavfile
+    """Write int16 PCM as it is (e.g. `vocode(pcm16=True)`'s); float audio
+    as 16-bit PCM through the native writer, clipped to [-1, 1] and
+    rounded to nearest."""
     wav = np.asarray(wav)
-    if wav.dtype != np.int16:
-        wav = (np.clip(wav.astype(np.float32), -1.0, 1.0)
-               * 32767).astype(np.int16)
-    wavfile.write(str(path), sample_rate, wav)
+    if wav.dtype == np.int16:
+        from scipy.io import wavfile
+        wavfile.write(str(path), sample_rate, wav)
+        return
+    native_audio.write_wav(path, wav.astype(np.float32), sample_rate)
 
 
 class DSP:
@@ -111,25 +114,10 @@ class DSP:
 
     # ------------------------------------------------------------ file IO
     def load_wav(self, path: Union[str, Path]) -> np.ndarray:
-        """Mono float32 at the DSP's sample rate (scipy reader; integer
-        PCM scaled to [-1, 1), other rates resampled polyphase)."""
-        from scipy.io import wavfile
-        sr, wav = wavfile.read(str(path))
-        if wav.dtype == np.int16:
-            wav = wav.astype(np.float32) / 32768.0
-        elif wav.dtype == np.int32:
-            wav = wav.astype(np.float32) / 2147483648.0
-        elif wav.dtype == np.uint8:
-            wav = (wav.astype(np.float32) - 128.0) / 128.0
-        else:
-            wav = wav.astype(np.float32)
-        if wav.ndim > 1:
-            wav = wav.mean(axis=1)
-        if sr != self.sample_rate:
-            from scipy.signal import resample_poly
-            g = math.gcd(int(self.sample_rate), int(sr))
-            wav = resample_poly(wav, self.sample_rate // g, sr // g
-                                ).astype(np.float32)
+        """Mono float32 at the DSP's sample rate (the native reader:
+        integer PCM over 2^(bits-1), channels averaged, other rates
+        resampled linearly); a format it refuses raises IOError."""
+        wav, _ = native_audio.read_wav(path, target_sr=self.sample_rate)
         return wav
 
     def save_wav(self, wav: np.ndarray, path: Union[str, Path]) -> None:

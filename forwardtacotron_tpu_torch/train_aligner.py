@@ -13,9 +13,10 @@ and the per-phoneme pitch and energy (`phon_pitch/`, `phon_energy/`)
 unless preempted; `--force_align` only writes them, from the checkpoint.
 `python -m forwardtacotron_tpu_torch.train_forward` then trains on them
 as on the teacher's. A JAX `latest_model.fjax` in the checkpoint
-directory, where there is no `latest_model.pt`, seeds the weights and the
-step with a fresh optimizer. Without `--config` the built-in copy of
-config.yaml is used. Everything runs on `--device` (default `cuda`).
+directory, where there is no `latest_model.pt`, seeds the weights, the
+step and Adam's state (fresh when the file has none). Without `--config`
+the built-in copy of config.yaml is used. Everything runs on `--device`
+(default `cuda`).
 """
 from __future__ import annotations
 
@@ -34,7 +35,9 @@ from forwardtacotron_tpu_torch.train.aligner_trainer import (
 from forwardtacotron_tpu_torch.utils.checkpoints import (load_checkpoint,
                                                          restore)
 from forwardtacotron_tpu_torch.utils.paths import Paths
-from forwardtacotron_tpu_torch.weights import aligner_state_dict, load_fjax
+from forwardtacotron_tpu_torch.weights import (aligner_state_dict,
+                                               load_fjax,
+                                               load_optimizer_state)
 
 SEED = 42      # the JAX trainer's fixed seed
 
@@ -51,9 +54,14 @@ def _restore(model, optimizer, paths: Paths) -> Optional[int]:
     if latest_fjax.is_file():
         payload = load_fjax(latest_fjax, use_ema=False)
         step = payload['step']
-        model.load_state_dict(aligner_state_dict(payload['model'], step))
-        print(f'Seeded the weights from {latest_fjax} (step {step}); the '
-              'optimizer state is not converted and starts fresh')
+
+        def to_state_dict(variables):
+            return aligner_state_dict(variables, step)
+        model.load_state_dict(to_state_dict(payload['model']))
+        carried = load_optimizer_state(
+            payload, [(optimizer, model, payload['model'], to_state_dict)])
+        what = 'the weights and Adam' if carried else 'the weights'
+        print(f'Seeded {what} from {latest_fjax} (step {step})')
         return step
     return None
 

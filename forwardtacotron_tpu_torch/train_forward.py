@@ -10,8 +10,9 @@ dataset under `data_path`, trains per the config's schedule and resumes
 from `latest_model.pt` when the checkpoint directory has one: its raw
 weights ('raw_model' where the file keeps EMA weights under 'model'), the
 optimizer and, with `ema_decay` > 0, the EMA weights. A JAX
-`latest_model.fjax` there instead seeds the weights and the step, with a
-fresh optimizer: its raw parameters, as the JAX trainer resumes, and with
+`latest_model.fjax` there instead seeds the weights, the step and Adam's
+state (fresh when the file has none): its raw parameters, as the JAX
+trainer resumes, and with
 `ema_decay` > 0 the EMA from its `ema_params`, or from the raw parameters
 where it has none (the JAX package's `train_forward.py:100-119`); with
 `ema_decay` 0 a stored EMA is dropped. The checkpoint directory
@@ -45,7 +46,9 @@ from forwardtacotron_tpu_torch.utils.checkpoints import (init_tts_model,
                                                          restore)
 from forwardtacotron_tpu_torch.utils.display import progbar, stream
 from forwardtacotron_tpu_torch.utils.paths import Paths
-from forwardtacotron_tpu_torch.weights import load_fjax, tts_state_dict
+from forwardtacotron_tpu_torch.weights import (load_fjax,
+                                               load_optimizer_state,
+                                               tts_state_dict)
 
 SEED = 42      # the JAX trainer's fixed seed
 
@@ -111,12 +114,17 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     elif latest_fjax.is_file():
         payload = load_fjax(latest_fjax, use_ema=False)
         step = payload['step']
-        model.load_state_dict(tts_state_dict(payload['model'], config, step))
+
+        def to_state_dict(variables):
+            return tts_state_dict(variables, config, step)
+        model.load_state_dict(to_state_dict(payload['model']))
         if trainer.ema is not None:
             ema = load_fjax(latest_fjax, use_ema=True)['model']
-            trainer.ema.load(tts_state_dict(ema, config, step), model)
-        print(f'Seeded the weights from {latest_fjax} (step {step}); the '
-              'optimizer state is not converted and starts fresh')
+            trainer.ema.load(to_state_dict(ema), model)
+        carried = load_optimizer_state(
+            payload, [(optimizer, model, payload['model'], to_state_dict)])
+        what = 'the weights and Adam' if carried else 'the weights'
+        print(f'Seeded {what} from {latest_fjax} (step {step})')
     if args.force_gta:
         if not (latest.is_file() or latest_fjax.is_file()):
             raise SystemExit(f'No student checkpoint in '

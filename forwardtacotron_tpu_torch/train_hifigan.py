@@ -9,10 +9,13 @@ the MPD and MSD discriminators on the quant labels and mels (`--gta`: the
 student's ground-truth-aligned mels of `data/gta`) of a preprocessed
 dataset, per `hifigan.training`, and resumes from `latest_model.pt`
 (both nets, both optimizers, the step) when the checkpoint directory has
-one. The checkpoint directory lies under $FTT_BASE when that is set, else
-under the repository root; `gen_forward hifigan|melgan --voc_checkpoint`
-serves its files. Without `--config` the built-in copy of config.yaml is
-used. Everything runs on `--device` (default `cuda`).
+one; a JAX `latest_model.fjax` there instead seeds both nets, the step
+and both AdamW states (fresh when the file has none), as the JAX
+package's `train_hifigan.py` resumes its own file. The checkpoint
+directory lies under $FTT_BASE when that is set, else under the
+repository root; `gen_forward hifigan|melgan --voc_checkpoint` serves its
+files. Without `--config` the built-in copy of config.yaml is used.
+Everything runs on `--device` (default `cuda`).
 """
 from __future__ import annotations
 
@@ -31,6 +34,10 @@ from forwardtacotron_tpu_torch.train.hifigan_trainer import (
     HiFiGANTrainer, load_generator, make_gan_optimizer)
 from forwardtacotron_tpu_torch.utils.checkpoints import load_checkpoint
 from forwardtacotron_tpu_torch.utils.paths import Paths
+from forwardtacotron_tpu_torch.weights import (ADAMW_HYPERPARAMS,
+                                               discriminator_state_dict,
+                                               hifigan_state_dict, load_fjax,
+                                               load_optimizer_state)
 
 SEED = 42
 
@@ -63,6 +70,7 @@ def main(argv: Optional[Sequence[str]] = None, writer=None) -> int:
     gen_opt, disc_opt = make_gan_optimizer(gen), make_gan_optimizer(disc)
     step = 0
     latest = paths.hifigan_checkpoints / 'latest_model.pt'
+    latest_fjax = latest.with_suffix('.fjax')
     if latest.is_file():
         payload = load_checkpoint(latest)
         load_generator(gen, payload)
@@ -71,6 +79,19 @@ def main(argv: Optional[Sequence[str]] = None, writer=None) -> int:
         disc_opt.load_state_dict(payload['optim_d'])
         step = int(payload['step'])
         print(f'Restored model with step {step}')
+    elif latest_fjax.is_file():
+        payload = load_fjax(latest_fjax, use_ema=False)
+        params, step = payload['model']['params'], payload['step']
+        entries = [
+            (gen_opt, gen, {'params': params['generator']},
+             lambda v: hifigan_state_dict(v, config)),
+            (disc_opt, disc, {'params': params['discriminator']},
+             discriminator_state_dict)]
+        for _, model, variables, to_state_dict in entries:
+            model.load_state_dict(to_state_dict(variables))
+        carried = load_optimizer_state(payload, entries, ADAMW_HYPERPARAMS)
+        what = 'both nets and both AdamW states' if carried else 'both nets'
+        print(f'Seeded {what} from {latest_fjax} (step {step})')
     return trainer.train(gen, disc, gen_opt, disc_opt, step,
                          train_gta=args.gta)
 

@@ -18,7 +18,8 @@ reference's train_tacotron.py) on a dataset that
 - `--force_gta` writes the teacher-forced postnet mels (`data/gta`).
 
 A JAX `latest_model.fjax` in the checkpoint directory, where there is no
-`latest_model.pt`, seeds the weights and the step with a fresh optimizer.
+`latest_model.pt`, seeds the weights, the step and Adam's state (a file
+written without an optimizer state leaves Adam fresh).
 The checkpoint directory lies under $FTT_BASE when that is set, else
 under the repository root. Without `--config` the built-in copy of
 config.yaml is used. Everything runs on `--device` (default `cuda`);
@@ -43,7 +44,9 @@ from forwardtacotron_tpu_torch.train.taco_trainer import TacoTrainer
 from forwardtacotron_tpu_torch.utils.checkpoints import (load_checkpoint,
                                                          restore)
 from forwardtacotron_tpu_torch.utils.paths import Paths
-from forwardtacotron_tpu_torch.weights import load_fjax, tacotron_state_dict
+from forwardtacotron_tpu_torch.weights import (load_fjax,
+                                               load_optimizer_state,
+                                               tacotron_state_dict)
 
 SEED = 42      # the JAX trainer's fixed seed
 
@@ -60,10 +63,15 @@ def _restore(model, optimizer, paths: Paths, config) -> Optional[int]:
     if latest_fjax.is_file():
         payload = load_fjax(latest_fjax, use_ema=False)
         step = payload['step']
-        model.load_state_dict(tacotron_state_dict(
-            payload['model'], config['tacotron']['model'], step))
-        print(f'Seeded the weights from {latest_fjax} (step {step}); the '
-              'optimizer state is not converted and starts fresh')
+
+        def to_state_dict(variables):
+            return tacotron_state_dict(variables,
+                                       config['tacotron']['model'], step)
+        model.load_state_dict(to_state_dict(payload['model']))
+        carried = load_optimizer_state(
+            payload, [(optimizer, model, payload['model'], to_state_dict)])
+        what = 'the weights and Adam' if carried else 'the weights'
+        print(f'Seeded {what} from {latest_fjax} (step {step})')
         return step
     return None
 

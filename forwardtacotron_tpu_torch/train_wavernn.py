@@ -8,12 +8,12 @@ the quant labels and mels (`--gta`: the student's ground-truth-aligned
 mels of `data/gta`, written by `train_forward --force_gta`) of a
 preprocessed dataset under `data_path`, per `vocoder.training`, and
 resumes from `latest_model.pt` when the checkpoint directory has one. A
-JAX `latest_model.fjax` there instead seeds the weights and the step,
-with a fresh optimizer. The checkpoint directory lies under $FTT_BASE
-when that is set, else under the repository root. Without `--config` the
-built-in copy of config.yaml is used. Everything runs on `--device`
-(default `cuda`); `--device cpu` runs the plain PyTorch versions of the
-kernels.
+JAX `latest_model.fjax` there instead seeds the weights, the step and
+Adam's state (fresh when the file has none). The checkpoint directory
+lies under $FTT_BASE when that is set, else under the repository root.
+Without `--config` the built-in copy of config.yaml is used. Everything
+runs on `--device` (default `cuda`); `--device cpu` runs the plain
+PyTorch versions of the kernels.
 """
 from __future__ import annotations
 
@@ -32,7 +32,9 @@ from forwardtacotron_tpu_torch.train.voc_trainer import VocTrainer
 from forwardtacotron_tpu_torch.utils.checkpoints import (load_checkpoint,
                                                          restore)
 from forwardtacotron_tpu_torch.utils.paths import Paths
-from forwardtacotron_tpu_torch.weights import load_fjax, wavernn_state_dict
+from forwardtacotron_tpu_torch.weights import (load_fjax,
+                                               load_optimizer_state,
+                                               wavernn_state_dict)
 
 SEED = 42
 
@@ -71,10 +73,15 @@ def main(argv: Optional[Sequence[str]] = None, writer=None) -> int:
     elif latest_fjax.is_file():
         payload = load_fjax(latest_fjax, use_ema=False)
         step = payload['step']
-        model.load_state_dict(wavernn_state_dict(
-            payload['model'], config['vocoder']['model'], step))
-        print(f'Seeded the weights from {latest_fjax} (step {step}); the '
-              'optimizer state is not converted and starts fresh')
+
+        def to_state_dict(variables):
+            return wavernn_state_dict(variables,
+                                      config['vocoder']['model'], step)
+        model.load_state_dict(to_state_dict(payload['model']))
+        carried = load_optimizer_state(
+            payload, [(optimizer, model, payload['model'], to_state_dict)])
+        what = 'the weights and Adam' if carried else 'the weights'
+        print(f'Seeded {what} from {latest_fjax} (step {step})')
     return trainer.train(model, optimizer, step, train_gta=args.gta)
 
 

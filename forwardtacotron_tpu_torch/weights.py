@@ -13,12 +13,17 @@ the port's modules (`_put_speaker`, `aligner_state_dict`). Layout
 transforms: conv kernels (W, Cin, Cout) -> (Cout, Cin, W), transposed-conv
 kernels (stored flipped, (W, Cin, Cout)) -> (Cin, Cout, W) unflipped,
 dense kernels transposed, RNN gates already in the torch layout.
+
+`load_optimizer_state` carries a `.fjax`'s optimizer state (its 'optim':
+optax's flattened Adam or AdamW states) over into torch optimizers: each
+moment goes through its parameter's key map and layout transform above,
+and Adam's count becomes torch's `step`.
 """
 from __future__ import annotations
 
 import pickle
 from pathlib import Path
-from typing import Any, Dict, Union
+from typing import Any, Callable, Dict, List, Sequence, Union
 
 import numpy as np
 import torch
@@ -28,10 +33,11 @@ from forwardtacotron_tpu_torch.models.fast_pitch import positional_table
 
 def load_fjax(path: Union[str, Path], use_ema: bool = True
               ) -> Dict[str, Any]:
-    """{'model': flax variables (numpy), 'config', 'step'} of a `.fjax`
-    checkpoint. EMA weights, when the file has them, replace the raw
-    parameters unless `use_ema=False`. Unpickling runs code from the
-    file: load only checkpoints you trust."""
+    """{'model': flax variables (numpy), 'config', 'step', 'optim'} of a
+    `.fjax` checkpoint, 'optim' the optimizer state's leaves or None. EMA
+    weights, when the file has them, replace the raw parameters unless
+    `use_ema=False`. Unpickling runs code from the file: load only
+    checkpoints you trust."""
     with open(path, 'rb') as f:
         payload = pickle.load(f)
     variables = dict(payload['model'])
@@ -39,7 +45,8 @@ def load_fjax(path: Union[str, Path], use_ema: bool = True
     if use_ema and ema:
         variables['params'] = ema
     return {'model': variables, 'config': payload['config'],
-            'step': int(payload.get('step', 0))}
+            'step': int(payload.get('step', 0)),
+            'optim': payload.get('optim')}
 
 
 def _t(a) -> torch.Tensor:
@@ -418,3 +425,124 @@ def deepmind_wavernn_state_dict(variables: Dict[str, Any]
     for name in ('bias_u', 'bias_r', 'bias_e'):
         out[name] = _t(params[name])
     return out
+
+
+# ------------------------------------------------------- optimizer state
+
+# optax's leaves of `inject_hyperparams(adam | adamw)` (the JAX trainers'
+# `make_optimizer`, behind a `clip_by_global_norm` with no leaves, and
+# `make_gan_optimizer`): the inject count, the hyperparameters in sorted
+# key order, scale_by_adam's count, then mu and nu, each in the params
+# tree's sorted-key order
+ADAM_HYPERPARAMS = ('b1', 'b2', 'eps', 'eps_root', 'learning_rate')
+ADAMW_HYPERPARAMS = ADAM_HYPERPARAMS + ('weight_decay',)
+
+
+def _tree_leaves(tree) -> List[Any]:
+    """The leaves of nested dicts in jax's flattening order (sorted keys)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _tree_leaves(tree[k])]
+    return [tree]
+
+
+def _tree_paths(tree, prefix: str = '') -> List[str]:
+    if isinstance(tree, dict):
+        return [path for k in sorted(tree)
+                for path in _tree_paths(tree[k], f'{prefix}/{k}')]
+    return [prefix]
+
+
+def _tree_unflatten(tree, leaves: List[Any]):
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        return next(it)
+    return build(tree)
+
+
+def split_optim_leaves(leaves: Sequence[Any], params_trees: Sequence[Dict],
+                       hyperparams: Sequence[str] = ADAM_HYPERPARAMS
+                       ) -> List[Dict[str, Any]]:
+    """A `.fjax`'s 'optim' leaves -> one {'count', 'mu', 'nu'} per
+    optimizer state, in the order they were flattened (one for
+    the TTS models and WaveRNN, the generator's then the discriminators'
+    for the GAN pair), `mu` and `nu` as trees of `params_trees`. The
+    layout is derived from those trees: a leaf count or a moment shape
+    that does not match raises."""
+    n_params = [len(_tree_leaves(t)) for t in params_trees]
+    sizes = [len(hyperparams) + 2 + 2 * n for n in n_params]
+    if len(leaves) != sum(sizes):
+        raise ValueError('Optimizer state in checkpoint does not match '
+                         f'({len(leaves)} vs {sum(sizes)} leaves)')
+    out, at = [], 0
+    for params, n, size in zip(params_trees, n_params, sizes):
+        part = [np.asarray(leaf) for leaf in leaves[at:at + size]]
+        at += size
+        head, mu, nu = part[:-2 * n], part[-2 * n:-n], part[-n:]
+        if any(h.shape != () for h in head):
+            raise ValueError('Optimizer state in checkpoint does not match: '
+                             'a leaf before the moments is not a scalar')
+        for path, p, m, v in zip(_tree_paths(params), _tree_leaves(params),
+                                 mu, nu):
+            if not np.shape(p) == m.shape == v.shape:
+                raise ValueError(f'Optimizer state in checkpoint does not '
+                                 f'match at {path}: moments {m.shape} / '
+                                 f'{v.shape}, parameter {np.shape(p)}')
+        out.append({'count': int(head[-1]),
+                    'mu': _tree_unflatten(params, mu),
+                    'nu': _tree_unflatten(params, nu)})
+    return out
+
+
+def optimizer_state_dict(moments: Dict[str, Any],
+                         optimizer: torch.optim.Optimizer,
+                         model: torch.nn.Module,
+                         to_state_dict: Callable[[Dict], Dict],
+                         variables: Dict[str, Any]) -> Dict[str, Any]:
+    """A torch Adam/AdamW `state_dict` for `optimizer` over `model`'s
+    parameters from one entry of `split_optim_leaves`: `to_state_dict`
+    (the model's converter, e.g. `lambda v: wavernn_state_dict(v, cfg)`)
+    maps `variables` with its params replaced by mu, then by nu, so each
+    moment takes its parameter's key and layout; Adam's count becomes
+    `step`. The optimizer's param_groups (its learning rate) are kept."""
+    mapped = {k: to_state_dict(dict(variables, params=moments[k]))
+              for k in ('mu', 'nu')}
+    index = {id(p): i for i, p in enumerate(
+        q for group in optimizer.param_groups for q in group['params'])}
+    state = {}
+    for name, p in model.named_parameters():
+        if id(p) not in index:
+            continue
+        if name not in mapped['mu']:
+            raise KeyError(f'no moment in the checkpoint for {name}')
+        state[index[id(p)]] = {
+            'step': torch.tensor(float(moments['count'])),
+            'exp_avg': mapped['mu'][name].to(p.dtype).reshape(p.shape),
+            'exp_avg_sq': mapped['nu'][name].to(p.dtype).reshape(p.shape)}
+    if len(state) != len(index):
+        raise ValueError(f'{len(index) - len(state)} of the optimizer\'s '
+                         'parameters are not parameters of the model')
+    return {'state': state,
+            'param_groups': optimizer.state_dict()['param_groups']}
+
+
+def load_optimizer_state(payload: Dict[str, Any], entries: Sequence[tuple],
+                         hyperparams: Sequence[str] = ADAM_HYPERPARAMS
+                         ) -> bool:
+    """Restore torch optimizers from a `load_fjax` payload's 'optim'.
+    `entries` holds one (optimizer, model, variables, to_state_dict) per
+    optax state, in the order the JAX trainer flattened them; `variables`
+    are the flax variables of that optimizer's parameters (raw, not EMA).
+    False, and nothing changed, when the file has no optimizer state
+    (written with `optim: None`): the optimizers start fresh, as in JAX."""
+    if payload.get('optim') is None:
+        return False
+    parts = split_optim_leaves(payload['optim'],
+                               [e[2]['params'] for e in entries], hyperparams)
+    for (optimizer, model, variables, to_state_dict), part in zip(entries,
+                                                                  parts):
+        optimizer.load_state_dict(optimizer_state_dict(
+            part, optimizer, model, to_state_dict, variables))
+    return True

@@ -3,6 +3,7 @@ converter against the JAX package's torch exporter, the built-in config
 against config.yaml, the text front-end's token ids, the import guard,
 and the refusal to drop silently to the CPU."""
 import ast
+import re
 from pathlib import Path
 
 import numpy as np
@@ -163,6 +164,49 @@ def test_port_imports_no_jax():
         for name in _imports(path):
             top = name.split('.')[0]
             assert top not in FORBIDDEN, f'{path}: imports {name}'
+
+
+# the repository's `native/` directory (the JAX package's host library) or
+# one of its `libftt_*.so`: a path through `native/` not inside the port's
+# own `forwardtacotron_tpu_torch/native/`, or the bare directory name
+REPO_NATIVE = re.compile(r'libftt_|(?<![\w/])native/|^native$')
+
+
+def _strings(path):
+    tree = ast.parse(path.read_text(encoding='utf-8'))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            yield node.value
+
+
+def test_port_names_no_repo_native_library():
+    """No string of the port's Python files or of chip_smoke.py, and no
+    line of its C++ and CUDA sources, names the repository's `native/`
+    or a `libftt_*.so`: the port builds its host library from its own
+    sources (`forwardtacotron_tpu_torch/native/`)."""
+    pkg = ROOT / 'forwardtacotron_tpu_torch'
+    files = sorted(p for p in pkg.rglob('*.py') if 'build' not in p.parts)
+    files.append(ROOT / 'chip_smoke.py')
+    names = {p.relative_to(ROOT).as_posix() for p in files}
+    for module in ('native/__init__', 'utils/native_audio',
+                   'data/native_loader', 'data/dataset', 'dsp/audio'):
+        assert f'forwardtacotron_tpu_torch/{module}.py' in names, module
+    for path in files:
+        for s in _strings(path):
+            for line in s.splitlines() or ['']:
+                assert not REPO_NATIVE.search(line.strip()), \
+                    f'{path}: {line!r}'
+    sources = sorted(p for ext in ('*.cc', '*.cu', '*.cuh')
+                     for p in pkg.rglob(ext) if 'build' not in p.parts)
+    assert {'audio_io.cc', 'batch_loader.cc'} <= {p.name for p in sources}
+    for path in sources:
+        for line in path.read_text(encoding='utf-8').splitlines():
+            assert not REPO_NATIVE.search(line), f'{path}: {line!r}'
+    # the pattern catches what it is for
+    for bad in ('native', "Path(__file__).parent / 'native/x.so'",
+                'see native/Makefile', 'libftt_audio.so'):
+        assert REPO_NATIVE.search(bad), bad
+    assert not REPO_NATIVE.search('forwardtacotron_tpu_torch/native/a.cc')
 
 
 def test_cuda_request_without_cuda_raises(monkeypatch):

@@ -157,18 +157,14 @@ def _write_corpus(root, n_items=6):
                                        encoding='utf-8')
 
 
-def test_preprocess_matches_jax(tmp_path, monkeypatch, config):
-    """Both packages' `main` on the same corpus and config (n_val 2): the
-    same items, split, texts, quantized wavs; mels and F0 at the module's
-    tolerances."""
+def preprocess_both(tmp_path, monkeypatch, config, corpus):
+    """Both packages' `main` on `corpus` with `config`: (the port's data
+    directory, JAX's, train, val), the pickles and the split equal."""
     import yaml
     import preprocess as jax_preprocess
     from forwardtacotron_tpu.utils import jax_setup
     from forwardtacotron_tpu_torch import preprocess
     from forwardtacotron_tpu_torch.utils.files import unpickle_binary
-    corpus = tmp_path / 'corpus'
-    _write_corpus(corpus)
-    config['preprocessing']['n_val'] = 2
     runs = {}
     for name in ('port', 'jax'):
         cfg = dict(config, data_path=str(tmp_path / name / 'data'))
@@ -189,9 +185,12 @@ def test_preprocess_matches_jax(tmp_path, monkeypatch, config):
     for pkl in ('train_dataset.pkl', 'val_dataset.pkl', 'text_dict.pkl'):
         assert unpickle_binary(ours / pkl) == unpickle_binary(theirs / pkl)
     assert unpickle_binary(ours / 'train_dataset.pkl') == train
-    assert len(train) == 4 and len(val) == 2
-    assert val[0][1] >= val[1][1]
-    for item, frames in train + val:
+    return ours, theirs, train, val
+
+
+def assert_same_features(ours, theirs, items):
+    """Mels, quantized wavs and F0 of `items` at the module's tolerances."""
+    for item, frames in items:
         mel = np.load(ours / 'mel' / f'{item}.npy')
         ref = np.load(theirs / 'mel' / f'{item}.npy')
         assert mel.shape == ref.shape == (80, frames)
@@ -203,6 +202,20 @@ def test_preprocess_matches_jax(tmp_path, monkeypatch, config):
         np.testing.assert_array_equal(quant, want)
         _assert_same_f0(np.load(ours / 'raw_pitch' / f'{item}.npy'),
                         np.load(theirs / 'raw_pitch' / f'{item}.npy'))
+
+
+def test_preprocess_matches_jax(tmp_path, monkeypatch, config):
+    """Both packages' `main` on the same corpus and config (n_val 2): the
+    same items, split, texts, quantized wavs; mels and F0 at the module's
+    tolerances."""
+    corpus = tmp_path / 'corpus'
+    _write_corpus(corpus)
+    config['preprocessing']['n_val'] = 2
+    ours, theirs, train, val = preprocess_both(tmp_path, monkeypatch,
+                                               config, corpus)
+    assert len(train) == 4 and len(val) == 2
+    assert val[0][1] >= val[1][1]
+    assert_same_features(ours, theirs, train + val)
 
 
 def test_process_all_skips_bad_files_and_keeps_going(config, tmp_path,
