@@ -205,7 +205,24 @@ printed only when every phase passed):
    counted from 0 just before and read just after, every batch native and
    equal to the numpy collation of its plan bit for bit; batch assembly
    ms native against numpy; each step by `step_timing`;
-16. a {"kernels": [...]} JSON line (launches of the main paths, of the
+16. data parallelism at the full width of config.yaml, random weights
+   (`parallel_path` lists its cuts): `vocode_batch` over a mesh of
+   [cuda:0, cuda:0] with 3 and 8 mels (greedy float32 bit-equal to the
+   unsharded call, one #4 launch a shard; sampled shard i equal to
+   `vocode_batch` of its mels at seed + i * 7919) and `TTSServer(wavernn,
+   mesh=)` at 8 concurrent requests; two spawned gloo ranks sharing the
+   card, 16 rows each of one global batch of 32 (mixed lengths), one
+   student and one WaveRNN step against one process at 32 (loss within rel
+   1e-5, reduced gradients within 1e-4 where |g| > 1e-4, both ranks
+   bit-identical, #2/#3 counted a rank), and the checkpoint directory
+   they write round-tripped; `python -m torch.distributed.run
+   --standalone --nproc_per_node 1 -m
+   forwardtacotron_tpu_torch.train_forward --config cli.json` (NCCL) for 2
+   steps, its checkpoint loaded; `ForwardTrainer.train` and
+   `VocTrainer.train` (3 steps each at batch 32) under a one-rank NCCL mesh
+   against no group (within 1e-6), each step by `step_timing` with and
+   without the mesh and the gradient all-reduce alone;
+17. a {"kernels": [...]} JSON line (launches of the main paths, of the
    teacher phase in `launches_teacher`, of the vocoder phase in
    `launches_vocoder`, of the options phase in `launches_options`, of
    phase 12's FastPitch paths in `launches_fast_pitch` and of its
@@ -213,7 +230,7 @@ printed only when every phase passed):
    multi-speaker paths in `launches_multispeaker` and of its aligner runs
    in `launches_aligner`, of phase 14's fused replays in `launches_fused`
    and of its exported artifacts in `launches_export`, of phase 15 in
-   `launches_native_io`,
+   `launches_native_io`, of phase 16 in `launches_parallel`,
    each kernel's time at the vocoder path's shape in `vocoder_*` and #2/#3
    in bf16 in `bf16_*`; #2's cluster path with the cooperative path's
    times on the same inputs in `*cooperative_ms`), the nvidia-smi line,
@@ -234,6 +251,7 @@ import subprocess
 import sys
 import time
 import traceback
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -5249,6 +5267,587 @@ def native_io_path():
     return out
 
 
+# --------------------------------------------------- data parallelism
+
+PARALLEL_DIR = Path('smoke_parallel')   # datasets, checkpoints and logs
+PARALLEL_STEPS = 3
+PARALLEL_BATCH = 32
+# 150-320 frames: at most 25 folds a mel at the kernel's target, so four
+# mels a shard fit one sampler launch (128 lanes)
+PARALLEL_VOCODE_FRAMES = (150, 321)
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def _max_diff(a, b):
+    """The largest |a - b| over the float tensors of two state dicts."""
+    return max(float((a[k].float() - b[k].float()).abs().max())
+               for k in a if a[k].is_floating_point())
+
+
+def _copy_state(model):
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def _no_dropout_student(cfg):
+    """config.yaml's student at full width with every dropout rate 0: the
+    ranks draw from seed + rank, one process from seed."""
+    cfg = copy.deepcopy(cfg)
+    m = cfg['forward_tacotron']['model']
+    for k in m:
+        if k.endswith('dropout'):
+            m[k] = 0.0
+    return cfg
+
+
+def _sharded_vocoding(cfg, smi):
+    """(d): `vocode_batch` over a mesh of [cuda:0, cuda:0] against the
+    unsharded call, and `TTSServer(vocoder='wavernn', mesh=)` at 8
+    concurrent requests."""
+    from forwardtacotron_tpu_torch.kernels.wavernn_sample import sample
+    from forwardtacotron_tpu_torch.models.wavernn import (SHARD_SEED_STRIDE,
+                                                          WaveRNN,
+                                                          vocode_batch)
+    from forwardtacotron_tpu_torch.parallel import make_mesh
+    from forwardtacotron_tpu_torch.serving import TTSServer
+    mesh = make_mesh(devices=['cuda:0', 'cuda:0'])
+    torch.manual_seed(21)
+    voc = WaveRNN.from_config(cfg).to('cuda').eval()
+    rng = np.random.RandomState(9)
+    mels = [(rng.randn(80, int(rng.randint(*PARALLEL_VOCODE_FRAMES))) * 2
+             - 5).astype(np.float32) for _ in range(8)]
+    out = {'frames': [m.shape[1] for m in mels]}
+    launched = {}
+    for n in (3, 8):
+        f32 = dict(greedy=True, compute_dtype=torch.float32)
+        vocode_batch(voc, mels[:n], mesh=mesh, **f32)            # warm
+        vocode_batch(voc, mels[:n], **f32)
+        sample.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sharded = vocode_batch(voc, mels[:n], mesh=mesh, **f32)
+        torch.cuda.synchronize()
+        sharded_ms = (time.perf_counter() - t0) * 1e3
+        launched[n] = sample.launches
+        t0 = time.perf_counter()
+        whole = vocode_batch(voc, mels[:n], **f32)
+        torch.cuda.synchronize()
+        whole_ms = (time.perf_counter() - t0) * 1e3
+        same = sum(np.array_equal(a, b) for a, b in zip(sharded, whole))
+        out[f'{n}_mels'] = {'sharded_ms': sharded_ms, 'unsharded_ms': whole_ms,
+                            'launches': launched[n], 'bit_equal': same}
+        log(f'  vocode_batch greedy float32, {n} mels on 2 shards of '
+            f'cuda:0: {sharded_ms:.1f} ms (host clock) against '
+            f'{whole_ms:.1f} unsharded; #4 launched {launched[n]} times | '
+            f'{smi}')
+        check(same == n, f'{n} mels: greedy sharded equals unsharded bit '
+                         f'for bit ({same} of {n})')
+        check(launched[n] == mesh.size,
+              f'{n} mels: one #4 launch a shard ({launched[n]})')
+    # sampled: shard i is vocode_batch of its own mels at seed + i * 7919
+    sampled = vocode_batch(voc, mels, seed=5, mesh=mesh)
+    shards = [vocode_batch(voc, mels[4 * i:4 * i + 4],
+                           seed=5 + i * SHARD_SEED_STRIDE) for i in range(2)]
+    same = sum(np.array_equal(a, b)
+               for a, b in zip(sampled, shards[0] + shards[1]))
+    check(same == 8, f'sampled (bfloat16): shard i equals vocode_batch of '
+                     f'its mels at seed + i * 7919 ({same} of 8)')
+    lines = [s.strip() for s in Path('sentences.txt').read_text()
+             .splitlines() if s.strip()][:8]
+    with TTSServer(None, vocoder='wavernn', mesh=mesh, device='cuda',
+                   config=copy.deepcopy(cfg)) as srv:
+        srv.synthesize(lines[0], timeout=600)                    # warm
+        srv.batch_sizes.clear()
+        sample.launches = 0
+        t0 = time.perf_counter()
+        futs = [srv.submit(line) for line in lines]
+        pcm = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - t0
+        server_launches = sample.launches
+        sizes = list(srv.batch_sizes)
+    audio_s = sum(len(p) for p in pcm) / cfg['dsp']['sample_rate']
+    log(f'  TTSServer(wavernn, mesh of 2 shards on cuda:0): 8 concurrent '
+        f'requests in {wall:.3f} s, {audio_s:.2f} audio s, batches {sizes}, '
+        f'#4 launched {server_launches} times | {smi}')
+    check(len(pcm) == 8 and all(p.dtype == np.int16 and len(p) > 0
+                                and p.std() > 0 for p in pcm),
+          'TTSServer with a mesh answered 8 concurrent requests')
+    check(server_launches >= mesh.size * len(sizes),
+          f'the server\'s vocode ran a #4 launch a shard '
+          f'({server_launches} for {len(sizes)} batches)')
+    out['server'] = {'wall_s': wall, 'audio_s': audio_s,
+                     'batch_sizes': sizes, 'launches': server_launches}
+    out['launches'] = {'wavernn_sample': launched[3] + launched[8]
+                       + server_launches}
+    return out
+
+
+def _parallel_rank(rank, store, base, out_dir):
+    """(b): rank `rank` of 2 gloo ranks sharing cuda:0 (NCCL refuses two
+    ranks on one device): one student step and one WaveRNN step on its 16
+    rows of the global batch of 32, then (e) the student in a checkpoint
+    directory that both ranks write. Results in out_dir/rank<r>.pt."""
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group('gloo', init_method=f'file://{store}',
+                            rank=rank, world_size=2)
+    try:
+        from forwardtacotron_tpu_torch.parallel import make_mesh
+        from forwardtacotron_tpu_torch.utils.checkpoints import (
+            save_checkpoint)
+        mesh = make_mesh(devices=['cuda:0', 'cuda:0'])
+        cfg, batches = torch.load(Path(base) / 'inputs.pt',
+                                  weights_only=False)
+        t0 = time.perf_counter()
+        student, s_opt, s_res = _student_step(cfg, batches['student'], mesh)
+        s_wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, _, v_res = _wavernn_step(cfg, batches['wavernn'], mesh)
+        v_wall = time.perf_counter() - t0
+        save_checkpoint(student, s_opt, cfg, Path(out_dir) / 'student.dcp',
+                        1)
+        torch.save({'student': s_res, 'wavernn': v_res,
+                    'wall_s': {'student': s_wall, 'wavernn': v_wall}},
+                   Path(out_dir) / f'rank{rank}.pt')
+    finally:
+        dist.destroy_process_group()
+
+
+def _student_step(cfg, batch, mesh=None):
+    """One student step of `train_step` at full width (dropout 0) from
+    seed 0 on `batch` (the collated global batch), on this rank's rows
+    under `data_parallel(mesh)`; (model, optimizer, {'metrics', 'grads'
+    (clipped), 'state' after, 'launches'})."""
+    from forwardtacotron_tpu_torch.models.forward_tacotron import (
+        ForwardTacotron)
+    from forwardtacotron_tpu_torch.parallel import data_parallel, local_rows
+    from forwardtacotron_tpu_torch.train import common as tc
+    from forwardtacotron_tpu_torch.train.forward_trainer import (
+        batch_to_device)
+    torch.manual_seed(0)
+    model = ForwardTacotron.from_config(cfg).to('cuda')
+    opt = tc.make_optimizer(model)
+    train_cfg = cfg['forward_tacotron']['training']
+    rows = batch_to_device(local_rows(mesh, batch), 'cuda')
+    _all_counts(reset=True)
+    with data_parallel(mesh):
+        metrics = tc.train_step(model, opt, rows,
+                                torch.Generator('cuda').manual_seed(0),
+                                train_cfg)
+    torch.cuda.synchronize()
+    return model, opt, {
+        'metrics': {k: float(v) for k, v in metrics.items()},
+        'grads': {k: p.grad.detach().cpu() for k, p in model.named_parameters()},
+        'state': {k: v.cpu() for k, v in _copy_state(model).items()},
+        'launches': _all_counts(), 'rows': int(rows['x'].shape[0])}
+
+
+def _wavernn_step(cfg, batch, mesh=None):
+    """One WaveRNN RAW step (`voc_train_step`) from seed 0 on `batch`, on
+    this rank's rows under `data_parallel(mesh)`; as `_student_step`."""
+    from forwardtacotron_tpu_torch.models.wavernn import WaveRNN
+    from forwardtacotron_tpu_torch.parallel import data_parallel, local_rows
+    from forwardtacotron_tpu_torch.train import common as tc
+    from forwardtacotron_tpu_torch.train.voc_trainer import (batch_to_device,
+                                                             voc_train_step)
+    torch.manual_seed(0)
+    model = WaveRNN.from_config(cfg).to('cuda')
+    opt = tc.make_optimizer(model)
+    rows = batch_to_device(local_rows(mesh, batch), 'cuda')
+    _all_counts(reset=True)
+    with data_parallel(mesh):
+        metrics = voc_train_step(model, opt, rows, 'RAW',
+                                 cfg['vocoder']['training']['clip_grad_norm'])
+    torch.cuda.synchronize()
+    return model, opt, {
+        'metrics': {k: float(v) for k, v in metrics.items()},
+        'grads': {k: p.grad.detach().cpu() for k, p in model.named_parameters()},
+        'state': {k: v.cpu() for k, v in _copy_state(model).items()},
+        'launches': _all_counts(), 'rows': int(rows['x'].shape[0])}
+
+
+def _unclipped(res, clip):
+    """The gradients before the global-norm clip."""
+    norm = res['metrics']['grad_norm']
+    scale = 1.0 if clip is None or norm < clip else norm / clip
+    return {k: g * scale for k, g in res['grads'].items()}
+
+
+def _large_grad_errors(got, want, floor=1e-4):
+    """Over the elements with |g| > floor: the largest |got - want| and the
+    largest |got - want| / |want|."""
+    worst_abs = worst_rel = 0.0
+    for k, w in want.items():
+        big = w.abs() > floor
+        if big.any():
+            d = (got[k] - w).abs()[big]
+            worst_abs = max(worst_abs, float(d.max()))
+            worst_rel = max(worst_rel, float((d / w.abs()[big]).max()))
+    return worst_abs, worst_rel
+
+
+def _two_ranks(cfg, base, batches, smi):
+    """(b) two gloo ranks on cuda:0 against one process at B=32, and (e)
+    their checkpoint directory."""
+    import torch.multiprocessing as mp
+    from forwardtacotron_tpu_torch.models.forward_tacotron import (
+        ForwardTacotron)
+    from forwardtacotron_tpu_torch.train import common as tc
+    from forwardtacotron_tpu_torch.utils.checkpoints import (load_checkpoint,
+                                                             restore)
+    out_dir = base / 'two_ranks'
+    out_dir.mkdir()
+    torch.save((cfg, batches), base / 'inputs.pt')
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_parallel_rank, args=(
+        str(base / 'store'), str(base), str(out_dir)), nprocs=2, join=False,
+        start_method='spawn')
+    deadline = time.monotonic() + 600
+    try:
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
+            if time.monotonic() >= deadline:
+                raise TimeoutError('two ranks still running after 600 s')
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(out_dir / f'rank{r}.pt', weights_only=False)
+             for r in range(2)]
+    out = {'wall_s': wall, 'rank_wall_s': [r['wall_s'] for r in ranks]}
+    for what, step, clip in (
+            ('student', _student_step,
+             cfg['forward_tacotron']['training']['clip_grad_norm']),
+            ('wavernn', _wavernn_step,
+             cfg['vocoder']['training']['clip_grad_norm'])):
+        one = step(cfg, batches[what])[2]
+        r0, r1 = ranks[0][what], ranks[1][what]
+        identical = all(torch.equal(r0['state'][k], r1['state'][k])
+                        for k in r0['state'])
+        loss_rel = abs(r0['metrics']['loss'] - one['metrics']['loss']) \
+            / abs(one['metrics']['loss'])
+        g_abs, g_rel = _large_grad_errors(_unclipped(r0, clip),
+                                    _unclipped(one, clip))
+        p_diff = _max_diff(r0['state'], one['state'])
+        fwd = {r: ranks[r][what]['launches']['birnn_train_fwd']
+               for r in range(2)}
+        bwd = {r: ranks[r][what]['launches']['birnn_train_bwd']
+               for r in range(2)}
+        log(f'  {what}, 2 gloo ranks x {r0["rows"]} rows on cuda:0 against '
+            f'one process at {one["rows"]}: loss {r0["metrics"]["loss"]:.6f}'
+            f' vs {one["metrics"]["loss"]:.6f} (rel {loss_rel:.3g}); '
+            f'gradients where |g| > 1e-4: max abs {g_abs:.3g}, max rel '
+            f'{g_rel:.3g}; state after max {p_diff:.3g}; ranks identical '
+            f'{identical}; #2 {fwd} #3 {bwd} a rank; rank seconds '
+            f'{[r["wall_s"][what] for r in ranks]} | {smi}')
+        check(loss_rel <= 1e-5, f'{what}: 2-rank loss within rel 1e-5 of '
+                                f'one process ({loss_rel:.3g})')
+        check(g_abs <= 1e-4, f'{what}: reduced gradients within 1e-4 where '
+                             f'|g| > 1e-4 ({g_abs:.3g})')
+        check(identical, f'{what}: both ranks bit-identical after the step')
+        check(all(fwd[r] > 0 and bwd[r] > 0 for r in range(2)),
+              f'{what}: #2/#3 launched on each rank ({fwd}, {bwd})')
+        out[what] = {'loss': r0['metrics']['loss'],
+                     'loss_one': one['metrics']['loss'], 'loss_rel': loss_rel,
+                     'grad_max_abs': g_abs, 'grad_max_rel': g_rel,
+                     'state_max_diff': p_diff, 'identical': identical,
+                     'launches_per_rank': [ranks[r][what]['launches']
+                                           for r in range(2)]}
+    # (e) the directory both ranks wrote (the file's `step` buffer holds
+    # the step it was saved at, 1)
+    payload = load_checkpoint(out_dir / 'student.dcp')
+    state = dict(ranks[0]['student']['state'],
+                 step=torch.ones(1, dtype=torch.long))
+    apart = [k for k, v in state.items()
+             if not torch.equal(payload['model'][k], v)]
+    same = not apart
+    torch.manual_seed(1)
+    fresh = ForwardTacotron.from_config(cfg)
+    opt = tc.make_optimizer(fresh)
+    step = restore(fresh, opt, payload)
+    back = all(torch.equal(fresh.state_dict()[k], v)
+               for k, v in state.items())
+    parts = sorted(p.name for p in (out_dir / 'student.dcp' / 'state')
+                   .iterdir())
+    log(f'  checkpoint directory of the 2 ranks: {parts}; loads equal '
+        f'{same} (apart: {apart[:5]}), restores equal {back}, step {step}')
+    check(same and back and step == 1 and payload['optim'] is not None,
+          'the 2 ranks\' checkpoint directory round-trips')
+    out['checkpoint_directory'] = {'files': parts, 'equal': same,
+                                   'restored': back}
+    return out
+
+
+def _torchrun_cli(cfg, base, data, smi):
+    """(c): `train_forward` under torchrun (one process, NCCL) for 2 steps;
+    rank 0's checkpoint loads."""
+    import os
+    from forwardtacotron_tpu_torch.models.forward_tacotron import (
+        ForwardTacotron)
+    from forwardtacotron_tpu_torch.utils.checkpoints import load_checkpoint
+    cli_cfg = copy.deepcopy(cfg)
+    cli_cfg['data_path'] = str(data)
+    cli_cfg['tts_model_id'] = 'smoke_parallel_cli'
+    cli_cfg['forward_tacotron']['training'].update(
+        schedule=[f'1e-4, 2, {PARALLEL_BATCH}'], checkpoint_every=1000)
+    path = base / 'cli.json'
+    path.write_text(json.dumps(cli_cfg))
+    cmd = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+           '--nproc_per_node', '1', '-m',
+           'forwardtacotron_tpu_torch.train_forward', '--config', str(path)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          env=dict(os.environ, FTT_BASE=str(base / 'cli')))
+    wall = time.perf_counter() - t0
+    (base / 'torchrun.log').write_text(proc.stdout + proc.stderr)
+    lines = [s for s in proc.stdout.splitlines() if 'torch.distributed' in s]
+    log(f'  {" ".join(cmd[1:8])} ... train_forward: exit {proc.returncode} '
+        f'in {wall:.1f} s; {lines}')
+    check(proc.returncode == 0, f'torchrun train_forward exited '
+                                f'{proc.returncode}: {proc.stderr[-2000:]}')
+    check(lines == ['| torch.distributed: nccl, rank 0 of 1, cuda:0'],
+          f'the CLI brought up NCCL on cuda:0: {lines}')
+    ckpt = (base / 'cli' / 'checkpoints' / 'smoke_parallel_cli.forward'
+            / 'latest_model.pt')
+    payload = load_checkpoint(ckpt)
+    ForwardTacotron.from_config(cli_cfg).load_state_dict(payload['model'])
+    check(payload['step'] == 2, f'rank 0\'s checkpoint loads, step '
+                                f'{payload["step"]}')
+    DETAILS['torchrun_log_tail'] = (proc.stdout + proc.stderr)[-4000:]
+    return {'wall_s': wall, 'returncode': proc.returncode, 'group': lines}
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """Deterministic algorithms (cuDNN's and torch's), restored after;
+    yields the warnings of ops that have no deterministic version. cuDNN's
+    default algorithms make the student's step differ from itself run to
+    run (3.05e-5 after 3 steps on an H100 80GB HBM3)."""
+    saved = (torch.backends.cudnn.deterministic,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as noted:
+            warnings.simplefilter('always')
+            yield noted
+    finally:
+        torch.backends.cudnn.deterministic = saved[0]
+        torch.use_deterministic_algorithms(saved[1], warn_only=saved[2])
+
+
+def _trainer_runs(s_cfg, v_cfg, dsp, mesh, base, runs, launches, out):
+    """(a)'s three runs of ForwardTrainer and VocTrainer from the same
+    seeds: no group, the one-rank mesh, no group again; each run's states
+    and models in `runs`, its launches in `launches`."""
+    from forwardtacotron_tpu_torch.models.forward_tacotron import (
+        ForwardTacotron)
+    from forwardtacotron_tpu_torch.models.wavernn import WaveRNN
+    from forwardtacotron_tpu_torch.train import common as tc
+    from forwardtacotron_tpu_torch.train.forward_trainer import ForwardTrainer
+    from forwardtacotron_tpu_torch.train.voc_trainer import VocTrainer
+    from forwardtacotron_tpu_torch.utils.paths import Paths
+    for tag, m in (('one', None), ('mesh', mesh), ('again', None)):
+        torch.manual_seed(0)
+        student = ForwardTacotron.from_config(s_cfg).to('cuda')
+        trainer = ForwardTrainer(Paths(s_cfg['data_path'],
+                                       f'par_{tag}', base=base),
+                                 s_cfg, 'cuda', mesh=m)
+        torch.manual_seed(0)
+        vocoder = WaveRNN.from_config(v_cfg).to('cuda')
+        v_trainer = VocTrainer(Paths(v_cfg['data_path'], 'par_tts',
+                                     base=base, voc_id=f'par_{tag}'),
+                               dsp, v_cfg, 'cuda', mesh=m)
+        _all_counts(reset=True)
+        t0 = time.perf_counter()
+        s_step = trainer.train(student, tc.make_optimizer(student))
+        torch.cuda.synchronize()
+        s_wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        v_step = v_trainer.train(vocoder, tc.make_optimizer(vocoder))
+        torch.cuda.synchronize()
+        v_wall = time.perf_counter() - t0
+        launches[tag] = _all_counts()
+        runs[tag] = (_copy_state(student), _copy_state(vocoder), student,
+                     vocoder)
+        log(f'  {tag}: student {s_step} steps in {s_wall:.1f} s, WaveRNN '
+            f'{v_step} steps in {v_wall:.1f} s (host clock, evaluate() '
+            f'included); launches {launches[tag]}')
+        check(s_step == v_step == PARALLEL_STEPS,
+              f'{tag}: both trainers reached step {PARALLEL_STEPS}')
+        out[tag] = {'student_wall_s': s_wall, 'wavernn_wall_s': v_wall,
+                    'launches': launches[tag]}
+
+
+def _one_rank(cfg, base, data, voc_data, smi):
+    """(a): ForwardTrainer and VocTrainer under a one-rank NCCL mesh
+    against the same trainers without a group, and against a second run
+    without one (the card's own run-to-run difference); the steps with
+    and without the collectives, and the gradient all-reduce alone."""
+    import torch.distributed as dist
+    from forwardtacotron_tpu_torch.data.dataset import (get_tts_datasets,
+                                                        get_vocoder_datasets)
+    from forwardtacotron_tpu_torch.dsp.audio import DSP
+    from forwardtacotron_tpu_torch.parallel import (data_parallel, make_mesh,
+                                                    reduce_gradients)
+    from forwardtacotron_tpu_torch.train import common as tc
+    from forwardtacotron_tpu_torch.train.forward_trainer import (
+        batch_to_device)
+    from forwardtacotron_tpu_torch.train.voc_trainer import voc_micro_loss
+    from forwardtacotron_tpu_torch.train.voc_trainer import (
+        batch_to_device as voc_to_device)
+    torch.cuda.set_device(0)
+    dist.init_process_group('nccl', init_method=f'tcp://127.0.0.1:'
+                            f'{_free_port()}', rank=0, world_size=1)
+    out = {}
+    try:
+        mesh = make_mesh()
+        log(f'  {mesh}')
+        s_cfg = copy.deepcopy(cfg)
+        s_cfg['data_path'] = str(data)
+        s_cfg['forward_tacotron']['training'].update(
+            schedule=[f'1e-4, {PARALLEL_STEPS}, {PARALLEL_BATCH}'],
+            checkpoint_every=1000)
+        v_cfg = copy.deepcopy(cfg)
+        v_cfg['data_path'] = str(voc_data)
+        v_cfg['vocoder']['training'].update(
+            schedule=[f'1e-4, {PARALLEL_STEPS}, {PARALLEL_BATCH}'],
+            checkpoint_every=1000, gen_samples_every=1000)
+        dsp = DSP.from_config(v_cfg, 'cuda')
+        runs, launches = {}, {}
+        with _deterministic() as noted:
+            _trainer_runs(s_cfg, v_cfg, dsp, mesh, base, runs, launches, out)
+        nondet = sorted({str(w.message).split('\n')[0][:160] for w in noted
+                         if 'deterministic' in str(w.message)})
+        log(f'  ops without a deterministic version in these runs: {nondet}')
+        out['nondeterministic_ops'] = nondet
+        student, vocoder = runs['mesh'][2:]
+        s_diff = _max_diff(runs['mesh'][0], runs['one'][0])
+        v_diff = _max_diff(runs['mesh'][1], runs['one'][1])
+        s_again = _max_diff(runs['again'][0], runs['one'][0])
+        v_again = _max_diff(runs['again'][1], runs['one'][1])
+        log(f'  one-rank mesh against no group after {PARALLEL_STEPS} steps '
+            f'(deterministic algorithms): student max {s_diff:.3g}, WaveRNN '
+            f'max {v_diff:.3g}; no group twice: {s_again:.3g}, '
+            f'{v_again:.3g}')
+        check(s_diff <= 1e-6 and v_diff <= 1e-6,
+              f'one-rank NCCL mesh within 1e-6 of no group (student '
+              f'{s_diff:.3g}, WaveRNN {v_diff:.3g})')
+        for name in ('birnn_train_fwd', 'birnn_train_bwd', 'birnn'):
+            check(launches['mesh'][name] == launches['one'][name] > 0,
+                  f'{name} launched {launches["mesh"][name]} times under the '
+                  f'mesh, {launches["one"][name]} without')
+        out.update({'student_max_diff': s_diff, 'wavernn_max_diff': v_diff,
+                    'student_run_to_run': s_again,
+                    'wavernn_run_to_run': v_again})
+
+        # each step with and without the collectives, and the all-reduce
+        s_train, _ = get_tts_datasets(s_cfg['data_path'], PARALLEL_BATCH, 1,
+                                      None)
+        s_batch = batch_to_device(next(iter(s_train)), 'cuda')
+        v_tc = v_cfg['vocoder']['training']
+        v_train, _, _ = get_vocoder_datasets(
+            v_cfg['data_path'], PARALLEL_BATCH, False, v_tc['max_mel_len'],
+            v_cfg['dsp']['hop_length'], vocoder.pad, v_tc['seq_len'], 'RAW',
+            v_cfg['dsp']['bits'], 1)
+        v_batch = voc_to_device(next(iter(v_train)), 'cuda')
+        s_opt, v_opt = (tc.make_optimizer(student),
+                        tc.make_optimizer(vocoder))
+        s_parts = _student_parts(student, s_opt, s_batch,
+                                 s_cfg['forward_tacotron']['training'])
+        v_parts = train_parts(vocoder, v_opt, voc_micro_loss(vocoder, 'RAW'),
+                              v_batch, v_tc)
+        timing = {}
+        for what, parts, model in (('student', s_parts, student),
+                                   ('wavernn', v_parts, vocoder)):
+            plain = step_timing(parts, f'{what} step, no group', smi)
+            with data_parallel(mesh):
+                under = step_timing(parts, f'{what} step, one-rank NCCL mesh',
+                                    smi)
+                reduce_ms = cuda_ms(lambda: reduce_gradients(
+                    model.parameters()), reps=10)
+            n_grad = sum(p.numel() for p in model.parameters())
+            log(f'  {what}: step {plain["step_ms"]:.2f} ms without the group,'
+                f' {under["step_ms"]:.2f} under the mesh (optimizer part '
+                f'{plain["optimizer_ms"]:.2f} -> {under["optimizer_ms"]:.2f}'
+                f'); the gradient all-reduce alone ({n_grad} floats) '
+                f'{reduce_ms:.3f} ms | {smi}')
+            timing[what] = {'no_group': plain, 'mesh': under,
+                            'all_reduce_ms': reduce_ms, 'n_grad': n_grad}
+        out['step_ms'] = timing
+        out['launches_mesh'] = launches['mesh']
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+@phase('data parallelism (full width)')
+def parallel_path():
+    """`parallel/` on the one H100 at config.yaml's widths, random weights
+    from seeds, in PARALLEL_DIR. Cuts: two ranks share the one card (gloo,
+    which carries CUDA tensors: NCCL refuses two ranks on one device), not
+    two cards; the student and WaveRNN PARALLEL_STEPS steps (300k and
+    600k); datasets of phase 8 (96 + 32 items, 520-870 frames) and phase
+    10 (64 + 32 items, 400-600 frames).
+
+    (d) `vocode_batch` over a mesh of [cuda:0, cuda:0] with 3 and 8 mels
+        (`_sharded_vocoding`) and `TTSServer(wavernn, mesh=)`;
+    (b) two gloo ranks of 16 rows each against one process at 32 on the
+        card, one student and one WaveRNN step (`_two_ranks`), and (e)
+        their checkpoint directory;
+    (c) `train_forward` under torchrun, NCCL (`_torchrun_cli`);
+    (a) ForwardTrainer and VocTrainer under a one-rank NCCL mesh against
+        no group, the steps' times with and without the collectives
+        (`_one_rank`)."""
+    from forwardtacotron_tpu_torch.config import default_config
+    from forwardtacotron_tpu_torch.data.dataset import (get_tts_datasets,
+                                                        get_vocoder_datasets)
+    smi = nvidia_smi_line()
+    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+    PARALLEL_DIR.mkdir(parents=True)
+    base = PARALLEL_DIR.resolve()
+    cfg = _no_dropout_student(default_config())
+    out = {'nvidia_smi': smi}
+    try:
+        data, voc_data = base / 'data', base / 'voc_data'
+        _write_dataset(data)
+        _write_voc_dataset(voc_data, cfg)
+        out['vocode'] = _sharded_vocoding(cfg, smi)
+        s_train, _ = get_tts_datasets(data, PARALLEL_BATCH, 1, None)
+        student_batch = next(b for b in s_train.batches(0)
+                             if b['x'].shape[0] == PARALLEL_BATCH)
+        v_tc = cfg['vocoder']['training']
+        v_train, _, _ = get_vocoder_datasets(
+            voc_data, PARALLEL_BATCH, False, v_tc['max_mel_len'],
+            cfg['dsp']['hop_length'], cfg['vocoder']['model']['pad'],
+            v_tc['seq_len'], 'RAW', cfg['dsp']['bits'], 1)
+        batches = {'student': student_batch,
+                   'wavernn': next(iter(v_train))}
+        log(f'  global student batch: mel_len {sorted(student_batch["mel_len"].tolist())}')
+        out['two_ranks'] = _two_ranks(cfg, base, batches, smi)
+        out['torchrun'] = _torchrun_cli(cfg, base, data, smi)
+        out['one_rank'] = _one_rank(cfg, base, data, voc_data, smi)
+        out['launches'] = {
+            k: out['one_rank']['launches_mesh'].get(k, 0)
+            + out['two_ranks']['student']['launches_per_rank'][0].get(k, 0)
+            + out['two_ranks']['wavernn']['launches_per_rank'][0].get(k, 0)
+            for k in out['one_rank']['launches_mesh']}
+        out['launches']['wavernn_sample'] += \
+            out['vocode']['launches']['wavernn_sample']
+    finally:
+        shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+    DETAILS['parallel_path'] = out
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser()
@@ -5288,6 +5887,7 @@ def main(argv=None) -> int:
     ms = speakers_and_aligner_path() or {}
     ef = export_and_fused_path() or {}
     nio = native_io_path() or {}
+    par = parallel_path() or {}
 
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / 'chip_smoke.json').write_text(json.dumps(
@@ -5327,6 +5927,9 @@ def main(argv=None) -> int:
     fus, exl = ef['fused'], ef['export']
     # phase 15: the student and WaveRNN fed by the native loader
     nil = nio['launches']
+    # phase 16: the one-rank mesh's trainers, rank 0 of the two ranks'
+    # steps, the sharded vocode and the server with a mesh
+    pal = par['launches']
     kernels = [
         {'name': 'birnn (stream-local path)', 'route': 'cuda',
          'source': 'forwardtacotron_tpu_torch/csrc/birnn.cu',
@@ -5348,6 +5951,7 @@ def main(argv=None) -> int:
          'launches_fused': fus['birnn_stream_local'],
          'launches_export': exl['birnn_stream_local'],
          'launches_native_io': nil['birnn_stream_local'],
+         'launches_parallel': pal['birnn_stream_local'],
          'vocoder_case': voc_birnn['case'],
          'vocoder_ms': voc_birnn['ms_stream_local'],
          'vocoder_plain_ms': voc_birnn['plain_ms'],
@@ -5367,6 +5971,7 @@ def main(argv=None) -> int:
          'launches_fused': fus['wavernn_sample'],
          'launches_export': exl['wavernn_sample'],
          'launches_native_io': nil['wavernn_sample'],
+         'launches_parallel': pal['wavernn_sample'],
          'max_abs_err': wr['max_abs_err'], 'agreement': wr['agreement'],
          'ms': wr['ms'], 'plain_ms': wr['plain_ms'],
          'bound_ms': wr['bound_ms'], 'bound_by': wr['bound_by'],
@@ -5410,6 +6015,7 @@ def main(argv=None) -> int:
             'launches_aligner': all_[count],
             'launches_fused': fus[count], 'launches_export': exl[count],
             'launches_native_io': nil[count],
+            'launches_parallel': pal[count],
             'case': row['case'],
             'max_abs_err': row[f'max_abs_err_{sfx}'],
             'ms': row[f'ms_{sfx}'], 'plain_ms': row[f'plain_ms_{sfx}'],

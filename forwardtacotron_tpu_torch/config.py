@@ -232,6 +232,11 @@ HIFIGAN_TRAINING = {
 }
 
 
+# the mesh of data-parallel training (`parallel/mesh.py`): 'data' -1 spans
+# every rank; 'model' (tensor parallelism) must be 1 in the port
+TPU = {'mesh': {'data': -1, 'model': 1}}
+
+
 def default_config() -> Dict[str, Any]:
     """A fresh copy of the built-in config (callers may mutate it)."""
     return copy.deepcopy({
@@ -249,12 +254,18 @@ def default_config() -> Dict[str, Any]:
                        'training': FAST_PITCH_TRAINING},
         'vocoder': {'model': VOCODER_MODEL, 'training': VOCODER_TRAINING},
         'hifigan': {'model': HIFIGAN_MODEL, 'training': HIFIGAN_TRAINING},
+        'tpu': TPU,
     })
 
 
 def read_config(path) -> Dict[str, Any]:
     """Read a YAML config (needs `pyyaml`, which the CLI imports only
-    when `--config` is given)."""
+    when `--config` is given), or a JSON one (a path ending in `.json`,
+    which needs nothing beyond the standard library)."""
+    if str(path).endswith('.json'):
+        import json
+        with open(path, encoding='utf-8') as f:
+            return json.load(f)
     import yaml
     with open(path, encoding='utf-8') as f:
         return yaml.safe_load(f)

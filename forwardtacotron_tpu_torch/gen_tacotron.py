@@ -71,8 +71,8 @@ def _parser() -> argparse.ArgumentParser:
                              '(default: the config\'s latest_model, else '
                              'random weights from --seed)')
     parser.add_argument('--config', metavar='FILE', default=None,
-                        help='YAML config (needs pyyaml; default: built-in '
-                             'config)')
+                        help='YAML (needs pyyaml) or .json config '
+                             '(default: built-in config)')
     parser.add_argument('--speaker', type=int, default=0,
                         help='speaker id of a multi-speaker teacher, in '
                              '[0, n_speakers)')

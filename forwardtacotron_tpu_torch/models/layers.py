@@ -20,6 +20,7 @@ from torch.nn import functional as F
 
 from forwardtacotron_tpu_torch.ops import rnn as rnn_ops
 from forwardtacotron_tpu_torch.ops.masking import time_mask
+from forwardtacotron_tpu_torch.parallel.mesh import global_sum, spans_ranks
 
 
 def speaker_emb(model: nn.Module, speaker: Optional[torch.Tensor],
@@ -107,12 +108,22 @@ def batch_norm(bn: nn.BatchNorm1d, h: torch.Tensor) -> torch.Tensor:
     unbiased variance instead, 3% larger at 32 samples, so the update is
     written out here. The statistics and the normalisation are computed
     in float32 at least and the result comes back in h's dtype, and the
-    running statistics stay float32, as flax does for bfloat16 input. In
-    eval mode it is `bn` itself."""
+    running statistics stay float32, as flax does for bfloat16 input.
+    Inside `parallel.data_parallel` over more than one rank, the mean and
+    the variance are those of the global batch: sums over the ranks
+    (`global_sum`, through which the backward goes too) of every rank's
+    rows, which all have the global batch's padded length. In eval mode it
+    is `bn` itself."""
     if not bn.training:
         return bn(h)
     hf = h.float()
-    var, mean = torch.var_mean(hf, dim=(0, 2), unbiased=False)
+    mesh = spans_ranks()
+    if mesh is None:
+        var, mean = torch.var_mean(hf, dim=(0, 2), unbiased=False)
+    else:
+        n = hf.shape[0] * hf.shape[2] * mesh.size
+        mean = global_sum(hf.sum(dim=(0, 2))) / n
+        var = global_sum(torch.square(hf - mean[:, None]).sum(dim=(0, 2))) / n
     if not getattr(_RUNNING_STATS, 'frozen', False):
         with torch.no_grad():
             bn.running_mean.mul_(1.0 - bn.momentum).add_(bn.momentum * mean)

@@ -13,6 +13,8 @@ autoregressive sampler, which runs through the sampling kernel wrapper
 """
 from __future__ import annotations
 
+import copy
+import weakref
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -450,21 +452,31 @@ def vocode_program(model: WaveRNN, target: Optional[int] = None,
                          compute_dtype)
 
 
-def vocode_batch(model: WaveRNN, mels: Sequence, target: Optional[int] = None,
-                 overlap: int = OVERLAP, mu_law: bool = True,
-                 seed: Union[int, torch.Tensor] = 0, greedy: bool = False,
-                 compute_dtype: torch.dtype = torch.bfloat16,
-                 pcm16: bool = False, frame_bucket: int = 64
-                 ) -> List[np.ndarray]:
-    """Many utterances in one pass: the mels ((n_mels, T_i) or (T_i,
-    n_mels)) are padded to a common `frame_bucket` multiple and run
-    through one `vocode_program` call (one upsample, all B x F fold lanes
-    sampled together, each row trimmed and faded on the device), copied
-    to the host once and cut to each row's length. Greedy output equals
-    per-utterance `vocode` calls (each lane starts from zero state);
-    sampled output draws other noise streams."""
+# the seed stride between the shards of `vocode_batch(mesh=)` (the JAX
+# package's `seed + axis_index('data') * 7919`)
+SHARD_SEED_STRIDE = 7919
+_REPLICAS: 'weakref.WeakKeyDictionary' = weakref.WeakKeyDictionary()
+
+
+def _on_device(model: WaveRNN, device: torch.device) -> WaveRNN:
+    """`model` where it lies on `device`, else its copy there (made once
+    a device and kept while the model lives)."""
+    if next(model.parameters()).device == device:
+        return model
+    copies = _REPLICAS.setdefault(model, {})
+    if device not in copies:
+        copies[device] = copy.deepcopy(model).to(device)
+    return copies[device]
+
+
+def _launch_batch(model: WaveRNN, prepped: Sequence[np.ndarray],
+                  target: Optional[int], overlap: int, mu_law: bool,
+                  seed, greedy: bool, compute_dtype: torch.dtype,
+                  pcm16: bool, frame_bucket: int):
+    """One `vocode_program` call over time-major mels, padded to a common
+    `frame_bucket` multiple, left running on the model's device: (the
+    (B, total) waveform there, each row's length)."""
     device = next(model.parameters()).device
-    prepped = [_time_major(model, m) for m in mels]
     n_frames = [m.shape[0] for m in prepped]
     t_pad = -(-max(n_frames) // frame_bucket) * frame_bucket
     batch = np.zeros((len(prepped), t_pad, model.feat_dims), np.float32)
@@ -477,8 +489,48 @@ def vocode_batch(model: WaveRNN, mels: Sequence, target: Optional[int] = None,
         wave = program(torch.as_tensor(batch, device=device),
                        torch.as_tensor(wave_lens, device=device),
                        seed_tensor(seed, device))
-    wave = wave.cpu().numpy()
-    return [wave[i, :n] for i, n in enumerate(wave_lens)]
+    return wave, wave_lens
+
+
+def vocode_batch(model: WaveRNN, mels: Sequence, target: Optional[int] = None,
+                 overlap: int = OVERLAP, mu_law: bool = True,
+                 seed: Union[int, torch.Tensor] = 0, greedy: bool = False,
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 pcm16: bool = False, frame_bucket: int = 64, mesh=None
+                 ) -> List[np.ndarray]:
+    """Many utterances in one pass: the mels ((n_mels, T_i) or (T_i,
+    n_mels)) are padded to a common `frame_bucket` multiple and run
+    through one `vocode_program` call (one upsample, all B x F fold lanes
+    sampled together, each row trimmed and faded on the device), copied
+    to the host once and cut to each row's length. Greedy output equals
+    per-utterance `vocode` calls (each lane starts from zero state);
+    sampled output draws other noise streams.
+
+    With `mesh` (`parallel.Mesh`), the utterances are sharded over its
+    data axis as the JAX package's `vocode_batch(mesh=)` shards them:
+    their count padded to a multiple of it with silent dummies ((2,
+    n_mels) mels of -4.0, dropped from the result), shard i (contiguous
+    rows) vocoded as one `vocode_batch` call of its own mels on the
+    mesh's device i (the model copied there where it lies elsewhere) with
+    seed + i * 7919, every shard launched before any is copied back.
+    Greedy output equals the unsharded call."""
+    prepped = [_time_major(model, m) for m in mels]
+    devices = [next(model.parameters()).device] if mesh is None \
+        else mesh.devices
+    n_requested = len(prepped)
+    while len(prepped) % len(devices):
+        prepped.append(np.full((2, model.feat_dims), -4.0, np.float32))
+    per = len(prepped) // len(devices)
+    launched = [_launch_batch(_on_device(model, device),
+                              prepped[i * per:(i + 1) * per], target,
+                              overlap, mu_law, seed + i * SHARD_SEED_STRIDE,
+                              greedy, compute_dtype, pcm16, frame_bucket)
+                for i, device in enumerate(devices)]
+    out = []
+    for wave, wave_lens in launched:
+        wave = wave.cpu().numpy()
+        out += [wave[i, :n] for i, n in enumerate(wave_lens)]
+    return out[:n_requested]
 
 
 def generate_wav(model: WaveRNN, mel, batched: bool = True,

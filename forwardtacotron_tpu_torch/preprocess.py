@@ -163,8 +163,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Tuple[list, list]:
                         type=valid_n_workers, default=1,
                         help='threads for wav decoding')
     parser.add_argument('--config', metavar='FILE', default=None,
-                        help='YAML config (needs pyyaml; default: built-in '
-                             'copy of config.yaml)')
+                        help='YAML (needs pyyaml) or .json config '
+                             '(default: built-in copy of config.yaml)')
     parser.add_argument('--metadata_format', default='ljspeech',
                         choices=['ljspeech', 'multispeaker'],
                         help='metadata csv layout: ljspeech '

@@ -28,7 +28,10 @@ run inside the graph. A batch whose mel reaches `fused_max_t` frames
 reruns on the staged path (JAX's rule). On the CPU the same function
 runs directly.
 
-Not ported: `mesh=` (utterances sharded over devices) raises ValueError.
+`mesh=` (a `parallel.Mesh`) shards the staged WaveRNN vocode's
+utterances over the mesh's devices (`vocode_batch(mesh=)`), as the JAX
+server passes its mesh to that vocode only; the fused path and the other
+vocoders ignore it.
 """
 from __future__ import annotations
 
@@ -54,6 +57,7 @@ from forwardtacotron_tpu_torch.models.forward_tacotron import PADDING_VALUE
 from forwardtacotron_tpu_torch.models.hifigan import (load_gan_vocoder,
                                                       vocode_generator)
 from forwardtacotron_tpu_torch.models.wavernn import vocode_batch
+from forwardtacotron_tpu_torch.parallel.mesh import Mesh
 from forwardtacotron_tpu_torch.text.cleaners import Cleaner
 from forwardtacotron_tpu_torch.text.segmenter import split_sentences
 from forwardtacotron_tpu_torch.text.tokenizer import Tokenizer
@@ -110,9 +114,11 @@ class TTSServer:
                  device='cuda', config: Optional[Dict[str, Any]] = None,
                  seed: int = 0,
                  compute_dtype: torch.dtype = torch.bfloat16) -> None:
-        if mesh is not None:
-            raise ValueError('TTSServer(mesh=...) is not ported yet: one '
-                             'device per server')
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise ValueError(f'TTSServer(mesh=...) takes a '
+                             f'forwardtacotron_tpu_torch.parallel.Mesh, not '
+                             f'{type(mesh).__name__}')
+        self.mesh = mesh
         if vocoder not in VOCODERS:
             raise ValueError(f'unknown vocoder: {vocoder}')
         if fused and vocoder not in ('hifigan', 'melgan', 'wavernn'):
@@ -634,7 +640,8 @@ class TTSServer:
             wavs = vocode_batch(self.voc_model, padded,
                                 mu_law=self._voc_mu_law, seed=seed,
                                 pcm16=True,
-                                compute_dtype=self.compute_dtype)
+                                compute_dtype=self.compute_dtype,
+                                mesh=self.mesh)
             return wavs[:n_real]
         if self.vocoder in ('hifigan', 'melgan'):
             return [vocode_generator(self.voc_model, m, pcm16=True)

@@ -12,7 +12,10 @@ Dropout draws from a `torch.Generator` seeded with (seed, step), so a
 resumed run draws what an uninterrupted one does. The options of the
 other trainers (precision, EMA, grad_accum, remat) are refused: the JAX
 aligner step has none. The model has no recurrence, so its step
-launches none of the BiRNN kernels.
+launches none of the BiRNN kernels. Under a mesh (`mesh=`, or a process
+group of more than one rank) each rank trains on its rows of every global
+batch and rank 0 alone validates, prints and writes (`train/common.py`,
+data parallelism).
 
 `create_align_features_from_aligner` writes what the teacher's
 alignment writes (`alg/*.npy`, `att_score_dict.pkl`, `phon_pitch/`,
@@ -27,7 +30,6 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from forwardtacotron_tpu_torch import resolve_device
 from forwardtacotron_tpu_torch.align.aligner import (Aligner, align_extract,
                                                      forward_sum_loss)
 from forwardtacotron_tpu_torch.align.features import extract_pitch_energy
@@ -35,7 +37,6 @@ from forwardtacotron_tpu_torch.align.metrics import attention_score
 from forwardtacotron_tpu_torch.data.dataset import (Prefetcher,
                                                     get_tts_datasets)
 from forwardtacotron_tpu_torch.train import common as tc
-from forwardtacotron_tpu_torch.utils.async_ckpt import AsyncCheckpointWriter
 from forwardtacotron_tpu_torch.utils.checkpoints import checkpoint_payload
 from forwardtacotron_tpu_torch.utils.display import (progbar, simple_table,
                                                      stream)
@@ -97,20 +98,21 @@ def aligner_eval_loss(model: Aligner, val_set, device) -> float:
 class AlignerTrainer:
 
     def __init__(self, paths: Paths, config: Dict[str, Any],
-                 device='cuda', writer=None) -> None:
+                 device='cuda', writer=None, mesh=None) -> None:
         self.paths = paths
         self.config = config
-        self.device = resolve_device(device)
+        self.ranks = tc.Ranks(tc.trainer_mesh(config, mesh))
+        self.device = self.ranks.device(device)
         self.train_cfg = config.get('aligner', {}).get('training', {})
         tc.check_supported(self.train_cfg, 'aligner', 'aligner.training')
         self.writer = writer
         self.preemption = tc.Preemption()
-        self.ckpt = AsyncCheckpointWriter()
+        self.ckpt = self.ranks.writer()
         # FTT_PROFILE_DIR traces a window of steps
         self.tracer = StepTraceController()
 
     def _scalar(self, tag: str, value: float, step: int) -> None:
-        if self.writer is not None:
+        if self.writer is not None and self.ranks.main:
             self.writer.add_scalar(tag, value, step)
 
     def train(self, model: Aligner,
@@ -122,13 +124,15 @@ class AlignerTrainer:
         model.to(self.device)
         if optimizer is None:
             optimizer = tc.make_optimizer(model)
+        self.ranks.start([model], seed)
         schedule = parse_schedule(self.train_cfg.get('schedule',
                                                      DEFAULT_SCHEDULE))
         session_start = 0
-        with self.preemption, contextlib.closing(self.tracer):
+        with self.preemption, contextlib.closing(self.tracer), \
+                self.ranks.output():
             for i, (lr, max_step, bs) in enumerate(schedule, 1):
                 prev_max, session_start = session_start, max_step
-                if self.preemption.requested:
+                if self.ranks.stop(self.preemption):
                     break
                 if max_steps_override is not None:
                     max_step = min(max_step, max_steps_override)
@@ -173,27 +177,33 @@ class AlignerTrainer:
                 avg.reset()
 
         deferred = tc.DeferredFlush(flush_metrics)
-        while step < session.max_step and not self.preemption.requested:
+        while step < session.max_step \
+                and not self.ranks.stop(self.preemption):
             epoch, start = tc.resume_position(step, session.start_step,
                                               len(session.train_set))
             for batch in Prefetcher(session.train_set.batches(epoch, start)):
-                gen = torch.Generator(device=self.device).manual_seed(
-                    seed * 1_000_003 + step)
-                metrics = aligner_train_step(
-                    model, optimizer,
-                    aligner_batch_to_device(batch, self.device), gen, clip)
+                gen = self.ranks.generator(self.device, seed, step)
+                with self.ranks.step():
+                    metrics = aligner_train_step(
+                        model, optimizer, aligner_batch_to_device(
+                            self.ranks.rows(batch), self.device), gen, clip)
                 step += 1
                 self.tracer.tick(step)
                 deferred.push(metrics, step)
                 if step % ckpt_every == 0 or step >= session.max_step:
-                    val = aligner_eval_loss(model, session.val_set,
-                                            self.device)
-                    print(f'\n| Validation at step {step}: loss {val:#.4}')
-                    self._scalar('aligner/val_loss', val, step)
-                    self.ckpt.save(checkpoint_payload(
-                        model, optimizer, self.config, step),
-                        self.paths.aligner_checkpoints / 'latest_model.pt')
-                if step >= session.max_step or self.preemption.requested:
+                    if self.ranks.main:
+                        val = aligner_eval_loss(model, session.val_set,
+                                                self.device)
+                        print(f'\n| Validation at step {step}: loss '
+                              f'{val:#.4}')
+                        self._scalar('aligner/val_loss', val, step)
+                        self.ckpt.save(checkpoint_payload(
+                            model, optimizer, self.config, step),
+                            self.paths.aligner_checkpoints
+                            / 'latest_model.pt')
+                    self.ranks.barrier()
+                if step >= session.max_step \
+                        or self.ranks.stop(self.preemption):
                     break
         deferred.flush()
         if self.preemption.requested:
@@ -202,6 +212,7 @@ class AlignerTrainer:
                            self.paths.aligner_checkpoints
                            / 'latest_model.pt')
         self.ckpt.wait()    # on disk before the session returns
+        self.ranks.barrier()
         return step
 
 

@@ -32,6 +32,17 @@ The trainers' options, as the JAX package runs them (`:213-400`):
 
 Each trainer honours what its JAX counterpart honours (`HONOURED`) and
 refuses the rest by name (`check_supported`).
+
+Data parallelism (`parallel/`): a trainer given a mesh (or, with a
+process group of more than one rank up, the mesh of `config['tpu']`) runs
+its step on this rank's rows of the global batch inside
+`parallel.data_parallel` (`Ranks`). `apply_update` then averages the
+gradients and the metrics over the ranks before the clip (once a step,
+after every micro-batch of `grad_accum`), so the step is the one-process
+step on the global batch and every rank keeps the same parameters. Rank 0
+alone prints, evaluates and writes files; the other ranks wait at a
+barrier. Dropout and zoneout draw from seed + rank (JAX draws one global
+mask).
 """
 from __future__ import annotations
 
@@ -46,9 +57,16 @@ from typing import (Any, Callable, Dict, Iterable, List, Optional, Sequence,
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from forwardtacotron_tpu_torch import resolve_device
 from forwardtacotron_tpu_torch.models.layers import frozen_running_stats
 from forwardtacotron_tpu_torch.ops.masking import masked_l1
-from forwardtacotron_tpu_torch.utils.async_ckpt import map_tensors
+from forwardtacotron_tpu_torch.parallel import (Mesh, broadcast_state,
+                                                data_parallel, local_rows,
+                                                mesh_from_config,
+                                                reduce_gradients,
+                                                reduce_metrics)
+from forwardtacotron_tpu_torch.utils.async_ckpt import (AsyncCheckpointWriter,
+                                                     map_tensors)
 from forwardtacotron_tpu_torch.utils.files import (pickle_binary,
                                                    unpickle_binary)
 
@@ -227,8 +245,12 @@ def accumulate(micro_loss: Callable, batch: Dict[str, Any], k: int,
 def apply_update(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                  metrics: Dict[str, torch.Tensor],
                  clip: Optional[float], ema: Optional[EMA] = None) -> None:
-    """Global-norm clip (where `clip` is set, with the norm before
-    clipping in metrics['grad_norm']), the optimizer's step, the EMA."""
+    """Inside `parallel.data_parallel`, the gradients and the metrics
+    averaged over the ranks (in place); then the global-norm clip (where
+    `clip` is set, with the norm before clipping in
+    metrics['grad_norm']), the optimizer's step, the EMA."""
+    reduce_gradients(model.parameters())
+    metrics.update(reduce_metrics(metrics))
     if clip is not None:
         metrics['grad_norm'] = clip_by_global_norm(model.parameters(),
                                                    float(clip))
@@ -271,6 +293,115 @@ class Preemption:
         for sig, prev in self._saved.items():
             signal.signal(sig, prev)
         self._saved = {}
+
+
+class NoWriter:
+    """The checkpoint writer of a rank that writes nothing (every rank
+    but 0): `save` drops the payload, `wait` returns."""
+
+    def save(self, payload, path, on_complete=None) -> None:
+        return None
+
+    def wait(self) -> None:
+        return None
+
+
+def trainer_mesh(config: Dict[str, Any], mesh: Optional[Mesh] = None
+                 ) -> Optional[Mesh]:
+    """A trainer's mesh: `mesh` where given, else the mesh of `config`
+    when a process group of more than one rank is up (the JAX trainers'
+    rule: more than one device), else None. A mesh of one process's
+    devices cannot train (one process runs one rank)."""
+    if mesh is None and torch.distributed.is_available() \
+            and torch.distributed.is_initialized() \
+            and torch.distributed.get_world_size() > 1:
+        mesh = mesh_from_config(config)
+    if mesh is not None and mesh.group is None and mesh.size > 1:
+        raise ValueError(f'{mesh}: a trainer\'s mesh spans the ranks of a '
+                         'process group, one device each (torchrun)')
+    return mesh
+
+
+class Ranks:
+    """A trainer's place among the data-parallel ranks of `mesh` (None:
+    the one process there is). Every method that talks to the other
+    ranks must be called by all of them at the same point."""
+
+    def __init__(self, mesh: Optional[Mesh]) -> None:
+        self.mesh = mesh
+
+    @property
+    def main(self) -> bool:
+        """Rank 0 (or no mesh): the rank that prints, evaluates and
+        writes."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    @property
+    def rank(self) -> int:
+        return 0 if self.mesh is None else self.mesh.rank
+
+    def device(self, device) -> torch.device:
+        """The trainer's device: this rank's under a mesh, else `device`
+        (`resolve_device`)."""
+        return self.mesh.device if self.mesh is not None \
+            else resolve_device(device)
+
+    def step(self):
+        """The context of a training step: `parallel.data_parallel`."""
+        return data_parallel(self.mesh)
+
+    def rows(self, batch: Dict[str, Any], micro: int = 1
+             ) -> Dict[str, Any]:
+        """This rank's rows of the global batch (`parallel.local_rows`)."""
+        return local_rows(self.mesh, batch, micro)
+
+    def generator(self, device, seed: int, step: int) -> torch.Generator:
+        """The step's generator, seeded (seed + rank, step): at one process
+        and at rank 0 the one-process trainer's."""
+        return torch.Generator(device=device).manual_seed(
+            (seed + self.rank) * 1_000_003 + step)
+
+    def start(self, modules: Sequence[torch.nn.Module],
+              seed: Optional[int] = None) -> None:
+        """At a run's start over more than one rank: rank 0's weights on
+        every rank, and the global RNG (ForwardTacotron's dropout) seeded
+        with seed + rank where a seed is given."""
+        if self.mesh is None or self.mesh.size == 1:
+            return
+        for m in modules:
+            broadcast_state(m, self.mesh)
+        if seed is not None:
+            torch.manual_seed(seed + self.rank)
+
+    def stop(self, preemption: 'Preemption') -> bool:
+        """Whether to stop: the preemption flag, agreed over the ranks
+        (any rank's request stops them all, at the same step)."""
+        if self.mesh is None or self.mesh.group is None:
+            return preemption.requested
+        flag = torch.tensor([int(preemption.requested)])
+        torch.distributed.all_reduce(flag, torch.distributed.ReduceOp.MAX,
+                                     group=self.mesh.host_group)
+        if flag.item():
+            preemption.request()
+        return bool(flag.item())
+
+    def barrier(self) -> None:
+        """Wait for every rank (rank 0's evaluation and files)."""
+        if self.mesh is not None and self.mesh.group is not None:
+            torch.distributed.barrier(group=self.mesh.host_group)
+
+    def writer(self):
+        """The checkpoint writer: rank 0's, `NoWriter` elsewhere."""
+        return AsyncCheckpointWriter() if self.main else NoWriter()
+
+    @contextlib.contextmanager
+    def output(self) -> Iterable:
+        """stdout as it is on rank 0, silenced on the others."""
+        if self.main:
+            yield
+            return
+        with open(os.devnull, 'w') as sink, contextlib.redirect_stdout(sink):
+            yield
 
 
 class Averager:

@@ -13,8 +13,11 @@ It runs every option of the JAX step (`train/common.py`): `precision`,
 and the top-k score use and the checkpoints serve. FastPitch draws its
 dropout from the step's generator. Scalars go to stdout, and to an
 optional `writer` with an `add_scalar(tag, value, step)` method;
-`FTT_PROFILE_DIR` traces a window of steps (`utils/profiling.py`). Not
-ported yet: plots and audio (`plot_every` is ignored).
+`FTT_PROFILE_DIR` traces a window of steps (`utils/profiling.py`). Under
+a mesh (`mesh=`, or a process group of more than one rank) each rank
+trains on its rows of every global batch and rank 0 alone evaluates,
+prints and writes (`train/common.py`, data parallelism). Not ported yet:
+plots and audio (`plot_every` is ignored).
 """
 from __future__ import annotations
 
@@ -25,11 +28,9 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from forwardtacotron_tpu_torch import resolve_device
 from forwardtacotron_tpu_torch.data.dataset import (Prefetcher,
                                                     get_tts_datasets)
 from forwardtacotron_tpu_torch.train import common as tc
-from forwardtacotron_tpu_torch.utils.async_ckpt import AsyncCheckpointWriter
 from forwardtacotron_tpu_torch.utils.checkpoints import checkpoint_payload
 from forwardtacotron_tpu_torch.utils.files import parse_schedule
 from forwardtacotron_tpu_torch.utils.paths import Paths
@@ -50,10 +51,11 @@ def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, Any]:
 class ForwardTrainer:
 
     def __init__(self, paths: Paths, config: Dict[str, Any],
-                 device='cuda', writer=None) -> None:
+                 device='cuda', writer=None, mesh=None) -> None:
         self.paths = paths
         self.config = config
-        self.device = resolve_device(device)
+        self.ranks = tc.Ranks(tc.trainer_mesh(config, mesh))
+        self.device = self.ranks.device(device)
         # the section of the model that config['tts_model'] names
         model_type = config.get('tts_model', 'forward_tacotron')
         self.train_cfg = config[model_type]['training']
@@ -63,14 +65,14 @@ class ForwardTrainer:
         self.top_k = tc.TopKTracker(
             paths.forward_top_k, k=int(self.train_cfg.get('keep_top_k', 3)),
             prefix='forward')
-        self.ckpt = AsyncCheckpointWriter()
+        self.ckpt = self.ranks.writer()
         # FTT_PROFILE_DIR traces a window of steps
         self.tracer = StepTraceController()
         # the EMA weights (`ema_decay` > 0); a resume sets them first
         self.ema: Optional[tc.EMA] = None
 
     def _scalar(self, tag: str, value: float, step: int) -> None:
-        if self.writer is not None:
+        if self.writer is not None and self.ranks.main:
             self.writer.add_scalar(tag, value, step)
 
     def _save(self, model, optimizer, path, step: int,
@@ -89,14 +91,16 @@ class ForwardTrainer:
         model.to(self.device)
         if optimizer is None:
             optimizer = tc.make_optimizer(model)
+        self.ranks.start([model], seed)
         if self.ema is None:
             self.ema = tc.make_ema(model, self.train_cfg)
         schedule = parse_schedule(self.train_cfg['schedule'])
         session_start = 0
-        with self.preemption, contextlib.closing(self.tracer):
+        with self.preemption, contextlib.closing(self.tracer), \
+                self.ranks.output():
             for i, (lr, max_step, bs) in enumerate(schedule, 1):
                 prev_max, session_start = session_start, max_step
-                if self.preemption.requested:
+                if self.ranks.stop(self.preemption):
                     break
                 if max_steps_override is not None:
                     max_step = min(max_step, max_steps_override)
@@ -171,13 +175,14 @@ class ForwardTrainer:
             start = offset0 if epoch == epoch0 else 0
             batches = Prefetcher(session.train_set.batches(epoch, start))
             for i, batch in enumerate(batches, start + 1):
-                # zoneout (and FastPitch's dropout) draws from (seed,
-                # step): a resumed run draws the same masks
-                gen = torch.Generator(device=self.device).manual_seed(
-                    seed * 1_000_003 + step)
-                metrics = tc.train_step(model, optimizer,
-                                        batch_to_device(batch, self.device),
-                                        gen, self.train_cfg, self.ema)
+                # zoneout (and FastPitch's dropout) draws from (seed +
+                # rank, step): a resumed run draws the same masks
+                gen = self.ranks.generator(self.device, seed, step)
+                rows = self.ranks.rows(batch, tc.grad_accum(self.train_cfg))
+                with self.ranks.step():
+                    metrics = tc.train_step(
+                        model, optimizer, batch_to_device(rows, self.device),
+                        gen, self.train_cfg, self.ema)
                 step += 1
                 self.tracer.tick(step)
                 deferred.push(metrics, step, e, i, batch['mel'].shape[:2])
@@ -185,7 +190,7 @@ class ForwardTrainer:
                     self._save(model, optimizer,
                                self.paths.forward_checkpoints /
                                f'forward_step{step // 1000}k.pt', step)
-                if self.preemption.requested:
+                if self.ranks.stop(self.preemption):
                     print('| Preemption requested: saving latest_model and '
                           'stopping.')
                     break
@@ -193,20 +198,9 @@ class ForwardTrainer:
                     break
             else:
                 deferred.flush()
-                val = self.evaluate(model, session.val_set)
-                print(f'| Validation at step {step}: ' + ', '.join(
-                    f'{k} {v:#.4}' for k, v in val.items()))
-                for name, key in (('Mel_Loss', 'mel_loss'),
-                                  ('Duration_Loss', 'dur_loss'),
-                                  ('Pitch_Loss', 'pitch_loss'),
-                                  ('Energy_Loss', 'energy_loss')):
-                    self._scalar(f'{name}/val', val[key], step)
-                self._save(model, optimizer, self.paths.forward_checkpoints
-                           / 'latest_model.pt', step)
-                # the k best students by validation mel loss
-                self.top_k.update(val['mel_loss'], step,
-                                  lambda path, on_disk: self._save(
-                                      model, optimizer, path, step, on_disk))
+                if self.ranks.main:
+                    self._end_of_epoch(model, optimizer, session, step)
+                self.ranks.barrier()
                 m_loss_avg.reset()
                 duration_avg.reset()
                 pitch_loss_avg.reset()
@@ -217,7 +211,26 @@ class ForwardTrainer:
         self._save(model, optimizer,
                    self.paths.forward_checkpoints / 'latest_model.pt', step)
         self.ckpt.wait()    # on disk before the session returns
+        self.ranks.barrier()
         return step
+
+    def _end_of_epoch(self, model, optimizer, session: tc.TTSSession,
+                      step: int) -> None:
+        """Rank 0's end of an epoch: `evaluate()`, latest_model.pt and
+        the k best students by validation mel loss."""
+        val = self.evaluate(model, session.val_set)
+        print(f'| Validation at step {step}: ' + ', '.join(
+            f'{k} {v:#.4}' for k, v in val.items()))
+        for name, key in (('Mel_Loss', 'mel_loss'),
+                          ('Duration_Loss', 'dur_loss'),
+                          ('Pitch_Loss', 'pitch_loss'),
+                          ('Energy_Loss', 'energy_loss')):
+            self._scalar(f'{name}/val', val[key], step)
+        self._save(model, optimizer, self.paths.forward_checkpoints
+                   / 'latest_model.pt', step)
+        self.top_k.update(val['mel_loss'], step,
+                          lambda path, on_disk: self._save(
+                              model, optimizer, path, step, on_disk))
 
     def evaluate(self, model: torch.nn.Module, val_set) -> Dict[str, float]:
         """Mean loss metrics over the validation batches, eval mode, no

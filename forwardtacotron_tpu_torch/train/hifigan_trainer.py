@@ -29,7 +29,11 @@ loader read. `latest_model.pt` also holds the discriminators, both
 optimizers, the config and the step; `hifigan_step{k}k.pt` and the top-k
 files the generator alone, all written off the step loop
 (`AsyncCheckpointWriter`). The convolutions run on the card through
-cuDNN.
+cuDNN. Under a mesh (`mesh=`, or a process group of more than one rank)
+each rank trains on its rows of every global batch, both halves' gradients
+averaged over the ranks before their updates, and rank 0 alone evaluates,
+generates the samples, prints and writes (`train/common.py`, data
+parallelism).
 """
 from __future__ import annotations
 
@@ -41,7 +45,6 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
-from forwardtacotron_tpu_torch import resolve_device
 from forwardtacotron_tpu_torch.data.dataset import (Prefetcher,
                                                     get_gan_vocoder_datasets)
 from forwardtacotron_tpu_torch.models.gan_discriminators import (
@@ -53,7 +56,6 @@ from forwardtacotron_tpu_torch.train.gan_losses import (
     discriminator_loss, feature_matching_loss, generator_adversarial_loss,
     mel_l1_loss)
 from forwardtacotron_tpu_torch.train.voc_trainer import batch_to_device
-from forwardtacotron_tpu_torch.utils.async_ckpt import AsyncCheckpointWriter
 from forwardtacotron_tpu_torch.utils.display import log_audio, simple_table
 from forwardtacotron_tpu_torch.utils.files import parse_schedule
 from forwardtacotron_tpu_torch.utils.paths import Paths
@@ -87,8 +89,9 @@ def disc_step(gen: torch.nn.Module, disc: HiFiGANDiscriminators,
                                                         half=half))
     d_loss = discriminator_loss(logits_r, logits_g)
     d_loss.backward()
-    disc_opt.step()
-    return d_loss.detach()
+    metrics = {'disc_loss': d_loss.detach()}
+    tc.apply_update(disc, disc_opt, metrics, None)
+    return metrics['disc_loss']
 
 
 def gen_step(gen: torch.nn.Module, disc: HiFiGANDiscriminators,
@@ -111,10 +114,11 @@ def gen_step(gen: torch.nn.Module, disc: HiFiGANDiscriminators,
         g_loss.backward()
     finally:
         disc.requires_grad_(True)
-    gen_opt.step()
-    return {k: v.detach() for k, v in (
+    metrics = {k: v.detach() for k, v in (
         ('gen_loss', g_loss), ('gen_adv', adv), ('gen_fm', fm),
         ('gen_mel', mel_l))}
+    tc.apply_update(gen, gen_opt, metrics, None)
+    return metrics
 
 
 def gan_train_step(gen: torch.nn.Module, disc: HiFiGANDiscriminators,
@@ -149,14 +153,15 @@ def load_generator(gen: torch.nn.Module, payload: Dict[str, Any]) -> None:
 class HiFiGANTrainer:
 
     def __init__(self, paths: Paths, dsp, config: Dict[str, Any],
-                 device='cuda', writer=None) -> None:
+                 device='cuda', writer=None, mesh=None) -> None:
         self.paths = paths
         self.dsp = dsp
         self.config = config
-        self.device = resolve_device(device)
+        self.ranks = tc.Ranks(tc.trainer_mesh(config, mesh))
+        self.device = self.ranks.device(device)
         self.train_cfg = config['hifigan']['training']
         tc.check_supported(self.train_cfg, 'gan')
-        self.ckpt = AsyncCheckpointWriter()
+        self.ckpt = self.ranks.writer()
         # FTT_PROFILE_DIR traces a window of steps
         self.tracer = StepTraceController()
         self.writer = writer
@@ -166,11 +171,12 @@ class HiFiGANTrainer:
             prefix='hifigan')
         model_cfg = {k: v for k, v in config['hifigan']['model'].items()
                      if k != 'generator_type'}
-        for d in (paths.hifigan_checkpoints, paths.hifigan_top_k):
-            (d / 'config.json').write_text(json.dumps(model_cfg))
+        if self.ranks.main:
+            for d in (paths.hifigan_checkpoints, paths.hifigan_top_k):
+                (d / 'config.json').write_text(json.dumps(model_cfg))
 
     def _scalar(self, tag: str, value: float, step: int) -> None:
-        if self.writer is not None:
+        if self.writer is not None and self.ranks.main:
             self.writer.add_scalar(tag, value, step)
 
     def save_latest(self, gen, disc, gen_opt, disc_opt, step: int) -> None:
@@ -192,12 +198,14 @@ class HiFiGANTrainer:
         disc.to(self.device).train()
         gen_opt = gen_opt or make_gan_optimizer(gen)
         disc_opt = disc_opt or make_gan_optimizer(disc)
+        self.ranks.start([gen, disc])
         schedule = parse_schedule(self.train_cfg['schedule'])
         session_start = 0
-        with self.preemption, contextlib.closing(self.tracer):
+        with self.preemption, contextlib.closing(self.tracer), \
+                self.ranks.output():
             for i, (lr, max_step, bs) in enumerate(schedule, 1):
                 prev_max, session_start = session_start, max_step
-                if self.preemption.requested:
+                if self.ranks.stop(self.preemption):
                     break
                 if max_steps_override is not None:
                     max_step = min(max_step, max_steps_override)
@@ -260,23 +268,26 @@ class HiFiGANTrainer:
             start = offset0 if epoch == epoch0 else 0
             batches = Prefetcher(session.train_set.batches(epoch, start))
             for i, batch in enumerate(batches, start + 1):
-                metrics = gan_train_step(
-                    gen, disc, gen_opt, disc_opt,
-                    batch_to_device(batch, self.device),
-                    self.dsp.wav_to_mel_batch, half)
+                with self.ranks.step():
+                    metrics = gan_train_step(
+                        gen, disc, gen_opt, disc_opt,
+                        batch_to_device(self.ranks.rows(batch), self.device),
+                        self.dsp.wav_to_mel_batch, half)
                 step += 1
                 self.tracer.tick(step)
                 deferred.push(metrics, step, e, i)
                 if step % self.train_cfg['gen_samples_every'] == 0:
-                    mel_loss = self.generate_samples(gen, session, step)
-                    if mel_loss is not None:
-                        self.track_top_models(mel_loss, gen, step)
+                    if self.ranks.main:
+                        mel_loss = self.generate_samples(gen, session, step)
+                        if mel_loss is not None:
+                            self.track_top_models(mel_loss, gen, step)
+                    self.ranks.barrier()
                 if step % self.train_cfg['checkpoint_every'] == 0:
                     self.ckpt.save(
                         generator_file(gen),
                         self.paths.hifigan_checkpoints
                         / f'hifigan_step{step // 1000}k.pt')
-                if self.preemption.requested:
+                if self.ranks.stop(self.preemption):
                     print('| Preemption requested: saving latest_model and '
                           'stopping.')
                     break
@@ -284,11 +295,13 @@ class HiFiGANTrainer:
                     break
             else:
                 deferred.flush()
-                val_loss = self.evaluate(gen, session.val_set)
-                print(f'| Validation at step {step}: mel loss '
-                      f'{val_loss:#.4}')
-                self._scalar('Loss/val_mel', val_loss, step)
-                self.save_latest(gen, disc, gen_opt, disc_opt, step)
+                if self.ranks.main:
+                    val_loss = self.evaluate(gen, session.val_set)
+                    print(f'| Validation at step {step}: mel loss '
+                          f'{val_loss:#.4}')
+                    self._scalar('Loss/val_mel', val_loss, step)
+                    self.save_latest(gen, disc, gen_opt, disc_opt, step)
+                self.ranks.barrier()
                 loss_avg.reset()
                 duration_avg.reset()
                 last_t = time.time()
@@ -297,6 +310,7 @@ class HiFiGANTrainer:
         deferred.flush()
         self.save_latest(gen, disc, gen_opt, disc_opt, step)
         self.ckpt.wait()    # on disk before the session returns
+        self.ranks.barrier()
         return step
 
     @torch.no_grad()

@@ -20,8 +20,12 @@ teacher-forced mel cast to bfloat16; m1, m2 and the attention back to
 float32), `grad_accum` (the attention re-assembled to the full batch)
 and `remat` (the generator replayed for the recompute); `ema_decay` is
 refused, the JAX teacher has none. Scalars go to stdout, and to an
-optional `writer` with an `add_scalar(tag, value, step)` method. Not
-ported: plots and audio samples (`plot_every` is ignored).
+optional `writer` with an `add_scalar(tag, value, step)` method. Under a
+mesh (`mesh=`, or a process group of more than one rank) each rank trains
+on its rows of every global batch (the train attention score averaged
+over the ranks) and rank 0 alone evaluates, prints and writes
+(`train/common.py`, data parallelism). Not ported: plots and audio
+samples (`plot_every` is ignored).
 """
 from __future__ import annotations
 
@@ -32,12 +36,10 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from forwardtacotron_tpu_torch import resolve_device
 from forwardtacotron_tpu_torch.align.metrics import attention_score
 from forwardtacotron_tpu_torch.data.dataset import (Prefetcher,
                                                     get_tts_datasets)
 from forwardtacotron_tpu_torch.train import common as tc
-from forwardtacotron_tpu_torch.utils.async_ckpt import AsyncCheckpointWriter
 from forwardtacotron_tpu_torch.utils.checkpoints import checkpoint_payload
 from forwardtacotron_tpu_torch.utils.files import parse_schedule
 from forwardtacotron_tpu_torch.utils.paths import Paths
@@ -122,10 +124,11 @@ def taco_eval_step(model: torch.nn.Module, batch: Dict[str, torch.Tensor],
 class TacoTrainer:
 
     def __init__(self, paths: Paths, config: Dict[str, Any],
-                 device='cuda', writer=None) -> None:
+                 device='cuda', writer=None, mesh=None) -> None:
         self.paths = paths
         self.config = config
-        self.device = resolve_device(device)
+        self.ranks = tc.Ranks(tc.trainer_mesh(config, mesh))
+        self.device = self.ranks.device(device)
         self.train_cfg = config['tacotron']['training']
         tc.check_supported(self.train_cfg, 'tacotron')
         self.writer = writer
@@ -133,12 +136,12 @@ class TacoTrainer:
         self.top_k = tc.TopKTracker(
             paths.taco_top_k, k=int(self.train_cfg.get('keep_top_k', 3)),
             prefix='taco')
-        self.ckpt = AsyncCheckpointWriter()
+        self.ckpt = self.ranks.writer()
         # FTT_PROFILE_DIR traces a window of steps
         self.tracer = StepTraceController()
 
     def _scalar(self, tag: str, value: float, step: int) -> None:
-        if self.writer is not None:
+        if self.writer is not None and self.ranks.main:
             self.writer.add_scalar(tag, value, step)
 
     def _save(self, model, optimizer, path, step: int,
@@ -156,12 +159,14 @@ class TacoTrainer:
         model.to(self.device)
         if optimizer is None:
             optimizer = tc.make_optimizer(model)
+        self.ranks.start([model], seed)
         schedule = parse_schedule(self.train_cfg['schedule'])
         session_start = 0
-        with self.preemption, contextlib.closing(self.tracer):
+        with self.preemption, contextlib.closing(self.tracer), \
+                self.ranks.output():
             for i, (r, lr, max_step, bs) in enumerate(schedule, 1):
                 prev_max, session_start = session_start, max_step
-                if self.preemption.requested:
+                if self.ranks.stop(self.preemption):
                     break
                 if max_steps_override is not None:
                     max_step = min(max_step, max_steps_override)
@@ -198,7 +203,7 @@ class TacoTrainer:
         loss_avg, duration_avg = tc.Averager(), tc.Averager()
         last_t = time.time()
 
-        def flush_metrics(metrics, att, mel_len, pstep, pe, pi) -> None:
+        def flush_metrics(metrics, pstep, pe, pi) -> None:
             nonlocal last_t
             loss = float(metrics['loss'])                 # waits
             loss_avg.add(loss)
@@ -206,8 +211,7 @@ class TacoTrainer:
             duration_avg.add(now - last_t)
             last_t = now
             speed = 1.0 / max(duration_avg.get(), 1e-9)
-            att_score = float(attention_score(att, mel_len,
-                                              r=session.r)[1].mean())
+            att_score = float(metrics['att_score'])
             print(f'| Epoch: {pe}/{epochs} ({pi}/{total_iters}) '
                   f'| Loss: {loss_avg.get():#.4} '
                   f'| {speed:#.2} steps/s | Step: {pstep} | ', flush=True)
@@ -223,22 +227,27 @@ class TacoTrainer:
             start = offset0 if epoch == epoch0 else 0
             batches = Prefetcher(session.train_set.batches(epoch, start))
             for i, batch in enumerate(batches, start + 1):
-                # dropout and zoneout draw from (seed, step): a resumed run
-                # draws the same masks
-                gen = torch.Generator(device=self.device).manual_seed(
-                    seed * 1_000_003 + step)
-                tbatch = taco_batch_to_device(batch, self.device)
-                metrics, att = taco_train_step(model, optimizer, tbatch,
-                                               session.r, gen,
-                                               self.train_cfg)
+                # dropout and zoneout draw from (seed + rank, step): a
+                # resumed run draws the same masks
+                gen = self.ranks.generator(self.device, seed, step)
+                tbatch = taco_batch_to_device(self.ranks.rows(
+                    batch, tc.grad_accum(self.train_cfg)), self.device)
+                with self.ranks.step():
+                    metrics, att = taco_train_step(model, optimizer, tbatch,
+                                                   session.r, gen,
+                                                   self.train_cfg)
+                    # the train attention score, averaged over the ranks
+                    metrics.update(tc.reduce_metrics({'att_score': (
+                        attention_score(att, tbatch['mel_len'],
+                                        r=session.r)[1].mean())}))
                 step += 1
                 self.tracer.tick(step)
-                deferred.push(metrics, att, tbatch['mel_len'], step, e, i)
+                deferred.push(metrics, step, e, i)
                 if step % self.train_cfg['checkpoint_every'] == 0:
                     self._save(model, optimizer,
                                self.paths.taco_checkpoints /
                                f'taco_step{step // 1000}k.pt', step)
-                if self.preemption.requested:
+                if self.ranks.stop(self.preemption):
                     print('| Preemption requested: saving latest_model and '
                           'stopping.')
                     break
@@ -246,19 +255,9 @@ class TacoTrainer:
                     break
             else:
                 deferred.flush()
-                val_loss, val_att = self.evaluate(model, session.val_set,
-                                                  session.r)
-                print(f'| Validation at step {step}: loss {val_loss:#.4}, '
-                      f'attention score {val_att:#.4}')
-                self._scalar('Loss/val', val_loss, step)
-                self._scalar('Attention_Score/val', val_att, step)
-                self._save(model, optimizer, self.paths.taco_checkpoints
-                           / 'latest_model.pt', step)
-                # the k best teachers by validation attention score,
-                # negated: the tracker keeps the lowest
-                self.top_k.update(-val_att, step,
-                                  lambda path, on_disk: self._save(
-                                      model, optimizer, path, step, on_disk))
+                if self.ranks.main:
+                    self._end_of_epoch(model, optimizer, session, step)
+                self.ranks.barrier()
                 loss_avg.reset()
                 duration_avg.reset()
                 last_t = time.time()
@@ -268,7 +267,24 @@ class TacoTrainer:
         self._save(model, optimizer,
                    self.paths.taco_checkpoints / 'latest_model.pt', step)
         self.ckpt.wait()    # on disk before the session returns
+        self.ranks.barrier()
         return step
+
+    def _end_of_epoch(self, model, optimizer, session: tc.TTSSession,
+                      step: int) -> None:
+        """Rank 0's end of an epoch: `evaluate()`, latest_model.pt and
+        the k best teachers by validation attention score (negated: the
+        tracker keeps the lowest)."""
+        val_loss, val_att = self.evaluate(model, session.val_set, session.r)
+        print(f'| Validation at step {step}: loss {val_loss:#.4}, '
+              f'attention score {val_att:#.4}')
+        self._scalar('Loss/val', val_loss, step)
+        self._scalar('Attention_Score/val', val_att, step)
+        self._save(model, optimizer, self.paths.taco_checkpoints
+                   / 'latest_model.pt', step)
+        self.top_k.update(-val_att, step,
+                          lambda path, on_disk: self._save(
+                              model, optimizer, path, step, on_disk))
 
     def evaluate(self, model: torch.nn.Module, val_set, r: int
                  ) -> Tuple[float, float]:

@@ -19,7 +19,10 @@ through the inference kernel (#1) and `generate_samples` through the
 sampler (#4). Unlike the JAX trainer, `generate_samples` lets a failure
 through: it is the sampler kernel's path. Scalars go to stdout and to an
 optional `writer` with `add_scalar`; audio samples to its `add_audio`
-or, failing that, to wav files under the log directory.
+or, failing that, to wav files under the log directory. Under a mesh
+(`mesh=`, or a process group of more than one rank) each rank trains on
+its rows of every global batch and rank 0 alone evaluates, generates the
+samples, prints and writes (`train/common.py`, data parallelism).
 """
 from __future__ import annotations
 
@@ -31,13 +34,11 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
-from forwardtacotron_tpu_torch import resolve_device
 from forwardtacotron_tpu_torch.data.dataset import (Prefetcher,
                                                     get_vocoder_datasets)
 from forwardtacotron_tpu_torch.models.wavernn import WaveRNN, generate_wav
 from forwardtacotron_tpu_torch.ops.mol import discretized_mix_logistic_loss
 from forwardtacotron_tpu_torch.train import common as tc
-from forwardtacotron_tpu_torch.utils.async_ckpt import AsyncCheckpointWriter
 from forwardtacotron_tpu_torch.utils.checkpoints import checkpoint_payload
 from forwardtacotron_tpu_torch.utils.display import log_audio, simple_table
 from forwardtacotron_tpu_torch.utils.files import parse_schedule
@@ -96,11 +97,12 @@ def batch_to_device(batch: Dict[str, np.ndarray], device
 class VocTrainer:
 
     def __init__(self, paths: Paths, dsp, config: Dict[str, Any],
-                 device='cuda', writer=None) -> None:
+                 device='cuda', writer=None, mesh=None) -> None:
         self.paths = paths
         self.dsp = dsp
         self.config = config
-        self.device = resolve_device(device)
+        self.ranks = tc.Ranks(tc.trainer_mesh(config, mesh))
+        self.device = self.ranks.device(device)
         self.train_cfg = config['vocoder']['training']
         tc.check_supported(self.train_cfg, 'wavernn')
         self.writer = writer
@@ -108,12 +110,12 @@ class VocTrainer:
         self.top_k = tc.TopKTracker(
             paths.voc_top_k, k=int(self.train_cfg.get('keep_top_k', 3)),
             prefix='wave')
-        self.ckpt = AsyncCheckpointWriter()
+        self.ckpt = self.ranks.writer()
         # FTT_PROFILE_DIR traces a window of steps
         self.tracer = StepTraceController()
 
     def _scalar(self, tag: str, value: float, step: int) -> None:
-        if self.writer is not None:
+        if self.writer is not None and self.ranks.main:
             self.writer.add_scalar(tag, value, step)
 
     def _save(self, model, optimizer, path, step: int,
@@ -131,12 +133,14 @@ class VocTrainer:
         model.to(self.device)
         if optimizer is None:
             optimizer = tc.make_optimizer(model)
+        self.ranks.start([model])
         schedule = parse_schedule(self.train_cfg['schedule'])
         session_start = 0
-        with self.preemption, contextlib.closing(self.tracer):
+        with self.preemption, contextlib.closing(self.tracer), \
+                self.ranks.output():
             for i, (lr, max_step, bs) in enumerate(schedule, 1):
                 prev_max, session_start = session_start, max_step
-                if self.preemption.requested:
+                if self.ranks.stop(self.preemption):
                     break
                 if max_steps_override is not None:
                     max_step = min(max_step, max_steps_override)
@@ -198,20 +202,24 @@ class VocTrainer:
             start = offset0 if epoch == epoch0 else 0
             batches = Prefetcher(session.train_set.batches(epoch, start))
             for i, batch in enumerate(batches, start + 1):
-                metrics = voc_train_step(model, optimizer,
-                                         batch_to_device(batch, self.device),
-                                         mode, clip, half, remat)
+                with self.ranks.step():
+                    metrics = voc_train_step(
+                        model, optimizer,
+                        batch_to_device(self.ranks.rows(batch), self.device),
+                        mode, clip, half, remat)
                 step += 1
                 self.tracer.tick(step)
                 deferred.push(metrics, step, e, i)
                 if step % self.train_cfg['gen_samples_every'] == 0:
-                    mel_loss = self.generate_samples(model, session, step)
-                    if mel_loss is not None:
-                        self.track_top_models(mel_loss, model, step)
+                    if self.ranks.main:
+                        mel_loss = self.generate_samples(model, session, step)
+                        if mel_loss is not None:
+                            self.track_top_models(mel_loss, model, step)
+                    self.ranks.barrier()
                 if step % self.train_cfg['checkpoint_every'] == 0:
                     self._save(model, optimizer, self.paths.voc_checkpoints
                                / f'wave_step{step // 1000}k.pt', step)
-                if self.preemption.requested:
+                if self.ranks.stop(self.preemption):
                     print('| Preemption requested: saving latest_model and '
                           'stopping.')
                     break
@@ -219,11 +227,14 @@ class VocTrainer:
                     break
             else:
                 deferred.flush()
-                val_loss = self.evaluate(model, session.val_set)
-                print(f'| Validation at step {step}: loss {val_loss:#.4}')
-                self._scalar('Loss/val', val_loss, step)
-                self._save(model, optimizer, self.paths.voc_checkpoints
-                           / 'latest_model.pt', step)
+                if self.ranks.main:
+                    val_loss = self.evaluate(model, session.val_set)
+                    print(f'| Validation at step {step}: loss '
+                          f'{val_loss:#.4}')
+                    self._scalar('Loss/val', val_loss, step)
+                    self._save(model, optimizer, self.paths.voc_checkpoints
+                               / 'latest_model.pt', step)
+                self.ranks.barrier()
                 loss_avg.reset()
                 duration_avg.reset()
                 last_t = time.time()
@@ -233,6 +244,7 @@ class VocTrainer:
         self._save(model, optimizer,
                    self.paths.voc_checkpoints / 'latest_model.pt', step)
         self.ckpt.wait()    # on disk before the session returns
+        self.ranks.barrier()
         return step
 
     @torch.no_grad()

@@ -26,6 +26,8 @@ from typing import Optional, Sequence
 import torch
 
 from forwardtacotron_tpu_torch import resolve_device
+from forwardtacotron_tpu_torch.parallel import (is_main_process,
+                                                training_device, wait_for_all)
 from forwardtacotron_tpu_torch.align.aligner import aligner_from_config
 from forwardtacotron_tpu_torch.config import default_config, read_config
 from forwardtacotron_tpu_torch.data.dataset import get_tts_datasets
@@ -73,13 +75,13 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[int]:
                         help='write durations, pitch and energy from the '
                              'existing aligner checkpoint, no training')
     parser.add_argument('--config', metavar='FILE', default=None,
-                        help='YAML config (needs pyyaml; default: built-in '
-                             'copy of config.yaml)')
+                        help='YAML (needs pyyaml) or .json config '
+                             '(default: built-in copy of config.yaml)')
     parser.add_argument('--device', default='cuda')
     args = parser.parse_args(argv)
 
     config = read_config(args.config) if args.config else default_config()
-    device = resolve_device(args.device)
+    device = training_device(config, resolve_device(args.device))
     paths = Paths(config['data_path'], config['tts_model_id'])
 
     print('\nInitialising Aligner Model...\n')
@@ -106,9 +108,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[int]:
     train_set, val_set = get_tts_datasets(
         paths.data, 8, 1, max_mel_len=None, filter_attention=False,
         model_type='tacotron')
-    create_align_features_from_aligner(
-        model, train_set, val_set, paths,
-        pitch_max_freq=config['dsp']['pitch_max_freq'])
+    if is_main_process():
+        create_align_features_from_aligner(
+            model, train_set, val_set, paths,
+            pitch_max_freq=config['dsp']['pitch_max_freq'])
+    wait_for_all()
     print('\n\nYou can now train ForwardTacotron - use python -m '
           'forwardtacotron_tpu_torch.train_forward\n')
     return step

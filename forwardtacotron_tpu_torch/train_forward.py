@@ -24,7 +24,10 @@ it runs the trained student teacher-forced over the whole dataset and
 writes each item's postnet mel to `data/gta`, the mels that
 `train_wavernn --gta` and `train_hifigan --gta` learn from; it uses the
 raw weights, as the JAX package's `create_gta_features` applies
-`state.variables`.
+`state.variables`. Under torchrun (`python -m torch.distributed.run
+--nproc_per_node N -m forwardtacotron_tpu_torch.train_forward`) each
+process trains on cuda:LOCAL_RANK over the global batch's rows
+(`parallel/`), and rank 0 alone writes the checkpoints and the GTA mels.
 """
 from __future__ import annotations
 
@@ -36,6 +39,8 @@ import numpy as np
 import torch
 
 from forwardtacotron_tpu_torch import resolve_device
+from forwardtacotron_tpu_torch.parallel import (is_main_process,
+                                                training_device, wait_for_all)
 from forwardtacotron_tpu_torch.config import default_config, read_config
 from forwardtacotron_tpu_torch.data.dataset import get_tts_datasets
 from forwardtacotron_tpu_torch.train import common as tc
@@ -84,13 +89,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                         help='write the GTA mels of a trained model to '
                              'data/gta')
     parser.add_argument('--config', metavar='FILE', default=None,
-                        help='YAML config (needs pyyaml; default: built-in '
-                             'copy of config.yaml)')
+                        help='YAML (needs pyyaml) or .json config '
+                             '(default: built-in copy of config.yaml)')
     parser.add_argument('--device', default='cuda')
     args = parser.parse_args(argv)
 
     config = read_config(args.config) if args.config else default_config()
-    device = resolve_device(args.device)
+    device = training_device(config, resolve_device(args.device))
     paths = Paths(config['data_path'], config['tts_model_id'])
     if not any(paths.alg.iterdir()):
         raise SystemExit(f'Could not find alignment files in {paths.alg}; '
@@ -134,7 +139,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         train_set, val_set = get_tts_datasets(
             paths.data, 8, 1, max_mel_len=None, filter_attention=False,
             model_type='forward')
-        create_gta_features(model, train_set, val_set, paths.gta)
+        if is_main_process():
+            create_gta_features(model, train_set, val_set, paths.gta)
+        wait_for_all()
         print('\n\nYou can now train WaveRNN on GTA features - use python '
               '-m forwardtacotron_tpu_torch.train_wavernn --gta\n')
         return step

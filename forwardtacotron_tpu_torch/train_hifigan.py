@@ -25,6 +25,7 @@ from typing import Optional, Sequence
 import torch
 
 from forwardtacotron_tpu_torch import resolve_device
+from forwardtacotron_tpu_torch.parallel import training_device
 from forwardtacotron_tpu_torch.config import default_config, read_config
 from forwardtacotron_tpu_torch.dsp.audio import DSP
 from forwardtacotron_tpu_torch.models.gan_discriminators import (
@@ -49,13 +50,13 @@ def main(argv: Optional[Sequence[str]] = None, writer=None) -> int:
     parser.add_argument('--gta', '-g', action='store_true',
                         help='train on GTA features from the student')
     parser.add_argument('--config', metavar='FILE', default=None,
-                        help='YAML config (needs pyyaml; default: built-in '
-                             'copy of config.yaml)')
+                        help='YAML (needs pyyaml) or .json config '
+                             '(default: built-in copy of config.yaml)')
     parser.add_argument('--device', default='cuda')
     args = parser.parse_args(argv)
 
     config = read_config(args.config) if args.config else default_config()
-    device = resolve_device(args.device)
+    device = training_device(config, resolve_device(args.device))
     paths = Paths(config['data_path'], config['tts_model_id'],
                   voc_id=config['voc_model_id'])
     dsp = DSP.from_config(config, device=device)

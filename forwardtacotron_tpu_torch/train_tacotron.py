@@ -23,7 +23,10 @@ written without an optimizer state leaves Adam fresh).
 The checkpoint directory lies under $FTT_BASE when that is set, else
 under the repository root. Without `--config` the built-in copy of
 config.yaml is used. Everything runs on `--device` (default `cuda`);
-`--device cpu` runs the plain PyTorch versions of the kernels.
+`--device cpu` runs the plain PyTorch versions of the kernels. Under
+torchrun each process trains on cuda:LOCAL_RANK over the global batch's
+rows (`parallel/`); rank 0 alone writes the checkpoints and the alignment
+files.
 """
 from __future__ import annotations
 
@@ -33,6 +36,8 @@ from typing import Optional, Sequence
 import torch
 
 from forwardtacotron_tpu_torch import resolve_device
+from forwardtacotron_tpu_torch.parallel import (is_main_process,
+                                                training_device, wait_for_all)
 from forwardtacotron_tpu_torch.align.features import (create_align_features,
                                                       create_gta_features,
                                                       extract_pitch_energy)
@@ -98,20 +103,23 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[int]:
     parser.add_argument('--extract_pitch', '-p', action='store_true',
                         help='Extracts phoneme-pitch values only')
     parser.add_argument('--config', metavar='FILE', default=None,
-                        help='YAML config (needs pyyaml; default: built-in '
-                             'copy of config.yaml)')
+                        help='YAML (needs pyyaml) or .json config '
+                             '(default: built-in copy of config.yaml)')
     parser.add_argument('--device', default='cuda')
     args = parser.parse_args(argv)
 
     config = read_config(args.config) if args.config else default_config()
-    device = resolve_device(args.device)
+    device = training_device(config, resolve_device(args.device))
     paths = Paths(config['data_path'], config['tts_model_id'])
 
     if args.extract_pitch:
         print('Extracting Pitch and Energy Values...')
-        extract_pitch_energy(paths, save_path_pitch=paths.phon_pitch,
-                             save_path_energy=paths.phon_energy,
-                             pitch_max_freq=config['dsp']['pitch_max_freq'])
+        if is_main_process():
+            extract_pitch_energy(
+                paths, save_path_pitch=paths.phon_pitch,
+                save_path_energy=paths.phon_energy,
+                pitch_max_freq=config['dsp']['pitch_max_freq'])
+        wait_for_all()
         print('\n\nYou can now train ForwardTacotron - use python -m '
               'forwardtacotron_tpu_torch.train_forward\n')
         return None
@@ -129,7 +137,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[int]:
             raise SystemExit(f'No teacher checkpoint in '
                              f'{paths.taco_checkpoints}: train the teacher '
                              'first')
-        if args.force_gta:
+        if not is_main_process():
+            pass
+        elif args.force_gta:
             print('Creating Ground Truth Aligned Dataset...\n')
             train_set, val_set = get_tts_datasets(
                 paths.data, 8, 1,
@@ -139,6 +149,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[int]:
             print('\n\nGTA mels written to', paths.gta)
         else:
             _align(model, paths, config)
+        wait_for_all()
         return step
 
     step = trainer.train(model, optimizer, step or 0, seed=SEED)
@@ -146,7 +157,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[int]:
         print('Preempted mid-training: latest_model saved; rerun to resume '
               '(alignment extraction deferred).')
         return step
-    _align(model, paths, config)
+    if is_main_process():
+        _align(model, paths, config)
+    wait_for_all()
     return step
 
 

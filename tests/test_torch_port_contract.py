@@ -105,6 +105,7 @@ def test_builtin_config_equals_config_yaml():
                     'fast_pitch', 'aligner'):
         assert cfg[section]['training'] == ref[section]['training'], section
     assert cfg['hifigan']['model'] == ref['hifigan']['model']
+    assert cfg['tpu']['mesh'] == ref['tpu']['mesh']
 
 
 def test_token_ids_equal_jax_front_end():
@@ -142,7 +143,8 @@ def test_port_imports_no_jax():
     assert len(files) > 10
     # the serving, data, vocoder-training and trainer-option paths'
     # modules are scanned, and FastPitch's, the teacher's synthesis,
-    # evaluation and tracing, and the custom ops and the export
+    # evaluation and tracing, the custom ops and the export, and the data
+    # parallelism
     names = {p.relative_to(ROOT).as_posix() for p in files}
     for module in ('dsp/stft', 'dsp/griffinlim', 'dsp/audio',
                    'text/segmenter', 'models/hifigan', 'models/melgan',
@@ -158,7 +160,9 @@ def test_port_imports_no_jax():
                    'utils/checkpoints', 'models/fast_pitch', 'gen_tacotron',
                    'evaluation', 'eval_tts', 'utils/profiling', 'weights',
                    'gen_forward', 'train_forward', 'train/forward_trainer',
-                   'kernels/ops', 'utils/export', 'export_forward'):
+                   'kernels/ops', 'utils/export', 'export_forward',
+                   'parallel/__init__', 'parallel/mesh',
+                   'parallel/distributed'):
         assert f'forwardtacotron_tpu_torch/{module}.py' in names, module
     for path in files:
         for name in _imports(path):
