@@ -222,7 +222,22 @@ printed only when every phase passed):
    `VocTrainer.train` (3 steps each at batch 32) under a one-rank NCCL mesh
    against no group (within 1e-6), each step by `step_timing` with and
    without the mesh and the gradient all-reduce alone;
-17. a {"kernels": [...]} JSON line (launches of the main paths, of the
+17. the trainers' plots and the mesh's 'model' axis at the full width of
+   config.yaml, random weights (`logging_and_model_axis_path` lists its
+   cuts): `ForwardTrainer.train` and `TacoTrainer.train` (r=5), 2 steps
+   each at batch 32 with `plot_every` 1 and a recording writer (three
+   finite wavs a plot, the teacher-forced ones of the target's length;
+   without matplotlib the figures skipped with the note), one more
+   `generate_plots` each timed by CUDA events with its #1 launches held
+   to those of its passes called directly; two spawned gloo ranks sharing
+   the card as data 1 x model 2, one student and one WaveRNN step on the
+   whole batch of 32 against one process (loss within rel 1e-5, gradient
+   shards within 1e-4 where |g| > 1e-4, the peers' gathered weights
+   bit-identical, #2/#3 counted a rank, each rank's resident parameters
+   and Adam state within 2% of the share `param_spec` predicts, by the
+   caching allocator's requested bytes, `torch.cuda.memory_allocated`
+   with the allocator's block slack reported beside);
+18. a {"kernels": [...]} JSON line (launches of the main paths, of the
    teacher phase in `launches_teacher`, of the vocoder phase in
    `launches_vocoder`, of the options phase in `launches_options`, of
    phase 12's FastPitch paths in `launches_fast_pitch` and of its
@@ -230,8 +245,8 @@ printed only when every phase passed):
    multi-speaker paths in `launches_multispeaker` and of its aligner runs
    in `launches_aligner`, of phase 14's fused replays in `launches_fused`
    and of its exported artifacts in `launches_export`, of phase 15 in
-   `launches_native_io`, of phase 16 in `launches_parallel`,
-   each kernel's time at the vocoder path's shape in `vocoder_*` and #2/#3
+   `launches_native_io`, of phase 16 in `launches_parallel`, of phase 17
+   in `launches_logging_model_axis`, each kernel's time at the vocoder path's shape in `vocoder_*` and #2/#3
    in bf16 in `bf16_*`; #2's cluster path with the cooperative path's
    times on the same inputs in `*cooperative_ms`), the nvidia-smi line,
    and last
@@ -251,6 +266,7 @@ import subprocess
 import sys
 import time
 import traceback
+import types
 import warnings
 from pathlib import Path
 
@@ -5848,6 +5864,417 @@ def parallel_path():
     return out
 
 
+# ------------------------------------------------------------- phase 17
+
+AXIS_DIR = Path('smoke_axis')   # dataset, checkpoints and logs of phase 17
+AXIS_STEPS = 2
+AXIS_BATCH = 32
+MEMORY_REL = 0.02               # resident bytes against param_spec's share
+
+
+class _Recorder:
+    """A writer for the card's machine, which has no tensorboardX: keeps
+    every scalar, figure tag and wav."""
+
+    def __init__(self):
+        self.scalars, self.figures, self.wavs = [], [], []
+
+    def add_scalar(self, tag, value, step):
+        self.scalars.append((tag, float(value), int(step)))
+
+    def add_figure(self, tag, fig, step):
+        self.figures.append((tag, int(step)))
+
+    def add_audio(self, tag, wav, step, sample_rate):
+        self.wavs.append((tag, int(step), np.asarray(wav), int(sample_rate)))
+
+
+def _plots_run(kind, cfg, base, smi):
+    """(a) for one trainer: `ForwardTrainer` (kind 'student') or
+    `TacoTrainer` (r=5) for AXIS_STEPS steps at batch 32 with `plot_every`
+    1 and a recording writer; then `generate_plots` once more, timed by
+    CUDA events, and its #1 launches against those of the eval forward
+    and the generation it runs, called directly."""
+    from forwardtacotron_tpu_torch.data.dataset import get_tts_datasets
+    from forwardtacotron_tpu_torch.models.forward_tacotron import (
+        ForwardTacotron)
+    from forwardtacotron_tpu_torch.models.tacotron import Tacotron
+    from forwardtacotron_tpu_torch.train import common as tc
+    from forwardtacotron_tpu_torch.train.forward_trainer import (
+        ForwardTrainer, batch_to_device)
+    from forwardtacotron_tpu_torch.train.taco_trainer import (
+        TacoTrainer, taco_batch_to_device)
+    from forwardtacotron_tpu_torch.utils.display import can_plot
+    from forwardtacotron_tpu_torch.utils.paths import Paths
+    student = kind == 'student'
+    r = 1 if student else 5
+    section = 'forward_tacotron' if student else 'tacotron'
+    cfg = copy.deepcopy(cfg)
+    cfg[section]['training'].update(
+        schedule=[f'1e-4, {AXIS_STEPS}, {AXIS_BATCH}' if student
+                  else f'{r}, 1e-4, {AXIS_STEPS}, {AXIS_BATCH}'],
+        plot_every=1, checkpoint_every=1000)
+    paths = Paths(cfg['data_path'], f'axis_{kind}', base=base)
+    writer = _Recorder()
+    torch.manual_seed(0)
+    model = (ForwardTacotron if student else Tacotron).from_config(cfg)
+    trainer = (ForwardTrainer if student else TacoTrainer)(
+        paths, cfg, DEVICE, writer=writer)
+    _all_counts(reset=True)
+    t0 = time.perf_counter()
+    step = trainer.train(model, tc.make_optimizer(model))
+    _sync(DEVICE)
+    wall = time.perf_counter() - t0
+    launches = _all_counts()
+    check(step == AXIS_STEPS, f'{kind}: the trainer reached step {step}')
+    wav_tags = ['Ground_Truth_Aligned/target_wav',
+                'Ground_Truth_Aligned/postnet_wav', 'Generated/postnet_wav']
+    check([t for t, _, _, _ in writer.wavs] == AXIS_STEPS * wav_tags,
+          f'{kind}: generate_plots wrote its three wavs at every step '
+          f'({[t for t, _, _, _ in writer.wavs]})')
+    val = get_tts_datasets(paths.data, AXIS_BATCH, r, None,
+                           model_type='forward' if student else 'tacotron',
+                           filter_attention=False)[1]
+    sample = val.first_batch()
+    hop = cfg['dsp']['hop_length']
+    target_len = (min(600, sample['mel'].shape[1]) - 1) * hop
+    for tag, _, wav, sr in writer.wavs:
+        check(np.isfinite(wav).all() and wav.dtype == np.float32
+              and sr == cfg['dsp']['sample_rate'],
+              f'{kind}: {tag} finite float32 at {sr} Hz')
+        if tag != 'Generated/postnet_wav':
+            check(len(wav) == target_len,
+                  f'{kind}: {tag} has the target length ({len(wav)} vs '
+                  f'{target_len})')
+    if can_plot():
+        check(len(writer.figures) > 0, f'{kind}: figures written')
+    else:
+        check(not writer.figures and trainer._plots_noted,
+              f'{kind}: no matplotlib here: the figures skipped with the '
+              'note')
+    session = types.SimpleNamespace(val_sample=sample, r=r)
+    _all_counts(reset=True)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    trainer.generate_plots(model, session, step)
+    end.record()
+    torch.cuda.synchronize()
+    plots_ms = start.elapsed_time(end)
+    in_plots = _all_counts()['birnn']
+    _all_counts(reset=True)
+    model.eval()
+    with torch.no_grad():
+        if student:
+            batch = batch_to_device(sample, DEVICE)
+            model(batch)
+            model.generate(batch['x'][0:1], int(batch['mel'].shape[1]),
+                           x_len=batch['x_len'][0:1],
+                           compute_dtype=torch.float32)
+        else:
+            batch = taco_batch_to_device(sample, DEVICE)
+            model(batch['x'], batch['mel'], r)
+            steps = int(batch['mel_len'][0]) + 20
+            model.generate(batch['x'][0:1], steps + (-steps) % r, r)
+    _sync(DEVICE)
+    direct = _all_counts()['birnn']
+    model.train()
+    log(f'  {kind}: {step} steps with plots at every step in {wall:.1f} s '
+        f'(host clock); generate_plots {plots_ms:.1f} ms (CUDA events) with '
+        f'{in_plots} #1 launches ({direct} in its forward and generation '
+        f'called directly); figures {len(writer.figures)}, wavs '
+        f'{len(writer.wavs)}; launches {launches} | {smi}')
+    check(in_plots == direct > 0, f'{kind}: generate_plots launched #1 as '
+                                  f'its passes do ({in_plots} vs {direct})')
+    return {'wall_s': wall, 'generate_plots_ms': plots_ms,
+            'birnn_launches_in_plots': in_plots, 'launches': launches,
+            'figures': len(writer.figures),
+            'wavs': [(t, len(w)) for t, _, w, _ in writer.wavs]}
+
+
+def _axis_model(kind, cfg, device):
+    from forwardtacotron_tpu_torch.models.forward_tacotron import (
+        ForwardTacotron)
+    from forwardtacotron_tpu_torch.models.wavernn import WaveRNN
+    torch.manual_seed(0)
+    return (ForwardTacotron if kind == 'student' else WaveRNN).from_config(
+        cfg).to(device)
+
+
+def _axis_step(kind, cfg, batch, mesh, device):
+    """One step of `kind` ('student' or 'wavernn') from seed 0 on the
+    whole `batch`, the weights in shards over `mesh`'s 'model' axis:
+    (metrics, this rank's gradients, the state after gathered whole, the
+    launches, the resident bytes of the parameters and Adam's state
+    between steps and those `param_spec` predicts)."""
+    import gc
+    from forwardtacotron_tpu_torch.parallel import data_parallel
+    from forwardtacotron_tpu_torch.parallel.mesh import param_specs
+    from forwardtacotron_tpu_torch.parallel.model_axis import (shard_module,
+                                                               unshard)
+    from forwardtacotron_tpu_torch.train import common as tc
+    from forwardtacotron_tpu_torch.train import forward_trainer, voc_trainer
+    n = 1 if mesh is None else mesh.shape['model']
+    before_model = _allocated(device)[0]
+    model = _axis_model(kind, cfg, device)
+    specs = param_specs(model, n)
+    whole = {name: p.numel() * p.element_size()
+             for name, p in model.named_parameters()}
+    opt = tc.make_optimizer(model)
+    shard_module(model, mesh, [opt])
+    sharded_model = _allocated(device)[0] - before_model
+    if kind == 'student':
+        rows = forward_trainer.batch_to_device(batch, device)
+    else:
+        rows = voc_trainer.batch_to_device(batch, device)
+    _all_counts(reset=True)
+    with data_parallel(mesh):
+        if kind == 'student':
+            metrics = tc.train_step(
+                model, opt, rows, torch.Generator(device).manual_seed(0),
+                cfg['forward_tacotron']['training'])
+        else:
+            metrics = voc_trainer.voc_train_step(
+                model, opt, rows, 'RAW',
+                cfg['vocoder']['training']['clip_grad_norm'])
+    _sync(device)
+    launches = _all_counts()
+    grads = {k: p.grad.detach().cpu() for k, p in model.named_parameters()
+             if p.grad is not None}
+    predicted = sum(b.numel() * b.element_size() for b in model.buffers())
+    for name, p in model.named_parameters():
+        share = whole[name] // (1 if specs[name] is None else n)
+        predicted += share * (3 if p in opt.state else 1)
+    del rows
+    opt.zero_grad(set_to_none=True)
+    gc.collect()
+    with_model = _allocated(device)
+    storages = {}
+    for t in list(model.parameters()) + list(model.buffers()) + [
+            v for st in opt.state.values() for v in st.values()
+            if torch.is_tensor(v)]:
+        if t.device.type != 'cpu':
+            storages[t.untyped_storage().data_ptr()] = \
+                t.untyped_storage().nbytes()
+    unshard(model)
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    del model, opt
+    gc.collect()
+    resident = [a - b for a, b in zip(with_model, _allocated(device))]
+    return {'metrics': {k: float(v) for k, v in metrics.items()},
+            'grads': grads, 'state': state, 'launches': launches,
+            'resident_bytes': resident[1], 'allocated_bytes': resident[0],
+            'predicted_bytes': predicted,
+            'tensor_bytes': sum(storages.values()),
+            'resident_before_step': sharded_model,
+            'whole_param_bytes': sum(whole.values()),
+            'model_rank': 0 if mesh is None else mesh.model_rank}
+
+
+def _sync(device):
+    if device == 'cuda':
+        torch.cuda.synchronize()
+
+
+def _allocated(device):
+    """The caching allocator's (allocated, requested) bytes on the device
+    ((0, 0) off the card, where no check of them can pass), after it has
+    handled the completed events of blocks freed while another stream
+    used them (gloo's). Allocated counts whole blocks: a large block keeps
+    up to 1 MB of slack where the rest is too small to split off;
+    requested counts what the tensors asked for."""
+    if device != 'cuda':
+        return 0, 0
+    torch.cuda.synchronize()
+    torch.empty(1, device=device)     # malloc processes completed events
+    return (torch.cuda.memory_allocated(),
+            torch.cuda.memory_stats()['requested_bytes.all.current'])
+
+
+def _axis_rank(rank, store, base, out_dir, device):
+    """(b): rank `rank` of 2 gloo ranks sharing `device` (cuda:0) as data
+    1 x model 2: one student step and one WaveRNN step on the whole global
+    batch, the weights in shards. Results in out_dir/rank<r>.pt."""
+    import torch.distributed as dist
+    if device == 'cuda':
+        torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group('gloo', init_method=f'file://{store}',
+                            rank=rank, world_size=2)
+    try:
+        from forwardtacotron_tpu_torch.parallel import make_mesh
+        mesh = make_mesh(n_data=1, n_model=2, devices=[device, device])
+        cfg, batches = torch.load(Path(base) / 'axis_inputs.pt',
+                                  weights_only=False)
+        out = {}
+        for kind in ('student', 'wavernn'):
+            t0 = time.perf_counter()
+            out[kind] = _axis_step(kind, cfg, batches[kind], mesh, device)
+            out[kind]['wall_s'] = time.perf_counter() - t0
+        torch.save(out, Path(out_dir) / f'rank{rank}.pt')
+    finally:
+        dist.destroy_process_group()
+
+
+def _model_axis(cfg, base, batches, smi):
+    """(b): two gloo ranks on cuda:0 as data 1 x model 2 against one
+    process on the whole batch of 32."""
+    import torch.multiprocessing as mp
+    out_dir = base / 'axis_ranks'
+    out_dir.mkdir()
+    torch.save((cfg, batches), base / 'axis_inputs.pt')
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_axis_rank, args=(
+        str(base / 'axis_store'), str(base), str(out_dir), DEVICE), nprocs=2,
+        join=False, start_method='spawn')
+    deadline = time.monotonic() + 600
+    try:
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
+            if time.monotonic() >= deadline:
+                raise TimeoutError('two ranks still running after 600 s')
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(out_dir / f'rank{r}.pt', weights_only=False)
+             for r in range(2)]
+    out = {'wall_s': wall}
+    for kind, step, clip, lr in (
+            ('student', _student_step,
+             cfg['forward_tacotron']['training']['clip_grad_norm'], 1e-4),
+            ('wavernn', _wavernn_step,
+             cfg['vocoder']['training']['clip_grad_norm'], 1e-4)):
+        one = step(cfg, batches[kind])[2]
+        r0, r1 = ranks[0][kind], ranks[1][kind]
+        identical = all(torch.equal(r0['state'][k], r1['state'][k])
+                        for k in r0['state'])
+        loss_rel = abs(r0['metrics']['loss'] - one['metrics']['loss']) \
+            / abs(one['metrics']['loss'])
+        want = _unclipped(one, clip)
+        g_abs = g_rel = 0.0
+        for res in (r0, r1):
+            got = _unclipped(res, clip)
+            chunks = {}
+            for k, w in want.items():
+                if got[k].shape != w.shape:
+                    dim = [a != b for a, b in zip(got[k].shape,
+                                                  w.shape)].index(True)
+                    w = w.chunk(2, dim)[res['model_rank']]
+                chunks[k] = w
+            a, rel = _large_grad_errors(got, chunks)
+            g_abs, g_rel = max(g_abs, a), max(g_rel, rel)
+        p_diff = _max_diff(r0['state'], one['state'])
+        fwd = [ranks[r][kind]['launches']['birnn_train_fwd'] for r in range(2)]
+        bwd = [ranks[r][kind]['launches']['birnn_train_bwd'] for r in range(2)]
+        mem = [(ranks[r][kind]['resident_bytes'],
+                ranks[r][kind]['predicted_bytes']) for r in range(2)]
+        allocated = [ranks[r][kind]['allocated_bytes'] for r in range(2)]
+        log(f'  {kind}: a rank\'s device tensors between steps (unique '
+            f'storages of the parameters, buffers and Adam state) '
+            f'{[ranks[r][kind]["tensor_bytes"] for r in range(2)]}; '
+            f'memory_allocated by them {allocated} (whole blocks: the '
+            f'allocator\'s slack included); allocated by the model made '
+            f'and sharded, before the step '
+            f'{[ranks[r][kind]["resident_before_step"] for r in range(2)]}')
+        mem_rel = max(abs(a - b) / b for a, b in mem)
+        log(f'  {kind}, data 1 x model 2 (2 gloo ranks on cuda:0) against '
+            f'one process at {AXIS_BATCH}: loss {r0["metrics"]["loss"]:.6f} '
+            f'vs {one["metrics"]["loss"]:.6f} (rel {loss_rel:.3g}); gradient '
+            f'shards where |g| > 1e-4: max abs {g_abs:.3g}, max rel '
+            f'{g_rel:.3g}; state after max {p_diff:.3g}; peers identical '
+            f'{identical}; #2 {fwd} #3 {bwd} a rank; resident bytes '
+            f'(requested, param_spec) {mem} of {r0["whole_param_bytes"]} '
+            f'whole parameter bytes (rel {mem_rel:.3g}); rank seconds '
+            f'{[ranks[r][kind]["wall_s"] for r in range(2)]} | {smi}')
+        check(loss_rel <= 1e-5, f'{kind}: model-axis loss within rel 1e-5 '
+                                f'of one process ({loss_rel:.3g})')
+        check(g_abs <= 1e-4, f'{kind}: gradient shards within 1e-4 where '
+                             f'|g| > 1e-4 ({g_abs:.3g})')
+        check(p_diff <= 2 * lr + 1e-6, f'{kind}: parameters after within '
+                                       f'2 lr of one process ({p_diff:.3g})')
+        check(identical, f'{kind}: the peers\' gathered weights '
+                         'bit-identical')
+        check(all(f > 0 for f in fwd) and all(b > 0 for b in bwd),
+              f'{kind}: #2/#3 launched on each rank ({fwd}, {bwd})')
+        check(mem_rel <= MEMORY_REL, f'{kind}: each rank\'s resident '
+                                     f'parameters and Adam state (the '
+                                     f'allocator\'s requested bytes) within '
+                                     f'{MEMORY_REL:.0%} of param_spec\'s '
+                                     f'share ({mem})')
+        out[kind] = {'loss': r0['metrics']['loss'],
+                     'loss_one': one['metrics']['loss'], 'loss_rel': loss_rel,
+                     'grad_max_abs': g_abs, 'grad_max_rel': g_rel,
+                     'state_max_diff': p_diff, 'identical': identical,
+                     'resident_bytes': mem, 'memory_rel': mem_rel,
+                     'tensor_bytes': [ranks[r][kind]['tensor_bytes']
+                                      for r in range(2)],
+                     'allocated_bytes': allocated,
+                     'whole_param_bytes': r0['whole_param_bytes'],
+                     'rank_wall_s': [ranks[r][kind]['wall_s']
+                                     for r in range(2)],
+                     'launches_per_rank': [ranks[r][kind]['launches']
+                                           for r in range(2)]}
+    return out
+
+
+@phase('plots, writers and the mesh\'s model axis (full width)')
+def logging_and_model_axis_path():
+    """The trainers' plots and audio samples and the mesh's 'model' axis
+    on the one H100 at config.yaml's widths, random weights from seeds, in
+    AXIS_DIR. Cuts: AXIS_STEPS steps of each trainer (300k and 600k);
+    phase 8's dataset (96 + 32 items, 520-870 frames); a recording writer
+    (the card's machine has neither tensorboardX nor matplotlib, so the
+    figures are skipped with the note); the 'model' axis over two gloo
+    ranks sharing the one card (NCCL refuses two ranks on one device),
+    not two cards.
+
+    (a) `ForwardTrainer.train` and `TacoTrainer.train` (r=5) at batch 32
+        with `plot_every` 1 (`_plots_run`): `generate_plots` on the card,
+        its wavs, its #1 launches and its time;
+    (b) two ranks as data 1 x model 2 against one process, a student and
+        a WaveRNN step each, and what each rank stores (`_model_axis`)."""
+    from forwardtacotron_tpu_torch.config import default_config
+    from forwardtacotron_tpu_torch.data.dataset import (get_tts_datasets,
+                                                        get_vocoder_datasets)
+    smi = nvidia_smi_line()
+    shutil.rmtree(AXIS_DIR, ignore_errors=True)
+    AXIS_DIR.mkdir(parents=True)
+    base = AXIS_DIR.resolve()
+    cfg = _no_dropout_student(default_config())
+    out = {'nvidia_smi': smi}
+    try:
+        data, voc_data = base / 'data', base / 'voc_data'
+        _write_dataset(data)
+        cfg['data_path'] = str(data)
+        out['student_plots'] = _plots_run('student', cfg, base, smi)
+        out['teacher_plots'] = _plots_run('teacher', cfg, base, smi)
+        _write_voc_dataset(voc_data, cfg)
+        s_train, _ = get_tts_datasets(data, AXIS_BATCH, 1, None)
+        v_tc = cfg['vocoder']['training']
+        v_train, _, _ = get_vocoder_datasets(
+            voc_data, AXIS_BATCH, False, v_tc['max_mel_len'],
+            cfg['dsp']['hop_length'], cfg['vocoder']['model']['pad'],
+            v_tc['seq_len'], 'RAW', cfg['dsp']['bits'], 1)
+        batches = {'student': next(b for b in s_train.batches(0)
+                                   if b['x'].shape[0] == AXIS_BATCH),
+                   'wavernn': next(iter(v_train))}
+        out['model_axis'] = _model_axis(cfg, base, batches, smi)
+        launches = {}
+        for part in (out['student_plots']['launches'],
+                     out['teacher_plots']['launches'],
+                     out['model_axis']['student']['launches_per_rank'][0],
+                     out['model_axis']['wavernn']['launches_per_rank'][0]):
+            for k, v in part.items():
+                launches[k] = launches.get(k, 0) + v
+        out['launches'] = launches
+    finally:
+        shutil.rmtree(AXIS_DIR, ignore_errors=True)
+    DETAILS['logging_and_model_axis_path'] = out
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser()
@@ -5888,6 +6315,7 @@ def main(argv=None) -> int:
     ef = export_and_fused_path() or {}
     nio = native_io_path() or {}
     par = parallel_path() or {}
+    ax = logging_and_model_axis_path() or {}
 
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / 'chip_smoke.json').write_text(json.dumps(
@@ -5930,6 +6358,9 @@ def main(argv=None) -> int:
     # phase 16: the one-rank mesh's trainers, rank 0 of the two ranks'
     # steps, the sharded vocode and the server with a mesh
     pal = par['launches']
+    # phase 17: the student's and the teacher's runs with plots at every
+    # step, and rank 0 of the model axis's student and WaveRNN steps
+    axl = ax['launches']
     kernels = [
         {'name': 'birnn (stream-local path)', 'route': 'cuda',
          'source': 'forwardtacotron_tpu_torch/csrc/birnn.cu',
@@ -5952,6 +6383,7 @@ def main(argv=None) -> int:
          'launches_export': exl['birnn_stream_local'],
          'launches_native_io': nil['birnn_stream_local'],
          'launches_parallel': pal['birnn_stream_local'],
+         'launches_logging_model_axis': axl['birnn_stream_local'],
          'vocoder_case': voc_birnn['case'],
          'vocoder_ms': voc_birnn['ms_stream_local'],
          'vocoder_plain_ms': voc_birnn['plain_ms'],
@@ -5972,6 +6404,7 @@ def main(argv=None) -> int:
          'launches_export': exl['wavernn_sample'],
          'launches_native_io': nil['wavernn_sample'],
          'launches_parallel': pal['wavernn_sample'],
+         'launches_logging_model_axis': axl['wavernn_sample'],
          'max_abs_err': wr['max_abs_err'], 'agreement': wr['agreement'],
          'ms': wr['ms'], 'plain_ms': wr['plain_ms'],
          'bound_ms': wr['bound_ms'], 'bound_by': wr['bound_by'],
@@ -6016,6 +6449,7 @@ def main(argv=None) -> int:
             'launches_fused': fus[count], 'launches_export': exl[count],
             'launches_native_io': nil[count],
             'launches_parallel': pal[count],
+            'launches_logging_model_axis': axl[count],
             'case': row['case'],
             'max_abs_err': row[f'max_abs_err_{sfx}'],
             'ms': row[f'ms_{sfx}'], 'plain_ms': row[f'plain_ms_{sfx}'],

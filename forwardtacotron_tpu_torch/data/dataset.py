@@ -228,6 +228,15 @@ class BucketBatcher:
         return sum((len(idxs) + self.batch_size - 1) // self.batch_size
                    for idxs in self.buckets.values())
 
+    def first_batch(self) -> Optional[Dict]:
+        """The smallest bucket's first `batch_size` items as one batch,
+        padded as every batch is (the trainers' plotting sample); None
+        without items."""
+        if not self.buckets:
+            return None
+        b = min(self.buckets)
+        return self._make_batch(b, self.buckets[b][:self.batch_size])
+
     def _make_batch(self, bucket: int, idxs: List[int]) -> Dict:
         n_real = len(idxs)
         while len(idxs) < self.batch_size:

@@ -60,7 +60,8 @@ def aligner_loss(model: Aligner, batch: Dict[str, torch.Tensor],
                  generator: Optional[torch.Generator] = None
                  ) -> torch.Tensor:
     """The forward-sum loss of the model's log attention over a batch."""
-    log_att = model(batch['x'], batch['mel'], batch['x_len'], generator)
+    log_att = tc.forward_model(model, batch['x'], batch['mel'],
+                               batch['x_len'], generator)
     return forward_sum_loss(log_att, batch['x_len'], batch['mel_len'])
 
 
@@ -95,7 +96,7 @@ def aligner_eval_loss(model: Aligner, val_set, device) -> float:
     return float(np.mean(losses)) if losses else float('nan')
 
 
-class AlignerTrainer:
+class AlignerTrainer(tc.Logging):
 
     def __init__(self, paths: Paths, config: Dict[str, Any],
                  device='cuda', writer=None, mesh=None) -> None:
@@ -105,15 +106,12 @@ class AlignerTrainer:
         self.device = self.ranks.device(device)
         self.train_cfg = config.get('aligner', {}).get('training', {})
         tc.check_supported(self.train_cfg, 'aligner', 'aligner.training')
+        self.log_dir = paths.aligner_log
         self.writer = writer
         self.preemption = tc.Preemption()
         self.ckpt = self.ranks.writer()
         # FTT_PROFILE_DIR traces a window of steps
         self.tracer = StepTraceController()
-
-    def _scalar(self, tag: str, value: float, step: int) -> None:
-        if self.writer is not None and self.ranks.main:
-            self.writer.add_scalar(tag, value, step)
 
     def train(self, model: Aligner,
               optimizer: Optional[torch.optim.Optimizer] = None,
@@ -125,6 +123,7 @@ class AlignerTrainer:
         if optimizer is None:
             optimizer = tc.make_optimizer(model)
         self.ranks.start([model], seed)
+        self.ranks.shard([model], [optimizer])
         schedule = parse_schedule(self.train_cfg.get('schedule',
                                                      DEFAULT_SCHEDULE))
         session_start = 0
@@ -156,6 +155,8 @@ class AlignerTrainer:
                                         start_step=prev_max)
                 step = self.train_session(model, optimizer, step, session,
                                           seed)
+        self.ranks.finish()
+        self._flush_writer()
         return step
 
     def train_session(self, model: Aligner, optimizer, step: int,
@@ -191,26 +192,28 @@ class AlignerTrainer:
                 self.tracer.tick(step)
                 deferred.push(metrics, step)
                 if step % ckpt_every == 0 or step >= session.max_step:
-                    if self.ranks.main:
-                        val = aligner_eval_loss(model, session.val_set,
-                                                self.device)
-                        print(f'\n| Validation at step {step}: loss '
-                              f'{val:#.4}')
-                        self._scalar('aligner/val_loss', val, step)
-                        self.ckpt.save(checkpoint_payload(
-                            model, optimizer, self.config, step),
-                            self.paths.aligner_checkpoints
-                            / 'latest_model.pt')
+                    with self.ranks.whole():
+                        if self.ranks.main:
+                            val = aligner_eval_loss(model, session.val_set,
+                                                    self.device)
+                            print(f'\n| Validation at step {step}: loss '
+                                  f'{val:#.4}')
+                            self._scalar('aligner/val_loss', val, step)
+                            self.ckpt.save(checkpoint_payload(
+                                model, optimizer, self.config, step),
+                                self.paths.aligner_checkpoints
+                                / 'latest_model.pt')
                     self.ranks.barrier()
                 if step >= session.max_step \
                         or self.ranks.stop(self.preemption):
                     break
         deferred.flush()
         if self.preemption.requested:
-            self.ckpt.save(checkpoint_payload(model, optimizer, self.config,
-                                              step),
-                           self.paths.aligner_checkpoints
-                           / 'latest_model.pt')
+            with self.ranks.whole():
+                self.ckpt.save(checkpoint_payload(model, optimizer,
+                                                  self.config, step),
+                               self.paths.aligner_checkpoints
+                               / 'latest_model.pt')
         self.ckpt.wait()    # on disk before the session returns
         self.ranks.barrier()
         return step

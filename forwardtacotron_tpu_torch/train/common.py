@@ -37,12 +37,23 @@ Data parallelism (`parallel/`): a trainer given a mesh (or, with a
 process group of more than one rank up, the mesh of `config['tpu']`) runs
 its step on this rank's rows of the global batch inside
 `parallel.data_parallel` (`Ranks`). `apply_update` then averages the
-gradients and the metrics over the ranks before the clip (once a step,
-after every micro-batch of `grad_accum`), so the step is the one-process
-step on the global batch and every rank keeps the same parameters. Rank 0
-alone prints, evaluates and writes files; the other ranks wait at a
-barrier. Dropout and zoneout draw from seed + rank (JAX draws one global
-mask).
+gradients and the metrics over the data axis before the clip (once a
+step, after every micro-batch of `grad_accum`), so the step is the
+one-process step on the global batch and every rank keeps the same
+parameters. Over a 'model' axis (`Ranks.shard`, `parallel.model_axis`)
+each rank keeps its shards of the parameters, of Adam's moments and of the
+EMA between steps; `forward_model` gathers the weights whole before the
+forward, `apply_update` keeps the rank's slice of the gradients and clips
+by the whole norm, and `Ranks.whole` gathers everything on every rank for
+evaluation, plots and checkpoints. Global rank 0 alone prints, evaluates,
+plots and writes files; the other ranks wait at a barrier. Dropout and
+zoneout draw from seed + data index (JAX draws one global mask), so the
+peers of a model group draw the same.
+
+The trainers' TensorBoard writer (`Logging`): the `writer=` given, else on
+rank 0 a tensorboardX `SummaryWriter` under the run's log path, made at
+first use (without tensorboardX, scalars go to stdout only). Figures are
+skipped, with a note, where matplotlib cannot be imported.
 """
 from __future__ import annotations
 
@@ -65,8 +76,14 @@ from forwardtacotron_tpu_torch.parallel import (Mesh, broadcast_state,
                                                 mesh_from_config,
                                                 reduce_gradients,
                                                 reduce_metrics)
+from forwardtacotron_tpu_torch.parallel.model_axis import (gather_weights,
+                                                           shard_module,
+                                                           shards_of,
+                                                           unshard,
+                                                           whole_state)
 from forwardtacotron_tpu_torch.utils.async_ckpt import (AsyncCheckpointWriter,
                                                      map_tensors)
+from forwardtacotron_tpu_torch.utils.display import can_plot
 from forwardtacotron_tpu_torch.utils.files import (pickle_binary,
                                                    unpickle_binary)
 
@@ -156,7 +173,9 @@ def forward_model(model: torch.nn.Module, *args,
     buffers stay as they are) and the outputs come back in it. With
     `remat`, the forward is recomputed in the backward; `generators` are
     the explicit generators the forward draws from, replayed for the
-    recompute."""
+    recompute. A model sharded over the mesh's 'model' axis is gathered
+    whole first (`parallel.model_axis`)."""
+    gather_weights(model)
     if half is None and not remat:
         return model(*args)
     params = None
@@ -207,6 +226,24 @@ class EMA:
             self.params[n] = src.detach().to(p.device, p.dtype).clone()
 
 
+@contextlib.contextmanager
+def swapped_params(model: torch.nn.Module,
+                   params: Optional[Dict[str, torch.Tensor]]) -> Iterable:
+    """Within it, the model's parameters hold `params` (by name; the EMA
+    weights), for calls other than `forward`; nothing where None."""
+    if params is None:
+        yield
+        return
+    saved = {n: p.data for n, p in model.named_parameters()}
+    try:
+        for n, p in model.named_parameters():
+            p.data = params[n]
+        yield
+    finally:
+        for n, p in model.named_parameters():
+            p.data = saved[n]
+
+
 def make_ema(model: torch.nn.Module, train_cfg: Dict[str, Any]
              ) -> Optional[EMA]:
     decay = float(train_cfg.get('ema_decay', 0) or 0)
@@ -246,14 +283,19 @@ def apply_update(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                  metrics: Dict[str, torch.Tensor],
                  clip: Optional[float], ema: Optional[EMA] = None) -> None:
     """Inside `parallel.data_parallel`, the gradients and the metrics
-    averaged over the ranks (in place); then the global-norm clip (where
-    `clip` is set, with the norm before clipping in
-    metrics['grad_norm']), the optimizer's step, the EMA."""
+    averaged over the data axis's ranks (in place), and of a model sharded
+    over the 'model' axis this rank's shards kept (`ModelShards.
+    shard_grads`); then the global-norm clip (where `clip` is set, with
+    the norm before clipping in metrics['grad_norm']), the optimizer's
+    step, the EMA."""
     reduce_gradients(model.parameters())
     metrics.update(reduce_metrics(metrics))
+    shards = shards_of(model)
+    if shards is not None:
+        shards.shard_grads()
     if clip is not None:
         metrics['grad_norm'] = clip_by_global_norm(model.parameters(),
-                                                   float(clip))
+                                                   float(clip), shards)
     optimizer.step()
     if ema is not None:
         ema.update(model)
@@ -329,15 +371,18 @@ class Ranks:
 
     def __init__(self, mesh: Optional[Mesh]) -> None:
         self.mesh = mesh
+        self.modules: List[torch.nn.Module] = []
 
     @property
     def main(self) -> bool:
-        """Rank 0 (or no mesh): the rank that prints, evaluates and
+        """Global rank 0 (or no mesh): the rank that prints, evaluates and
         writes."""
-        return self.mesh is None or self.mesh.rank == 0
+        return self.mesh is None or self.mesh.global_rank == 0
 
     @property
     def rank(self) -> int:
+        """The data index: the peers of a model group take the same rows
+        and draw the same masks."""
         return 0 if self.mesh is None else self.mesh.rank
 
     def device(self, device) -> torch.device:
@@ -363,15 +408,40 @@ class Ranks:
 
     def start(self, modules: Sequence[torch.nn.Module],
               seed: Optional[int] = None) -> None:
-        """At a run's start over more than one rank: rank 0's weights on
-        every rank, and the global RNG (ForwardTacotron's dropout) seeded
-        with seed + rank where a seed is given."""
-        if self.mesh is None or self.mesh.size == 1:
+        """At a run's start over more than one rank: global rank 0's
+        weights on every rank, and the global RNG (ForwardTacotron's
+        dropout) seeded with seed + data index where a seed is given."""
+        if self.mesh is None \
+                or self.mesh.size * self.mesh.shape['model'] == 1:
             return
         for m in modules:
             broadcast_state(m, self.mesh)
         if seed is not None:
             torch.manual_seed(seed + self.rank)
+
+    def shard(self, modules: Sequence[torch.nn.Module],
+              optimizers: Sequence[torch.optim.Optimizer] = (),
+              ema: Optional[EMA] = None) -> None:
+        """Over a 'model' axis, each module kept in shards from now on
+        (`parallel.model_axis`), with its state in `optimizers` and, for
+        the first module, `ema`; nothing without one."""
+        for i, m in enumerate(modules):
+            if shard_module(m, self.mesh, optimizers,
+                            ema if i == 0 else None) is not None:
+                self.modules.append(m)
+
+    def whole(self):
+        """The context in which the modules sharded over the 'model' axis
+        are whole on every rank, with their optimizer state and EMA (every
+        rank enters it together): evaluation, plots and checkpoints."""
+        return whole_state(self.modules)
+
+    def finish(self) -> None:
+        """At a run's end: the sharded modules whole again for good (every
+        rank calls it together)."""
+        for m in self.modules:
+            unshard(m)
+        self.modules = []
 
     def stop(self, preemption: 'Preemption') -> bool:
         """Whether to stop: the preemption flag, agreed over the ranks
@@ -404,6 +474,74 @@ class Ranks:
             yield
 
 
+def summary_writer(log_dir: Union[str, Path]):
+    """A tensorboardX `SummaryWriter(log_dir)` (JAX's trainers' default
+    writer), or None, after a one-line note, where tensorboardX is not
+    installed."""
+    try:
+        from tensorboardX import SummaryWriter
+    except ImportError:
+        print(f'| tensorboardX is not installed: scalars go to stdout only, '
+              f'and no event files are written to {log_dir}', flush=True)
+        return None
+    return SummaryWriter(log_dir=str(log_dir))
+
+
+class Logging:
+    """The TensorBoard writer of a trainer (`ranks`, `log_dir`): the
+    `writer` assigned (the trainers' `writer=`), else on the main rank a
+    `summary_writer(log_dir)` made at first use; None on the other
+    ranks."""
+    ranks: 'Ranks'
+    log_dir: Path
+    _writer: Any = None
+    _writer_made = False
+    _plots_noted = False
+
+    @property
+    def writer(self):
+        if not self.ranks.main:
+            return None
+        if self._writer is None and not self._writer_made:
+            self._writer_made = True
+            self._writer = summary_writer(self.log_dir)
+        return self._writer
+
+    @writer.setter
+    def writer(self, writer) -> None:
+        self._writer = writer
+        self._writer_made = writer is not None
+
+    def _scalar(self, tag: str, value: float, step: int) -> None:
+        writer = self.writer
+        if writer is not None:
+            writer.add_scalar(tag, value, step)
+
+    def _add_figure(self, tag: str, plot: Callable, data, step: int
+                    ) -> None:
+        """writer.add_figure(tag, plot(data), step) (tensors as float32
+        arrays); nothing without a writer, nor, after a one-time note,
+        where matplotlib cannot be imported."""
+        writer = self.writer
+        if writer is None:
+            return
+        if not can_plot():
+            if not self._plots_noted:
+                print('| matplotlib is not installed: the figures are '
+                      'skipped, the audio samples are written', flush=True)
+                self._plots_noted = True
+            return
+        if torch.is_tensor(data):
+            data = data.detach().float().cpu().numpy()
+        writer.add_figure(tag, plot(data), step)
+
+    def _flush_writer(self) -> None:
+        """The writer's events on disk (the end of a run)."""
+        flush = getattr(self._writer, 'flush', None)
+        if flush is not None and self.ranks.main:
+            flush()
+
+
 class Averager:
     def __init__(self) -> None:
         self.count = 0
@@ -431,6 +569,9 @@ class TTSSession:
         self.train_set = train_set
         self.val_set = val_set
         self.start_step = start_step
+        # the batch `generate_plots` draws from (JAX `TTSSession`)
+        self.val_sample = val_set.first_batch() if hasattr(
+            val_set, 'first_batch') else None
 
 
 class VocSession:
@@ -545,14 +686,17 @@ def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
 
 
 def clip_by_global_norm(params: Iterable[torch.Tensor],
-                        max_norm: float) -> torch.Tensor:
+                        max_norm: float, shards=None) -> torch.Tensor:
     """Scale the gradients in place by min(1, max_norm / ||g||), ||g|| the
     norm of all of them together: optax's `clip_by_global_norm`.
     `torch.nn.utils.clip_grad_norm_` divides by ||g|| + 1e-6 instead.
-    Returns ||g|| before clipping; no host synchronisation."""
+    With `shards` (the params' `ModelShards`), ||g|| is that of the whole
+    gradients (`grad_norm`). Returns ||g|| before clipping; no host
+    synchronisation."""
     grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    norm = shards.grad_norm() if shards is not None else \
+        torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(g) for g in grads]))
     scale = torch.where(norm < max_norm, torch.ones_like(norm),
                         max_norm / norm)
     torch._foreach_mul_(grads, scale)

@@ -11,13 +11,16 @@ in `top_k_models/`, written off the step loop (`AsyncCheckpointWriter`).
 It runs every option of the JAX step (`train/common.py`): `precision`,
 `grad_accum`, `remat` and `ema_decay`, whose EMA weights `evaluate()`
 and the top-k score use and the checkpoints serve. FastPitch draws its
-dropout from the step's generator. Scalars go to stdout, and to an
-optional `writer` with an `add_scalar(tag, value, step)` method;
-`FTT_PROFILE_DIR` traces a window of steps (`utils/profiling.py`). Under
-a mesh (`mesh=`, or a process group of more than one rank) each rank
-trains on its rows of every global batch and rank 0 alone evaluates,
-prints and writes (`train/common.py`, data parallelism). Not ported yet:
-plots and audio (`plot_every` is ignored).
+dropout from the step's generator. Scalars go to stdout and to the
+`writer` (`writer=`, an object with `add_scalar(tag, value, step)`, else
+a tensorboardX `SummaryWriter` under `paths.forward_log` where tensorboardX
+is installed). Every `plot_every` steps `generate_plots` writes JAX's
+figures and Griffin-Lim audio samples of the first validation batch
+(`session.val_sample`); `FTT_PROFILE_DIR` traces a window of steps
+(`utils/profiling.py`). Under a mesh (`mesh=`, or a process group of more
+than one rank) each rank trains on its rows of every global batch, the
+'model' axis keeps the weights in shards, and global rank 0 alone
+evaluates, plots, prints and writes (`train/common.py`, data parallelism).
 """
 from __future__ import annotations
 
@@ -32,6 +35,8 @@ from forwardtacotron_tpu_torch.data.dataset import (Prefetcher,
                                                     get_tts_datasets)
 from forwardtacotron_tpu_torch.train import common as tc
 from forwardtacotron_tpu_torch.utils.checkpoints import checkpoint_payload
+from forwardtacotron_tpu_torch.utils.display import (log_audio, plot_mel,
+                                                     plot_pitch)
 from forwardtacotron_tpu_torch.utils.files import parse_schedule
 from forwardtacotron_tpu_torch.utils.paths import Paths
 from forwardtacotron_tpu_torch.utils.profiling import StepTraceController
@@ -48,10 +53,10 @@ def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, Any]:
             for k in keys}
 
 
-class ForwardTrainer:
+class ForwardTrainer(tc.Logging):
 
     def __init__(self, paths: Paths, config: Dict[str, Any],
-                 device='cuda', writer=None, mesh=None) -> None:
+                 device='cuda', writer=None, mesh=None, dsp=None) -> None:
         self.paths = paths
         self.config = config
         self.ranks = tc.Ranks(tc.trainer_mesh(config, mesh))
@@ -60,7 +65,11 @@ class ForwardTrainer:
         model_type = config.get('tts_model', 'forward_tacotron')
         self.train_cfg = config[model_type]['training']
         tc.check_supported(self.train_cfg, 'forward', f'{model_type}.training')
+        self.log_dir = paths.forward_log
         self.writer = writer
+        # Griffin-Lim of the plots' audio (default: the config's DSP on
+        # the trainer's device, made at the first plot)
+        self.dsp = dsp
         self.preemption = tc.Preemption()
         self.top_k = tc.TopKTracker(
             paths.forward_top_k, k=int(self.train_cfg.get('keep_top_k', 3)),
@@ -71,15 +80,14 @@ class ForwardTrainer:
         # the EMA weights (`ema_decay` > 0); a resume sets them first
         self.ema: Optional[tc.EMA] = None
 
-    def _scalar(self, tag: str, value: float, step: int) -> None:
-        if self.writer is not None and self.ranks.main:
-            self.writer.add_scalar(tag, value, step)
-
     def _save(self, model, optimizer, path, step: int,
               on_complete=None) -> None:
-        self.ckpt.save(checkpoint_payload(model, optimizer, self.config,
-                                          step, self.ema),
-                       path, on_complete=on_complete)
+        """A checkpoint of whole tensors (every rank calls it; rank 0
+        writes it)."""
+        with self.ranks.whole():
+            self.ckpt.save(checkpoint_payload(model, optimizer, self.config,
+                                              step, self.ema),
+                           path, on_complete=on_complete)
 
     def train(self, model: torch.nn.Module,
               optimizer: Optional[torch.optim.Optimizer] = None,
@@ -94,6 +102,7 @@ class ForwardTrainer:
         self.ranks.start([model], seed)
         if self.ema is None:
             self.ema = tc.make_ema(model, self.train_cfg)
+        self.ranks.shard([model], [optimizer], self.ema)
         schedule = parse_schedule(self.train_cfg['schedule'])
         session_start = 0
         with self.preemption, contextlib.closing(self.tracer), \
@@ -126,6 +135,8 @@ class ForwardTrainer:
                                         start_step=prev_max)
                 step = self.train_session(model, optimizer, step, session,
                                           seed)
+        self.ranks.finish()
+        self._flush_writer()
         return step
 
     def train_session(self, model, optimizer, step: int,
@@ -190,6 +201,10 @@ class ForwardTrainer:
                     self._save(model, optimizer,
                                self.paths.forward_checkpoints /
                                f'forward_step{step // 1000}k.pt', step)
+                if step % self.train_cfg['plot_every'] == 0:
+                    with self.ranks.whole():
+                        if self.ranks.main:
+                            self.generate_plots(model, session, step)
                 if self.ranks.stop(self.preemption):
                     print('| Preemption requested: saving latest_model and '
                           'stopping.')
@@ -198,8 +213,9 @@ class ForwardTrainer:
                     break
             else:
                 deferred.flush()
-                if self.ranks.main:
-                    self._end_of_epoch(model, optimizer, session, step)
+                with self.ranks.whole():
+                    if self.ranks.main:
+                        self._end_of_epoch(model, optimizer, session, step)
                 self.ranks.barrier()
                 m_loss_avg.reset()
                 duration_avg.reset()
@@ -247,3 +263,66 @@ class ForwardTrainer:
                 totals[k] += float(metrics[k])
             n += 1
         return {k: v / max(n, 1) for k, v in totals.items()}
+
+    @torch.no_grad()
+    def generate_plots(self, model: torch.nn.Module, session: tc.TTSSession,
+                       step: int) -> None:
+        """JAX's `ForwardTrainer.generate_plots` on `session.val_sample`,
+        in eval mode with the EMA weights where kept: the teacher-forced
+        mels (first 600 frames), pitch and energy of its first item as
+        figures, the Griffin-Lim wavs of the target and the postnet mel
+        (`log_audio`, wavs in `forward_log/audio` where the writer takes
+        no audio), then a free-running float32 `generate` of that item up
+        to the batch's mel length: its postnet mel, pitch and energy, and
+        its wav. A failure is raised, not swallowed; without matplotlib the
+        figures are skipped (`tc.Logging._add_figure`)."""
+        if session.val_sample is None:
+            return
+        if self.dsp is None:
+            from forwardtacotron_tpu_torch.dsp.audio import DSP
+            self.dsp = DSP.from_config(self.config, device=self.device)
+        batch = batch_to_device(session.val_sample, self.device)
+        was_training = model.training
+        model.eval()
+        try:
+            with tc.swapped_params(model, None if self.ema is None
+                                   else self.ema.params):
+                pred = model(batch)
+                x_len = int(batch['x_len'][0])
+                max_t = int(batch['mel'].shape[1])
+                gen = model.generate(batch['x'][0:1], max_t,
+                                     x_len=batch['x_len'][0:1],
+                                     compute_dtype=torch.float32)
+        finally:
+            model.train(was_training)
+        m1_hat = pred['mel'][0, :600].float().cpu().numpy()
+        m2_hat = pred['mel_post'][0, :600].float().cpu().numpy()
+        m_target = batch['mel'][0, :600].cpu().numpy()
+        for tag, plot, data in (
+                ('Ground_Truth_Aligned/target', plot_mel, m_target),
+                ('Ground_Truth_Aligned/linear', plot_mel, m1_hat),
+                ('Ground_Truth_Aligned/postnet', plot_mel, m2_hat),
+                ('Pitch/target', plot_pitch, batch['pitch'][0]),
+                ('Pitch/ground_truth_aligned', plot_pitch, pred['pitch'][0]),
+                ('Energy/target', plot_pitch, batch['energy'][0]),
+                ('Energy/ground_truth_aligned', plot_pitch,
+                 pred['energy'][0])):
+            self._add_figure(tag, plot, data, step)
+        sr = self.dsp.sample_rate
+        audio_dir = self.paths.forward_log / 'audio'
+        log_audio(self.writer, 'Ground_Truth_Aligned/target_wav',
+                  self.dsp.griffinlim(m_target.T), step, sr,
+                  fallback_dir=audio_dir)
+        log_audio(self.writer, 'Ground_Truth_Aligned/postnet_wav',
+                  self.dsp.griffinlim(m2_hat.T), step, sr,
+                  fallback_dir=audio_dir)
+        gen_len = int(gen['mel_len'][0])
+        m2_gen = gen['mel_post'][0, :max(gen_len, 1)].float().cpu().numpy()
+        self._add_figure('Generated/postnet', plot_mel, m2_gen, step)
+        self._add_figure('Pitch/generated', plot_pitch,
+                         gen['pitch'][0][:x_len], step)
+        self._add_figure('Energy/generated', plot_pitch,
+                         gen['energy'][0][:x_len], step)
+        log_audio(self.writer, 'Generated/postnet_wav',
+                  self.dsp.griffinlim(m2_gen.T), step, sr,
+                  fallback_dir=audio_dir)

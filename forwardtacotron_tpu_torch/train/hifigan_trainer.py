@@ -150,7 +150,7 @@ def load_generator(gen: torch.nn.Module, payload: Dict[str, Any]) -> None:
     gen.load_state_dict(fold_weight_norm(payload['generator']))
 
 
-class HiFiGANTrainer:
+class HiFiGANTrainer(tc.Logging):
 
     def __init__(self, paths: Paths, dsp, config: Dict[str, Any],
                  device='cuda', writer=None, mesh=None) -> None:
@@ -164,6 +164,7 @@ class HiFiGANTrainer:
         self.ckpt = self.ranks.writer()
         # FTT_PROFILE_DIR traces a window of steps
         self.tracer = StepTraceController()
+        self.log_dir = paths.hifigan_log
         self.writer = writer
         self.preemption = tc.Preemption()
         self.top_k = tc.TopKTracker(
@@ -175,17 +176,17 @@ class HiFiGANTrainer:
             for d in (paths.hifigan_checkpoints, paths.hifigan_top_k):
                 (d / 'config.json').write_text(json.dumps(model_cfg))
 
-    def _scalar(self, tag: str, value: float, step: int) -> None:
-        if self.writer is not None and self.ranks.main:
-            self.writer.add_scalar(tag, value, step)
-
     def save_latest(self, gen, disc, gen_opt, disc_opt, step: int) -> None:
-        self.ckpt.save({**generator_file(gen),
-                        'discriminator': disc.state_dict(),
-                        'optim_g': gen_opt.state_dict(),
-                        'optim_d': disc_opt.state_dict(),
-                        'config': self.config, 'step': int(step)},
-                       self.paths.hifigan_checkpoints / 'latest_model.pt')
+        """latest_model.pt of whole tensors (every rank calls it; rank 0
+        writes it)."""
+        with self.ranks.whole():
+            self.ckpt.save({**generator_file(gen),
+                            'discriminator': disc.state_dict(),
+                            'optim_g': gen_opt.state_dict(),
+                            'optim_d': disc_opt.state_dict(),
+                            'config': self.config, 'step': int(step)},
+                           self.paths.hifigan_checkpoints
+                           / 'latest_model.pt')
 
     def train(self, gen: torch.nn.Module, disc: HiFiGANDiscriminators,
               gen_opt: Optional[torch.optim.Optimizer] = None,
@@ -199,6 +200,7 @@ class HiFiGANTrainer:
         gen_opt = gen_opt or make_gan_optimizer(gen)
         disc_opt = disc_opt or make_gan_optimizer(disc)
         self.ranks.start([gen, disc])
+        self.ranks.shard([gen, disc], [gen_opt, disc_opt])
         schedule = parse_schedule(self.train_cfg['schedule'])
         session_start = 0
         with self.preemption, contextlib.closing(self.tracer), \
@@ -227,6 +229,8 @@ class HiFiGANTrainer:
                     val_set_samples=val_set_samples, start_step=prev_max)
                 step = self.train_session(gen, disc, gen_opt, disc_opt,
                                           step, session, train_gta)
+        self.ranks.finish()
+        self._flush_writer()
         return step
 
     def train_session(self, gen, disc, gen_opt, disc_opt, step: int,
@@ -277,16 +281,19 @@ class HiFiGANTrainer:
                 self.tracer.tick(step)
                 deferred.push(metrics, step, e, i)
                 if step % self.train_cfg['gen_samples_every'] == 0:
-                    if self.ranks.main:
-                        mel_loss = self.generate_samples(gen, session, step)
-                        if mel_loss is not None:
-                            self.track_top_models(mel_loss, gen, step)
+                    with self.ranks.whole():
+                        if self.ranks.main:
+                            mel_loss = self.generate_samples(gen, session,
+                                                             step)
+                            if mel_loss is not None:
+                                self.track_top_models(mel_loss, gen, step)
                     self.ranks.barrier()
                 if step % self.train_cfg['checkpoint_every'] == 0:
-                    self.ckpt.save(
-                        generator_file(gen),
-                        self.paths.hifigan_checkpoints
-                        / f'hifigan_step{step // 1000}k.pt')
+                    with self.ranks.whole():
+                        self.ckpt.save(
+                            generator_file(gen),
+                            self.paths.hifigan_checkpoints
+                            / f'hifigan_step{step // 1000}k.pt')
                 if self.ranks.stop(self.preemption):
                     print('| Preemption requested: saving latest_model and '
                           'stopping.')
@@ -295,12 +302,13 @@ class HiFiGANTrainer:
                     break
             else:
                 deferred.flush()
-                if self.ranks.main:
-                    val_loss = self.evaluate(gen, session.val_set)
-                    print(f'| Validation at step {step}: mel loss '
-                          f'{val_loss:#.4}')
-                    self._scalar('Loss/val_mel', val_loss, step)
-                    self.save_latest(gen, disc, gen_opt, disc_opt, step)
+                with self.ranks.whole():
+                    if self.ranks.main:
+                        val_loss = self.evaluate(gen, session.val_set)
+                        print(f'| Validation at step {step}: mel loss '
+                              f'{val_loss:#.4}')
+                        self._scalar('Loss/val_mel', val_loss, step)
+                        self.save_latest(gen, disc, gen_opt, disc_opt, step)
                 self.ranks.barrier()
                 loss_avg.reset()
                 duration_avg.reset()

@@ -19,13 +19,17 @@ one does. The step runs the options of the JAX step
 teacher-forced mel cast to bfloat16; m1, m2 and the attention back to
 float32), `grad_accum` (the attention re-assembled to the full batch)
 and `remat` (the generator replayed for the recompute); `ema_decay` is
-refused, the JAX teacher has none. Scalars go to stdout, and to an
-optional `writer` with an `add_scalar(tag, value, step)` method. Under a
-mesh (`mesh=`, or a process group of more than one rank) each rank trains
-on its rows of every global batch (the train attention score averaged
-over the ranks) and rank 0 alone evaluates, prints and writes
-(`train/common.py`, data parallelism). Not ported: plots and audio
-samples (`plot_every` is ignored).
+refused, the JAX teacher has none. Scalars go to stdout and to the
+`writer` (`writer=`, an object with `add_scalar(tag, value, step)`, else a
+tensorboardX `SummaryWriter` under `paths.taco_log` where tensorboardX is
+installed). Every `plot_every` steps `generate_plots` writes JAX's figures
+and Griffin-Lim audio samples: the teacher-forced attention and mels of
+the first validation batch (`session.val_sample`), and a free-running
+`Tacotron.generate` of its first item. Under a mesh (`mesh=`, or a process
+group of more than one rank) each rank trains on its rows of every global
+batch (the train attention score averaged over the ranks), the 'model'
+axis keeps the weights in shards, and global rank 0 alone evaluates,
+plots, prints and writes (`train/common.py`, data parallelism).
 """
 from __future__ import annotations
 
@@ -41,6 +45,8 @@ from forwardtacotron_tpu_torch.data.dataset import (Prefetcher,
                                                     get_tts_datasets)
 from forwardtacotron_tpu_torch.train import common as tc
 from forwardtacotron_tpu_torch.utils.checkpoints import checkpoint_payload
+from forwardtacotron_tpu_torch.utils.display import (log_audio,
+                                                     plot_attention, plot_mel)
 from forwardtacotron_tpu_torch.utils.files import parse_schedule
 from forwardtacotron_tpu_torch.utils.paths import Paths
 from forwardtacotron_tpu_torch.utils.profiling import StepTraceController
@@ -121,17 +127,21 @@ def taco_eval_step(model: torch.nn.Module, batch: Dict[str, torch.Tensor],
     return taco_loss(m1, m2, batch['mel'])[0], att
 
 
-class TacoTrainer:
+class TacoTrainer(tc.Logging):
 
     def __init__(self, paths: Paths, config: Dict[str, Any],
-                 device='cuda', writer=None, mesh=None) -> None:
+                 device='cuda', writer=None, mesh=None, dsp=None) -> None:
         self.paths = paths
         self.config = config
         self.ranks = tc.Ranks(tc.trainer_mesh(config, mesh))
         self.device = self.ranks.device(device)
         self.train_cfg = config['tacotron']['training']
         tc.check_supported(self.train_cfg, 'tacotron')
+        self.log_dir = paths.taco_log
         self.writer = writer
+        # Griffin-Lim of the plots' audio (default: the config's DSP on
+        # the trainer's device, made at the first plot)
+        self.dsp = dsp
         self.preemption = tc.Preemption()
         self.top_k = tc.TopKTracker(
             paths.taco_top_k, k=int(self.train_cfg.get('keep_top_k', 3)),
@@ -140,15 +150,14 @@ class TacoTrainer:
         # FTT_PROFILE_DIR traces a window of steps
         self.tracer = StepTraceController()
 
-    def _scalar(self, tag: str, value: float, step: int) -> None:
-        if self.writer is not None and self.ranks.main:
-            self.writer.add_scalar(tag, value, step)
-
     def _save(self, model, optimizer, path, step: int,
               on_complete=None) -> None:
-        self.ckpt.save(checkpoint_payload(model, optimizer, self.config,
-                                          step),
-                       path, on_complete=on_complete)
+        """A checkpoint of whole tensors (every rank calls it; rank 0
+        writes it)."""
+        with self.ranks.whole():
+            self.ckpt.save(checkpoint_payload(model, optimizer, self.config,
+                                              step),
+                           path, on_complete=on_complete)
 
     def train(self, model: torch.nn.Module,
               optimizer: Optional[torch.optim.Optimizer] = None,
@@ -160,6 +169,7 @@ class TacoTrainer:
         if optimizer is None:
             optimizer = tc.make_optimizer(model)
         self.ranks.start([model], seed)
+        self.ranks.shard([model], [optimizer])
         schedule = parse_schedule(self.train_cfg['schedule'])
         session_start = 0
         with self.preemption, contextlib.closing(self.tracer), \
@@ -186,6 +196,8 @@ class TacoTrainer:
                                         start_step=prev_max)
                 step = self.train_session(model, optimizer, step, session,
                                           seed)
+        self.ranks.finish()
+        self._flush_writer()
         return step
 
     def train_session(self, model, optimizer, step: int,
@@ -247,6 +259,10 @@ class TacoTrainer:
                     self._save(model, optimizer,
                                self.paths.taco_checkpoints /
                                f'taco_step{step // 1000}k.pt', step)
+                if step % self.train_cfg['plot_every'] == 0:
+                    with self.ranks.whole():
+                        if self.ranks.main:
+                            self.generate_plots(model, session, step)
                 if self.ranks.stop(self.preemption):
                     print('| Preemption requested: saving latest_model and '
                           'stopping.')
@@ -255,8 +271,9 @@ class TacoTrainer:
                     break
             else:
                 deferred.flush()
-                if self.ranks.main:
-                    self._end_of_epoch(model, optimizer, session, step)
+                with self.ranks.whole():
+                    if self.ranks.main:
+                        self._end_of_epoch(model, optimizer, session, step)
                 self.ranks.barrier()
                 loss_avg.reset()
                 duration_avg.reset()
@@ -300,3 +317,61 @@ class TacoTrainer:
             val_att += float(score.mean())
             n += 1
         return val_loss / max(n, 1), val_att / max(n, 1)
+
+    @torch.no_grad()
+    def generate_plots(self, model: torch.nn.Module, session: tc.TTSSession,
+                       step: int) -> None:
+        """JAX's `TacoTrainer.generate_plots` on `session.val_sample`, in
+        eval mode: the teacher-forced attention and mels (first 600
+        frames) of its first item as figures and the Griffin-Lim wavs of
+        the target and the postnet mel (`log_audio`, wavs in
+        `taco_log/audio` where the writer takes no audio); then a
+        free-running `Tacotron.generate` of that item in its speaker, of
+        mel_len + 20 frames rounded up to a multiple of r: its attention,
+        mels and wav. A failure is raised, not swallowed; without
+        matplotlib the figures are skipped (`tc.Logging._add_figure`)."""
+        if session.val_sample is None:
+            return
+        if self.dsp is None:
+            from forwardtacotron_tpu_torch.dsp.audio import DSP
+            self.dsp = DSP.from_config(self.config, device=self.device)
+        batch = taco_batch_to_device(session.val_sample, self.device)
+        spk = batch.get('speaker')
+        was_training = model.training
+        model.eval()
+        try:
+            m1, m2, att = model(batch['x'], batch['mel'], session.r,
+                                speaker=spk)
+            gen_steps = int(batch['mel_len'][0]) + 20
+            gen_steps += (-gen_steps) % session.r
+            m1g, m2g, attg, n_valid = model.generate(
+                batch['x'][0:1], gen_steps, session.r,
+                speaker=None if spk is None else spk[0:1])
+        finally:
+            model.train(was_training)
+        m2_hat = m2[0, :600].float().cpu().numpy()
+        m_target = batch['mel'][0, :600].cpu().numpy()
+        for tag, plot, data in (
+                ('Ground_Truth_Aligned/attention', plot_attention, att[0]),
+                ('Ground_Truth_Aligned/target', plot_mel, m_target),
+                ('Ground_Truth_Aligned/linear', plot_mel, m1[0, :600]),
+                ('Ground_Truth_Aligned/postnet', plot_mel, m2_hat)):
+            self._add_figure(tag, plot, data, step)
+        sr = self.dsp.sample_rate
+        audio_dir = self.paths.taco_log / 'audio'
+        log_audio(self.writer, 'Ground_Truth_Aligned/target_wav',
+                  self.dsp.griffinlim(m_target.T), step, sr,
+                  fallback_dir=audio_dir)
+        log_audio(self.writer, 'Ground_Truth_Aligned/postnet_wav',
+                  self.dsp.griffinlim(m2_hat.T), step, sr,
+                  fallback_dir=audio_dir)
+        n_valid = max(int(n_valid), 1)
+        m2_gen = m2g[0, :n_valid].float().cpu().numpy()
+        for tag, plot, data in (
+                ('Generated/attention', plot_attention, attg[0]),
+                ('Generated/linear', plot_mel, m1g[0, :n_valid]),
+                ('Generated/postnet', plot_mel, m2_gen)):
+            self._add_figure(tag, plot, data, step)
+        log_audio(self.writer, 'Generated/postnet_wav',
+                  self.dsp.griffinlim(m2_gen.T), step, sr,
+                  fallback_dir=audio_dir)

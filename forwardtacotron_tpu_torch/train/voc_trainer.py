@@ -94,7 +94,7 @@ def batch_to_device(batch: Dict[str, np.ndarray], device
             for k, v in batch.items()}
 
 
-class VocTrainer:
+class VocTrainer(tc.Logging):
 
     def __init__(self, paths: Paths, dsp, config: Dict[str, Any],
                  device='cuda', writer=None, mesh=None) -> None:
@@ -105,6 +105,7 @@ class VocTrainer:
         self.device = self.ranks.device(device)
         self.train_cfg = config['vocoder']['training']
         tc.check_supported(self.train_cfg, 'wavernn')
+        self.log_dir = paths.voc_log
         self.writer = writer
         self.preemption = tc.Preemption()
         self.top_k = tc.TopKTracker(
@@ -114,15 +115,14 @@ class VocTrainer:
         # FTT_PROFILE_DIR traces a window of steps
         self.tracer = StepTraceController()
 
-    def _scalar(self, tag: str, value: float, step: int) -> None:
-        if self.writer is not None and self.ranks.main:
-            self.writer.add_scalar(tag, value, step)
-
     def _save(self, model, optimizer, path, step: int,
               on_complete=None) -> None:
-        self.ckpt.save(checkpoint_payload(model, optimizer, self.config,
-                                          step),
-                       path, on_complete=on_complete)
+        """A checkpoint of whole tensors (every rank calls it; rank 0
+        writes it)."""
+        with self.ranks.whole():
+            self.ckpt.save(checkpoint_payload(model, optimizer, self.config,
+                                              step),
+                           path, on_complete=on_complete)
 
     def train(self, model: WaveRNN,
               optimizer: Optional[torch.optim.Optimizer] = None,
@@ -134,6 +134,7 @@ class VocTrainer:
         if optimizer is None:
             optimizer = tc.make_optimizer(model)
         self.ranks.start([model])
+        self.ranks.shard([model], [optimizer])
         schedule = parse_schedule(self.train_cfg['schedule'])
         session_start = 0
         with self.preemption, contextlib.closing(self.tracer), \
@@ -160,6 +161,8 @@ class VocTrainer:
                     val_set_samples=val_set_samples, start_step=prev_max)
                 step = self.train_session(model, optimizer, step, session,
                                           train_gta)
+        self.ranks.finish()
+        self._flush_writer()
         return step
 
     def train_session(self, model: WaveRNN, optimizer, step: int,
@@ -211,10 +214,12 @@ class VocTrainer:
                 self.tracer.tick(step)
                 deferred.push(metrics, step, e, i)
                 if step % self.train_cfg['gen_samples_every'] == 0:
-                    if self.ranks.main:
-                        mel_loss = self.generate_samples(model, session, step)
-                        if mel_loss is not None:
-                            self.track_top_models(mel_loss, model, step)
+                    with self.ranks.whole():
+                        if self.ranks.main:
+                            mel_loss = self.generate_samples(model, session,
+                                                             step)
+                            if mel_loss is not None:
+                                self.track_top_models(mel_loss, model, step)
                     self.ranks.barrier()
                 if step % self.train_cfg['checkpoint_every'] == 0:
                     self._save(model, optimizer, self.paths.voc_checkpoints
@@ -227,13 +232,10 @@ class VocTrainer:
                     break
             else:
                 deferred.flush()
-                if self.ranks.main:
-                    val_loss = self.evaluate(model, session.val_set)
-                    print(f'| Validation at step {step}: loss '
-                          f'{val_loss:#.4}')
-                    self._scalar('Loss/val', val_loss, step)
-                    self._save(model, optimizer, self.paths.voc_checkpoints
-                               / 'latest_model.pt', step)
+                with self.ranks.whole():
+                    if self.ranks.main:
+                        self._end_of_epoch(model, optimizer, session.val_set,
+                                           step)
                 self.ranks.barrier()
                 loss_avg.reset()
                 duration_avg.reset()
@@ -246,6 +248,14 @@ class VocTrainer:
         self.ckpt.wait()    # on disk before the session returns
         self.ranks.barrier()
         return step
+
+    def _end_of_epoch(self, model, optimizer, val_set, step: int) -> None:
+        """Rank 0's end of an epoch: `evaluate()` and latest_model.pt."""
+        val_loss = self.evaluate(model, val_set)
+        print(f'| Validation at step {step}: loss {val_loss:#.4}')
+        self._scalar('Loss/val', val_loss, step)
+        self._save(model, optimizer, self.paths.voc_checkpoints
+                   / 'latest_model.pt', step)
 
     @torch.no_grad()
     def evaluate(self, model: WaveRNN, val_set) -> float:

@@ -68,7 +68,8 @@ def _restore(model, optimizer, paths: Paths) -> Optional[int]:
     return None
 
 
-def main(argv: Optional[Sequence[str]] = None) -> Optional[int]:
+def main(argv: Optional[Sequence[str]] = None, writer=None
+         ) -> Optional[int]:
     parser = argparse.ArgumentParser(
         description='Train the teacher-free neural aligner (PyTorch)')
     parser.add_argument('--force_align', '-a', action='store_true',
@@ -86,7 +87,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[int]:
 
     print('\nInitialising Aligner Model...\n')
     trainer = None if args.force_align else \
-        AlignerTrainer(paths, config, device)
+        AlignerTrainer(paths, config, device, writer=writer)
     torch.manual_seed(SEED)
     model = aligner_from_config(config).to(device)
     optimizer = tc.make_optimizer(model)

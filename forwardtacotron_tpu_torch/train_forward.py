@@ -82,7 +82,7 @@ def create_gta_features(model: torch.nn.Module, train_set, val_set,
     return n_items
 
 
-def main(argv: Optional[Sequence[str]] = None) -> int:
+def main(argv: Optional[Sequence[str]] = None, writer=None) -> int:
     parser = argparse.ArgumentParser(description='Train ForwardTacotron or '
                                                  'FastPitch TTS (PyTorch)')
     parser.add_argument('--force_gta', '-g', action='store_true',
@@ -102,7 +102,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                          'extract durations first (python -m '
                          'forwardtacotron_tpu_torch.train_tacotron '
                          '--force_align).')
-    trainer = ForwardTrainer(paths, config, device)
+    trainer = ForwardTrainer(paths, config, device, writer=writer)
 
     torch.manual_seed(SEED)
     model = init_tts_model(config).to(device)

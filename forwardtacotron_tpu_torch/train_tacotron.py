@@ -92,7 +92,8 @@ def _align(model, paths: Paths, config) -> None:
           'forwardtacotron_tpu_torch.train_forward\n')
 
 
-def main(argv: Optional[Sequence[str]] = None) -> Optional[int]:
+def main(argv: Optional[Sequence[str]] = None, writer=None
+         ) -> Optional[int]:
     parser = argparse.ArgumentParser(description='Train Tacotron TTS '
                                                  '(PyTorch)')
     parser.add_argument('--force_gta', '-g', action='store_true',
@@ -126,7 +127,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[int]:
 
     print('\nInitialising Tacotron Model...\n')
     trainer = None if (args.force_gta or args.force_align) else \
-        TacoTrainer(paths, config, device)
+        TacoTrainer(paths, config, device, writer=writer)
     torch.manual_seed(SEED)
     model = Tacotron.from_config(config).to(device)
     optimizer = tc.make_optimizer(model)

@@ -1,12 +1,15 @@
-"""Console progress helpers and audio samples: a copy of `stream`,
-`progbar`, `simple_table` and `log_audio` of the JAX package's
-`utils/display.py` (the reference's utils/display.py:10-60). Plots are
-not ported."""
+"""Console progress, figures and audio samples: a copy of the JAX
+package's `utils/display.py` (the reference's utils/display.py:10-131):
+`stream`, `progbar`, `simple_table`, `time_since`, `plot_mel`,
+`plot_pitch`, `plot_attention`, `save_attention`, `save_spectrogram` and
+`log_audio`. matplotlib is imported only when a figure is made (`_plt`,
+the Agg backend), so importing the port never needs it."""
 from __future__ import annotations
 
 import sys
+import time
 from pathlib import Path
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -57,6 +60,82 @@ def simple_table(item_tuples: List[Tuple[str, object]]) -> None:
     print(body)
     print(border)
     print(' ')
+
+
+def time_since(started: float) -> str:
+    elapsed = time.time() - started
+    m = int(elapsed // 60)
+    s = int(elapsed % 60)
+    if m >= 60:
+        h = int(m // 60)
+        m = m % 60
+        return f'{h}h {m}m {s}s'
+    return f'{m}m {s}s'
+
+
+def _plt():
+    import matplotlib
+    matplotlib.use('Agg')
+    import matplotlib.pyplot as plt
+    return plt
+
+
+def can_plot() -> bool:
+    """Whether matplotlib can be imported (`_plt`)."""
+    try:
+        _plt()
+    except ImportError:
+        return False
+    return True
+
+
+def plot_mel(mel: np.ndarray):
+    """A (12, 6) figure of a mel in (n_mels, T) or (T, n_mels) layout,
+    frequency up."""
+    plt = _plt()
+    mel = np.asarray(mel)
+    if mel.shape[0] > mel.shape[1]:
+        mel = mel.T
+    fig = plt.figure(figsize=(12, 6))
+    plt.imshow(mel, interpolation='nearest', aspect='auto', origin='lower')
+    return fig
+
+
+def plot_pitch(pitch: np.ndarray):
+    """A (12, 3) figure of a series, flattened."""
+    plt = _plt()
+    fig = plt.figure(figsize=(12, 3))
+    plt.plot(np.asarray(pitch).flatten())
+    return fig
+
+
+def plot_attention(attn: np.ndarray):
+    """A (12, 6) figure of an attention matrix as it is."""
+    plt = _plt()
+    fig = plt.figure(figsize=(12, 6))
+    plt.imshow(np.asarray(attn), interpolation='nearest', aspect='auto')
+    return fig
+
+
+def save_attention(attn: np.ndarray, path) -> None:
+    """`plot_attention` written to `<path>.png`."""
+    plt = _plt()
+    fig = plot_attention(attn)
+    fig.savefig(f'{path}.png', bbox_inches='tight')
+    plt.close(fig)
+
+
+def save_spectrogram(M: np.ndarray, path, length: Optional[int] = None
+                     ) -> None:
+    """`plot_mel` of M's first `length` columns (all where None) written
+    to `<path>.png`."""
+    plt = _plt()
+    M = np.asarray(M)
+    if length:
+        M = M[:, :length]
+    fig = plot_mel(M)
+    fig.savefig(f'{path}.png', bbox_inches='tight')
+    plt.close(fig)
 
 
 def log_audio(writer, tag: str, wav: np.ndarray, step: int,

@@ -6,7 +6,8 @@ sub-directories of preprocessing, alignment and training, and the
 checkpoint directories of the Tacotron teacher, the teacher-free aligner,
 the ForwardTacotron student, and of WaveRNN and the GAN vocoders when a
 vocoder id is given (each with its top-k directory), where the port writes
-torch `.pt` files.
+torch `.pt` files, and each one's `logs/` (TensorBoard event files and the
+audio samples' wavs).
 """
 from __future__ import annotations
 
@@ -38,14 +39,18 @@ class Paths:
         checkpoints = self.base / 'checkpoints'
         self.taco_checkpoints = checkpoints / f'{tts_id}.tacotron'
         self.taco_top_k = self.taco_checkpoints / 'top_k_models'
+        self.taco_log = self.taco_checkpoints / 'logs'
         self.forward_checkpoints = checkpoints / f'{tts_id}.forward'
         self.forward_top_k = self.forward_checkpoints / 'top_k_models'
+        self.forward_log = self.forward_checkpoints / 'logs'
         self.aligner_checkpoints = checkpoints / f'{tts_id}.aligner'
+        self.aligner_log = self.aligner_checkpoints / 'logs'
         dirs = [self.data, self.quant, self.mel, self.gta, self.alg,
                 self.raw_pitch, self.phon_pitch, self.phon_energy,
-                self.taco_checkpoints, self.taco_top_k,
+                self.taco_checkpoints, self.taco_top_k, self.taco_log,
                 self.forward_checkpoints, self.forward_top_k,
-                self.aligner_checkpoints]
+                self.forward_log, self.aligner_checkpoints,
+                self.aligner_log]
         if voc_id is not None:
             self.voc_checkpoints = checkpoints / f'{voc_id}.wavernn'
             self.voc_top_k = self.voc_checkpoints / 'top_k_models'

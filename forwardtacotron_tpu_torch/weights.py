@@ -427,6 +427,61 @@ def deepmind_wavernn_state_dict(variables: Dict[str, Any]
     return out
 
 
+# -------------------------------------------------- the JAX leaf of each
+
+# the modules whose parameters the converters above read from a JAX leaf
+# named after the module (`wavernn_state_dict`: `I_kernel`, `fc1_bias`,
+# ...), by the model's class: no rule of the JAX mesh matches such a name
+_NAMED_LEAVES = {'WaveRNN': ('I', 'fc1', 'fc2', 'fc3')}
+
+
+def _module_leaves(module: torch.nn.Module) -> Dict[str, tuple]:
+    """{parameter name: (JAX leaf, torch dim)} of one module's own
+    parameters as the converters above fill them: `_put_dense` and
+    `_put_conv1d` / `_put_conv2d` put a kernel's last axis (its output
+    features) at dim 0, `_put_conv_transpose` at dim 1, an embedding
+    keeps it at dim 1, `_put_batchnorm` / `_put_layer_norm` fill the
+    weight from 'scale' and the bias from 'bias', and `_put_rnn_dir` fills
+    a BiRNN's packed gates from 'w_ih' ... 'b_hh' (gate axis, dim 0, as it
+    is). `_put_cell` (the teacher's decoder cells) and `wavernn_state_dict`
+    (WaveRNN's GRUs, `up_conv_i`) read leaves prefixed with the module's
+    name, and every other parameter is its own leaf: these carry no dim."""
+    from forwardtacotron_tpu_torch.models.layers import BiRNN
+    nn = torch.nn
+    if isinstance(module, (nn.Linear, nn.Conv1d, nn.Conv2d)):
+        return {'weight': ('kernel', 0), 'bias': ('bias', 0)}
+    if isinstance(module, nn.ConvTranspose1d):
+        return {'weight': ('kernel', 1), 'bias': ('bias', 0)}
+    if isinstance(module, nn.Embedding):
+        return {'weight': ('embedding', 1)}
+    if isinstance(module, (nn.BatchNorm1d, nn.LayerNorm)):
+        return {'weight': ('scale', None), 'bias': ('bias', 0)}
+    if isinstance(module, BiRNN):
+        return {f'{name}_l0{sfx}': (leaf, 0)
+                for name, leaf in (('weight_ih', 'w_ih'),
+                                   ('weight_hh', 'w_hh'),
+                                   ('bias_ih', 'b_ih'), ('bias_hh', 'b_hh'))
+                for sfx in ('', '_reverse')}
+    return {}
+
+
+def jax_layout(model: torch.nn.Module) -> Dict[str, tuple]:
+    """{parameter name: (the JAX leaf it is converted from, the torch dim
+    that holds the axis the JAX mesh's rules look at)} for every parameter
+    of `model`: the kernel's, the embedding's and the bias's last axis, the
+    packed gates' first. The dim is None for a leaf no rule names."""
+    named = _NAMED_LEAVES.get(type(model).__name__, ())
+    out = {}
+    for prefix, module in model.named_modules():
+        leaves = _module_leaves(module)
+        own = prefix.split('.')[0] in named
+        for name, p in module.named_parameters(recurse=False):
+            full = f'{prefix}.{name}' if prefix else name
+            leaf, dim = leaves.get(name, (name, None))
+            out[full] = (f'{prefix}_{leaf}', None) if own else (leaf, dim)
+    return out
+
+
 # ------------------------------------------------------- optimizer state
 
 # optax's leaves of `inject_hyperparams(adam | adamw)` (the JAX trainers'

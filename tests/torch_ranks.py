@@ -106,13 +106,31 @@ def _tensors(batch):
     return {k: torch.as_tensor(v) for k, v in batch.items()}
 
 
-def student_step(state_dict, batch, mesh=None, per_rank=False):
+def _shard(mesh, *pairs):
+    """Each (module, optimizer) kept in shards over `mesh`'s 'model' axis
+    from here on (nothing without one)."""
+    from forwardtacotron_tpu_torch.parallel.model_axis import shard_module
+    for module, opt in pairs:
+        shard_module(module, mesh, [opt])
+
+
+def _whole(model):
+    """Every sharded module of `model` whole again, with its optimizer
+    state (a collective of the model group)."""
+    from forwardtacotron_tpu_torch.parallel.model_axis import unshard
+    for m in model.modules():
+        unshard(m)
+
+
+def student_step(state_dict, batch, mesh=None, per_rank=False, after=None):
     """One `train_step` of the tiny ForwardTacotron from `state_dict` on
     the global `batch` (numpy), on this rank's rows inside
-    `data_parallel(mesh)` where a mesh is given. `per_rank`: the step a
-    plain gradient average would take, each rank's loss and batch
-    statistics over its own rows, only the gradients averaged. Returns
-    (metrics, state_dict after, gradients)."""
+    `data_parallel(mesh)` where a mesh is given, the weights in shards over
+    its 'model' axis where it has one (`after(model, optimizer)` runs
+    before they are made whole again). `per_rank`: the step a plain
+    gradient average would take, each rank's loss and batch statistics
+    over its own rows, only the gradients averaged. Returns (metrics,
+    state_dict after, gradients)."""
     from forwardtacotron_tpu_torch.models.forward_tacotron import (
         ForwardTacotron)
     from forwardtacotron_tpu_torch.parallel import data_parallel, local_rows
@@ -120,6 +138,7 @@ def student_step(state_dict, batch, mesh=None, per_rank=False):
     model = ForwardTacotron(num_chars=FT_CHARS, n_mels=FT_MELS, **FT_TINY)
     model.load_state_dict(state_dict)
     opt = tc.make_optimizer(model, lr=LR)
+    _shard(mesh, (model, opt))
     rows = _tensors(local_rows(mesh, batch))
     gen = torch.Generator().manual_seed(0)
     if per_rank:
@@ -132,6 +151,9 @@ def student_step(state_dict, batch, mesh=None, per_rank=False):
     else:
         with data_parallel(mesh):
             metrics = tc.train_step(model, opt, rows, gen, FT_TRAIN)
+    if after is not None:
+        after(model, opt)
+    _whole(model)
     return ({k: float(v) for k, v in metrics.items()}, _copy(model),
             {k: p.grad.clone() for k, p in model.named_parameters()})
 
@@ -177,6 +199,7 @@ def _teacher(mesh):
         mel[i, :n] = rng.randn(n, 6)
     batch = {'x': x, 'mel': mel, 'mel_len': np.asarray(mel_lens)}
     opt = tc.make_optimizer(model, lr=LR)
+    _shard(mesh, (model, opt))
     from forwardtacotron_tpu_torch.parallel import data_parallel, local_rows
     with _keep_all(), data_parallel(mesh):
         metrics, _ = taco_train_step(
@@ -200,6 +223,7 @@ def _wavernn(mesh):
              'mel': rng.randn(4, 8, 20).astype(np.float32),
              'y': rng.randint(0, 512, (4, 256))}
     opt = tc.make_optimizer(model, lr=LR)
+    _shard(mesh, (model, opt))
     with data_parallel(mesh):
         metrics = voc_train_step(model, opt,
                                  _tensors(local_rows(mesh, batch)), 'RAW',
@@ -230,6 +254,7 @@ def _hifigan(mesh):
              'audio': (y + 0.05 * rng.randn(4, 1024)).astype(np.float32)}
     basis = torch.from_numpy(stft.mel_filterbank(22050, 1024, 20, 0, 8000))
     g_opt, d_opt = make_gan_optimizer(gen, LR), make_gan_optimizer(disc, LR)
+    _shard(mesh, (gen, g_opt), (disc, d_opt))
     with data_parallel(mesh):
         metrics = gan_train_step(
             gen, disc, g_opt, d_opt, _tensors(local_rows(mesh, batch)),
@@ -255,6 +280,7 @@ def _aligner(mesh):
     batch = {'x': x, 'mel': rng.randn(4, 30, 8).astype(np.float32),
              'x_len': x_lens, 'mel_len': mel_lens}
     opt = tc.make_optimizer(model, lr=LR)
+    _shard(mesh, (model, opt))
     with data_parallel(mesh):
         metrics = aligner_train_step(
             model, opt, _tensors(local_rows(mesh, batch)),
@@ -287,6 +313,7 @@ def _fast_pitch(mesh):
     batch = student_batch(seed=6)
     batch['x'] = batch['x'] % len(phonemes)
     opt = tc.make_optimizer(model, lr=LR)
+    _shard(mesh, (model, opt))
     with data_parallel(mesh):
         metrics = tc.train_step(model, opt, _tensors(local_rows(mesh, batch)),
                                 torch.Generator().manual_seed(0), FT_TRAIN)
@@ -300,9 +327,11 @@ CASES = {'teacher': _teacher, 'wavernn': _wavernn, 'hifigan': _hifigan,
 def case_step(kind, mesh=None):
     """One step of trainer `kind` at a tiny width from a seeded model on a
     seeded global batch with unequal lengths, on this rank's rows under
-    `mesh`: (metrics as floats, state_dict after, the gradients the
-    optimizer took)."""
+    `mesh` (the weights in shards over its 'model' axis, whole again
+    after): (metrics as floats, state_dict after, the gradients the
+    optimizer took, this rank's shards of the sharded ones)."""
     metrics, model = CASES[kind](mesh)
+    _whole(model)
     return ({k: float(v) for k, v in metrics.items()}, _copy(model),
             {k: p.grad.clone() for k, p in model.named_parameters()
              if p.grad is not None})
@@ -354,3 +383,117 @@ def cli_rank(rank, base, config_path, port):
     torch.save({'step': step, 'world': dist.get_world_size(),
                 'backend': dist.get_backend()},
                Path(base) / f'cli_{rank}.pt')
+
+
+# ------------------------------------------------ the mesh's 'model' axis
+
+def _storage(model, opt):
+    """(parameter elements, Adam moment elements) this rank holds."""
+    params = sum(p.numel() for p in model.parameters())
+    moments = sum(t.numel() for state in opt.state.values()
+                  for k, t in state.items() if k in ('exp_avg', 'exp_avg_sq'))
+    return params, moments
+
+
+def _axis_student(rank, out_dir, init, mesh):
+    """The student's step over `mesh` (2 x 2): its results, what each rank
+    stores between steps, a `.pt` written by rank 0 and a `.dcp` by every
+    rank from the whole state, and a JAX `.fjax`'s weights and Adam state
+    resumed as `train_forward` resumes them, then sharded."""
+    from forwardtacotron_tpu_torch.models.forward_tacotron import (
+        ForwardTacotron)
+    from forwardtacotron_tpu_torch.parallel.model_axis import (shard_module,
+                                                               whole_state)
+    from forwardtacotron_tpu_torch.train import common as tc
+    from forwardtacotron_tpu_torch.utils.checkpoints import save_checkpoint
+    from forwardtacotron_tpu_torch.weights import (
+        forward_tacotron_state_dict, load_fjax, load_optimizer_state)
+    seen = {}
+
+    def after(model, opt):
+        seen['storage'] = _storage(model, opt)
+        with whole_state([model]):
+            if rank == 0:
+                save_checkpoint(model, opt, {}, out_dir / 'axis.pt', 1)
+            save_checkpoint(model, opt, {}, out_dir / 'axis.dcp', 1)
+            seen['optim'] = opt.state_dict()
+    results = student_step(init['state_dict'], init['batch'], mesh,
+                           after=after)
+    payload = load_fjax(init['fjax'], use_ema=False)
+
+    def to_sd(variables):
+        return forward_tacotron_state_dict(variables, FT_TINY)
+    model = ForwardTacotron(num_chars=FT_CHARS, n_mels=FT_MELS, **FT_TINY)
+    model.load_state_dict(to_sd(payload['model']))
+    opt = tc.make_optimizer(model, lr=LR)
+    assert load_optimizer_state(payload, [(opt, model, payload['model'],
+                                           to_sd)])
+    full = {name: [opt.state[p][k].clone() for k in ('exp_avg',
+                                                      'exp_avg_sq')]
+            for name, p in model.named_parameters() if p in opt.state}
+    shards = shard_module(model, mesh, [opt])
+    restored = {name: (dim, [opt.state[p][k].clone()
+                             for k in ('exp_avg', 'exp_avg_sq')])
+                for name, p, dim in shards.sharded}
+    return {'step': results, 'storage': seen['storage'],
+            'optim': seen['optim'], 'full_moments': full,
+            'restored_shards': restored, 'model_rank': mesh.model_rank}
+
+
+def _init_world(store, rank, world):
+    dist.init_process_group('gloo', init_method=f'file://{store}',
+                            rank=rank, world_size=world)
+
+
+def model_axis_rank(rank, out_dir, init_path, port, cli_config):
+    """Rank body of tests/test_torch_parallel_model.py, in three worlds:
+
+    - the spawn's 4 ranks as data 2 x model 2: the student's step
+      (`_axis_student`), the mesh's layout and its refusals;
+    - ranks {0, 1} and {2, 3} as two worlds of data 1 x model 2: one step
+      of every trainer in CASES, and the student's, in shards;
+    - `train_forward` under torchrun's environment on 4 ranks with
+      `tpu.mesh` data 2 x model 2 (localhost:`port`, $FTT_BASE out_dir/cli).
+    Each world's results saved to out_dir/<world>_<rank>.pt."""
+    import os
+    from forwardtacotron_tpu_torch.parallel import make_mesh
+    out_dir = Path(out_dir)
+    init = torch.load(init_path, weights_only=False)
+    mesh = make_mesh(n_data=2, n_model=2, devices=['cpu'] * 4)
+    refusals = []
+    for shape in ((3, 2), (2, 3), (4, 2)):
+        try:
+            make_mesh(*shape, devices=['cpu'] * 4)
+        except ValueError as e:
+            refusals.append(str(e))
+    layout = {'shape': mesh.shape, 'rank': mesh.rank,
+              'model_rank': mesh.model_rank, 'devices': len(mesh.devices),
+              'data_group': dist.get_process_group_ranks(mesh.group),
+              'model_group': dist.get_process_group_ranks(mesh.model_group),
+              'refusals': refusals}
+    torch.save({'layout': layout,
+                'student': _axis_student(rank, out_dir, init, mesh)},
+               out_dir / f'grid_{rank}.pt')
+    dist.destroy_process_group()
+
+    pair, peer = divmod(rank, 2)
+    _init_world(out_dir / f'pair_store_{pair}', peer, 2)
+    mesh = make_mesh(n_data=1, n_model=2, devices=['cpu'] * 2)
+    kinds = (('teacher', 'wavernn', 'hifigan'),
+             ('aligner', 'fast_pitch'))[pair]
+    results = {kind: case_step(kind, mesh) for kind in kinds}
+    if pair == 1:
+        results['student'] = student_step(init['state_dict'], init['batch'],
+                                          mesh)
+    torch.save(results, out_dir / f'pair_{rank}.pt')
+    dist.destroy_process_group()
+
+    os.environ.update({'MASTER_ADDR': '127.0.0.1', 'MASTER_PORT': str(port),
+                       'WORLD_SIZE': '4', 'RANK': str(rank),
+                       'LOCAL_RANK': str(rank),
+                       'FTT_BASE': str(out_dir / 'cli')})
+    from forwardtacotron_tpu_torch import train_forward
+    step = train_forward.main(['--config', str(cli_config),
+                               '--device', 'cpu'])
+    torch.save({'step': step, 'world': dist.get_world_size()},
+               out_dir / f'cli_{rank}.pt')
