@@ -237,7 +237,21 @@ printed only when every phase passed):
    and Adam state within 2% of the share `param_spec` predicts, by the
    caching allocator's requested bytes, `torch.cuda.memory_allocated`
    with the allocator's block slack reported beside);
-18. a {"kernels": [...]} JSON line (launches of the main paths, of the
+18. the notebook Synthesizer and the operator tools at the full width of
+   config.yaml, random weights saved as `.pt` (`notebook_and_tools_path`
+   lists its cuts): `Synthesizer` with Griffin-Lim, HiFi-GAN V1, MelGAN
+   and WaveRNN and without a generator (#1 and #4 counted from 0), each
+   output equal to `gen_forward.main`'s on the same line, weights and
+   seed (the mel, and the int16 PCM as the CLI writes it);
+   `tools.benchmark_serving` at 8 clients x 4 requests with HiFi-GAN,
+   staged and fused, and 4 x 2 with WaveRNN (no errors, every request
+   answered, #1 and for WaveRNN #4 launched in the timed window; each
+   JSON line printed with the card's name and power limit); the CLIs of
+   `model_info` (`.pt`, `.dcp`, an export artifact), `average_checkpoints`,
+   `export_torch`, `f0_bound` (on the card, against the pinned bounds)
+   and `make_synthetic_dataset`, run in one child process that cannot
+   import JAX or the JAX package, each output checked;
+19. a {"kernels": [...]} JSON line (launches of the main paths, of the
    teacher phase in `launches_teacher`, of the vocoder phase in
    `launches_vocoder`, of the options phase in `launches_options`, of
    phase 12's FastPitch paths in `launches_fast_pitch` and of its
@@ -246,7 +260,8 @@ printed only when every phase passed):
    in `launches_aligner`, of phase 14's fused replays in `launches_fused`
    and of its exported artifacts in `launches_export`, of phase 15 in
    `launches_native_io`, of phase 16 in `launches_parallel`, of phase 17
-   in `launches_logging_model_axis`, each kernel's time at the vocoder path's shape in `vocoder_*` and #2/#3
+   in `launches_logging_model_axis`, of phase 18 in
+   `launches_notebook_tools`, each kernel's time at the vocoder path's shape in `vocoder_*` and #2/#3
    in bf16 in `bf16_*`; #2's cluster path with the cooperative path's
    times on the same inputs in `*cooperative_ms`), the nvidia-smi line,
    and last
@@ -6275,6 +6290,269 @@ def logging_and_model_axis_path():
     return out
 
 
+# ------------------------------------ the notebook Synthesizer and tools
+
+TOOLS_DIR = Path('smoke_tools')   # checkpoints, artifact and outputs
+# benchmark_serving's loads: (name, clients, requests, tool arguments)
+TOOL_LOADS = (('hifigan staged', 8, 4, ['--vocoder', 'hifigan']),
+              ('hifigan fused', 8, 4, ['--vocoder', 'hifigan', '--fused']),
+              ('wavernn staged', 4, 2, ['--vocoder', 'wavernn']))
+# runs the operator tools' CLIs in one process in which JAX and the JAX
+# package cannot be imported; prints each run's stdout as one JSON list
+_TOOL_RUNNER = '''
+import contextlib, io, json, runpy, sys
+sys.modules['jax'] = None
+sys.modules['forwardtacotron_tpu'] = None
+runs = []
+for module, argv in json.loads(sys.argv[1]):
+    sys.argv = [module] + argv
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        runpy.run_module('forwardtacotron_tpu_torch.tools.' + module,
+                         run_name='__main__', alter_sys=True)
+    runs.append({'module': module, 'argv': argv, 'stdout': buf.getvalue()})
+print(json.dumps(runs))
+'''
+
+
+def _tool_files(cfg, base):
+    """Seeded full-width checkpoints as the trainers write them: two
+    ForwardTacotrons (seeds 0 and 1, steps 1000 and 2000; the first also
+    as a `.dcp` directory), WaveRNN (seed 1), HiFi-GAN V1 and MelGAN
+    (`_gan_files`)."""
+    from forwardtacotron_tpu_torch.gen_forward import _seeded
+    from forwardtacotron_tpu_torch.models.wavernn import WaveRNN
+    from forwardtacotron_tpu_torch.utils.checkpoints import (init_tts_model,
+                                                             save_checkpoint)
+    files = {}
+    for name, seed, step in (('tts', 0, 1000), ('tts2', 1, 2000)):
+        model = _seeded(lambda: init_tts_model(cfg), seed)
+        files[name] = base / f'{name}.pt'
+        save_checkpoint(model, None, cfg, files[name], step=step)
+        if name == 'tts':
+            files['dcp'] = base / 'tts.dcp'
+            save_checkpoint(model, None, cfg, files['dcp'], step=step)
+    files['voc'] = base / 'voc.pt'
+    save_checkpoint(_seeded(lambda: WaveRNN.from_config(cfg), 1), None, cfg,
+                    files['voc'], step=5)
+    files['hifigan'], files['melgan'] = _gan_files(cfg, base)
+    return {k: Path(v).resolve() for k, v in files.items()}
+
+
+def _synthesizer_runs(files, line, smi):
+    """`Synthesizer` with the four vocoders and without a generator (the
+    mel), #1 and #4 counted from 0 just before and read just after; then
+    each output against `gen_forward.main`'s on the same line, weights
+    and seed: the mel equal, every wav equal as the CLI writes it (int16
+    PCM: Griffin-Lim through `DSP.save_wav`, the others as `pcm16`)."""
+    from scipy.io import wavfile
+    from forwardtacotron_tpu_torch import gen_forward
+    from forwardtacotron_tpu_torch.notebook_utils.synthesize import (
+        Synthesizer)
+    _all_counts(reset=True)
+    synth = Synthesizer(str(files['tts']), voc_path=str(files['voc']),
+                        hifigan_path=str(files['hifigan']),
+                        melgan_path=str(files['melgan']), device=DEVICE)
+    outs, seconds = {}, {}
+    for voc in ('griffinlim', 'hifigan', 'melgan', 'wavernn'):
+        t0 = time.perf_counter()
+        outs[voc] = synth(line, voc_model=voc)
+        torch.cuda.synchronize()
+        seconds[voc] = time.perf_counter() - t0
+    outs['mel'] = Synthesizer(str(files['tts']), device=DEVICE)(
+        line, voc_model='hifigan')
+    launches = _kernel_counts_now()
+    check(launches['birnn_stream_local'] + launches['birnn_cooperative'] > 0
+          and launches['wavernn_sample'] > 0,
+          f'Synthesizer: four vocoders and the mel in '
+          f'{sum(seconds.values()):.2f} s, launches {launches}')
+    cli = {'mel': ['hifigan'], 'griffinlim': ['griffinlim'],
+           'hifigan': ['hifigan', '--voc_checkpoint', str(files['hifigan'])],
+           'melgan': ['melgan', '--voc_checkpoint', str(files['melgan'])],
+           'wavernn': ['wavernn', '--voc_checkpoint', str(files['voc'])]}
+    diffs = {}
+    for name, argv in cli.items():
+        with _cwd(TOOLS_DIR):
+            path, = gen_forward.main(['--checkpoint', str(files['tts']),
+                                      '--seed', '0', '--device', DEVICE,
+                                      '-i', line] + argv)
+            if name == 'mel':
+                ref, ours = np.load(path)[0], outs['mel']
+            else:
+                ref = wavfile.read(path)[1]
+                if name == 'griffinlim':
+                    synth.dsp.save_wav(outs[name], 'synthesizer.wav')
+                    ours = wavfile.read('synthesizer.wav')[1]
+                else:
+                    ours = (np.clip(outs[name], -1.0, 1.0)
+                            * 32767.0).astype(np.int16)
+        same = ours.shape == ref.shape
+        diffs[name] = (float(np.abs(ours.astype(np.float64) - ref).max())
+                       if same else f'shapes {ours.shape} {ref.shape}')
+        check(same and np.array_equal(ours, ref),
+              f'Synthesizer {name} {ours.shape} equal to gen_forward\'s '
+              f'(max |diff| {diffs[name]}) | {smi}')
+    return {'seconds': seconds, 'launches': launches, 'max_abs_diff': diffs,
+            'samples': {k: int(v.shape[-1]) for k, v in outs.items()}}
+
+
+def _benchmark_runs(files, smi):
+    """`benchmark_serving` in TOOL_LOADS' three loads, in this process:
+    no errors, every request answered, #1 (and #4 with WaveRNN) launched
+    in the timed window (the tool's profiler count); its JSON line is
+    printed with the card."""
+    from forwardtacotron_tpu_torch.tools import benchmark_serving
+    out = {}
+    for name, clients, requests, argv in TOOL_LOADS:
+        voc = files['voc'] if 'wavernn' in argv else files['hifigan']
+        _all_counts(reset=True)
+        t0 = time.perf_counter()
+        res = benchmark_serving.main(
+            ['--checkpoint', str(files['tts']), '--voc_checkpoint', str(voc),
+             '--clients', str(clients), '--requests', str(requests),
+             '--device', DEVICE] + argv)
+        res['command_s'] = time.perf_counter() - t0
+        res['python_counts'] = _kernel_counts_now()
+        k = res['kernel_launches']
+        check(res['errors'] == 0
+              and res['requests_total'] == clients * requests
+              and k['birnn_stream_local'] + k['birnn_cooperative'] > 0
+              and ('wavernn' not in argv or k['wavernn_sample'] > 0),
+              f'benchmark_serving {name}: {res["requests_total"]} requests, '
+              f'{res["errors"]} errors, p50/p95/p99 '
+              f'{res["latency_s"]["p50"]}/{res["latency_s"]["p95"]}/'
+              f'{res["latency_s"]["p99"]} s, {res["requests_per_s"]} req/s, '
+              f'{res["audio_s_per_s"]} audio s/s, mean batch '
+              f'{res["mean_batch_size"]}, launches {k}')
+        print(f'benchmark_serving {name} | {smi} | {json.dumps(res)}',
+              flush=True)
+        out[name] = res
+    return out
+
+
+def _host_tools(files, cfg, base, smi):
+    """`model_info` (`.pt`, `.dcp`, the export artifact),
+    `average_checkpoints` (`.pt`, `.pt`, `.dcp` -> `.pt`), `export_torch`
+    (the student and WaveRNN), `f0_bound` on the card and
+    `make_synthetic_dataset`, run by their CLIs in one child process in
+    which JAX and the JAX package cannot be imported; each output checked
+    here."""
+    from forwardtacotron_tpu_torch.gen_forward import load_tts
+    from forwardtacotron_tpu_torch.utils.checkpoints import load_checkpoint
+    from forwardtacotron_tpu_torch.utils.export import save_exported_tts
+    model, _, _ = load_tts(str(files['tts']), cfg, DEVICE)
+    t0 = time.perf_counter()
+    artifact = base / 'tts.ftpt'
+    save_exported_tts(model, artifact, buckets=((64, 512),))
+    export_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    del model
+    data_cfg = dict(cfg, data_path=str(base / 'data'))
+    (base / 'data.json').write_text(json.dumps(data_cfg))
+    runs = [('model_info', [str(files['tts'])]),
+            ('model_info', [str(files['dcp'])]),
+            ('model_info', [str(artifact)]),
+            ('average_checkpoints', [str(files['tts']), str(files['tts2']),
+                                     str(files['dcp']), '--output',
+                                     str(base / 'avg.pt')]),
+            ('export_torch', ['--checkpoint', str(files['tts']), '--out',
+                              str(base / 'ref_tts.pt')]),
+            ('export_torch', ['--checkpoint', str(files['voc']), '--out',
+                              str(base / 'ref_voc.pt')]),
+            ('f0_bound', ['--device', DEVICE]),
+            ('make_synthetic_dataset', ['--config',
+                                        str(base / 'data.json')])]
+    import os
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, '-c', _TOOL_RUNNER, json.dumps(runs)],
+        capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, FTT_BASE=str(base)))
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f'the tools without JAX: exit '
+          f'{proc.returncode} in {wall:.1f} s {proc.stderr[-3000:]}')
+    done = json.loads(proc.stdout.strip().splitlines()[-1])
+    text = [r['stdout'] for r in done]
+    info = [dict(line.split(None, 1) for line in t.splitlines()
+                 if len(line.split(None, 1)) == 2) for t in text[:3]]
+    counts = [int(i['param_count']) for i in info[:2]]
+    check(counts == [n_params, n_params] and info[1]['step'] == '1000'
+          and info[2]['buckets'] == '[(64, 512)]',
+          f'model_info: .pt / .dcp param_count {counts} (the model: '
+          f'{n_params}), the artifact: {info[2]}')
+    paths = [files['tts'], files['tts2'], files['dcp']]
+    inputs = [load_checkpoint(p)['model'] for p in paths]
+    got = load_checkpoint(base / 'avg.pt')
+    bad = [k for k, v in got['model'].items() if not torch.equal(
+        v, torch.from_numpy(np.mean([s[k].double().numpy() for s in inputs],
+                                    axis=0)).to(v.dtype)
+        if v.is_floating_point() else inputs[-1][k])]
+    check(not bad and got['step'] == 1000 and got['optim'] is None,
+          f'average_checkpoints: {len(got["model"])} tensors the float64 '
+          f'mean of three (integers the last\'s), step {got["step"]}; '
+          f'differing {bad[:5]}')
+    for name in ('tts', 'voc'):
+        ref = torch.load(base / f'ref_{name}.pt', weights_only=True)
+        sd = load_checkpoint(files[name])['model']
+        check(set(ref) == {'model', 'optim', 'config'}
+              and ref['optim'] is None and set(ref['model']) == set(sd)
+              and all(torch.equal(ref['model'][k], sd[k]) for k in sd),
+              f'export_torch {name}: {len(ref["model"])} reference keys, '
+              f'the checkpoint\'s tensors')
+    f0 = json.loads(text[6])
+    nt, ny = f0['nac_vs_truth'], f0['nac_vs_yin']
+    check(nt['vuv_agreement'] >= 0.99 and nt['cents_rmse_voiced'] <= 5.0
+          and ny['vuv_agreement'] >= 0.85 and ny['cents_rmse_voiced'] <= 20.0,
+          f'f0_bound on the card: vs truth {nt}, vs YIN {ny} | {smi}')
+    n_items = len(list((base / 'data' / 'mel').glob('*.npy')))
+    check('wrote 10 items' in text[7] and n_items == 10,
+          f'make_synthetic_dataset: {text[7].strip()} ({n_items} mels)')
+    return {'export_s': export_s, 'artifact_mib':
+            artifact.stat().st_size / 2 ** 20, 'tools_wall_s': wall,
+            'param_count': n_params, 'f0_bound': f0,
+            'model_info': text[:3]}
+
+
+@phase('the notebook Synthesizer and the operator tools (full width)')
+def notebook_and_tools_path():
+    """The notebook `Synthesizer` and the operator tools at config.yaml's
+    widths, random weights from seeds saved as `.pt` (and `.dcp`), in
+    TOOLS_DIR. Cuts: one line of sentences.txt for the Synthesizer;
+    benchmark_serving at 8 clients x 4 requests (HiFi-GAN V1, staged and
+    fused) and 4 x 2 (WaveRNN, staged) over its six texts; one export
+    bucket (64 tokens, 512 frames).
+
+    1. `_synthesizer_runs`: the four vocoders and the mel, against
+       gen_forward's;
+    2. `_benchmark_runs`: the three loads;
+    3. `_host_tools`: the tools' CLIs without JAX."""
+    from forwardtacotron_tpu_torch.config import default_config
+    smi = nvidia_smi_line()
+    lines = [s for s in Path('sentences.txt').read_text().splitlines()
+             if s.strip()]
+    cfg = default_config()
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    TOOLS_DIR.mkdir(parents=True)
+    base = TOOLS_DIR.resolve()
+    out = {'nvidia_smi': smi}
+    try:
+        files = _tool_files(cfg, base)
+        out['synthesizer'] = _synthesizer_runs(files, lines[0], smi)
+        out['benchmark_serving'] = _benchmark_runs(files, smi)
+        out['tools'] = _host_tools(files, cfg, base, smi)
+    finally:
+        shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    # the phase's launches: the Synthesizer's (the wrappers' counters) and
+    # the three loads' timed windows (counted by kernel name)
+    launches = dict(out['synthesizer']['launches'])
+    for res in out['benchmark_serving'].values():
+        for k, v in res['kernel_launches'].items():
+            launches[k] += v
+    out['launches'] = launches
+    DETAILS['notebook_and_tools_path'] = out
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
     parser = argparse.ArgumentParser()
@@ -6316,6 +6594,7 @@ def main(argv=None) -> int:
     nio = native_io_path() or {}
     par = parallel_path() or {}
     ax = logging_and_model_axis_path() or {}
+    nt = notebook_and_tools_path() or {}
 
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / 'chip_smoke.json').write_text(json.dumps(
@@ -6361,6 +6640,9 @@ def main(argv=None) -> int:
     # phase 17: the student's and the teacher's runs with plots at every
     # step, and rank 0 of the model axis's student and WaveRNN steps
     axl = ax['launches']
+    # phase 18: the notebook Synthesizer's calls and benchmark_serving's
+    # three timed windows
+    ntl = nt['launches']
     kernels = [
         {'name': 'birnn (stream-local path)', 'route': 'cuda',
          'source': 'forwardtacotron_tpu_torch/csrc/birnn.cu',
@@ -6384,6 +6666,7 @@ def main(argv=None) -> int:
          'launches_native_io': nil['birnn_stream_local'],
          'launches_parallel': pal['birnn_stream_local'],
          'launches_logging_model_axis': axl['birnn_stream_local'],
+         'launches_notebook_tools': ntl['birnn_stream_local'],
          'vocoder_case': voc_birnn['case'],
          'vocoder_ms': voc_birnn['ms_stream_local'],
          'vocoder_plain_ms': voc_birnn['plain_ms'],
@@ -6405,6 +6688,7 @@ def main(argv=None) -> int:
          'launches_native_io': nil['wavernn_sample'],
          'launches_parallel': pal['wavernn_sample'],
          'launches_logging_model_axis': axl['wavernn_sample'],
+         'launches_notebook_tools': ntl['wavernn_sample'],
          'max_abs_err': wr['max_abs_err'], 'agreement': wr['agreement'],
          'ms': wr['ms'], 'plain_ms': wr['plain_ms'],
          'bound_ms': wr['bound_ms'], 'bound_by': wr['bound_by'],
@@ -6450,6 +6734,7 @@ def main(argv=None) -> int:
             'launches_native_io': nil[count],
             'launches_parallel': pal[count],
             'launches_logging_model_axis': axl[count],
+            'launches_notebook_tools': ntl[count],
             'case': row['case'],
             'max_abs_err': row[f'max_abs_err_{sfx}'],
             'ms': row[f'ms_{sfx}'], 'plain_ms': row[f'plain_ms_{sfx}'],

@@ -71,21 +71,21 @@ def load_weights(checkpoint: Optional[str], config: Dict[str, Any],
                  device='cuda', seed: int = 0
                  ) -> Tuple[torch.nn.Module, Dict[str, Any], int]:
     """`build(config)` on `device` in eval mode, with its weights from a
-    checkpoint: a `.pt` written by this package's trainers, or a JAX
-    `.fjax` turned into the state_dict by `convert(variables, config,
-    step)`; either's config replaces `config`. With `checkpoint` None the
-    weights are random, seeded, from `config`."""
+    checkpoint: a `.pt` file or `.dcp` directory written by this
+    package's trainers, or a JAX `.fjax` turned into the state_dict by
+    `convert(variables, config, step)`; either's config replaces `config`.
+    With `checkpoint` None the weights are random, seeded, from `config`."""
     device = resolve_device(device)
     step = 0
-    if checkpoint is not None and str(checkpoint).endswith('.pt'):
+    if checkpoint is not None and Path(checkpoint).suffix in ('.pt', '.dcp'):
         payload = load_checkpoint(checkpoint)
         config, step = payload['config'], payload['step']
         model = build(config)
         model.load_state_dict(payload['model'])
     elif checkpoint is not None:
         if not str(checkpoint).endswith('.fjax'):
-            raise ValueError('checkpoints are .pt (this package) or .fjax '
-                             '(the JAX package)')
+            raise ValueError('checkpoints are .pt or .dcp (this package) '
+                             'or .fjax (the JAX package)')
         payload = load_fjax(checkpoint)
         config, step = payload['config'], payload['step']
         model = build(config)

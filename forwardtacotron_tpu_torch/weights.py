@@ -33,11 +33,11 @@ from forwardtacotron_tpu_torch.models.fast_pitch import positional_table
 
 def load_fjax(path: Union[str, Path], use_ema: bool = True
               ) -> Dict[str, Any]:
-    """{'model': flax variables (numpy), 'config', 'step', 'optim'} of a
-    `.fjax` checkpoint, 'optim' the optimizer state's leaves or None. EMA
-    weights, when the file has them, replace the raw parameters unless
-    `use_ema=False`. Unpickling runs code from the file: load only
-    checkpoints you trust."""
+    """{'model': flax variables (numpy), 'config', 'step', 'optim',
+    'has_ema'} of a `.fjax` checkpoint, 'optim' the optimizer state's
+    leaves or None. EMA weights, when the file has them ('has_ema'),
+    replace the raw parameters unless `use_ema=False`. Unpickling runs
+    code from the file: load only checkpoints you trust."""
     with open(path, 'rb') as f:
         payload = pickle.load(f)
     variables = dict(payload['model'])
@@ -46,7 +46,7 @@ def load_fjax(path: Union[str, Path], use_ema: bool = True
         variables['params'] = ema
     return {'model': variables, 'config': payload['config'],
             'step': int(payload.get('step', 0)),
-            'optim': payload.get('optim')}
+            'optim': payload.get('optim'), 'has_ema': ema is not None}
 
 
 def _t(a) -> torch.Tensor:

@@ -124,7 +124,10 @@ def test_token_ids_equal_jax_front_end():
         assert ids and ids == jtok(theirs(line)), line
 
 
-FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'forwardtacotron_tpu')
+# the JAX package, its frameworks, and the repository's JAX-side notebook
+# helper and tools
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'forwardtacotron_tpu',
+             'notebook_utils', 'tools')
 
 
 def _imports(path):
@@ -144,7 +147,7 @@ def test_port_imports_no_jax():
     # the serving, data, vocoder-training and trainer-option paths'
     # modules are scanned, and FastPitch's, the teacher's synthesis,
     # evaluation and tracing, the custom ops and the export, and the data
-    # parallelism
+    # parallelism, the notebook Synthesizer and the operator tools
     names = {p.relative_to(ROOT).as_posix() for p in files}
     for module in ('dsp/stft', 'dsp/griffinlim', 'dsp/audio',
                    'text/segmenter', 'models/hifigan', 'models/melgan',
@@ -162,7 +165,11 @@ def test_port_imports_no_jax():
                    'gen_forward', 'train_forward', 'train/forward_trainer',
                    'kernels/ops', 'utils/export', 'export_forward',
                    'parallel/__init__', 'parallel/mesh',
-                   'parallel/distributed'):
+                   'parallel/distributed', 'notebook_utils/synthesize',
+                   'tools/benchmark_serving', 'tools/average_checkpoints',
+                   'tools/model_info', 'tools/export_torch',
+                   'tools/f0_bound', 'tools/make_synthetic_dataset',
+                   'tools/checkpoint_files'):
         assert f'forwardtacotron_tpu_torch/{module}.py' in names, module
     for path in files:
         for name in _imports(path):
