@@ -6410,7 +6410,7 @@ def _benchmark_runs(files, smi):
         res = benchmark_serving.main(
             ['--checkpoint', str(files['tts']), '--voc_checkpoint', str(voc),
              '--clients', str(clients), '--requests', str(requests),
-             '--device', DEVICE] + argv)
+             '--device', DEVICE, '--count-launches'] + argv)
         res['command_s'] = time.perf_counter() - t0
         res['python_counts'] = _kernel_counts_now()
         k = res['kernel_launches']

@@ -35,6 +35,7 @@ from forwardtacotron_tpu_torch.data import native_loader
 from forwardtacotron_tpu_torch.dsp.audio import decode_mu_law, label_2_float
 from forwardtacotron_tpu_torch.text.tokenizer import Tokenizer
 from forwardtacotron_tpu_torch.utils.files import unpickle_binary
+from forwardtacotron_tpu_torch.utils.profiling import annotate
 
 MEL_PAD = -11.5129
 
@@ -650,7 +651,8 @@ class Prefetcher:
 
         threading.Thread(target=worker, daemon=True).start()
         while True:
-            item = q.get()
+            with annotate('ftt.data.next'):
+                item = q.get()
             if item is self._DONE:
                 return
             if isinstance(item, BaseException):

@@ -46,6 +46,7 @@ import torch
 
 from forwardtacotron_tpu_torch.ops.rnn import (birnn_train_backward,
                                                birnn_train_forward, n_gates)
+from forwardtacotron_tpu_torch.utils.profiling import annotate
 
 UNITS = (1, 2, 4, 8)   # units per block compiled in csrc/birnn_train.cu
 PATHS = ('cooperative', 'batch_split', 'cluster')  # of the forward
@@ -476,7 +477,9 @@ def launch_forward(plan: dict, cell: str, gi: torch.Tensor,
                    lengths: torch.Tensor, compute_dtype: torch.dtype):
     """(y, stash) of one launch of the forward kernel on the path and
     shape of `plan` (a plan of `train_forward_plan`'s form), on inputs
-    `train_forward` has checked, counted in `train_forward`'s counters.
+    `train_forward` has checked, counted in `train_forward`'s counters
+    (and, while a profiler records, spanned as
+    `ftt.kernels.birnn_train_fwd` with its shape: `utils/profiling.py`).
     tools/torch_kernel_probe.py and the tests time and check shapes the
     plan does not choose through it (`_cluster_plan(..., cluster)`)."""
     T, B, S, _ = gi.shape
@@ -487,7 +490,10 @@ def launch_forward(plan: dict, cell: str, gi: torch.Tensor,
     args = (int(cell == 'lstm'), int(compute_dtype == torch.bfloat16),
             gi.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
             lengths.data_ptr(), y.data_ptr(), stash.data_ptr())
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), annotate(
+            'ftt.kernels.birnn_train_fwd', path=plan['path'], cell=cell,
+            dtype=_DTYPE_NAMES[compute_dtype], T=T, B=B, S=S, H=H,
+            lengths=lengths):
         if plan['path'] == 'batch_split':
             _launch('ftt_birnn_train_fwd_bs', 'BiRNN training forward kernel '
                     '(batch-split)', 6, *args, T, B, S, H, plan['splits'])
@@ -521,8 +527,9 @@ def train_backward(cell: str, stash: torch.Tensor, dy: torch.Tensor,
     """(dgi, dgh) of backpropagation through time (see
     `ops/rnn.py:birnn_train_backward` for the contract; for LSTM the two
     are the same tensor). CUDA tensors launch the kernel on the path of
-    `train_backward_plan`, or on `path` when given; CPU tensors take the
-    plain version."""
+    `train_backward_plan`, or on `path` when given (a launch spanned as
+    `ftt.kernels.birnn_train_bwd` while a profiler records); CPU tensors
+    take the plain version."""
     if stash.device.type == 'cpu':
         return birnn_train_backward(cell, stash, dy, w_hh, lengths,
                                     compute_dtype)
@@ -559,7 +566,10 @@ def train_backward(cell: str, stash: torch.Tensor, dy: torch.Tensor,
             stash.data_ptr(), dy.data_ptr(), w_hh.data_ptr(),
             lengths.data_ptr(), dgi.data_ptr(),
             None if cell == 'lstm' else dgh.data_ptr())
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), annotate(
+            'ftt.kernels.birnn_train_bwd', path=plan['path'], cell=cell,
+            dtype=_DTYPE_NAMES[compute_dtype], T=T, B=B, S=S, H=H,
+            lengths=lengths):
         if plan['path'] == 'batch_split':
             _launch('ftt_birnn_train_bwd_bs', 'BiRNN training backward '
                     'kernel (batch-split)', 6, *args, T, B, S, H,

@@ -7,7 +7,10 @@ norm clipping with optax's formula, then Adam with torch's (= optax's)
 defaults, the schedule sessions' helpers (the vocoders' `VocSession`
 too), the top-k checkpoint tracker every trainer keeps, and graceful
 preemption. A step runs eagerly: forward, `loss.backward()`, clip,
-`optimizer.step()`.
+`optimizer.step()`. While a profiler records, `train_step` is the span
+`ftt.train.step`, each forward and backward of `accumulate` the spans
+`ftt.train.forward` and `ftt.train.backward`, and `apply_update` the span
+`ftt.train.update` (`utils/profiling.py:annotate`).
 
 The trainers' options, as the JAX package runs them (`:213-400`):
 
@@ -86,6 +89,7 @@ from forwardtacotron_tpu_torch.utils.async_ckpt import (AsyncCheckpointWriter,
 from forwardtacotron_tpu_torch.utils.display import can_plot
 from forwardtacotron_tpu_torch.utils.files import (pickle_binary,
                                                    unpickle_binary)
+from forwardtacotron_tpu_torch.utils.profiling import annotate
 
 # the options each JAX trainer runs (its step builder reads them); the
 # port's trainer of the same name honours these and refuses the others
@@ -258,8 +262,10 @@ def accumulate(micro_loss: Callable, batch: Dict[str, Any], k: int,
     divided by k. Returns (metrics, aux): for k > 1 the metrics averaged
     and the tensor aux joined on the leading axis."""
     if k <= 1:
-        loss, metrics, aux = micro_loss(batch)
-        loss.backward()
+        with annotate('ftt.train.forward'):
+            loss, metrics, aux = micro_loss(batch)
+        with annotate('ftt.train.backward'):
+            loss.backward()
         return metrics, aux
     (B,) = {v.shape[0] for v in batch.values() if torch.is_tensor(v)}
     assert B % k == 0, f'batch size {B} not divisible by grad_accum={k}'
@@ -267,8 +273,10 @@ def accumulate(micro_loss: Callable, batch: Dict[str, Any], k: int,
     ms, auxs = [], []
     for part in ({key: v[i * m:(i + 1) * m] if torch.is_tensor(v) else v
                   for key, v in batch.items()} for i in range(k)):
-        loss, metrics, aux = micro_loss(part)
-        loss.backward()
+        with annotate('ftt.train.forward'):
+            loss, metrics, aux = micro_loss(part)
+        with annotate('ftt.train.backward'):
+            loss.backward()
         ms.append(metrics)
         auxs.append(aux)
     grads = [p.grad for p in model.parameters() if p.grad is not None]
@@ -288,17 +296,18 @@ def apply_update(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     shard_grads`); then the global-norm clip (where `clip` is set, with
     the norm before clipping in metrics['grad_norm']), the optimizer's
     step, the EMA."""
-    reduce_gradients(model.parameters())
-    metrics.update(reduce_metrics(metrics))
-    shards = shards_of(model)
-    if shards is not None:
-        shards.shard_grads()
-    if clip is not None:
-        metrics['grad_norm'] = clip_by_global_norm(model.parameters(),
-                                                   float(clip), shards)
-    optimizer.step()
-    if ema is not None:
-        ema.update(model)
+    with annotate('ftt.train.update'):
+        reduce_gradients(model.parameters())
+        metrics.update(reduce_metrics(metrics))
+        shards = shards_of(model)
+        if shards is not None:
+            shards.shard_grads()
+        if clip is not None:
+            metrics['grad_norm'] = clip_by_global_norm(
+                model.parameters(), float(clip), shards)
+        optimizer.step()
+        if ema is not None:
+            ema.update(model)
 
 
 class Preemption:
@@ -784,13 +793,15 @@ def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     zoneout, then FastPitch's dropout. The clipped gradients stay in
     `.grad`. Returns the step's metrics (device tensors, including the norm
     before clipping)."""
-    model.train()
-    optimizer.zero_grad(set_to_none=True)
-    metrics, _ = accumulate(forward_micro_loss(model, train_cfg, generator),
-                            forward_step_batch(batch, generator, train_cfg),
-                            grad_accum(train_cfg), model)
-    apply_update(model, optimizer, metrics, train_cfg.get('clip_grad_norm'),
-                 ema)
+    with annotate('ftt.train.step'):
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        metrics, _ = accumulate(
+            forward_micro_loss(model, train_cfg, generator),
+            forward_step_batch(batch, generator, train_cfg),
+            grad_accum(train_cfg), model)
+        apply_update(model, optimizer, metrics,
+                     train_cfg.get('clip_grad_norm'), ema)
     return metrics
 
 

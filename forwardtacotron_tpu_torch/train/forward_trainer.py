@@ -39,7 +39,8 @@ from forwardtacotron_tpu_torch.utils.display import (log_audio, plot_mel,
                                                      plot_pitch)
 from forwardtacotron_tpu_torch.utils.files import parse_schedule
 from forwardtacotron_tpu_torch.utils.paths import Paths
-from forwardtacotron_tpu_torch.utils.profiling import StepTraceController
+from forwardtacotron_tpu_torch.utils.profiling import (StepTraceController,
+                                                       annotate)
 
 BATCH_KEYS = ('x', 'x_len', 'mel', 'mel_len', 'dur', 'pitch', 'energy')
 
@@ -48,9 +49,9 @@ def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, Any]:
     """The batch's tensors on `device`, with a multi-speaker corpus's (B,)
     `speaker` ids."""
     keys = BATCH_KEYS + (('speaker',) if 'speaker' in batch else ())
-    return {k: torch.from_numpy(np.asarray(batch[k])).to(device,
-                                                         non_blocking=True)
-            for k in keys}
+    with annotate('ftt.data.to_device'):
+        return {k: torch.from_numpy(np.asarray(batch[k])).to(
+            device, non_blocking=True) for k in keys}
 
 
 class ForwardTrainer(tc.Logging):

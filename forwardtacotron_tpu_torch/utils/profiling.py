@@ -1,26 +1,126 @@
-"""Profiling and tracing: `torch.profiler` traces, step timing and device
-memory (the JAX package's `utils/profiling.py`).
+"""Profiling and tracing: the port's spans, `torch.profiler` traces and
+the port's kernels counted in a trace (the JAX package's
+`utils/profiling.py`).
 
-`trace()` records a code region with `torch.profiler` (the host's ops, and
-the card's kernels where CUDA is available) and writes a Chrome trace,
-which Perfetto and TensorBoard's profiler plugin open; `annotate()` names
-a span inside it; `StepTimer` keeps per-step wall times with percentiles;
-`StepTraceController` traces a window of training steps when
-`FTT_PROFILE_DIR` is set; `device_memory_stats` reads the CUDA caching
-allocator; `kernel_launches` counts the port's kernels in a trace (where
-the wrappers' Python counters do not tick: the replay of a captured CUDA
-graph).
+`annotate(name, **attrs)` is the port's span. Tracing is on exactly while
+a `torch.profiler` is recording (`StepTraceController`'s window, `trace()`,
+any caller's profile): then a span opens a `record_function` of its name,
+which puts it on the profiler's timeline beside the card's kernels, and on
+exit appends a `Span` to a bounded in-memory store that `spans()` reads.
+Off, `annotate` reads the profiler's flag and returns a shared do-nothing
+context: no `record_function`, no record. Every name begins with `ftt.`:
+
+    ftt.data.next         the consumer's wait for `Prefetcher`'s next batch
+    ftt.data.to_device    `batch_to_device`'s host-to-device copies
+    ftt.train.step        `train_step`'s whole body; defines `Span.step`
+    ftt.train.forward     each `micro_loss` of `accumulate` (forward, loss)
+    ftt.train.backward    each `loss.backward()` of `accumulate`
+    ftt.train.update      `apply_update`: reduce, shard, clip, step, EMA
+    ftt.kernels.birnn_train_fwd / _bwd
+                          one launch of kernel #2 / #3, with its `path`,
+                          `cell`, `dtype`, `T`, `B`, `S`, `H` and `lengths`
+                          (the launch's device tensor, never copied)
+
+A span's `step` is the number of `ftt.train.step` spans recorded before it
+began, so the spans of one step share it on any thread (spans outside
+`train_step`, as the other trainers' `accumulate` and `apply_update`,
+carry the count of the last step); its `parent` is the `id` of the
+innermost span open on its own thread. The store is never cleared: a
+kernel span's `lengths` keeps its device tensor alive until 8192 later
+spans push the record out. `trace()` records a
+region with `torch.profiler` (the host's ops, and the card's kernels where
+CUDA is available) and writes a Chrome trace, which Perfetto and
+TensorBoard's profiler plugin open; `StepTraceController` traces a window
+of training steps when `FTT_PROFILE_DIR` is set; `kernel_launches` counts
+the port's kernels in a trace (where the wrappers' Python counters do not
+tick: the replay of a captured CUDA graph).
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
 import os
+import threading
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, NamedTuple, Optional
 
-import numpy as np
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+STEP_SPAN = 'ftt.train.step'
+STORE_SPANS = 8192
+
+
+class Span(NamedTuple):
+    """One closed span: times from `time.perf_counter_ns()`."""
+    name: str
+    start_ns: int
+    end_ns: int
+    thread: int
+    id: int
+    parent: Optional[int]
+    step: int
+    attrs: Dict[str, Any]
+
+
+_store: 'collections.deque[Span]' = collections.deque(maxlen=STORE_SPANS)
+_lock = threading.Lock()
+_open = threading.local()        # .stack: this thread's open spans
+_ids = itertools.count()
+_steps = 0                       # ftt.train.step spans recorded
+_OFF = contextlib.nullcontext()
+
+
+class _Span:
+    """An open span: a `record_function` of its name, then a `Span`."""
+
+    __slots__ = ('name', 'attrs', 'record', 'id', 'parent', 'step',
+                 'start')
+
+    def __init__(self, name: str, attrs: Dict[str, Any]) -> None:
+        self.name = name
+        self.attrs = attrs
+
+    def __enter__(self) -> '_Span':
+        self.record = torch.profiler.record_function(self.name)
+        self.record.__enter__()
+        stack = getattr(_open, 'stack', None)
+        if stack is None:
+            stack = _open.stack = []
+        self.id = next(_ids)
+        self.parent = stack[-1].id if stack else None
+        stack.append(self)
+        self.step = _steps
+        self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        global _steps
+        end = time.perf_counter_ns()
+        _open.stack.pop()
+        self.record.__exit__(*exc)
+        span = Span(self.name, self.start, end, threading.get_ident(),
+                    self.id, self.parent, self.step, self.attrs)
+        with _lock:
+            _store.append(span)
+            if self.name == STEP_SPAN:
+                _steps += 1
+
+
+def annotate(name: str, **attrs):
+    """The port's span named `name` (a `with` context) while a profiler
+    records, else a shared context that does nothing."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name, attrs)
+
+
+def spans() -> List[Span]:
+    """The stored spans, oldest first (the last `STORE_SPANS`)."""
+    with _lock:
+        return list(_store)
 
 
 def _profiler() -> torch.profiler.profile:
@@ -50,40 +150,6 @@ def trace(log_dir):
     with prof:
         yield prof
     _export(prof, log_dir)
-
-
-def annotate(name: str):
-    """A named span in the trace (`torch.profiler.record_function`)."""
-    return torch.profiler.record_function(name)
-
-
-class StepTimer:
-    """Wall-clock step statistics (mean / p50 / p95 / steps per second)
-    over the last `window` steps; the caller synchronises the device
-    inside the `with` where it wants device time counted."""
-
-    def __init__(self, window: int = 500) -> None:
-        self.window = window
-        self.times: List[float] = []
-        self._start: Optional[float] = None
-
-    def __enter__(self) -> 'StepTimer':
-        self._start = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc) -> None:
-        self.times.append(time.perf_counter() - self._start)
-        if len(self.times) > self.window:
-            self.times = self.times[-self.window:]
-
-    def stats(self) -> Dict[str, float]:
-        if not self.times:
-            return {}
-        t = np.asarray(self.times)
-        return {'mean_s': float(t.mean()),
-                'p50_s': float(np.percentile(t, 50)),
-                'p95_s': float(np.percentile(t, 95)),
-                'steps_per_sec': float(1.0 / max(t.mean(), 1e-9))}
 
 
 class StepTraceController:
@@ -128,19 +194,6 @@ class StepTraceController:
             self.path = _export(self._prof, self.dir)
             self._prof = None
             self._done = True
-
-
-def device_memory_stats(device=None) -> Dict[str, int]:
-    """Bytes in use, their peak and the card's total, from the CUDA
-    caching allocator; {} without CUDA."""
-    if not torch.cuda.is_available():
-        return {}
-    stats = torch.cuda.memory_stats(device)
-    return {'bytes_in_use': int(stats.get('allocated_bytes.all.current', 0)),
-            'peak_bytes_in_use': int(stats.get('allocated_bytes.all.peak',
-                                               0)),
-            'bytes_limit': int(torch.cuda.get_device_properties(
-                device or torch.cuda.current_device()).total_memory)}
 
 
 # kernel name (as the profiler reports the CUDA symbol) -> launch count key,

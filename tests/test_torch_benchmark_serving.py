@@ -3,8 +3,9 @@ CPU at a tiny width: 2 clients x 2 requests against the port's
 `TTSServer` print one JSON line with the keys of the JAX package's
 `tools/benchmark_serving.py` (read from its source) plus
 `kernel_launches`, no errors and every request answered; staged with
-Griffin-Lim and fused with HiFi-GAN (on the CPU the fused function runs
-directly), and with the launch count off."""
+Griffin-Lim and the launches counted, fused with HiFi-GAN (on the CPU the
+fused function runs directly), and with the launch count off, as it is
+by default."""
 import ast
 import json
 from pathlib import Path
@@ -44,9 +45,9 @@ def files(tmp_path_factory):
     return d
 
 
-@pytest.mark.parametrize('vocoder', [['griffinlim'],
+@pytest.mark.parametrize('vocoder', [['griffinlim', '--count-launches'],
                                      ['hifigan', '--fused'],
-                                     ['griffinlim', '--no-launch-count']],
+                                     ['griffinlim']],
                          ids=['staged_griffinlim', 'fused_hifigan',
                               'no_launch_count'])
 def test_two_clients_two_requests(files, vocoder, capsys):
@@ -69,7 +70,6 @@ def test_two_clients_two_requests(files, vocoder, capsys):
     assert 0 < lat['p50'] <= lat['p95'] <= lat['p99'] <= lat['max']
     assert 1 <= printed['mean_batch_size'] <= 2
     # the plain versions run on the CPU: no kernel is launched
-    assert printed['kernel_launches'] == (
-        None if '--no-launch-count' in argv else {
-            'birnn_stream_local': 0, 'birnn_cooperative': 0,
-            'wavernn_sample': 0})
+    assert printed['kernel_launches'] == ({
+        'birnn_stream_local': 0, 'birnn_cooperative': 0,
+        'wavernn_sample': 0} if '--count-launches' in argv else None)

@@ -272,17 +272,13 @@ def test_inference_kernel_refuses_grad(cuda):
         recurrence('gru', gi, w, b, lengths, torch.float32)
 
 
-def test_full_width_step_gives_every_parameter_a_gradient(cuda):
-    """One train step of the full-width ForwardTacotron on the card: its
-    six recurrences go through kernels #2/#3, and every parameter gets a
-    finite, nonzero gradient (none is cut off by a detached kernel)."""
+def _full_width_student(cuda):
+    """(model, config, batch) of the full-width ForwardTacotron on the
+    card with a batch of 4 items of 40 tokens."""
     import numpy as np
     from forwardtacotron_tpu_torch.config import default_config
-    from forwardtacotron_tpu_torch.kernels.birnn_train import (
-        train_backward, train_forward)
     from forwardtacotron_tpu_torch.models.forward_tacotron import (
         ForwardTacotron)
-    from forwardtacotron_tpu_torch.train import common as tc
     cfg = default_config()
     torch.manual_seed(0)
     model = ForwardTacotron.from_config(cfg).to(cuda)
@@ -295,7 +291,17 @@ def test_full_width_step_gives_every_parameter_a_gradient(cuda):
              'mel': torch.randn(B, int(mel_len.max()) + 1, 80),
              'mel_len': mel_len, 'pitch': torch.randn(B, tx),
              'energy': torch.randn(B, tx)}
-    batch = {k: v.to(cuda) for k, v in batch.items()}
+    return model, cfg, {k: v.to(cuda) for k, v in batch.items()}
+
+
+def test_full_width_step_gives_every_parameter_a_gradient(cuda):
+    """One train step of the full-width ForwardTacotron on the card: its
+    six recurrences go through kernels #2/#3, and every parameter gets a
+    finite, nonzero gradient (none is cut off by a detached kernel)."""
+    from forwardtacotron_tpu_torch.kernels.birnn_train import (
+        train_backward, train_forward)
+    from forwardtacotron_tpu_torch.train import common as tc
+    model, cfg, batch = _full_width_student(cuda)
     before = (train_forward.launches, train_backward.launches)
     tc.train_step(model, tc.make_optimizer(model), batch,
                   torch.Generator(device=cuda).manual_seed(0),
@@ -306,6 +312,64 @@ def test_full_width_step_gives_every_parameter_a_gradient(cuda):
         assert p.grad is not None, name
         assert bool(torch.isfinite(p.grad).all()), name
         assert float(p.grad.abs().max()) > 0, name
+
+
+def test_traced_step_spans_every_launch(cuda, monkeypatch):
+    """A profiled student step on the card: the spans of kernels #2/#3 by
+    path equal the launches the profiler saw by kernel name
+    (`kernel_launches`), and each lies inside its phase's span
+    (`ftt.train.forward` for #2, `ftt.train.backward` for #3) both on the
+    profiler's timeline and in the store, with its step's number."""
+    import collections
+    from torch.profiler import ProfilerActivity, profile
+    from forwardtacotron_tpu_torch.train import common as tc
+    from forwardtacotron_tpu_torch.utils import profiling
+    monkeypatch.setattr(profiling, '_store', collections.deque(
+        maxlen=profiling.STORE_SPANS))
+    monkeypatch.setattr(profiling, '_steps', 0)
+    model, cfg, batch = _full_width_student(cuda)
+    opt = tc.make_optimizer(model)
+    train_cfg = cfg['forward_tacotron']['training']
+
+    def step(seed):
+        tc.train_step(model, opt, batch,
+                      torch.Generator(device=cuda).manual_seed(seed),
+                      train_cfg)
+    step(0)                                  # builds the kernels, untraced
+    assert profiling.spans() == []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(1)
+        torch.cuda.synchronize()
+    spans = profiling.spans()
+    launches = [s for s in spans if s.name.startswith('ftt.kernels.')]
+    recorded = collections.Counter(
+        f'{s.name.split(".")[-1]}_{s.attrs["path"]}' for s in launches)
+    counted = profiling.kernel_launches(prof)
+    assert len(launches) == 12
+    assert {k: v for k, v in counted.items() if 'train' in k} == {
+        k: recorded[k] for k in counted if 'train' in k}
+    phase = {'ftt.kernels.birnn_train_fwd': 'ftt.train.forward',
+             'ftt.kernels.birnn_train_bwd': 'ftt.train.backward'}
+    # the profiler mirrors each host range onto the card's timeline as a
+    # user annotation, which is not device work
+    on_card = [e for e in prof.events() if str(e.device_type).endswith('CUDA')
+               and e.name.startswith('ftt.')]
+    assert on_card and all(e.is_user_annotation for e in on_card)
+    events = [e for e in prof.events()
+              if not str(e.device_type).endswith('CUDA')]
+    for name, outer in phase.items():
+        ranges = [e.time_range for e in events if e.name == outer]
+        inner = [e.time_range for e in events if e.name == name]
+        assert len(inner) == sum(s.name == name for s in launches) == 6
+        assert all(any(r.start <= i.start and i.end <= r.end
+                       for r in ranges) for i in inner), name
+        held = [s for s in spans if s.name == outer]
+        for s in (s for s in launches if s.name == name):
+            assert s.step == 0 and s.attrs['dtype'] == 'float32'
+            assert s.attrs['lengths'].device.type == 'cuda'
+            assert any(h.start_ns <= s.start_ns and s.end_ns <= h.end_ns
+                       for h in held), name
 
 
 @pytest.mark.parametrize('cell,H', [('gru', 64), ('gru', 128), ('lstm', 64)])

@@ -12,8 +12,8 @@ server a run, warmed as the tool warms it) at 8 clients x each of
 `--requests` per client with `torch.backends.cudnn.allow_tf32` False (as
 chip_smoke.py sets it) and then True (PyTorch's default, which the tool
 and `serve_forward` leave as it is), each first counting the kernels'
-launches (a CUDA-activity profiler over the timed window) and then with
-`--no-launch-count`. Prints the card's name and power limit, then one
+launches (`--count-launches`: a CUDA-activity profiler over the timed
+window) and then without it. Prints the card's name and power limit, then one
 JSON line a run (`round`, `requests`, `cudnn_tf32`, `launch_count` and
 the tool's line); the lines also go to chiprun_out/ab_serving.jsonl.
 Needs a CUDA device.
@@ -64,7 +64,7 @@ def main() -> None:
                         '--clients', '8', '--requests', requests,
                         '--device', 'cuda']
                 argv += ['--fused'] * args.fused
-                argv += [] if count else ['--no-launch-count']
+                argv += ['--count-launches'] if count else []
                 with contextlib.redirect_stdout(io.StringIO()):
                     res = benchmark_serving.main(argv)
                 row = json.dumps({'round': rnd, 'requests': int(requests),
