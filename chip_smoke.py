@@ -86,11 +86,14 @@ printed only when every phase passed):
    must measure faster than the cooperative forward;
 8. the training path at full width: `ForwardTrainer.train` for 6 steps at
    batch 32 on a synthetic LJSpeech-like dataset, counts reset just
-   before and read just after (kernels #2/#3), then one `evaluate()`
+   before and read just after (kernels #2/#3), the card's launches
+   counted by a profiler and each step's path (eager, capture or replay
+   of its CUDA graph) read from its span, then one `evaluate()`
    (kernel #1, every launch stream-local); each recurrence of every step
    on the paths its plans give (`_planned_launches`: the predictor BiGRUs
    batch-split, the prenet and postnet forwards on the cluster path, the
-   decoder's cooperative; backward batch-split or cooperative); losses
+   decoder's cooperative; backward batch-split or cooperative), both in
+   the wrappers' counters and on the card (`_check_launches`); losses
    finite, every parameter
    moved, the checkpoint served by `gen_forward`; ms per step split into forward, backward and
    optimizer; float32 gradients on the card against the CPU plain path,
@@ -133,7 +136,9 @@ printed only when every phase passed):
    MelGAN in float32 and bf16, each timed by `step_timing` with #2/#3
    counted by compute dtype (bf16 steps launch them in bf16 only, remat
    twice a recurrence forward, grad_accum k times k, each on the paths its
-   plans give at the micro-batch); `VocTrainer.train`
+   plans give at the micro-batch; the student's also as the card ran them,
+   by a profiler, with each step's path: `_check_launches`);
+   `VocTrainer.train`
    in bf16 with remat (#4 in generate_samples); on the card, the
    student's remat gradients against no remat (running statistics equal,
    phase 8's limits) and its bf16 gradients against float32 (relative L2
@@ -220,8 +225,11 @@ printed only when every phase passed):
    forwardtacotron_tpu_torch.train_forward --config cli.json` (NCCL) for 2
    steps, its checkpoint loaded; `ForwardTrainer.train` and
    `VocTrainer.train` (3 steps each at batch 32) under a one-rank NCCL mesh
-   against no group (within 1e-6), each step by `step_timing` with and
-   without the mesh and the gradient all-reduce alone;
+   against no group (within 1e-6; the student's eager under the mesh,
+   replayed graphs without a group, both with the capturable Adam the
+   graphs convert to, and its #2/#3 held to the plan by path), each step
+   by `step_timing` with and without the mesh and the gradient
+   all-reduce alone;
 17. the trainers' plots and the mesh's 'model' axis at the full width of
    config.yaml, random weights (`logging_and_model_axis_path` lists its
    cuts): `ForwardTrainer.train` and `TacoTrainer.train` (r=5), 2 steps
@@ -272,6 +280,7 @@ chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import json
@@ -1742,39 +1751,29 @@ def training_path():
         optimizer = tc.make_optimizer(model)
         before = copy.deepcopy(model.state_dict())
 
-        recurrence.launches = 0
-        train_forward.launches = 0
-        train_forward.path_launches = dict.fromkeys(
-            train_forward.path_launches, 0)
-        train_backward.launches = 0
-        train_backward.path_launches = dict.fromkeys(
-            train_backward.path_launches, 0)
+        _option_counts(reset=True)
         t0 = time.perf_counter()
-        step = trainer.train(model, optimizer, max_steps_override=6)
-        torch.cuda.synchronize()
+        step, card, step_paths = _profiled(
+            lambda: trainer.train(model, optimizer, max_steps_override=6))
         wall = time.perf_counter() - t0
-        launches = {'birnn': recurrence.launches,
-                    'birnn_train_fwd': train_forward.launches,
-                    'birnn_train_bwd': train_backward.launches,
-                    **{f'birnn_train_fwd_{k}': v for k, v in
-                       train_forward.path_launches.items()},
-                    **{f'birnn_train_bwd_{k}': v for k, v in
-                       train_backward.path_launches.items()}}
+        launches = _option_counts()
         log(f'  6 steps at batch 32 in {wall:.1f} s (host clock, first '
-            f'steps included), launches {launches}')
+            f'steps included, profiled), steps by path {step_paths}, launches '
+            f'{launches}, on the card {card}')
         check(step == 6, f'trainer reached step {step} == 6')
         check(launches['birnn_train_fwd'] > 0
               and launches['birnn_train_bwd'] > 0,
               f'training launched kernels #2 and #3: {launches}')
+        check(step_paths.get('capture', 0) > 0 and 'eager' not in step_paths,
+              f'every step a CUDA graph of the step: {step_paths}')
         # per step each of the six recurrences on its planned paths (float32,
         # batch 32): the predictor BiGRUs batch-split, the prenet and
         # postnet GRUs on the cluster forward, the decoder LSTM cooperative
-        want = _planned_launches(_student_shapes(cfg), 32, torch.float32,
-                                 step, step)
-        got = {k: launches[k] for k in want}
-        check(got == want and want['birnn_train_fwd_cluster'] > 0,
-              f'kernels #2/#3 by path in {step} steps: {got} == planned '
-              f'{want}')
+        _check_launches(launches, f'{step} steps', _student_shapes(cfg), 32,
+                        cfg['forward_tacotron']['training'], step,
+                        step_paths, card)
+        check(launches['birnn_train_fwd_cluster'] > 0,
+              f'the cluster forward launched: {launches}')
         losses = [v for tag, v, _ in writer.values if 'Loss' in tag]
         check(len(losses) > 0 and all(math.isfinite(v) for v in losses),
               f'{len(losses)} loss scalars, all finite')
@@ -2127,6 +2126,24 @@ def _train_counts(reset=False):
         out[name] = fn.launches
         out.update({f'{name}_{k}': v for k, v in fn.path_launches.items()})
     return out
+
+
+def _profiled(run):
+    """`run()` under a profiler of the card's activity: (its result, the
+    launches of the port's kernels that the card ran, by kernel name and
+    path (`profiling.kernel_launches`), and how many of the `train_step`s
+    it ran took each path: 'eager', 'capture' or 'replay' of the step's
+    CUDA graph, as each step's span says)."""
+    from torch.profiler import ProfilerActivity, profile
+    from forwardtacotron_tpu_torch.utils import profiling
+    t0 = time.perf_counter_ns()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = run()
+        torch.cuda.synchronize()
+    paths = collections.Counter(
+        s.attrs.get('path') for s in profiling.spans()
+        if s.name == profiling.STEP_SPAN and s.start_ns >= t0)
+    return out, profiling.kernel_launches(prof), dict(paths)
 
 
 def _student_shapes(cfg):
@@ -3053,22 +3070,39 @@ def _option_counts(reset=False):
     return out
 
 
-def _check_launches(got, what, shapes, batch, train_cfg, steps=1):
+def _check_launches(got, what, shapes, batch, train_cfg, steps=1,
+                    paths=None, card=None):
     """`steps` steps of the recurrences `shapes` ((cell, streams, H)) at
     `batch` lanes: #2 k launches each a step (twice that under remat), #3
     k, all in the step's compute dtype, each on the paths the plans give
-    at the micro-batch of batch / k lanes."""
+    at the micro-batch of batch / k lanes. `paths` counts how the steps
+    ran (`_profiled`; None: all eager). The wrappers' counters `got` count
+    an eager step's launches once, a captured step's twice (its warm-up,
+    then the calls the capture records) and a replay's not at all; the
+    card (`card`, a profiler's count, where given) runs a captured step's
+    twice (its warm-up and its replay) and every other step's once."""
     from forwardtacotron_tpu_torch.train.common import half_dtype
     k = int(train_cfg.get('grad_accum', 1) or 1)
     remat = bool(train_cfg.get('remat', False))
     dtype = 'float32' if half_dtype(train_cfg) is None else 'bfloat16'
-    fwd = len(shapes) * steps * k * (2 if remat else 1)
-    bwd = len(shapes) * steps * k
+    paths = collections.Counter(paths or {'eager': steps})
+    check(sum(paths.values()) == steps,
+          f'{what}: {steps} steps by path {dict(paths)}')
+    calls = paths['eager'] + 2 * paths['capture']
+    fwd = len(shapes) * calls * k * (2 if remat else 1)
+    bwd = len(shapes) * calls * k
     want = _planned_launches(shapes, batch // k, getattr(torch, dtype),
                              fwd // len(shapes), bwd // len(shapes))
     by_path = {key: got[key] for key in want}
     check(by_path == want, f'{what}: kernels #2/#3 by path {by_path} == '
-                           f'planned {want}')
+                           f'planned {want} ({dict(paths)} steps)')
+    if card is not None:
+        ran = calls + paths['replay']
+        on_card = _planned_launches(shapes, batch // k, getattr(torch, dtype),
+                                    ran * k * (2 if remat else 1), ran * k)
+        seen = {key: card[key] for key in on_card}
+        check(seen == on_card, f'{what}: kernels #2/#3 the card ran by path '
+                               f'{seen} == planned {on_card}')
     ok = (got['birnn_train_fwd'] == got[f'birnn_train_fwd_{dtype}'] == fwd
           and got['birnn_train_bwd'] == got[f'birnn_train_bwd_{dtype}']
           == bwd)
@@ -3100,10 +3134,12 @@ def _student_options(cfg, paths, smi):
         ema = tc.make_ema(model, train_cfg)
         gen = torch.Generator(device=DEVICE).manual_seed(0)
         _option_counts(reset=True)
-        metrics = tc.train_step(model, optimizer, batch, gen, train_cfg, ema)
+        metrics, card, step_paths = _profiled(lambda: tc.train_step(
+            model, optimizer, batch, gen, train_cfg, ema))
         launches = _option_counts()
         _check_launches(launches, f'student {label} step',
-                        _student_shapes(cfg), 32, train_cfg)
+                        _student_shapes(cfg), 32, train_cfg, 1, step_paths,
+                        card)
         check(math.isfinite(float(metrics['loss'])),
               f'student {label}: loss {float(metrics["loss"]):.4f} finite')
         row = step_timing(_student_parts(model, optimizer, batch, train_cfg,
@@ -3193,19 +3229,21 @@ def _student_trainer_run(cfg, paths, smi):
     optimizer = tc.make_optimizer(model)
     _option_counts(reset=True)
     t0 = time.perf_counter()
-    step = trainer.train(model, optimizer, max_steps_override=OPTIONS_STEPS)
-    torch.cuda.synchronize()
+    step, card, step_paths = _profiled(lambda: trainer.train(
+        model, optimizer, max_steps_override=OPTIONS_STEPS))
     wall = time.perf_counter() - t0
     _, val_set = get_tts_datasets(cfg['data_path'], 32, 1, None)
     trainer.evaluate(model, val_set)
     launches = _option_counts()
     log(f'  ForwardTrainer with {options}: {step} steps in {wall:.1f} s '
-        f'(host clock, first steps included), launches {launches}')
+        f'(host clock, first steps included, profiled), steps by path '
+        f'{step_paths}, launches {launches}')
     check(step == OPTIONS_STEPS, f'student trainer with every option '
                                  f'reached step {step}')
     _check_launches(launches, f'student trainer, {step} steps, all options',
                     _student_shapes(run_cfg), 32,
-                    run_cfg['forward_tacotron']['training'], step)
+                    run_cfg['forward_tacotron']['training'], step,
+                    step_paths, card)
     check(launches['birnn'] == launches['birnn_stream_local'] > 0,
           f'evaluate() with the EMA weights: kernel #1 '
           f'{launches["birnn"]} launches, stream-local')
@@ -3529,12 +3567,12 @@ EVAL_F0 = 150.0      # Hz: a flat contour, so that the DTW path cannot pair
 
 
 def _all_counts(reset=False):
-    """Launches of kernels #1, #2 and #3 by path and of #4, zeroed first
-    with `reset`."""
+    """Launches of kernels #1, #2 and #3 by path (#2/#3 also by compute
+    dtype) and of #4, zeroed first with `reset`."""
     from forwardtacotron_tpu_torch.kernels.wavernn_sample import sample
     if reset:
         sample.launches = 0
-    return dict(_train_counts(reset), wavernn_sample=sample.launches)
+    return dict(_option_counts(reset), wavernn_sample=sample.launches)
 
 
 def _no_dropout(model):
@@ -4209,18 +4247,17 @@ def _ms_student(cfg, paths, smi):
     model = ForwardTacotron.from_config(cfg).to(DEVICE)
     optimizer = tc.make_optimizer(model)
     _all_counts(reset=True)
-    step = trainer.train(model, optimizer,
-                         max_steps_override=MS_STUDENT_STEPS)
+    step, card, step_paths = _profiled(lambda: trainer.train(
+        model, optimizer, max_steps_override=MS_STUDENT_STEPS))
     launches = _all_counts()
-    want = _planned_launches(_student_shapes(cfg), 32, torch.float32, step,
-                             step)
     losses = [v for tag, v, _ in writer.values if tag == 'Mel_Loss/train']
     check(step == MS_STUDENT_STEPS
-          and all(launches[k] == n for k, n in want.items())
           and len(losses) == step and all(map(math.isfinite, losses)),
           f'{MS_SPEAKERS}-speaker student on the aligner\'s durations: '
-          f'{step} steps, #2/#3 by path {launches} == planned {want}, mel '
-          f'losses {losses}')
+          f'{step} steps, mel losses {losses}')
+    _check_launches(launches, f'{MS_SPEAKERS}-speaker student, {step} steps',
+                    _student_shapes(cfg), 32, cfg['forward_tacotron'][
+                        'training'], step, step_paths, card)
     train_set, val_set = get_tts_datasets(
         paths.data, 32, 1, None, filter_attention=False)
     batch = batch_to_device(max(train_set.batches(0),
@@ -5675,10 +5712,29 @@ def _deterministic():
         torch.use_deterministic_algorithms(saved[1], warn_only=saved[2])
 
 
+def _capturable_adam(model):
+    """`tc.make_optimizer(model)` in the form the student's step graphs
+    convert it to (`train/common.py:_make_capturable`): capturable, its
+    learning rate a float32 tensor on the card. Torch's capturable Adam
+    rounds optax's formula in another order than the plain one, so a run
+    whose steps replay graphs is held to an eager run with this form."""
+    from forwardtacotron_tpu_torch.train import common as tc
+    optimizer = tc.make_optimizer(model)
+    for group in optimizer.param_groups:
+        group['capturable'] = True
+        group['lr'] = torch.tensor(float(group['lr']), dtype=torch.float32,
+                                   device='cuda')
+    return optimizer
+
+
 def _trainer_runs(s_cfg, v_cfg, dsp, mesh, base, runs, launches, out):
     """(a)'s three runs of ForwardTrainer and VocTrainer from the same
     seeds: no group, the one-rank mesh, no group again; each run's states
-    and models in `runs`, its launches in `launches`."""
+    and models in `runs`, its launches in `launches`, the student's alone
+    (counted, on the card by a profiler, and its steps by path:
+    `_profiled`) in `out`. The student's steps replay CUDA graphs without
+    a group and run eagerly under the mesh, each run with the capturable
+    Adam (`_capturable_adam`)."""
     from forwardtacotron_tpu_torch.models.forward_tacotron import (
         ForwardTacotron)
     from forwardtacotron_tpu_torch.models.wavernn import WaveRNN
@@ -5699,9 +5755,10 @@ def _trainer_runs(s_cfg, v_cfg, dsp, mesh, base, runs, launches, out):
                                dsp, v_cfg, 'cuda', mesh=m)
         _all_counts(reset=True)
         t0 = time.perf_counter()
-        s_step = trainer.train(student, tc.make_optimizer(student))
-        torch.cuda.synchronize()
+        s_step, s_card, s_paths = _profiled(
+            lambda: trainer.train(student, _capturable_adam(student)))
         s_wall = time.perf_counter() - t0
+        s_launches = _all_counts()
         t0 = time.perf_counter()
         v_step = v_trainer.train(vocoder, tc.make_optimizer(vocoder))
         torch.cuda.synchronize()
@@ -5709,13 +5766,16 @@ def _trainer_runs(s_cfg, v_cfg, dsp, mesh, base, runs, launches, out):
         launches[tag] = _all_counts()
         runs[tag] = (_copy_state(student), _copy_state(vocoder), student,
                      vocoder)
-        log(f'  {tag}: student {s_step} steps in {s_wall:.1f} s, WaveRNN '
-            f'{v_step} steps in {v_wall:.1f} s (host clock, evaluate() '
-            f'included); launches {launches[tag]}')
+        log(f'  {tag}: student {s_step} steps in {s_wall:.1f} s (profiled; '
+            f'steps by path {s_paths}), WaveRNN {v_step} steps in '
+            f'{v_wall:.1f} s (host clock, evaluate() included); launches '
+            f'{launches[tag]}')
         check(s_step == v_step == PARALLEL_STEPS,
               f'{tag}: both trainers reached step {PARALLEL_STEPS}')
         out[tag] = {'student_wall_s': s_wall, 'wavernn_wall_s': v_wall,
-                    'launches': launches[tag]}
+                    'launches': launches[tag],
+                    'student_launches': s_launches,
+                    'student_card': s_card, 'student_paths': s_paths}
 
 
 def _one_rank(cfg, base, data, voc_data, smi):
@@ -5772,10 +5832,29 @@ def _one_rank(cfg, base, data, voc_data, smi):
         check(s_diff <= 1e-6 and v_diff <= 1e-6,
               f'one-rank NCCL mesh within 1e-6 of no group (student '
               f'{s_diff:.3g}, WaveRNN {v_diff:.3g})')
+        # the student's steps replay CUDA graphs without a group and run
+        # eagerly under the mesh: each held to its plan; WaveRNN's and
+        # evaluate()'s launches equal with and without the mesh
+        for tag in ('one', 'mesh', 'again'):
+            _check_launches(out[tag]['student_launches'],
+                            f'{tag}: student', _student_shapes(s_cfg),
+                            PARALLEL_BATCH,
+                            s_cfg['forward_tacotron']['training'],
+                            PARALLEL_STEPS, out[tag]['student_paths'],
+                            out[tag]['student_card'])
+        check('eager' not in out['one']['student_paths']
+              and set(out['mesh']['student_paths']) == {'eager'},
+              f'student steps by path without a group '
+              f'{out["one"]["student_paths"]}, under the mesh '
+              f'{out["mesh"]["student_paths"]}')
         for name in ('birnn_train_fwd', 'birnn_train_bwd', 'birnn'):
-            check(launches['mesh'][name] == launches['one'][name] > 0,
-                  f'{name} launched {launches["mesh"][name]} times under the '
-                  f'mesh, {launches["one"][name]} without')
+            got = {tag: launches[tag][name]
+                   - (0 if name == 'birnn'
+                      else out[tag]['student_launches'][name])
+                   for tag in ('mesh', 'one')}
+            check(got['mesh'] == got['one'] > 0,
+                  f'{name} launched {got["mesh"]} times under the mesh, '
+                  f'{got["one"]} without (the student\'s #2/#3 left out)')
         out.update({'student_max_diff': s_diff, 'wavernn_max_diff': v_diff,
                     'student_run_to_run': s_again,
                     'wavernn_run_to_run': v_again})

@@ -28,6 +28,13 @@ batch-split where W_hh fits one block, cooperative otherwise. `path=`
 forces a path on either kernel, so that the paths can be timed on the
 same inputs; `launch_forward` launches a forward plan of any shape.
 
+The counters (`train_forward.launches`, `.path_launches`,
+`.path_dtype_launches`, and `train_backward`'s) count the wrappers'
+calls. A call inside the capture of a CUDA graph counts once, when its
+launch is recorded; the graph's replays run that launch without a call
+and count nowhere here (a profiler counts them on the card:
+`utils/profiling.py:kernel_launches`).
+
 What bounds them on the card: the chain of dependent steps, not bytes or
 operations. The cooperative kernels pay a grid barrier per step; the
 cooperative backward splits its product by gate rows, so that after the

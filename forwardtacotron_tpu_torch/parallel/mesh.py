@@ -238,6 +238,12 @@ def data_parallel(mesh: Optional[Mesh]) -> Iterator[None]:
         _ACTIVE[0] = before
 
 
+def active_mesh() -> Optional[Mesh]:
+    """The mesh of the `data_parallel` context open now (of any size), or
+    None."""
+    return _ACTIVE[0]
+
+
 def spans_ranks() -> Optional[Mesh]:
     """The active mesh where its data axis spans more than one rank of a
     process group."""

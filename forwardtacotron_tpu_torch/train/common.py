@@ -6,11 +6,14 @@ Mirrors the JAX package's `train/common.py`: the masked-L1 loss with
 norm clipping with optax's formula, then Adam with torch's (= optax's)
 defaults, the schedule sessions' helpers (the vocoders' `VocSession`
 too), the top-k checkpoint tracker every trainer keeps, and graceful
-preemption. A step runs eagerly: forward, `loss.backward()`, clip,
-`optimizer.step()`. While a profiler records, `train_step` is the span
-`ftt.train.step`, each forward and backward of `accumulate` the spans
-`ftt.train.forward` and `ftt.train.backward`, and `apply_update` the span
-`ftt.train.update` (`utils/profiling.py:annotate`).
+preemption. A step is forward, `loss.backward()`, clip,
+`optimizer.step()`; the student's (`train_step`) runs as one CUDA graph
+per batch shape where it can (`StepGraphs`), every other step eagerly.
+While a profiler records, `train_step` is the span `ftt.train.step`
+(with the `path` it took), each forward and backward of `accumulate` the
+spans `ftt.train.forward` and `ftt.train.backward`, and `apply_update` the
+span `ftt.train.update` (`utils/profiling.py:annotate`); a graph's replay
+records none of the last three.
 
 The trainers' options, as the JAX package runs them (`:213-400`):
 
@@ -64,9 +67,11 @@ import contextlib
 import os
 import signal
 import threading
+import time
+import weakref
 from pathlib import Path
-from typing import (Any, Callable, Dict, Iterable, List, Optional, Sequence,
-                    Tuple, Union)
+from typing import (Any, Callable, Dict, Iterable, List, NamedTuple,
+                    Optional, Sequence, Tuple, Union)
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -74,7 +79,8 @@ from torch.utils.checkpoint import checkpoint
 from forwardtacotron_tpu_torch import resolve_device
 from forwardtacotron_tpu_torch.models.layers import frozen_running_stats
 from forwardtacotron_tpu_torch.ops.masking import masked_l1
-from forwardtacotron_tpu_torch.parallel import (Mesh, broadcast_state,
+from forwardtacotron_tpu_torch.parallel import (Mesh, active_mesh,
+                                                broadcast_state,
                                                 data_parallel, local_rows,
                                                 mesh_from_config,
                                                 reduce_gradients,
@@ -89,7 +95,9 @@ from forwardtacotron_tpu_torch.utils.async_ckpt import (AsyncCheckpointWriter,
 from forwardtacotron_tpu_torch.utils.display import can_plot
 from forwardtacotron_tpu_torch.utils.files import (pickle_binary,
                                                    unpickle_binary)
-from forwardtacotron_tpu_torch.utils.profiling import annotate
+from forwardtacotron_tpu_torch.utils.profiling import (annotate,
+                                                       captured_launches,
+                                                       replayed)
 
 # the options each JAX trainer runs (its step builder reads them); the
 # port's trainer of the same name honours these and refuses the others
@@ -690,8 +698,14 @@ def make_optimizer(model: torch.nn.Module, lr: float = 1e-4
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Every group's learning rate; a rate held in a tensor (the step
+    graphs' Adam, `StepGraphs`) is filled in place, so that the next
+    replay reads it."""
     for group in optimizer.param_groups:
-        group['lr'] = lr
+        if torch.is_tensor(group['lr']):
+            group['lr'].fill_(lr)
+        else:
+            group['lr'] = lr
 
 
 def clip_by_global_norm(params: Iterable[torch.Tensor],
@@ -781,6 +795,252 @@ def forward_micro_loss(model: torch.nn.Module, train_cfg: Dict[str, Any],
     return micro_loss
 
 
+def _step_body(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+               batch: Dict[str, torch.Tensor], generator: torch.Generator,
+               train_cfg: Dict[str, Any], ema: Optional[EMA]
+               ) -> Dict[str, torch.Tensor]:
+    """The student step after its zero_grad: zoneout, forward, loss,
+    backward, clip, Adam, the EMA; its metrics."""
+    metrics, _ = accumulate(
+        forward_micro_loss(model, train_cfg, generator),
+        forward_step_batch(batch, generator, train_cfg),
+        grad_accum(train_cfg), model)
+    apply_update(model, optimizer, metrics, train_cfg.get('clip_grad_norm'),
+                 ema)
+    return metrics
+
+
+def _eager_step(model, optimizer, batch, generator, train_cfg, ema=None):
+    """`train_step` run eagerly, whatever the graph path would do (the
+    tests' reference for it)."""
+    model.train()
+    optimizer.zero_grad(set_to_none=True)
+    return _step_body(model, optimizer, batch, generator, train_cfg, ema)
+
+
+# what of train_cfg the student step reads: a change captures anew
+STEP_OPTIONS = ('precision', 'grad_accum', 'remat', 'clip_grad_norm',
+                'pitch_zoneout', 'energy_zoneout', 'dur_loss_factor',
+                'pitch_loss_factor', 'energy_loss_factor')
+
+
+class _Graph(NamedTuple):
+    """One captured step: its graph, static inputs (by batch key), metric
+    names and their packed output, the gradient each parameter holds after
+    a replay (None: it gets none) and the launches it holds."""
+    graph: Any
+    static: Dict[str, torch.Tensor]
+    keys: List[str]
+    packed: torch.Tensor
+    grads: List[Optional[torch.Tensor]]
+    launches: List[tuple]
+
+
+def _make_capturable(optimizer: torch.optim.Adam, trained, device) -> None:
+    """Adam as the graphs run it: capturable (its step counts on the
+    card), each group's `lr` a float32 tensor on the card that
+    `set_learning_rate` fills, and the state of each parameter in
+    `trained` made as its first step would make it (zeros, step 0) or its
+    step count moved to the card. The update is torch's capturable Adam:
+    optax's formula, as the eager step's. Done at the first capture, not
+    in `make_optimizer`, which every trainer shares and only the student's
+    step captures."""
+    trained = {id(p) for p in trained}
+    for group in optimizer.param_groups:
+        group['capturable'] = True
+        if not torch.is_tensor(group['lr']):
+            group['lr'] = torch.tensor(float(group['lr']),
+                                       dtype=torch.float32, device=device)
+        moments = ('exp_avg', 'exp_avg_sq') + (
+            ('max_exp_avg_sq',) if group['amsgrad'] else ())
+        for p in (p for p in group['params'] if id(p) in trained):
+            state = optimizer.state[p]
+            if not state:
+                state['step'] = torch.zeros((), dtype=torch.float32,
+                                            device=p.device)
+                for k in moments:
+                    state[k] = torch.zeros_like(
+                        p, memory_format=torch.preserve_format)
+            elif state['step'].device != p.device:
+                state['step'] = state['step'].to(p.device, torch.float32)
+
+
+class StepGraphs:
+    """The student step of one (model, optimizer, EMA) as CUDA graphs, one
+    per batch key: the batch's keys, shapes and dtypes and the step's
+    options (`STEP_OPTIONS`, the EMA's decay). All graphs draw their
+    memory from one pool, so what they hold follows the largest shape, not
+    the number of shapes; the gradients and Adam's state are one set
+    outside it.
+
+    At a new key (`_capture`): one forward and backward of the batch with
+    no update on a side stream, everything it moved put back (`_warm_up`);
+    Adam made capturable (`_make_capturable`); the whole step captured
+    (zero the gradients, zoneout, forward, loss, backward, clip, Adam, the
+    EMA) into the pool; then replayed for this very step, as every later
+    step of the key is (`_replay`): the batch copied into the graph's
+    static inputs on the card, the graph's step generator set to the
+    state of the `generator` given (so that a replay draws what the eager
+    step draws, in the same order; the global CUDA generator, which
+    ForwardTacotron's dropout draws from, is registered by the capture
+    itself), the given generator advanced as the eager step would, each
+    parameter's `.grad` set to the gradient the graph clipped.
+
+    Kernels #2/#3's counters (`kernels/birnn_train.py`) count their
+    wrappers' calls: a new key's warm-up and its capture each call them
+    once a launch, a replay not at all; a profiler counts the launches the
+    card ran (`utils/profiling.py:kernel_launches`), and the step spans'
+    `path` says which steps were which.
+
+    A change of what the graphs hold (`fits`: another model or EMA, a
+    parameter or EMA tensor moved, the optimizer's state or groups
+    replaced, as `load_state_dict` does) drops them all."""
+
+    def __init__(self, model: torch.nn.Module,
+                 optimizer: torch.optim.Optimizer, ema: Optional[EMA],
+                 device: torch.device) -> None:
+        self.model, self.ema, self.device = model, ema, device
+        self.params = list(model.parameters())
+        self.ptrs = self._ptrs()
+        self.opt_state = optimizer.state
+        self.groups = list(optimizer.param_groups)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.gen = torch.Generator(device=device)
+        self.grads: Dict[int, torch.Tensor] = {}
+        self.lrs: List[Any] = []
+        self.graphs: Dict[tuple, _Graph] = {}
+
+    def _ptrs(self) -> tuple:
+        ema = () if self.ema is None else self.ema.params.values()
+        return tuple(t.data_ptr() for t in self.params) + \
+            tuple(t.data_ptr() for t in ema)
+
+    def fits(self, model, optimizer, ema) -> bool:
+        return model is self.model and ema is self.ema \
+            and optimizer.state is self.opt_state \
+            and len(optimizer.param_groups) == len(self.groups) \
+            and all(a is b for a, b in zip(optimizer.param_groups,
+                                           self.groups)) \
+            and self._ptrs() == self.ptrs
+
+    def step(self, optimizer, batch, generator, train_cfg):
+        key = (tuple((k, v.shape, v.dtype) for k, v in batch.items()),
+               tuple(repr(train_cfg.get(k)) for k in STEP_OPTIONS),
+               None if self.ema is None else self.ema.decay)
+        graph = self.graphs.get(key)
+        with annotate('ftt.train.step',
+                      path='replay' if graph is not None else 'capture'):
+            self.model.train()
+            if graph is None:
+                graph = self.graphs[key] = self._capture(
+                    optimizer, batch, generator, train_cfg)
+            return self._replay(graph, optimizer, batch, generator)
+
+    def _warm_up(self, batch, generator, train_cfg) -> List[bool]:
+        """Forward and backward of `batch` with no update, on a side
+        stream (the first use of each cuDNN, cuBLAS and kernel shape stays
+        out of the capture), then `.grad`, the model's buffers (BatchNorm's
+        running statistics), the global CUDA generator and `generator` put
+        back. Returns which parameters got a gradient."""
+        model, dev = self.model, self.device
+        saved = [p.grad for p in self.params]
+        buffers = [b.detach().clone() for b in model.buffers()]
+        rng = torch.cuda.get_rng_state(dev)
+        gen_state = generator.get_state()
+        for p in self.params:
+            p.grad = None
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            accumulate(forward_micro_loss(model, train_cfg, generator),
+                       forward_step_batch(batch, generator, train_cfg),
+                       grad_accum(train_cfg), model)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        trained = [p.grad is not None for p in self.params]
+        for p, grad in zip(self.params, saved):
+            p.grad = grad
+        with torch.no_grad():
+            for b, value in zip(model.buffers(), buffers):
+                b.copy_(value)
+        torch.cuda.set_rng_state(rng, dev)
+        generator.set_state(gen_state)
+        return trained
+
+    def _capture(self, optimizer, batch, generator, train_cfg) -> _Graph:
+        static = {k: v.clone() for k, v in batch.items()}
+        trained = self._warm_up(static, generator, train_cfg)
+        _make_capturable(optimizer, [p for p, t in zip(self.params, trained)
+                                     if t], self.device)
+        self.lrs = [g['lr'] for g in optimizer.param_groups]
+        grads = []
+        for i, (p, t) in enumerate(zip(self.params, trained)):
+            if t and i not in self.grads:
+                self.grads[i] = torch.zeros_like(p)
+            grads.append(self.grads[i] if t else None)
+            p.grad = grads[-1]
+        live = [g for g in grads if g is not None]
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.gen)
+        with captured_launches() as launches, torch.cuda.graph(
+                graph, pool=self.pool, capture_error_mode='thread_local'):
+            if live:
+                torch._foreach_zero_(live)
+            metrics = _step_body(self.model, optimizer, static, self.gen,
+                                 train_cfg, self.ema)
+            keys = list(metrics)
+            packed = torch.stack([metrics[k].float() for k in keys])
+        return _Graph(graph, static, keys, packed, grads, list(launches))
+
+    def _replay(self, g: _Graph, optimizer, batch, generator):
+        torch._foreach_copy_(list(g.static.values()), list(batch.values()))
+        for group, lr in zip(optimizer.param_groups, self.lrs):
+            if group['lr'] is not lr:       # a float put there directly
+                lr.fill_(float(group['lr']))
+                group['lr'] = lr
+        self.gen.set_state(generator.get_state())
+        start = time.perf_counter_ns()
+        g.graph.replay()
+        end = time.perf_counter_ns()
+        generator.set_state(self.gen.get_state())
+        for p, grad in zip(self.params, g.grads):
+            if p.grad is not grad:
+                p.grad = grad
+        replayed(g.launches, start, end)
+        return dict(zip(g.keys, g.packed.clone().unbind(0)))
+
+
+# the step graphs of each optimizer (dropped with it)
+_GRAPHS: 'weakref.WeakKeyDictionary[torch.optim.Optimizer, StepGraphs]' = \
+    weakref.WeakKeyDictionary()
+
+
+def _graph_device(model, optimizer, batch, generator, train_cfg,
+                  graphs: Optional[StepGraphs]) -> Optional[torch.device]:
+    """The CUDA device on which `train_step` runs as a graph (that of
+    `graphs`, the optimizer's step graphs where they still fit), or None
+    where it runs eagerly (`train_step`'s list of cases)."""
+    if not torch.cuda.is_available() or train_cfg.get('remat') \
+            or generator is None or generator.device.type != 'cuda' \
+            or active_mesh() is not None or shards_of(model) is not None \
+            or (torch.distributed.is_available()
+                and torch.distributed.is_initialized()
+                and torch.distributed.get_world_size() > 1) \
+            or type(optimizer) is not torch.optim.Adam \
+            or any(g.get('fused') or g.get('differentiable')
+                   for g in optimizer.param_groups):
+        return None
+    devices = {graphs.device} if graphs is not None \
+        else {p.device for p in model.parameters()}
+    if len(devices) != 1:
+        return None
+    (dev,) = devices
+    if dev.type != 'cuda' or generator.device.index not in (None, dev.index) \
+            or any(not torch.is_tensor(v) or v.device != dev
+                   for v in batch.values()):
+        return None
+    return dev
+
+
 def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                batch: Dict[str, torch.Tensor], generator: torch.Generator,
                train_cfg: Dict[str, Any], ema: Optional[EMA] = None
@@ -792,17 +1052,32 @@ def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     `train_cfg` (precision, grad_accum, remat). `generator` draws the
     zoneout, then FastPitch's dropout. The clipped gradients stay in
     `.grad`. Returns the step's metrics (device tensors, including the norm
-    before clipping)."""
-    with annotate('ftt.train.step'):
-        model.train()
-        optimizer.zero_grad(set_to_none=True)
-        metrics, _ = accumulate(
-            forward_micro_loss(model, train_cfg, generator),
-            forward_step_batch(batch, generator, train_cfg),
-            grad_accum(train_cfg), model)
-        apply_update(model, optimizer, metrics,
-                     train_cfg.get('clip_grad_norm'), ema)
-    return metrics
+    before clipping).
+
+    Where the parameters are on one CUDA device, the step replays the CUDA
+    graph of its batch key (`StepGraphs`; captured at the key's first
+    step, which is a replay too) and makes the optimizer capturable Adam
+    for good. It runs eagerly for CPU tensors, `remat` (its recompute
+    sets generator states, which a capture cannot), inside
+    `parallel.data_parallel` with a mesh of any size or with a process
+    group of more than one rank up, over a 'model' axis, for an optimizer
+    other than torch's Adam (or a fused or differentiable one), without a
+    CUDA `generator` on the parameters' device, and where a batch value is
+    not a tensor on that device. While a profiler records, the step's span
+    `ftt.train.step` has `path` 'replay', 'capture' or 'eager'."""
+    graphs = _GRAPHS.get(optimizer)
+    if graphs is not None and not graphs.fits(model, optimizer, ema):
+        del _GRAPHS[optimizer]
+        graphs = None
+    dev = _graph_device(model, optimizer, batch, generator, train_cfg,
+                        graphs)
+    if dev is None:
+        with annotate('ftt.train.step', path='eager'):
+            return _eager_step(model, optimizer, batch, generator,
+                               train_cfg, ema)
+    if graphs is None:
+        graphs = _GRAPHS[optimizer] = StepGraphs(model, optimizer, ema, dev)
+    return graphs.step(optimizer, batch, generator, train_cfg)
 
 
 @torch.no_grad()

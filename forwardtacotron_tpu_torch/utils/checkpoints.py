@@ -66,12 +66,30 @@ def checkpoint_payload(model: torch.nn.Module,
     model.step.fill_(int(step))
     state = model.state_dict()
     payload = {'model': state,
-               'optim': None if optimizer is None else optimizer.state_dict(),
+               'optim': None if optimizer is None
+               else optimizer_state(optimizer),
                'config': config, 'step': int(step)}
     if ema is not None:
         payload['model'] = {**state, **ema.params}
         payload['raw_model'] = state
     return payload
+
+
+def optimizer_state(optimizer: torch.optim.Optimizer) -> Dict[str, Any]:
+    """`optimizer.state_dict()` as a plain Adam keeps it. The student's
+    step graphs make their Adam capturable (`train/common.py:
+    StepGraphs`): its learning rate a tensor on the card, its step counts
+    there too. A file holds the float, `capturable` off and the counts on
+    the host, so that any process, on any device, resumes from it as from
+    an eager run's."""
+    state = optimizer.state_dict()
+    if not any(g.get('capturable') for g in state['param_groups']):
+        return state
+    return {'state': {k: {n: v.detach().to('cpu', torch.float32)
+                          if n == 'step' else v for n, v in s.items()}
+                      for k, s in state['state'].items()},
+            'param_groups': [dict(g, lr=float(g['lr']), capturable=False)
+                             for g in state['param_groups']]}
 
 
 DIRECTORY_SUFFIX = '.dcp'

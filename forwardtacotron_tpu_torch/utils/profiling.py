@@ -12,14 +12,24 @@ context: no `record_function`, no record. Every name begins with `ftt.`:
 
     ftt.data.next         the consumer's wait for `Prefetcher`'s next batch
     ftt.data.to_device    `batch_to_device`'s host-to-device copies
-    ftt.train.step        `train_step`'s whole body; defines `Span.step`
+    ftt.train.step        `train_step`'s whole body; defines `Span.step`;
+                          its `path` says how the step ran: `replay` (a
+                          CUDA graph of the step), `capture` (a new batch
+                          shape: warm-up, capture, replay) or `eager`
     ftt.train.forward     each `micro_loss` of `accumulate` (forward, loss)
     ftt.train.backward    each `loss.backward()` of `accumulate`
     ftt.train.update      `apply_update`: reduce, shard, clip, step, EMA
     ftt.kernels.birnn_train_fwd / _bwd
                           one launch of kernel #2 / #3, with its `path`,
                           `cell`, `dtype`, `T`, `B`, `S`, `H` and `lengths`
-                          (the launch's device tensor, never copied)
+                          (the launch's device tensor, never copied);
+                          a replay of a step graph records one for each
+                          launch the graph holds (`replayed`), with the
+                          attributes of its capture and a copy of this
+                          step's `lengths`
+
+A replay does no host work for the forward, the backward or the update,
+so it records none of their spans.
 
 A span's `step` is the number of `ftt.train.step` spans recorded before it
 began, so the spans of one step share it on any thread (spans outside
@@ -50,6 +60,7 @@ import torch
 import torch.autograd.profiler as _autograd_profiler
 
 STEP_SPAN = 'ftt.train.step'
+LAUNCH_SPANS = ('ftt.kernels.birnn_train_fwd', 'ftt.kernels.birnn_train_bwd')
 STORE_SPANS = 8192
 
 
@@ -71,6 +82,8 @@ _open = threading.local()        # .stack: this thread's open spans
 _ids = itertools.count()
 _steps = 0                       # ftt.train.step spans recorded
 _OFF = contextlib.nullcontext()
+# while a step graph is captured: the (name, attrs) of each launch span
+_captured: Optional[List[tuple]] = None
 
 
 class _Span:
@@ -111,10 +124,45 @@ class _Span:
 
 def annotate(name: str, **attrs):
     """The port's span named `name` (a `with` context) while a profiler
-    records, else a shared context that does nothing."""
+    records, else a shared context that does nothing. Inside
+    `captured_launches`, a launch span's name and attributes are also
+    listed, profiler or not."""
+    if _captured is not None and name in LAUNCH_SPANS:
+        _captured.append((name, attrs))
     if not _autograd_profiler._is_profiler_enabled:
         return _OFF
     return _Span(name, attrs)
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Within it (the capture of a CUDA graph), yields the list to which
+    every `LAUNCH_SPANS` span opened appends (name, attrs): the launches
+    the graph holds, for `replayed` at each replay."""
+    global _captured
+    before, _captured = _captured, []
+    try:
+        yield _captured
+    finally:
+        _captured = before
+
+
+def replayed(launches: List[tuple], start_ns: int, end_ns: int) -> None:
+    """While a profiler records, store a span for each launch of
+    `launches` (as `captured_launches` listed them) that a graph's replay
+    ran between `start_ns` and `end_ns`: a child of the innermost span open
+    on this thread, in its step, with the attributes of its capture and a
+    copy of `lengths` as the replay left it."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return
+    stack = getattr(_open, 'stack', None)
+    parent = stack[-1].id if stack else None
+    thread = threading.get_ident()
+    with _lock:
+        for name, attrs in launches:
+            _store.append(Span(name, start_ns, end_ns, thread, next(_ids),
+                               parent, _steps,
+                               dict(attrs, lengths=attrs['lengths'].clone())))
 
 
 def spans() -> List[Span]:

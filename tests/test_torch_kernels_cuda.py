@@ -296,7 +296,9 @@ def _full_width_student(cuda):
 
 def test_full_width_step_gives_every_parameter_a_gradient(cuda):
     """One train step of the full-width ForwardTacotron on the card: its
-    six recurrences go through kernels #2/#3, and every parameter gets a
+    six recurrences go through kernels #2/#3 (the step's first call
+    captures its CUDA graph, so the wrappers are called twice a
+    recurrence: the warm-up, then the capture), and every parameter gets a
     finite, nonzero gradient (none is cut off by a detached kernel)."""
     from forwardtacotron_tpu_torch.kernels.birnn_train import (
         train_backward, train_forward)
@@ -307,19 +309,24 @@ def test_full_width_step_gives_every_parameter_a_gradient(cuda):
                   torch.Generator(device=cuda).manual_seed(0),
                   cfg['forward_tacotron']['training'])
     assert (train_forward.launches - before[0],
-            train_backward.launches - before[1]) == (6, 6)
+            train_backward.launches - before[1]) == (12, 12)
     for name, p in model.named_parameters():
         assert p.grad is not None, name
         assert bool(torch.isfinite(p.grad).all()), name
         assert float(p.grad.abs().max()) > 0, name
 
 
-def test_traced_step_spans_every_launch(cuda, monkeypatch):
+@pytest.mark.parametrize('path', ['eager', 'replay'])
+def test_traced_step_spans_every_launch(cuda, monkeypatch, path):
     """A profiled student step on the card: the spans of kernels #2/#3 by
     path equal the launches the profiler saw by kernel name
-    (`kernel_launches`), and each lies inside its phase's span
-    (`ftt.train.forward` for #2, `ftt.train.backward` for #3) both on the
-    profiler's timeline and in the store, with its step's number."""
+    (`kernel_launches`). A replay of the step's CUDA graph records them
+    inside its step's span (`train/common.py:StepGraphs`), and no phase
+    span. An eager step (`remat`, which runs eagerly) says `eager` in its
+    step span and records each inside its phase's span (#2 in
+    `ftt.train.forward`, and again in `ftt.train.backward` where remat
+    recomputes it; #3 in `ftt.train.backward`) both on the profiler's
+    timeline and in the store, with its step's number."""
     import collections
     from torch.profiler import ProfilerActivity, profile
     from forwardtacotron_tpu_torch.train import common as tc
@@ -329,13 +336,14 @@ def test_traced_step_spans_every_launch(cuda, monkeypatch):
     monkeypatch.setattr(profiling, '_steps', 0)
     model, cfg, batch = _full_width_student(cuda)
     opt = tc.make_optimizer(model)
-    train_cfg = cfg['forward_tacotron']['training']
+    train_cfg = dict(cfg['forward_tacotron']['training'],
+                     remat=path == 'eager')
 
     def step(seed):
         tc.train_step(model, opt, batch,
                       torch.Generator(device=cuda).manual_seed(seed),
                       train_cfg)
-    step(0)                                  # builds the kernels, untraced
+    step(0)                # builds the kernels (or captures), untraced
     assert profiling.spans() == []
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -346,11 +354,24 @@ def test_traced_step_spans_every_launch(cuda, monkeypatch):
     recorded = collections.Counter(
         f'{s.name.split(".")[-1]}_{s.attrs["path"]}' for s in launches)
     counted = profiling.kernel_launches(prof)
-    assert len(launches) == 12
+    assert len(launches) == (12 if path == 'replay' else 18)
     assert {k: v for k, v in counted.items() if 'train' in k} == {
         k: recorded[k] for k in counted if 'train' in k}
-    phase = {'ftt.kernels.birnn_train_fwd': 'ftt.train.forward',
-             'ftt.kernels.birnn_train_bwd': 'ftt.train.backward'}
+    (held,) = [s for s in spans if s.name == 'ftt.train.step']
+    assert held.attrs == {'path': path}
+    if path == 'replay':
+        assert not [s for s in spans if s.name in ('ftt.train.forward',
+                                                   'ftt.train.backward')]
+        for s in launches:
+            assert s.step == 0 and s.parent == held.id
+            assert held.start_ns <= s.start_ns <= s.end_ns <= held.end_ns
+            assert s.attrs['lengths'].device.type == 'cuda'
+        return
+    phase = {'ftt.kernels.birnn_train_fwd': ('ftt.train.forward',
+                                             'ftt.train.backward'),
+             'ftt.kernels.birnn_train_bwd': ('ftt.train.backward',)}
+    per_step = {'ftt.kernels.birnn_train_fwd': 12,
+                'ftt.kernels.birnn_train_bwd': 6}
     # the profiler mirrors each host range onto the card's timeline as a
     # user annotation, which is not device work
     on_card = [e for e in prof.events() if str(e.device_type).endswith('CUDA')
@@ -358,18 +379,25 @@ def test_traced_step_spans_every_launch(cuda, monkeypatch):
     assert on_card and all(e.is_user_annotation for e in on_card)
     events = [e for e in prof.events()
               if not str(e.device_type).endswith('CUDA')]
+
+    def inside(s, opened):
+        return any(h.start_ns <= s.start_ns and s.end_ns <= h.end_ns
+                   for h in opened)
     for name, outer in phase.items():
-        ranges = [e.time_range for e in events if e.name == outer]
+        ranges = [e.time_range for e in events if e.name in outer]
         inner = [e.time_range for e in events if e.name == name]
-        assert len(inner) == sum(s.name == name for s in launches) == 6
+        assert len(inner) == sum(s.name == name for s in launches) \
+            == per_step[name]
         assert all(any(r.start <= i.start and i.end <= r.end
                        for r in ranges) for i in inner), name
-        held = [s for s in spans if s.name == outer]
+        opened = [s for s in spans if s.name in outer]
         for s in (s for s in launches if s.name == name):
             assert s.step == 0 and s.attrs['dtype'] == 'float32'
             assert s.attrs['lengths'].device.type == 'cuda'
-            assert any(h.start_ns <= s.start_ns and s.end_ns <= h.end_ns
-                       for h in held), name
+            assert inside(s, opened), name
+    forward = [s for s in spans if s.name == 'ftt.train.forward']
+    assert sum(inside(s, forward) for s in launches
+               if s.name == 'ftt.kernels.birnn_train_fwd') == 6
 
 
 @pytest.mark.parametrize('cell,H', [('gru', 64), ('gru', 128), ('lstm', 64)])
