@@ -348,8 +348,9 @@ def get_tts_datasets(path: Path, batch_size: int, r: int,
 # ---------------------------------------------------------------- vocoder
 
 class VocoderDataset:
-    """Items {'mel' (n_mels, T), 'x' quant labels, 'item_id'} of the
-    vocoders, with the mels of `mel/` or, for `train_gta`, of `gta/`."""
+    """Items {'mel' (n_mels, T), 'x' quant labels, 'item_id', 'index'
+    (the item's position in the dataset)} of the vocoders, with the mels
+    of `mel/` or, for `train_gta`, of `gta/`."""
 
     def __init__(self, path: Path, dataset_ids: Sequence[str],
                  train_gta: bool = False) -> None:
@@ -387,7 +388,7 @@ class VocoderDataset:
         item_id = self.metadata[index]
         mel = np.load(str(self.mel_path / f'{item_id}.npy'))
         x = np.load(str(self.quant_path / f'{item_id}.npy'))
-        return {'mel': mel, 'x': x, 'item_id': item_id}
+        return {'mel': mel, 'x': x, 'item_id': item_id, 'index': index}
 
     def __len__(self) -> int:
         return len(self.metadata)
@@ -561,7 +562,15 @@ class GANVocCollator:
     is decoded from the quant labels (mu-law for RAW preprocessing with
     mu_law, linear labels otherwise). A clip of at most one window is
     repeated to more than one; a clip without a whole frame is dropped,
-    and the batch is refilled with the rows it has, in turn."""
+    and the batch is refilled with the rows it has, in turn. Beside 'mel'
+    and 'audio', each row's dataset index ('index'; -1 for an item that
+    carries none) and the frame at which its window starts ('offset'; in
+    the repeated clip for a short one) come as int64 arrays, a refilled
+    row with those of the row it repeats: the window is then `mel[:,
+    offset:offset + seg_len // hop]` of the item's file and the segment
+    its labels from `offset * hop` on."""
+
+    ROW_KEYS = ('index', 'offset')
 
     def __init__(self, hop_length: int, seg_len: int, voc_mode: str,
                  bits: int, mu_law: bool,
@@ -579,7 +588,7 @@ class GANVocCollator:
     def __call__(self, batch: List[Dict]) -> Dict[str, np.ndarray]:
         win = self.seg_len // self.hop_length
         bits = 16 if self.voc_mode == 'MOL' else self.bits
-        mels, audios = [], []
+        mels, audios, rows = [], [], []
         for b in batch:
             mel, x = b['mel'], b['x']
             t = min(mel.shape[-1], len(x) // self.hop_length)
@@ -591,6 +600,7 @@ class GANVocCollator:
                 x = np.tile(x[:t * self.hop_length], reps)
                 t = win + 1
             o = self.rng.randint(0, max(t - win - 1, 1))
+            rows.append((b.get('index', -1), o))
             mels.append(mel[:, o:o + win])
             seg = x[o * self.hop_length:o * self.hop_length + self.seg_len]
             if self.mu_law and self.voc_mode != 'MOL':
@@ -606,8 +616,11 @@ class GANVocCollator:
             i = len(mels) % n_real
             mels.append(mels[i])
             audios.append(audios[i])
+            rows.append(rows[i])
+        index, offset = (np.array(c, np.int64) for c in zip(*rows))
         return {'mel': np.stack(mels).astype(np.float32).transpose(0, 2, 1),
-                'audio': np.stack(audios).astype(np.float32)}
+                'audio': np.stack(audios).astype(np.float32),
+                'index': index, 'offset': offset}
 
 
 def get_gan_vocoder_datasets(path: Path, batch_size: int, train_gta: bool,

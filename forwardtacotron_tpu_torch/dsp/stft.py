@@ -8,7 +8,7 @@ for spectra and (..., T, n_mels) for mels. The transforms are
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -62,10 +62,21 @@ def mel_filterbank(sample_rate: int, n_fft: int, n_mels: int,
     return weights.astype(dtype)
 
 
+# the padded analysis windows made so far, by (win_length, n_fft, device)
+_WINDOWS: Dict[tuple, torch.Tensor] = {}
+
+
 def _window(win_length: int, n_fft: int, device) -> torch.Tensor:
-    w = torch.as_tensor(hann_window(win_length), device=device)
-    pad = (n_fft - win_length) // 2
-    return F.pad(w, (pad, n_fft - win_length - pad))
+    """The periodic Hann window centred in n_fft, made once a device: a
+    step captured as a CUDA graph (the GAN step's mel loss) may copy
+    nothing from the host."""
+    key = (win_length, n_fft, str(device))
+    w = _WINDOWS.get(key)
+    if w is None:
+        w = torch.as_tensor(hann_window(win_length), device=device)
+        pad = (n_fft - win_length) // 2
+        w = _WINDOWS[key] = F.pad(w, (pad, n_fft - win_length - pad))
+    return w
 
 
 def stft(y: torch.Tensor, n_fft: int, hop_length: int, win_length: int,

@@ -842,9 +842,9 @@ def _make_capturable(optimizer: torch.optim.Adam, trained, device) -> None:
     `set_learning_rate` fills, and the state of each parameter in
     `trained` made as its first step would make it (zeros, step 0) or its
     step count moved to the card. The update is torch's capturable Adam:
-    optax's formula, as the eager step's. Done at the first capture, not
-    in `make_optimizer`, which every trainer shares and only the student's
-    step captures."""
+    optax's formula, as the eager step's (AdamW's too: the GAN step's
+    graphs, `train/hifigan_trainer.py:GANStepGraphs`). Done at the first
+    capture, not in `make_optimizer`, which every trainer shares."""
     trained = {id(p) for p in trained}
     for group in optimizer.param_groups:
         group['capturable'] = True

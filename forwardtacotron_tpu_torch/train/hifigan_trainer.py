@@ -9,6 +9,9 @@ mel-L1 losses (`train/gan_losses.py`), over the vocoders' data layout
 discriminator on a detached generation, then the generator against the
 updated discriminator, each with AdamW (betas 0.8 / 0.99, weight decay
 0.01; the session's learning rate), as `build_gan_train_step` orders it.
+On one CUDA device each half replays a CUDA graph of its own
+(`GANStepGraphs`), so that the card, not the host's ~3,000 dispatches a
+step, sets the pace; elsewhere the step runs eagerly.
 Sessions follow the (lr, max_step, batch size) schedule with epoch-seeded
 crops and mid-epoch resume; `evaluate()` scores the generator's mel L1 on
 the validation batches at the end of every epoch; `generate_samples`
@@ -26,7 +29,8 @@ Files: the generator is stored in the official weight-norm layout
 it), which `models/hifigan.py:load_gan_vocoder` (and so `gen_forward
 hifigan|melgan --voc_checkpoint`) and the JAX package's official-file
 loader read. `latest_model.pt` also holds the discriminators, both
-optimizers, the config and the step; `hifigan_step{k}k.pt` and the top-k
+optimizers (a plain AdamW state, `utils/checkpoints.py:optimizer_state`),
+the config and the step; `hifigan_step{k}k.pt` and the top-k
 files the generator alone, all written off the step loop
 (`AsyncCheckpointWriter`). The convolutions run on the card through
 cuDNN. Under a mesh (`mesh=`, or a process group of more than one rank)
@@ -40,7 +44,9 @@ from __future__ import annotations
 import contextlib
 import json
 import time
-from typing import Any, Callable, Dict, Optional
+import weakref
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -56,10 +62,12 @@ from forwardtacotron_tpu_torch.train.gan_losses import (
     discriminator_loss, feature_matching_loss, generator_adversarial_loss,
     mel_l1_loss)
 from forwardtacotron_tpu_torch.train.voc_trainer import batch_to_device
+from forwardtacotron_tpu_torch.utils.checkpoints import optimizer_state
 from forwardtacotron_tpu_torch.utils.display import log_audio, simple_table
 from forwardtacotron_tpu_torch.utils.files import parse_schedule
 from forwardtacotron_tpu_torch.utils.paths import Paths
-from forwardtacotron_tpu_torch.utils.profiling import StepTraceController
+from forwardtacotron_tpu_torch.utils.profiling import (
+    STEP_SPAN, StepTraceController, annotate)
 
 
 def make_gan_optimizer(model: torch.nn.Module, lr: float = 2e-4
@@ -76,22 +84,64 @@ def _generate(gen: torch.nn.Module, mel: torch.Tensor,
     return tc.full(tc.forward_model(gen, mel, half=half))
 
 
+def _disc_backward(gen: torch.nn.Module, disc: HiFiGANDiscriminators,
+                   mel: torch.Tensor, y: torch.Tensor,
+                   half: Optional[torch.dtype]) -> Dict[str, torch.Tensor]:
+    """The discriminators' loss on a detached generation, and its
+    backward."""
+    with torch.no_grad(), annotate('ftt.gan.generator'):
+        y_hat = _generate(gen, mel, half)
+    with annotate('ftt.gan.discriminators'):
+        logits_r, logits_g, _, _ = tc.full(tc.forward_model(
+            disc, y, y_hat, half=half))
+    d_loss = discriminator_loss(logits_r, logits_g)
+    with annotate('ftt.train.backward'):
+        d_loss.backward()
+    return {'disc_loss': d_loss}
+
+
+def _gen_backward(gen: torch.nn.Module, disc: HiFiGANDiscriminators,
+                  mel: torch.Tensor, y: torch.Tensor,
+                  wav_to_mel: Callable[[torch.Tensor], torch.Tensor],
+                  half: Optional[torch.dtype]) -> Dict[str, torch.Tensor]:
+    """The generator's losses against the discriminators as they are, and
+    their backward (no gradient for the discriminators)."""
+    disc.requires_grad_(False)
+    try:
+        with annotate('ftt.gan.generator'):
+            y_hat = _generate(gen, mel, half)
+        with annotate('ftt.gan.discriminators'):
+            _, logits_g, fmaps_r, fmaps_g = tc.full(tc.forward_model(
+                disc, y, y_hat, half=half))
+        adv = generator_adversarial_loss(logits_g)
+        fm = feature_matching_loss(fmaps_r, fmaps_g)
+        with annotate('ftt.gan.mel'):
+            mel_l = mel_l1_loss(wav_to_mel, y, y_hat)
+        g_loss = adv + fm + mel_l
+        with annotate('ftt.train.backward'):
+            g_loss.backward()
+    finally:
+        disc.requires_grad_(True)
+    return {'gen_loss': g_loss, 'gen_adv': adv, 'gen_fm': fm,
+            'gen_mel': mel_l}
+
+
+def _update(net: torch.nn.Module, opt: torch.optim.Optimizer,
+            losses: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    metrics = {k: v.detach() for k, v in losses.items()}
+    tc.apply_update(net, opt, metrics, None)
+    return metrics
+
+
 def disc_step(gen: torch.nn.Module, disc: HiFiGANDiscriminators,
               disc_opt: torch.optim.Optimizer, mel: torch.Tensor,
               y: torch.Tensor, half: Optional[torch.dtype] = None
               ) -> torch.Tensor:
     """The discriminators' update on a detached generation of mel (B,
     n_mels, T), in `half` where given; returns the loss."""
-    with torch.no_grad():
-        y_hat = _generate(gen, mel, half)
     disc_opt.zero_grad(set_to_none=True)
-    logits_r, logits_g, _, _ = tc.full(tc.forward_model(disc, y, y_hat,
-                                                        half=half))
-    d_loss = discriminator_loss(logits_r, logits_g)
-    d_loss.backward()
-    metrics = {'disc_loss': d_loss.detach()}
-    tc.apply_update(disc, disc_opt, metrics, None)
-    return metrics['disc_loss']
+    return _update(disc, disc_opt, _disc_backward(gen, disc, mel, y, half)
+                   )['disc_loss']
 
 
 def gen_step(gen: torch.nn.Module, disc: HiFiGANDiscriminators,
@@ -102,23 +152,219 @@ def gen_step(gen: torch.nn.Module, disc: HiFiGANDiscriminators,
     """The generator's update against the discriminators as they are (no
     gradient for them), in `half` where given; returns its losses."""
     gen_opt.zero_grad(set_to_none=True)
-    disc.requires_grad_(False)
-    try:
-        y_hat = _generate(gen, mel, half)
-        _, logits_g, fmaps_r, fmaps_g = tc.full(tc.forward_model(
-            disc, y, y_hat, half=half))
-        adv = generator_adversarial_loss(logits_g)
-        fm = feature_matching_loss(fmaps_r, fmaps_g)
-        mel_l = mel_l1_loss(wav_to_mel, y, y_hat)
-        g_loss = adv + fm + mel_l
-        g_loss.backward()
-    finally:
-        disc.requires_grad_(True)
-    metrics = {k: v.detach() for k, v in (
-        ('gen_loss', g_loss), ('gen_adv', adv), ('gen_fm', fm),
-        ('gen_mel', mel_l))}
-    tc.apply_update(gen, gen_opt, metrics, None)
-    return metrics
+    return _update(gen, gen_opt,
+                   _gen_backward(gen, disc, mel, y, wav_to_mel, half))
+
+
+def _inputs(batch: Dict[str, torch.Tensor]):
+    return batch['mel'].transpose(1, 2), batch['audio']
+
+
+def _eager_gan_step(gen, disc, gen_opt, disc_opt, batch, wav_to_mel,
+                    half=None) -> Dict[str, torch.Tensor]:
+    """`gan_train_step` run eagerly, whatever the graph path would do."""
+    mel, y = _inputs(batch)
+    with annotate(STEP_SPAN, path='eager', B=int(y.shape[0]),
+                  seg_len=int(y.shape[1])):
+        with annotate('ftt.gan.disc_update'):
+            d_loss = disc_step(gen, disc, disc_opt, mel, y, half)
+        with annotate('ftt.gan.gen_update'):
+            metrics = gen_step(gen, disc, gen_opt, mel, y, wav_to_mel, half)
+    return {'disc_loss': d_loss, **metrics}
+
+
+# what of a batch the step reads (a GAN batch also has the host's rows)
+BATCH_KEYS = ('mel', 'audio')
+
+
+class _Half(NamedTuple):
+    """One captured half: its graph, metric names and packed output."""
+    graph: Any
+    keys: List[str]
+    packed: torch.Tensor
+
+
+class _GANGraph(NamedTuple):
+    static: Dict[str, torch.Tensor]
+    disc: _Half
+    gen: _Half
+    grads: List[List[Optional[torch.Tensor]]]
+
+
+class GANStepGraphs:
+    """The GAN step of one (generator, discriminators, their AdamW) as
+    CUDA graphs, two per batch key (the batch's shapes and dtypes, the mel
+    function, `half`): the discriminators' update and the generator's,
+    captured apart and replayed in that order, each inside its span, from
+    one memory pool; the gradients and AdamW's state are one set outside
+    it. A key's first step is its capture (`_capture`): each half's
+    forward and backward once with no update on a side stream (the first
+    use of each cuDNN algorithm and cuFFT plan stays out of the capture),
+    the gradients and buffers put back; both AdamW made capturable
+    (`tc._make_capturable`); the halves captured (zero the gradients,
+    forward, losses, backward, AdamW); then replayed for this very step as
+    for every later one (`_replay`): the batch copied into the graphs'
+    static inputs, each parameter's `.grad` set to the gradient its graph
+    wrote. The nets hold no random draw. A change of what the graphs hold
+    (`fits`) drops them all."""
+
+    def __init__(self, nets: Tuple[torch.nn.Module, torch.nn.Module],
+                 opts: Tuple[torch.optim.Optimizer, torch.optim.Optimizer],
+                 device: torch.device) -> None:
+        self.nets, self.opts, self.device = nets, opts, device
+        self.params = [list(net.parameters()) for net in nets]
+        self.ptrs = self._ptrs()
+        self.opt_states = [opt.state for opt in opts]
+        self.groups = [list(opt.param_groups) for opt in opts]
+        self.pool = torch.cuda.graph_pool_handle()
+        self.grads: List[Dict[int, torch.Tensor]] = [{}, {}]
+        self.lrs: List[List[Any]] = [[], []]
+        self.graphs: Dict[tuple, _GANGraph] = {}
+
+    def _ptrs(self) -> tuple:
+        return tuple(p.data_ptr() for ps in self.params for p in ps)
+
+    def fits(self, nets, opts) -> bool:
+        return all(a is b for a, b in zip(nets, self.nets)) \
+            and all(o.state is s and len(o.param_groups) == len(g)
+                    and all(a is b for a, b in zip(o.param_groups, g))
+                    for o, s, g in zip(opts, self.opt_states, self.groups)) \
+            and self._ptrs() == self.ptrs
+
+    def step(self, batch, wav_to_mel, half) -> Dict[str, torch.Tensor]:
+        key = (tuple((k, batch[k].shape, batch[k].dtype)
+                     for k in BATCH_KEYS), wav_to_mel, half)
+        graph = self.graphs.get(key)
+        B, seg_len = batch['audio'].shape
+        with annotate(STEP_SPAN,
+                      path='replay' if graph is not None else 'capture',
+                      B=int(B), seg_len=int(seg_len)):
+            if graph is None:
+                graph = self.graphs[key] = self._capture(batch, wav_to_mel,
+                                                         half)
+            return self._replay(graph, batch)
+
+    def _backward(self, static, wav_to_mel, half):
+        """Both halves' forward and backward, with no update."""
+        gen, disc = self.nets
+        mel, y = _inputs(static)
+        return (_disc_backward(gen, disc, mel, y, half),
+                _gen_backward(gen, disc, mel, y, wav_to_mel, half))
+
+    def _warm_up(self, static, wav_to_mel, half) -> List[List[bool]]:
+        """Each half's forward and backward on a side stream, then `.grad`
+        and the buffers put back. Returns which parameters of each net got
+        a gradient."""
+        dev = self.device
+        saved = [[p.grad for p in ps] for ps in self.params]
+        buffers = [b.detach().clone()
+                   for net in self.nets for b in net.buffers()]
+        for ps in self.params:
+            for p in ps:
+                p.grad = None
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._backward(static, wav_to_mel, half)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        trained = [[p.grad is not None for p in ps] for ps in self.params]
+        for ps, grads in zip(self.params, saved):
+            for p, grad in zip(ps, grads):
+                p.grad = grad
+        with torch.no_grad():
+            for b, value in zip((b for net in self.nets
+                                 for b in net.buffers()), buffers):
+                b.copy_(value)
+        return trained
+
+    def _capture(self, batch, wav_to_mel, half) -> _GANGraph:
+        static = {k: batch[k].clone() for k in BATCH_KEYS}
+        trained = self._warm_up(static, wav_to_mel, half)
+        grads: List[List[Optional[torch.Tensor]]] = []
+        for i, (opt, ps, t) in enumerate(zip(self.opts, self.params,
+                                             trained)):
+            tc._make_capturable(opt, [p for p, ok in zip(ps, t) if ok],
+                                self.device)
+            self.lrs[i] = [g['lr'] for g in opt.param_groups]
+            net_grads = []
+            for j, (p, ok) in enumerate(zip(ps, t)):
+                if ok and j not in self.grads[i]:
+                    self.grads[i][j] = torch.zeros_like(p)
+                net_grads.append(self.grads[i][j] if ok else None)
+                p.grad = net_grads[-1]
+            grads.append(net_grads)
+        (gen, disc), (gen_opt, disc_opt) = self.nets, self.opts
+        mel, y = _inputs(static)
+
+        def half_graph(live, body) -> _Half:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=self.pool,
+                                  capture_error_mode='thread_local'):
+                if live:
+                    torch._foreach_zero_(live)
+                metrics = body()
+                keys = list(metrics)
+                packed = torch.stack([metrics[k].float() for k in keys])
+            return _Half(graph, keys, packed)
+
+        live = [[g for g in net_grads if g is not None]
+                for net_grads in grads]
+        d = half_graph(live[1], lambda: _update(
+            disc, disc_opt, _disc_backward(gen, disc, mel, y, half)))
+        g = half_graph(live[0], lambda: _update(
+            gen, gen_opt, _gen_backward(gen, disc, mel, y, wav_to_mel,
+                                        half)))
+        return _GANGraph(static, d, g, grads)
+
+    def _replay(self, g: _GANGraph, batch) -> Dict[str, torch.Tensor]:
+        torch._foreach_copy_([g.static[k] for k in BATCH_KEYS],
+                             [batch[k] for k in BATCH_KEYS])
+        for opt, lrs in zip(self.opts, self.lrs):
+            for group, lr in zip(opt.param_groups, lrs):
+                if group['lr'] is not lr:       # a float put there directly
+                    lr.fill_(float(group['lr']))
+                    group['lr'] = lr
+        with annotate('ftt.gan.disc_update'):
+            g.disc.graph.replay()
+        with annotate('ftt.gan.gen_update'):
+            g.gen.graph.replay()
+        for ps, grads in zip(self.params, g.grads):
+            for p, grad in zip(ps, grads):
+                if p.grad is not grad:
+                    p.grad = grad
+        return {k: v for half in (g.disc, g.gen)
+                for k, v in zip(half.keys, half.packed.clone().unbind(0))}
+
+
+# the GAN step graphs of each generator optimizer (dropped with it)
+_GRAPHS: 'weakref.WeakKeyDictionary[torch.optim.Optimizer, GANStepGraphs]' \
+    = weakref.WeakKeyDictionary()
+
+
+def _graph_device(nets, opts, batch, graphs: Optional[GANStepGraphs]
+                  ) -> Optional[torch.device]:
+    """The CUDA device on which `gan_train_step` runs as graphs (that of
+    `graphs` where they still fit), or None where it runs eagerly (its
+    list of cases)."""
+    if not torch.cuda.is_available() or tc.active_mesh() is not None \
+            or any(tc.shards_of(net) is not None for net in nets) \
+            or (torch.distributed.is_available()
+                and torch.distributed.is_initialized()
+                and torch.distributed.get_world_size() > 1) \
+            or any(type(opt) not in (torch.optim.Adam, torch.optim.AdamW)
+                   or any(g.get('fused') or g.get('differentiable')
+                          for g in opt.param_groups) for opt in opts):
+        return None
+    devices = {graphs.device} if graphs is not None \
+        else {p.device for net in nets for p in net.parameters()}
+    if len(devices) != 1:
+        return None
+    (dev,) = devices
+    if dev.type != 'cuda' or any(
+            not torch.is_tensor(batch.get(k)) or batch[k].device != dev
+            for k in BATCH_KEYS):
+        return None
+    return dev
 
 
 def gan_train_step(gen: torch.nn.Module, disc: HiFiGANDiscriminators,
@@ -131,11 +377,32 @@ def gan_train_step(gen: torch.nn.Module, disc: HiFiGANDiscriminators,
     """One step: the discriminators on a detached generation, then the
     generator against the updated discriminators, each in `half` where
     given. batch: 'mel' (B, T, n_mels) time-major, 'audio' (B, T * hop).
-    Returns device tensors."""
-    mel, y = batch['mel'].transpose(1, 2), batch['audio']
-    d_loss = disc_step(gen, disc, disc_opt, mel, y, half)
-    return {'disc_loss': d_loss,
-            **gen_step(gen, disc, gen_opt, mel, y, wav_to_mel, half)}
+    Returns device tensors.
+
+    Where both nets lie on one CUDA device, the halves replay the CUDA
+    graphs of the batch key (`GANStepGraphs`; captured at the key's first
+    step, which is a replay too) and both optimizers become capturable
+    AdamW for good. The step runs eagerly for CPU tensors, inside
+    `parallel.data_parallel` with a mesh of any size or with a process
+    group of more than one rank up, over a 'model' axis, for an optimizer
+    other than torch's Adam or AdamW (or a fused or differentiable one),
+    and where 'mel' or 'audio' is not a tensor on that device. While a
+    profiler records, the step is the span `ftt.train.step` (`path`
+    'replay', 'capture' or 'eager', `B`, `seg_len`) around
+    `ftt.gan.disc_update` and `ftt.gan.gen_update`; a replay records none
+    of the spans inside those two."""
+    nets, opts = (gen, disc), (gen_opt, disc_opt)
+    graphs = _GRAPHS.get(gen_opt)
+    if graphs is not None and not graphs.fits(nets, opts):
+        del _GRAPHS[gen_opt]
+        graphs = None
+    dev = _graph_device(nets, opts, batch, graphs)
+    if dev is None:
+        return _eager_gan_step(gen, disc, gen_opt, disc_opt, batch,
+                               wav_to_mel, half)
+    if graphs is None:
+        graphs = _GRAPHS[gen_opt] = GANStepGraphs(nets, opts, dev)
+    return graphs.step(batch, wav_to_mel, half)
 
 
 def generator_file(gen: torch.nn.Module) -> Dict[str, Any]:
@@ -182,8 +449,8 @@ class HiFiGANTrainer(tc.Logging):
         with self.ranks.whole():
             self.ckpt.save({**generator_file(gen),
                             'discriminator': disc.state_dict(),
-                            'optim_g': gen_opt.state_dict(),
-                            'optim_d': disc_opt.state_dict(),
+                            'optim_g': optimizer_state(gen_opt),
+                            'optim_d': optimizer_state(disc_opt),
                             'config': self.config, 'step': int(step)},
                            self.paths.hifigan_checkpoints
                            / 'latest_model.pt')

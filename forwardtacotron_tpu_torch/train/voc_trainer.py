@@ -34,7 +34,8 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
-from forwardtacotron_tpu_torch.data.dataset import (Prefetcher,
+from forwardtacotron_tpu_torch.data.dataset import (GANVocCollator,
+                                                    Prefetcher,
                                                     get_vocoder_datasets)
 from forwardtacotron_tpu_torch.models.wavernn import WaveRNN, generate_wav
 from forwardtacotron_tpu_torch.ops.mol import discretized_mix_logistic_loss
@@ -90,8 +91,11 @@ def voc_train_step(model: WaveRNN, optimizer: torch.optim.Optimizer,
 
 def batch_to_device(batch: Dict[str, np.ndarray], device
                     ) -> Dict[str, torch.Tensor]:
+    """The batch's arrays on `device`; a GAN batch's row indices and crop
+    offsets (`GANVocCollator.ROW_KEYS`), which no step reads, stay on the
+    host."""
     return {k: torch.from_numpy(np.asarray(v)).to(device, non_blocking=True)
-            for k, v in batch.items()}
+            for k, v in batch.items() if k not in GANVocCollator.ROW_KEYS}
 
 
 class VocTrainer(tc.Logging):

@@ -12,13 +12,28 @@ context: no `record_function`, no record. Every name begins with `ftt.`:
 
     ftt.data.next         the consumer's wait for `Prefetcher`'s next batch
     ftt.data.to_device    `batch_to_device`'s host-to-device copies
-    ftt.train.step        `train_step`'s whole body; defines `Span.step`;
-                          its `path` says how the step ran: `replay` (a
-                          CUDA graph of the step), `capture` (a new batch
-                          shape: warm-up, capture, replay) or `eager`
+    ftt.train.step        `train_step`'s whole body, and the GAN
+                          vocoders' `gan_train_step` (with `B` and
+                          `seg_len`); defines `Span.step`; its `path`
+                          says how the step ran: `replay` (a CUDA graph of
+                          the step, or one of each GAN half), `capture` (a
+                          new batch shape: warm-up, capture, replay) or
+                          `eager`
     ftt.train.forward     each `micro_loss` of `accumulate` (forward, loss)
-    ftt.train.backward    each `loss.backward()` of `accumulate`
+    ftt.train.backward    each `loss.backward()` of `accumulate`, and each
+                          half's `backward()` of the GAN step
     ftt.train.update      `apply_update`: reduce, shard, clip, step, EMA
+    ftt.gan.disc_update   the GAN step's first half, `disc_step` or its
+                          graph's replay: the discriminators' update on a
+                          detached generation
+    ftt.gan.gen_update    its second half, `gen_step` or its graph's
+                          replay: the generator's update against the
+                          updated discriminators
+    ftt.gan.generator     the generator's forward in either half
+    ftt.gan.discriminators
+                          the MPD and MSD forward over real and generated
+                          audio in either half
+    ftt.gan.mel           the mel loss (both log-mels, the L1)
     ftt.kernels.birnn_train_fwd / _bwd
                           one launch of kernel #2 / #3, with its `path`,
                           `cell`, `dtype`, `T`, `B`, `S`, `H` and `lengths`
@@ -29,21 +44,25 @@ context: no `record_function`, no record. Every name begins with `ftt.`:
                           step's `lengths`
 
 A replay does no host work for the forward, the backward or the update,
-so it records none of their spans.
+so it records none of their spans (nor, in the GAN step, the generator's,
+the discriminators' or the mel loss's).
 
 A span's `step` is the number of `ftt.train.step` spans recorded before it
-began, so the spans of one step share it on any thread (spans outside
-`train_step`, as the other trainers' `accumulate` and `apply_update`,
-carry the count of the last step); its `parent` is the `id` of the
-innermost span open on its own thread. The store is never cleared: a
-kernel span's `lengths` keeps its device tensor alive until 8192 later
-spans push the record out. `trace()` records a
-region with `torch.profiler` (the host's ops, and the card's kernels where
-CUDA is available) and writes a Chrome trace, which Perfetto and
-TensorBoard's profiler plugin open; `StepTraceController` traces a window
-of training steps when `FTT_PROFILE_DIR` is set; `kernel_launches` counts
-the port's kernels in a trace (where the wrappers' Python counters do not
-tick: the replay of a captured CUDA graph).
+began, so the spans of one step share it on any thread (spans outside a
+step span, as the teacher's, WaveRNN's and the aligner's `accumulate`
+and `apply_update`, carry the count of the last step); its `parent` is
+the `id` of the innermost span open on its own thread, so the GAN step's
+spans nest as step > disc_update, gen_update > generator,
+discriminators, mel, backward, update (autograd's own thread opens none
+of them). The store is never cleared: a kernel span's `lengths` keeps its
+device tensor alive until 8192 later spans push the record out. `trace()`
+records a region with `torch.profiler` (the host's ops, and the card's
+kernels where CUDA is available) and writes a Chrome trace, which
+Perfetto and TensorBoard's profiler plugin open; `StepTraceController`
+traces a window of training steps when `FTT_PROFILE_DIR` is set;
+`kernel_launches` counts the port's kernels in a trace (where the
+wrappers' Python counters do not tick: the replay of a captured CUDA
+graph).
 """
 from __future__ import annotations
 

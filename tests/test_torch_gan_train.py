@@ -171,7 +171,9 @@ def _make_gan_dataset(data, n_items=10, n_val=3, seed=0):
 def test_gan_batches_equal_jax(tmp_path, voc_mode, mu_law):
     """`GANVocCollator` through `get_gan_vocoder_datasets`: the JAX
     package's crops and decoded audio, batch for batch, with the repeat-pad
-    of short clips and the refill of dropped ones."""
+    of short clips and the refill of dropped ones; the port's batches also
+    report each row's item and crop offset
+    (tests/test_torch_gan_bench.py reads the files at them)."""
     from forwardtacotron_tpu.data import dataset as jds
     from forwardtacotron_tpu_torch.data import dataset as tds
     data = _make_gan_dataset(tmp_path / 'data')
@@ -186,13 +188,15 @@ def test_gan_batches_equal_jax(tmp_path, voc_mode, mu_law):
         want = list(jtrain.batches(epoch, start))
         assert len(got) == len(want) > 0
         for a, b in zip(got, want):
-            assert set(a) == set(b) == {'mel', 'audio'}
+            assert set(b) == {'mel', 'audio'}
+            assert set(a) == {'mel', 'audio', 'index', 'offset'}
             assert a['mel'].shape == (3, SEG_LEN // HOP, N_MELS)
-            for k in a:
+            assert a['index'].shape == a['offset'].shape == (3,)
+            for k in b:
                 assert a[k].dtype == b[k].dtype, k
                 np.testing.assert_array_equal(a[k], b[k], err_msg=k)
     assert len(val) == len(jval) == 1
-    for k in val[0]:
+    for k in jval[0]:
         np.testing.assert_array_equal(val[0][k], jval[0][k])
     assert [s['item_id'] for s in samples] == \
         [s['item_id'] for s in jsamples]
